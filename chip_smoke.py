@@ -1,0 +1,411 @@
+#!/usr/bin/env python3
+"""Proof that the PyTorch/CUDA port runs on the GPU.
+
+Run from the root of a checkout, with one NVIDIA Hopper GPU and the CUDA
+toolkit:
+
+    python3 chip_smoke.py
+
+In order, it
+1. prints the card's name and power limit (nvidia-smi);
+2. builds every kernel of the port from ``nnstreamer_tpu_torch/csrc`` with
+   nvcc (one process per source, in parallel) and prints the build time;
+3. kernel phase: runs each kernel on the card at the image-labeling path's
+   shapes (and a few others) against its plain PyTorch version on the same
+   inputs: ``fused_arith`` must be bitwise equal, ``int8_matmul`` exact in
+   its int32 accumulator and within 1 ulp in float32; then times kernel,
+   plain version and, where one exists, the one PyTorch call that computes
+   the same function (a yardstick only; the port never calls it);
+4. slice phase: builds MobileNet-v2 1.0 (224x224x3 uint8 frames, 1001
+   classes, bf16, int8 classifier head, random weights from a fixed seed) and
+   runs 64 ``videotestsrc`` frames through the image-labeling pipeline on
+   the card; each kernel must launch once per frame, and the labels must
+   equal those of the same model run on the card with the kernels' plain
+   versions;
+5. prints one JSON line describing every kernel, and last one JSON line
+   ``{"ok": true, "device": {...}}``.
+
+Any failure exits non-zero.  Without a CUDA GPU, or without the package
+beside it, the script exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+FRAMES = 64
+WARMUP_FRAMES = 4
+PROFILED = 16
+IMAGE = 224
+CLASSES = 1001
+NORMALIZE = "typecast:float32,add:-127.5,div:127.5"
+# Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"float32": 67e12, "int8": 1979e12}
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+def call_ms(fn, iters: int = 200, warmup: int = 20) -> float:
+    """Mean time per call of ``fn`` over ``iters`` back-to-back calls, by
+    CUDA events.  When the host takes longer to dispatch a call than the card
+    to run it, this is the host's dispatch rate, not the kernel's time."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def profile_cuda(fn, iters: int):
+    """Run ``fn`` ``iters`` times under torch.profiler (CUPTI); return the
+    card's summed kernel and copy time in ms and the number of device
+    activities, or (None, 0) when the profiler saw no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    # Device-side events only: a CPU op's own time on the device repeats its
+    # kernels' time.
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    total_us = sum(e.device_time_total for e in device)
+    return (total_us / 1e3 if total_us > 0 else None), len(device)
+
+
+def device_ms(fn, iters: int = 100, warmup: int = 20):
+    """Device time per call of ``fn`` (all its kernels and copies) from a
+    profiler trace, L2 warm; falls back to CUDA events around back-to-back
+    calls when the profiler records no device time.  Returns (ms, timer)."""
+    for _ in range(warmup):
+        fn()
+    total, _ = profile_cuda(fn, iters)
+    if total is None:
+        return call_ms(fn, iters, warmup=0), "events"
+    return total / iters, "cupti"
+
+
+def bound_ms(nbytes: int, ops: int, op_type: str):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[op_type] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def max_ulp(a, b) -> int:
+    """Largest distance in float32 ulps between two finite float32 tensors."""
+    import torch
+
+    ia = a.contiguous().view(torch.int32).to(torch.int64)
+    ib = b.contiguous().view(torch.int32).to(torch.int64)
+    ia = torch.where(ia < 0, -(ia & 0x7FFFFFFF), ia)  # sign-magnitude → ordered
+    ib = torch.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
+    return int((ia - ib).abs().max())
+
+
+def kernel_phase(torch, np, K, bind, jax_pkg):
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    results = {}
+
+    # -- fused_arith: bitwise against its plain version ---------------------
+    cases = [
+        ((IMAGE, IMAGE, 3), np.uint8, NORMALIZE),
+        ((1,), np.uint8, NORMALIZE),
+        ((127,), np.uint8, NORMALIZE),
+        ((1_000_003,), np.uint8, NORMALIZE),
+        ((4099,), np.int32, "mul:3,sub:7,clamp:-100:100"),
+        ((4099,), np.uint8, "add:-128"),
+        ((4099,), np.uint8, "clamp:-1:1"),
+    ]
+    err = 0.0
+    for shape, dtype, option in cases:
+        if np.issubdtype(dtype, np.integer) and dtype != np.uint8:
+            x = rng.integers(-1000, 1000, shape).astype(dtype)
+        else:
+            x = rng.integers(0, 256, shape).astype(dtype)
+        ops = bind(option, np.dtype(dtype))
+        xd = torch.from_numpy(x).to(dev)
+        got = K.fused_arith(xd, ops)
+        want = K.fused_arith_plain(xd, ops)
+        torch.cuda.synchronize()
+        check(got.dtype == want.dtype and got.shape == want.shape,
+              f"fused_arith {option} {shape}: dtype/shape {got.dtype}{tuple(got.shape)}")
+        check(torch.equal(got, want), f"fused_arith {option} {shape} {np.dtype(dtype)}: "
+                                      "not bitwise equal to its plain version")
+        err = max(err, float((got.double() - want.double()).abs().max()))
+        print(f"fused_arith {np.dtype(dtype).name}{shape} '{option}': bitwise equal", flush=True)
+
+    x = torch.from_numpy(rng.integers(0, 256, (IMAGE, IMAGE, 3)).astype(np.uint8)).to(dev)
+    ops = bind(NORMALIZE, np.dtype(np.uint8))
+    n = x.numel()
+    t_bytes, by = bound_ms(n * 1 + n * 4, n * 2, "float32")
+    results["fused_arith"] = timed(
+        dict(name="fused_arith", route="cuda", source="nnstreamer_tpu_torch/csrc/fused_arith.cu",
+             replaces=f"{jax_pkg}/ops/pallas_kernels.py:77", max_abs_err=err,
+             bound_ms=t_bytes, bound_by=by,
+             shape=f"({IMAGE},{IMAGE},3) uint8 -> float32, '{NORMALIZE}'"),
+        kernel=lambda: K.fused_arith(x, ops), plain=lambda: K.fused_arith_plain(x, ops))
+
+    # -- int8_matmul: exact int32, float32 within 1 ulp ----------------------
+    err = 0.0
+    for m, k, n in [(1, 1280, 1001), (3, 1280, 1001), (33, 64, 10), (300, 1280, 256)]:
+        xq = rng.integers(-127, 128, (m, k)).astype(np.int8)
+        wq = rng.integers(-127, 128, (k, n)).astype(np.int8)
+        acc = xq.astype(np.int64) @ wq.astype(np.int64)
+        check(np.abs(acc).max() < 2 ** 24, "int32 check needs |acc| < 2**24")
+        ops_d = [torch.from_numpy(a).to(dev) for a in (
+            xq, wq, np.array(1.0, np.float32), np.ones((1, n), np.float32),
+            np.zeros(n, np.float32))]
+        got = K.int8_matmul(*ops_d)
+        torch.cuda.synchronize()
+        check(np.array_equal(got.cpu().numpy().astype(np.int64), acc),
+              f"int8_matmul ({m},{k},{n}): int32 accumulator not exact")
+        xs = torch.tensor(np.float32(rng.random() * 0.1 + 1e-3), device=dev)
+        ws = torch.from_numpy((rng.random((1, n)) * 0.01 + 1e-4).astype(np.float32)).to(dev)
+        b = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
+        ulps = 0
+        for bias in (b, None):
+            got = K.int8_matmul(ops_d[0], ops_d[1], xs, ws, bias)
+            want = K.int8_matmul_plain(ops_d[0], ops_d[1], xs, ws, bias)
+            torch.cuda.synchronize()
+            ulps = max(ulps, max_ulp(got, want))
+            check(ulps <= 1, f"int8_matmul ({m},{k},{n}): {ulps} ulp from its plain version")
+            err = max(err, float((got - want).abs().max()))
+        print(f"int8_matmul ({m},{k},{n}): int32 exact, float32 max {ulps} ulp", flush=True)
+
+    m, k, n = 1, 1280, CLASSES
+    xq = torch.from_numpy(rng.integers(-127, 128, (m, k)).astype(np.int8)).to(dev)
+    wq = torch.from_numpy(rng.integers(-127, 128, (k, n)).astype(np.int8)).to(dev)
+    xs = torch.tensor(np.float32(0.01), device=dev)
+    ws = torch.full((1, n), 0.001, device=dev)
+    b = torch.zeros(n, device=dev)
+    # torch._int_mm wants more than 16 rows and multiples of 8: pad once.
+    xp = torch.zeros((32, k), dtype=torch.int8, device=dev)
+    xp[:m] = xq
+    wp = torch.zeros((k, -(-n // 8) * 8), dtype=torch.int8, device=dev)
+    wp[:, :n] = wq
+    t_bytes, by = bound_ms(m * k + k * n + 4 + 4 * n + 4 * n + 4 * m * n, 2 * m * k * n, "int8")
+    results["int8_matmul"] = timed(
+        dict(name="int8_matmul", route="cuda", source="nnstreamer_tpu_torch/csrc/int8_matmul.cu",
+             replaces=f"{jax_pkg}/ops/pallas_kernels.py:125", max_abs_err=err,
+             bound_ms=t_bytes, bound_by=by, shape=f"({m},{k})x({k},{n}) int8 -> float32"),
+        kernel=lambda: K.int8_matmul(xq, wq, xs, ws, b),
+        plain=lambda: K.int8_matmul_plain(xq, wq, xs, ws, b),
+        library=lambda: torch._int_mm(xp, wp))
+    for r in results.values():
+        print(f"{r['name']}: kernel {r['ms']} ms ({r['timer']}), per call {r['call_ms']} ms, "
+              f"plain {r['plain_ms']} ms, bound {r['bound_ms']} ms ({r['bound_by']}), "
+              f"library {r['library_ms']} ms", flush=True)
+    return results
+
+
+def timed(row, kernel, plain, library=None):
+    """Fill a kernel-table row with the device time per call of the kernel,
+    its plain version and the library call, and the kernel's time per
+    back-to-back call (host dispatch included)."""
+    row["ms"], row["timer"] = device_ms(kernel)
+    row["plain_ms"], _ = device_ms(plain, iters=50)
+    row["library_ms"] = device_ms(library)[0] if library is not None else None
+    row["call_ms"] = call_ms(kernel)
+    return row
+
+
+def slice_phase(torch, np, K, bind):
+    import nnstreamer_tpu_torch as nns
+    from nnstreamer_tpu_torch.elements.filter import TensorFilter
+    from nnstreamer_tpu_torch.elements.sink import TensorSink
+    from nnstreamer_tpu_torch.models import mobilenet_v2
+    from nnstreamer_tpu_torch.ops.quant import quantize_activations
+
+    t0 = time.perf_counter()
+    model = mobilenet_v2.build_quantized(num_classes=CLASSES, width_mult=1.0, image_size=IMAGE,
+                                         int8_head=True, seed=0, device="cuda")
+    print(f"model built in {time.perf_counter() - t0:.3f} s", flush=True)
+    labels = [f"class_{i}" for i in range(CLASSES)]
+
+    def run(frames):
+        arrivals = []
+        p = nns.Pipeline()
+        src = p.add(nns.make("videotestsrc", num_buffers=frames, width=IMAGE, height=IMAGE,
+                             pattern="random", seed=7))
+        conv = p.add(nns.make("tensor_converter"))
+        norm = p.add(nns.make("tensor_transform", mode="arithmetic", option=NORMALIZE,
+                              acceleration="pallas", device="cuda"))
+        filt = p.add(TensorFilter(framework="torch", model=model))
+        dec = p.add(nns.make("tensor_decoder", mode="image_labeling"))
+        dec.plugin.set_labels(labels)
+        sink = p.add(TensorSink(collect=True,
+                                callback=lambda f: arrivals.append(time.perf_counter())))
+        p.link_chain(src, conv, norm, filt, dec, sink)
+        p.run(timeout=600)
+        return sink.frames, arrivals, src
+
+    run(WARMUP_FRAMES)  # CUDA context, cuDNN plans, kernel libraries
+    K.reset_launches()
+    frames, arrivals, src = run(FRAMES)
+    launches = {k.__name__: k.launches for k in K.KERNELS}
+    print(f"main path launches over {FRAMES} frames: {launches}", flush=True)
+    check(len(frames) == FRAMES, f"slice delivered {len(frames)} of {FRAMES} frames")
+    for name, count in launches.items():
+        check(count == FRAMES, f"{name} launched {count} times for {FRAMES} frames")
+
+    # The same model with the kernels' plain versions, on the card.
+    ops = bind(NORMALIZE, np.dtype(np.uint8))
+    head = model.params["classifier"]
+    plain_idx, plain_top = [], []
+    with torch.inference_mode():
+        for i in range(FRAMES):
+            x = torch.from_numpy(src._make_frame(i)).cuda()
+            feats = mobilenet_v2.features(model.params, K.fused_arith_plain(x, ops)[None])
+            q, s = quantize_activations(feats.to(torch.float32))
+            logits = K.int8_matmul_plain(q, head["w"].q, s, head["w"].scale, head["b"])[0]
+            check(bool(torch.isfinite(logits).all()) and logits.shape == (CLASSES,),
+                  f"frame {i}: plain logits not finite / wrong shape")
+            plain_idx.append(int(torch.argmax(logits)))
+            plain_top.append(float(logits.max()))
+    got_idx = [f.meta["label_index"] for f in frames]
+    check(got_idx == plain_idx, f"labels differ from the plain run: {got_idx} vs {plain_idx}")
+    check([f.meta["label"] for f in frames] == [labels[i] for i in plain_idx],
+          "label text does not match the label index")
+    # The trunk is the same cuDNN/cuBLAS code in both runs and both kernels
+    # are bitwise equal to their plain versions, so the top logits should be
+    # equal; allowed: 1e-3 relative, for a conv algorithm picked differently
+    # from one call to the next.
+    top_err = max(abs(f.meta["score"] - t) / max(1.0, abs(t)) for f, t in zip(frames, plain_top))
+    check(top_err <= 1e-3, f"top logits differ from the plain run by {top_err} (relative)")
+
+    # Whole logits of the first frames: the model with its kernels against
+    # the model with their plain versions, on the same normalized input.
+    logit_err = 0.0
+    with torch.inference_mode():
+        for i in range(8):
+            x = torch.from_numpy(src._make_frame(i)).cuda()
+            got = model(K.fused_arith(x, ops))
+            feats = mobilenet_v2.features(model.params, K.fused_arith_plain(x, ops)[None])
+            q, s = quantize_activations(feats.to(torch.float32))
+            want = K.int8_matmul_plain(q, head["w"].q, s, head["w"].scale, head["b"])[0]
+            logit_err = max(logit_err, float((got - want).abs().max() / want.abs().max()))
+    check(logit_err <= 1e-3, f"logits differ from the plain run by {logit_err} (relative)")
+
+    gaps = np.diff(np.asarray(arrivals)) * 1e3
+    fps = (len(arrivals) - 1) / (arrivals[-1] - arrivals[0])
+    slice_res = dict(frames=FRAMES, fps=fps, p50_ms=float(np.median(gaps)),
+                     p90_ms=float(np.percentile(gaps, 90)),
+                     distinct_labels=len(set(got_idx)), top_logit_rel_err=top_err,
+                     logit_rel_err=logit_err)
+    print(f"slice: {FRAMES} frames, {fps:.3f} fps, p50 {slice_res['p50_ms']:.3f} ms/frame, "
+          f"labels equal to the plain run ({len(set(got_idx))} distinct), logits within "
+          f"{logit_err:.3g} (relative)", flush=True)
+
+    # Where a frame's time goes: a separate profiled run of PROFILED frames
+    # (not counted above); device busy time against wall time.
+    t0 = time.perf_counter()
+    busy_ms, activities = profile_cuda(lambda: run(PROFILED), 1)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    if busy_ms is not None:
+        # The profiler slows the host down, so the idle share is taken
+        # against the unprofiled run's wall time per frame.
+        busy = busy_ms / PROFILED
+        slice_res.update(profiled_frames=PROFILED, device_busy_ms_per_frame=busy,
+                         profiled_wall_ms_per_frame=wall_ms / PROFILED,
+                         device_idle_share=1 - busy * fps / 1e3,
+                         device_activities_per_frame=activities / PROFILED)
+        print(f"profiled {PROFILED} frames: device busy {busy:.3f} ms/frame, idle "
+              f"{slice_res['device_idle_share']:.3f} of the unprofiled {1e3 / fps:.3f} ms/frame, "
+              f"{activities / PROFILED:.0f} kernels and copies per frame", flush=True)
+    else:
+        print("profiled run: the profiler recorded no device time (not measured)", flush=True)
+    return launches, slice_res
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA GPU available", file=sys.stderr)
+        return 2
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
+    try:
+        import nnstreamer_tpu_torch
+        from nnstreamer_tpu_torch.elements.transform import _bind_chain, _parse_arith_ops, \
+            _parse_clamp
+        from nnstreamer_tpu_torch.ops import build
+        from nnstreamer_tpu_torch.ops import kernels as K
+    except ImportError as exc:
+        print(f"chip_smoke: the port is not importable here: {exc}", file=sys.stderr)
+        return 2
+    # The JAX reference package (never imported) sits beside the port, under
+    # the port's name without "_torch"; the kernel table names its files.
+    jax_pkg = nnstreamer_tpu_torch.__name__[: -len("_torch")]
+
+    def bind(option, dtype):
+        """A transform option as a bound kernel chain; ``clamp:lo:hi`` may
+        appear as a step, as the clamp mode passes it."""
+        ops = []
+        for part in option.split(","):
+            if part.startswith("clamp:"):
+                ops.append(("clamp", _parse_clamp(part[6:])))
+            else:
+                ops.extend(_parse_arith_ops(part))
+        return _bind_chain(ops, dtype)
+
+    smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    card = smi.stdout.strip()
+    print(card, flush=True)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+    # No float32 comparison here may run in TF32.
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print("TF32 off for cuDNN convs and matmuls", flush=True)
+
+    t0 = time.perf_counter()
+    logs = build.build_all()
+    build_s = time.perf_counter() - t0
+    print(f"kernels built in {build_s:.3f} s ({', '.join(build.SOURCES)})", flush=True)
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}", flush=True)
+
+    kernels = kernel_phase(torch, np, K, bind, jax_pkg)
+    launches, slice_res = slice_phase(torch, np, K, bind)
+    for name, r in kernels.items():
+        r["launches"] = launches[name]
+    print(json.dumps({"card": card, "build_s": build_s, "slice": slice_res}), flush=True)
+    print(json.dumps({"kernels": list(kernels.values())}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

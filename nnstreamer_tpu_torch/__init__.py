@@ -1,0 +1,33 @@
+"""nnstreamer_tpu_torch: the PyTorch/CUDA port of the JAX package.
+
+Typed tensor streams with negotiated specs, a pipeline graph of converter,
+transform, filter and decoder elements, and a PyTorch model backend.  Frames
+carry torch tensors; the transform and the filter compute on the card
+(``device="cuda"``, the default) unless the caller passes ``device="cpu"``.
+The two kernels the JAX package wrote in Pallas are hand-written CUDA here
+(:mod:`nnstreamer_tpu_torch.ops.kernels`).
+"""
+
+from .buffer import EOS, NONE_TS, SECOND, Event, Frame  # noqa: F401
+from .graph import (  # noqa: F401
+    NegotiationError,
+    Node,
+    Pipeline,
+    PipelineError,
+    SourceNode,
+    known_elements,
+    make,
+    register_element,
+)
+from .media import VideoSpec  # noqa: F401
+from .spec import (  # noqa: F401
+    ANY,
+    NNS_TENSOR_RANK_LIMIT,
+    NNS_TENSOR_SIZE_LIMIT,
+    TensorSpec,
+    TensorsSpec,
+    dtype_from_name,
+    dtype_name,
+)
+
+__version__ = "0.1.0"

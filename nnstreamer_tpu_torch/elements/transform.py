@@ -1,0 +1,223 @@
+"""``tensor_transform``: element-wise and layout ops on tensor streams.
+
+The port of the JAX package's element, with its six modes:
+
+- ``typecast``   — option = target dtype name.
+- ``arithmetic`` — option = chain ``[typecast:T,]add:V|sub:V|mul:V|div:V...``.
+- ``transpose``  — option = NNS innermost-first permutation ``a:b:c:d``.
+- ``dimchg``     — option = ``from:to`` NNS dim move.
+- ``stand``      — option = ``default`` | ``default:per-channel``.
+- ``clamp``      — option = ``min:max``.
+
+The element computes on its ``device`` (the card unless ``device="cpu"``)
+and moves each host frame there first.  ``acceleration="pallas"`` (the JAX
+element's name for its kernel path; ``"orc"`` is accepted too) runs the
+elementwise modes (typecast, arithmetic, clamp) through the hand-written
+``fused_arith`` kernel, once per frame.  Every other mode, and the elementwise
+modes without that option, are plain torch.
+
+Literal binding and the negotiated output dtype follow the JAX rules
+(``_bind_chain``, :func:`~nnstreamer_tpu_torch.ops.kernels.chain_out_dtype`),
+not torch's promotion.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..buffer import Frame
+from ..device import resolve_device
+from ..graph.node import NegotiationError, Node, Pad
+from ..graph.registry import register_element
+from ..ops.kernels import chain_out_dtype, fused_arith, fused_arith_plan, plan_chain, run_chain
+from ..spec import NNS_TENSOR_RANK_LIMIT, TensorSpec, TensorsSpec, dtype_from_name, torch_dtype
+
+MODES = ("typecast", "arithmetic", "transpose", "dimchg", "stand", "clamp")
+
+
+def _parse_arith_ops(option: str) -> List[Tuple[str, object]]:
+    """Parse 'typecast:float32,add:-127.5,div:127.5' into an op chain."""
+    ops: List[Tuple[str, object]] = []
+    for part in option.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        op, _, val = part.partition(":")
+        op = op.strip().lower()
+        if op == "typecast":
+            ops.append(("typecast", dtype_from_name(val)))
+        elif op in ("add", "sub", "mul", "div"):
+            # integer literals stay integral so int streams keep their dtype
+            try:
+                num: object = int(val)
+            except ValueError:
+                num = float(val)
+            ops.append((op, num))
+        else:
+            raise ValueError(f"unknown arithmetic op {op!r} in {option!r}")
+    if not ops:
+        raise ValueError(f"empty arithmetic option: {option!r}")
+    return ops
+
+
+def _parse_clamp(option: str) -> Tuple[object, object]:
+    lo_s, _, hi_s = option.partition(":")
+
+    def num(s: str) -> object:
+        try:
+            return int(s)
+        except ValueError:
+            return float(s)
+
+    return num(lo_s), num(hi_s)
+
+
+def _bind_num(v: object, dtype: np.dtype) -> object:
+    """Keep an integer literal integral only when the current stream dtype
+    can hold it; otherwise demote it to float so the op promotes."""
+    if isinstance(v, int) and np.issubdtype(dtype, np.integer):
+        info = np.iinfo(dtype)
+        if info.min <= v <= info.max:
+            return v
+        return float(v)
+    return v
+
+
+def _bind_chain(ops: List[Tuple[str, object]], in_dtype) -> List[Tuple[str, object]]:
+    """Bind op literals to the dtype flowing through the chain."""
+    cur = np.dtype(in_dtype)
+    bound: List[Tuple[str, object]] = []
+    for op, val in ops:
+        if op == "typecast":
+            bound.append((op, val))
+        elif op == "clamp":
+            lo, hi = val
+            bound.append((op, (_bind_num(lo, cur), _bind_num(hi, cur))))
+        else:
+            bound.append((op, _bind_num(val, cur)))
+        cur = chain_out_dtype(cur, [bound[-1]])
+    return bound
+
+
+@register_element("tensor_transform")
+class TensorTransform(Node):
+    def __init__(
+        self,
+        name: Optional[str] = None,
+        mode: str = "typecast",
+        option: str = "",
+        acceleration: bool = True,
+        device="cuda",
+    ):
+        super().__init__(name)
+        self.add_sink_pad("sink")
+        self.add_src_pad("src")
+        if mode not in MODES:
+            raise ValueError(f"unknown transform mode {mode!r}; known: {MODES}")
+        self.mode = mode
+        self.option = str(option)
+        if acceleration in ("pallas", "orc"):
+            self.acceleration = "pallas"
+        else:
+            self.acceleration = acceleration in (True, "true", "1")
+        self.device = resolve_device(device)
+        self._fns: Optional[List[Callable]] = None
+
+    def _chain_ops(self, t: TensorSpec):
+        """Bound elementwise chain, or None for the shape-changing modes."""
+        if self.mode == "typecast":
+            return [("typecast", dtype_from_name(self.option))]
+        if self.mode == "arithmetic":
+            return _bind_chain(_parse_arith_ops(self.option), t.dtype)
+        if self.mode == "clamp":
+            return _bind_chain([("clamp", _parse_clamp(self.option))], t.dtype)
+        return None
+
+    def out_spec_for(self, t: TensorSpec) -> TensorSpec:
+        """Output spec for a fixed input tensor spec."""
+        if self.mode == "typecast":
+            return TensorSpec(dtype=dtype_from_name(self.option), shape=t.shape)
+        if self.mode in ("arithmetic", "clamp"):
+            return TensorSpec(dtype=chain_out_dtype(t.dtype, self._chain_ops(t)),
+                              shape=t.shape)
+        if self.mode == "transpose":
+            perm = [int(x) for x in self.option.split(":")]
+            if sorted(perm) != list(range(len(perm))):
+                raise NegotiationError(f"bad transpose option {self.option!r}")
+            nns = list(t.nns_dims)
+            out_nns = [nns[p] for p in perm]
+            while len(out_nns) > 1 and out_nns[-1] == 1:
+                out_nns.pop()
+            return TensorSpec(dtype=t.dtype, shape=tuple(reversed(out_nns)))
+        if self.mode == "dimchg":
+            frm, _, to = self.option.partition(":")
+            nns = list(t.nns_dims)
+            d = nns.pop(int(frm))
+            nns.insert(int(to), d)
+            while len(nns) > 1 and nns[-1] == 1:
+                nns.pop()
+            return TensorSpec(dtype=t.dtype, shape=tuple(reversed(nns)))
+        if self.mode == "stand":
+            return TensorSpec(dtype=np.float32, shape=t.shape)
+        raise AssertionError(self.mode)
+
+    def build_fn(self, t: TensorSpec) -> Callable[[torch.Tensor], torch.Tensor]:
+        """The per-tensor function for a fixed input spec."""
+        out_dtype = torch_dtype(self.out_spec_for(t).dtype)
+        chain = self._chain_ops(t)
+        if chain is not None:
+            if self.acceleration == "pallas":
+                # one fused_arith launch per frame on a CUDA tensor
+                return lambda x: fused_arith(x, chain)
+            plan = plan_chain(t.dtype, tuple(chain), promote=False)
+            return lambda x: run_chain(x, plan).to(out_dtype)
+        r = NNS_TENSOR_RANK_LIMIT
+        pad_shape = tuple(reversed(t.nns_dims))  # rank-4 numpy-order view
+        out_shape = self.out_spec_for(t).shape
+        if self.mode == "transpose":
+            perm = [int(x) for x in self.option.split(":")]
+            np_perm = tuple(r - 1 - perm[r - 1 - j] for j in range(r))
+            return lambda x: x.reshape(pad_shape).permute(np_perm).reshape(out_shape)
+        if self.mode == "dimchg":
+            frm_s, _, to_s = self.option.partition(":")
+            src_ax, dst_ax = r - 1 - int(frm_s), r - 1 - int(to_s)
+            return lambda x: torch.movedim(x.reshape(pad_shape), src_ax, dst_ax).reshape(out_shape)
+        per_channel = self.option.endswith("per-channel")  # stand
+
+        def stand(x):
+            x = x.to(torch.float32)
+            if per_channel and x.dim() >= 2:
+                axes = tuple(range(x.dim() - 1))
+                mean = x.mean(dim=axes, keepdim=True)
+                std = x.std(dim=axes, keepdim=True, correction=0)
+            else:
+                mean, std = x.mean(), x.std(correction=0)
+            return (x - mean) / (std + 1e-10)
+
+        return stand
+
+    def configure(self, in_specs: Dict[str, TensorsSpec]) -> Dict[str, TensorsSpec]:
+        spec = in_specs["sink"]
+        outs = tuple(self.out_spec_for(t) for t in spec.tensors)
+        for t, o in zip(spec.tensors, outs):
+            chain = self._chain_ops(t)
+            if self.acceleration != "pallas" or chain is None:
+                continue
+            try:
+                plan = fused_arith_plan(t.dtype, chain)
+            except TypeError as exc:
+                raise NegotiationError(f"{self.name}: {exc}") from exc
+            if plan.out_dtype != o.dtype:
+                raise NegotiationError(
+                    f"{self.name}: fused_arith yields {plan.out_dtype}, "
+                    f"the negotiated spec says {o.dtype}")
+        self._fns = [self.build_fn(t) for t in spec.tensors]
+        return {"src": TensorsSpec(tensors=outs, rate=spec.rate)}
+
+    def process(self, pad: Pad, frame: Frame):
+        del pad
+        out = [fn(x.to(self.device).contiguous()) for fn, x in zip(self._fns, frame.tensors)]
+        return frame.with_tensors(out)

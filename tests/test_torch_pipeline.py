@@ -1,0 +1,242 @@
+"""The port's image-labeling slice end to end, against the JAX pipeline.
+
+``videotestsrc → tensor_converter → tensor_transform (normalize,
+acceleration=pallas) → tensor_filter (MobileNet-v2, int8 head) →
+tensor_decoder (image_labeling) → tensor_sink``, at a small size (width
+0.35, 64x64, 10 classes, 8 frames).  The port runs on ``device="cpu"`` with
+the JAX model's own params.  Also: the port runs with ``jax`` and
+``nnstreamer_tpu`` blocked, and no file of it names either.
+"""
+
+import re
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+import nnstreamer_tpu as jnns
+import nnstreamer_tpu_torch as tnns
+from nnstreamer_tpu.elements.filter import TensorFilter as JaxFilter
+from nnstreamer_tpu.elements.sink import TensorSink as JaxSink
+from nnstreamer_tpu.elements.testsrc import DataSrc as JaxDataSrc
+from nnstreamer_tpu.elements.testsrc import VideoTestSrc as JaxVideoTestSrc
+from nnstreamer_tpu.models import mobilenet_v2 as jm
+from nnstreamer_tpu_torch.backends.torch_backend import TorchModel
+from nnstreamer_tpu_torch.elements.filter import TensorFilter
+from nnstreamer_tpu_torch.elements.sink import TensorSink
+from nnstreamer_tpu_torch.elements.testsrc import DataSrc, VideoTestSrc
+from nnstreamer_tpu_torch.models import mobilenet_v2 as tm
+
+from conftest import cpu_subprocess_env
+
+REPO = Path(__file__).resolve().parents[1]
+NORMALIZE = "typecast:float32,add:-127.5,div:127.5"
+SIZE, CLASSES, FRAMES = 64, 10, 8
+
+
+@pytest.fixture(scope="module")
+def labels_file(tmp_path_factory):
+    path = tmp_path_factory.mktemp("labels") / "labels.txt"
+    path.write_text("\n".join(f"class_{i}" for i in range(CLASSES)))
+    return str(path)
+
+
+@pytest.fixture(scope="module")
+def jax_model():
+    return jm.build_quantized(num_classes=CLASSES, width_mult=0.35, image_size=SIZE,
+                              int8_head=True)
+
+
+def _run_slice(nns, filt, labels, sink_cls, **transform_kw):
+    p = nns.Pipeline()
+    src = p.add(nns.make("videotestsrc", num_buffers=FRAMES, width=SIZE, height=SIZE,
+                         pattern="random", seed=3))
+    conv = p.add(nns.make("tensor_converter"))
+    norm = p.add(nns.make("tensor_transform", mode="arithmetic", option=NORMALIZE,
+                          acceleration="pallas", **transform_kw))
+    p.add(filt)
+    dec = p.add(nns.make("tensor_decoder", mode="image_labeling", option1=labels))
+    sink = p.add(sink_cls(collect=True))
+    p.link_chain(src, conv, norm, filt, dec, sink)
+    p.run(timeout=300)
+    return sink.frames
+
+
+def test_slice_matches_jax_pipeline(jax_model, labels_file):
+    want = _run_slice(jnns, JaxFilter(framework="jax", model=jax_model), labels_file, JaxSink)
+    model = tm.build_quantized(num_classes=CLASSES, width_mult=0.35, image_size=SIZE,
+                               params=jax.tree_util.tree_map(np.asarray, jax_model.params),
+                               int8_head=True, device="cpu")
+    got = _run_slice(tnns, TensorFilter(framework="torch", model=model), labels_file,
+                     TensorSink, device="cpu")
+    assert len(got) == len(want) == FRAMES
+    for g, w in zip(got, want):
+        assert g.meta["label"] == w.meta["label"]
+        assert g.meta["label_index"] == w.meta["label_index"]
+        np.testing.assert_array_equal(g.tensor(0).numpy(), np.asarray(w.tensor(0)))
+        assert (g.pts, g.duration) == (w.pts, w.duration)
+        # the bf16 trunk may round differently in the two frameworks
+        assert abs(g.meta["score"] - w.meta["score"]) <= 0.15
+
+
+def test_build_quantized_model_in_pipeline(labels_file):
+    """build_quantized's own random model (its own seed) through the slice."""
+    model = tm.build_quantized(num_classes=CLASSES, width_mult=0.35, image_size=SIZE,
+                               int8_head=True, device="cpu")
+    frames = _run_slice(tnns, TensorFilter(framework="torch", model=model), labels_file,
+                        TensorSink, device="cpu")
+    assert [f.meta["label"] for f in frames] == [f"class_{f.meta['label_index']}" for f in frames]
+    assert len(frames) == FRAMES
+
+
+@pytest.mark.parametrize("pattern", ["smpte", "random", "black", "white"])
+def test_videotestsrc_frames_bit_identical(pattern):
+    kw = dict(num_buffers=3, width=33, height=17, pattern=pattern, seed=5)
+    want = list(JaxVideoTestSrc(**kw).frames())
+    got = list(VideoTestSrc(**kw).frames())
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.tensor(0).numpy(), w.tensor(0))
+        assert (g.pts, g.duration) == (w.pts, w.duration)
+
+
+def test_negotiated_specs_match(jax_model, labels_file):
+    """Every pad of the port's slice negotiates the JAX pipeline's spec."""
+    del labels_file
+
+    def specs(nns, filt, **kw):
+        p = nns.Pipeline()
+        chain = [p.add(nns.make("videotestsrc", num_buffers=1, width=SIZE, height=SIZE)),
+                 p.add(nns.make("tensor_converter")),
+                 p.add(nns.make("tensor_transform", mode="arithmetic", option=NORMALIZE,
+                                acceleration="pallas", **kw)),
+                 p.add(filt)]
+        p.add(nns.make("tensor_sink", name="out"))
+        p.link_chain(*chain, "out")
+        if hasattr(p, "auto_fuse"):
+            p.auto_fuse = False  # compare the elements as linked
+        p.start()
+        p.wait(60)
+        p.stop()
+        return [(t.dtype, t.shape) for n in chain for t in n.src_pads["src"].spec.tensors]
+
+    model = tm.build_quantized(num_classes=CLASSES, width_mult=0.35, image_size=SIZE,
+                               int8_head=True, device="cpu")
+    got = specs(tnns, TensorFilter(framework="torch", model=model), device="cpu")
+    want = specs(jnns, JaxFilter(framework="jax", model=jax_model))
+    assert got == want
+
+
+def test_port_runs_with_jax_blocked():
+    code = textwrap.dedent(f"""
+        import sys
+        for name in ("jax", "jaxlib", "nnstreamer_tpu"):
+            sys.modules[name] = None  # any import of them now raises
+        import nnstreamer_tpu_torch as nns
+        from nnstreamer_tpu_torch.elements.filter import TensorFilter
+        from nnstreamer_tpu_torch.models import mobilenet_v2
+        m = mobilenet_v2.build_quantized(num_classes={CLASSES}, width_mult=0.35,
+                                         image_size={SIZE}, int8_head=True, device="cpu")
+        p = nns.Pipeline()
+        chain = [p.add(nns.make("videotestsrc", num_buffers=2, width={SIZE}, height={SIZE})),
+                 p.add(nns.make("tensor_converter")),
+                 p.add(nns.make("tensor_transform", mode="arithmetic",
+                                option="{NORMALIZE}", acceleration="pallas", device="cpu")),
+                 p.add(TensorFilter(framework="torch", model=m)),
+                 p.add(nns.make("tensor_decoder", mode="image_labeling")),
+                 p.add(nns.make("tensor_sink", collect=True))]
+        p.link_chain(*chain)
+        p.run(timeout=120)
+        assert not any(k == "jax" or k.startswith(("jax.", "nnstreamer_tpu."))
+                       for k, v in sys.modules.items() if v is not None)
+        print("labels", [f.meta["label"] for f in chain[-1].frames])
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=cpu_subprocess_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert re.search(r"labels \['\d+', '\d+'\]", out.stdout), out.stdout
+
+
+def test_no_port_file_names_jax():
+    pattern = re.compile(r"import jax|from jax|nnstreamer_tpu[^_]")
+    files = sorted((REPO / "nnstreamer_tpu_torch").rglob("*.py"))
+    files += sorted((REPO / "nnstreamer_tpu_torch").rglob("*.cu"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 20
+    for f in files:
+        for i, line in enumerate(f.read_text().splitlines(), 1):
+            assert not pattern.search(line), f"{f.relative_to(REPO)}:{i}: {line}"
+
+
+def test_filter_default_device_raises_without_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    filt = TensorFilter(framework="torch", model=TorchModel(apply=lambda p, x: x))
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        filt.start()
+
+
+def _run_both(make_src_data, *elements):
+    """Run ``datasrc → elements... → tensor_sink`` in both packages; the
+    port's elements run on the CPU."""
+    outs = []
+    for nns, datasrc, frame_cls in ((jnns, JaxDataSrc, jnns.Frame),
+                                    (tnns, DataSrc, tnns.Frame)):
+        p = nns.Pipeline()
+        chain = [p.add(datasrc(data=make_src_data(nns, frame_cls)))]
+        for name, props in elements:
+            if nns is tnns and name == "tensor_transform":
+                props = dict(props, device="cpu")
+            chain.append(p.add(nns.make(name, **props)))
+        chain.append(p.add(nns.make("tensor_sink", collect=True)))
+        p.link_chain(*chain)
+        p.run(timeout=60)
+        outs.append(chain[-1].frames)
+    return outs
+
+
+def test_converter_batches_frames_like_jax():
+    frames = [np.full((4, 5, 3), i, np.uint8) for i in range(4)]
+
+    def data(nns, frame_cls):
+        conv = np.asarray if nns is jnns else torch.from_numpy
+        return [frame_cls.of(conv(f), pts=i * 10, duration=10) for i, f in enumerate(frames)]
+
+    want, got = _run_both(data, ("tensor_converter", {"frames_per_tensor": 2}))
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.tensor(0).numpy(), np.asarray(w.tensor(0)))
+        assert (g.pts, g.duration) == (w.pts, w.duration)
+
+
+def test_converter_strips_stride_like_jax():
+    raw = np.random.default_rng(2).integers(0, 256, (3, 8, 3)).astype(np.uint8)
+
+    def data(nns, frame_cls):
+        video = nns.VideoSpec(format="RGB", width=6, height=3)
+        x = raw if nns is jnns else torch.from_numpy(raw)
+        return [frame_cls.of(x, media=video, stride=8, width=6)]
+
+    want, got = _run_both(data, ("tensor_converter", {}))
+    np.testing.assert_array_equal(got[0].tensor(0).numpy(), np.asarray(want[0].tensor(0)))
+    assert tuple(got[0].tensor(0).shape) == (3, 6, 3)
+
+
+def test_midstream_shape_change_renegotiates_like_jax():
+    """A frame whose shape differs from the negotiated spec sends a caps
+    event downstream first; the transform re-negotiates and goes on."""
+    xs = [np.arange(4, dtype=np.float32), np.arange(6, dtype=np.float32)]
+
+    def data(nns, frame_cls):
+        return [x if nns is jnns else torch.from_numpy(x) for x in xs]
+
+    want, got = _run_both(data, ("tensor_transform",
+                                 {"mode": "arithmetic", "option": "mul:2.0,add:1"}))
+    assert [tuple(f.tensor(0).shape) for f in got] == [(4,), (6,)]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.tensor(0).numpy(), np.asarray(w.tensor(0)))

@@ -1,0 +1,149 @@
+"""The port's ``tensor_transform`` element against the JAX package's.
+
+Each case runs one pipeline per package, ``datasrc → tensor_transform →
+tensor_sink``, on the same numpy input; the port runs with
+``device="cpu"``.  Both the data and the negotiated output spec must agree.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import nnstreamer_tpu as jnns
+import nnstreamer_tpu_torch as tnns
+from nnstreamer_tpu.elements.sink import TensorSink as JaxSink
+from nnstreamer_tpu.elements.testsrc import DataSrc as JaxDataSrc
+from nnstreamer_tpu.elements.transform import TensorTransform as JaxTransform
+from nnstreamer_tpu_torch.elements.sink import TensorSink
+from nnstreamer_tpu_torch.elements.testsrc import DataSrc
+from nnstreamer_tpu_torch.elements.transform import TensorTransform
+
+
+def _run_jax(x, **props):
+    p = jnns.Pipeline()
+    src = p.add(JaxDataSrc(data=[x]))
+    tr = p.add(JaxTransform(**props))
+    sink = p.add(JaxSink(collect=True))
+    p.link_chain(src, tr, sink)
+    p.run(timeout=60)
+    return np.asarray(sink.frames[0].tensor(0)), tr.src_pads["src"].spec.tensors[0]
+
+
+def _run_port(x, **props):
+    p = tnns.Pipeline()
+    src = p.add(DataSrc(data=[torch.from_numpy(x)]))
+    tr = p.add(TensorTransform(device="cpu", **props))
+    sink = p.add(TensorSink(collect=True))
+    p.link_chain(src, tr, sink)
+    p.run(timeout=60)
+    out = sink.frames[0].tensor(0)
+    assert out.device.type == "cpu"
+    return out.numpy(), tr.src_pads["src"].spec.tensors[0]
+
+
+def _check(x, exact=True, **props):
+    got, got_spec = _run_port(x, **props)
+    want, want_spec = _run_jax(x, **props)
+    assert got_spec.dtype == want_spec.dtype and got_spec.shape == want_spec.shape
+    assert got.dtype == want.dtype == got_spec.dtype
+    assert got.shape == want.shape == got_spec.shape
+    if exact:
+        np.testing.assert_array_equal(got, want)
+    else:
+        # stand: mean and std are reductions summed in another order
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+IMG = np.random.default_rng(0).integers(0, 256, (16, 24, 3)).astype(np.uint8)
+F32 = np.random.default_rng(1).standard_normal((2, 3, 4)).astype(np.float32) * 10
+
+
+class TestModes:
+    @pytest.mark.parametrize("accel", [True, "pallas"])
+    def test_typecast(self, accel):
+        _check(IMG, mode="typecast", option="float32", acceleration=accel)
+        _check(F32, mode="typecast", option="int16", acceleration=accel)
+
+    @pytest.mark.parametrize("accel", [True, "pallas"])
+    def test_arithmetic_normalize(self, accel):
+        _check(IMG, mode="arithmetic", option="typecast:float32,add:-127.5,div:127.5",
+               acceleration=accel)
+
+    @pytest.mark.parametrize("accel", [True, "pallas"])
+    def test_arithmetic_integer_chain(self, accel):
+        x = np.arange(-20, 20, dtype=np.int32)
+        _check(x, mode="arithmetic", option="mul:3,add:1", acceleration=accel)
+        # narrow ints: wraps on the plain path, int32 up front under pallas
+        _check(IMG, mode="arithmetic", option="add:200,div:2", acceleration=accel)
+
+    @pytest.mark.parametrize("option", ["1:0:2:3", "2:0:1:3", "0:2:1:3"])
+    def test_transpose(self, option):
+        _check(F32, mode="transpose", option=option)
+        _check(IMG, mode="transpose", option=option, acceleration="pallas")
+
+    @pytest.mark.parametrize("option", ["0:2", "2:0", "1:0"])
+    def test_dimchg(self, option):
+        _check(F32, mode="dimchg", option=option)
+
+    @pytest.mark.parametrize("option", ["default", "default:per-channel"])
+    def test_stand(self, option):
+        _check(IMG, exact=False, mode="stand", option=option)
+        _check(F32, exact=False, mode="stand", option=option)
+
+    @pytest.mark.parametrize("accel", [True, "pallas"])
+    def test_clamp(self, accel):
+        _check(F32, mode="clamp", option="-5:5", acceleration=accel)
+        _check(IMG, mode="clamp", option="10:200", acceleration=accel)
+
+
+class TestPromotion:
+    """tests/test_pallas_quant.py:278,301,321 on every acceleration path."""
+
+    @pytest.mark.parametrize("accel", ["pallas", True, False])
+    def test_out_of_range_literal_promotes(self, accel):
+        x = np.array([0, 1, 200, 255], np.uint8)
+        _check(x, mode="arithmetic", option="add:-128", acceleration=accel)
+        got, _ = _run_port(x, mode="arithmetic", option="add:-128", acceleration=accel)
+        np.testing.assert_array_equal(got, x.astype(np.float32) - 128)
+
+    @pytest.mark.parametrize("accel", ["pallas", True, False])
+    def test_negative_clamp_on_unsigned(self, accel):
+        x = np.array([0, 1, 2, 3], np.uint8)
+        _check(x, mode="clamp", option="-1:1", acceleration=accel)
+        got, _ = _run_port(x, mode="clamp", option="-1:1", acceleration=accel)
+        np.testing.assert_array_equal(got, [0, 1, 1, 1])
+
+    @pytest.mark.parametrize("accel", ["pallas", True, False])
+    def test_implicit_promotion_negotiated(self, accel):
+        x = np.arange(8, dtype=np.uint8)
+        _check(x, mode="arithmetic", option="div:2.0", acceleration=accel)
+        got, spec = _run_port(x, mode="arithmetic", option="div:2.0", acceleration=accel)
+        assert spec.dtype == np.float32
+        np.testing.assert_array_equal(got, x / 2.0)
+
+
+def test_pallas_rejects_dtypes_without_kernel():
+    with pytest.raises(tnns.NegotiationError):
+        _run_port(np.zeros(4, np.int64), mode="arithmetic", option="add:1",
+                  acceleration="pallas")
+
+
+def test_default_device_raises_without_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        TensorTransform(mode="typecast", option="float32")
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        tnns.make("tensor_transform", mode="arithmetic", option="add:1")
+
+
+def test_frame_is_made_contiguous_for_the_kernel():
+    """The element hands the kernel a contiguous tensor on its device, even
+    when the frame arrives as a strided view."""
+    tr = TensorTransform(device="cpu", mode="arithmetic", option="add:1",
+                         acceleration="pallas")
+    spec = tnns.TensorsSpec.of(tnns.TensorSpec(dtype=np.int32, shape=(4, 2)))
+    tr.configure({"sink": spec})
+    x = torch.arange(8, dtype=torch.int32).reshape(2, 4).t()  # non-contiguous
+    out = tr.process(None, tnns.Frame.of(x)).tensor(0)
+    assert out.is_contiguous()
+    np.testing.assert_array_equal(out.numpy(), x.numpy() + 1)
