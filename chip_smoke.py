@@ -10,19 +10,28 @@ In order, it
 1. prints the card's name and power limit (nvidia-smi);
 2. builds every kernel of the port from ``nnstreamer_tpu_torch/csrc`` with
    nvcc (one process per source, in parallel) and prints the build time;
-3. kernel phase: runs each kernel on the card at the image-labeling path's
-   shapes (and a few others) against its plain PyTorch version on the same
-   inputs: ``fused_arith`` must be bitwise equal, ``int8_matmul`` exact in
-   its int32 accumulator and within 1 ulp in float32; then times kernel,
-   plain version and, where one exists, the one PyTorch call that computes
-   the same function (a yardstick only; the port never calls it);
-4. slice phase: builds MobileNet-v2 1.0 (224x224x3 uint8 frames, 1001
-   classes, bf16, int8 classifier head, random weights from a fixed seed) and
-   runs 64 ``videotestsrc`` frames through the image-labeling pipeline on
-   the card; each kernel must launch once per frame, and the labels must
-   equal those of the same model run on the card with the kernels' plain
-   versions;
-5. prints one JSON line describing every kernel, and last one JSON line
+3. kernel phase: runs each kernel on the card at its path's shapes (and a
+   few others) against its plain PyTorch version on the same inputs:
+   ``fused_arith`` and ``nms_keep`` must be bitwise equal, ``int8_matmul``
+   exact in its int32 accumulator and within 1 ulp in float32; then times
+   kernel, plain version and, where one exists, the one PyTorch call that
+   computes the same function (a yardstick only; the port never calls it);
+4. image-labeling phase (slice 1): builds MobileNet-v2 1.0 (224x224x3 uint8
+   frames, 1001 classes, bf16, int8 classifier head, random weights from a
+   fixed seed) and runs 64 ``videotestsrc`` frames through the pipeline on
+   the card; ``fused_arith`` and ``int8_matmul`` must launch once per frame,
+   and the labels must equal those of the same model run on the card with
+   the kernels' plain versions;
+5. object-detection phase (slice 2): builds SSD-MobileNet-v2 1.0 (300x300x3
+   uint8 frames, 1917 anchors, 91 labels, bf16, random weights from a fixed
+   seed) and runs 64 frames through the tflite-ssd pipeline with
+   whole-segment compilation on: the converter and the decoder must fold
+   into the filter, ``fused_arith`` and ``nms_keep`` must
+   launch once per frame, and the detections must equal those of the same
+   frames decoded on the host (boxes and classes exactly, probs within
+   ``PROB_ATOL``); then the fused-decode variant (``fused_decode=100``,
+   ``fused-ssd`` decoder) with segments on and off must agree bitwise;
+6. prints one JSON line describing every kernel, and last one JSON line
    ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero.  Without a CUDA GPU, or without the package
@@ -43,6 +52,16 @@ PROFILED = 16
 IMAGE = 224
 CLASSES = 1001
 NORMALIZE = "typecast:float32,add:-127.5,div:127.5"
+# Slice 2: SSD-MobileNet-v2 at full width, 91 labels (COCO's label map).
+SSD_IMAGE = 300
+SSD_LABELS = 91
+SSD_TOPK = 100          # fused_decode of the fused-ssd variant
+FUSED_FRAMES = 8
+NMS_KS = (1, 7, 100, 128, 129, 1000, 4096)
+NMS_TIMED_K = 100       # the tflite-ssd lowering's PRE_NMS_TOP_K
+# CUDA's expf and numpy's exp differ by ulps: a detection's prob from the
+# card may differ from the host decode's by a few ulps of 1.0.
+PROB_ATOL = 1e-5
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float32": 67e12, "int8": 1979e12}
@@ -133,6 +152,7 @@ def kernel_phase(torch, np, K, bind, jax_pkg):
     # -- fused_arith: bitwise against its plain version ---------------------
     cases = [
         ((IMAGE, IMAGE, 3), np.uint8, NORMALIZE),
+        ((SSD_IMAGE, SSD_IMAGE, 3), np.uint8, NORMALIZE),
         ((1,), np.uint8, NORMALIZE),
         ((127,), np.uint8, NORMALIZE),
         ((1_000_003,), np.uint8, NORMALIZE),
@@ -158,16 +178,23 @@ def kernel_phase(torch, np, K, bind, jax_pkg):
         err = max(err, float((got.double() - want.double()).abs().max()))
         print(f"fused_arith {np.dtype(dtype).name}{shape} '{option}': bitwise equal", flush=True)
 
-    x = torch.from_numpy(rng.integers(0, 256, (IMAGE, IMAGE, 3)).astype(np.uint8)).to(dev)
     ops = bind(NORMALIZE, np.dtype(np.uint8))
-    n = x.numel()
-    t_bytes, by = bound_ms(n * 1 + n * 4, n * 2, "float32")
-    results["fused_arith"] = timed(
-        dict(name="fused_arith", route="cuda", source="nnstreamer_tpu_torch/csrc/fused_arith.cu",
-             replaces=f"{jax_pkg}/ops/pallas_kernels.py:77", max_abs_err=err,
-             bound_ms=t_bytes, bound_by=by,
-             shape=f"({IMAGE},{IMAGE},3) uint8 -> float32, '{NORMALIZE}'"),
-        kernel=lambda: K.fused_arith(x, ops), plain=lambda: K.fused_arith_plain(x, ops))
+    rows = []
+    for size in (IMAGE, SSD_IMAGE):  # the labeling path's frame, then the detection path's
+        x = torch.from_numpy(rng.integers(0, 256, (size, size, 3)).astype(np.uint8)).to(dev)
+        n = x.numel()
+        t_bytes, by = bound_ms(n * 1 + n * 4, n * 2, "float32")
+        rows.append(timed(
+            dict(name="fused_arith", route="cuda",
+                 source="nnstreamer_tpu_torch/csrc/fused_arith.cu",
+                 replaces=f"{jax_pkg}/ops/pallas_kernels.py:77", max_abs_err=err,
+                 bound_ms=t_bytes, bound_by=by,
+                 shape=f"({size},{size},3) uint8 -> float32, '{NORMALIZE}'"),
+            kernel=lambda x=x: K.fused_arith(x, ops),
+            plain=lambda x=x: K.fused_arith_plain(x, ops)))
+    results["fused_arith"] = rows[0]
+    rows[0]["at_detection_shape"] = {key: rows[1][key] for key in (
+        "shape", "ms", "plain_ms", "call_ms", "bound_ms", "bound_by")}
 
     # -- int8_matmul: exact int32, float32 within 1 ulp ----------------------
     err = 0.0
@@ -215,11 +242,83 @@ def kernel_phase(torch, np, K, bind, jax_pkg):
         kernel=lambda: K.int8_matmul(xq, wq, xs, ws, b),
         plain=lambda: K.int8_matmul_plain(xq, wq, xs, ws, b),
         library=lambda: torch._int_mm(xp, wp))
+    results["nms_keep"] = nms_kernel_phase(torch, np, jax_pkg)
     for r in results.values():
         print(f"{r['name']}: kernel {r['ms']} ms ({r['timer']}), per call {r['call_ms']} ms, "
               f"plain {r['plain_ms']} ms, bound {r['bound_ms']} ms ({r['bound_by']}), "
               f"library {r['library_ms']} ms", flush=True)
     return results
+
+
+def nms_cases(np, rng, k):
+    """(name, x, y, w, h, valid) score-ordered integer-pixel cases at K=k."""
+    def ints(lo, hi):
+        return rng.integers(lo, hi, k).astype(np.float32)
+
+    x, y, w, h = ints(0, 300), ints(0, 300), ints(1, 150), ints(1, 150)
+    zero_w = w.copy()
+    zero_w[::2] = 0
+    ones = np.ones(k, bool)
+    return [
+        ("random", x, y, w, h, rng.random(k) < 0.8),
+        ("all-invalid", x, y, w, h, np.zeros(k, bool)),
+        ("identical", np.full(k, 10, np.float32), np.full(k, 12, np.float32),
+         np.full(k, 20, np.float32), np.full(k, 30, np.float32), ones),
+        ("zero-area", x, y, zero_w, h, ones),
+        # pixel areas above 2**24: float32 rounding decides verdicts
+        ("area>2^24", ints(0, 3000), ints(0, 3000), ints(4100, 9000), ints(4100, 9000), ones),
+    ]
+
+
+def nms_pairs(np, x, y, w, h, valid):
+    """Pairs the greedy pass tests on these boxes: for each row still kept
+    when its turn comes, the later rows still kept then."""
+    x2, y2 = x + w, y + h
+    keep = valid.copy()
+    pairs = 0
+    for i in range(len(x)):
+        if not keep[i]:
+            continue
+        j = np.arange(i + 1, len(x))[keep[i + 1:]]
+        pairs += len(j)
+        iw = np.maximum(np.float32(0), np.minimum(x2[i], x2[j]) - np.maximum(x[i], x[j]) + 1)
+        ih = np.maximum(np.float32(0), np.minimum(y2[i], y2[j]) - np.maximum(y[i], y[j]) + 1)
+        inter = iw * ih
+        union = w[i] * h[i] + w[j] * h[j] - inter
+        keep[j[(union > 0) & (2 * inter > union)]] = False
+    return pairs
+
+
+def nms_kernel_phase(torch, np, jax_pkg):
+    """nms_keep bitwise against its plain version at every K and case, then
+    its timing row at the tflite-ssd lowering's K."""
+    from nnstreamer_tpu_torch.ops import nms as N
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(1)
+    for k in NMS_KS:
+        for name, *arrays in nms_cases(np, rng, k):
+            args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
+            got = N.pallas_nms_keep(*args)
+            want = N.nms_keep(*args)
+            torch.cuda.synchronize()
+            check(got.dtype == torch.bool and got.shape == (k,),
+                  f"nms_keep K={k} {name}: dtype/shape {got.dtype}{tuple(got.shape)}")
+            check(torch.equal(got, want), f"nms_keep K={k} {name}: not bitwise equal to its "
+                                          "plain version")
+            print(f"nms_keep K={k} {name}: bitwise equal ({int(got.sum())} kept)", flush=True)
+
+    k = NMS_TIMED_K
+    arrays = nms_cases(np, rng, k)[0][1:5] + (np.ones(k, bool),)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
+    pairs = nms_pairs(np, *arrays)
+    t_bytes, by = bound_ms(4 * 4 * k + 2 * k, 16 * pairs + 3 * k, "float32")
+    return timed(
+        dict(name="nms_keep", route="cuda", source="nnstreamer_tpu_torch/csrc/nms_keep.cu",
+             replaces=f"{jax_pkg}/ops/nms.py:89", max_abs_err=0.0, bound_ms=t_bytes,
+             bound_by=by, pairs_tested=pairs,
+             shape=f"K={k} boxes, float32 x/y/w/h + bool valid -> bool keep"),
+        kernel=lambda: N.pallas_nms_keep(*args), plain=lambda: N.nms_keep(*args))
 
 
 def timed(row, kernel, plain, library=None):
@@ -267,10 +366,11 @@ def slice_phase(torch, np, K, bind):
     K.reset_launches()
     frames, arrivals, src = run(FRAMES)
     launches = {k.__name__: k.launches for k in K.KERNELS}
-    print(f"main path launches over {FRAMES} frames: {launches}", flush=True)
+    print(f"image-labeling path launches over {FRAMES} frames: {launches}", flush=True)
     check(len(frames) == FRAMES, f"slice delivered {len(frames)} of {FRAMES} frames")
-    for name, count in launches.items():
-        check(count == FRAMES, f"{name} launched {count} times for {FRAMES} frames")
+    for name in ("fused_arith", "int8_matmul"):
+        check(launches[name] == FRAMES,
+              f"{name} launched {launches[name]} times for {FRAMES} frames")
 
     # The same model with the kernels' plain versions, on the card.
     ops = bind(NORMALIZE, np.dtype(np.uint8))
@@ -320,25 +420,185 @@ def slice_phase(torch, np, K, bind):
           f"labels equal to the plain run ({len(set(got_idx))} distinct), logits within "
           f"{logit_err:.3g} (relative)", flush=True)
 
-    # Where a frame's time goes: a separate profiled run of PROFILED frames
-    # (not counted above); device busy time against wall time.
-    t0 = time.perf_counter()
-    busy_ms, activities = profile_cuda(lambda: run(PROFILED), 1)
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    if busy_ms is not None:
-        # The profiler slows the host down, so the idle share is taken
-        # against the unprofiled run's wall time per frame.
-        busy = busy_ms / PROFILED
-        slice_res.update(profiled_frames=PROFILED, device_busy_ms_per_frame=busy,
-                         profiled_wall_ms_per_frame=wall_ms / PROFILED,
-                         device_idle_share=1 - busy * fps / 1e3,
-                         device_activities_per_frame=activities / PROFILED)
-        print(f"profiled {PROFILED} frames: device busy {busy:.3f} ms/frame, idle "
-              f"{slice_res['device_idle_share']:.3f} of the unprofiled {1e3 / fps:.3f} ms/frame, "
-              f"{activities / PROFILED:.0f} kernels and copies per frame", flush=True)
-    else:
-        print("profiled run: the profiler recorded no device time (not measured)", flush=True)
+    profile_slice(lambda: run(PROFILED), slice_res)
     return launches, slice_res
+
+
+def profile_slice(run_profiled, res):
+    """Where a frame's time goes: a separate profiled run of PROFILED frames
+    (not counted in the timed run); device busy time against wall time."""
+    t0 = time.perf_counter()
+    busy_ms, activities = profile_cuda(run_profiled, 1)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    if busy_ms is None:
+        print("profiled run: the profiler recorded no device time (not measured)", flush=True)
+        return
+    # The profiler slows the host down, so the idle share is taken against
+    # the unprofiled run's wall time per frame.
+    busy = busy_ms / PROFILED
+    res.update(profiled_frames=PROFILED, device_busy_ms_per_frame=busy,
+               profiled_wall_ms_per_frame=wall_ms / PROFILED,
+               device_idle_share=1 - busy * res["fps"] / 1e3,
+               device_activities_per_frame=activities / PROFILED)
+    print(f"profiled {PROFILED} frames: device busy {busy:.3f} ms/frame, idle "
+          f"{res['device_idle_share']:.3f} of the unprofiled {1e3 / res['fps']:.3f} ms/frame, "
+          f"{activities / PROFILED:.0f} kernels and copies per frame", flush=True)
+
+
+def _objects(frame):
+    return [(o.class_id, o.x, o.y, o.width, o.height) for o in frame.meta["objects"]]
+
+
+def detection_phase(torch, np, K, bind, root):
+    """Slice 2: the object-detection pipeline at full width, with
+    whole-segment compilation and the NMS kernel; then its fused-decode
+    variant."""
+    import nnstreamer_tpu_torch as nns
+    from nnstreamer_tpu_torch.decoders import bounding_boxes as bb
+    from nnstreamer_tpu_torch.elements.filter import TensorFilter
+    from nnstreamer_tpu_torch.elements.sink import TensorSink
+    from nnstreamer_tpu_torch.models import ssd_mobilenet
+
+    work = os.path.join(root, "build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    labels = os.path.join(work, "labels.txt")
+    with open(labels, "w", encoding="utf-8") as f:
+        f.write("\n".join(["background"] + [f"object_{i}" for i in range(1, SSD_LABELS)]))
+    priors_path = ssd_mobilenet.write_priors_file(os.path.join(work, "priors.txt"), SSD_IMAGE)
+    t0 = time.perf_counter()
+    kw = dict(num_labels=SSD_LABELS, image_size=SSD_IMAGE, seed=0, device="cuda")
+    model = ssd_mobilenet.build(**kw)
+    fused_model = ssd_mobilenet.build(fused_decode=SSD_TOPK, **kw)
+    print(f"SSD models built in {time.perf_counter() - t0:.3f} s "
+          f"({ssd_mobilenet.num_priors(SSD_IMAGE)} anchors)", flush=True)
+    wh = f"{SSD_IMAGE}:{SSD_IMAGE}"
+
+    def run(m, frames, seg, submode):
+        arrivals = []
+        p = nns.Pipeline()
+        p.segment_compile = seg
+        src = p.add(nns.make("videotestsrc", num_buffers=frames, width=SSD_IMAGE,
+                             height=SSD_IMAGE, pattern="random", seed=11))
+        conv = p.add(nns.make("tensor_converter"))
+        norm = p.add(nns.make("tensor_transform", mode="arithmetic", option=NORMALIZE,
+                              acceleration="pallas", device="cuda"))
+        filt = p.add(TensorFilter(framework="torch", model=m))
+        dec = p.add(nns.make("tensor_decoder", mode="bounding_boxes", option1=submode,
+                             option2=labels, option3=priors_path, option4=wh, option5=wh))
+        sink = p.add(TensorSink(collect=True,
+                                callback=lambda f: arrivals.append(time.perf_counter())))
+        p.link_chain(src, conv, norm, filt, dec, sink)
+        p.start()
+        try:
+            state = dict(converter_folded=conv.name not in p.nodes,
+                         transform_folded=norm.name not in p.nodes,
+                         decoder_lowered=dec.plugin._lowered is not None,
+                         label=filt.backend.segment_label, fn=filt.backend._fn)
+            check(p.wait(600), "the detection pipeline did not finish within 600 s")
+        finally:
+            p.stop()
+        check(len(sink.frames) == frames, f"detection delivered {len(sink.frames)} of {frames}")
+        return sink.frames, arrivals, state, src
+
+    run(model, WARMUP_FRAMES, True, "tflite-ssd")  # cuDNN plans for the new shapes
+    K.reset_launches()
+    frames, arrivals, state, src = run(model, FRAMES, True, "tflite-ssd")
+    launches = {k.__name__: k.launches for k in K.KERNELS}
+    fused_fn = state.pop("fn")
+    print(f"object-detection path launches over {FRAMES} frames: {launches}; segment "
+          f"{state}", flush=True)
+    check(state["converter_folded"] and state["transform_folded"] and state["decoder_lowered"],
+          f"the segment did not fold the converter, transform and decoder: {state}")
+    for name in ("fused_arith", "pallas_nms_keep"):
+        check(launches[name] == FRAMES,
+              f"{name} launched {launches[name]} times for {FRAMES} frames")
+    gaps = np.diff(np.asarray(arrivals)) * 1e3
+    res = dict(frames=FRAMES, fps=(len(arrivals) - 1) / (arrivals[-1] - arrivals[0]),
+               p50_ms=float(np.median(gaps)), p90_ms=float(np.percentile(gaps, 90)),
+               segment=state["label"])
+
+    # The filter's fused function (normalize, SSD, decode, sort, NMS) makes
+    # no host synchronization: one call on a frame already on the card, with
+    # PyTorch's sync debug mode raising on any synchronizing operation.
+    x = torch.from_numpy(src._make_frame(0)).cuda()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.inference_mode():
+            det = fused_fn(x)[0]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(tuple(det.shape) == (bb.PRE_NMS_TOP_K, 6) and bool(torch.isfinite(det).all()),
+          f"fused function output {tuple(det.shape)} not finite / wrong shape")
+    print("fused function: no host synchronization from the normalize to the NMS",
+          flush=True)
+
+    # The same frames with segments off: decode and NMS on the host.
+    host, host_arrivals, hstate, _ = run(model, FRAMES, False, "tflite-ssd")
+    check(not hstate["decoder_lowered"], "segments off, yet the decoder was lowered")
+    host_gaps = np.diff(np.asarray(host_arrivals)) * 1e3
+    res.update(host_fps=(len(host_arrivals) - 1) / (host_arrivals[-1] - host_arrivals[0]),
+               host_p50_ms=float(np.median(host_gaps)))
+    prob_err, n_objects = 0.0, 0
+    for i, (g, w) in enumerate(zip(frames, host)):
+        check(_objects(g) == _objects(w), f"frame {i}: device detections {_objects(g)} differ "
+                                          f"from the host decode {_objects(w)}")
+        for a, b in zip(g.meta["objects"], w.meta["objects"]):
+            prob_err = max(prob_err, abs(a.prob - b.prob))
+        n_objects += len(g.meta["objects"])
+    check(prob_err <= PROB_ATOL, f"probs differ from the host decode by {prob_err}")
+
+    # Candidates and survivors of the first frames, from the raw model output
+    # decoded on the host: the NMS must keep some boxes and suppress others.
+    ops = bind(NORMALIZE, np.dtype(np.uint8))
+    priors = ssd_mobilenet.generate_priors(SSD_IMAGE)
+    candidates = kept = max_area = 0
+    with torch.inference_mode():
+        for i in range(4):
+            x = K.fused_arith_plain(torch.from_numpy(src._make_frame(i)).cuda(), ops)
+            boxes, scores = model(x)
+            n = ssd_mobilenet.num_priors(SSD_IMAGE)
+            check(boxes.shape == (n, 4) and scores.shape == (n, SSD_LABELS)
+                  and bool(torch.isfinite(boxes).all()) and bool(torch.isfinite(scores).all()),
+                  f"frame {i}: raw SSD outputs not finite / wrong shape")
+            cands = bb.decode_tflite_ssd(boxes.cpu().numpy(), scores.cpu().numpy(), priors,
+                                         SSD_IMAGE, SSD_IMAGE)
+            survivors = bb.nms(cands)
+            check([(o.class_id, o.x, o.y, o.width, o.height) for o in survivors]
+                  == _objects(host[i]), f"frame {i}: host decode of the raw output differs")
+            candidates += min(len(cands), bb.PRE_NMS_TOP_K)
+            kept += len(survivors)
+            max_area = max([max_area] + [o.width * o.height for o in cands])
+    check(0 < kept < candidates, f"NMS kept {kept} of {candidates} candidates: trivial")
+    res.update(objects=n_objects, prob_max_abs_err=prob_err, nms_candidates_4_frames=candidates,
+               nms_kept_4_frames=kept, max_candidate_area=max_area)
+    print(f"object detection: {FRAMES} frames, {res['fps']:.3f} fps, p50 {res['p50_ms']:.3f} "
+          f"ms/frame (segments off: {res['host_fps']:.3f} fps, p50 {res['host_p50_ms']:.3f} "
+          f"ms/frame); {n_objects} detections equal to the host decode (prob within "
+          f"{prob_err:.3g}); NMS kept {kept} of {candidates} candidates in 4 frames; largest "
+          f"candidate area {max_area} px", flush=True)
+    profile_slice(lambda: run(model, PROFILED, True, "tflite-ssd"), res)
+
+    # The fused-decode variant: decode_topk in the model, fused-ssd decoder.
+    K.reset_launches()
+    fused_on, _, fstate, _ = run(fused_model, FUSED_FRAMES, True, "fused-ssd")
+    del fstate["fn"]
+    fused_nms = {k.__name__: k.launches for k in K.KERNELS}["pallas_nms_keep"]
+    fused_off, _, _, _ = run(fused_model, FUSED_FRAMES, False, "fused-ssd")
+    check(fstate["decoder_lowered"] and fused_nms == FUSED_FRAMES,
+          f"fused-ssd: lowered {fstate['decoder_lowered']}, {fused_nms} nms_keep launches")
+    fused_objects = 0
+    for i, (a, b) in enumerate(zip(fused_on, fused_off)):
+        check([vars(o) for o in a.meta["objects"]] == [vars(o) for o in b.meta["objects"]],
+              f"fused-ssd frame {i}: segments on and off disagree")
+        check(a.tensor(0).numpy().tobytes() == b.tensor(0).numpy().tobytes(),
+              f"fused-ssd frame {i}: overlays differ")
+        fused_objects += len(a.meta["objects"])
+    check(fused_objects > 0, "fused-ssd: no detections")
+    res.update(fused_frames=FUSED_FRAMES, fused_objects=fused_objects)
+    print(f"fused-ssd: {FUSED_FRAMES} frames, segments on and off bitwise equal "
+          f"({fused_objects} detections, {fused_nms} nms_keep launches)", flush=True)
+    return launches, res
 
 
 def main() -> int:
@@ -396,10 +656,18 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}", flush=True)
 
     kernels = kernel_phase(torch, np, K, bind, jax_pkg)
-    launches, slice_res = slice_phase(torch, np, K, bind)
+    by_path = {"image_labeling": slice_phase(torch, np, K, bind)}
+    by_path["object_detection"] = detection_phase(torch, np, K, bind, root)
+    wrapper = {"fused_arith": "fused_arith", "int8_matmul": "int8_matmul",
+               "nms_keep": "pallas_nms_keep"}
     for name, r in kernels.items():
-        r["launches"] = launches[name]
-    print(json.dumps({"card": card, "build_s": build_s, "slice": slice_res}), flush=True)
+        counts = {path: launches[wrapper[name]] for path, (launches, _) in by_path.items()}
+        r["launches"] = sum(counts.values())
+        r["launches_by_path"] = counts
+        check(r["launches"] > 0, f"{name} never launched on a main path")
+    print(json.dumps({"card": card, "build_s": build_s,
+                      "slice": by_path["image_labeling"][1],
+                      "slice2": by_path["object_detection"][1]}), flush=True)
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -29,6 +29,11 @@ class TensorConverter(Node):
         self.frames_per_tensor = int(frames_per_tensor)
         if self.frames_per_tensor < 1:
             raise ValueError("frames-per-tensor must be >= 1")
+        # The JAX element's input-format and input-dim options, which the
+        # port does not take yet; the segment planner reads them to tell a
+        # trivial converter (graph/segments.py::_trivial_converter).
+        self.input_format = ""
+        self.input_spec = None
         self._in_rate: Optional[Fraction] = None
         self._adapter: List[Frame] = []
         self._frame_idx = 0

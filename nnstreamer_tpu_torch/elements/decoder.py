@@ -17,7 +17,10 @@ from ..spec import TensorsSpec
 
 _DECODERS: Dict[str, type] = {}
 _LOCK = threading.Lock()
-_BUILTIN = {"image_labeling": "nnstreamer_tpu_torch.decoders.image_label"}
+_BUILTIN = {
+    "image_labeling": "nnstreamer_tpu_torch.decoders.image_label",
+    "bounding_boxes": "nnstreamer_tpu_torch.decoders.bounding_boxes",
+}
 
 
 def register_decoder(name: str):
@@ -46,9 +49,28 @@ def known_decoders():
 
 class DecoderPlugin:
     """Subplugin protocol: ``init(options)``, ``out_spec(in_spec)`` and
-    ``decode(frame, in_spec) -> Frame``."""
+    ``decode(frame, in_spec) -> Frame``.
+
+    A plugin may also offer the segment-compile lowering
+    (``graph/segments.py``)::
+
+        device_stage(in_spec) -> (fn, TensorsSpec) | None
+
+    where ``fn(xs) -> tuple`` runs the decode's device part (argmax, box
+    decode, NMS, ...) on the filter's output tensors, inside the filter's
+    fused function, and the spec describes the small tensor it emits.  None
+    refuses the lowering (sub-mode or shape not supported).  When a lowering
+    is installed the planner calls :meth:`set_lowered` with that spec, and
+    ``out_spec`` / ``decode`` then take the lowered tensor and run only the
+    host tail (labels, overlay, meta); ``set_lowered(None)`` restores the
+    full host decode on refusal or when the segment is undone.
+    """
 
     name = "base"
+    _lowered: Optional[TensorsSpec] = None
+
+    def set_lowered(self, spec: Optional[TensorsSpec]) -> None:
+        self._lowered = spec
 
     def init(self, options: List[str]) -> None:
         del options

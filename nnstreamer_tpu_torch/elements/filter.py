@@ -5,6 +5,13 @@ the registry (``torch``), the model opens on start, negotiation reconciles
 the model's declared spec with the upstream stream spec and fails loudly on
 a mismatch, and each frame's tensors go through the backend's ``invoke``
 under ``torch.inference_mode()``.  Outputs stay on the backend's device.
+
+The graph passes may fold neighbours into the filter
+(:meth:`TensorFilter.set_fused_transforms`): transforms before and after it
+(``graph/optimize.py``), and for whole-segment compilation a trivial
+converter before it and a decoder's device head after it
+(``graph/segments.py``).  :meth:`TensorFilter._install_fusion` then wraps
+the model call in the backend so one ``invoke`` runs the whole chain.
 """
 
 from __future__ import annotations
@@ -43,6 +50,17 @@ class TensorFilter(Node):
         self.model = model
         self.custom = str(custom)
         self._opened = False
+        self._fused_pre: list = []  # stages folded in before the model
+        self._fused_post: list = []  # and after it
+
+    def set_fused_transforms(self, pre: list, post: list) -> None:
+        """Install the stages folded into this filter (called by the graph
+        passes).  A pre-stage or a 1:1 post-stage offers the transform
+        protocol, ``build_fn(spec) -> fn(x)`` and ``out_spec_for(spec)``,
+        applied per tensor; an N:M post-stage offers ``build_multi(spec) ->
+        (fn(xs) -> tuple, out spec) | None`` and ``on_refuse()``."""
+        self._fused_pre = list(pre)
+        self._fused_post = list(post)
 
     def start(self) -> None:
         super().start()
@@ -58,18 +76,81 @@ class TensorFilter(Node):
 
     def sink_spec(self, pad_name: str) -> TensorsSpec:
         del pad_name
+        if self._fused_pre:
+            # the stream spec is pre-stage; the model spec applies after the
+            # fused pre-stages, checked in _install_fusion
+            return TensorsSpec()
         spec = self.backend.model_spec() if self._opened else None
         return spec or TensorsSpec()
 
     def configure(self, in_specs: Dict[str, TensorsSpec]) -> Dict[str, TensorsSpec]:
         in_spec = in_specs["sink"]
         try:
-            out_spec = self.backend.reconfigure(in_spec)
+            if self._fused_pre or self._fused_post:
+                out_spec = self.backend.reconfigure_fused(in_spec, self._install_fusion(in_spec))
+            else:
+                out_spec = self.backend.reconfigure(in_spec)
         except ValueError as exc:
             raise NegotiationError(f"{self.name}: {exc}") from exc
         if in_spec.rate is not None and out_spec.rate is None:
             out_spec = TensorsSpec(tensors=out_spec.tensors, rate=in_spec.rate)
         return {"src": out_spec}
+
+    def _install_fusion(self, in_spec: TensorsSpec) -> TensorsSpec:
+        """Wrap the model call with the fused pre- and post-stages, so the
+        whole chain runs as one call on the device; returns the wrapped
+        function's output spec, derived stage by stage."""
+        pre_stages = []
+        spec_cur = in_spec
+        for tr in self._fused_pre:
+            pre_stages.append([tr.build_fn(t) for t in spec_cur.tensors])
+            spec_cur = TensorsSpec(tensors=tuple(tr.out_spec_for(t) for t in spec_cur.tensors),
+                                   rate=spec_cur.rate)
+        model_spec = self.backend.model_spec()
+        if model_spec is not None and model_spec.intersect(spec_cur) is None:
+            raise NegotiationError(
+                f"{self.name}: fused pre-stage output {spec_cur} is incompatible "
+                f"with model spec {model_spec}")
+        # 1:1 post-stages map each tensor (tensor_transform); an N:M stage
+        # (a decoder's device head) takes the whole tuple
+        post_stages = []  # (per-tensor fns | None, multi fn | None)
+        spec_o = self.backend.trace_output_spec(spec_cur)
+        post = list(self._fused_post)
+        for i, tr in enumerate(post):
+            build_multi = getattr(tr, "build_multi", None)
+            if build_multi is not None:
+                built = build_multi(spec_o)
+                if built is None:
+                    # the stage refused this geometry: drop it and the rest of
+                    # the chain (which consumes its output), each back on host
+                    for rest in post[i:]:
+                        refuse = getattr(rest, "on_refuse", None)
+                        if refuse is not None:
+                            refuse()
+                    break
+                mfn, spec_o = built
+                post_stages.append((None, mfn))
+            else:
+                post_stages.append(([tr.build_fn(t) for t in spec_o.tensors], None))
+                spec_o = TensorsSpec(tensors=tuple(tr.out_spec_for(t) for t in spec_o.tensors),
+                                     rate=spec_o.rate)
+
+        def wrapper(orig):
+            def fn(*xs):
+                for stage in pre_stages:
+                    xs = tuple(f(x) for f, x in zip(stage, xs))
+                outs = orig(*xs)
+                outs = tuple(outs) if isinstance(outs, (tuple, list)) else (outs,)
+                for zip_fns, multi_fn in post_stages:
+                    if multi_fn is not None:
+                        outs = tuple(multi_fn(outs))
+                    else:
+                        outs = tuple(f(x) for f, x in zip(zip_fns, outs))
+                return outs
+            return fn
+
+        self.backend.set_wrapper(wrapper)
+        return spec_o
 
     def process(self, pad: Pad, frame: Frame):
         del pad

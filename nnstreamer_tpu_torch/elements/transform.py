@@ -16,6 +16,13 @@ elementwise modes (typecast, arithmetic, clamp) through the hand-written
 ``fused_arith`` kernel, once per frame.  Every other mode, and the elementwise
 modes without that option, are plain torch.
 
+A transform with ``acceleration`` set (``"pallas"`` or true) folds into an
+adjacent ``tensor_filter`` when the pipeline starts (``graph/optimize.py``):
+:meth:`TensorTransform.build_fn` and :meth:`TensorTransform.out_spec_for`
+are the fused-stage protocol the filter calls, so a folded ``"pallas"``
+transform still launches ``fused_arith`` once per frame, on the filter's
+device.
+
 Literal binding and the negotiated output dtype follow the JAX rules
 (``_bind_chain``, :func:`~nnstreamer_tpu_torch.ops.kernels.chain_out_dtype`),
 not torch's promotion.
@@ -170,8 +177,9 @@ class TensorTransform(Node):
         chain = self._chain_ops(t)
         if chain is not None:
             if self.acceleration == "pallas":
-                # one fused_arith launch per frame on a CUDA tensor
-                return lambda x: fused_arith(x, chain)
+                # one fused_arith launch per frame on a CUDA tensor, here or
+                # folded into a filter
+                return lambda x: fused_arith(x.contiguous(), chain)
             plan = plan_chain(t.dtype, tuple(chain), promote=False)
             return lambda x: run_chain(x, plan).to(out_dtype)
         r = NNS_TENSOR_RANK_LIMIT

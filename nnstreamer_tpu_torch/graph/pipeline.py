@@ -2,10 +2,15 @@
 
 The port's copy of the JAX package's ``graph/pipeline.py``, cut to its
 core: :meth:`Pipeline.add` / :meth:`Pipeline.link` build the graph,
-:meth:`Pipeline.start` opens every node, runs the two-phase topological
-negotiation and starts one streaming thread per source.  EOS from every
-leaf ends the run; an exception in a node's chain posts an error and halts
-the graph.
+:meth:`Pipeline.start` folds transforms into filters
+(``graph/optimize.py``, unless ``auto_fuse`` is off) and, with segment
+compilation on, whole regions (``graph/segments.py``), then opens every
+node, runs the two-phase topological negotiation and starts one streaming
+thread per source.  EOS from every leaf ends the run; an exception in a
+node's chain posts an error and halts the graph.  A failed start undoes
+both folds; :meth:`Pipeline.stop` undoes the segment folds, so the next
+start plans the user's graph again (transform fusion stays, as in the JAX
+package).
 """
 
 from __future__ import annotations
@@ -27,6 +32,11 @@ class Pipeline:
     def __init__(self, name: str = "pipeline"):
         self.name = name
         self.nodes: Dict[str, Node] = {}
+        self.auto_fuse = True  # fold transforms into torch filters on start
+        # whole-segment compilation (graph/segments.py): None defers to
+        # [segment] enabled; True/False pins it for this pipeline
+        self.segment_compile: Optional[bool] = None
+        self._segment_undos: List = []
         self.state = "NULL"  # NULL → PLAYING → STOPPED (or ERROR)
         self.threads: List[threading.Thread] = []
         self._eos_leaves: set = set()
@@ -121,21 +131,28 @@ class Pipeline:
         self._error = None
         self._error_node = None
         self._eos_leaves.clear()
+        fuse_undos = []
+        if self.auto_fuse:
+            from .optimize import fuse_transforms
+            from .segments import fuse_segments
+
+            fuse_undos = fuse_transforms(self)
+            fuse_segments(self)  # its undos ride on self._segment_undos
         for node in self.nodes.values():
             for pad in list(node.sink_pads.values()) + list(node.src_pads.values()):
                 pad.eos = False
                 pad.sig = None
                 if pad.direction == "sink" and pad.peer is not None:
                     pad.spec = None
-        self._leaves = {
-            n.name
-            for n in self.nodes.values()
-            if not any(p.peer is not None for p in n.src_pads.values())
-        }
-        if not self._leaves:
-            raise PipelineError("pipeline has no leaf (sink) nodes")
         started = []
         try:
+            self._leaves = {
+                n.name
+                for n in self.nodes.values()
+                if not any(p.peer is not None for p in n.src_pads.values())
+            }
+            if not self._leaves:
+                raise PipelineError("pipeline has no leaf (sink) nodes")
             for node in self.nodes.values():
                 node.start()
                 started.append(node)
@@ -147,6 +164,11 @@ class Pipeline:
                 except Exception as exc:  # noqa: BLE001 - keep the first error
                     warnings.warn(f"{node.name}: stop after failed start: {exc!r}",
                                   stacklevel=2)
+            from .segments import restore_segments
+
+            restore_segments(self)
+            for undo in reversed(fuse_undos):
+                undo()
             raise
         self.state = "PLAYING"
         for node in self.nodes.values():
@@ -224,6 +246,10 @@ class Pipeline:
             )
         for node in self.nodes.values():
             node.stop()
+        # segment folds are per run: the next start plans the user's graph
+        from .segments import restore_segments
+
+        restore_segments(self)
 
     def run(self, timeout: Optional[float] = None) -> None:
         """start() + wait() + stop() for finite streams."""

@@ -21,7 +21,7 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "nnstreamer_tpu_torch"
-SOURCES = ("fused_arith", "int8_matmul")
+SOURCES = ("fused_arith", "int8_matmul", "nms_keep")
 
 # -fmad=false keeps nvcc from contracting a*b+c into one rounding: the
 # kernels must agree bit for bit with their plain PyTorch versions.

@@ -1,4 +1,4 @@
-"""The port's two hand-written CUDA kernels, their wrappers and plain versions.
+"""Two of the port's hand-written CUDA kernels, their wrappers and plain versions.
 
 - :func:`fused_arith` replaces the JAX package's
   ``ops/pallas_kernels.py::fused_arith``: one elementwise pass of a ``tensor_transform`` chain
@@ -12,6 +12,8 @@ to the plain PyTorch version beside it (``*_plain``), which computes the
 same function step for step; a CUDA tensor launches the kernel or raises.
 Each CUDA launch adds one to the wrapper's ``launches`` count.  The sources
 note each kernel's bound on an H100 and what the design does about it.
+The third kernel, ``nms_keep``, has its wrapper in :mod:`.nms`;
+:data:`KERNELS` lists all three.
 """
 
 from __future__ import annotations
@@ -381,7 +383,11 @@ def _int8_matmul_lib() -> ctypes.CDLL:
     return lib
 
 
-KERNELS = (fused_arith, int8_matmul)
+# Every kernel wrapper of the port, for launch counting; the NMS kernel's
+# wrapper lives in ops/nms.py beside its plain version.
+from .nms import pallas_nms_keep  # noqa: E402
+
+KERNELS = (fused_arith, int8_matmul, pallas_nms_keep)
 
 
 def reset_launches() -> None:
