@@ -57,7 +57,9 @@ SSD_IMAGE = 300
 SSD_LABELS = 91
 SSD_TOPK = 100          # fused_decode of the fused-ssd variant
 FUSED_FRAMES = 8
-NMS_KS = (1, 7, 100, 128, 129, 1000, 4096)
+# 1280 and 1281 sit on either side of the kernel's bit-branch limit
+# (ops/nms.py BITS_MAX_K), 8192 is its largest K.
+NMS_KS = (1, 7, 100, 128, 129, 1000, 1280, 1281, 4096, 8192)
 NMS_TIMED_K = 100       # the tflite-ssd lowering's PRE_NMS_TOP_K
 # CUDA's expf and numpy's exp differ by ulps: a detection's prob from the
 # card may differ from the host decode's by a few ulps of 1.0.
@@ -115,16 +117,22 @@ def profile_cuda(fn, iters: int):
     return (total_us / 1e3 if total_us > 0 else None), len(device)
 
 
-def device_ms(fn, iters: int = 100, warmup: int = 20):
+def device_ms(fn, iters: int = 100, warmup: int = 20, activities: int = 0):
     """Device time per call of ``fn`` (all its kernels and copies) from a
     profiler trace, L2 warm; falls back to CUDA events around back-to-back
-    calls when the profiler records no device time.  Returns (ms, timer)."""
+    calls when the profiler records no device time.  Returns (ms, timer).
+    With ``activities`` (the device activities one call makes), a trace
+    that holds another count has lost records and is taken again, up to
+    five times, before falling back to CUDA events."""
     for _ in range(warmup):
         fn()
-    total, _ = profile_cuda(fn, iters)
-    if total is None:
-        return call_ms(fn, iters, warmup=0), "events"
-    return total / iters, "cupti"
+    for _ in range(5):
+        total, count = profile_cuda(fn, iters)
+        if total is None:
+            break
+        if not activities or count == activities * iters:
+            return total / iters, "cupti"
+    return call_ms(fn, iters, warmup=0), "events"
 
 
 def bound_ms(nbytes: int, ops: int, op_type: str):
@@ -197,8 +205,15 @@ def kernel_phase(torch, np, K, bind, jax_pkg):
         "shape", "ms", "plain_ms", "call_ms", "bound_ms", "bound_by")}
 
     # -- int8_matmul: exact int32, float32 within 1 ulp ----------------------
+    # M = 16 and 17 sit on either side of the split-K branch's limit
+    # (ops/kernels.py SMALL_M); "misaligned" weights start one byte into
+    # their storage, so data_ptr() is not 16-byte aligned.
     err = 0.0
-    for m, k, n in [(1, 1280, 1001), (3, 1280, 1001), (33, 64, 10), (300, 1280, 256)]:
+    for m, k, n, misaligned in [
+            (1, 1280, 1001, False), (3, 1280, 1001, False), (33, 64, 10, False),
+            (300, 1280, 256, False), (16, 1280, 1001, False), (17, 1280, 1001, False),
+            (1, 1283, 1001, False), (1, 7, 5, False), (1, 1280, 1001, True),
+            (1, 1283, 1001, True), (17, 1280, 1001, True)]:
         xq = rng.integers(-127, 128, (m, k)).astype(np.int8)
         wq = rng.integers(-127, 128, (k, n)).astype(np.int8)
         acc = xq.astype(np.int64) @ wq.astype(np.int64)
@@ -206,6 +221,12 @@ def kernel_phase(torch, np, K, bind, jax_pkg):
         ops_d = [torch.from_numpy(a).to(dev) for a in (
             xq, wq, np.array(1.0, np.float32), np.ones((1, n), np.float32),
             np.zeros(n, np.float32))]
+        if misaligned:
+            view = torch.empty(k * n + 1, dtype=torch.int8, device=dev)[1:].view(k, n)
+            view.copy_(ops_d[1])
+            check(view.data_ptr() % 16 != 0, "the misaligned weight is 16-byte aligned")
+            ops_d[1] = view
+        branch = K.int8_matmul_geometry(m, k, n).branch
         got = K.int8_matmul(*ops_d)
         torch.cuda.synchronize()
         check(np.array_equal(got.cpu().numpy().astype(np.int64), acc),
@@ -221,7 +242,8 @@ def kernel_phase(torch, np, K, bind, jax_pkg):
             ulps = max(ulps, max_ulp(got, want))
             check(ulps <= 1, f"int8_matmul ({m},{k},{n}): {ulps} ulp from its plain version")
             err = max(err, float((got - want).abs().max()))
-        print(f"int8_matmul ({m},{k},{n}): int32 exact, float32 max {ulps} ulp", flush=True)
+        print(f"int8_matmul ({m},{k},{n}) {branch}{', misaligned weight' if misaligned else ''}: "
+              f"int32 exact, float32 max {ulps} ulp", flush=True)
 
     m, k, n = 1, 1280, CLASSES
     xq = torch.from_numpy(rng.integers(-127, 128, (m, k)).astype(np.int8)).to(dev)
@@ -267,6 +289,9 @@ def nms_cases(np, rng, k):
         ("zero-area", x, y, zero_w, h, ones),
         # pixel areas above 2**24: float32 rounding decides verdicts
         ("area>2^24", ints(0, 3000), ints(0, 3000), ints(4100, 9000), ints(4100, 9000), ones),
+        # NaN coordinates: every pair with a NaN is kept apart
+        ("nan", np.where(rng.random(k) < 0.1, np.float32(np.nan), x), y, w,
+         np.where(rng.random(k) < 0.1, np.float32(np.nan), h), ones),
     ]
 
 
@@ -306,10 +331,13 @@ def nms_kernel_phase(torch, np, jax_pkg):
                   f"nms_keep K={k} {name}: dtype/shape {got.dtype}{tuple(got.shape)}")
             check(torch.equal(got, want), f"nms_keep K={k} {name}: not bitwise equal to its "
                                           "plain version")
-            print(f"nms_keep K={k} {name}: bitwise equal ({int(got.sum())} kept)", flush=True)
+            branch = "bit walk" if k <= N.BITS_MAX_K else "barrier walk"
+            print(f"nms_keep K={k} {name} ({branch}): bitwise equal ({int(got.sum())} kept)",
+                  flush=True)
 
     k = NMS_TIMED_K
-    arrays = nms_cases(np, rng, k)[0][1:5] + (np.ones(k, bool),)
+    # The timed boxes come from their own seed, whatever cases run above.
+    arrays = nms_cases(np, np.random.default_rng(2), k)[0][1:5] + (np.ones(k, bool),)
     args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
     pairs = nms_pairs(np, *arrays)
     t_bytes, by = bound_ms(4 * 4 * k + 2 * k, 16 * pairs + 3 * k, "float32")
@@ -325,7 +353,7 @@ def timed(row, kernel, plain, library=None):
     """Fill a kernel-table row with the device time per call of the kernel,
     its plain version and the library call, and the kernel's time per
     back-to-back call (host dispatch included)."""
-    row["ms"], row["timer"] = device_ms(kernel)
+    row["ms"], row["timer"] = device_ms(kernel, activities=1)
     row["plain_ms"], _ = device_ms(plain, iters=50)
     row["library_ms"] = device_ms(library)[0] if library is not None else None
     row["call_ms"] = call_ms(kernel)
@@ -652,7 +680,7 @@ def main() -> int:
     print(f"kernels built in {build_s:.3f} s ({', '.join(build.SOURCES)})", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "entry function" in line or "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
 
     kernels = kernel_phase(torch, np, K, bind, jax_pkg)

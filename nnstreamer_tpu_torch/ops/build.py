@@ -17,7 +17,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "nnstreamer_tpu_torch"
@@ -46,20 +46,24 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the port's CUDA kernels need the CUDA toolkit")
 
 
-def lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+def _source(name: str, src: Optional[Path]) -> Path:
+    return Path(src) if src is not None else CSRC / f"{name}.cu"
+
+
+def lib_path(name: str, src: Optional[Path] = None) -> Path:
+    code = _source(name, src).read_bytes()
+    digest = hashlib.sha256(code + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
-def _start(name: str):
+def _start(name: str, src: Optional[Path] = None):
     """Start nvcc for one source; None when the library is already built."""
-    out = lib_path(name)
+    out = lib_path(name, src)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(_source(name, src))]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
 
@@ -93,14 +97,15 @@ def build_all(names: List[str] = SOURCES) -> Dict[str, str]:
     return logs
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+def load(name: str, src: Optional[Path] = None) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu`` (or for the source file
+    ``src``, built under ``name``), built on first use."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            job = _start(name)
+            job = _start(name, src)
             if job is not None:
                 _finish(name, job)
-            lib = ctypes.CDLL(str(lib_path(name)))
+            lib = ctypes.CDLL(str(lib_path(name, src)))
             _LIBS[name] = lib
         return lib

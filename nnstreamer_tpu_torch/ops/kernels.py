@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Sequence, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -317,6 +317,80 @@ def int8_matmul_plain(x_q, w_q, x_scale, w_scale, bias=None) -> torch.Tensor:
     return acc.to(torch.float32) * scale + bias.reshape(1, n)
 
 
+# The small-M branch of csrc/int8_matmul.cu: a split-K GEMV over a cluster
+# of SPLIT_K blocks per TILE_N output columns, for M <= SMALL_M.  Each
+# block stages up to PASS_K weight rows at a time; a row segment of TILE_N
+# bytes lands in a SHARED_ROW-byte shared row that keeps its 16-byte phase.
+SMALL_M = 16
+SPLIT_K = 8
+TILE_N = 64
+PASS_K = 256
+SHARED_ROW = TILE_N + 16
+_MAX_GRID_Y = 65_535
+
+
+class Int8Geometry(NamedTuple):
+    """How one ``int8_matmul`` call is launched: ``branch`` is ``"splitk"``
+    (clusters of SPLIT_K blocks along x) or ``"tiled"``; ``k_per_rank`` is
+    the K rows each cluster rank takes (0 for the tiled branch), which the
+    wrapper passes to the kernel; ``grid`` is the grid of blocks."""
+
+    branch: str
+    k_per_rank: int
+    grid: Tuple[int, int]
+
+
+def int8_matmul_geometry(m: int, k: int, n: int) -> Int8Geometry:
+    """The branch and launch geometry of an (m, k) x (k, n) call."""
+    tiles = -(-n // TILE_N)
+    if m <= SMALL_M and tiles <= _MAX_GRID_Y:
+        per_rank = -(-k // SPLIT_K)
+        k_per_rank = max(4, -(-per_rank // 4) * 4)  # a whole number of dp4a words
+        return Int8Geometry("splitk", k_per_rank, (SPLIT_K, tiles))
+    return Int8Geometry("tiled", 0, (-(-n // 32), -(-m // 32)))
+
+
+def weight_reads(m: int, k: int, n: int, base: int = 0):
+    """The small-M branch's weight loads, in the kernel's own index math,
+    for a (k, n) weight whose first byte lies at address ``base``.
+
+    Each row segment of a column tile (``start``, ``start + ncols``) is
+    copied as the aligned 16-byte windows that hold it, whole, into an
+    80-byte shared row at offset ``16 v`` for window ``v``, so its byte at
+    column ``col`` lands at ``(start & 15) + col``.  A window that crosses
+    the tensor's first or last byte is copied byte by byte, within it.
+
+    Returns ``(vectors, bytes_, segments)``: arrays of (address, shared
+    offset, segment) for the 16-byte copies and for the single bytes, and
+    the (start, ncols) of every segment, indexed by segment."""
+    geo = int8_matmul_geometry(m, k, n)
+    if geo.branch != "splitk":
+        raise ValueError(f"({m},{k},{n}) takes the tiled branch")
+    rows = []
+    for rank in range(SPLIT_K):
+        kbeg = rank * geo.k_per_rank
+        kend = min(k, kbeg + geo.k_per_rank)
+        for kt in range(kbeg, kend, PASS_K):
+            rows.extend(range(kt, kt + min(PASS_K, kend - kt)))
+    n0 = np.arange(geo.grid[1], dtype=np.int64) * TILE_N
+    start = (base + np.asarray(rows, np.int64)[:, None] * n + n0[None, :]).ravel()
+    ncols = np.broadcast_to(np.minimum(TILE_N, n - n0), (len(rows), len(n0))).ravel()
+    phase = start & 15
+    seg = np.arange(len(start))
+    lo, hi = base, base + k * n
+    vectors, singles = [], []
+    for v in range(SHARED_ROW // 16):
+        win = start - phase + 16 * v
+        holds = 16 * v < phase + ncols
+        whole = holds & (win >= lo) & (win + 16 <= hi)
+        vectors.append(np.stack([win[whole], np.full(int(whole.sum()), 16 * v), seg[whole]], 1))
+        for i in np.flatnonzero(holds & ~whole):
+            addr = np.arange(max(win[i], lo), min(win[i] + 16, hi))
+            singles.append(np.stack([addr, 16 * v + addr - win[i], np.full(len(addr), i)], 1))
+    singles = np.concatenate(singles) if singles else np.zeros((0, 3), np.int64)
+    return np.concatenate(vectors), singles, np.stack([start, ncols], 1)
+
+
 def _check_int8_matmul(x_q, w_q, x_scale, w_scale, bias):
     tensors = [("x_q", x_q, torch.int8), ("w_q", w_q, torch.int8),
                ("x_scale", x_scale, torch.float32), ("w_scale", w_scale, torch.float32)]
@@ -331,6 +405,12 @@ def _check_int8_matmul(x_q, w_q, x_scale, w_scale, bias):
             raise ValueError(f"int8_matmul: {name} is on {t.device}, x_q on {x_q.device}")
         if not t.is_contiguous():
             raise ValueError(f"int8_matmul: {name} must be contiguous")
+        # Only the weight is read in 16-byte pieces, and the kernel finds
+        # their alignment itself; every other operand is read one element at
+        # a time.  So any element-aligned view (a storage offset included)
+        # is fine.
+        if t.data_ptr() % t.element_size():
+            raise ValueError(f"int8_matmul: {name} is not aligned to its element size")
     if x_q.dim() != 2 or w_q.dim() != 2 or x_q.shape[1] != w_q.shape[0]:
         raise ValueError(f"int8_matmul: bad shapes x_q {tuple(x_q.shape)}, w_q {tuple(w_q.shape)}")
     n = w_q.shape[1]
@@ -348,6 +428,8 @@ def int8_matmul(x_q, w_q, x_scale, w_scale, bias=None) -> torch.Tensor:
     x_q: (M, K) int8; w_q: (K, N) int8; x_scale: one float32 (per-tensor
     activation scale, a tensor so that it never leaves the device);
     w_scale: N float32 (per output channel); bias: (N,) float32 or None.
+    On a CUDA tensor it is one launch: the split-K cluster branch for
+    M <= :data:`SMALL_M`, the tiled branch above (:func:`int8_matmul_geometry`).
     """
     _check_int8_matmul(x_q, w_q, x_scale, w_scale, bias)
     if x_q.device.type == "cpu":
@@ -359,13 +441,14 @@ def int8_matmul(x_q, w_q, x_scale, w_scale, bias=None) -> torch.Tensor:
     out = torch.empty((m, n), dtype=torch.float32, device=x_q.device)
     if m == 0 or n == 0:
         return out
+    geo = int8_matmul_geometry(m, k, n)
     lib = _int8_matmul_lib()
     with torch.cuda.device(x_q.device):
         stream = torch.cuda.current_stream(x_q.device).cuda_stream
         err = lib.nns_int8_matmul(
             x_q.data_ptr(), w_q.data_ptr(), x_scale.data_ptr(), w_scale.data_ptr(),
             bias.data_ptr() if bias is not None else None, out.data_ptr(),
-            m, k, n, stream)
+            m, k, n, geo.k_per_rank, stream)
     if err:
         raise RuntimeError(f"int8_matmul launch failed: CUDA error {err}")
     int8_matmul.launches += 1
@@ -378,7 +461,7 @@ int8_matmul.launches = 0
 @functools.lru_cache(maxsize=None)
 def _int8_matmul_lib() -> ctypes.CDLL:
     lib = load("int8_matmul")
-    lib.nns_int8_matmul.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.nns_int8_matmul.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     lib.nns_int8_matmul.restype = ctypes.c_int
     return lib
 

@@ -25,13 +25,30 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from .build import load
 
-# The kernel keeps five float32 values and one keep byte per row in shared
-# memory: 8192 rows take 172,032 bytes of the 227 KB a block may use.
+# Above BITS_MAX_K the kernel keeps five float32 values and one keep byte
+# per row in shared memory: 8192 rows take 172,032 bytes of the 227 KB a
+# block may use.
 MAX_K = 8192
+# Dynamic shared memory one block may use on an H100 (227 KB).
+SMEM_LIMIT = 232_448
+
+
+def bits_smem_bytes(k: int) -> int:
+    """Shared memory of the kernel's bit branch at K = k: the boxes (k
+    float4 of x, y, x2, y2), the areas (k float32), the suppression bits
+    (k rows of ceil(k/32) words, then 32 words of slack), then the valid
+    mask (ceil(k/32) words)."""
+    words = -(-k // 32)
+    return 16 * k + 4 * k + 4 * (k * words + 32) + 4 * words
+
+
+# The largest K whose bit layout fits (csrc/nms_keep.cu kBitsMaxK).
+BITS_MAX_K = max(k for k in range(1, MAX_K + 1) if bits_smem_bytes(k) <= SMEM_LIMIT)
 
 
 def suppression_matrix(x, y, w, h) -> torch.Tensor:
@@ -69,6 +86,72 @@ def nms_keep(x, y, w, h, valid) -> torch.Tensor:
     return greedy_keep(suppression_matrix(x, y, w, h), valid)
 
 
+def suppression_bits(x, y, w, h) -> np.ndarray:
+    """The kernel's packed suppression bits: (K, ceil(K/32)) uint32, word
+    ``c`` of row ``i`` has bit ``b`` set when row ``i`` suppresses row
+    ``j = 32c + b`` and ``j > i``.  Every pair is tested, valid or not."""
+    k = x.shape[0]
+    words = -(-k // 32)
+    sup = suppression_matrix(x, y, w, h).cpu().numpy()
+    later = sup & (np.arange(k)[None, :] > np.arange(k)[:, None])
+    padded = np.zeros((k, words * 32), bool)
+    padded[:, :k] = later
+    weights = np.uint32(1) << np.arange(32, dtype=np.uint32)
+    return (padded.reshape(k, words, 32) * weights).sum(axis=2, dtype=np.uint32)
+
+
+def bit_tasks(k: int):
+    """The kernel's first-phase tasks at K = k, in task order: arrays of
+    (column byte, row).  Column byte ``cb`` (columns 8 cb .. 8 cb + 7) has
+    a task for each row ``i < min(k, 8 cb + 7)``: the bytes on or above the
+    diagonal.  The first ``last + 1`` column bytes form a triangle whose
+    task ``t`` lies in the column byte ``cb`` with ``4 cb^2 + 3 cb <= t``,
+    found from a float32 square root and corrected, as the kernel does."""
+    nb = 4 * -(-k // 32)
+    last = min(nb - 1, (k - 7) // 8 if k >= 7 else -1)
+    tri = 4 * (last + 1) ** 2 + 3 * (last + 1)
+    t = np.arange(tri + (nb - last - 1) * k, dtype=np.int64)
+    cb = np.empty_like(t)
+    head = t[:tri].astype(np.float32)
+    cb[:tri] = ((np.sqrt(np.float32(9) + np.float32(16) * head) - np.float32(3))
+                * np.float32(0.125)).astype(np.int64)
+    for _ in range(2):
+        over = (t[:tri] < 4 * cb[:tri] ** 2 + 3 * cb[:tri]) & (cb[:tri] > 0)
+        cb[:tri][over] -= 1
+        under = t[:tri] >= 4 * (cb[:tri] + 1) ** 2 + 3 * (cb[:tri] + 1)
+        cb[:tri][under] += 1
+    cb[tri:] = last + 1 + (t[tri:] - tri) // k
+    row = np.where(t < tri, t - (4 * cb ** 2 + 3 * cb), t - tri - (cb - last - 1) * k)
+    return cb, row
+
+
+def bit_walk_keep(bits: np.ndarray, valid) -> np.ndarray:
+    """The kernel's greedy walk over packed bits, in 32-row chunks, as its
+    one warp runs it.  Within a chunk the removed word is one value; a
+    valid row whose bit is clear is kept and ORs in its diagonal word.
+    Then the chunk's kept rows' later words join the removed mask."""
+    valid = np.asarray(valid.cpu() if isinstance(valid, torch.Tensor) else valid, bool)
+    k, words = bits.shape
+    removed = [0] * words
+    keep = np.zeros(k, bool)
+    for c in range(words):
+        r0 = c * 32
+        rows = range(r0, min(k, r0 + 32))
+        vmask = sum(1 << (r - r0) for r in rows if valid[r])
+        rem = removed[c]
+        for r in rows:
+            if (vmask >> (r - r0)) & 1 and not (rem >> (r - r0)) & 1:
+                rem |= int(bits[r, c])
+        kept = vmask & ~rem
+        for r in rows:
+            keep[r] = bool((kept >> (r - r0)) & 1)
+        for wi in range(c + 1, words):
+            for r in rows:
+                if (kept >> (r - r0)) & 1:
+                    removed[wi] |= int(bits[r, wi])
+    return keep
+
+
 def _check(x, y, w, h, valid) -> int:
     for name, t, dtype in (("x", x, torch.float32), ("y", y, torch.float32),
                            ("w", w, torch.float32), ("h", h, torch.float32),
@@ -84,6 +167,10 @@ def _check(x, y, w, h, valid) -> int:
             raise ValueError(f"nms_keep: {name} is on {t.device}, x on {x.device}")
         if not t.is_contiguous():
             raise ValueError(f"nms_keep: {name} must be contiguous")
+        # The kernel reads each operand one element at a time, so any
+        # element-aligned view (a storage offset included) is fine.
+        if t.data_ptr() % t.element_size():
+            raise ValueError(f"nms_keep: {name} is not aligned to its element size")
     return x.shape[0]
 
 
@@ -91,7 +178,8 @@ def pallas_nms_keep(x, y, w, h, valid) -> torch.Tensor:
     """Keep mask (K,) bool of greedy IoU>0.5 NMS over score-ordered,
     integer-valued float32 boxes ``x, y, w, h`` (K,) seeded by ``valid``
     (K,) bool.  Bitwise equal to :func:`nms_keep`; on a CUDA tensor it is
-    one launch of the ``nms_keep`` kernel, for K up to :data:`MAX_K`."""
+    one launch of the ``nms_keep`` kernel, for K up to :data:`MAX_K`
+    (the bit-walk design up to :data:`BITS_MAX_K`)."""
     k = _check(x, y, w, h, valid)
     if x.device.type == "cpu":
         return nms_keep(x, y, w, h, valid)

@@ -6,7 +6,12 @@ Inputs are made with numpy from fixed seeds and go through
 ``nnstreamer_tpu_torch.ops.kernels`` on CPU tensors, which take the plain
 PyTorch versions.  The CUDA kernels themselves run only on a GPU: the tests
 marked ``cuda`` hold them against the plain versions there and skip here.
+``TestInt8Geometry`` checks the split-K launch geometry and the weight loads
+of ``int8_matmul``'s small-M branch, in the kernel's own index math.
 """
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -218,6 +223,126 @@ class TestInt8Matmul:
             K.int8_matmul(*(t.to("meta") for t in (xq, wq, xs, ws, b)))
 
 
+def _misaligned_weight(wq: np.ndarray, offset: int = 1) -> torch.Tensor:
+    """``wq`` as a contiguous (k, n) view that starts ``offset`` bytes into
+    its storage, so its data_ptr() is not 16-byte aligned."""
+    k, n = wq.shape
+    flat = torch.empty(k * n + offset, dtype=torch.int8)
+    view = flat[offset:].view(k, n)
+    view.copy_(torch.from_numpy(wq))
+    return view
+
+
+class TestInt8Geometry:
+    @pytest.mark.parametrize("m,k,n", [(1, 1280, 1001), (16, 1280, 1001), (1, 1283, 1001),
+                                       (3, 1280, 1001), (1, 64, 1001), (1, 7, 5), (1, 1, 1),
+                                       (2, 5000, 70), (1, 0, 3)])
+    def test_split_k_geometry(self, m, k, n):
+        geo = K.int8_matmul_geometry(m, k, n)
+        assert geo.branch == "splitk" and K.SPLIT_K == 8
+        assert geo.k_per_rank % 4 == 0 and geo.k_per_rank * K.SPLIT_K >= k
+        assert (geo.k_per_rank - 4) * K.SPLIT_K < max(k, 1)  # no rank is more than one word idle
+        assert geo.grid == (K.SPLIT_K, -(-n // K.TILE_N))
+
+    def test_branch_edge(self):
+        assert K.int8_matmul_geometry(K.SMALL_M, 1280, 1001).branch == "splitk"
+        assert K.int8_matmul_geometry(K.SMALL_M + 1, 1280, 1001).branch == "tiled"
+        assert K.int8_matmul_geometry(300, 1280, 256) == ("tiled", 0, (8, 10))
+        # the head's shape: 16 column tiles x 8 ranks of 160 rows = 128 blocks
+        assert K.int8_matmul_geometry(1, 1280, 1001) == ("splitk", 160, (8, 16))
+
+    @pytest.mark.parametrize("base", [0, 1, 7, 15, 16 * 1001])
+    @pytest.mark.parametrize("m,k,n", [(1, 1280, 1001), (16, 1280, 1001), (1, 1283, 1001),
+                                       (3, 1280, 1001), (1, 64, 1001), (1, 7, 5), (1, 1, 1),
+                                       (2, 5000, 70), (4, 300, 64), (1, 33, 128)])
+    def test_every_weight_byte_reaches_the_products_once(self, m, k, n, base):
+        """The small-M branch's weight loads (the kernel's index math): no
+        read leaves the tensor, every 16-byte copy is aligned in global and
+        shared memory and fits its 80-byte shared row, and every byte of
+        the (k, n) weight lands exactly once where the products read it,
+        at ``(start & 15) + col`` of its segment's row.  The whole windows
+        also bring neighbouring bytes of the same tensor, never into the
+        columns the products read, and at most 15 beside each end of a
+        segment."""
+        vectors, singles, segs = K.weight_reads(m, k, n, base=base)
+        size = k * n
+        assert (vectors[:, 0] % 16 == 0).all() and (vectors[:, 1] % 16 == 0).all()
+        assert (vectors[:, 1] + 16 <= K.SHARED_ROW).all()
+        assert (singles[:, 1] >= 0).all() and (singles[:, 1] < K.SHARED_ROW).all()
+        for addr, width in ((vectors[:, 0], 16), (singles[:, 0], 1)):
+            assert (addr >= base).all() and (addr + width <= base + size).all()
+        # every byte each copy brings, with the shared offset it lands at
+        lanes = np.arange(16)
+        addr = np.concatenate([(vectors[:, 0, None] + lanes).ravel(), singles[:, 0]])
+        dst = np.concatenate([(vectors[:, 1, None] + lanes).ravel(), singles[:, 1]])
+        seg = np.concatenate([np.repeat(vectors[:, 2], 16), singles[:, 2]])
+        start, ncols = segs[seg, 0], segs[seg, 1]
+        used = (addr >= start) & (addr < start + ncols)
+        np.testing.assert_array_equal(dst[used], (start & 15)[used] + addr[used] - start[used])
+        counts = np.bincount(addr[used] - base, minlength=size)
+        np.testing.assert_array_equal(counts, np.ones(size, np.int64))
+        extra = ~used
+        assert ((dst[extra] < (start & 15)[extra])
+                | (dst[extra] >= (start & 15)[extra] + ncols[extra])).all()
+        assert (np.bincount(seg[extra], minlength=len(segs)) <= 30).all()
+        if size >= 64 * 16:  # most of a large weight goes in 16-byte copies
+            assert len(singles) <= 32
+
+    def test_weight_reads_refuse_the_tiled_branch(self):
+        with pytest.raises(ValueError, match="tiled"):
+            K.weight_reads(17, 64, 64)
+
+    def test_cuda_source_names_the_same_geometry(self):
+        src = (Path(K.__file__).resolve().parent.parent / "csrc" / "int8_matmul.cu").read_text()
+        consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+        assert int(consts["kMaxSmallM"]) == K.SMALL_M
+        assert int(consts["kSplit"]) == K.SPLIT_K
+        assert int(consts["kTileN"]) == K.TILE_N
+        assert int(consts["kPassK"]) == K.PASS_K
+
+    def test_float_operand_not_aligned_to_its_element_raises(self):
+        """A float32 operand can start at an odd address (a buffer imported
+        at a byte offset); the kernel reads it with float loads."""
+        xq, wq, xs, ws, b = _int8_operands(1, 16, 4, seed=1)
+        odd = torch.frombuffer(bytearray(1) + bytearray(b.tobytes()), dtype=torch.float32,
+                               offset=1, count=4)
+        assert odd.data_ptr() % 4 != 0
+        with pytest.raises(ValueError, match="aligned"):
+            K.int8_matmul(torch.from_numpy(xq), torch.from_numpy(wq), torch.tensor(xs),
+                          torch.from_numpy(ws), odd)
+
+    @pytest.mark.parametrize("m,k,n", [(1, 1280, 1001), (17, 64, 33)])
+    def test_misaligned_weight_view_accepted(self, m, k, n):
+        """A weight view whose data_ptr() is one byte past a 16-byte
+        boundary is taken as it lies: the kernel finds the alignment of
+        each row segment itself.  Same result as a fresh contiguous copy
+        and as the JAX package."""
+        xq, wq, xs, ws, b = _int8_operands(m, k, n, seed=3)
+        view = _misaligned_weight(wq)
+        assert view.is_contiguous() and view.storage_offset() == 1
+        args = (torch.from_numpy(xq), view, torch.tensor(xs), torch.from_numpy(ws),
+                torch.from_numpy(b))
+        got = K.int8_matmul(*args).numpy()
+        np.testing.assert_array_equal(got, K.int8_matmul_plain(
+            torch.from_numpy(xq), torch.from_numpy(wq.copy()), *args[2:]).numpy())
+        want = np.asarray(jk.int8_matmul(jnp.asarray(xq), jnp.asarray(wq), jnp.float32(1.0),
+                                         jnp.ones((1, n), jnp.float32),
+                                         jnp.zeros((n,), jnp.float32)))
+        ones = K.int8_matmul(torch.from_numpy(xq), view, torch.tensor(1.0),
+                             torch.ones((1, n)), torch.zeros(n)).numpy()
+        np.testing.assert_array_equal(ones, want)
+
+
+def test_kernel_timing_tool_needs_a_gpu(monkeypatch, capsys):
+    """The old-against-new timing tool refuses to run without a card: it
+    measures nothing on the CPU."""
+    from nnstreamer_tpu_torch.tools import kernel_ab
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert kernel_ab.main(["--parent", "."]) == 2
+    assert "no CUDA GPU" in capsys.readouterr().err
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -237,10 +362,14 @@ def test_cuda_fused_arith_matches_plain(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n", INT8_SHAPES)
-def test_cuda_int8_matmul_matches_plain(cuda_device, m, k, n):
+@pytest.mark.parametrize("misaligned", [False, True])
+@pytest.mark.parametrize("m,k,n", INT8_SHAPES + [(16, 1280, 1001), (17, 1280, 1001),
+                                                 (1, 1283, 1001), (1, 7, 5)])
+def test_cuda_int8_matmul_matches_plain(cuda_device, m, k, n, misaligned):
     ops = [torch.from_numpy(a) if isinstance(a, np.ndarray) else torch.tensor(a)
            for a in _int8_operands(m, k, n, seed=11)]
+    if misaligned:
+        ops[1] = _misaligned_weight(ops[1].numpy())
     dev = [t.to(cuda_device) for t in ops]
     before = K.int8_matmul.launches
     got = K.int8_matmul(*dev)
