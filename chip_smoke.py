@@ -9,13 +9,25 @@ toolkit:
 In order, it
 1. prints the card's name and power limit (nvidia-smi);
 2. builds every kernel of the port from ``nnstreamer_tpu_torch/csrc`` with
-   nvcc (one process per source, in parallel) and prints the build time;
+   nvcc (one process per source, in parallel) and prints the build time
+   and each kernel's ``ptxas -v`` registers, stack frame and spills
+   (``fused_arith`` summed over its instantiations: it must have no stack
+   frame and no spills);
 3. kernel phase: runs each kernel on the card at its path's shapes (and a
    few others) against its plain PyTorch version on the same inputs:
-   ``fused_arith`` and ``nms_keep`` must be bitwise equal, ``int8_matmul``
-   exact in its int32 accumulator and within 1 ulp in float32; then times
-   kernel, plain version and, where one exists, the one PyTorch call that
-   computes the same function (a yardstick only; the port never calls it);
+   ``fused_arith`` and ``nms_keep`` must be bitwise equal (a NaN equal to
+   any NaN), ``int8_matmul`` exact in its int32 accumulator and within 1
+   ulp in float32; ``fused_arith``'s cases add a 4K frame, inputs 1 and
+   4 bytes past a 16-byte boundary, a float16 chain, a uint32 chain that
+   wraps, float32 NaN and +-inf through typecasts to int8 and uint16, and
+   two chains with 32 output bytes a vector (int16 -> float32, uint8 ->
+   uint16).
+   Then it times kernel, plain version and, where one exists, the one
+   PyTorch call that computes the same function (a yardstick only; the
+   port never calls it); each kernel at its smallest case as its launch
+   floor; ``fused_arith`` also at the 4K frame and, beside it,
+   ``x.to(torch.float32)`` on the same frames (the same bytes and one
+   conversion, a yardstick for the chain);
 4. image-labeling phase (slice 1): builds MobileNet-v2 1.0 (224x224x3 uint8
    frames, 1001 classes, bf16, int8 classifier head, random weights from a
    fixed seed) and runs 64 ``videotestsrc`` frames through the pipeline on
@@ -64,6 +76,7 @@ NMS_TIMED_K = 100       # the tflite-ssd lowering's PRE_NMS_TOP_K
 # CUDA's expf and numpy's exp differ by ulps: a detection's prob from the
 # card may differ from the host decode's by a few ulps of 1.0.
 PROB_ATOL = 1e-5
+FRAME_4K = (2160, 3840, 3)  # 124.4 MB in and out: more than the 50 MB L2
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float32": 67e12, "int8": 1979e12}
@@ -123,7 +136,8 @@ def device_ms(fn, iters: int = 100, warmup: int = 20, activities: int = 0):
     calls when the profiler records no device time.  Returns (ms, timer).
     With ``activities`` (the device activities one call makes), a trace
     that holds another count has lost records and is taken again, up to
-    five times, before falling back to CUDA events."""
+    five times; the fifth is taken if it holds at least 90% of the records,
+    as the mean of those it holds, else CUDA events time the calls."""
     for _ in range(warmup):
         fn()
     for _ in range(5):
@@ -132,6 +146,8 @@ def device_ms(fn, iters: int = 100, warmup: int = 20, activities: int = 0):
             break
         if not activities or count == activities * iters:
             return total / iters, "cupti"
+    if total is not None and activities * iters * 0.9 <= count <= activities * iters:
+        return total / count * activities, "cupti"
     return call_ms(fn, iters, warmup=0), "events"
 
 
@@ -139,6 +155,16 @@ def bound_ms(nbytes: int, ops: int, op_type: str):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S[op_type] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bitwise_equal(torch, a, b) -> bool:
+    """Equal bit for bit, except that any NaN equals any NaN (the plain
+    version's PyTorch kernels may give a NaN another payload)."""
+    if not a.dtype.is_floating_point:
+        return torch.equal(a, b)
+    na, nb = torch.isnan(a), torch.isnan(b)
+    bits = torch.int16 if a.element_size() == 2 else torch.int32
+    return torch.equal(na, nb) and torch.equal(a[~na].view(bits), b[~nb].view(bits))
 
 
 def max_ulp(a, b) -> int:
@@ -158,51 +184,87 @@ def kernel_phase(torch, np, K, bind, jax_pkg):
     results = {}
 
     # -- fused_arith: bitwise against its plain version ---------------------
+    def ints(dtype, lo, hi):
+        return lambda shape: rng.integers(lo, hi, shape).astype(dtype)
+
+    def floats(dtype):
+        def make(shape):
+            x = (rng.standard_normal(shape) * 300).astype(dtype)
+            x.flat[:6] = [np.nan, np.inf, -np.inf, -0.0, 0.0, 1e9 if dtype == np.float32 else 6e4]
+            return x
+        return make
+
+    u8 = ints(np.uint8, 0, 256)
     cases = [
-        ((IMAGE, IMAGE, 3), np.uint8, NORMALIZE),
-        ((SSD_IMAGE, SSD_IMAGE, 3), np.uint8, NORMALIZE),
-        ((1,), np.uint8, NORMALIZE),
-        ((127,), np.uint8, NORMALIZE),
-        ((1_000_003,), np.uint8, NORMALIZE),
-        ((4099,), np.int32, "mul:3,sub:7,clamp:-100:100"),
-        ((4099,), np.uint8, "add:-128"),
-        ((4099,), np.uint8, "clamp:-1:1"),
+        ((IMAGE, IMAGE, 3), u8, NORMALIZE, 0),
+        ((SSD_IMAGE, SSD_IMAGE, 3), u8, NORMALIZE, 0),
+        (FRAME_4K, u8, NORMALIZE, 0),
+        ((IMAGE, IMAGE, 3), u8, NORMALIZE, 1),  # a view one byte into its storage: all scalar
+        ((IMAGE, IMAGE, 3), u8, NORMALIZE, 4),  # four bytes: 12 scalars, then vectors
+        ((1,), u8, NORMALIZE, 0),
+        ((127,), u8, NORMALIZE, 0),
+        ((1_000_003,), u8, NORMALIZE, 0),
+        ((4099,), ints(np.int32, -1000, 1000), "mul:3,sub:7,clamp:-100:100", 0),
+        ((4099,), u8, "add:-128", 0),
+        ((4099,), u8, "clamp:-1:1", 0),
+        ((100_003,), floats(np.float16), "mul:3,add:0.1,clamp:-1000:1000.5", 0),
+        ((100_003,), ints(np.uint32, 0, 2 ** 32), "mul:65537,add:4000000000", 0),  # wraps
+        ((100_003,), floats(np.float32), "typecast:int8", 0),  # NaN and +-inf to int
+        ((100_003,), floats(np.float32), "typecast:uint16", 0),
+        # 32 output bytes a vector: staged stores of two pieces
+        ((100_003,), ints(np.int16, -32768, 32768), "typecast:float32,mul:0.5", 0),
+        ((100_003,), u8, "typecast:uint16,mul:300", 0),
     ]
     err = 0.0
-    for shape, dtype, option in cases:
-        if np.issubdtype(dtype, np.integer) and dtype != np.uint8:
-            x = rng.integers(-1000, 1000, shape).astype(dtype)
-        else:
-            x = rng.integers(0, 256, shape).astype(dtype)
-        ops = bind(option, np.dtype(dtype))
+    for shape, make, option, offset in cases:
+        x = make(shape)
+        dtype = x.dtype
+        ops = bind(option, dtype)
         xd = torch.from_numpy(x).to(dev)
+        if offset:
+            view = torch.empty(x.size + offset, dtype=xd.dtype, device=dev)[offset:]
+            xd = view.view(shape).copy_(xd)
+            check(xd.data_ptr() % 16 != 0, "the misaligned input is 16-byte aligned")
         got = K.fused_arith(xd, ops)
         want = K.fused_arith_plain(xd, ops)
         torch.cuda.synchronize()
         check(got.dtype == want.dtype and got.shape == want.shape,
               f"fused_arith {option} {shape}: dtype/shape {got.dtype}{tuple(got.shape)}")
-        check(torch.equal(got, want), f"fused_arith {option} {shape} {np.dtype(dtype)}: "
-                                      "not bitwise equal to its plain version")
-        err = max(err, float((got.double() - want.double()).abs().max()))
-        print(f"fused_arith {np.dtype(dtype).name}{shape} '{option}': bitwise equal", flush=True)
+        check(bitwise_equal(torch, got, want), f"fused_arith {option} {shape} {dtype}: "
+                                               "not bitwise equal to its plain version")
+        finite = torch.isfinite(want) if want.dtype.is_floating_point else slice(None)
+        err = max(err, float((got[finite].double() - want[finite].double()).abs().max()))
+        where = f", {offset * x.itemsize} bytes past a 16-byte boundary" if offset else ""
+        print(f"fused_arith {dtype.name}{shape} '{option}'{where}: bitwise equal", flush=True)
 
     ops = bind(NORMALIZE, np.dtype(np.uint8))
     rows = []
-    for size in (IMAGE, SSD_IMAGE):  # the labeling path's frame, then the detection path's
-        x = torch.from_numpy(rng.integers(0, 256, (size, size, 3)).astype(np.uint8)).to(dev)
+    # the labeling path's frame, the detection path's, then a 4K frame that
+    # does not fit in L2
+    for shape in ((IMAGE, IMAGE, 3), (SSD_IMAGE, SSD_IMAGE, 3), FRAME_4K):
+        x = torch.from_numpy(rng.integers(0, 256, shape).astype(np.uint8)).to(dev)
         n = x.numel()
         t_bytes, by = bound_ms(n * 1 + n * 4, n * 2, "float32")
-        rows.append(timed(
+        row = timed(
             dict(name="fused_arith", route="cuda",
                  source="nnstreamer_tpu_torch/csrc/fused_arith.cu",
                  replaces=f"{jax_pkg}/ops/pallas_kernels.py:77", max_abs_err=err,
                  bound_ms=t_bytes, bound_by=by,
-                 shape=f"({size},{size},3) uint8 -> float32, '{NORMALIZE}'"),
+                 shape=f"{shape} uint8 -> float32, '{NORMALIZE}'"),
             kernel=lambda x=x: K.fused_arith(x, ops),
-            plain=lambda x=x: K.fused_arith_plain(x, ops)))
+            plain=None if shape == FRAME_4K else (lambda x=x: K.fused_arith_plain(x, ops)))
+        # same bytes, one conversion: a yardstick, not the chain
+        row["cast_ms"] = device_ms(lambda x=x: x.to(torch.float32), activities=1)[0]
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        rows.append(row)
     results["fused_arith"] = rows[0]
-    rows[0]["at_detection_shape"] = {key: rows[1][key] for key in (
-        "shape", "ms", "plain_ms", "call_ms", "bound_ms", "bound_by")}
+    keys = ("shape", "ms", "plain_ms", "cast_ms", "call_ms", "bound_ms", "bound_by",
+            "share_of_bound")
+    rows[0]["at_detection_shape"] = {key: rows[1][key] for key in keys}
+    rows[0]["at_4k"] = {key: rows[2][key] for key in keys}
+    one = torch.zeros(1, dtype=torch.uint8, device=dev)
+    rows[0]["launch_floor_ms"], rows[0]["launch_floor_timer"] = device_ms(
+        lambda: K.fused_arith(one, ops), activities=1)
 
     # -- int8_matmul: exact int32, float32 within 1 ulp ----------------------
     # M = 16 and 17 sit on either side of the split-K branch's limit
@@ -264,11 +326,23 @@ def kernel_phase(torch, np, K, bind, jax_pkg):
         kernel=lambda: K.int8_matmul(xq, wq, xs, ws, b),
         plain=lambda: K.int8_matmul_plain(xq, wq, xs, ws, b),
         library=lambda: torch._int_mm(xp, wp))
+    small = [torch.from_numpy(a).to(dev) for a in (
+        rng.integers(-127, 128, (1, 7)).astype(np.int8),
+        rng.integers(-127, 128, (7, 5)).astype(np.int8), np.array(1.0, np.float32),
+        np.ones((1, 5), np.float32), np.zeros(5, np.float32))]
+    floor = device_ms(lambda: K.int8_matmul(*small), activities=1)
+    results["int8_matmul"]["launch_floor_ms"], results["int8_matmul"]["launch_floor_timer"] = floor
     results["nms_keep"] = nms_kernel_phase(torch, np, jax_pkg)
     for r in results.values():
         print(f"{r['name']}: kernel {r['ms']} ms ({r['timer']}), per call {r['call_ms']} ms, "
               f"plain {r['plain_ms']} ms, bound {r['bound_ms']} ms ({r['bound_by']}), "
-              f"library {r['library_ms']} ms", flush=True)
+              f"library {r['library_ms']} ms, launch floor {r['launch_floor_ms']} ms "
+              f"({r['launch_floor_timer']})",
+              flush=True)
+    for key in ("at_detection_shape", "at_4k"):
+        r = results["fused_arith"][key]
+        print(f"fused_arith {r['shape']}: kernel {r['ms']} ms, x.to(float32) {r['cast_ms']} ms, "
+              f"bound {r['bound_ms']} ms, {r['share_of_bound']} of the bound", flush=True)
     return results
 
 
@@ -341,12 +415,17 @@ def nms_kernel_phase(torch, np, jax_pkg):
     args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
     pairs = nms_pairs(np, *arrays)
     t_bytes, by = bound_ms(4 * 4 * k + 2 * k, 16 * pairs + 3 * k, "float32")
-    return timed(
+    row = timed(
         dict(name="nms_keep", route="cuda", source="nnstreamer_tpu_torch/csrc/nms_keep.cu",
              replaces=f"{jax_pkg}/ops/nms.py:89", max_abs_err=0.0, bound_ms=t_bytes,
              bound_by=by, pairs_tested=pairs,
              shape=f"K={k} boxes, float32 x/y/w/h + bool valid -> bool keep"),
         kernel=lambda: N.pallas_nms_keep(*args), plain=lambda: N.nms_keep(*args))
+    one = [torch.ones(1, device=dev) for _ in range(4)] + [torch.ones(1, dtype=torch.bool,
+                                                                      device=dev)]
+    row["launch_floor_ms"], row["launch_floor_timer"] = device_ms(
+        lambda: N.pallas_nms_keep(*one), activities=1)
+    return row
 
 
 def timed(row, kernel, plain, library=None):
@@ -354,7 +433,7 @@ def timed(row, kernel, plain, library=None):
     its plain version and the library call, and the kernel's time per
     back-to-back call (host dispatch included)."""
     row["ms"], row["timer"] = device_ms(kernel, activities=1)
-    row["plain_ms"], _ = device_ms(plain, iters=50)
+    row["plain_ms"] = device_ms(plain, iters=50)[0] if plain is not None else None
     row["library_ms"] = device_ms(library)[0] if library is not None else None
     row["call_ms"] = call_ms(kernel)
     return row
@@ -679,11 +758,24 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     print(f"kernels built in {build_s:.3f} s ({', '.join(build.SOURCES)})", flush=True)
     for name, log in logs.items():
+        if name == "fused_arith":
+            continue
         for line in log.splitlines():
             if "entry function" in line or "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
+    # fused_arith: 72 instantiations (8 float32-chain, 64 general), summed up
+    report = build.ptxas_report(build.log_path("fused_arith").read_text())
+    ptxas = dict(entries=len(report), max_registers=max(r["registers"] for r in report.values()),
+                 max_stack_bytes=max(r["stack"] for r in report.values()),
+                 spill_bytes=sum(r["spill_stores"] + r["spill_loads"] for r in report.values()))
+    print(f"  fused_arith: ptxas -v over {ptxas['entries']} entries: at most "
+          f"{ptxas['max_registers']} registers, {ptxas['max_stack_bytes']} bytes stack frame, "
+          f"{ptxas['spill_bytes']} bytes spilled", flush=True)
+    check(ptxas["max_stack_bytes"] == 0 and ptxas["spill_bytes"] == 0,
+          f"fused_arith has a stack frame or spills: {ptxas}")
 
     kernels = kernel_phase(torch, np, K, bind, jax_pkg)
+    kernels["fused_arith"]["ptxas"] = ptxas
     by_path = {"image_labeling": slice_phase(torch, np, K, bind)}
     by_path["object_detection"] = detection_phase(torch, np, K, bind, root)
     wrapper = {"fused_arith": "fused_arith", "int8_matmul": "int8_matmul",

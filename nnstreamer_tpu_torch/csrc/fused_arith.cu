@@ -3,235 +3,411 @@
 //
 // Replaces the JAX package's Pallas TPU kernel
 // ops/pallas_kernels.py::fused_arith (pallas_call at :113).  The Python wrapper is
-// nnstreamer_tpu_torch/ops/kernels.py::fused_arith, which binds the chain:
-// it works out each step's result dtype under the JAX promotion rules and
-// passes the steps here by value.
+// nnstreamer_tpu_torch/ops/kernels.py::fused_arith.  The host lowers each
+// (input dtype, chain) once into a Program (ops/kernels.py::lower_chain): for
+// each step a conversion code, an operation code, a post code and the
+// operands as 32-bit patterns, float literals already rounded to the step's
+// dtype.  The kernel takes it as a __grid_constant__ parameter and reads it
+// with every index known at compile time (the step loop is unrolled over
+// kMaxSteps), so nothing goes to local memory.
 //
-// Bound on an H100: memory.  Every element is read once and written once;
-// the chain does a handful of operations per element.  At the image-labeling
-// path's shape (224x224x3 uint8 -> float32) that is 150,528 B in and
-// 602,112 B out, about 0.22 us at 3.35 TB/s, so the launch itself dominates.
-// Design: a grid-stride loop, one element per thread per trip, templated on
-// the input and output type so loads and stores are typed; the chain is
-// interpreted per element from a small struct kept in kernel parameters
-// (uniform across the grid, so the switch never diverges).
+// Bound on an H100: memory.  Every element is read once and written once,
+// with one conversion and a few float operations.  The normalize chain on a
+// (224,224,3) uint8 frame moves 150,528 B in and 602,112 B out: 0.22 us at
+// 3.35 TB/s, below the cost of any launch, so at the path's shapes the
+// launch sets the floor.  A 4K frame (2160x3840x3) moves 124.4 MB, more than
+// the 50 MB L2: 37.1 us.  The operations stay under the bytes: integer to
+// float conversions run at 16 per clock per SM, 3.7e12/s on 132 SMs.
+// Shared memory, tensor cores and TMA buy nothing here: each byte is
+// touched once, by one thread, with no reuse and no reduction.
 //
-// Numerics follow the JAX kernel:
-// - each step computes in its own result dtype (int steps wrap at the
-//   dtype's width; float16 steps compute in float32 and round to half after
-//   every step, which is exact for + - * since float32 holds 2*11+2 bits);
+// Design:
+// - 16-byte vector I/O: each thread loads 16 bytes of input (16 uint8, 8 of
+//   a 2-byte type, 4 of a 4-byte type).  A vector's outputs of 16 bytes or
+//   fewer go out in one aligned store of their width (one 4-byte store for
+//   float32 -> uint8); outputs of 32 or 64 bytes (4 x 16 B for uint8 ->
+//   float32) are staged through shared memory by the warp, so that every
+//   store instruction writes 512 contiguous bytes.  That staging is what
+//   reaches the bytes bound: the output is 4 bytes for every byte in, and
+//   stores of 16 bytes at a 64-byte stride across a warp held a 4K frame
+//   to about half of it (PERF.md, findings).  The vector body starts at the
+//   first element where both x and y are aligned
+//   (ops/kernels.py::fused_arith_geometry); the elements before it and
+//   after the last whole vector are a scalar branch of the same kernel, so
+//   any element-aligned view is taken.
+// - A grid sized to the card and the tensor: one vector per thread, in
+//   kThreads-thread blocks, ceil(vectors / kThreads) of them: 74 blocks at
+//   (224,224,3) and 132 at (300,300,3), one wave on 132 SMs; 12,150 at 4K,
+//   where blocks retire and start in address order.  A grid-stride loop
+//   over 132 x 8 blocks with up to 4 loads in flight per thread measured
+//   slower at every size (PERF.md, findings).
+// - Two variants, chosen on the host from the program:
+//   FLOAT_CHAIN (every step computes in float32, as the normalize chain):
+//   one conversion of the input to float, then float ops on pre-rounded
+//   literals, one switch per step hoisted over the vector's elements;
+//   GENERAL (int and float16 steps): a value travels as 32 bits, an integer
+//   as its two's complement pattern (int steps are 32-bit unsigned
+//   arithmetic, whose sums and products reduce correctly mod 2^8 and 2^16,
+//   then wrap to the step's width), a float as float32 bits.
+// - Plain write-back stores: the filter's first conv reads the output next,
+//   from L2.
+//
+// Numerics follow the JAX kernel, bit for bit with the plain version:
+// - float16 steps compute in float32 and round to half after every step
+//   (exact for + - * since float32 holds 2*11+2 bits);
 // - division by a literal arrives as a multiplication by its reciprocal,
 //   which is what XLA compiles x / const into on every backend;
 // - round-to-nearest intrinsics throughout (__fadd_rn, __fmul_rn, ...), no
-//   fused multiply-add, so the normalize chain is bitwise equal to JAX's;
-// - float -> int conversion saturates and maps NaN to 0, as XLA's convert;
-// - clamp is XLA's max(lo, x) then min(hi, x): NaN propagates.
+//   fused multiply-add (-fmad=false);
+// - int -> float rounds from the exact value (__int2float_rn, and
+//   __uint2float_rn for uint32);
+// - float -> int truncates and saturates, NaN to 0 (cvt.rzi, which clamps
+//   to its 32-bit range, then a clamp to a narrow int's range), as XLA's
+//   convert;
+// - clamp is XLA's max(lo, x) then min(hi, x): NaN propagates; integer
+//   bounds arrive inside the step dtype's range (ops/kernels.py::_int_clamp).
 // The kernel allocates nothing and launches on the caller's stream.
 
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
-// Outside the unnamed namespace: the extern "C" entry point takes a Chain,
-// and a type with internal linkage would make that symbol local.
+// Outside the unnamed namespace: the extern "C" entry point takes a
+// Program, and a type with internal linkage would make that symbol local.
 constexpr int kMaxSteps = 8;
+constexpr int kThreads = 128;
+constexpr int kVecBytes = 16;
 
-// Must match ops/kernels.py::_Step / _Chain (ctypes).
-struct Step {
-  int op;
-  int dt;    // result dtype of this step
-  double a;  // operand, or clamp's lower bound
-  double b;  // clamp's upper bound
-};
-
-struct Chain {
-  int start_dt;  // dtype the chain starts from (narrow ints promoted to I32)
+// Must match ops/kernels.py::_Program (ctypes), field for field.
+struct Program {
+  int variant;
   int n_steps;
-  Step steps[kMaxSteps];
+  int conv[kMaxSteps];  // Conv: the value to the step's dtype
+  int op[kMaxSteps];    // Op: the step's operation on a and b
+  int post[kMaxSteps];  // Conv: wrap to a narrow int, or round to half
+  uint32_t a[kMaxSteps];
+  uint32_t b[kMaxSteps];
 };
 
 namespace {
 
 enum Dt { U8 = 0, I8 = 1, U16 = 2, I16 = 3, U32 = 4, I32 = 5, F16 = 6, F32 = 7 };
-enum Op { TYPECAST = 0, ADD = 1, SUB = 2, MUL = 3, CLAMP = 5 };
+// Must match ops/kernels.py::CONV, OP and FLOAT_CHAIN / GENERAL.
+enum Conv {
+  C_NONE = 0, C_WRAP_U8 = 1, C_WRAP_I8 = 2, C_WRAP_U16 = 3, C_WRAP_I16 = 4,
+  C_I2F = 5, C_U2F = 6, C_I2H = 7, C_U2H = 8, C_F2H = 9,
+  C_F2U8 = 10, C_F2I8 = 11, C_F2U16 = 12, C_F2I16 = 13, C_F2U32 = 14, C_F2I32 = 15
+};
+enum Op {
+  O_NONE = 0, O_IADD = 1, O_ISUB = 2, O_IMUL = 3, O_ICLAMP = 4, O_UCLAMP = 5,
+  O_FADD = 6, O_FSUB = 7, O_FMUL = 8, O_FCLAMP = 9
+};
+enum Variant { FLOAT_CHAIN = 0, GENERAL = 1 };
 
-struct Val {
-  long long i;  // integer dtypes, wrapped to the current dtype's range
-  float f;      // float dtypes (a float16 value is held exactly as float)
+struct f16 {  // a float16 in memory
+  uint16_t bits;
 };
 
-__device__ __forceinline__ bool is_int(int dt) { return dt <= I32; }
+// -- one element in and out -------------------------------------------------
 
-__device__ __forceinline__ float round_half(float f) {
-  return __half2float(__float2half_rn(f));
+template <typename T> __device__ __forceinline__ float to_float(T v) {
+  return __int2float_rn((int32_t)v);
+}
+template <> __device__ __forceinline__ float to_float<uint32_t>(uint32_t v) {
+  return __uint2float_rn(v);
+}
+template <> __device__ __forceinline__ float to_float<f16>(f16 v) {
+  return __half2float(__ushort_as_half(v.bits));
+}
+template <> __device__ __forceinline__ float to_float<float>(float v) { return v; }
+
+// The 32-bit representation of an input element.
+template <typename T> __device__ __forceinline__ uint32_t to_bits(T v) {
+  return (uint32_t)(int32_t)v;  // sign- or zero-extended
+}
+template <> __device__ __forceinline__ uint32_t to_bits<f16>(f16 v) {
+  return __float_as_uint(to_float(v));
+}
+template <> __device__ __forceinline__ uint32_t to_bits<float>(float v) {
+  return __float_as_uint(v);
 }
 
-__device__ __forceinline__ long long wrap(long long v, int dt) {
-  unsigned long long u = (unsigned long long)v;
-  switch (dt) {
-    case U8: return (long long)(uint8_t)u;
-    case I8: return (long long)(int8_t)(uint8_t)u;
-    case U16: return (long long)(uint16_t)u;
-    case I16: return (long long)(int16_t)(uint16_t)u;
-    case U32: return (long long)(uint32_t)u;
-    default: return (long long)(int32_t)(uint32_t)u;
-  }
+// An output element from its 32-bit representation (already in range).
+template <typename T> __device__ __forceinline__ T from_bits(uint32_t r) { return (T)r; }
+template <> __device__ __forceinline__ f16 from_bits<f16>(uint32_t r) {
+  return f16{__half_as_ushort(__float2half_rn(__uint_as_float(r)))};
+}
+template <> __device__ __forceinline__ float from_bits<float>(uint32_t r) {
+  return __uint_as_float(r);
 }
 
-__device__ __forceinline__ long long float_to_int(float f, int dt) {
-  if (f != f) return 0;
-  double lo, hi;
-  switch (dt) {
-    case U8: lo = 0.0; hi = 255.0; break;
-    case I8: lo = -128.0; hi = 127.0; break;
-    case U16: lo = 0.0; hi = 65535.0; break;
-    case I16: lo = -32768.0; hi = 32767.0; break;
-    case U32: lo = 0.0; hi = 4294967295.0; break;
-    default: lo = -2147483648.0; hi = 2147483647.0; break;
-  }
-  double t = trunc((double)f);
-  t = t < lo ? lo : t;
-  t = t > hi ? hi : t;
-  return (long long)t;
+__device__ __forceinline__ uint32_t half_bits(float f) {
+  return __float_as_uint(__half2float(__float2half_rn(f)));
 }
 
-// Change the value's dtype from cur to dt (astype semantics).
-__device__ __forceinline__ void convert(Val& v, int cur, int dt) {
-  if (cur == dt) return;
-  if (is_int(dt)) {
-    v.i = is_int(cur) ? wrap(v.i, dt) : float_to_int(v.f, dt);
-  } else {
-    float f = is_int(cur) ? __ll2float_rn(v.i) : v.f;
-    v.f = dt == F16 ? round_half(f) : f;
-  }
+__device__ __forceinline__ uint32_t saturate(float f, int32_t lo, int32_t hi) {
+  int32_t v = __float2int_rz(f);  // saturates to int32, NaN -> 0
+  v = v < lo ? lo : v;
+  return (uint32_t)(v > hi ? hi : v);
 }
 
-// A Python literal in a float dtype: rounded once, from double.
-__device__ __forceinline__ float float_literal(double a, int dt) {
-  return dt == F16 ? __half2float(__double2half(a)) : __double2float_rn(a);
+// max(lo, v) then min(hi, v), as XLA's clamp: a float NaN propagates.
+template <typename T> __device__ __forceinline__ T xla_clamp(T v, T lo, T hi) {
+  v = lo >= v ? lo : v;
+  return hi <= v ? hi : v;
 }
+__device__ __forceinline__ float fclamp(float v, float lo, float hi) { return xla_clamp(v, lo, hi); }
 
-__device__ __forceinline__ void apply_step(Val& v, const Step& s) {
-  if (s.op == TYPECAST) return;
-  if (is_int(s.dt)) {
-    unsigned long long x = (unsigned long long)v.i;
-    unsigned long long y = (unsigned long long)(long long)s.a;
-    switch (s.op) {
-      case ADD: v.i = wrap((long long)(x + y), s.dt); break;
-      case SUB: v.i = wrap((long long)(x - y), s.dt); break;
-      case MUL: v.i = wrap((long long)(x * y), s.dt); break;
-      case CLAMP: {
-        long long lo = (long long)s.a, hi = (long long)s.b;
-        v.i = lo >= v.i ? lo : v.i;
-        v.i = hi <= v.i ? hi : v.i;
-        break;
-      }
-      default: break;
-    }
-    return;
-  }
-  float a = float_literal(s.a, s.dt);
-  float r = v.f;
-  switch (s.op) {
-    case ADD: r = __fadd_rn(r, a); break;
-    case SUB: r = __fsub_rn(r, a); break;
-    case MUL: r = __fmul_rn(r, a); break;
-    case CLAMP: {
-      float hi = float_literal(s.b, s.dt);
-      r = a >= r ? a : r;
-      r = hi <= r ? hi : r;
-      break;
-    }
+// -- the steps, each switch hoisted over a vector's elements ----------------
+
+#define EACH(expr)                     \
+  _Pragma("unroll") for (int e = 0; e < kN; ++e) { \
+    const uint32_t x = r[e];           \
+    (void)x;                           \
+    r[e] = (expr);                     \
+  }                                    \
+  break;
+
+template <int kN>
+__device__ __forceinline__ void wrap_or_round(uint32_t (&r)[kN], int c) {
+  switch (c) {
+    case C_WRAP_U8: EACH(x & 0xFFu)
+    case C_WRAP_I8: EACH((uint32_t)(int32_t)(int8_t)(x & 0xFFu))
+    case C_WRAP_U16: EACH(x & 0xFFFFu)
+    case C_WRAP_I16: EACH((uint32_t)(int32_t)(int16_t)(x & 0xFFFFu))
+    case C_F2H: EACH(half_bits(__uint_as_float(x)))
     default: break;
   }
-  v.f = s.dt == F16 ? round_half(r) : r;
 }
 
-template <typename T> struct Io;
-#define INT_IO(T)                                                        \
-  template <> struct Io<T> {                                             \
-    static __device__ __forceinline__ void load(T x, Val& v) { v.i = x; }  \
-    static __device__ __forceinline__ T store(const Val& v) { return (T)v.i; } \
-  };
-INT_IO(uint8_t)
-INT_IO(int8_t)
-INT_IO(uint16_t)
-INT_IO(int16_t)
-INT_IO(uint32_t)
-INT_IO(int32_t)
-#undef INT_IO
-template <> struct Io<__half> {
-  static __device__ __forceinline__ void load(__half x, Val& v) { v.f = __half2float(x); }
-  static __device__ __forceinline__ __half store(const Val& v) { return __float2half_rn(v.f); }
-};
-template <> struct Io<float> {
-  static __device__ __forceinline__ void load(float x, Val& v) { v.f = x; }
-  static __device__ __forceinline__ float store(const Val& v) { return v.f; }
-};
-
-template <typename InT, typename OutT>
-__global__ void fused_arith_kernel(const InT* __restrict__ x, OutT* __restrict__ y,
-                                   long long n, int in_dt, int out_dt, Chain c) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-    Val v{0, 0.0f};
-    Io<InT>::load(x[i], v);
-    convert(v, in_dt, c.start_dt);
-    int cur = c.start_dt;
-    for (int k = 0; k < c.n_steps; ++k) {
-      convert(v, cur, c.steps[k].dt);
-      cur = c.steps[k].dt;
-      apply_step(v, c.steps[k]);
-    }
-    convert(v, cur, out_dt);
-    y[i] = Io<OutT>::store(v);
+template <int kN>
+__device__ __forceinline__ void convert(uint32_t (&r)[kN], int c) {
+  switch (c) {
+    case C_I2F: EACH(__float_as_uint(__int2float_rn((int32_t)x)))
+    case C_U2F: EACH(__float_as_uint(__uint2float_rn(x)))
+    case C_I2H: EACH(half_bits(__int2float_rn((int32_t)x)))
+    case C_U2H: EACH(half_bits(__uint2float_rn(x)))
+    case C_F2U8: EACH(saturate(__uint_as_float(x), 0, 255))
+    case C_F2I8: EACH(saturate(__uint_as_float(x), -128, 127))
+    case C_F2U16: EACH(saturate(__uint_as_float(x), 0, 65535))
+    case C_F2I16: EACH(saturate(__uint_as_float(x), -32768, 32767))
+    case C_F2U32: EACH(__float2uint_rz(__uint_as_float(x)))
+    case C_F2I32: EACH((uint32_t)__float2int_rz(__uint_as_float(x)))
+    default: wrap_or_round(r, c); break;
   }
 }
 
-template <typename InT, typename OutT>
-cudaError_t launch(const void* x, void* y, long long n, int in_dt, int out_dt,
-                   const Chain& c, cudaStream_t stream) {
-  const int threads = 256;
-  long long blocks = (n + threads - 1) / threads;
-  if (blocks > 132 * 16) blocks = 132 * 16;  // grid-stride beyond 16 blocks/SM
-  fused_arith_kernel<InT, OutT><<<(unsigned)blocks, threads, 0, stream>>>(
-      static_cast<const InT*>(x), static_cast<OutT*>(y), n, in_dt, out_dt, c);
+template <int kN>
+__device__ __forceinline__ void apply(uint32_t (&r)[kN], int op, uint32_t a, uint32_t b) {
+  const float fa = __uint_as_float(a), fb = __uint_as_float(b);
+  switch (op) {
+    case O_IADD: EACH(x + a)
+    case O_ISUB: EACH(x - a)
+    case O_IMUL: EACH(x * a)
+    case O_ICLAMP: EACH((uint32_t)xla_clamp((int32_t)x, (int32_t)a, (int32_t)b))
+    case O_UCLAMP: EACH(xla_clamp(x, a, b))
+    case O_FADD: EACH(__float_as_uint(__fadd_rn(__uint_as_float(x), fa)))
+    case O_FSUB: EACH(__float_as_uint(__fsub_rn(__uint_as_float(x), fa)))
+    case O_FMUL: EACH(__float_as_uint(__fmul_rn(__uint_as_float(x), fa)))
+    case O_FCLAMP: EACH(__float_as_uint(fclamp(__uint_as_float(x), fa, fb)))
+    default: break;
+  }
+}
+#undef EACH
+
+template <int kN>
+__device__ __forceinline__ void general_steps(uint32_t (&r)[kN], const Program& p) {
+#pragma unroll
+  for (int k = 0; k < kMaxSteps; ++k) {
+    if (k < p.n_steps) {
+      convert(r, p.conv[k]);
+      apply(r, p.op[k], p.a[k], p.b[k]);
+      wrap_or_round(r, p.post[k]);
+    }
+  }
+}
+
+template <int kN>
+__device__ __forceinline__ void float_steps(float (&v)[kN], const Program& p) {
+#pragma unroll
+  for (int k = 0; k < kMaxSteps; ++k) {
+    if (k < p.n_steps) {
+      const float a = __uint_as_float(p.a[k]), b = __uint_as_float(p.b[k]);
+      switch (p.op[k]) {
+        case O_FADD:
+#pragma unroll
+          for (int e = 0; e < kN; ++e) v[e] = __fadd_rn(v[e], a);
+          break;
+        case O_FSUB:
+#pragma unroll
+          for (int e = 0; e < kN; ++e) v[e] = __fsub_rn(v[e], a);
+          break;
+        case O_FMUL:
+#pragma unroll
+          for (int e = 0; e < kN; ++e) v[e] = __fmul_rn(v[e], a);
+          break;
+        case O_FCLAMP:
+#pragma unroll
+          for (int e = 0; e < kN; ++e) v[e] = fclamp(v[e], a, b);
+          break;
+        default:  // a typecast to float32: nothing to do
+          break;
+      }
+    }
+  }
+}
+
+template <bool kFloat, typename InT, typename OutT, int kN>
+__device__ __forceinline__ void eval(const InT (&in)[kN], OutT (&out)[kN], const Program& p) {
+  if constexpr (kFloat) {
+    static_assert(sizeof(OutT) == 4, "the float32 chain writes float32");
+    float v[kN];
+#pragma unroll
+    for (int e = 0; e < kN; ++e) v[e] = to_float(in[e]);
+    float_steps(v, p);
+#pragma unroll
+    for (int e = 0; e < kN; ++e) out[e] = v[e];
+  } else {
+    uint32_t r[kN];
+#pragma unroll
+    for (int e = 0; e < kN; ++e) r[e] = to_bits(in[e]);
+    general_steps(r, p);
+#pragma unroll
+    for (int e = 0; e < kN; ++e) out[e] = from_bits<OutT>(r[e]);
+  }
+}
+
+// A vector's outputs with the widest aligned stores: 16-byte pieces, or
+// one 8- or 4-byte store.
+template <typename T, int kN>
+__device__ __forceinline__ void store_vec(T* dst, const T (&o)[kN]) {
+  constexpr int kBytes = kN * (int)sizeof(T);
+  if constexpr (kBytes >= 16) {
+    uint4 w[kBytes / 16];
+    memcpy(w, o, kBytes);
+#pragma unroll
+    for (int i = 0; i < kBytes / 16; ++i) reinterpret_cast<uint4*>(dst)[i] = w[i];
+  } else if constexpr (kBytes == 8) {
+    uint2 w;
+    memcpy(&w, o, 8);
+    *reinterpret_cast<uint2*>(dst) = w;
+  } else {
+    static_assert(kBytes == 4, "a vector stores 4, 8 or a multiple of 16 bytes");
+    uint32_t w;
+    memcpy(&w, o, 4);
+    *reinterpret_cast<uint32_t*>(dst) = w;
+  }
+}
+
+// Slot of piece `part` of vector `vec` in a warp's staging area: rotated
+// so that neither the lanes writing their pieces nor the lanes reading
+// consecutive pieces meet a bank conflict.
+template <int kParts>
+__device__ __forceinline__ int slot(int vec, int part) {
+  return vec * kParts + ((part + vec / (8 / kParts)) % kParts);
+}
+
+// Thread t takes vector t (elements head + t * kN onwards) and, if t <
+// head + tail, one scalar element: t itself in the head, or the t - head-th
+// element after the last whole vector.  A vector's outputs of 32 or 64
+// bytes (kParts 16-byte pieces) go out through shared memory, so that each
+// store instruction of a warp writes 512 contiguous bytes: piece c of the
+// warp's output comes from its vector c / kParts.
+template <typename InT, typename OutT, bool kFloat>
+__global__ void __launch_bounds__(kThreads)
+fused_arith_kernel(const InT* __restrict__ x, OutT* __restrict__ y, long long head,
+                   long long nvec, long long tail, const __grid_constant__ Program p) {
+  constexpr int kN = kVecBytes / (int)sizeof(InT);
+  constexpr int kParts = kN * (int)sizeof(OutT) / 16;
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const long long first = t - lane;  // the warp's first vector
+  if (first < nvec) {                // the whole warp, or none of it
+    const uint4 w = t < nvec ? reinterpret_cast<const uint4*>(x + head)[t]
+                             : make_uint4(0u, 0u, 0u, 0u);
+    InT in[kN];
+    memcpy(in, &w, kVecBytes);
+    OutT out[kN];
+    eval<kFloat>(in, out, p);
+    if constexpr (kParts >= 2) {
+      __shared__ uint4 stage[kThreads * kParts];
+      uint4* s = stage + (threadIdx.x - lane) * kParts;
+      uint4 piece[kParts];
+      memcpy(piece, out, sizeof(piece));
+#pragma unroll
+      for (int i = 0; i < kParts; ++i) s[slot<kParts>(lane, i)] = piece[i];
+      __syncwarp();
+      uint4* yw = reinterpret_cast<uint4*>(y + head + first * kN);
+#pragma unroll
+      for (int i = 0; i < kParts; ++i) {
+        const int c = i * 32 + lane;
+        if (first + c / kParts < nvec) yw[c] = s[slot<kParts>(c / kParts, c % kParts)];
+      }
+    } else if (t < nvec) {
+      store_vec(y + head + t * kN, out);
+    }
+  }
+  if (t < head + tail) {
+    const long long i = t < head ? t : t + nvec * kN;
+    const InT in[1] = {x[i]};
+    OutT out[1];
+    eval<kFloat>(in, out, p);
+    y[i] = out[0];
+  }
+}
+
+struct Launch {
+  long long head, nvec, tail;
+  int blocks;
+  cudaStream_t stream;
+};
+
+template <typename InT, typename OutT, bool kFloat>
+cudaError_t launch(const void* x, void* y, const Launch& l, const Program& p) {
+  fused_arith_kernel<InT, OutT, kFloat><<<l.blocks, kThreads, 0, l.stream>>>(
+      static_cast<const InT*>(x), static_cast<OutT*>(y), l.head, l.nvec, l.tail, p);
   return cudaGetLastError();
 }
 
 template <typename InT>
-cudaError_t launch_out(const void* x, void* y, long long n, int in_dt, int out_dt,
-                       const Chain& c, cudaStream_t s) {
+cudaError_t launch_in(const void* x, void* y, int out_dt, const Launch& l, const Program& p) {
+  if (p.variant == FLOAT_CHAIN)
+    return out_dt == F32 ? launch<InT, float, true>(x, y, l, p) : cudaErrorInvalidValue;
   switch (out_dt) {
-    case U8: return launch<InT, uint8_t>(x, y, n, in_dt, out_dt, c, s);
-    case I8: return launch<InT, int8_t>(x, y, n, in_dt, out_dt, c, s);
-    case U16: return launch<InT, uint16_t>(x, y, n, in_dt, out_dt, c, s);
-    case I16: return launch<InT, int16_t>(x, y, n, in_dt, out_dt, c, s);
-    case U32: return launch<InT, uint32_t>(x, y, n, in_dt, out_dt, c, s);
-    case I32: return launch<InT, int32_t>(x, y, n, in_dt, out_dt, c, s);
-    case F16: return launch<InT, __half>(x, y, n, in_dt, out_dt, c, s);
-    case F32: return launch<InT, float>(x, y, n, in_dt, out_dt, c, s);
+    case U8: return launch<InT, uint8_t, false>(x, y, l, p);
+    case I8: return launch<InT, int8_t, false>(x, y, l, p);
+    case U16: return launch<InT, uint16_t, false>(x, y, l, p);
+    case I16: return launch<InT, int16_t, false>(x, y, l, p);
+    case U32: return launch<InT, uint32_t, false>(x, y, l, p);
+    case I32: return launch<InT, int32_t, false>(x, y, l, p);
+    case F16: return launch<InT, f16, false>(x, y, l, p);
+    case F32: return launch<InT, float, false>(x, y, l, p);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-extern "C" int nns_fused_arith(const void* x, void* y, long long n, int in_dt,
-                               int out_dt, const Chain* chain, void* stream) {
-  if (n <= 0 || chain == nullptr || chain->n_steps < 0 || chain->n_steps > kMaxSteps)
+extern "C" int nns_fused_arith(const void* x, void* y, int in_dt, int out_dt,
+                               const Program* prog, long long head, long long nvec,
+                               long long tail, int blocks, void* stream) {
+  if (prog == nullptr || prog->n_steps < 0 || prog->n_steps > kMaxSteps || blocks < 1 ||
+      head < 0 || nvec < 0 || tail < 0 || (long long)blocks * kThreads < nvec ||
+      (long long)blocks * kThreads < head + tail ||
+      (prog->variant != FLOAT_CHAIN && prog->variant != GENERAL))
     return (int)cudaErrorInvalidValue;
-  const Chain c = *chain;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Program& p = *prog;
+  const Launch l{head, nvec, tail, blocks, static_cast<cudaStream_t>(stream)};
   switch (in_dt) {
-    case U8: return (int)launch_out<uint8_t>(x, y, n, in_dt, out_dt, c, s);
-    case I8: return (int)launch_out<int8_t>(x, y, n, in_dt, out_dt, c, s);
-    case U16: return (int)launch_out<uint16_t>(x, y, n, in_dt, out_dt, c, s);
-    case I16: return (int)launch_out<int16_t>(x, y, n, in_dt, out_dt, c, s);
-    case U32: return (int)launch_out<uint32_t>(x, y, n, in_dt, out_dt, c, s);
-    case I32: return (int)launch_out<int32_t>(x, y, n, in_dt, out_dt, c, s);
-    case F16: return (int)launch_out<__half>(x, y, n, in_dt, out_dt, c, s);
-    case F32: return (int)launch_out<float>(x, y, n, in_dt, out_dt, c, s);
+    case U8: return (int)launch_in<uint8_t>(x, y, out_dt, l, p);
+    case I8: return (int)launch_in<int8_t>(x, y, out_dt, l, p);
+    case U16: return (int)launch_in<uint16_t>(x, y, out_dt, l, p);
+    case I16: return (int)launch_in<int16_t>(x, y, out_dt, l, p);
+    case U32: return (int)launch_in<uint32_t>(x, y, out_dt, l, p);
+    case I32: return (int)launch_in<int32_t>(x, y, out_dt, l, p);
+    case F16: return (int)launch_in<f16>(x, y, out_dt, l, p);
+    case F32: return (int)launch_in<float>(x, y, out_dt, l, p);
     default: return (int)cudaErrorInvalidValue;
   }
 }

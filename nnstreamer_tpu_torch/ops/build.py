@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -71,7 +72,7 @@ def _start(name: str, src: Optional[Path] = None):
 def _finish(name: str, job) -> str:
     proc, tmp, out = job
     log, _ = proc.communicate()
-    (BUILD_DIR / f"{name}.log").write_text(log)
+    log_path(name).write_text(log)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{log}")
@@ -109,3 +110,35 @@ def load(name: str, src: Optional[Path] = None) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(lib_path(name, src)))
             _LIBS[name] = lib
         return lib
+
+
+def ptxas_report(log: str) -> Dict[str, Dict[str, int]]:
+    """Each kernel entry's registers, stack frame and spill bytes, from the
+    ``-Xptxas -v`` lines of an nvcc log, keyed by mangled name."""
+    report: Dict[str, Dict[str, int]] = {}
+    entry = props = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+            report[entry] = dict(registers=0, stack=0, spill_stores=0, spill_loads=0)
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and props in report:
+            report[props].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                                 spill_loads=int(m.group(3)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry in report:
+            report[entry]["registers"] = int(m.group(1))
+    return report
+
+
+def log_path(name: str) -> Path:
+    """The nvcc/ptxas log of the last build of ``name``."""
+    return BUILD_DIR / f"{name}.log"

@@ -2,7 +2,9 @@
 
 - :func:`fused_arith` replaces the JAX package's
   ``ops/pallas_kernels.py::fused_arith``: one elementwise pass of a ``tensor_transform`` chain
-  (``csrc/fused_arith.cu``).
+  (``csrc/fused_arith.cu``), which the host lowers into a small program
+  (:func:`lower_chain`; :func:`program_eval` models the kernel in numpy)
+  and launches with :func:`fused_arith_geometry`.
 - :func:`int8_matmul` replaces the JAX package's
   ``ops/pallas_kernels.py::int8_matmul``: int8 x int8 → int32 product with the dequant and bias in
   the epilogue (``csrc/int8_matmul.cu``).
@@ -84,18 +86,124 @@ _DT_CODES = {
     np.dtype(np.int16): 3, np.dtype(np.uint32): 4, np.dtype(np.int32): 5,
     np.dtype(np.float16): 6, np.dtype(np.float32): 7,
 }
-_OP_CODES = {"typecast": 0, "add": 1, "sub": 2, "mul": 3, "clamp": 5}
 MAX_STEPS = 8
 
+# The lowered program of csrc/fused_arith.cu (its enums Conv, Op, Variant).
+# A value travels as 32 bits: an integer as its two's complement pattern
+# (sign-extended from a narrow signed dtype, zero-extended from a narrow
+# unsigned one), a float16 or float32 as the float32 bits of its value.
+# Each step is a conversion to the step's dtype, the operation on a literal
+# already in that dtype, and a post step that brings the result back to the
+# dtype's range: a wrap to a narrow int's width, or a rounding to half.
+CONV = {"none": 0, "wrap_u8": 1, "wrap_i8": 2, "wrap_u16": 3, "wrap_i16": 4,
+        "i2f": 5, "u2f": 6, "i2h": 7, "u2h": 8, "f2h": 9,
+        "f2u8": 10, "f2i8": 11, "f2u16": 12, "f2i16": 13, "f2u32": 14, "f2i32": 15}
+OP = {"none": 0, "iadd": 1, "isub": 2, "imul": 3, "iclamp": 4, "uclamp": 5,
+      "fadd": 6, "fsub": 7, "fmul": 8, "fclamp": 9}
+# FLOAT_CHAIN: every step computes in float32 (the normalize chain): the
+# kernel converts the input to float once and runs float ops on float
+# literals.  GENERAL: any chain, int and float16 steps included.
+FLOAT_CHAIN, GENERAL = 0, 1
 
-class _Step(ctypes.Structure):
-    _fields_ = [("op", ctypes.c_int), ("dt", ctypes.c_int),
-                ("a", ctypes.c_double), ("b", ctypes.c_double)]
+_U32 = np.dtype(np.uint32)
+_F16 = np.dtype(np.float16)
+_WRAP = {np.dtype(np.uint8): "wrap_u8", np.dtype(np.int8): "wrap_i8",
+         np.dtype(np.uint16): "wrap_u16", np.dtype(np.int16): "wrap_i16"}
 
 
-class _Chain(ctypes.Structure):
-    _fields_ = [("start_dt", ctypes.c_int), ("n_steps", ctypes.c_int),
-                ("steps", _Step * MAX_STEPS)]
+def _conv_code(cur: np.dtype, dt: np.dtype) -> str:
+    """The conversion from a ``cur`` value to ``dt`` (astype) on the 32-bit
+    representation."""
+    if cur == dt:
+        return "none"
+    if _is_int(dt):
+        if _is_int(cur):  # a 32-bit pattern already holds any 32-bit int
+            return _WRAP.get(dt, "none")
+        return "f2" + dt.name[0] + str(dt.itemsize * 8)
+    if _is_int(cur):
+        return ("u2" if cur == _U32 else "i2") + ("h" if dt == _F16 else "f")
+    return "f2h" if dt == _F16 else "none"  # float16 -> float32 is exact
+
+
+def _bits(v, dt: np.dtype) -> int:
+    """A float literal rounded once from double to ``dt`` (as the plain
+    version's ``_literal``), as the bits of its float32 value."""
+    with np.errstate(over="ignore"):  # beyond the dtype's range: inf, as in the plain version
+        return int(np.float32(dt.type(v)).view(np.uint32))
+
+
+def _int_clamp(lo: int, hi: int, dt: np.dtype) -> Tuple[int, int]:
+    """Bounds of an integer clamp moved into ``dt``'s range with the same
+    result: the plain version computes ``min(hi, max(lo, v))`` on exact
+    integers and wraps it, for a value ``v`` in that range."""
+    info = np.iinfo(dt)
+    if lo > info.max:  # max(lo, v) is lo for every v
+        c = min(hi, lo)
+    elif hi < info.min:  # max(lo, v) >= v > hi
+        c = hi
+    else:
+        return max(lo, int(info.min)), min(hi, int(info.max))
+    bits = dt.itemsize * 8
+    c &= (1 << bits) - 1
+    if info.min < 0 and c >= 1 << (bits - 1):
+        c -= 1 << bits
+    return c, c
+
+
+class Program(NamedTuple):
+    """A chain lowered for ``csrc/fused_arith.cu``: the variant, and for
+    each step its conversion, operation and post codes and its operands'
+    32-bit patterns."""
+
+    variant: int
+    conv: Tuple[int, ...]
+    op: Tuple[int, ...]
+    post: Tuple[int, ...]
+    a: Tuple[int, ...]
+    b: Tuple[int, ...]
+
+
+def lower_chain(start: np.dtype, steps) -> Program:
+    """Lower a plan's steps (op, result dtype, a, b), starting from a
+    ``start`` stream, into the kernel's program."""
+    conv, ops, post, a_bits, b_bits = [], [], [], [], []
+    cur = start
+    for op, dt, a, b in steps:
+        conv.append(CONV[_conv_code(cur, dt)])
+        cur = dt
+        a32 = b32 = 0
+        after = "none"
+        if op == "typecast":
+            code = "none"
+        elif _is_int(dt):
+            if op == "clamp":
+                lo, hi = _int_clamp(int(a), int(b), dt)
+                code = "uclamp" if dt == _U32 else "iclamp"
+                a32, b32 = lo & 0xFFFFFFFF, hi & 0xFFFFFFFF
+            else:
+                code = "i" + op
+                a32 = int(a) & 0xFFFFFFFF
+                after = _WRAP.get(dt, "none")
+        else:
+            code = "f" + op
+            a32 = _bits(a, dt)
+            b32 = _bits(b, dt) if op == "clamp" else 0
+            after = "f2h" if dt == _F16 else "none"
+        ops.append(OP[code])
+        post.append(CONV[after])
+        a_bits.append(a32)
+        b_bits.append(b32)
+    f32 = bool(steps) and all(dt == _F32 for _, dt, _, _ in steps)
+    return Program(FLOAT_CHAIN if f32 else GENERAL, tuple(conv), tuple(ops), tuple(post),
+                   tuple(a_bits), tuple(b_bits))
+
+
+class _Program(ctypes.Structure):
+    # Must match csrc/fused_arith.cu::Program, field for field.
+    _fields_ = [("variant", ctypes.c_int), ("n_steps", ctypes.c_int),
+                ("conv", ctypes.c_int * MAX_STEPS), ("op", ctypes.c_int * MAX_STEPS),
+                ("post", ctypes.c_int * MAX_STEPS), ("a", ctypes.c_uint32 * MAX_STEPS),
+                ("b", ctypes.c_uint32 * MAX_STEPS)]
 
 
 def _reciprocal(val, dt: np.dtype) -> float:
@@ -112,7 +220,7 @@ def _reciprocal(val, dt: np.dtype) -> float:
 class ChainPlan:
     """A bound chain, resolved for one input dtype: the dtype it starts
     from, each step's (op, result dtype, operand a, operand b), and the
-    output dtype."""
+    output dtype; for the kernel, the chain lowered (:attr:`program`)."""
 
     def __init__(self, in_dtype: np.dtype, ops: Tuple[Tuple[str, object], ...],
                  promote: bool = True):
@@ -142,12 +250,21 @@ class ChainPlan:
         self.steps = tuple(steps)
 
     @functools.cached_property
-    def c_chain(self) -> _Chain:
-        c = _Chain()
-        c.start_dt = _DT_CODES[self.start_dtype]
-        c.n_steps = len(self.steps)
-        for i, (op, dt, a, b) in enumerate(self.steps):
-            c.steps[i] = _Step(_OP_CODES[op], _DT_CODES[dt], float(a), float(b))
+    def program(self) -> Program:
+        """The chain lowered for the kernel (:func:`lower_chain`)."""
+        # The output conversion is the identity: a promoted start changes
+        # only the int steps before the chain's first change of dtype.
+        last = self.steps[-1][1] if self.steps else self.start_dtype
+        assert last == self.out_dtype, (last, self.out_dtype)
+        return lower_chain(self.start_dtype, self.steps)
+
+    @functools.cached_property
+    def c_program(self) -> _Program:
+        p = self.program
+        c = _Program()
+        c.variant, c.n_steps = p.variant, len(p.op)
+        for field in ("conv", "op", "post", "a", "b"):
+            getattr(c, field)[:len(p.op)] = getattr(p, field)
         return c
 
 
@@ -234,6 +351,151 @@ def fused_arith_plain(x: torch.Tensor, ops: Sequence[Tuple[str, object]]) -> tor
     return run_chain(x, plan_chain(numpy_dtype(x.dtype), tuple(ops)))
 
 
+def _f(r: np.ndarray) -> np.ndarray:
+    return r.view(np.float32)
+
+
+def _saturate(r: np.ndarray, dt) -> np.ndarray:
+    """float -> int as ``cvt.rzi`` with saturation: truncate, clamp to the
+    int's range, NaN to 0; the result as a 32-bit pattern."""
+    f = _f(r)
+    info = np.iinfo(dt)
+    with np.errstate(invalid="ignore"):
+        t = np.clip(np.trunc(f.astype(np.float64)), info.min, info.max)
+    t = np.where(np.isnan(f), 0.0, t).astype(np.int64)
+    return (t & 0xFFFFFFFF).astype(np.uint32)
+
+
+def _wrap_bits(r: np.ndarray, dt) -> np.ndarray:
+    return r.astype(dt).astype(np.int32 if np.dtype(dt).kind == "i" else np.uint32).view(np.uint32)
+
+
+def _half_bits(f: np.ndarray) -> np.ndarray:
+    with np.errstate(over="ignore"):  # beyond float16's range: inf
+        return f.astype(np.float16).astype(np.float32).view(np.uint32)
+
+
+_CONV_FNS = {
+    "none": lambda r: r,
+    "wrap_u8": lambda r: _wrap_bits(r, np.uint8), "wrap_i8": lambda r: _wrap_bits(r, np.int8),
+    "wrap_u16": lambda r: _wrap_bits(r, np.uint16),
+    "wrap_i16": lambda r: _wrap_bits(r, np.int16),
+    "i2f": lambda r: r.view(np.int32).astype(np.float32).view(np.uint32),
+    "u2f": lambda r: r.astype(np.float32).view(np.uint32),
+    "i2h": lambda r: _half_bits(r.view(np.int32).astype(np.float32)),
+    "u2h": lambda r: _half_bits(r.astype(np.float32)),
+    "f2h": lambda r: _half_bits(_f(r)),
+    **{f"f2{dt.name[0]}{dt.itemsize * 8}": (lambda r, dt=dt: _saturate(r, dt))
+       for dt in map(np.dtype, (np.uint8, np.int8, np.uint16, np.int16, np.uint32, np.int32))},
+}
+_CONV_NAMES = {v: k for k, v in CONV.items()}
+_OP_NAMES = {v: k for k, v in OP.items()}
+
+
+def _op_eval(r: np.ndarray, op: str, a: int, b: int) -> np.ndarray:
+    if op == "none":
+        return r
+    if op in ("iadd", "isub", "imul"):
+        with np.errstate(over="ignore"):
+            a = np.uint32(a)
+            return r + a if op == "iadd" else r - a if op == "isub" else r * a
+    if op in ("iclamp", "uclamp"):
+        t = np.int32 if op == "iclamp" else np.uint32
+        v, lo, hi = r.view(t), np.uint32(a).view(t), np.uint32(b).view(t)
+        v = np.where(lo >= v, lo, v)
+        return np.where(hi <= v, hi, v).astype(t).view(np.uint32)
+    v, lo = _f(r), np.uint32(a).view(np.float32)
+    with np.errstate(all="ignore"):  # IEEE results: inf, NaN
+        if op == "fadd":
+            v = v + lo
+        elif op == "fsub":
+            v = v - lo
+        elif op == "fmul":
+            v = v * lo
+        else:  # fclamp: max(lo, x) then min(hi, x), NaN propagates
+            hi = np.uint32(b).view(np.float32)
+            v = np.where(lo >= v, lo, v)
+            v = np.where(hi <= v, hi, v)
+    return v.astype(np.float32).view(np.uint32)
+
+
+def program_eval(x: np.ndarray, program: Program, out_dtype) -> np.ndarray:
+    """A model of ``csrc/fused_arith.cu`` in numpy: ``x`` through the
+    lowered ``program`` on the kernel's 32-bit representation, step by
+    step as the kernel's variant computes it."""
+    x = np.asarray(x)
+    if program.variant == FLOAT_CHAIN:  # one conversion, then float32 ops
+        r = x.astype(np.float32).view(np.uint32)
+    elif _is_int(x.dtype):
+        r = x.astype(np.int32 if x.dtype.kind == "i" else np.uint32).view(np.uint32)
+    else:
+        r = x.astype(np.float32).view(np.uint32)
+    r = np.array(r, np.uint32, copy=True)
+    for k, op in enumerate(program.op):
+        if program.variant == GENERAL:
+            r = _CONV_FNS[_CONV_NAMES[program.conv[k]]](r)
+        r = _op_eval(r, _OP_NAMES[op], program.a[k], program.b[k])
+        r = _CONV_FNS[_CONV_NAMES[program.post[k]]](r)
+    out = np.dtype(out_dtype)
+    if _is_int(out):
+        return r.view(np.int32 if out.kind == "i" else np.uint32).astype(out)
+    return _f(r).astype(out)
+
+
+# Launch geometry of csrc/fused_arith.cu (its constants of the same names).
+# A thread takes one vector of VEC_BYTES of input, 16 B being the widest
+# load, and at most one scalar element; THREADS threads a block, as many
+# blocks as the vectors (or scalars) need.
+THREADS = 128
+VEC_BYTES = 16
+
+
+class FusedGeometry(NamedTuple):
+    """One ``fused_arith`` launch: elements [0, head) and the ``tail`` after
+    the vector body are scalar; ``nvec`` vectors of VEC_BYTES of input start
+    at element ``head``; ``blocks`` x ``threads``."""
+
+    head: int
+    nvec: int
+    tail: int
+    blocks: int
+    threads: int
+
+
+@functools.lru_cache(maxsize=1024)
+def _geometry(n: int, in_size: int, out_size: int, x_phase: int, y_phase: int) -> FusedGeometry:
+    vec = VEC_BYTES // in_size
+    unit = min(VEC_BYTES, vec * out_size)  # the widest aligned store
+    head = next((h for h in range(vec) if (x_phase + h * in_size) % VEC_BYTES == 0
+                 and (y_phase + h * out_size) % unit == 0), None)
+    if head is None or head >= n:  # no element sits at both alignments
+        head, nvec = n, 0
+    else:
+        nvec = (n - head) // vec
+    tail = n - head - nvec * vec
+    blocks = max(1, -(-max(nvec, head + tail) // THREADS))
+    return FusedGeometry(head, nvec, tail, blocks, THREADS)
+
+
+def fused_arith_geometry(n: int, in_size: int, out_size: int, x_ptr: int,
+                         y_ptr: int) -> FusedGeometry:
+    """The launch geometry of a call on ``n`` elements of ``in_size`` bytes
+    into ``out_size`` bytes each, at addresses ``x_ptr`` and ``y_ptr``."""
+    return _geometry(n, in_size, out_size, x_ptr % VEC_BYTES, y_ptr % VEC_BYTES)
+
+
+def fused_arith_accesses(in_size: int, geo: FusedGeometry):
+    """The elements a launch of ``geo`` touches, in the kernel's own index
+    math: ``(vectors, scalars)``, the first element of every vector access
+    and every scalar element, once per access (thread ``t`` takes vector
+    ``t`` if ``t < nvec`` and a scalar if ``t < head + tail``)."""
+    vec = VEC_BYTES // in_size
+    t = np.arange(geo.blocks * geo.threads, dtype=np.int64)
+    vectors = geo.head + t[t < geo.nvec] * vec
+    s = t[t < geo.head + geo.tail]
+    return vectors, np.where(s < geo.head, s, s + geo.nvec * vec)
+
+
 _TORCH_OK = {torch_dtype(d) for d in _DT_CODES}
 
 
@@ -274,12 +536,15 @@ def fused_arith(x: torch.Tensor, ops: Sequence[Tuple[str, object]]) -> torch.Ten
     n = x.numel()
     if n == 0:
         return y
+    geo = fused_arith_geometry(n, x.element_size(), y.element_size(), x.data_ptr(),
+                               y.data_ptr())
     lib = _fused_arith_lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.nns_fused_arith(
-            x.data_ptr(), y.data_ptr(), n, _DT_CODES[numpy_dtype(x.dtype)],
-            _DT_CODES[plan.out_dtype], ctypes.byref(plan.c_chain), stream)
+            x.data_ptr(), y.data_ptr(), _DT_CODES[numpy_dtype(x.dtype)],
+            _DT_CODES[plan.out_dtype], ctypes.byref(plan.c_program), geo.head, geo.nvec,
+            geo.tail, geo.blocks, stream)
     if err:
         raise RuntimeError(f"fused_arith launch failed: CUDA error {err}")
     fused_arith.launches += 1
@@ -293,8 +558,9 @@ fused_arith.launches = 0
 def _fused_arith_lib() -> ctypes.CDLL:
     lib = load("fused_arith")
     lib.nns_fused_arith.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_int, ctypes.POINTER(_Chain), ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(_Program), ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_int, ctypes.c_void_p]
     lib.nns_fused_arith.restype = ctypes.c_int
     return lib
 

@@ -6,6 +6,9 @@ Inputs are made with numpy from fixed seeds and go through
 ``nnstreamer_tpu_torch.ops.kernels`` on CPU tensors, which take the plain
 PyTorch versions.  The CUDA kernels themselves run only on a GPU: the tests
 marked ``cuda`` hold them against the plain versions there and skip here.
+``TestChainProgram`` holds ``fused_arith``'s lowered program (a numpy model
+of the kernel's two variants) bitwise against the plain version and the
+Pallas kernel, and ``TestFusedGeometry`` its vector and scalar accesses;
 ``TestInt8Geometry`` checks the split-K launch geometry and the weight loads
 of ``int8_matmul``'s small-M branch, in the kernel's own index math.
 """
@@ -16,6 +19,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from hypothesis import assume, given, settings, strategies as st
 
 import jax.numpy as jnp
 
@@ -151,6 +155,225 @@ class TestFusedArith:
         monkeypatch.setattr(K, "run_chain", boom)
         with pytest.raises(ValueError, match="unsupported device"):
             K.fused_arith(torch.zeros(4, device="meta"), [("add", 1)])
+
+
+DTYPES = [np.dtype(d) for d in (np.uint8, np.int8, np.uint16, np.int16, np.uint32, np.int32,
+                                 np.float16, np.float32)]
+
+
+def _extreme_inputs(dt: np.dtype, rng, n: int = 61) -> np.ndarray:
+    """Random values of ``dt`` with its extremes: int min/max, 0, +-1; for
+    floats NaN, +-inf, -0.0, the float16 limits and values beyond them."""
+    if dt.kind in "iu":
+        info = np.iinfo(dt)
+        x = rng.integers(info.min, info.max, n, endpoint=True).astype(dt)
+        special = [info.min, info.max, 0, 1, info.max - 1, info.min + 1] + ([-1] if dt.kind == "i" else [])
+    else:
+        x = (rng.standard_normal(n) * 300).astype(dt)
+        special = [np.nan, np.inf, -np.inf, -0.0, 0.0, 65504.0, -65520.0, 0.5, -2.5, 3e9, -3e9]
+        if dt == np.float32:
+            special += [7e4, 2.0 ** 31, -(2.0 ** 31) - 512, 4.3e9, 1e38]
+    with np.errstate(over="ignore"):  # beyond float16: inf
+        x[:len(special)] = np.array(special).astype(dt)
+    return x
+
+
+_LITERAL = st.one_of(st.integers(-300, 300), st.sampled_from([0, 1, -1, 2 ** 31 - 1, -(2 ** 31), 2 ** 32 - 1, 70000]),
+                     st.floats(-1e4, 1e4, allow_nan=False, width=32), st.sampled_from([0.5, -0.0, 127.5, 1e-3]))
+_STEP = st.one_of(
+    st.tuples(st.just("typecast"), st.sampled_from(DTYPES)),
+    st.tuples(st.sampled_from(["add", "sub", "mul"]), _LITERAL),
+    st.tuples(st.just("div"), _LITERAL.filter(lambda v: v != 0)),
+    st.tuples(st.just("clamp"), st.tuples(_LITERAL, _LITERAL)),
+)
+
+
+def _bitwise(got: np.ndarray, want: np.ndarray) -> None:
+    """Equal bit for bit, but any NaN equals any NaN: the card and the CPU
+    may give a NaN another payload."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if got.dtype.kind == "f":
+        nan = np.isnan(got)
+        np.testing.assert_array_equal(nan, np.isnan(want))
+        bits = np.uint16 if got.dtype.itemsize == 2 else np.uint32
+        np.testing.assert_array_equal(got[~nan].view(bits), want[~nan].view(bits))
+    else:
+        np.testing.assert_array_equal(got, want)
+
+
+class TestChainProgram:
+    """The chain as the kernel computes it (``ops/kernels.py::program_eval``,
+    both variants) against the plain version and the Pallas kernel."""
+
+    @settings(max_examples=150, deadline=None, derandomize=True, database=None)
+    @given(dt=st.sampled_from(DTYPES), ops=st.lists(_STEP, min_size=1, max_size=K.MAX_STEPS),
+           bind=st.booleans(), seed=st.integers(0, 2 ** 16))
+    def test_program_bitwise_against_plain(self, dt, ops, bind, seed):
+        """Chains of 1 to 8 steps, bound as the transform binds them or taken
+        raw (int literals beyond the stream's range, clamp bounds outside
+        it): the model of the kernel is bitwise the plain version, and the
+        float32-chain variant equals the general one on its chains."""
+        if bind:
+            ops = _bind_chain(ops, dt)
+        x = _extreme_inputs(dt, np.random.default_rng(seed))
+        plan = K.fused_arith_plan(dt, ops)
+        prog = plan.program
+        want = K.fused_arith_plain(torch.from_numpy(x), ops).numpy()
+        _bitwise(K.program_eval(x, prog, plan.out_dtype), want)
+        if prog.variant == K.FLOAT_CHAIN:
+            assert plan.out_dtype == np.float32
+            general = prog._replace(variant=K.GENERAL)
+            _bitwise(K.program_eval(x, general, plan.out_dtype), want)
+        assert {K.CONV["none"], K.CONV["f2h"], K.CONV["wrap_u8"], K.CONV["wrap_i8"],
+                K.CONV["wrap_u16"], K.CONV["wrap_i16"]} >= set(prog.post)
+
+    @settings(max_examples=24, deadline=None, derandomize=True, database=None)
+    @given(dt=st.sampled_from(DTYPES), ops=st.lists(_STEP, min_size=1, max_size=K.MAX_STEPS),
+           seed=st.integers(0, 2 ** 16))
+    def test_program_bitwise_against_pallas(self, dt, ops, seed):
+        """Bound chains where every float result rounds once in both
+        packages (at most one float add/sub/mul/div, none in float16: XLA
+        on the CPU fuses a multiply-add and keeps float16 chains in float32)
+        against the Pallas kernel in interpret mode."""
+        ops = _bind_chain(ops, dt)
+        plan = K.fused_arith_plan(dt, ops)
+        rounding = [step_dt for op, step_dt, _, _ in plan.steps
+                    if op in ("add", "sub", "mul") and step_dt.kind == "f"]
+        assume(len(rounding) <= 1 and np.dtype(np.float16) not in rounding)
+        x = _extreme_inputs(dt, np.random.default_rng(seed), n=37)
+        _bitwise(K.program_eval(x, plan.program, plan.out_dtype), _jax_fused(x, ops))
+
+    def test_variants(self):
+        norm = K.fused_arith_plan(np.uint8, NORMALIZE).program
+        assert norm.variant == K.FLOAT_CHAIN
+        assert norm.conv[0] == K.CONV["i2f"]
+        assert norm.op == (K.OP["none"], K.OP["fadd"], K.OP["fmul"])
+        assert norm.a[1:] == (int(np.float32(-127.5).view(np.uint32)),
+                              int(np.float32(1 / np.float32(127.5)).view(np.uint32)))
+        assert K.fused_arith_plan(np.int32, [("mul", 3)]).program.variant == K.GENERAL
+        assert K.fused_arith_plan(np.float16, [("add", 1.0)]).program.variant == K.GENERAL
+        assert K.fused_arith_plan(np.float32, []).program.variant == K.GENERAL
+
+    @pytest.mark.parametrize("dt,lo,hi,want", [
+        (np.int8, -1000, 1000, (-128, 127)), (np.int8, 300, 400, (44, 44)),
+        (np.int8, 300, 200, (-56, -56)), (np.uint8, -5, -3, (253, 253)),
+        (np.uint8, 10, 5, (10, 5)), (np.uint32, -1, 2 ** 40, (0, 2 ** 32 - 1)),
+        (np.int16, -(2 ** 40), 7, (-32768, 7))])
+    def test_int_clamp_bounds_move_into_range(self, dt, lo, hi, want):
+        assert K._int_clamp(lo, hi, np.dtype(dt)) == want
+        info = np.iinfo(dt)
+        x = np.array([info.min, -1 if info.min else 0, 0, 7, info.max], dt)
+        ops = [("clamp", (lo, hi))]
+        plan = K.fused_arith_plan(dt, ops)
+        _bitwise(K.program_eval(x, plan.program, plan.out_dtype),
+                 K.fused_arith_plain(torch.from_numpy(x), ops).numpy())
+
+    def test_ctypes_program_matches_the_cuda_struct(self):
+        import ctypes
+
+        src = (Path(K.__file__).resolve().parent.parent / "csrc" / "fused_arith.cu").read_text()
+        body = re.search(r"struct Program \{(.*?)\};", src, re.S).group(1)
+        fields = re.findall(r"^\s*(int|uint32_t) (\w+)(\[kMaxSteps\])?;", body, re.M)
+        assert [f[1] for f in fields] == [f[0] for f in K._Program._fields_]
+        for (ctype, name, array), (_, pytype) in zip(fields, K._Program._fields_):
+            base = ctypes.c_int if ctype == "int" else ctypes.c_uint32
+            assert pytype == (base * K.MAX_STEPS if array else base), name
+        assert ctypes.sizeof(K._Program) == 8 + 5 * 4 * K.MAX_STEPS
+        prog = K.fused_arith_plan(np.uint8, NORMALIZE).c_program
+        assert (prog.variant, prog.n_steps, list(prog.op)) == (K.FLOAT_CHAIN, 3, [0, 6, 8] + [0] * 5)
+
+    def test_cuda_source_names_the_same_codes(self):
+        src = (Path(K.__file__).resolve().parent.parent / "csrc" / "fused_arith.cu").read_text()
+
+        def enum(name, prefix):
+            body = re.search(rf"enum {name} \{{(.*?)\}};", src, re.S).group(1)
+            return {k[len(prefix):].lower(): int(v) for k, v in re.findall(r"(\w+) = (\d+)", body)}
+
+        assert enum("Conv", "C_") == K.CONV
+        assert enum("Op", "O_") == K.OP
+        assert enum("Variant", "") == {"float_chain": K.FLOAT_CHAIN, "general": K.GENERAL}
+        assert enum("Dt", "") == {d.name[0] + str(d.itemsize * 8): c for d, c in K._DT_CODES.items()}
+
+
+# (in dtype, out dtype) pairs of every width, each once.
+SIZE_PAIRS = [(np.uint8, np.float32), (np.float32, np.uint8), (np.uint8, np.uint8),
+              (np.int16, np.float32), (np.float32, np.float16), (np.float16, np.float32),
+              (np.int8, np.int16), (np.int32, np.int32), (np.uint16, np.int8)]
+
+
+class TestFusedGeometry:
+    @pytest.mark.parametrize("n", [0, 1, 15, 16, 17, 64, 1000, 224 * 224 * 3, 300 * 300 * 3])
+    @pytest.mark.parametrize("in_dt,out_dt", SIZE_PAIRS)
+    def test_every_element_written_once(self, n, in_dt, out_dt):
+        """For every input offset of 0 to 15 bytes (element-aligned) and an
+        output at a fresh allocation: every element is read and written by
+        exactly one access, every vector access is 16-byte aligned on the
+        input and aligned to its store width on the output, nothing lies
+        past ``n``, and the grid has no block without work."""
+        in_size, out_size = np.dtype(in_dt).itemsize, np.dtype(out_dt).itemsize
+        vec = K.VEC_BYTES // in_size
+        unit = min(K.VEC_BYTES, vec * out_size)
+        for x_off in range(0, 16, in_size):
+            x_ptr, y_ptr = 4096 + x_off, 8192
+            geo = K.fused_arith_geometry(n, in_size, out_size, x_ptr, y_ptr)
+            assert geo.head + geo.nvec * vec + geo.tail == n and geo.threads == K.THREADS
+            starts, scalars = K.fused_arith_accesses(in_size, geo)
+            assert ((x_ptr + starts * in_size) % K.VEC_BYTES == 0).all()
+            assert ((y_ptr + starts * out_size) % unit == 0).all()
+            covered = np.concatenate([(starts[:, None] + np.arange(vec)).ravel(), scalars])
+            assert covered.size == n and (covered >= 0).all() and (covered < n).all()
+            np.testing.assert_array_equal(np.bincount(covered, minlength=n), np.ones(n))
+            assert (geo.blocks - 1) * geo.threads < max(geo.nvec, geo.head + geo.tail, 1)
+            if geo.nvec:
+                assert geo.head < vec and geo.tail < vec
+
+    def test_grid_sized_to_the_card(self):
+        """One vector per thread: the path's frames run in one wave on 132
+        SMs (74 and 132 blocks of 128 threads), a 4K frame in 12,150
+        blocks."""
+        assert K.fused_arith_geometry(224 * 224 * 3, 1, 4, 0, 0) == (0, 9408, 0, 74, 128)
+        assert K.fused_arith_geometry(300 * 300 * 3, 1, 4, 0, 0) == (0, 16875, 0, 132, 128)
+        n = 2160 * 3840 * 3
+        big = K.fused_arith_geometry(n, 1, 4, 0, 0)
+        assert big == (0, n // 16, 0, 12150, 128)
+        starts, scalars = K.fused_arith_accesses(1, big)
+        assert scalars.size == 0
+        np.testing.assert_array_equal(starts, np.arange(big.nvec) * 16)
+        # misaligned by a byte: the output cannot share the input's phase
+        assert K.fused_arith_geometry(1000, 1, 4, 1, 0) == (1000, 0, 0, 8, 128)
+        # by four bytes it can, twelve elements on
+        assert K.fused_arith_geometry(1000, 1, 4, 4, 0) == (12, 61, 12, 1, 128)
+        assert K.fused_arith_geometry(1000, 1, 1, 1, 1) == (15, 61, 9, 1, 128)
+        assert K.fused_arith_geometry(100, 4, 4, 4, 4) == (3, 24, 1, 1, 128)
+
+    def test_staged_stores_write_each_piece_once(self):
+        """The kernel's shared-memory slots (``slot`` in the .cu) for 2 and
+        4 pieces a vector: a warp's 32 x kParts pieces land in distinct
+        slots, and each group of 8 lanes (one 128-byte wavefront of 16-byte
+        accesses) touches all 32 banks once, writing and reading."""
+        for parts in (2, 4):
+            def slot(vec, part):
+                return vec * parts + ((part + vec // (8 // parts)) % parts)
+
+            lanes = np.arange(32)
+            writes = np.stack([slot(lanes, i) for i in range(parts)])
+            assert sorted(writes.ravel()) == list(range(32 * parts))
+            c = np.arange(32 * parts)
+            reads = slot(c // parts, c % parts)
+            np.testing.assert_array_equal(np.sort(reads), np.arange(32 * parts))
+            for s in list(writes) + [reads[i * 32:(i + 1) * 32] for i in range(parts)]:
+                for g in range(4):
+                    banks = (s[8 * g:8 * g + 8, None] * 4 + np.arange(4)) % 32
+                    assert sorted(banks.ravel()) == list(range(32))
+
+    def test_cuda_source_names_the_same_geometry(self):
+        src = (Path(K.__file__).resolve().parent.parent / "csrc" / "fused_arith.cu").read_text()
+        consts = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+        assert consts == {"kMaxSteps": K.MAX_STEPS, "kThreads": K.THREADS,
+                          "kVecBytes": K.VEC_BYTES}
+        assert "__launch_bounds__(kThreads)" in src
+        assert "return vec * kParts + ((part + vec / (8 / kParts)) % kParts);" in src
+        assert "const __grid_constant__ Program p" in src
 
 
 def _int8_operands(m, k, n, seed):
@@ -359,6 +582,25 @@ def test_cuda_fused_arith_matches_plain(cuda_device):
     want = K.fused_arith_plain(x.to(cuda_device), NORMALIZE)
     assert torch.equal(got, want)
     assert torch.equal(got.cpu(), K.fused_arith(x, NORMALIZE))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1, 4])
+@pytest.mark.parametrize("dtype,option", [
+    (np.uint8, "typecast:float32,add:-127.5,div:127.5"), (np.int16, "typecast:float32,mul:0.5"),
+    (np.uint8, "typecast:uint16,mul:300"), (np.float32, "typecast:int8"),
+    (np.float16, "mul:3,add:0.1"), (np.uint32, "mul:65537,add:4000000000")])
+def test_cuda_fused_arith_program_matches_plain(cuda_device, dtype, option, offset):
+    """Both variants, staged and direct stores, aligned and offset inputs:
+    the kernel equals the plain version and the model of its program."""
+    x = _extreme_inputs(np.dtype(dtype), np.random.default_rng(9), n=70_001)
+    ops = _bind_chain(_parse_arith_ops(option), np.dtype(dtype))
+    flat = torch.empty(x.size + offset, dtype=torch.from_numpy(x).dtype, device=cuda_device)
+    xd = flat[offset:].copy_(torch.from_numpy(x))
+    got = K.fused_arith(xd, ops)
+    _bitwise(got.cpu().numpy(), K.fused_arith_plain(xd, ops).cpu().numpy())
+    plan = K.fused_arith_plan(np.dtype(dtype), ops)
+    _bitwise(got.cpu().numpy(), K.program_eval(x, plan.program, plan.out_dtype))
 
 
 @pytest.mark.cuda
