@@ -28,22 +28,45 @@ In order, it
    floor; ``fused_arith`` also at the 4K frame and, beside it,
    ``x.to(torch.float32)`` on the same frames (the same bytes and one
    conversion, a yardstick for the chain);
-4. image-labeling phase (slice 1): builds MobileNet-v2 1.0 (224x224x3 uint8
+4. graph phase: each kernel captured in a CUDA graph (``fused_arith`` at
+   both paths' frames, ``int8_matmul`` on its split-K cluster branch and
+   its tiled branch, ``nms_keep`` on its bit walk, its barrier walk and
+   above the static shared-memory limit) and replayed twice on new inputs,
+   held against its plain version as in the kernel phase;
+5. image-labeling phase (slice 1): builds MobileNet-v2 1.0 (224x224x3 uint8
    frames, 1001 classes, bf16, int8 classifier head, random weights from a
-   fixed seed) and runs 64 ``videotestsrc`` frames through the pipeline on
-   the card; ``fused_arith`` and ``int8_matmul`` must launch once per frame,
-   and the labels must equal those of the same model run on the card with
-   the kernels' plain versions;
-5. object-detection phase (slice 2): builds SSD-MobileNet-v2 1.0 (300x300x3
+   fixed seed) and runs 64 ``videotestsrc`` frames on the card through the
+   canonical topology, built by ``parse_launch``: ``videotestsrc !
+   tensor_converter ! tensor_transform (normalize, pallas) ! tensor_upload !
+   queue ! tensor_filter ! tensor_decoder (image_labeling) ! tensor_sink``.
+   The normalize folds into the filter across the upload and the queue; the
+   backend captures the folded function once (one capture, a replay per
+   frame), so each wrapper launches only in the pre-capture warm-up calls
+   and the capture.  The replays must equal the
+   eager call of the same function on the same frames (logits bitwise, or
+   within 1e-3 relative if a conv algorithm was picked differently), their
+   outputs must be distinct tensors, and the labels must equal those of the
+   same model run with the kernels' plain versions.  A traced run of 16
+   frames, gated so that its window holds the frames and not the capture,
+   must hold 16 graph launches, each with one CUPTI record of each path
+   kernel and none of the others (``launch_check``: a launch may lack a
+   record only where its own record count shows that the tracer lost
+   it); it gives device busy time, idle
+   share and host-issued device operations per frame.  The filter's
+   function is also run eagerly and replayed in a plain frame loop, for fps
+   and host operations per frame;
+6. object-detection phase (slice 2): builds SSD-MobileNet-v2 1.0 (300x300x3
    uint8 frames, 1917 anchors, 91 labels, bf16, random weights from a fixed
-   seed) and runs 64 frames through the tflite-ssd pipeline with
-   whole-segment compilation on: the converter and the decoder must fold
-   into the filter, ``fused_arith`` and ``nms_keep`` must
-   launch once per frame, and the detections must equal those of the same
-   frames decoded on the host (boxes and classes exactly, probs within
-   ``PROB_ATOL``); then the fused-decode variant (``fused_decode=100``,
-   ``fused-ssd`` decoder) with segments on and off must agree bitwise;
-6. prints one JSON line describing every kernel, and last one JSON line
+   seed) and runs 64 frames through the same topology with the tflite-ssd
+   decoder and whole-segment compilation on: the converter, the normalize
+   and the decoder's device part fold into the filter, one capture, a
+   replay per frame; the replays must equal the eager call bitwise, and the
+   detections those of the same frames decoded on the host (boxes and
+   classes exactly, probs within ``PROB_ATOL``); then the fused-decode
+   variant (``fused_decode=100``, ``fused-ssd`` decoder) with segments on
+   and off must agree bitwise;
+7. prints every path number beside the card's name and power limit, one
+   JSON line describing every kernel, and last one JSON line
    ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero.  Without a CUDA GPU, or without the package
@@ -439,10 +462,310 @@ def timed(row, kernel, plain, library=None):
     return row
 
 
-def slice_phase(torch, np, K, bind):
+def graph_kernel_phase(torch, np, K, ops):
+    """Each kernel captured in a CUDA graph and replayed on new inputs, held
+    bitwise against its plain version: the host entry points are
+    capture-safe (int8_matmul's cluster launch on both branches, nms_keep
+    above the static shared-memory limit, fused_arith's program copied into
+    the graph node)."""
+    from nnstreamer_tpu_torch.ops import nms as N
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(3)
+
+    def u8(shape):
+        return torch.from_numpy(rng.integers(0, 256, shape).astype(np.uint8))
+
+    def i8(shape):
+        return torch.from_numpy(rng.integers(-127, 128, shape).astype(np.int8))
+
+    def f32(shape, scale=1.0):
+        return torch.from_numpy(np.asarray(rng.random(shape) * scale, np.float32))
+
+    def boxes(k):
+        def make():
+            xy = [torch.from_numpy(rng.integers(0, 300, k).astype(np.float32)) for _ in range(2)]
+            wh = [torch.from_numpy(rng.integers(1, 150, k).astype(np.float32)) for _ in range(2)]
+            return xy + wh + [torch.from_numpy(rng.random(k) < 0.8)]
+        return make
+
+    def matmul(m, k, n):
+        return lambda: [i8((m, k)), i8((k, n)), f32((), 0.1) + 1e-3, f32((1, n), 0.01) + 1e-4,
+                        f32((n,))]
+
+    cases = [
+        ("fused_arith (224,224,3)", lambda *a: K.fused_arith(a[0], ops),
+         lambda *a: K.fused_arith_plain(a[0], ops), lambda: [u8((IMAGE, IMAGE, 3))]),
+        ("fused_arith (300,300,3)", lambda *a: K.fused_arith(a[0], ops),
+         lambda *a: K.fused_arith_plain(a[0], ops), lambda: [u8((SSD_IMAGE, SSD_IMAGE, 3))]),
+        ("int8_matmul (1,1280,1001) split-K", K.int8_matmul, K.int8_matmul_plain,
+         matmul(1, 1280, CLASSES)),
+        ("int8_matmul (17,1280,1001) tiled", K.int8_matmul, K.int8_matmul_plain,
+         matmul(17, 1280, CLASSES)),
+        ("nms_keep K=100 bit walk", N.pallas_nms_keep, N.nms_keep, boxes(100)),
+        ("nms_keep K=1281 barrier walk", N.pallas_nms_keep, N.nms_keep, boxes(1281)),
+        # above the static shared-memory limit: a cudaFuncSetAttribute per call
+        ("nms_keep K=4096 barrier walk", N.pallas_nms_keep, N.nms_keep, boxes(4096)),
+    ]
+    names = []
+    for name, kernel, plain, make in cases:
+        static = [t.to(dev) for t in make()]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            kernel(*static)
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = kernel(*static)
+        for _ in range(2):
+            for s, t in zip(static, make()):
+                s.copy_(t)
+            graph.replay()
+            want = plain(*static)
+            torch.cuda.synchronize()
+            if out.dtype == torch.float32 and "int8" in name:
+                check(max_ulp(out, want) <= 1, f"{name} in a graph: more than 1 ulp off")
+            else:
+                check(bitwise_equal(torch, out, want),
+                      f"{name} in a graph: not bitwise equal to its plain version")
+        print(f"{name}: captured in a CUDA graph, two replays on new inputs equal to the "
+              "plain version", flush=True)
+        names.append(name)
+    return names
+
+
+# Host-issued device operations in a torch.profiler trace: kernel launches,
+# copies, memsets and graph launches, as the runtime API calls that issue them.
+RUNTIME_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaLaunchKernelEx",
+                 "cuLaunchKernel", "cuLaunchKernelEx", "cudaMemcpyAsync", "cudaMemcpy",
+                 "cudaMemsetAsync", "cudaMemset", "cudaGraphLaunch", "cuGraphLaunch")
+# The device symbols of each wrapper's kernels.
+KERNEL_SYMBOLS = {"fused_arith": ("fused_arith_kernel",),
+                  "int8_matmul": ("int8_gemv_splitk_kernel", "int8_matmul_kernel"),
+                  "pallas_nms_keep": ("nms_bits_kernel", "nms_walk_kernel")}
+
+
+def trace(fn):
+    """Run ``fn`` under torch.profiler (CUPTI): device busy ms, device
+    activities, kernel records per wrapper (a graph's kernels included),
+    and host-issued device operations by runtime call."""
+    import collections
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    records = {w: sum(any(s in e.name for s in syms) for e in device)
+               for w, syms in KERNEL_SYMBOLS.items()}
+    calls = collections.Counter(e.name for e in events
+                                if e.device_type == DeviceType.CPU and e.name in RUNTIME_CALLS)
+    # each graph launch, in launch order: its records of each wrapper's
+    # kernels, and all its device records (a graph's nodes share the
+    # correlation id of the launch that ran them)
+    launches = sorted((e for e in events if e.device_type == DeviceType.CPU
+                       and e.name in ("cudaGraphLaunch", "cuGraphLaunch")),
+                      key=lambda e: e.time_range.start)
+    by_launch = collections.defaultdict(collections.Counter)
+    total = collections.Counter(e.id for e in device)
+    for e in device:
+        for w, syms in KERNEL_SYMBOLS.items():
+            if any(s in e.name for s in syms):
+                by_launch[e.id][w] += 1
+    return dict(busy_ms=sum(e.device_time_total for e in device) / 1e3,
+                activities=len(device), records=records, calls=dict(calls),
+                per_launch=[(dict(by_launch.get(e.id, {})), total[e.id]) for e in launches])
+
+
+def run_pipeline(nns, desc, model, frames_expected, seg=None, during=None):
+    """Build ``desc`` with parse_launch, set the filter's model, run it to
+    EOS; ``during(p)`` runs after EOS while the pipeline still plays (its
+    backend open).  Returns (pipeline, sink arrival times, during's result)."""
+    arrivals = []
+    p = nns.parse_launch(desc)
+    if seg is not None:
+        p.segment_compile = seg
+    p["f"].model = model
+    p["out"].callback = lambda f: arrivals.append(time.perf_counter())
+    p.start()
+    try:
+        check(p.wait(600), f"the pipeline did not finish within 600 s: {desc}")
+        result = during(p) if during is not None else None
+    finally:
+        p.stop()
+    check(len(p["out"].frames) == frames_expected,
+          f"the pipeline delivered {len(p['out'].frames)} of {frames_expected} frames")
+    return p, arrivals, result
+
+
+def rates(arrivals, np):
+    gaps = np.diff(np.asarray(arrivals)) * 1e3
+    return dict(fps=(len(arrivals) - 1) / (arrivals[-1] - arrivals[0]),
+                p50_ms=float(np.median(gaps)), p90_ms=float(np.percentile(gaps, 90)))
+
+
+def host_ops(calls) -> int:
+    return sum(calls.values())
+
+
+def captured_against_eager(torch, be, xs, exact):
+    """The filter's captured function against its eager call on the same
+    frames, on the card; the replays' outputs must be distinct tensors.
+    Returns the largest difference, absolute and relative to the largest
+    output of its frame."""
+    with torch.inference_mode():
+        got = [be.invoke((x,)) for x in xs]
+        want = [be.eager(x) for x in xs]
+    torch.cuda.synchronize()
+    ptrs = [o.data_ptr() for outs in got for o in outs]
+    check(len(set(ptrs)) == len(ptrs), "replay outputs alias each other: no clone")
+    err = rel = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        for a, b in zip(g, w):
+            check(a.shape == b.shape and a.dtype == b.dtype, f"frame {i}: shape/dtype differ")
+            if exact:
+                check(bitwise_equal(torch, a, b), f"frame {i}: the replay differs from eager")
+            if a.dtype.is_floating_point:
+                d = float((a.double() - b.double()).abs().max())
+                err = max(err, d)
+                rel = max(rel, d / max(float(b.double().abs().max()), 1e-30))
+    return err, rel
+
+
+def loop_rates(torch, call, xs):
+    """A frame loop over ``call`` and the decoder's one device→host read:
+    fps over the frames, and the host-issued device operations and busy
+    time per frame from a traced pass."""
+    def once():
+        with torch.inference_mode():
+            for x in xs:
+                call(x)[0].cpu()
+
+    once()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    once()
+    fps = len(xs) / (time.perf_counter() - t0)
+    tr = trace(once)
+    return dict(fps=fps, host_ops_per_frame=host_ops(tr["calls"]) / len(xs),
+                busy_ms_per_frame=tr["busy_ms"] / len(xs))
+
+
+def traced_run(nns, desc, model, n, seg=None):
+    """One pipeline run of ``n`` frames traced from its first frame: the
+    upload's lock holds the source until start() (negotiation, warm-up,
+    capture) has returned and the profiler runs, so the window holds the
+    ``n`` frames and nothing of the capture."""
+    p = nns.parse_launch(desc)
+    if seg is not None:
+        p.segment_compile = seg
+    p["f"].model = model
+    gate = p["u"]._lock
+    gate.acquire()
+    try:
+        p.start()
+    except BaseException:
+        gate.release()
+        raise
+    try:
+        # a launch in the trace's first moments may leave no record: the
+        # first frame waits 0.25 s (idle card time, no busy time)
+        tr = trace(lambda: (time.sleep(0.25), gate.release(),
+                            check(p.wait(600), "traced run did not finish")))
+    finally:
+        p.stop()
+    check(len(p["out"].frames) == n, f"traced run delivered {len(p['out'].frames)} of {n}")
+    return tr
+
+
+def launch_check(tr, kernels):
+    """The per-frame launch check on one trace; returns the device records
+    the tracer lost.  Each graph launch must hold at most one record of each
+    path kernel and none of the others, and no path kernel may have a record
+    outside a graph launch.  Every launch replays the same captured graph, so
+    a launch holding fewer device records than the fullest one lost records
+    in the tracer (CUPTI drops one now and then): such a launch may lack as
+    many path-kernel records as it lost, no more.  A kernel missing from the
+    graph, or launched twice in it, fails."""
+    full = max(total for _, total in tr["per_launch"])
+    lost = 0
+    for i, (rec, total) in enumerate(tr["per_launch"]):
+        extra = {k: n for k, n in rec.items() if n > (1 if k in kernels else 0)}
+        check(not extra, f"graph launch {i} holds {extra} kernel records: a kernel launched "
+                         "more than once per frame, or off the path")
+        missing = [k for k in kernels if not rec.get(k)]
+        check(len(missing) <= full - total,
+              f"graph launch {i} holds no record of {missing}, yet {total} of the fullest "
+              f"launch's {full} device records: a path kernel not launched from the graph")
+        lost += full - total
+    for k in kernels:
+        in_graph = sum(rec.get(k, 0) for rec, _ in tr["per_launch"])
+        check(tr["records"][k] == in_graph,
+              f"{k}: {tr['records'][k] - in_graph} records outside the graph launches")
+    return lost
+
+
+def profile_path(run, res, kernels):
+    """Device busy time, idle share and host-issued operations per frame
+    from a traced run of PROFILED frames, and the per-frame launch check:
+    PROFILED graph launches, each holding one record of each of the path's
+    kernels and none of the other kernels.  A trace that misses the mark is
+    taken again, three times in all; the last one must then pass
+    ``launch_check``, which allows a launch to lack a record only where the
+    tracer demonstrably lost that launch's records."""
+    want = {k: PROFILED if k in kernels else 0 for k in KERNEL_SYMBOLS}
+    for attempt in range(3):
+        tr = run(PROFILED)
+        launches = tr["calls"].get("cudaGraphLaunch", 0) + tr["calls"].get("cuGraphLaunch", 0)
+        if tr["records"] == want and launches == PROFILED:
+            break
+        odd = {i: pl for i, pl in enumerate(tr["per_launch"]) if pl != tr["per_launch"][-1]}
+        print(f"  trace of {PROFILED} frames: kernel records {tr['records']}, {launches} graph "
+              f"launches (attempt {attempt + 1}); launches unlike the last "
+              f"{tr['per_launch'][-1]}: {odd}", flush=True)
+    check(any(tr["records"][k] for k in kernels),
+          "the CUPTI trace holds no record of a kernel launched from a graph: the per-frame "
+          "launch check cannot be made")
+    check(launches == PROFILED and len(tr["per_launch"]) == PROFILED,
+          f"{launches} graph launches for {PROFILED} frames")
+    lost = launch_check(tr, kernels)
+    print(f"  per-frame launch check: {tr['records']} kernel records over {PROFILED} graph "
+          f"launches of {max(t for _, t in tr['per_launch'])} device records each; "
+          f"{lost} lost by the tracer", flush=True)
+    busy = tr["busy_ms"] / PROFILED
+    res.update(kernel_records=tr["records"], records_lost_by_tracer=lost,
+               device_busy_ms_per_frame=busy, device_idle_share=1 - busy * res["fps"] / 1e3,
+               device_activities_per_frame=tr["activities"] / PROFILED,
+               host_ops_per_frame=host_ops(tr["calls"]) / PROFILED,
+               host_calls_per_frame={k: v / PROFILED for k, v in tr["calls"].items()})
+
+
+def report_path(name, res, card):
+    print(f"{name}: {res['frames']} frames through parse_launch, one capture, "
+          f"{res['replays']} replays [{card}]", flush=True)
+    for key, label in (("fps", "fps"), ("p50_ms", "p50 ms/frame"), ("p90_ms", "p90 ms/frame"),
+                       ("device_busy_ms_per_frame", "device busy ms/frame"),
+                       ("device_idle_share", "device idle share"),
+                       ("device_activities_per_frame", "device activities/frame"),
+                       ("host_ops_per_frame", "host-issued device operations/frame"),
+                       ("capture_s", "capture wall s"), ("warmup_s", "pre-capture warm-up s"),
+                       ("eager_fps", "eager loop fps"),
+                       ("eager_host_ops_per_frame", "eager loop host-issued operations/frame"),
+                       ("replay_fps", "replay loop fps"),
+                       ("replay_host_ops_per_frame", "replay loop host-issued operations/frame")):
+        if key in res:
+            print(f"  {name} {label}: {res[key]} [{card}]", flush=True)
+
+
+def slice_phase(torch, np, K, ops, root, card):
     import nnstreamer_tpu_torch as nns
-    from nnstreamer_tpu_torch.elements.filter import TensorFilter
-    from nnstreamer_tpu_torch.elements.sink import TensorSink
     from nnstreamer_tpu_torch.models import mobilenet_v2
     from nnstreamer_tpu_torch.ops.quant import quantize_activations
 
@@ -450,38 +773,69 @@ def slice_phase(torch, np, K, bind):
     model = mobilenet_v2.build_quantized(num_classes=CLASSES, width_mult=1.0, image_size=IMAGE,
                                          int8_head=True, seed=0, device="cuda")
     print(f"model built in {time.perf_counter() - t0:.3f} s", flush=True)
+    work = os.path.join(root, "build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    labels_path = os.path.join(work, "labels_1001.txt")
     labels = [f"class_{i}" for i in range(CLASSES)]
+    with open(labels_path, "w", encoding="utf-8") as f:
+        f.write("\n".join(labels))
 
-    def run(frames):
-        arrivals = []
-        p = nns.Pipeline()
-        src = p.add(nns.make("videotestsrc", num_buffers=frames, width=IMAGE, height=IMAGE,
-                             pattern="random", seed=7))
-        conv = p.add(nns.make("tensor_converter"))
-        norm = p.add(nns.make("tensor_transform", mode="arithmetic", option=NORMALIZE,
-                              acceleration="pallas", device="cuda"))
-        filt = p.add(TensorFilter(framework="torch", model=model))
-        dec = p.add(nns.make("tensor_decoder", mode="image_labeling"))
-        dec.plugin.set_labels(labels)
-        sink = p.add(TensorSink(collect=True,
-                                callback=lambda f: arrivals.append(time.perf_counter())))
-        p.link_chain(src, conv, norm, filt, dec, sink)
-        p.run(timeout=600)
-        return sink.frames, arrivals, src
+    def desc(n):
+        return (f"videotestsrc name=src num-buffers={n} width={IMAGE} height={IMAGE} "
+                "pattern=random seed=7 ! tensor_converter name=conv ! "
+                f"tensor_transform mode=arithmetic option={NORMALIZE} acceleration=pallas ! "
+                "tensor_upload name=u ! queue max-size-buffers=16 ! "
+                "tensor_filter framework=torch name=f ! "
+                f"tensor_decoder mode=image_labeling option1={labels_path} ! "
+                "tensor_sink name=out collect=true")
 
-    run(WARMUP_FRAMES)  # CUDA context, cuDNN plans, kernel libraries
+    state = {}
+
+    def during(p):
+        be = p["f"].backend
+        state.update(stats=dict(be.stats), launches={k.__name__: k.launches for k in K.KERNELS},
+                     transform_folded=not any(type(n).__name__ == "TensorTransform"
+                                              for n in p.nodes.values()))
+        src = p["src"]
+        xs = [torch.from_numpy(src._make_frame(i)) for i in range(8)]
+        state["logit_abs_diff"], state["logit_rel_diff"] = captured_against_eager(
+            torch, be, xs, exact=False)
+        frames = [torch.from_numpy(src._make_frame(i)) for i in range(PROFILED)]
+        state["eager"] = loop_rates(torch, be.eager, frames)
+        state["replay"] = loop_rates(torch, lambda x: be.invoke((x,)), frames)
+        return p
+
+    run_pipeline(nns, desc(WARMUP_FRAMES), model, WARMUP_FRAMES)  # CUDA context, cuDNN plans
     K.reset_launches()
-    frames, arrivals, src = run(FRAMES)
-    launches = {k.__name__: k.launches for k in K.KERNELS}
-    print(f"image-labeling path launches over {FRAMES} frames: {launches}", flush=True)
-    check(len(frames) == FRAMES, f"slice delivered {len(frames)} of {FRAMES} frames")
+    p, arrivals, _ = run_pipeline(nns, desc(FRAMES), model, FRAMES, during=during)
+    frames = p["out"].frames
+    stats, launches = state["stats"], state["launches"]
+    print(f"image-labeling path over {FRAMES} frames: backend {stats}, wrapper launches "
+          f"{launches}", flush=True)
+    check(state["transform_folded"], "the normalize did not fold across upload and queue")
+    check(stats["captures"] == 1 and stats["replays"] == FRAMES,
+          f"expected one capture and {FRAMES} replays: {stats}")
     for name in ("fused_arith", "int8_matmul"):
-        check(launches[name] == FRAMES,
-              f"{name} launched {launches[name]} times for {FRAMES} frames")
+        check(launches[name] == stats["warmup_calls"] + 1,
+              f"{name}: {launches[name]} wrapper launches, expected the "
+              f"{stats['warmup_calls']} warm-up calls and the capture")
+    check(len({id(f) for f in frames}) == FRAMES, "the sink holds one frame object twice")
+
+    # The replay against the eager call of the same wrapped function.
+    diff = state["logit_abs_diff"]
+    if diff == 0.0:
+        print("captured against eager: logits bitwise equal on 8 frames", flush=True)
+    else:
+        # A conv algorithm picked differently in capture and in eager: the
+        # plain-run bound applies.
+        print(f"captured against eager: logits differ by up to {diff} (absolute), "
+              f"{state['logit_rel_diff']} relative to the largest logit", flush=True)
+        check(state["logit_rel_diff"] <= 1e-3, "the replay's logits differ from eager by more "
+                                               "than 1e-3 (relative)")
 
     # The same model with the kernels' plain versions, on the card.
-    ops = bind(NORMALIZE, np.dtype(np.uint8))
     head = model.params["classifier"]
+    src = p["src"]
     plain_idx, plain_top = [], []
     with torch.inference_mode():
         for i in range(FRAMES):
@@ -497,10 +851,8 @@ def slice_phase(torch, np, K, bind):
     check(got_idx == plain_idx, f"labels differ from the plain run: {got_idx} vs {plain_idx}")
     check([f.meta["label"] for f in frames] == [labels[i] for i in plain_idx],
           "label text does not match the label index")
-    # The trunk is the same cuDNN/cuBLAS code in both runs and both kernels
-    # are bitwise equal to their plain versions, so the top logits should be
-    # equal; allowed: 1e-3 relative, for a conv algorithm picked differently
-    # from one call to the next.
+    # allowed: 1e-3 relative, for a conv algorithm picked differently from
+    # one call to the next
     top_err = max(abs(f.meta["score"] - t) / max(1.0, abs(t)) for f, t in zip(frames, plain_top))
     check(top_err <= 1e-3, f"top logits differ from the plain run by {top_err} (relative)")
 
@@ -517,53 +869,35 @@ def slice_phase(torch, np, K, bind):
             logit_err = max(logit_err, float((got - want).abs().max() / want.abs().max()))
     check(logit_err <= 1e-3, f"logits differ from the plain run by {logit_err} (relative)")
 
-    gaps = np.diff(np.asarray(arrivals)) * 1e3
-    fps = (len(arrivals) - 1) / (arrivals[-1] - arrivals[0])
-    slice_res = dict(frames=FRAMES, fps=fps, p50_ms=float(np.median(gaps)),
-                     p90_ms=float(np.percentile(gaps, 90)),
-                     distinct_labels=len(set(got_idx)), top_logit_rel_err=top_err,
-                     logit_rel_err=logit_err)
-    print(f"slice: {FRAMES} frames, {fps:.3f} fps, p50 {slice_res['p50_ms']:.3f} ms/frame, "
-          f"labels equal to the plain run ({len(set(got_idx))} distinct), logits within "
+    res = dict(frames=FRAMES, replays=stats["replays"], **rates(arrivals, np),
+               distinct_labels=len(set(got_idx)), top_logit_rel_err=top_err,
+               logit_rel_err=logit_err, captured_vs_eager_abs=diff,
+               capture_s=stats["capture_s"], warmup_s=stats["warmup_s"],
+               eager_fps=state["eager"]["fps"],
+               eager_host_ops_per_frame=state["eager"]["host_ops_per_frame"],
+               eager_busy_ms_per_frame=state["eager"]["busy_ms_per_frame"],
+               replay_fps=state["replay"]["fps"],
+               replay_host_ops_per_frame=state["replay"]["host_ops_per_frame"],
+               replay_busy_ms_per_frame=state["replay"]["busy_ms_per_frame"])
+    print(f"slice: labels equal to the plain run ({len(set(got_idx))} distinct), logits within "
           f"{logit_err:.3g} (relative)", flush=True)
 
-    profile_slice(lambda: run(PROFILED), slice_res)
-    return launches, slice_res
-
-
-def profile_slice(run_profiled, res):
-    """Where a frame's time goes: a separate profiled run of PROFILED frames
-    (not counted in the timed run); device busy time against wall time."""
-    t0 = time.perf_counter()
-    busy_ms, activities = profile_cuda(run_profiled, 1)
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    if busy_ms is None:
-        print("profiled run: the profiler recorded no device time (not measured)", flush=True)
-        return
-    # The profiler slows the host down, so the idle share is taken against
-    # the unprofiled run's wall time per frame.
-    busy = busy_ms / PROFILED
-    res.update(profiled_frames=PROFILED, device_busy_ms_per_frame=busy,
-               profiled_wall_ms_per_frame=wall_ms / PROFILED,
-               device_idle_share=1 - busy * res["fps"] / 1e3,
-               device_activities_per_frame=activities / PROFILED)
-    print(f"profiled {PROFILED} frames: device busy {busy:.3f} ms/frame, idle "
-          f"{res['device_idle_share']:.3f} of the unprofiled {1e3 / res['fps']:.3f} ms/frame, "
-          f"{activities / PROFILED:.0f} kernels and copies per frame", flush=True)
+    profile_path(lambda n: traced_run(nns, desc(n), model, n), res,
+                 ("fused_arith", "int8_matmul"))
+    report_path("image labeling", res, card)
+    return launches, res
 
 
 def _objects(frame):
     return [(o.class_id, o.x, o.y, o.width, o.height) for o in frame.meta["objects"]]
 
 
-def detection_phase(torch, np, K, bind, root):
+def detection_phase(torch, np, K, ops, root, card):
     """Slice 2: the object-detection pipeline at full width, with
     whole-segment compilation and the NMS kernel; then its fused-decode
     variant."""
     import nnstreamer_tpu_torch as nns
     from nnstreamer_tpu_torch.decoders import bounding_boxes as bb
-    from nnstreamer_tpu_torch.elements.filter import TensorFilter
-    from nnstreamer_tpu_torch.elements.sink import TensorSink
     from nnstreamer_tpu_torch.models import ssd_mobilenet
 
     work = os.path.join(root, "build", "chip_smoke")
@@ -580,49 +914,62 @@ def detection_phase(torch, np, K, bind, root):
           f"({ssd_mobilenet.num_priors(SSD_IMAGE)} anchors)", flush=True)
     wh = f"{SSD_IMAGE}:{SSD_IMAGE}"
 
-    def run(m, frames, seg, submode):
-        arrivals = []
-        p = nns.Pipeline()
-        p.segment_compile = seg
-        src = p.add(nns.make("videotestsrc", num_buffers=frames, width=SSD_IMAGE,
-                             height=SSD_IMAGE, pattern="random", seed=11))
-        conv = p.add(nns.make("tensor_converter"))
-        norm = p.add(nns.make("tensor_transform", mode="arithmetic", option=NORMALIZE,
-                              acceleration="pallas", device="cuda"))
-        filt = p.add(TensorFilter(framework="torch", model=m))
-        dec = p.add(nns.make("tensor_decoder", mode="bounding_boxes", option1=submode,
-                             option2=labels, option3=priors_path, option4=wh, option5=wh))
-        sink = p.add(TensorSink(collect=True,
-                                callback=lambda f: arrivals.append(time.perf_counter())))
-        p.link_chain(src, conv, norm, filt, dec, sink)
-        p.start()
-        try:
-            state = dict(converter_folded=conv.name not in p.nodes,
-                         transform_folded=norm.name not in p.nodes,
-                         decoder_lowered=dec.plugin._lowered is not None,
-                         label=filt.backend.segment_label, fn=filt.backend._fn)
-            check(p.wait(600), "the detection pipeline did not finish within 600 s")
-        finally:
-            p.stop()
-        check(len(sink.frames) == frames, f"detection delivered {len(sink.frames)} of {frames}")
-        return sink.frames, arrivals, state, src
+    def desc(n, submode):
+        return (f"videotestsrc name=src num-buffers={n} width={SSD_IMAGE} height={SSD_IMAGE} "
+                "pattern=random seed=11 ! tensor_converter name=conv ! "
+                f"tensor_transform mode=arithmetic option={NORMALIZE} acceleration=pallas ! "
+                "tensor_upload name=u ! queue max-size-buffers=16 ! "
+                "tensor_filter framework=torch name=f ! "
+                f"tensor_decoder name=dec mode=bounding_boxes option1={submode} "
+                f"option2={labels} option3={priors_path} option4={wh} option5={wh} ! "
+                "tensor_sink name=out collect=true")
 
-    run(model, WARMUP_FRAMES, True, "tflite-ssd")  # cuDNN plans for the new shapes
+    state = {}
+
+    def during(p):
+        be = p["f"].backend
+        types = {type(n).__name__ for n in p.nodes.values()}
+        state.update(stats=dict(be.stats), launches={k.__name__: k.launches for k in K.KERNELS},
+                     converter_folded="TensorConverter" not in types,
+                     transform_folded="TensorTransform" not in types,
+                     decoder_lowered=p["dec"].plugin._lowered is not None,
+                     label=be.segment_label, fn=be._fn)
+        src = p["src"]
+        xs = [torch.from_numpy(src._make_frame(i)) for i in range(8)]
+        captured_against_eager(torch, be, xs, exact=True)
+        frames = [torch.from_numpy(src._make_frame(i)) for i in range(PROFILED)]
+        state["eager"] = loop_rates(torch, be.eager, frames)
+        state["replay"] = loop_rates(torch, lambda x: be.invoke((x,)), frames)
+        return p
+
+    run_pipeline(nns, desc(WARMUP_FRAMES, "tflite-ssd"), model, WARMUP_FRAMES, seg=True)
     K.reset_launches()
-    frames, arrivals, state, src = run(model, FRAMES, True, "tflite-ssd")
-    launches = {k.__name__: k.launches for k in K.KERNELS}
+    p, arrivals, _ = run_pipeline(nns, desc(FRAMES, "tflite-ssd"), model, FRAMES, seg=True,
+                                  during=during)
+    frames, src = p["out"].frames, p["src"]
+    stats, launches = state["stats"], state["launches"]
     fused_fn = state.pop("fn")
-    print(f"object-detection path launches over {FRAMES} frames: {launches}; segment "
-          f"{state}", flush=True)
+    print(f"object-detection path over {FRAMES} frames: backend {stats}, wrapper launches "
+          f"{launches}; segment {state['label']}", flush=True)
     check(state["converter_folded"] and state["transform_folded"] and state["decoder_lowered"],
-          f"the segment did not fold the converter, transform and decoder: {state}")
+          f"the segment did not fold the converter, transform and decoder: "
+          f"{ {k: state[k] for k in ('converter_folded', 'transform_folded', 'decoder_lowered')} }")
+    check(stats["captures"] == 1 and stats["replays"] == FRAMES,
+          f"expected one capture and {FRAMES} replays: {stats}")
     for name in ("fused_arith", "pallas_nms_keep"):
-        check(launches[name] == FRAMES,
-              f"{name} launched {launches[name]} times for {FRAMES} frames")
-    gaps = np.diff(np.asarray(arrivals)) * 1e3
-    res = dict(frames=FRAMES, fps=(len(arrivals) - 1) / (arrivals[-1] - arrivals[0]),
-               p50_ms=float(np.median(gaps)), p90_ms=float(np.percentile(gaps, 90)),
-               segment=state["label"])
+        check(launches[name] == stats["warmup_calls"] + 1,
+              f"{name}: {launches[name]} wrapper launches, expected the "
+              f"{stats['warmup_calls']} warm-up calls and the capture")
+    check(len({id(f) for f in frames}) == FRAMES, "the sink holds one frame object twice")
+    print("captured against eager: detections bitwise equal on 8 frames", flush=True)
+    res = dict(frames=FRAMES, replays=stats["replays"], **rates(arrivals, np),
+               segment=state["label"], capture_s=stats["capture_s"],
+               warmup_s=stats["warmup_s"], eager_fps=state["eager"]["fps"],
+               eager_host_ops_per_frame=state["eager"]["host_ops_per_frame"],
+               eager_busy_ms_per_frame=state["eager"]["busy_ms_per_frame"],
+               replay_fps=state["replay"]["fps"],
+               replay_host_ops_per_frame=state["replay"]["host_ops_per_frame"],
+               replay_busy_ms_per_frame=state["replay"]["busy_ms_per_frame"])
 
     # The filter's fused function (normalize, SSD, decode, sort, NMS) makes
     # no host synchronization: one call on a frame already on the card, with
@@ -641,11 +988,12 @@ def detection_phase(torch, np, K, bind, root):
           flush=True)
 
     # The same frames with segments off: decode and NMS on the host.
-    host, host_arrivals, hstate, _ = run(model, FRAMES, False, "tflite-ssd")
-    check(not hstate["decoder_lowered"], "segments off, yet the decoder was lowered")
-    host_gaps = np.diff(np.asarray(host_arrivals)) * 1e3
-    res.update(host_fps=(len(host_arrivals) - 1) / (host_arrivals[-1] - host_arrivals[0]),
-               host_p50_ms=float(np.median(host_gaps)))
+    hp, host_arrivals, _ = run_pipeline(nns, desc(FRAMES, "tflite-ssd"), model, FRAMES,
+                                        seg=False)
+    check(hp["dec"].plugin._lowered is None, "segments off, yet the decoder was lowered")
+    host = hp["out"].frames
+    hr = rates(host_arrivals, np)
+    res.update(host_fps=hr["fps"], host_p50_ms=hr["p50_ms"])
     prob_err, n_objects = 0.0, 0
     for i, (g, w) in enumerate(zip(frames, host)):
         check(_objects(g) == _objects(w), f"frame {i}: device detections {_objects(g)} differ "
@@ -657,7 +1005,6 @@ def detection_phase(torch, np, K, bind, root):
 
     # Candidates and survivors of the first frames, from the raw model output
     # decoded on the host: the NMS must keep some boxes and suppress others.
-    ops = bind(NORMALIZE, np.dtype(np.uint8))
     priors = ssd_mobilenet.generate_priors(SSD_IMAGE)
     candidates = kept = max_area = 0
     with torch.inference_mode():
@@ -679,23 +1026,31 @@ def detection_phase(torch, np, K, bind, root):
     check(0 < kept < candidates, f"NMS kept {kept} of {candidates} candidates: trivial")
     res.update(objects=n_objects, prob_max_abs_err=prob_err, nms_candidates_4_frames=candidates,
                nms_kept_4_frames=kept, max_candidate_area=max_area)
-    print(f"object detection: {FRAMES} frames, {res['fps']:.3f} fps, p50 {res['p50_ms']:.3f} "
-          f"ms/frame (segments off: {res['host_fps']:.3f} fps, p50 {res['host_p50_ms']:.3f} "
-          f"ms/frame); {n_objects} detections equal to the host decode (prob within "
-          f"{prob_err:.3g}); NMS kept {kept} of {candidates} candidates in 4 frames; largest "
-          f"candidate area {max_area} px", flush=True)
-    profile_slice(lambda: run(model, PROFILED, True, "tflite-ssd"), res)
+    print(f"object detection: {n_objects} detections equal to the host decode (prob within "
+          f"{prob_err:.3g}; segments off: {res['host_fps']} fps); NMS kept {kept} of "
+          f"{candidates} candidates in 4 frames; largest candidate area {max_area} px",
+          flush=True)
+
+    profile_path(lambda n: traced_run(nns, desc(n, "tflite-ssd"), model, n, seg=True), res,
+                 ("fused_arith", "pallas_nms_keep"))
+    report_path("object detection", res, card)
 
     # The fused-decode variant: decode_topk in the model, fused-ssd decoder.
     K.reset_launches()
-    fused_on, _, fstate, _ = run(fused_model, FUSED_FRAMES, True, "fused-ssd")
-    del fstate["fn"]
+    fp, _, fused_lowered = run_pipeline(
+        nns, desc(FUSED_FRAMES, "fused-ssd"), fused_model, FUSED_FRAMES, seg=True,
+        during=lambda p: p["dec"].plugin._lowered is not None)
     fused_nms = {k.__name__: k.launches for k in K.KERNELS}["pallas_nms_keep"]
-    fused_off, _, _, _ = run(fused_model, FUSED_FRAMES, False, "fused-ssd")
-    check(fstate["decoder_lowered"] and fused_nms == FUSED_FRAMES,
-          f"fused-ssd: lowered {fstate['decoder_lowered']}, {fused_nms} nms_keep launches")
+    fused_stats = fp["f"].backend.stats
+    off, _, _ = run_pipeline(nns, desc(FUSED_FRAMES, "fused-ssd"), fused_model, FUSED_FRAMES,
+                             seg=False)
+    check(fused_lowered and fused_stats["captures"] == 1
+          and fused_stats["replays"] == FUSED_FRAMES
+          and fused_nms == fused_stats["warmup_calls"] + 1,
+          f"fused-ssd: lowered {fused_lowered}, backend {fused_stats}, "
+          f"{fused_nms} nms_keep launches")
     fused_objects = 0
-    for i, (a, b) in enumerate(zip(fused_on, fused_off)):
+    for i, (a, b) in enumerate(zip(fp["out"].frames, off["out"].frames)):
         check([vars(o) for o in a.meta["objects"]] == [vars(o) for o in b.meta["objects"]],
               f"fused-ssd frame {i}: segments on and off disagree")
         check(a.tensor(0).numpy().tobytes() == b.tensor(0).numpy().tobytes(),
@@ -776,8 +1131,10 @@ def main() -> int:
 
     kernels = kernel_phase(torch, np, K, bind, jax_pkg)
     kernels["fused_arith"]["ptxas"] = ptxas
-    by_path = {"image_labeling": slice_phase(torch, np, K, bind)}
-    by_path["object_detection"] = detection_phase(torch, np, K, bind, root)
+    ops = bind(NORMALIZE, np.dtype(np.uint8))
+    in_graph = graph_kernel_phase(torch, np, K, ops)
+    by_path = {"image_labeling": slice_phase(torch, np, K, ops, root, card)}
+    by_path["object_detection"] = detection_phase(torch, np, K, ops, root, card)
     wrapper = {"fused_arith": "fused_arith", "int8_matmul": "int8_matmul",
                "nms_keep": "pallas_nms_keep"}
     for name, r in kernels.items():
@@ -785,7 +1142,7 @@ def main() -> int:
         r["launches"] = sum(counts.values())
         r["launches_by_path"] = counts
         check(r["launches"] > 0, f"{name} never launched on a main path")
-    print(json.dumps({"card": card, "build_s": build_s,
+    print(json.dumps({"card": card, "build_s": build_s, "kernels_in_a_graph": in_graph,
                       "slice": by_path["image_labeling"][1],
                       "slice2": by_path["object_detection"][1]}), flush=True)
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)

@@ -2,30 +2,61 @@
 
 The port's counterpart of the JAX package's ``JaxModel`` / ``JaxBackend``
 (``backends/jax_backend.py``): a model is an apply callable over params,
-with its declared input spec.  PyTorch runs eagerly, so there is nothing to
-compile: :meth:`TorchBackend.reconfigure` checks the negotiated spec and
-works out the output spec, and :meth:`TorchBackend.invoke` moves the
-frame's tensors to the model's device, runs the model there and leaves the
-outputs on the device.
+with its declared input spec.
+
+Where the JAX backend compiles each negotiated geometry once into an LRU of
+executables, this backend **captures** it: on CUDA,
+:meth:`TorchBackend.reconfigure` and :meth:`TorchBackend.reconfigure_fused`
+capture the current function, bare or wrapped, for the negotiated spec as
+one ``torch.cuda.CUDAGraph`` (:func:`capture_graph`) into an LRU of
+``compile_cache`` entries (default 8, ``custom="compile_cache=N"`` or
+``compile_cache:N``).  Before the capture the function runs eagerly on a
+side stream a few times, as PyTorch's CUDA-graph notes prescribe: that
+does the lazy one-time work outside the capture (cuDNN plans, cuBLAS
+workspaces, the decoders' per-device constants, the kernels' library
+loads and ``int8_matmul``'s launch attributes).  :meth:`TorchBackend.invoke`
+then copies each frame's tensors into the entry's static inputs, replays
+the graph and returns **clones** of the static outputs: without the clone
+every frame a collecting sink holds would alias the last frame's output.
+A function that cannot be captured (a host synchronization, a shape that
+depends on the data) raises ``NegotiationError`` naming the model and the
+op; there is no eager fallback on the card.  On the CPU (``device="cpu"``,
+the tests) ``invoke`` runs the function eagerly.
+
+Entries are keyed by the input spec, the segment label and a fingerprint
+of what was captured (``backends/exec_cache.py``: the wrapper's stage
+descriptors, the parameter shapes and dtypes, the kernel sources), so a
+new wrapper never replays an old function's capture; old captures age out
+of the LRU.  :meth:`TorchBackend.open` drops them all, since they read the
+old model's tensors.
 
 Transform fusion and whole-segment compilation (``graph/optimize.py``,
 ``graph/segments.py``) install a wrapper (:meth:`TorchBackend.set_wrapper`):
 a function of the model call that runs the fused pre-stages, the model and
 the fused post-stages (a decoder's device head among them) in one call, so
-a frame goes from its raw stream tensors to the filter's last output
-without a host synchronization.  ``segment_label`` names the folded region.
+one replay takes a frame from its raw stream tensors to the filter's last
+output.  ``segment_label`` names the folded region.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import time
+import traceback
 from typing import Any, Callable, Optional, Tuple
 
 import torch
 
 from ..device import resolve_device
-from ..spec import TensorsSpec, torch_dtype
+from ..graph.node import NegotiationError
+from ..pool import wait_ready
+from ..spec import TensorsSpec, numpy_dtype, torch_dtype
+from . import exec_cache
 from .base import FilterBackend, register_backend
+
+DEFAULT_COMPILE_CACHE = 8
+WARMUP_CALLS = 3  # eager calls on a side stream before each capture
 
 
 @dataclasses.dataclass
@@ -52,18 +83,106 @@ def _as_tuple(outs) -> Tuple:
     return tuple(outs) if isinstance(outs, (tuple, list)) else (outs,)
 
 
+def parse_custom(custom: str) -> dict:
+    """``custom=`` options, ``k=v`` or ``k:v``, comma-separated."""
+    out = {}
+    for part in (custom or "").split(","):
+        part = part.strip()
+        if part:
+            k, sep, v = part.partition("=")
+            if not sep:
+                k, _, v = part.partition(":")
+            out[k.strip()] = v.strip()
+    return out
+
+
+class CapturedGraph:
+    """One geometry of the filter's function, captured: the graph, its
+    static inputs and outputs, and the function (whose tensors the graph
+    reads, so it stays alive with the entry)."""
+
+    def __init__(self, graph, fn, static_in, static_out, warmup_calls, warmup_s, capture_s):
+        self.graph = graph
+        self.fn = fn
+        self.static_in = static_in
+        self.static_out = static_out
+        self.warmup_calls = warmup_calls
+        self.warmup_s = warmup_s
+        self.capture_s = capture_s
+
+    def run(self, xs) -> Tuple:
+        for s, x in zip(self.static_in, xs):
+            if x.shape != s.shape:
+                raise ValueError(f"captured for {tuple(s.shape)}, got {tuple(x.shape)}")
+            s.copy_(x, non_blocking=True)
+        self.graph.replay()
+        return tuple(o.clone() for o in self.static_out)
+
+
+def _failing_op(exc: BaseException) -> str:
+    """The innermost frame outside torch itself of the capture's error (or
+    of the error it replaced): the op that could not be captured."""
+    for e in (exc, exc.__context__):
+        if e is None:
+            continue
+        frames = [f for f in traceback.extract_tb(e.__traceback__)
+                  if "/torch/" not in f.filename.replace("\\", "/")]
+        if frames:
+            f = frames[-1]
+            return f"{f.filename}:{f.lineno} in {f.name}: {f.line}"
+    return "unknown op"
+
+
+def capture_graph(fn: Callable, in_spec: TensorsSpec, device: torch.device,
+                  warmup_calls: int = WARMUP_CALLS) -> CapturedGraph:
+    """Capture ``fn`` at ``in_spec`` on ``device`` as one CUDA graph: zeros
+    as static inputs, ``warmup_calls`` eager calls on a side stream first.
+
+    ``capture_error_mode="thread_local"``: the capture refuses an unsafe
+    call (a host synchronization) from this thread, but not the upload's
+    copies on the source's thread, should a caps change re-capture while
+    the pipeline plays."""
+    static_in = tuple(torch.zeros(t.shape, dtype=torch_dtype(t.dtype), device=device)
+                      for t in in_spec.tensors)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    t0 = time.perf_counter()
+    with torch.inference_mode(), torch.cuda.stream(side):
+        for _ in range(warmup_calls):
+            fn(*static_in)
+    torch.cuda.current_stream(device).wait_stream(side)
+    torch.cuda.synchronize(device)
+    t1 = time.perf_counter()
+    graph = torch.cuda.CUDAGraph()
+    with torch.inference_mode(), torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        static_out = _as_tuple(fn(*static_in))
+    torch.cuda.synchronize(device)
+    return CapturedGraph(graph, fn, static_in, static_out, warmup_calls, t1 - t0,
+                         time.perf_counter() - t1)
+
+
 @register_backend("torch")
 class TorchBackend(FilterBackend):
+    # None: capture on CUDA, eager on the CPU.  A test may install a
+    # function of the same signature as capture_graph.
+    capture: Optional[Callable] = None
+
     def __init__(self):
         self.model: Optional[TorchModel] = None
         self.device: Optional[torch.device] = None
         self._out_spec: Optional[TensorsSpec] = None
         self._wrapper: Optional[Callable] = None
+        self._stages: Any = None  # the wrapper's stage descriptors
+        self._fingerprint: Optional[str] = None
         self._fn: Optional[Callable] = None  # what invoke runs
+        self._graphs: "collections.OrderedDict[tuple, Any]" = collections.OrderedDict()
+        self._entry = None  # the active capture, or None: eager
+        self._cache_size = DEFAULT_COMPILE_CACHE
         self.segment_label = ""
+        self.stats = dict(captures=0, hits=0, evictions=0, replays=0, warmup_calls=0,
+                          capture_s=0.0, warmup_s=0.0)
 
     def open(self, model, custom: str = "") -> None:
-        del custom
         if isinstance(model, TorchModel):
             self.model = model
         elif callable(model):
@@ -73,11 +192,19 @@ class TorchBackend(FilterBackend):
             raise TypeError(f"unsupported model object: {type(model)}")
         self.device = resolve_device(self.model.device)
         self._out_spec = self.model.output_spec
-        self.set_wrapper(self._wrapper)
+        try:
+            self._cache_size = max(1, int(parse_custom(custom).get(
+                "compile_cache", DEFAULT_COMPILE_CACHE)))
+        except ValueError:
+            self._cache_size = DEFAULT_COMPILE_CACHE
+        self._graphs.clear()  # captures read the old model's tensors
+        self.set_wrapper(self._wrapper, stages=self._stages)
 
     def close(self) -> None:
         self.model = None
         self._fn = None
+        self._entry = None
+        self._graphs.clear()
 
     def model_spec(self) -> Optional[TensorsSpec]:
         return self.model.input_spec if self.model is not None else None
@@ -95,6 +222,7 @@ class TorchBackend(FilterBackend):
         if not in_spec.tensors_fixed:
             in_spec = in_spec.fixate()
         self._out_spec = self.trace_output_spec(in_spec)
+        self._select(in_spec)
         return self._out_spec
 
     def trace_output_spec(self, in_spec: TensorsSpec) -> TensorsSpec:
@@ -107,26 +235,85 @@ class TorchBackend(FilterBackend):
                   for t in in_spec.tensors]
             return TensorsSpec.from_arrays(_as_tuple(self.model(*xs)))
 
-    def set_wrapper(self, wrapper: Optional[Callable]) -> None:
+    def set_wrapper(self, wrapper: Optional[Callable], stages: Any = None) -> None:
         """Install a fn → fn wrapper around the model call (None: the bare
-        model).  Eager PyTorch caches no compiled executable, so the wrapped
-        function is simply rebuilt."""
+        model), with ``stages``, the descriptors of what it runs (part of
+        the capture key: a rebuild of the same chain selects its earlier
+        captures, a changed chain captures afresh)."""
         self._wrapper = wrapper
+        self._stages = stages
+        self._fingerprint = None
+        self._entry = None
         if self.model is not None:
             self._fn = wrapper(self.model) if wrapper is not None else self.model
 
     def reconfigure_fused(self, raw_spec: TensorsSpec, out_spec: TensorsSpec) -> TensorsSpec:
         """Negotiate the wrapped function: it takes the raw stream spec and
-        gives ``out_spec``, which the filter derived stage by stage (the
-        JAX backend compiles here; eager PyTorch has nothing to build, and
-        no trial run may launch the fused kernels before the first frame).
-        The model-spec check already ran against the fused pre-stages'
-        output (``TensorFilter._install_fusion``)."""
+        gives ``out_spec``, which the filter derived stage by stage; on
+        CUDA this captures it (or selects its cached capture).  The
+        model-spec check already ran against the fused pre-stages' output
+        (``TensorFilter._install_fusion``)."""
         if not raw_spec.tensors_fixed:
             raise ValueError(f"torch backend: fused input spec {raw_spec} is not fixed")
         self._out_spec = out_spec
+        self._select(raw_spec)
         return out_spec
 
+    # -- captures -----------------------------------------------------------
+
+    def _capture_fn(self) -> Optional[Callable]:
+        if self.capture is not None:
+            return self.capture
+        return capture_graph if self.device.type == "cuda" else None
+
+    def _key(self, in_spec: TensorsSpec) -> tuple:
+        """The LRU key: the input spec, the segment label and the
+        fingerprint of the function."""
+        if self._fingerprint is None:
+            self._fingerprint = exec_cache.fingerprint(
+                [self._stages, self.model.name],
+                self.model.apply if isinstance(self.model.apply, torch.nn.Module)
+                else self.model.params)
+        spec_key = tuple((numpy_dtype(t.dtype).str, tuple(t.shape)) for t in in_spec.tensors)
+        return spec_key, self.segment_label, self._fingerprint
+
+    def _select(self, in_spec: TensorsSpec) -> None:
+        """Point ``invoke`` at the capture for ``in_spec``: the LRU's entry,
+        else a new capture (evicting the least recently used)."""
+        capture = self._capture_fn()
+        if capture is None:
+            self._entry = None
+            return
+        key = self._key(in_spec)
+        entry = self._graphs.get(key)
+        if entry is not None:
+            self._graphs.move_to_end(key)
+            self.stats["hits"] += 1
+            self._entry = entry
+            return
+        try:
+            entry = capture(self._fn, in_spec, self.device)
+        except Exception as exc:  # noqa: BLE001 - any capture failure refuses the geometry
+            raise NegotiationError(
+                f"torch backend: model {self.model.name!r} cannot be captured as a CUDA "
+                f"graph at {in_spec}: {_failing_op(exc)}: {type(exc).__name__}: {exc}"
+            ) from exc
+        self.stats["captures"] += 1
+        self.stats["warmup_calls"] += getattr(entry, "warmup_calls", 0)
+        self.stats["capture_s"] += getattr(entry, "capture_s", 0.0)
+        self.stats["warmup_s"] += getattr(entry, "warmup_s", 0.0)
+        self._graphs[key] = entry
+        while len(self._graphs) > self._cache_size:
+            self._graphs.popitem(last=False)
+            self.stats["evictions"] += 1
+        self._entry = entry
+
+    def eager(self, *tensors) -> Tuple:
+        """The function ``invoke`` replays, called eagerly (a reference)."""
+        return _as_tuple(self._fn(*[wait_ready(t).to(self.device) for t in tensors]))
+
     def invoke(self, tensors: Tuple) -> Tuple:
-        xs = [t.to(self.device) for t in tensors]
-        return _as_tuple(self._fn(*xs))
+        if self._entry is not None:
+            self.stats["replays"] += 1
+            return self._entry.run([wait_ready(t) for t in tensors])
+        return _as_tuple(self._fn(*[wait_ready(t).to(self.device) for t in tensors]))

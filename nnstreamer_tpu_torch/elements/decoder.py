@@ -97,6 +97,7 @@ class TensorDecoder(Node):
             opts.pop()
         if options:
             raise ValueError(f"unknown tensor_decoder properties: {sorted(options)}")
+        self.options = tuple(opts)
         self.plugin.init(opts)
         self._in_spec: Optional[TensorsSpec] = None
 

@@ -11,7 +11,9 @@ The graph passes may fold neighbours into the filter
 (``graph/optimize.py``), and for whole-segment compilation a trivial
 converter before it and a decoder's device head after it
 (``graph/segments.py``).  :meth:`TensorFilter._install_fusion` then wraps
-the model call in the backend so one ``invoke`` runs the whole chain.
+the model call in the backend so one ``invoke`` runs the whole chain; on
+CUDA the backend captures that chain once per negotiated geometry as a
+CUDA graph and replays it per frame (``backends/torch_backend.py``).
 """
 
 from __future__ import annotations
@@ -58,7 +60,9 @@ class TensorFilter(Node):
         passes).  A pre-stage or a 1:1 post-stage offers the transform
         protocol, ``build_fn(spec) -> fn(x)`` and ``out_spec_for(spec)``,
         applied per tensor; an N:M post-stage offers ``build_multi(spec) ->
-        (fn(xs) -> tuple, out spec) | None`` and ``on_refuse()``."""
+        (fn(xs) -> tuple, out spec) | None`` and ``on_refuse()``.  Every
+        stage offers ``describe(spec)``: what it computes for ``spec``, the
+        stage's part of the backend's capture key."""
         self._fused_pre = list(pre)
         self._fused_post = list(post)
 
@@ -101,9 +105,11 @@ class TensorFilter(Node):
         whole chain runs as one call on the device; returns the wrapped
         function's output spec, derived stage by stage."""
         pre_stages = []
+        stages = []  # descriptors of what the wrapper runs: the capture key
         spec_cur = in_spec
         for tr in self._fused_pre:
             pre_stages.append([tr.build_fn(t) for t in spec_cur.tensors])
+            stages.append([tr.describe(t) for t in spec_cur.tensors])
             spec_cur = TensorsSpec(tensors=tuple(tr.out_spec_for(t) for t in spec_cur.tensors),
                                    rate=spec_cur.rate)
         model_spec = self.backend.model_spec()
@@ -130,8 +136,10 @@ class TensorFilter(Node):
                     break
                 mfn, spec_o = built
                 post_stages.append((None, mfn))
+                stages.append(tr.describe(spec_o))
             else:
                 post_stages.append(([tr.build_fn(t) for t in spec_o.tensors], None))
+                stages.append([tr.describe(t) for t in spec_o.tensors])
                 spec_o = TensorsSpec(tensors=tuple(tr.out_spec_for(t) for t in spec_o.tensors),
                                      rate=spec_o.rate)
 
@@ -149,7 +157,7 @@ class TensorFilter(Node):
                 return outs
             return fn
 
-        self.backend.set_wrapper(wrapper)
+        self.backend.set_wrapper(wrapper, stages=stages)
         return spec_o
 
     def process(self, pad: Pad, frame: Frame):

@@ -40,6 +40,7 @@ from ..device import resolve_device
 from ..graph.node import NegotiationError, Node, Pad
 from ..graph.registry import register_element
 from ..ops.kernels import chain_out_dtype, fused_arith, fused_arith_plan, plan_chain, run_chain
+from ..pool import wait_ready
 from ..spec import NNS_TENSOR_RANK_LIMIT, TensorSpec, TensorsSpec, dtype_from_name, torch_dtype
 
 MODES = ("typecast", "arithmetic", "transpose", "dimchg", "stand", "clamp")
@@ -171,6 +172,17 @@ class TensorTransform(Node):
             return TensorSpec(dtype=np.float32, shape=t.shape)
         raise AssertionError(self.mode)
 
+    def describe(self, t: TensorSpec) -> tuple:
+        """What :meth:`build_fn` computes for ``t``, as a fused stage's part
+        of the filter's capture key: the mode and option, and for a
+        ``fused_arith`` chain the program the host lowered."""
+        chain = self._chain_ops(t)
+        program = None
+        if chain is not None and self.acceleration == "pallas":
+            program = fused_arith_plan(t.dtype, chain).program
+        return ("tensor_transform", self.mode, self.option, self.acceleration,
+                str(t.dtype), program)
+
     def build_fn(self, t: TensorSpec) -> Callable[[torch.Tensor], torch.Tensor]:
         """The per-tensor function for a fixed input spec."""
         out_dtype = torch_dtype(self.out_spec_for(t).dtype)
@@ -227,5 +239,6 @@ class TensorTransform(Node):
 
     def process(self, pad: Pad, frame: Frame):
         del pad
-        out = [fn(x.to(self.device).contiguous()) for fn, x in zip(self._fns, frame.tensors)]
+        out = [fn(wait_ready(x).to(self.device).contiguous())
+               for fn, x in zip(self._fns, frame.tensors)]
         return frame.with_tensors(out)

@@ -10,9 +10,9 @@ there.  A folded ``acceleration="pallas"`` transform still launches the
 
 Called from ``Pipeline.start`` (``pipeline.auto_fuse = False`` turns it
 off).  Whole-segment compilation (:mod:`.segments`) reuses
-:func:`_splice_out`.  The JAX package also walks past queue and
-tensor_upload here; the port has neither element yet, so neighbours are
-read directly.
+:func:`_splice_out`.  Both walks hop over ``queue`` and
+``tensor_upload`` (:func:`_hop_transparent`), so ``transform → upload →
+queue → filter`` still folds and the upload carries the raw frame.
 """
 
 from __future__ import annotations
@@ -39,6 +39,16 @@ def _is_fusable_filter(node: Node) -> bool:
     from ..elements.filter import TensorFilter
 
     return isinstance(node, TensorFilter) and isinstance(node.backend, TorchBackend)
+
+
+def _hop_transparent(pad, direction: str):
+    """Walk past spec-transparent 1-in/1-out plumbing (queue,
+    tensor_upload), so transforms separated from the filter only by a
+    thread or copy boundary still fold.  It stops at a fan point: hopping
+    one would move a transform across other branches' streams."""
+    from .residency import hop_plumbing
+
+    return hop_plumbing(pad, direction)
 
 
 def _splice_out(pipeline: Pipeline, node: Node):
@@ -78,7 +88,7 @@ def fuse_transforms(pipeline: Pipeline) -> List:
     for filt in [n for n in pipeline.nodes.values() if _is_fusable_filter(n)]:
         pre: List[Node] = []
         while True:
-            peer = filt.sink_pads["sink"].peer
+            peer = _hop_transparent(filt.sink_pads["sink"].peer, "up")
             if peer is None or not _is_fusable_transform(peer.node):
                 break
             tr = peer.node
@@ -86,7 +96,7 @@ def fuse_transforms(pipeline: Pipeline) -> List:
             pre.insert(0, tr)
         post: List[Node] = []
         while True:
-            peer = filt.src_pads["src"].peer
+            peer = _hop_transparent(filt.src_pads["src"].peer, "down")
             if peer is None or not _is_fusable_transform(peer.node):
                 break
             tr = peer.node

@@ -11,6 +11,15 @@ node's chain posts an error and halts the graph.  A failed start undoes
 both folds; :meth:`Pipeline.stop` undoes the segment folds, so the next
 start plans the user's graph again (transform fusion stays, as in the JAX
 package).
+
+Negotiation captures each filter's geometry on the card
+(``backends/torch_backend.py``), so every capture happens before PLAYING,
+while no source or queue thread issues CUDA work.  Nodes with threads of
+their own (``queue``) start them through ``spawn_threads()`` before the
+sources start, and ``stop`` interrupts and joins them.  Not ported yet:
+restart policies and quarantine, the dispatcher lanes, the ``obs.hooks``
+calls, and the JAX package's warmup phase (``graph/warmup.py``,
+``Pipeline.warmup``), which only its batching element plans work for.
 """
 
 from __future__ import annotations
@@ -57,6 +66,10 @@ class Pipeline:
         return nodes[0] if len(nodes) == 1 else nodes
 
     def __getitem__(self, name: str) -> Node:
+        return self.nodes[name]
+
+    def get_by_name(self, name: str) -> Node:
+        """``gst_bin_get_by_name``."""
         return self.nodes[name]
 
     def _resolve(self, ref: Union[Node, str]):
@@ -171,6 +184,14 @@ class Pipeline:
                 undo()
             raise
         self.state = "PLAYING"
+        # threads that nodes ask for (queues), then the sources
+        for node in self.nodes.values():
+            spawn = getattr(node, "spawn_threads", None)
+            if spawn is not None:
+                for t in spawn():
+                    t.daemon = True
+                    self.threads.append(t)
+                    t.start()
         for node in self.nodes.values():
             if isinstance(node, SourceNode):
                 node._stop_evt.clear()
@@ -231,6 +252,9 @@ class Pipeline:
         for node in self.nodes.values():
             if isinstance(node, SourceNode):
                 node.request_stop()
+            interrupt = getattr(node, "interrupt", None)
+            if interrupt is not None:
+                interrupt()
         leaked = []
         for t in self.threads:
             t.join(timeout=5.0)

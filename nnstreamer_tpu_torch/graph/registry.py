@@ -23,6 +23,8 @@ _BUILTIN_MODULES: Dict[str, str] = {
     "tensor_filter": "nnstreamer_tpu_torch.elements.filter",
     "tensor_decoder": "nnstreamer_tpu_torch.elements.decoder",
     "tensor_sink": "nnstreamer_tpu_torch.elements.sink",
+    "queue": "nnstreamer_tpu_torch.elements.queue",
+    "tensor_upload": "nnstreamer_tpu_torch.elements.upload",
 }
 
 

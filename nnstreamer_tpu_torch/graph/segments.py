@@ -33,7 +33,7 @@ import warnings
 from typing import List, Tuple
 
 from .node import Node
-from .optimize import _is_fusable_filter, _splice_out
+from .optimize import _hop_transparent, _is_fusable_filter, _splice_out
 from .pipeline import Pipeline
 
 __all__ = ["SegmentPlan", "plan_segments", "fuse_segments", "restore_segments",
@@ -111,7 +111,8 @@ def _boundary(node: Node) -> Tuple[str, bool]:
 def plan_segments(pipeline: Pipeline) -> List[SegmentPlan]:
     """Walk the graph (read-only) and describe each torch filter's region.
     From ``Pipeline.start`` this runs after transform fusion, so the walk
-    meets converters and decoders directly."""
+    meets converters and decoders directly, hopping queue/upload plumbing
+    as ``fuse_transforms`` does."""
     from ..elements.decoder import TensorDecoder
 
     plans: List[SegmentPlan] = []
@@ -119,19 +120,19 @@ def plan_segments(pipeline: Pipeline) -> List[SegmentPlan]:
         pre: List[str] = []
         cuts: List[Tuple[str, str]] = []
         fallbacks: List[Tuple[str, str]] = []
-        pad = filt.sink_pads["sink"].peer
+        pad = _hop_transparent(filt.sink_pads["sink"].peer, "up")
         while pad is not None:
             node = pad.node
             if _trivial_converter(node):
                 pre.insert(0, node.name)
-                pad = next(iter(node.sink_pads.values())).peer
+                pad = _hop_transparent(next(iter(node.sink_pads.values())).peer, "up")
                 continue
             reason, is_fb = _boundary(node)
             (fallbacks if is_fb else cuts).append((node.name, reason))
             break
 
         post: List[str] = []
-        pad = filt.src_pads["src"].peer
+        pad = _hop_transparent(filt.src_pads["src"].peer, "down")
         if pad is not None:
             node = pad.node
             if isinstance(node, TensorDecoder):
@@ -160,6 +161,10 @@ class _IdentityStage:
     def build_fn(self, spec):
         del spec
         return lambda x: x
+
+    def describe(self, spec):
+        del spec
+        return ("identity", self.name)
 
     def out_spec_for(self, spec):
         return spec
@@ -199,6 +204,9 @@ class _DecoderStage:
 
     def on_refuse(self):
         self.dec.plugin.set_lowered(None)
+
+    def describe(self, spec):
+        return ("tensor_decoder", self.dec.mode, self.dec.options, str(spec))
 
 
 def fuse_segments(pipeline: Pipeline) -> List:

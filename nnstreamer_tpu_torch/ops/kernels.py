@@ -12,7 +12,11 @@
 Each wrapper checks device, dtype, shape and contiguity.  A CPU tensor goes
 to the plain PyTorch version beside it (``*_plain``), which computes the
 same function step for step; a CUDA tensor launches the kernel or raises.
-Each CUDA launch adds one to the wrapper's ``launches`` count.  The sources
+Each CUDA launch adds one to the wrapper's ``launches`` count; a call
+inside a CUDA-graph capture counts once too, and the graph's replays, which
+launch the kernel again without the wrapper, count nothing.  Each host
+entry point launches on the caller's current stream and calls only
+``cudaGetLastError`` after it, so it may be captured.  The sources
 note each kernel's bound on an H100 and what the design does about it.
 The third kernel, ``nms_keep``, has its wrapper in :mod:`.nms`;
 :data:`KERNELS` lists all three.
