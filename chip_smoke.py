@@ -21,15 +21,15 @@ In order, it
    4 bytes past a 16-byte boundary, a float16 chain, a uint32 chain that
    wraps, float32 NaN and +-inf through typecasts to int8 and uint16, and
    two chains with 32 output bytes a vector (int16 -> float32, uint8 ->
-   uint16).
+   uint16), and the audio path's normalize, (16000, 1) int16 -> float32.
    Then it times kernel, plain version and, where one exists, the one
    PyTorch call that computes the same function (a yardstick only; the
    port never calls it); each kernel at its smallest case as its launch
-   floor; ``fused_arith`` also at the 4K frame and, beside it,
-   ``x.to(torch.float32)`` on the same frames (the same bytes and one
-   conversion, a yardstick for the chain);
+   floor; ``fused_arith`` also at the 4K frame and the audio window and,
+   beside it, ``x.to(torch.float32)`` on the same frames (the same bytes and
+   one conversion, a yardstick for the chain);
 4. graph phase: each kernel captured in a CUDA graph (``fused_arith`` at
-   both paths' frames, ``int8_matmul`` on its split-K cluster branch and
+   the three paths' frames, ``int8_matmul`` on its split-K cluster branch and
    its tiled branch, ``nms_keep`` on its bit walk, its barrier walk and
    above the static shared-memory limit) and replayed twice on new inputs,
    held against its plain version as in the kernel phase;
@@ -65,7 +65,27 @@ In order, it
    classes exactly, probs within ``PROB_ATOL``); then the fused-decode
    variant (``fused_decode=100``, ``fused-ssd`` decoder) with segments on
    and off must agree bitwise;
-7. prints every path number beside the card's name and power limit, one
+7. audio phase: builds the 1-D conv keyword-spotting classifier
+   (``models/audio_cnn``: a 16000 x 1 window of 16 kHz S16LE audio,
+   channels (32, 64, 64), width 9, 12 classes, bf16, random weights from a
+   fixed seed) and runs 64 windows through ``audiotestsrc ! tensor_converter
+   ! tensor_aggregator frames-out=10 frames-dim=1 ! tensor_transform
+   (int16 -> float32 normalize, pallas) ! tensor_upload ! queue !
+   tensor_filter ! tensor_decoder (image_labeling, 12 labels) !
+   tensor_sink``, read through ``connect("new-data", ...)``.  The
+   normalize folds into the filter across the upload and the queue: one
+   capture, a replay per window, ``fused_arith`` called 4 times and the
+   other kernels never; the labels must equal those of the eager call of
+   the same function on the card, the replayed logits those of the port's
+   CPU run (plain ``fused_arith``) within 1/32 of the largest logit (bf16)
+   with equal top-1 labels, and the 16-window trace must hold one
+   ``fused_arith`` record per graph launch and none of the others;
+8. upload-wait phase: ``datasrc ! tensor_converter input-dim=8192:4096
+   input-type=uint8 ! tensor_upload ! queue ! tensor_sink``, 32 MiB frames,
+   the upload's stream held back about 0.1 s before each copy; a
+   ``new-data`` callback reads each frame with ``.cpu()`` and must get the
+   source bytes (the sink's dispatch waits for the copy);
+9. prints every path number beside the card's name and power limit, one
    JSON line describing every kernel, and last one JSON line
    ``{"ok": true, "device": {...}}``.
 
@@ -80,6 +100,8 @@ import os
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 FRAMES = 64
 WARMUP_FRAMES = 4
@@ -100,6 +122,21 @@ NMS_TIMED_K = 100       # the tflite-ssd lowering's PRE_NMS_TOP_K
 # card may differ from the host decode's by a few ulps of 1.0.
 PROB_ATOL = 1e-5
 FRAME_4K = (2160, 3840, 3)  # 124.4 MB in and out: more than the 50 MB L2
+# The audio path: Speech Commands v2's 12-class keyword spotting, 1 s windows
+# of 16 kHz S16LE audio made of 10 blocks of 1600 samples.
+AUDIO_RATE = 16000
+AUDIO_BLOCK = 1600
+AUDIO_WINDOW = 16000
+AUDIO_CLASSES = 12
+AUDIO_NORMALIZE = "typecast:float32,div:32768.0"
+# bf16 layers round to 8 significant bits: the card's convs sum in another
+# order than the CPU's, so a value may move by an ulp a layer.
+AUDIO_LOGIT_REL = 1 / 32
+# The upload-wait phase: 32 MiB frames, the upload's stream held ~0.1 s
+# (at the H100's 1.98 GHz) before each copy.
+UPLOAD_FRAME_DIMS = "8192:4096"
+UPLOAD_FRAMES = 4
+UPLOAD_HOLD_CYCLES = 200_000_000
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float32": 67e12, "int8": 1979e12}
@@ -237,6 +274,7 @@ def kernel_phase(torch, np, K, bind, jax_pkg):
         # 32 output bytes a vector: staged stores of two pieces
         ((100_003,), ints(np.int16, -32768, 32768), "typecast:float32,mul:0.5", 0),
         ((100_003,), u8, "typecast:uint16,mul:300", 0),
+        ((AUDIO_WINDOW, 1), ints(np.int16, -32768, 32768), AUDIO_NORMALIZE, 0),
     ]
     err = 0.0
     for shape, make, option, offset in cases:
@@ -280,11 +318,23 @@ def kernel_phase(torch, np, K, bind, jax_pkg):
         row["cast_ms"] = device_ms(lambda x=x: x.to(torch.float32), activities=1)[0]
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
         rows.append(row)
+    # the audio path's window: (16000, 1) int16 -> float32
+    xa = torch.from_numpy(rng.integers(-32768, 32768, (AUDIO_WINDOW, 1)).astype(np.int16)).to(dev)
+    aops = bind(AUDIO_NORMALIZE, np.dtype(np.int16))
+    n = xa.numel()
+    t_bytes, by = bound_ms(n * 2 + n * 4, n * 2, "float32")
+    row = timed(dict(shape=f"({AUDIO_WINDOW}, 1) int16 -> float32, '{AUDIO_NORMALIZE}'",
+                     bound_ms=t_bytes, bound_by=by),
+                kernel=lambda: K.fused_arith(xa, aops), plain=lambda: K.fused_arith_plain(xa, aops))
+    row["cast_ms"] = device_ms(lambda: xa.to(torch.float32), activities=1)[0]
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    rows.append(row)
     results["fused_arith"] = rows[0]
     keys = ("shape", "ms", "plain_ms", "cast_ms", "call_ms", "bound_ms", "bound_by",
             "share_of_bound")
     rows[0]["at_detection_shape"] = {key: rows[1][key] for key in keys}
     rows[0]["at_4k"] = {key: rows[2][key] for key in keys}
+    rows[0]["at_audio_shape"] = {key: rows[3][key] for key in keys}
     one = torch.zeros(1, dtype=torch.uint8, device=dev)
     rows[0]["launch_floor_ms"], rows[0]["launch_floor_timer"] = device_ms(
         lambda: K.fused_arith(one, ops), activities=1)
@@ -362,7 +412,7 @@ def kernel_phase(torch, np, K, bind, jax_pkg):
               f"library {r['library_ms']} ms, launch floor {r['launch_floor_ms']} ms "
               f"({r['launch_floor_timer']})",
               flush=True)
-    for key in ("at_detection_shape", "at_4k"):
+    for key in ("at_detection_shape", "at_4k", "at_audio_shape"):
         r = results["fused_arith"][key]
         print(f"fused_arith {r['shape']}: kernel {r['ms']} ms, x.to(float32) {r['cast_ms']} ms, "
               f"bound {r['bound_ms']} ms, {r['share_of_bound']} of the bound", flush=True)
@@ -462,7 +512,7 @@ def timed(row, kernel, plain, library=None):
     return row
 
 
-def graph_kernel_phase(torch, np, K, ops):
+def graph_kernel_phase(torch, np, K, ops, audio_ops):
     """Each kernel captured in a CUDA graph and replayed on new inputs, held
     bitwise against its plain version: the host entry points are
     capture-safe (int8_matmul's cluster launch on both branches, nms_keep
@@ -498,6 +548,10 @@ def graph_kernel_phase(torch, np, K, ops):
          lambda *a: K.fused_arith_plain(a[0], ops), lambda: [u8((IMAGE, IMAGE, 3))]),
         ("fused_arith (300,300,3)", lambda *a: K.fused_arith(a[0], ops),
          lambda *a: K.fused_arith_plain(a[0], ops), lambda: [u8((SSD_IMAGE, SSD_IMAGE, 3))]),
+        ("fused_arith (16000,1) int16", lambda *a: K.fused_arith(a[0], audio_ops),
+         lambda *a: K.fused_arith_plain(a[0], audio_ops),
+         lambda: [torch.from_numpy(rng.integers(-32768, 32768, (AUDIO_WINDOW, 1))
+                                   .astype(np.int16))]),
         ("int8_matmul (1,1280,1001) split-K", K.int8_matmul, K.int8_matmul_plain,
          matmul(1, 1280, CLASSES)),
         ("int8_matmul (17,1280,1001) tiled", K.int8_matmul, K.int8_matmul_plain,
@@ -584,24 +638,32 @@ def trace(fn):
                 per_launch=[(dict(by_launch.get(e.id, {})), total[e.id]) for e in launches])
 
 
-def run_pipeline(nns, desc, model, frames_expected, seg=None, during=None):
+def run_pipeline(nns, desc, model, frames_expected, seg=None, during=None, got=None):
     """Build ``desc`` with parse_launch, set the filter's model, run it to
     EOS; ``during(p)`` runs after EOS while the pipeline still plays (its
-    backend open).  Returns (pipeline, sink arrival times, during's result)."""
+    backend open).  The sink's frames arrive through ``connect("new-data",
+    ...)`` (into ``got`` when given).  Returns (pipeline, sink arrival times,
+    during's result)."""
     arrivals = []
+
+    def on_frame(frame):
+        arrivals.append(time.perf_counter())
+        if got is not None:
+            got.append(frame)
+
     p = nns.parse_launch(desc)
     if seg is not None:
         p.segment_compile = seg
     p["f"].model = model
-    p["out"].callback = lambda f: arrivals.append(time.perf_counter())
+    p["out"].connect("new-data", on_frame)
     p.start()
     try:
         check(p.wait(600), f"the pipeline did not finish within 600 s: {desc}")
         result = during(p) if during is not None else None
     finally:
         p.stop()
-    check(len(p["out"].frames) == frames_expected,
-          f"the pipeline delivered {len(p['out'].frames)} of {frames_expected} frames")
+    check(len(arrivals) == frames_expected,
+          f"the pipeline delivered {len(arrivals)} of {frames_expected} frames")
     return p, arrivals, result
 
 
@@ -667,6 +729,8 @@ def traced_run(nns, desc, model, n, seg=None):
     if seg is not None:
         p.segment_compile = seg
     p["f"].model = model
+    delivered = []
+    p["out"].connect("new-data", delivered.append)
     gate = p["u"]._lock
     gate.acquire()
     try:
@@ -681,7 +745,7 @@ def traced_run(nns, desc, model, n, seg=None):
                             check(p.wait(600), "traced run did not finish")))
     finally:
         p.stop()
-    check(len(p["out"].frames) == n, f"traced run delivered {len(p['out'].frames)} of {n}")
+    check(len(delivered) == n, f"traced run delivered {len(delivered)} of {n}")
     return tr
 
 
@@ -1063,8 +1127,157 @@ def detection_phase(torch, np, K, ops, root, card):
     return launches, res
 
 
+def audio_checks(stats, launches, got_idx, eager_idx, replay_logits, cpu_logits):
+    """The audio phase's checks on what it measured: one capture and a
+    replay per window, ``fused_arith`` called only in the warm-up and the
+    capture and the other kernels never, the labels equal to the eager
+    call's, and the replayed logits within AUDIO_LOGIT_REL of the largest
+    CPU logit with equal top-1 labels.  Returns the largest logit
+    difference relative to the largest logit."""
+    frames = len(got_idx)
+    check(stats["captures"] == 1 and stats["replays"] == frames,
+          f"expected one capture and {frames} replays: {stats}")
+    check(launches["fused_arith"] == stats["warmup_calls"] + 1,
+          f"fused_arith: {launches['fused_arith']} wrapper launches, expected the "
+          f"{stats['warmup_calls']} warm-up calls and the capture")
+    check(launches["int8_matmul"] == 0 and launches["pallas_nms_keep"] == 0,
+          f"the audio path launched a kernel off its path: {launches}")
+    check(got_idx == eager_idx, f"labels differ from the eager run: {got_idx} vs {eager_idx}")
+    rel = 0.0
+    for i, (g, w) in enumerate(zip(replay_logits, cpu_logits)):
+        check(g.shape == w.shape == (AUDIO_CLASSES,), f"window {i}: logits of shape {g.shape}")
+        scale = max(float(abs(w).max()), 1e-30)
+        rel = max(rel, float(abs(g - w).max()) / scale)
+        check(int(g.argmax()) == int(w.argmax()),
+              f"window {i}: top-1 {int(g.argmax())} on the card, {int(w.argmax())} on the CPU")
+    check(rel <= AUDIO_LOGIT_REL, f"logits differ from the CPU run by {rel} of the largest "
+                                  f"logit (allowed {AUDIO_LOGIT_REL})")
+    return rel
+
+
+def audio_phase(torch, np, K, ops, root, card):
+    """The audio path at full width from its launch string: 64 one-second
+    windows, the normalize folded into the filter's captured graph."""
+    import nnstreamer_tpu_torch as nns
+    from nnstreamer_tpu_torch.elements.testsrc import AudioTestSrc
+    from nnstreamer_tpu_torch.models import audio_cnn
+
+    t0 = time.perf_counter()
+    kw = dict(num_classes=AUDIO_CLASSES, window=AUDIO_WINDOW, channels=(32, 64, 64), seed=0)
+    model = audio_cnn.build(device="cuda", **kw)
+    cpu_model = audio_cnn.build(device="cpu", **kw)
+    print(f"audio model built in {time.perf_counter() - t0:.3f} s", flush=True)
+    work = os.path.join(root, "build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    labels_path = os.path.join(work, "labels_12.txt")
+    labels = [f"word_{i}" for i in range(AUDIO_CLASSES)]
+    with open(labels_path, "w", encoding="utf-8") as f:
+        f.write("\n".join(labels))
+    per = AUDIO_WINDOW // AUDIO_BLOCK
+
+    def desc(n):
+        return (f"audiotestsrc name=src num-buffers={n * per} samplesperbuffer={AUDIO_BLOCK} "
+                f"rate={AUDIO_RATE} freq=440 ! tensor_converter ! "
+                f"tensor_aggregator frames-out={per} frames-dim=1 ! "
+                f"tensor_transform mode=arithmetic option={AUDIO_NORMALIZE} acceleration=pallas ! "
+                "tensor_upload name=u ! queue max-size-buffers=16 ! "
+                "tensor_filter framework=torch name=f ! "
+                f"tensor_decoder mode=image_labeling option1={labels_path} ! tensor_sink name=out")
+
+    src = AudioTestSrc(samplesperbuffer=AUDIO_BLOCK, rate=AUDIO_RATE, freq=440)
+    windows = [torch.from_numpy(np.concatenate([src._make_block(i * per + j) for j in range(per)]))
+               for i in range(FRAMES)]
+    state = {}
+
+    def during(p):
+        be = p["f"].backend
+        state.update(stats=dict(be.stats), launches={k.__name__: k.launches for k in K.KERNELS},
+                     transform_folded=not any(type(n).__name__ == "TensorTransform"
+                                              for n in p.nodes.values()))
+        state["abs_diff"], state["rel_diff"] = captured_against_eager(torch, be, windows[:8],
+                                                                      exact=False)
+        with torch.inference_mode():
+            state["eager_idx"] = [int(torch.argmax(be.eager(x)[0])) for x in windows]
+            state["replay_logits"] = [be.invoke((x,))[0].cpu().numpy() for x in windows[:8]]
+        state["eager"] = loop_rates(torch, be.eager, windows[:PROFILED])
+        state["replay"] = loop_rates(torch, lambda x: be.invoke((x,)), windows[:PROFILED])
+        return p
+
+    run_pipeline(nns, desc(WARMUP_FRAMES), model, WARMUP_FRAMES)
+    K.reset_launches()
+    frames = []
+    p, arrivals, _ = run_pipeline(nns, desc(FRAMES), model, FRAMES, during=during, got=frames)
+    stats, launches = state["stats"], state["launches"]
+    print(f"audio path over {FRAMES} windows: backend {stats}, wrapper launches {launches}",
+          flush=True)
+    check(state["transform_folded"], "the audio normalize did not fold across upload and queue")
+    with torch.inference_mode():
+        cpu_logits = [cpu_model(K.fused_arith(x, ops)).numpy() for x in windows[:8]]
+    got_idx = [f.meta["label_index"] for f in frames]
+    rel = audio_checks(stats, launches, got_idx, state["eager_idx"], state["replay_logits"],
+                       cpu_logits)
+    check([f.meta["label"] for f in frames] == [labels[i] for i in got_idx],
+          "label text does not match the label index")
+    print(f"audio: labels equal to the eager run ({len(set(got_idx))} distinct), logits within "
+          f"{rel:.3g} of the largest CPU logit (allowed {AUDIO_LOGIT_REL}); replay against "
+          f"eager {state['abs_diff']} (absolute)", flush=True)
+    res = dict(frames=FRAMES, replays=stats["replays"], **rates(arrivals, np),
+               distinct_labels=len(set(got_idx)), logit_rel_err_vs_cpu=rel,
+               captured_vs_eager_abs=state["abs_diff"], capture_s=stats["capture_s"],
+               warmup_s=stats["warmup_s"], eager_fps=state["eager"]["fps"],
+               eager_host_ops_per_frame=state["eager"]["host_ops_per_frame"],
+               eager_busy_ms_per_frame=state["eager"]["busy_ms_per_frame"],
+               replay_fps=state["replay"]["fps"],
+               replay_host_ops_per_frame=state["replay"]["host_ops_per_frame"],
+               replay_busy_ms_per_frame=state["replay"]["busy_ms_per_frame"])
+    profile_path(lambda n: traced_run(nns, desc(n), model, n), res, ("fused_arith",))
+    report_path("audio", res, card)
+    return launches, res
+
+
+def upload_wait_check(seen, sent):
+    """Each frame a sink callback read must hold its source's bytes."""
+    check(len(seen) == len(sent), f"the sink read {len(seen)} of {len(sent)} frames")
+    bad = [i for i, (got, want) in enumerate(zip(seen, sent))
+           if not np.array_equal(got.reshape(-1), want)]
+    check(not bad, f"frames {bad} were read before their upload's copy completed")
+
+
+def upload_wait_phase(torch, np):
+    """A sink fed straight by tensor_upload reads each frame after its copy,
+    though the copy's stream is held back."""
+    import nnstreamer_tpu_torch as nns
+
+    rng = np.random.default_rng(5)
+    rows, cols = (int(d) for d in UPLOAD_FRAME_DIMS.split(":"))
+    sent = [rng.integers(0, 256, rows * cols, dtype=np.uint8) for _ in range(UPLOAD_FRAMES)]
+    p = nns.parse_launch(
+        f"datasrc name=s ! tensor_converter input-dim={UPLOAD_FRAME_DIMS} input-type=uint8 ! "
+        "tensor_upload name=u ! queue ! tensor_sink name=out")
+    p["s"].data = [torch.from_numpy(f) for f in sent]
+    seen = []
+    p["out"].connect("new-data", lambda fr: seen.append(fr.tensor(0).cpu().numpy()))
+    u = p["u"]
+    upload = u.process
+
+    def held_upload(pad, frame):
+        with torch.cuda.stream(u._stream):
+            torch.cuda._sleep(UPLOAD_HOLD_CYCLES)
+        return upload(pad, frame)
+
+    u.process = held_upload
+    t0 = time.perf_counter()
+    p.run(timeout=120)
+    upload_wait_check(seen, sent)
+    res = dict(frames=len(sent), frame_bytes=rows * cols, hold_cycles=UPLOAD_HOLD_CYCLES,
+               wall_s=time.perf_counter() - t0)
+    print(f"upload wait: {len(sent)} frames of {rows * cols} bytes read by a new-data callback "
+          f"equal their source, the upload's stream held {UPLOAD_HOLD_CYCLES} cycles before "
+          f"each copy ({res['wall_s']:.3f} s)", flush=True)
+    return res
+
+
 def main() -> int:
-    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -1132,9 +1345,12 @@ def main() -> int:
     kernels = kernel_phase(torch, np, K, bind, jax_pkg)
     kernels["fused_arith"]["ptxas"] = ptxas
     ops = bind(NORMALIZE, np.dtype(np.uint8))
-    in_graph = graph_kernel_phase(torch, np, K, ops)
+    audio_ops = bind(AUDIO_NORMALIZE, np.dtype(np.int16))
+    in_graph = graph_kernel_phase(torch, np, K, ops, audio_ops)
     by_path = {"image_labeling": slice_phase(torch, np, K, ops, root, card)}
     by_path["object_detection"] = detection_phase(torch, np, K, ops, root, card)
+    by_path["audio"] = audio_phase(torch, np, K, audio_ops, root, card)
+    upload_wait = upload_wait_phase(torch, np)
     wrapper = {"fused_arith": "fused_arith", "int8_matmul": "int8_matmul",
                "nms_keep": "pallas_nms_keep"}
     for name, r in kernels.items():
@@ -1144,7 +1360,8 @@ def main() -> int:
         check(r["launches"] > 0, f"{name} never launched on a main path")
     print(json.dumps({"card": card, "build_s": build_s, "kernels_in_a_graph": in_graph,
                       "slice": by_path["image_labeling"][1],
-                      "slice2": by_path["object_detection"][1]}), flush=True)
+                      "slice2": by_path["object_detection"][1],
+                      "audio": by_path["audio"][1], "upload_wait": upload_wait}), flush=True)
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -27,15 +27,17 @@ from .graph import (  # noqa: F401
     parse_launch,
     register_element,
 )
-from .media import VideoSpec  # noqa: F401
+from .media import AudioSpec, OctetSpec, TextSpec, VideoSpec  # noqa: F401
 from .spec import (  # noqa: F401
     ANY,
+    BFLOAT16,
     NNS_TENSOR_RANK_LIMIT,
     NNS_TENSOR_SIZE_LIMIT,
     TensorSpec,
     TensorsSpec,
     dtype_from_name,
     dtype_name,
+    spec_of,
 )
 
 __version__ = "0.1.0"

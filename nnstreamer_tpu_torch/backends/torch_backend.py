@@ -313,7 +313,9 @@ class TorchBackend(FilterBackend):
         return _as_tuple(self._fn(*[wait_ready(t).to(self.device) for t in tensors]))
 
     def invoke(self, tensors: Tuple) -> Tuple:
+        """Run the function on a frame's tensors, which the filter's
+        dispatch has already waited for (``graph/node.py``)."""
         if self._entry is not None:
             self.stats["replays"] += 1
-            return self._entry.run([wait_ready(t) for t in tensors])
-        return _as_tuple(self._fn(*[wait_ready(t).to(self.device) for t in tensors]))
+            return self._entry.run(tensors)
+        return _as_tuple(self._fn(*[t.to(self.device) for t in tensors]))

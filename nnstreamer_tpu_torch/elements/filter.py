@@ -5,6 +5,10 @@ the registry (``torch``), the model opens on start, negotiation reconciles
 the model's declared spec with the upstream stream spec and fails loudly on
 a mismatch, and each frame's tensors go through the backend's ``invoke``
 under ``torch.inference_mode()``.  Outputs stay on the backend's device.
+``input=`` / ``inputtype=`` and ``output=`` / ``outputtype=`` declare the
+model's input and output in the reference's notation (dims strings, ``.``
+between tensors; types, ``,`` between them); negotiation holds the model's
+spec and the stream to them.
 
 The graph passes may fold neighbours into the filter
 (:meth:`TensorFilter.set_fused_transforms`): transforms before and after it
@@ -26,7 +30,7 @@ from ..backends.base import FilterBackend, get_backend
 from ..buffer import Frame
 from ..graph.node import NegotiationError, Node, Pad
 from ..graph.registry import register_element
-from ..spec import TensorsSpec
+from ..spec import TensorSpec, TensorsSpec, dtype_from_name
 
 
 @register_element("tensor_filter")
@@ -37,6 +41,10 @@ class TensorFilter(Node):
         framework: str = "",
         model: object = None,
         custom: str = "",
+        input: str = "",
+        inputtype: str = "",
+        output: str = "",
+        outputtype: str = "",
         backend: Optional[FilterBackend] = None,
     ):
         super().__init__(name)
@@ -51,6 +59,8 @@ class TensorFilter(Node):
         self.framework = framework or self.backend.name
         self.model = model
         self.custom = str(custom)
+        self._prop_in = self._parse_spec_props(input, inputtype)
+        self._prop_out = self._parse_spec_props(output, outputtype)
         self._opened = False
         self._fused_pre: list = []  # stages folded in before the model
         self._fused_post: list = []  # and after it
@@ -65,6 +75,24 @@ class TensorFilter(Node):
         stage's part of the backend's capture key."""
         self._fused_pre = list(pre)
         self._fused_post = list(post)
+
+    @staticmethod
+    def _parse_spec_props(dims: str, types: str) -> Optional[TensorsSpec]:
+        """``input=3:224:224:1.1:10`` with ``inputtype=uint8,float32``: one
+        tensor per ``.``-separated dims string and ``,``-separated type."""
+        if not dims and not types:
+            return None
+        dim_list = [d for d in str(dims).split(".") if d] if dims else []
+        type_list = [t for t in str(types).split(",") if t] if types else []
+        tensors = []
+        for i in range(max(len(dim_list), len(type_list))):
+            d = dim_list[i] if i < len(dim_list) else None
+            t = type_list[i] if i < len(type_list) else None
+            if d is not None:
+                tensors.append(TensorSpec.from_dims_string(d, t))
+            else:
+                tensors.append(TensorSpec(dtype=dtype_from_name(t)))
+        return TensorsSpec(tensors=tuple(tensors))
 
     def start(self) -> None:
         super().start()
@@ -81,11 +109,18 @@ class TensorFilter(Node):
     def sink_spec(self, pad_name: str) -> TensorsSpec:
         del pad_name
         if self._fused_pre:
-            # the stream spec is pre-stage; the model spec applies after the
-            # fused pre-stages, checked in _install_fusion
+            # the stream spec is pre-stage; the model spec and input= apply
+            # after the fused pre-stages, checked in _install_fusion
             return TensorsSpec()
         spec = self.backend.model_spec() if self._opened else None
-        return spec or TensorsSpec()
+        if spec is not None and self._prop_in is not None:
+            merged = spec.intersect(self._prop_in)
+            if merged is None:
+                raise NegotiationError(
+                    f"{self.name}: input property {self._prop_in} conflicts "
+                    f"with model spec {spec}")
+            return merged
+        return self._prop_in or spec or TensorsSpec()
 
     def configure(self, in_specs: Dict[str, TensorsSpec]) -> Dict[str, TensorsSpec]:
         in_spec = in_specs["sink"]
@@ -96,6 +131,15 @@ class TensorFilter(Node):
                 out_spec = self.backend.reconfigure(in_spec)
         except ValueError as exc:
             raise NegotiationError(f"{self.name}: {exc}") from exc
+        # output= describes the model's output: with fused post-stages the
+        # pad's spec is theirs, and _install_fusion checked the model's
+        if self._prop_out is not None and not self._fused_post:
+            merged = out_spec.intersect(self._prop_out)
+            if merged is None:
+                raise NegotiationError(
+                    f"{self.name}: model output {out_spec} conflicts with "
+                    f"output property {self._prop_out}")
+            out_spec = merged
         if in_spec.rate is not None and out_spec.rate is None:
             out_spec = TensorsSpec(tensors=out_spec.tensors, rate=in_spec.rate)
         return {"src": out_spec}
@@ -117,10 +161,19 @@ class TensorFilter(Node):
             raise NegotiationError(
                 f"{self.name}: fused pre-stage output {spec_cur} is incompatible "
                 f"with model spec {model_spec}")
+        if self._prop_in is not None and self._prop_in.intersect(spec_cur) is None:
+            raise NegotiationError(
+                f"{self.name}: fused pre-stage output {spec_cur} conflicts with "
+                f"input property {self._prop_in}")
         # 1:1 post-stages map each tensor (tensor_transform); an N:M stage
         # (a decoder's device head) takes the whole tuple
         post_stages = []  # (per-tensor fns | None, multi fn | None)
         spec_o = self.backend.trace_output_spec(spec_cur)
+        if (self._fused_post and self._prop_out is not None
+                and self._prop_out.intersect(spec_o) is None):
+            raise NegotiationError(
+                f"{self.name}: model output {spec_o} conflicts with "
+                f"output property {self._prop_out}")
         post = list(self._fused_post)
         for i, tr in enumerate(post):
             build_multi = getattr(tr, "build_multi", None)

@@ -1,13 +1,16 @@
-"""Test sources: ``videotestsrc`` and ``datasrc``.
+"""Test sources: ``videotestsrc``, ``audiotestsrc`` and ``datasrc``.
 
-``videotestsrc`` yields the same frames, bit for bit, as the JAX package's
-element for the smpte, random, black and white patterns (the arrays are made
-with numpy, as there, and handed over as host tensors).  ``datasrc`` replays
-a supplied list of arrays or frames.
+``videotestsrc`` and ``audiotestsrc`` yield the same frames, bit for bit, as
+the JAX package's elements (the arrays are made with numpy, as there, and
+handed over as host tensors): video in the smpte, random, black and white
+patterns, audio as a sine (float64 ``np.sin``, scaled and cast to the
+format's dtype) or silence.  ``datasrc`` replays a supplied list of arrays
+or frames.
 """
 
 from __future__ import annotations
 
+import time
 from fractions import Fraction
 from typing import Iterable, Optional, Sequence
 
@@ -17,8 +20,9 @@ import torch
 from ..buffer import NONE_TS, SECOND, Frame
 from ..graph.node import SourceNode
 from ..graph.registry import register_element
-from ..media import VideoSpec
-from ..spec import TensorsSpec
+from ..media import AudioSpec, VideoSpec
+from ..spec import TensorSpec, TensorsSpec
+from ..utils.props import parse_bool
 
 
 @register_element("videotestsrc")
@@ -26,7 +30,8 @@ class VideoTestSrc(SourceNode):
     """Deterministic (height, width, channels) uint8 host frames.
 
     ``pattern``: "smpte" (gradient plus a frame counter), "black", "white",
-    "random" (seeded per frame).
+    "random" (seeded per frame).  ``is-live`` sleeps between frames to
+    keep the framerate.
     """
 
     def __init__(
@@ -38,6 +43,7 @@ class VideoTestSrc(SourceNode):
         height: int = 240,
         format: str = "RGB",
         framerate: str = "30/1",
+        is_live: bool = False,
         seed: int = 0,
     ):
         super().__init__(name)
@@ -47,6 +53,7 @@ class VideoTestSrc(SourceNode):
             format=format, width=int(width), height=int(height),
             rate=Fraction(framerate),
         )
+        self.is_live = parse_bool(is_live, name="is-live")
         self.seed = int(seed)
 
     def output_spec(self) -> TensorsSpec:
@@ -75,12 +82,68 @@ class VideoTestSrc(SourceNode):
         while self.num_buffers < 0 or idx < self.num_buffers:
             if self.stopped:
                 return
+            if self.is_live and idx:
+                time.sleep(float(1 / rate))
             yield Frame.of(
                 torch.from_numpy(self._make_frame(idx)),
                 pts=idx * dur,
                 duration=dur,
                 media=self.video,
             )
+            idx += 1
+
+
+@register_element("audiotestsrc")
+class AudioTestSrc(SourceNode):
+    """Deterministic audio: (samplesperbuffer, channels) host blocks."""
+
+    def __init__(
+        self,
+        name: Optional[str] = None,
+        num_buffers: int = -1,
+        samplesperbuffer: int = 1024,
+        channels: int = 1,
+        rate: int = 16000,
+        format: str = "S16LE",
+        wave: str = "sine",
+        freq: float = 440.0,
+    ):
+        super().__init__(name)
+        self.num_buffers = int(num_buffers)
+        self.spb = int(samplesperbuffer)
+        self.audio = AudioSpec(format=format, channels=int(channels), sample_rate=int(rate))
+        self.wave = wave
+        self.freq = float(freq)
+
+    def output_spec(self) -> TensorsSpec:
+        return TensorsSpec(
+            tensors=(TensorSpec(dtype=self.audio.dtype, shape=(self.spb, self.audio.channels)),),
+            rate=Fraction(self.audio.sample_rate, self.spb),
+        )
+
+    def _make_block(self, idx: int) -> np.ndarray:
+        sr = self.audio.sample_rate
+        dtype = self.audio.dtype
+        t = (np.arange(self.spb) + idx * self.spb) / sr
+        if self.wave == "silence":
+            wavef = np.zeros(self.spb)
+        else:
+            wavef = np.sin(2 * np.pi * self.freq * t)
+        if np.issubdtype(dtype, np.integer):
+            info = np.iinfo(dtype)
+            data = (wavef * min(info.max, -(info.min + 1))).astype(dtype)
+        else:
+            data = wavef.astype(dtype)
+        return np.repeat(data[:, None], self.audio.channels, axis=1)
+
+    def frames(self) -> Iterable[Frame]:
+        dur = self.spb * SECOND // self.audio.sample_rate
+        idx = 0
+        while self.num_buffers < 0 or idx < self.num_buffers:
+            if self.stopped:
+                return
+            yield Frame.of(torch.from_numpy(self._make_block(idx)), pts=idx * dur,
+                           duration=dur, media=self.audio)
             idx += 1
 
 

@@ -9,12 +9,16 @@ The port of the JAX package's element, with its six modes:
 - ``stand``      — option = ``default`` | ``default:per-channel``.
 - ``clamp``      — option = ``min:max``.
 
-The element computes on its ``device`` (the card unless ``device="cpu"``)
-and moves each host frame there first.  ``acceleration="pallas"`` (the JAX
-element's name for its kernel path; ``"orc"`` is accepted too) runs the
-elementwise modes (typecast, arithmetic, clamp) through the hand-written
-``fused_arith`` kernel, once per frame.  Every other mode, and the elementwise
-modes without that option, are plain torch.
+The element hands its output on its ``device`` (the card unless
+``device="cpu"``).  ``acceleration="pallas"`` (the JAX element's name for
+its kernel path; ``"orc"`` is accepted too) runs the elementwise modes
+(typecast, arithmetic, clamp) through the hand-written ``fused_arith``
+kernel, once per frame, on that device; ``acceleration=true`` runs every
+mode as plain torch there, under the JAX (jit) rules.
+``acceleration=false`` is the JAX element's host rule: numpy on the host
+(:meth:`TensorTransform.host_fn`), with numpy's promotion (float64
+intermediates, true division, float-to-int casts that wrap through int32
+as x86 does them), then a cast to the negotiated dtype.
 
 A transform with ``acceleration`` set (``"pallas"`` or true) folds into an
 adjacent ``tensor_filter`` when the pipeline starts (``graph/optimize.py``):
@@ -25,7 +29,8 @@ device.
 
 Literal binding and the negotiated output dtype follow the JAX rules
 (``_bind_chain``, :func:`~nnstreamer_tpu_torch.ops.kernels.chain_out_dtype`),
-not torch's promotion.
+not torch's promotion.  bfloat16 streams are refused at negotiation: the
+chains' dtype rules are numpy's, which has no bfloat16.
 """
 
 from __future__ import annotations
@@ -40,8 +45,9 @@ from ..device import resolve_device
 from ..graph.node import NegotiationError, Node, Pad
 from ..graph.registry import register_element
 from ..ops.kernels import chain_out_dtype, fused_arith, fused_arith_plan, plan_chain, run_chain
-from ..pool import wait_ready
-from ..spec import NNS_TENSOR_RANK_LIMIT, TensorSpec, TensorsSpec, dtype_from_name, torch_dtype
+from ..spec import (BFLOAT16, NNS_TENSOR_RANK_LIMIT, TensorSpec, TensorsSpec, dtype_from_name,
+                    torch_dtype)
+from ..utils.props import parse_bool
 
 MODES = ("typecast", "arithmetic", "transpose", "dimchg", "stand", "clamp")
 
@@ -130,9 +136,9 @@ class TensorTransform(Node):
         if acceleration in ("pallas", "orc"):
             self.acceleration = "pallas"
         else:
-            self.acceleration = acceleration in (True, "true", "1")
+            self.acceleration = parse_bool(acceleration, name="acceleration")
         self.device = resolve_device(device)
-        self._fns: Optional[List[Callable]] = None
+        self._fns: Optional[List[Callable]] = None  # per tensor: torch, or numpy on the host
 
     def _chain_ops(self, t: TensorSpec):
         """Bound elementwise chain, or None for the shape-changing modes."""
@@ -219,8 +225,71 @@ class TensorTransform(Node):
 
         return stand
 
+    def host_fn(self, t: TensorSpec) -> Callable[[np.ndarray], np.ndarray]:
+        """The ``acceleration=false`` function for a fixed input spec: the
+        JAX element's numpy rule on a host array, cast at the end to the
+        negotiated dtype."""
+        mode, option = self.mode, self.option
+        out_dtype = self.out_spec_for(t).dtype
+        r = NNS_TENSOR_RANK_LIMIT
+        pad_shape = tuple(reversed(t.nns_dims))
+        out_rank = len(self.out_spec_for(t).shape)
+        if mode in ("typecast", "arithmetic", "clamp"):
+            chain = self._chain_ops(t)
+
+            def fn(x):
+                for op, val in chain:
+                    if op == "typecast":
+                        x = x.astype(val)
+                    elif op == "add":
+                        x = x + val
+                    elif op == "sub":
+                        x = x - val
+                    elif op == "mul":
+                        x = x * val
+                    elif op == "div":
+                        x = x / val
+                    else:  # clamp
+                        x = np.clip(x, *val)
+                return x
+        elif mode == "transpose":
+            perm = [int(p) for p in option.split(":")]
+            np_perm = tuple(r - 1 - perm[r - 1 - j] for j in range(r))
+
+            def fn(x):
+                y = x.reshape(pad_shape).transpose(np_perm)
+                return y.reshape(y.shape[r - out_rank:])
+        elif mode == "dimchg":
+            frm_s, _, to_s = option.partition(":")
+            src_ax, dst_ax = r - 1 - int(frm_s), r - 1 - int(to_s)
+
+            def fn(x):
+                y = np.moveaxis(x.reshape(pad_shape), src_ax, dst_ax)
+                return y.reshape(y.shape[r - out_rank:])
+        else:  # stand
+            per_channel = option.endswith("per-channel")
+
+            def fn(x):
+                x = x.astype(np.float32)
+                if per_channel and x.ndim >= 2:
+                    axes = tuple(range(x.ndim - 1))
+                    mean, std = x.mean(axis=axes, keepdims=True), x.std(axis=axes, keepdims=True)
+                else:
+                    mean, std = x.mean(), x.std()
+                return (x - mean) / (std + 1e-10)
+
+        return lambda x: np.ascontiguousarray(fn(x).astype(out_dtype, copy=False))
+
     def configure(self, in_specs: Dict[str, TensorsSpec]) -> Dict[str, TensorsSpec]:
         spec = in_specs["sink"]
+        casts = []  # the dtypes the chain casts to
+        if self.mode == "typecast":
+            casts = [dtype_from_name(self.option)]
+        elif self.mode == "arithmetic":
+            casts = [v for op, v in _parse_arith_ops(self.option) if op == "typecast"]
+        if BFLOAT16 in [t.dtype for t in spec.tensors] + casts:
+            raise NegotiationError(f"{self.name}: bfloat16 streams are not supported by "
+                                   "tensor_transform")
         outs = tuple(self.out_spec_for(t) for t in spec.tensors)
         for t, o in zip(spec.tensors, outs):
             chain = self._chain_ops(t)
@@ -234,11 +303,15 @@ class TensorTransform(Node):
                 raise NegotiationError(
                     f"{self.name}: fused_arith yields {plan.out_dtype}, "
                     f"the negotiated spec says {o.dtype}")
-        self._fns = [self.build_fn(t) for t in spec.tensors]
+        build = self.build_fn if self.acceleration else self.host_fn
+        self._fns = [build(t) for t in spec.tensors]
         return {"src": TensorsSpec(tensors=outs, rate=spec.rate)}
 
     def process(self, pad: Pad, frame: Frame):
         del pad
-        out = [fn(wait_ready(x).to(self.device).contiguous())
-               for fn, x in zip(self._fns, frame.tensors)]
+        if self.acceleration:
+            out = [fn(x.to(self.device).contiguous()) for fn, x in zip(self._fns, frame.tensors)]
+        else:
+            out = [torch.from_numpy(fn(x.cpu().numpy())).to(self.device)
+                   for fn, x in zip(self._fns, frame.tensors)]
         return frame.with_tensors(out)

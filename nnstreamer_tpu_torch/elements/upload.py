@@ -9,9 +9,11 @@ it runs in the source's thread: it copies each host payload into a pinned
 copy ``non_blocking=True`` on a side stream of its own, records an event
 after it and sends the device tensor downstream carrying that event
 (:func:`~nnstreamer_tpu_torch.pool.mark_ready`).  The ``queue`` hands the
-tensor to the filter's thread, whose ``invoke`` waits on the event before
-its first read (:func:`~nnstreamer_tpu_torch.pool.wait_ready`).  The copy
-of frame N+1 then overlaps the filter's work on frame N.
+tensor to the filter's thread, whose dispatch of the frame waits on the
+event before the filter's first read
+(:func:`~nnstreamer_tpu_torch.pool.wait_ready`, called by every node's
+``_dispatch``, so a sink or a decoder fed straight from here waits too).
+The copy of frame N+1 then overlaps the filter's work on frame N.
 
 The target device is that of the first filter downstream (hopping queues
 and uploads, ``graph/residency.py``), else the card.  A tensor already on

@@ -5,6 +5,15 @@ negotiation is an explicit pass over the graph (``graph/pipeline.py``), a
 pad push runs the downstream chain synchronously in the pusher's thread, and
 events (EOS, caps) travel in band with frames.  Each source runs in its own
 thread.
+
+A frame's tensor may still be arriving: ``tensor_upload`` copies on a side
+stream and marks the tensor with the copy's event.  :meth:`Node._dispatch`
+makes the current stream wait for it before ``process`` runs, so every
+consumer (a filter, a transform, a decoder, a sink and its callbacks, an
+aggregator) reads the frame after its copy, each with one wait per tensor.
+A ``queue`` only enqueues the frame and overrides ``_dispatch``: it does not
+wait, so the copy of one frame never holds up the work queued on the stream
+for the one before.
 """
 
 from __future__ import annotations
@@ -14,6 +23,7 @@ import threading
 from typing import Dict, Iterable, Optional, Tuple, Union
 
 from ..buffer import Event, Frame
+from ..pool import wait_ready
 from ..spec import ANY, TensorsSpec, numpy_dtype
 
 
@@ -169,11 +179,14 @@ class Node:
     # -- dataflow -----------------------------------------------------------
 
     def _dispatch(self, pad: Pad, item: Union[Frame, Event]) -> None:
-        """Items arriving on a sink pad; serialized per element."""
+        """Items arriving on a sink pad; serialized per element.  A frame's
+        tensors are waited for (their upload's copy) before ``process``."""
         with self._lock:
             if isinstance(item, Event):
                 self._handle_event(pad, item)
             else:
+                for t in item.tensors:
+                    wait_ready(t)
                 self._emit(self.process(pad, item))
 
     def _emit(self, result: ProcessResult) -> None:

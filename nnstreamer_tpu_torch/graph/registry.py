@@ -17,12 +17,15 @@ _LOCK = threading.Lock()
 
 _BUILTIN_MODULES: Dict[str, str] = {
     "videotestsrc": "nnstreamer_tpu_torch.elements.testsrc",
+    "audiotestsrc": "nnstreamer_tpu_torch.elements.testsrc",
     "datasrc": "nnstreamer_tpu_torch.elements.testsrc",
     "tensor_converter": "nnstreamer_tpu_torch.elements.converter",
     "tensor_transform": "nnstreamer_tpu_torch.elements.transform",
     "tensor_filter": "nnstreamer_tpu_torch.elements.filter",
     "tensor_decoder": "nnstreamer_tpu_torch.elements.decoder",
     "tensor_sink": "nnstreamer_tpu_torch.elements.sink",
+    "fakesink": "nnstreamer_tpu_torch.elements.sink",
+    "tensor_aggregator": "nnstreamer_tpu_torch.elements.aggregator",
     "queue": "nnstreamer_tpu_torch.elements.queue",
     "tensor_upload": "nnstreamer_tpu_torch.elements.upload",
 }

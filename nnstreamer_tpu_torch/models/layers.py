@@ -1,7 +1,7 @@
 """Functional NN layers for the port's model zoo.
 
-Params are plain dicts of tensors (OIHW conv kernels, (cin, cout) dense
-kernels).  Activations run NCHW-shaped inside a model; the models take and
+Params are plain dicts of tensors (OIHW conv kernels, (out, in, width) 1-D
+conv kernels, (cin, cout) dense kernels).  Activations run NCHW-shaped inside a model; the models take and
 give NHWC at their public functions, as the JAX package's do, and the NHWC
 input seen through ``permute(0, 3, 1, 2)`` is a channels_last tensor, so no
 copy is made.  Convs and dense layers are stock PyTorch: the JAX package
@@ -39,6 +39,22 @@ def conv2d(params: Params, x: torch.Tensor, stride: int = 1, groups: int = 1,
         return F.conv2d(x, w, stride=stride, padding=(top, left), groups=groups)
     x = F.pad(x, (left, right, top, bottom))
     return F.conv2d(x, w, stride=stride, groups=groups)
+
+
+def conv1d(params: Params, x: torch.Tensor, stride: int = 1, dtype=None) -> torch.Tensor:
+    """SAME-padded 1-D conv of an (N, C, W) tensor, bias added: the JAX
+    package's NWC/WIO ``conv_general_dilated`` with ``"SAME"``.  At a
+    stride above 1 an odd padding total puts its extra sample after, which
+    ``F.conv1d(padding="same")`` (stride 1 only) cannot express, so the
+    input is padded explicitly.  With ``dtype`` the weight and bias are
+    cast to it and the bias is added in it."""
+    w, b = maybe_dequantize(params["w"], dtype), params["b"]
+    if dtype is not None:
+        b = b.to(dtype)
+    low, high = _same_pads(x.shape[2], w.shape[2], stride)
+    if low == high:
+        return F.conv1d(x, w, stride=stride, padding=low) + b.view(1, -1, 1)
+    return F.conv1d(F.pad(x, (low, high)), w, stride=stride) + b.view(1, -1, 1)
 
 
 def batch_norm(params: Params, x: torch.Tensor, eps: float = 1e-3) -> torch.Tensor:

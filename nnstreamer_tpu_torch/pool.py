@@ -12,10 +12,11 @@ consumer: the batch elements, with ``RowBatch``.
   slot while frame N's copy is in flight; a slot is rewritten only after
   its event has completed.
 - :func:`mark_ready` / :func:`wait_ready`: a device tensor made by an
-  asynchronous copy on a side stream carries that copy's event.  A
-  consumer calls :func:`wait_ready` before its first read: its current
-  stream waits on the event, and ``record_stream`` keeps the caching
-  allocator from reusing the block before the consumer's work is done.
+  asynchronous copy on a side stream carries that copy's event.  Every
+  node's dispatch of a frame calls :func:`wait_ready` on its tensors before
+  ``process`` (``graph/node.py``): the current stream waits on the event,
+  and ``record_stream`` keeps the caching allocator from reusing the block
+  before the consumer's work is done.
 
 On the CPU (``device="cpu"``, the tests) a slot is a plain tensor, there
 is no event, and waits do nothing: a CPU copy is complete when it returns.

@@ -1,15 +1,18 @@
-"""chip_smoke.py's per-frame launch check, on synthetic CUPTI traces.
+"""chip_smoke.py's checks, on synthetic inputs.
 
-The check itself runs on the card; here it is fed traces of the shape
-``chip_smoke.trace`` returns, to show what it accepts and what it fails:
-a record the tracer demonstrably lost (its launch holds fewer device records
-than the others) passes, a kernel missing from the graph or launched twice
-per frame fails.
+The checks run on the card; here they are fed what the card would give, to
+show what they accept and what they fail.  The per-frame launch check gets
+traces of the shape ``chip_smoke.trace`` returns: a record the tracer
+demonstrably lost (its launch holds fewer device records than the others)
+passes, a kernel missing from the graph or launched twice per frame fails.
+The audio phase's checks get backend stats, wrapper counts, labels and
+logits; the upload-wait check gets the frames a sink callback read.
 """
 
 import importlib.util
 import pathlib
 
+import numpy as np
 import pytest
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -74,3 +77,72 @@ def test_launch_faults_fail(smoke, case):
         tr["records"]["fused_arith"] += 1
     with pytest.raises(SystemExit):
         smoke.launch_check(tr or _trace(per), PATH)
+
+
+AUDIO = ("fused_arith",)
+AUDIO_GRAPH = 20    # device records of one replay of the audio path's graph
+
+
+def test_audio_trace_passes(smoke):
+    per = [({"fused_arith": 1}, AUDIO_GRAPH) for _ in range(FRAMES)]
+    assert smoke.launch_check(_trace(per), AUDIO) == 0
+
+
+@pytest.mark.parametrize("other", ["pallas_nms_keep", "int8_matmul"])
+def test_audio_trace_with_another_kernel_fails(smoke, other):
+    per = [({"fused_arith": 1}, AUDIO_GRAPH) for _ in range(FRAMES)]
+    per[4] = ({"fused_arith": 1, other: 1}, AUDIO_GRAPH + 1)
+    with pytest.raises(SystemExit):
+        smoke.launch_check(_trace(per), AUDIO)
+
+
+def _audio(smoke, frames=64):
+    stats = dict(captures=1, replays=frames, warmup_calls=3)
+    launches = {"fused_arith": 4, "int8_matmul": 0, "pallas_nms_keep": 0}
+    idx = [4] * frames
+    rng = np.random.default_rng(0)
+    cpu = [rng.standard_normal(smoke.AUDIO_CLASSES).astype(np.float32) for _ in range(8)]
+    for c in cpu:
+        c[4] = 3.0
+    return stats, launches, idx, list(idx), [c.copy() for c in cpu], cpu
+
+
+def test_audio_checks_pass(smoke):
+    stats, launches, got, eager, replay, cpu = _audio(smoke)
+    replay[0][0] += 0.5 * smoke.AUDIO_LOGIT_REL * 3.0   # inside the tolerance
+    rel = smoke.audio_checks(stats, launches, got, eager, replay, cpu)
+    assert 0 < rel <= smoke.AUDIO_LOGIT_REL
+
+
+@pytest.mark.parametrize("fault", ["two_captures", "replay_missing", "eager_kernel_launch",
+                                   "off_path_kernel", "label_differs", "logit_off",
+                                   "top1_differs"])
+def test_audio_checks_fail(smoke, fault):
+    stats, launches, got, eager, replay, cpu = _audio(smoke)
+    if fault == "two_captures":
+        stats["captures"] = 2
+    elif fault == "replay_missing":
+        stats["replays"] = 63
+    elif fault == "eager_kernel_launch":     # a frame ran eagerly: one launch more
+        launches["fused_arith"] = 5
+    elif fault == "off_path_kernel":
+        launches["pallas_nms_keep"] = 1
+    elif fault == "label_differs":
+        got[17] = 5
+    elif fault == "logit_off":
+        replay[3][0] += 2 * smoke.AUDIO_LOGIT_REL * 3.0
+    elif fault == "top1_differs":
+        replay[2][4], replay[2][7] = replay[2][7], 3.5
+    with pytest.raises(SystemExit):
+        smoke.audio_checks(stats, launches, got, eager, replay, cpu)
+
+
+def test_upload_wait_check(smoke):
+    sent = [np.arange(12, dtype=np.uint8) + i for i in range(3)]
+    smoke.upload_wait_check([s.reshape(3, 4) for s in sent], sent)
+    stale = [s.reshape(3, 4) for s in sent]
+    stale[1] = np.zeros((3, 4), np.uint8)      # read before its copy landed
+    with pytest.raises(SystemExit):
+        smoke.upload_wait_check(stale, sent)
+    with pytest.raises(SystemExit):
+        smoke.upload_wait_check(stale[:2], sent)

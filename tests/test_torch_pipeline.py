@@ -136,11 +136,13 @@ def test_negotiated_specs_match(jax_model, labels_file):
 def test_port_runs_with_jax_blocked():
     code = textwrap.dedent(f"""
         import sys
-        for name in ("jax", "jaxlib", "nnstreamer_tpu"):
+        for name in ("jax", "jaxlib", "ml_dtypes", "nnstreamer_tpu"):
             sys.modules[name] = None  # any import of them now raises
         import nnstreamer_tpu_torch as nns
+        from nnstreamer_tpu_torch.elements import aggregator, converter, sink, testsrc
         from nnstreamer_tpu_torch.elements.filter import TensorFilter
-        from nnstreamer_tpu_torch.models import mobilenet_v2
+        from nnstreamer_tpu_torch.models import audio_cnn, mobilenet_v2
+        from nnstreamer_tpu_torch.utils import props
         m = mobilenet_v2.build_quantized(num_classes={CLASSES}, width_mult=0.35,
                                          image_size={SIZE}, int8_head=True, device="cpu")
         p = nns.Pipeline()
@@ -153,7 +155,18 @@ def test_port_runs_with_jax_blocked():
                  p.add(nns.make("tensor_sink", collect=True))]
         p.link_chain(*chain)
         p.run(timeout=120)
-        assert not any(k == "jax" or k.startswith(("jax.", "nnstreamer_tpu."))
+        a = nns.parse_launch(
+            "audiotestsrc num-buffers=8 samplesperbuffer=128 ! tensor_converter ! "
+            "tensor_aggregator frames-out=4 frames-dim=1 ! tensor_transform "
+            "mode=arithmetic option=typecast:float32,div:32768.0 acceleration=pallas "
+            "device=cpu ! tensor_upload ! queue ! tensor_filter framework=torch name=f ! "
+            "tensor_decoder mode=image_labeling ! tensor_sink name=out")
+        a["f"].model = audio_cnn.build(window=512, channels=(8, 8), device="cpu")
+        words = []
+        a["out"].connect("new-data", lambda f: words.append(f.meta["label"]))
+        a.run(timeout=120)
+        assert len(words) == 2 and nns.BFLOAT16.name == "bfloat16"
+        assert not any(k in ("jax", "ml_dtypes") or k.startswith(("jax.", "nnstreamer_tpu."))
                        for k, v in sys.modules.items() if v is not None)
         print("labels", [f.meta["label"] for f in chain[-1].frames])
     """)
@@ -164,7 +177,7 @@ def test_port_runs_with_jax_blocked():
 
 
 def test_no_port_file_names_jax():
-    pattern = re.compile(r"import jax|from jax|nnstreamer_tpu[^_]")
+    pattern = re.compile(r"import jax|from jax|import ml_dtypes|from ml_dtypes|nnstreamer_tpu[^_]")
     files = sorted((REPO / "nnstreamer_tpu_torch").rglob("*.py"))
     files += sorted((REPO / "nnstreamer_tpu_torch").rglob("*.cu"))
     files.append(REPO / "chip_smoke.py")

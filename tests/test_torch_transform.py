@@ -122,10 +122,86 @@ class TestPromotion:
         np.testing.assert_array_equal(got, x / 2.0)
 
 
+# ROADMAP C1's inputs.  acceleration=false is the JAX element's numpy rule on
+# the host; true and pallas are the jit rules, and must not move.
+C1_CASES = {
+    "normalize_u8": (np.arange(256, dtype=np.uint8),
+                     dict(mode="arithmetic", option="typecast:float32,add:-127.5,div:127.5")),
+    "div_int_literal": (np.array([14, 190, 121], np.uint8),
+                        dict(mode="arithmetic", option="div:3")),
+    "f32_to_int8": (np.array([-456.76, 219.39, 300.0], np.float32),
+                    dict(mode="typecast", option="int8")),
+    "negative_to_uint32": (np.array([-1.5, -3.0, -1000.25, 7.0], np.float32),
+                           dict(mode="arithmetic", option="typecast:uint32,add:-1")),
+}
+
+
+class TestHostRule:
+    @pytest.mark.parametrize("accel", [False, True, "pallas"])
+    @pytest.mark.parametrize("case", sorted(C1_CASES))
+    def test_roadmap_c1_inputs_match_reference(self, case, accel):
+        x, props = C1_CASES[case]
+        _check(x, acceleration=accel, **props)
+
+    def test_host_rule_values(self):
+        """The reference's numpy results, written out.  numpy leaves an
+        out-of-range float-to-int cast to the platform: these are x86's,
+        where the value is truncated to int32 and then wraps to the target
+        width (-456 -> 56, 219 -> -37, 300 -> 44)."""
+        got, _ = _run_port(np.array([-456.76, 219.39, 300.0], np.float32), mode="typecast",
+                           option="int8", acceleration=False)
+        np.testing.assert_array_equal(got, np.array([56, -37, 44], np.int8))
+        got, _ = _run_port(np.array([14, 190, 121], np.uint8), mode="arithmetic",
+                           option="div:3", acceleration=False)
+        np.testing.assert_array_equal(got, (np.array([14, 190, 121]) / 3).astype(np.float32))
+        assert got[0] == np.float32(4.6666665)
+        got, _ = _run_port(np.arange(256, dtype=np.uint8), mode="arithmetic",
+                           option="typecast:float32,add:-127.5,div:127.5", acceleration=False)
+        assert got[1] == np.float32(-0.99215686)
+        got, _ = _run_port(np.array([-1.5, -3.0], np.float32), mode="arithmetic",
+                           option="typecast:uint32,add:-1", acceleration=False)
+        assert got.dtype == np.float32 and (got > 4.29e9).all()  # the cast wrapped
+        # the jit rules saturate instead
+        got, _ = _run_port(np.array([-456.76, 219.39, 300.0], np.float32), mode="typecast",
+                           option="int8", acceleration=True)
+        np.testing.assert_array_equal(got, np.array([-128, 127, 127], np.int8))
+
+    @pytest.mark.parametrize("mode,option", [("transpose", "1:0:2:3"), ("dimchg", "0:2"),
+                                             ("stand", "default"),
+                                             ("stand", "default:per-channel"),
+                                             ("clamp", "-5:5")])
+    def test_other_modes_on_host_match_reference(self, mode, option):
+        _check(F32, mode=mode, option=option, acceleration=False)
+
+    def test_host_rule_output_lands_on_element_device(self):
+        tr = TensorTransform(device="cpu", mode="arithmetic", option="div:3",
+                             acceleration=False)
+        spec = tnns.TensorsSpec.of(tnns.TensorSpec(dtype=np.uint8, shape=(3,)))
+        tr.configure({"sink": spec})
+        out = tr.process(None, tnns.Frame.of(torch.tensor([14, 190, 121], dtype=torch.uint8)))
+        assert out.tensor(0).dtype == torch.float32 and out.tensor(0).device.type == "cpu"
+
+
+@pytest.mark.parametrize("props", [dict(mode="typecast", option="bfloat16"),
+                                   dict(mode="arithmetic", option="typecast:bfloat16,add:1")])
+def test_bfloat16_streams_refused(props):
+    with pytest.raises(tnns.NegotiationError, match="bfloat16"):
+        _run_port(np.zeros(4, np.float32), **props)
+
+
 def test_pallas_rejects_dtypes_without_kernel():
     with pytest.raises(tnns.NegotiationError):
         _run_port(np.zeros(4, np.int64), mode="arithmetic", option="add:1",
                   acceleration="pallas")
+
+
+@pytest.mark.parametrize("value,want", [("yes", True), ("off", False), ("orc", "pallas"),
+                                        ("pallas", "pallas"), (False, False)])
+def test_acceleration_property_spellings(value, want):
+    tr = TensorTransform(device="cpu", mode="typecast", option="float32", acceleration=value)
+    assert tr.acceleration == want
+    with pytest.raises(ValueError, match="bad boolean"):
+        TensorTransform(device="cpu", mode="typecast", option="float32", acceleration="ture")
 
 
 def test_default_device_raises_without_gpu(monkeypatch):
