@@ -21,15 +21,23 @@ In order, it
    4 bytes past a 16-byte boundary, a float16 chain, a uint32 chain that
    wraps, float32 NaN and +-inf through typecasts to int8 and uint16, and
    two chains with 32 output bytes a vector (int16 -> float32, uint8 ->
-   uint16), and the audio path's normalize, (16000, 1) int16 -> float32.
+   uint16), the audio path's normalize, (16000, 1) int16 -> float32, and
+   bfloat16: the normalize ending in ``typecast:bfloat16`` at (224,224,3)
+   uint8, the audio normalize on a (16000, 1) bfloat16 window (both also
+   misaligned), a bfloat16 chain with a division and a clamp, a clamp at
+   -1:0 (signed zeros), bfloat16 to int8 with NaN and inf, and int32 to
+   bfloat16 (two roundings through float32); the bfloat16 inputs hold
+   subnormals, which the kernel keeps as its plain version does.
    Then it times kernel, plain version and, where one exists, the one
    PyTorch call that computes the same function (a yardstick only; the
    port never calls it); each kernel at its smallest case as its launch
    floor; ``fused_arith`` also at the 4K frame and the audio window and,
    beside it, ``x.to(torch.float32)`` on the same frames (the same bytes and
-   one conversion, a yardstick for the chain);
+   one conversion, a yardstick for the chain), and the two bfloat16 chains
+   at the path's shapes beside their bytes bound, their launch floor and
+   the cast to their output dtype;
 4. graph phase: each kernel captured in a CUDA graph (``fused_arith`` at
-   the three paths' frames, ``int8_matmul`` on its split-K cluster branch and
+   the three paths' frames and the two bfloat16 chains, ``int8_matmul`` on its split-K cluster branch and
    its tiled branch, ``nms_keep`` on its bit walk, its barrier walk and
    above the static shared-memory limit) and replayed twice on new inputs,
    held against its plain version as in the kernel phase;
@@ -85,7 +93,28 @@ In order, it
    the upload's stream held back about 0.1 s before each copy; a
    ``new-data`` callback reads each frame with ``.cpu()`` and must get the
    source bytes (the sink's dispatch waits for the copy);
-9. prints every path number beside the card's name and power limit, one
+9. model-file phase (slice 7's path): writes MobileNet-v2 1.0's seed-0
+   params in the JAX package's layout with the port's ``save_state`` and
+   runs 64 640x480 ``videotestsrc`` frames through a launch string that
+   names everything: ``tensor_filter framework=custom-python`` with the
+   port's example scaler (``custom=224x224``), the normalize, ``tensor_upload
+   ! queue``, ``tensor_filter framework=torch model=<file>.npz
+   custom=builder=mobilenet_v2:build_quantized,int8_head=1``, the labeling
+   decoder.  One capture, 64 replays, ``fused_arith`` and ``int8_matmul``
+   called 4 times each and ``nms_keep`` never, labels equal to the builder
+   called directly on the same tree and scaled frames, and the 16-frame
+   trace's per-launch check;
+10. TorchScript phase: MobileNet-v2 1.0 (bf16) traced on the card, saved,
+   and named in slice 1's string (``model=<file>.pt``) for 16 frames: one
+   capture, replays within 1e-3 relative of the eager call;
+11. drift phase: frames of (224,224,3) uint8, (300,300,3), (224,224,3) and
+   an int16 frame reach a filter with the normalize folded in with no caps
+   event: 3 captures (two while the pipeline plays) and 1 LRU hit, each
+   output bitwise equal to eager, the int16 frame computed as int16;
+12. custom-so phase: a C filter built with ``g++`` here, behind
+   ``tensor_upload ! queue``, gets its 8 frames on the card, copies them to
+   the host and returns exactly ``x * 10``;
+13. prints every path number beside the card's name and power limit, one
    JSON line describing every kernel, and last one JSON line
    ``{"ok": true, "device": {...}}``.
 
@@ -100,6 +129,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -137,6 +167,48 @@ AUDIO_LOGIT_REL = 1 / 32
 UPLOAD_FRAME_DIMS = "8192:4096"
 UPLOAD_FRAMES = 4
 UPLOAD_HOLD_CYCLES = 200_000_000
+# The model-file path: camera frames the scaler custom filter takes to
+# IMAGE x IMAGE, MobileNet-v2 from a checkpoint named in the launch string.
+CAMERA = (480, 640)
+BF16_NORMALIZE = NORMALIZE + ",typecast:bfloat16"
+TS_FRAMES = 16          # the TorchScript file through slice 1's string
+SO_FRAMES = 8           # the custom-so filter behind an upload
+SO_SCALE = "10.0"
+# tests/test_custom_so.py's scaler: a (3,4) float32 tensor times nns_init's scale.
+SCALER_SO_SRC = r"""
+#include <cstdlib>
+#include "nns_custom_filter.h"
+
+static float g_scale = 2.0f;
+
+extern "C" int nns_init(const char *custom) {
+  if (custom && custom[0]) g_scale = atof(custom);
+  return 0;
+}
+
+extern "C" int nns_get_input_spec(nns_tensors_spec *spec) {
+  spec->num_tensors = 1;
+  spec->tensors[0].dtype = NNS_FLOAT32;
+  spec->tensors[0].rank = 2;
+  spec->tensors[0].dims[0] = 3;
+  spec->tensors[0].dims[1] = 4;
+  return 0;
+}
+
+extern "C" int nns_get_output_spec(nns_tensors_spec *spec) {
+  return nns_get_input_spec(spec);
+}
+
+extern "C" int nns_invoke(const void *const *in, const uint64_t *in_sz,
+                          void *const *out, const uint64_t *out_sz) {
+  if (in_sz[0] != out_sz[0]) return -1;
+  const float *src = (const float *)in[0];
+  float *dst = (float *)out[0];
+  for (uint64_t i = 0; i < in_sz[0] / sizeof(float); ++i)
+    dst[i] = src[i] * g_scale;
+  return 0;
+}
+"""
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float32": 67e12, "int8": 1979e12}
@@ -239,6 +311,8 @@ def max_ulp(a, b) -> int:
 
 
 def kernel_phase(torch, np, K, bind, jax_pkg):
+    from nnstreamer_tpu_torch.spec import numpy_dtype
+
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     results = {}
@@ -253,6 +327,12 @@ def kernel_phase(torch, np, K, bind, jax_pkg):
             x.flat[:6] = [np.nan, np.inf, -np.inf, -0.0, 0.0, 1e9 if dtype == np.float32 else 6e4]
             return x
         return make
+
+    def bf16(shape):
+        x = (rng.standard_normal(shape) * 300).astype(np.float32)
+        x.flat[:6] = [np.nan, np.inf, -np.inf, -0.0, 0.0, 3e38]
+        x.flat[6:10] = [1e-39, -1e-39, 5.8e-39, -9.2e-41]  # subnormals: the kernel keeps them
+        return torch.from_numpy(x).to(torch.bfloat16)
 
     u8 = ints(np.uint8, 0, 256)
     cases = [
@@ -275,15 +355,25 @@ def kernel_phase(torch, np, K, bind, jax_pkg):
         ((100_003,), ints(np.int16, -32768, 32768), "typecast:float32,mul:0.5", 0),
         ((100_003,), u8, "typecast:uint16,mul:300", 0),
         ((AUDIO_WINDOW, 1), ints(np.int16, -32768, 32768), AUDIO_NORMALIZE, 0),
+        # bfloat16 in, out and through; int32 -> bfloat16 rounds through float32
+        ((IMAGE, IMAGE, 3), u8, BF16_NORMALIZE, 0),
+        ((IMAGE, IMAGE, 3), u8, BF16_NORMALIZE, 1),
+        ((AUDIO_WINDOW, 1), bf16, AUDIO_NORMALIZE, 0),
+        ((AUDIO_WINDOW, 1), bf16, AUDIO_NORMALIZE, 1),
+        ((100_003,), bf16, "add:0.1,mul:3.3,div:7,clamp:-1000:1000.5", 0),
+        ((100_003,), bf16, "clamp:-1:0", 0),
+        ((100_003,), bf16, "typecast:int8", 0),
+        ((100_003,), ints(np.int32, -2 ** 31, 2 ** 31), "typecast:bfloat16", 0),
+        ((100_003,), u8, "typecast:bfloat16,add:-127.5,div:127.5", 0),
     ]
     err = 0.0
     for shape, make, option, offset in cases:
         x = make(shape)
-        dtype = x.dtype
+        xd = (x if isinstance(x, torch.Tensor) else torch.from_numpy(x)).to(dev)
+        dtype = numpy_dtype(xd.dtype)
         ops = bind(option, dtype)
-        xd = torch.from_numpy(x).to(dev)
         if offset:
-            view = torch.empty(x.size + offset, dtype=xd.dtype, device=dev)[offset:]
+            view = torch.empty(xd.numel() + offset, dtype=xd.dtype, device=dev)[offset:]
             xd = view.view(shape).copy_(xd)
             check(xd.data_ptr() % 16 != 0, "the misaligned input is 16-byte aligned")
         got = K.fused_arith(xd, ops)
@@ -295,7 +385,7 @@ def kernel_phase(torch, np, K, bind, jax_pkg):
                                                "not bitwise equal to its plain version")
         finite = torch.isfinite(want) if want.dtype.is_floating_point else slice(None)
         err = max(err, float((got[finite].double() - want[finite].double()).abs().max()))
-        where = f", {offset * x.itemsize} bytes past a 16-byte boundary" if offset else ""
+        where = f", {offset * xd.element_size()} bytes past a 16-byte boundary" if offset else ""
         print(f"fused_arith {dtype.name}{shape} '{option}'{where}: bitwise equal", flush=True)
 
     ops = bind(NORMALIZE, np.dtype(np.uint8))
@@ -329,12 +419,36 @@ def kernel_phase(torch, np, K, bind, jax_pkg):
     row["cast_ms"] = device_ms(lambda: xa.to(torch.float32), activities=1)[0]
     row["share_of_bound"] = row["bound_ms"] / row["ms"]
     rows.append(row)
+    # bfloat16: the normalize to bfloat16 at the path's frame (451,584 B),
+    # and the audio window's normalize from bfloat16; the yardstick is the
+    # cast to the output dtype, the same bytes
+    xb = torch.from_numpy(rng.integers(0, 256, (IMAGE, IMAGE, 3)).astype(np.uint8)).to(dev)
+    wb = bf16((AUDIO_WINDOW, 1)).to(dev)
+    for x, option, out_dtype in ((xb, BF16_NORMALIZE, torch.bfloat16),
+                                 (wb, AUDIO_NORMALIZE, torch.float32)):
+        bops = bind(option, numpy_dtype(x.dtype))
+        n = x.numel()
+        t_bytes, by = bound_ms(n * x.element_size() + n * (2 if out_dtype == torch.bfloat16
+                                                           else 4), n * 3, "float32")
+        row = timed(dict(shape=f"{tuple(x.shape)} {numpy_dtype(x.dtype).name} -> "
+                               f"{str(out_dtype)[6:]}, '{option}'",
+                         bound_ms=t_bytes, bound_by=by),
+                    kernel=lambda x=x, o=bops: K.fused_arith(x, o),
+                    plain=lambda x=x, o=bops: K.fused_arith_plain(x, o))
+        row["cast_ms"] = device_ms(lambda x=x, d=out_dtype: x.to(d), activities=1)[0]
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        one = torch.zeros(1, dtype=x.dtype, device=dev)
+        row["launch_floor_ms"] = device_ms(lambda one=one, o=bops: K.fused_arith(one, o),
+                                           activities=1)[0]
+        rows.append(row)
     results["fused_arith"] = rows[0]
     keys = ("shape", "ms", "plain_ms", "cast_ms", "call_ms", "bound_ms", "bound_by",
             "share_of_bound")
     rows[0]["at_detection_shape"] = {key: rows[1][key] for key in keys}
     rows[0]["at_4k"] = {key: rows[2][key] for key in keys}
     rows[0]["at_audio_shape"] = {key: rows[3][key] for key in keys}
+    rows[0]["bf16_out"] = {key: rows[4][key] for key in keys + ("launch_floor_ms",)}
+    rows[0]["bf16_in"] = {key: rows[5][key] for key in keys + ("launch_floor_ms",)}
     one = torch.zeros(1, dtype=torch.uint8, device=dev)
     rows[0]["launch_floor_ms"], rows[0]["launch_floor_timer"] = device_ms(
         lambda: K.fused_arith(one, ops), activities=1)
@@ -412,10 +526,12 @@ def kernel_phase(torch, np, K, bind, jax_pkg):
               f"library {r['library_ms']} ms, launch floor {r['launch_floor_ms']} ms "
               f"({r['launch_floor_timer']})",
               flush=True)
-    for key in ("at_detection_shape", "at_4k", "at_audio_shape"):
+    for key in ("at_detection_shape", "at_4k", "at_audio_shape", "bf16_out", "bf16_in"):
         r = results["fused_arith"][key]
-        print(f"fused_arith {r['shape']}: kernel {r['ms']} ms, x.to(float32) {r['cast_ms']} ms, "
-              f"bound {r['bound_ms']} ms, {r['share_of_bound']} of the bound", flush=True)
+        floor = f", launch floor {r['launch_floor_ms']} ms" if "launch_floor_ms" in r else ""
+        print(f"fused_arith {r['shape']}: kernel {r['ms']} ms, plain {r['plain_ms']} ms, "
+              f"cast to the output dtype {r['cast_ms']} ms, bound {r['bound_ms']} ms, "
+              f"{r['share_of_bound']} of the bound{floor}", flush=True)
     return results
 
 
@@ -512,13 +628,14 @@ def timed(row, kernel, plain, library=None):
     return row
 
 
-def graph_kernel_phase(torch, np, K, ops, audio_ops):
+def graph_kernel_phase(torch, np, K, ops, audio_ops, bind):
     """Each kernel captured in a CUDA graph and replayed on new inputs, held
     bitwise against its plain version: the host entry points are
     capture-safe (int8_matmul's cluster launch on both branches, nms_keep
     above the static shared-memory limit, fused_arith's program copied into
     the graph node)."""
     from nnstreamer_tpu_torch.ops import nms as N
+    from nnstreamer_tpu_torch.spec import numpy_dtype
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(3)
@@ -543,7 +660,19 @@ def graph_kernel_phase(torch, np, K, ops, audio_ops):
         return lambda: [i8((m, k)), i8((k, n)), f32((), 0.1) + 1e-3, f32((1, n), 0.01) + 1e-4,
                         f32((n,))]
 
+    bf16_ops = bind(BF16_NORMALIZE, np.dtype(np.uint8))
+    bf16_audio_ops = bind(AUDIO_NORMALIZE, numpy_dtype(torch.bfloat16))
+
+    def bf16_window():
+        x = np.asarray(rng.standard_normal((AUDIO_WINDOW, 1)) * 300, np.float32)
+        return [torch.from_numpy(x).to(torch.bfloat16)]
+
     cases = [
+        ("fused_arith (224,224,3) uint8 -> bfloat16", lambda *a: K.fused_arith(a[0], bf16_ops),
+         lambda *a: K.fused_arith_plain(a[0], bf16_ops), lambda: [u8((IMAGE, IMAGE, 3))]),
+        ("fused_arith (16000,1) bfloat16 -> float32",
+         lambda *a: K.fused_arith(a[0], bf16_audio_ops),
+         lambda *a: K.fused_arith_plain(a[0], bf16_audio_ops), bf16_window),
         ("fused_arith (224,224,3)", lambda *a: K.fused_arith(a[0], ops),
          lambda *a: K.fused_arith_plain(a[0], ops), lambda: [u8((IMAGE, IMAGE, 3))]),
         ("fused_arith (300,300,3)", lambda *a: K.fused_arith(a[0], ops),
@@ -639,8 +768,8 @@ def trace(fn):
 
 
 def run_pipeline(nns, desc, model, frames_expected, seg=None, during=None, got=None):
-    """Build ``desc`` with parse_launch, set the filter's model, run it to
-    EOS; ``during(p)`` runs after EOS while the pipeline still plays (its
+    """Build ``desc`` with parse_launch, set the filter's model (unless
+    ``model`` is None: the string names it), run it to EOS; ``during(p)`` runs after EOS while the pipeline still plays (its
     backend open).  The sink's frames arrive through ``connect("new-data",
     ...)`` (into ``got`` when given).  Returns (pipeline, sink arrival times,
     during's result)."""
@@ -654,7 +783,8 @@ def run_pipeline(nns, desc, model, frames_expected, seg=None, during=None, got=N
     p = nns.parse_launch(desc)
     if seg is not None:
         p.segment_compile = seg
-    p["f"].model = model
+    if model is not None:  # else the launch string names the model
+        p["f"].model = model
     p["out"].connect("new-data", on_frame)
     p.start()
     try:
@@ -728,7 +858,8 @@ def traced_run(nns, desc, model, n, seg=None):
     p = nns.parse_launch(desc)
     if seg is not None:
         p.segment_compile = seg
-    p["f"].model = model
+    if model is not None:
+        p["f"].model = model
     delivered = []
     p["out"].connect("new-data", delivered.append)
     gate = p["u"]._lock
@@ -1235,6 +1366,314 @@ def audio_phase(torch, np, K, ops, root, card):
     return launches, res
 
 
+def model_file_phase(torch, np, K, ops, root, card):
+    """Slice 7's path at full width from its launch string alone: camera
+    frames through the scaler custom filter (``custom-python``, the port's
+    example), the normalize, and MobileNet-v2 1.0 built from a checkpoint
+    that the port's ``save_state`` wrote in the JAX package's layout
+    (``model=<file>.npz custom=builder=mobilenet_v2:build_quantized,...``).
+    No Python object is put on any element."""
+    import importlib.util
+
+    import nnstreamer_tpu_torch as nns
+    from nnstreamer_tpu_torch.models import mobilenet_v2
+    from nnstreamer_tpu_torch.utils.checkpoint import save_state
+
+    work = os.path.join(root, "build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    t0 = time.perf_counter()
+    tree = mobilenet_v2.init_tree(0, CLASSES, 1.0)
+    ckpt = os.path.join(work, "mobilenet_v2.npz")
+    save_state(tree, ckpt)
+    save_s = time.perf_counter() - t0
+    print(f"MobileNet-v2 1.0 seed-0 params written to {os.path.relpath(ckpt, root)} "
+          f"({os.path.getsize(ckpt)} bytes) in {save_s:.3f} s", flush=True)
+    labels_path = os.path.join(work, "labels_1001.txt")
+    labels = [f"class_{i}" for i in range(CLASSES)]
+    with open(labels_path, "w", encoding="utf-8") as f:
+        f.write("\n".join(labels))
+    scaler = os.path.join(root, "nnstreamer_tpu_torch", "examples", "custom_filters", "scaler.py")
+
+    def desc(n):
+        return (f"videotestsrc name=src num-buffers={n} width={CAMERA[1]} height={CAMERA[0]} "
+                "pattern=random seed=7 ! tensor_converter ! "
+                f"tensor_filter framework=custom-python model={scaler} custom={IMAGE}x{IMAGE} ! "
+                f"tensor_transform mode=arithmetic option={NORMALIZE} acceleration=pallas ! "
+                "tensor_upload name=u ! queue max-size-buffers=16 ! "
+                f"tensor_filter framework=torch name=f model={ckpt} "
+                "custom=builder=mobilenet_v2:build_quantized,int8_head=1 ! "
+                f"tensor_decoder mode=image_labeling option1={labels_path} ! tensor_sink name=out")
+
+    state = {}
+
+    def during(p):
+        be = p["f"].backend
+        state.update(stats=dict(be.stats), launches={k.__name__: k.launches for k in K.KERNELS},
+                     transform_folded=not any(type(n).__name__ == "TensorTransform"
+                                              for n in p.nodes.values()),
+                     model=be.model.name, device=str(be.device))
+        return p
+
+    run_pipeline(nns, desc(WARMUP_FRAMES), None, WARMUP_FRAMES)
+    K.reset_launches()
+    got = []
+    p, arrivals, _ = run_pipeline(nns, desc(FRAMES), None, FRAMES, during=during, got=got)
+    stats, launches = state["stats"], state["launches"]
+    print(f"model-file path over {FRAMES} frames: {state['model']} on {state['device']}, "
+          f"backend {stats}, wrapper launches {launches}", flush=True)
+    check(state["transform_folded"], "the normalize did not fold into the filter")
+    check(stats["captures"] == 1 and stats["replays"] == FRAMES,
+          f"expected one capture and {FRAMES} replays: {stats}")
+    for name in ("fused_arith", "int8_matmul"):
+        check(launches[name] == stats["warmup_calls"] + 1,
+              f"{name}: {launches[name]} wrapper launches, expected the "
+              f"{stats['warmup_calls']} warm-up calls and the capture")
+    check(launches["pallas_nms_keep"] == 0, f"nms_keep launched on the model-file path")
+
+    # The builder called directly on the same tree and the same scaled frames.
+    spec = importlib.util.spec_from_file_location("chip_smoke_scaler", scaler)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    resize = mod.CustomFilter(f"{IMAGE}x{IMAGE}")
+    direct = mobilenet_v2.build_quantized(params=tree, int8_head=True, device="cuda")
+    src = p["src"]
+    want_idx, want_top = [], []
+    with torch.inference_mode():
+        for i in range(FRAMES):
+            x = resize.invoke(torch.from_numpy(src._make_frame(i))).cuda()
+            check(tuple(x.shape) == (IMAGE, IMAGE, 3), f"scaled frame {tuple(x.shape)}")
+            logits = direct(K.fused_arith(x, ops))
+            check(bool(torch.isfinite(logits).all()) and logits.shape == (CLASSES,),
+                  f"frame {i}: direct logits not finite / wrong shape")
+            want_idx.append(int(torch.argmax(logits)))
+            want_top.append(float(logits.max()))
+    got_idx = [f.meta["label_index"] for f in got]
+    check(got_idx == want_idx, f"labels differ from the direct build: {got_idx} vs {want_idx}")
+    check([f.meta["label"] for f in got] == [labels[i] for i in want_idx],
+          "label text does not match the label index")
+    # allowed: 1e-3 relative, a conv algorithm picked differently
+    top_err = max(abs(f.meta["score"] - t) / max(1.0, abs(t)) for f, t in zip(got, want_top))
+    check(top_err <= 1e-3, f"top logits differ from the direct build by {top_err} (relative)")
+    res = dict(frames=FRAMES, replays=stats["replays"], **rates(arrivals, np),
+               distinct_labels=len(set(got_idx)), top_logit_rel_err=top_err,
+               checkpoint_bytes=os.path.getsize(ckpt), save_s=save_s,
+               capture_s=stats["capture_s"], warmup_s=stats["warmup_s"])
+    print(f"model file: labels equal to the direct build ({len(set(got_idx))} distinct), top "
+          f"logits within {top_err:.3g} (relative)", flush=True)
+    profile_path(lambda n: traced_run(nns, desc(n), None, n), res,
+                 ("fused_arith", "int8_matmul"))
+    report_path("model file", res, card)
+    return launches, res
+
+
+def _tensor_leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensor_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _tensor_leaves(v)]
+    return [tree] if hasattr(tree, "data_ptr") else []
+
+
+def torchscript_phase(torch, np, K, ops, root):
+    """A TorchScript file (MobileNet-v2 1.0, bf16 compute, traced on the
+    card) named in slice 1's string: one capture, and the replays' logits
+    within 1e-3 relative of the traced module's eager call."""
+    import nnstreamer_tpu_torch as nns
+    from nnstreamer_tpu_torch.models import mobilenet_v2
+
+    model = mobilenet_v2.build(num_classes=CLASSES, image_size=IMAGE, seed=0, device="cuda")
+
+    class Net(torch.nn.Module):
+        def __init__(self, m):
+            super().__init__()
+            self.m = m
+            for i, t in enumerate(_tensor_leaves(m.params)):  # the tracer's module state
+                self.register_buffer(f"p{i}", t)
+
+        def forward(self, x):
+            return self.m(x)
+
+    work = os.path.join(root, "build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    path = os.path.join(work, "mobilenet_v2_bf16.pt")
+    t0 = time.perf_counter()
+    with torch.no_grad(), warnings.catch_warnings():
+        # the padding arithmetic of the convs is traced as constants: the
+        # file serves the traced geometry, which is the stream's
+        warnings.simplefilter("ignore", torch.jit.TracerWarning)
+        traced = torch.jit.trace(Net(model).eval(), torch.zeros(IMAGE, IMAGE, 3, device=model.device),
+                                 check_trace=False)
+    traced.save(path)
+    trace_s = time.perf_counter() - t0
+    desc = (f"videotestsrc name=src num-buffers={TS_FRAMES} width={IMAGE} height={IMAGE} "
+            "pattern=random seed=7 ! tensor_converter ! "
+            f"tensor_transform mode=arithmetic option={NORMALIZE} acceleration=pallas ! "
+            "tensor_upload name=u ! queue max-size-buffers=16 ! "
+            f"tensor_filter framework=torch name=f model={path} ! tensor_sink name=out")
+    state = {}
+
+    def during(p):
+        be = p["f"].backend
+        src = p["src"]
+        state.update(stats=dict(be.stats), scripted=isinstance(be.model.apply,
+                                                                torch.jit.ScriptModule))
+        xs = [torch.from_numpy(src._make_frame(i)) for i in range(8)]
+        state["abs"], state["rel"] = captured_against_eager(torch, be, xs, exact=False)
+        return p
+
+    got = []
+    run_pipeline(nns, desc, None, TS_FRAMES, during=during, got=got)
+    stats = state["stats"]
+    check(state["scripted"], "the filter did not load a TorchScript module")
+    check(stats["captures"] == 1 and stats["replays"] == TS_FRAMES,
+          f"TorchScript: expected one capture and {TS_FRAMES} replays: {stats}")
+    check(all(tuple(f.tensor(0).shape) == (CLASSES,) and bool(torch.isfinite(f.tensor(0)).all())
+              for f in got), "TorchScript logits not finite / wrong shape")
+    check(state["rel"] <= 1e-3, f"TorchScript: replays differ from the traced module's eager "
+                                f"call by {state['rel']} (relative)")
+    res = dict(frames=TS_FRAMES, replays=stats["replays"], trace_s=trace_s,
+               file_bytes=os.path.getsize(path), replay_vs_eager_abs=state["abs"],
+               replay_vs_eager_rel=state["rel"])
+    print(f"TorchScript: {TS_FRAMES} frames through {os.path.relpath(path, root)}, one capture, "
+          f"replays within {state['rel']:.3g} of the eager call (relative)", flush=True)
+    return res
+
+
+def drift_phase(torch, np, K, ops, bind):
+    """C3 on the card: frames whose shape or dtype drifts with no caps event
+    (the pads upstream of the filter pass frames unchecked, as a
+    polymorphic pad does).  The filter, with the normalize folded in,
+    rebinds through its drift hook and captures while the pipeline plays,
+    the upload's copies going on on the source's thread: (224,224,3) uint8,
+    (300,300,3), (224,224,3) again (an LRU hit), then an int16 frame.  The
+    upload's stream is held before each copy, as the upload-wait phase
+    holds it, so a capture taken while PLAYING meets copies in flight: it
+    synchronizes the device and waits for them, and must not deadlock."""
+    import nnstreamer_tpu_torch as nns
+    from nnstreamer_tpu_torch.backends.torch_backend import TorchModel
+    from nnstreamer_tpu_torch.graph.node import _UNCHECKED
+
+    rng = np.random.default_rng(9)
+    frames = [rng.integers(0, 256, (IMAGE, IMAGE, 3)).astype(np.uint8),
+              rng.integers(0, 256, (SSD_IMAGE, SSD_IMAGE, 3)).astype(np.uint8),
+              rng.integers(0, 256, (IMAGE, IMAGE, 3)).astype(np.uint8),
+              rng.integers(256, 30000, (IMAGE, IMAGE, 3)).astype(np.int16)]
+    p = nns.parse_launch(
+        f"datasrc name=s ! tensor_transform mode=arithmetic option={NORMALIZE} "
+        "acceleration=pallas ! tensor_upload name=u ! queue ! tensor_filter framework=torch "
+        "name=f ! tensor_sink name=out")
+    p["s"].data = [torch.from_numpy(f) for f in frames]
+    p["f"].model = TorchModel(apply=lambda params, x: x * 2, name="double", device="cuda")
+    got = []
+    p["out"].connect("new-data", got.append)
+    u = p["u"]
+    upload = u.process
+
+    def held_upload(pad, frame):
+        with torch.cuda.stream(u._stream):
+            torch.cuda._sleep(UPLOAD_HOLD_CYCLES)
+        return upload(pad, frame)
+
+    u.process = held_upload
+    hold = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    hold[0].record()
+    torch.cuda._sleep(UPLOAD_HOLD_CYCLES)
+    hold[1].record()
+    hold[1].synchronize()
+    hold_ms = hold[0].elapsed_time(hold[1])
+    gate = u._lock
+    gate.acquire()
+    try:
+        p.start()
+    except BaseException:
+        gate.release()
+        raise
+    try:
+        for node in p.nodes.values():
+            if node is not p["f"]:
+                for pad in node.src_pads.values():
+                    pad.sig = _UNCHECKED
+        gate.release()
+        check(p.wait(120), "the drift pipeline did not finish")
+        be = p["f"].backend
+        stats = dict(be.stats)
+        waits = [(" ".join(f"{d}{shape}" for d, shape in key[0]), e.warmup_s * 1e3,
+                  e.capture_s * 1e3) for key, e in be._graphs.items()]
+        check(len(got) == len(frames), f"drift: {len(got)} of {len(frames)} frames")
+        with torch.inference_mode():
+            for i, (x, g) in enumerate(zip(frames, got)):
+                xd = torch.from_numpy(x).cuda()
+                out = be.invoke((xd,))[0]  # rebinds as the frame did
+                want = be.eager(xd)[0]
+                torch.cuda.synchronize()
+                check(bitwise_equal(torch, g.tensor(0), want) and bitwise_equal(torch, out, want),
+                      f"drift frame {i} {x.dtype}{x.shape}: the replay differs from eager")
+    finally:
+        p.stop()
+    check(stats["captures"] == 3 and stats["hits"] == 1,
+          f"drift: expected 3 captures and 1 LRU hit: {stats}")
+    x16 = torch.from_numpy(frames[3]).cuda()
+    want16 = K.fused_arith_plain(x16, bind(NORMALIZE, np.dtype(np.int16))) * 2
+    cast = K.fused_arith_plain(x16.to(torch.uint8), ops) * 2
+    check(bitwise_equal(torch, got[3].tensor(0), want16),
+          "drift: the int16 frame's output is not the int16 chain's")
+    check(not torch.equal(got[3].tensor(0), cast), "drift: the int16 frame was cast to uint8")
+    res = dict(frames=len(frames), captures=stats["captures"], hits=stats["hits"],
+               replays=stats["replays"], shapes=[f"{f.dtype}{f.shape}" for f in frames],
+               hold_ms=hold_ms, capture_ms=[{"key": k, "warmup_ms": w, "capture_ms": c}
+                                            for k, w, c in waits])
+    print(f"drift: {res['shapes']} with no caps event: {stats['captures']} captures, "
+          f"{stats['hits']} LRU hit, each output bitwise equal to eager, the int16 frame "
+          "computed as int16", flush=True)
+    print(f"drift: the upload's stream held {hold_ms:.3f} ms before each copy; each capture's "
+          "warm-up and capture, in LRU order (the uint8 (224, 224, 3) one was taken before "
+          "PLAYING): " + "; ".join(f"{k} {w:.3f} + {c:.3f} ms" for k, w, c in waits), flush=True)
+    return res
+
+
+def custom_so_phase(torch, np, root):
+    """A C filter (``custom-so``) behind an upload: it gets tensors on the
+    card, copies them to the host for the call, and its outputs are exact."""
+    import nnstreamer_tpu_torch as nns
+
+    work = os.path.join(root, "build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    cc, so = os.path.join(work, "scaler_so.cc"), os.path.join(work, "libscaler_so.so")
+    with open(cc, "w", encoding="utf-8") as f:
+        f.write(SCALER_SO_SRC)
+    header = os.path.join(root, "nnstreamer_tpu_torch", "native")
+    build = subprocess.run(["g++", "-O2", "-shared", "-fPIC", f"-I{header}", cc, "-o", so],
+                           capture_output=True, text=True, timeout=120)
+    check(build.returncode == 0, f"g++ failed on the custom-so filter: {build.stderr}")
+    rng = np.random.default_rng(12)
+    sent = [rng.standard_normal((3, 4)).astype(np.float32) for _ in range(SO_FRAMES)]
+    p = nns.parse_launch(
+        "datasrc name=s ! tensor_upload name=u ! queue ! tensor_filter framework=custom-so "
+        f"name=f model={so} custom={SO_SCALE} ! tensor_sink name=out")
+    p["s"].data = [torch.from_numpy(f) for f in sent]
+    be = p["f"].backend
+    devices = []
+    invoke = be.invoke
+
+    def recording(tensors):
+        devices.extend(t.device.type for t in tensors)
+        return invoke(tensors)
+
+    be.invoke = recording
+    got = []
+    p["out"].connect("new-data", lambda fr: got.append(fr.tensor(0)))
+    p.run(timeout=120)
+    check(devices == ["cuda"] * SO_FRAMES, f"custom-so got tensors on {devices}")
+    check(len(got) == SO_FRAMES and all(g.device.type == "cpu" for g in got),
+          "custom-so outputs are not host tensors")
+    for i, (g, x) in enumerate(zip(got, sent)):
+        check(np.array_equal(g.numpy(), x * np.float32(SO_SCALE)),
+              f"custom-so frame {i}: not x * {SO_SCALE}")
+    print(f"custom-so: {SO_FRAMES} frames uploaded to the card, copied to the host for the C "
+          f"filter, outputs exactly x * {SO_SCALE}", flush=True)
+    return dict(frames=SO_FRAMES, input_devices=sorted(set(devices)))
+
+
 def upload_wait_check(seen, sent):
     """Each frame a sink callback read must hold its source's bytes."""
     check(len(seen) == len(sent), f"the sink read {len(seen)} of {len(sent)} frames")
@@ -1331,7 +1770,7 @@ def main() -> int:
         for line in log.splitlines():
             if "entry function" in line or "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
-    # fused_arith: 72 instantiations (8 float32-chain, 64 general), summed up
+    # fused_arith: 18 instantiations (9 float32-chain, 9 general), summed up
     report = build.ptxas_report(build.log_path("fused_arith").read_text())
     ptxas = dict(entries=len(report), max_registers=max(r["registers"] for r in report.values()),
                  max_stack_bytes=max(r["stack"] for r in report.values()),
@@ -1346,11 +1785,15 @@ def main() -> int:
     kernels["fused_arith"]["ptxas"] = ptxas
     ops = bind(NORMALIZE, np.dtype(np.uint8))
     audio_ops = bind(AUDIO_NORMALIZE, np.dtype(np.int16))
-    in_graph = graph_kernel_phase(torch, np, K, ops, audio_ops)
+    in_graph = graph_kernel_phase(torch, np, K, ops, audio_ops, bind)
     by_path = {"image_labeling": slice_phase(torch, np, K, ops, root, card)}
     by_path["object_detection"] = detection_phase(torch, np, K, ops, root, card)
     by_path["audio"] = audio_phase(torch, np, K, audio_ops, root, card)
     upload_wait = upload_wait_phase(torch, np)
+    by_path["model_file"] = model_file_phase(torch, np, K, ops, root, card)
+    torchscript = torchscript_phase(torch, np, K, ops, root)
+    drift = drift_phase(torch, np, K, ops, bind)
+    custom_so = custom_so_phase(torch, np, root)
     wrapper = {"fused_arith": "fused_arith", "int8_matmul": "int8_matmul",
                "nms_keep": "pallas_nms_keep"}
     for name, r in kernels.items():
@@ -1361,7 +1804,9 @@ def main() -> int:
     print(json.dumps({"card": card, "build_s": build_s, "kernels_in_a_graph": in_graph,
                       "slice": by_path["image_labeling"][1],
                       "slice2": by_path["object_detection"][1],
-                      "audio": by_path["audio"][1], "upload_wait": upload_wait}), flush=True)
+                      "audio": by_path["audio"][1], "upload_wait": upload_wait,
+                      "model_file": by_path["model_file"][1], "torchscript": torchscript,
+                      "drift": drift, "custom_so": custom_so}), flush=True)
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

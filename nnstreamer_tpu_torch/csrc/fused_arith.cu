@@ -45,16 +45,28 @@
 //   FLOAT_CHAIN (every step computes in float32, as the normalize chain):
 //   one conversion of the input to float, then float ops on pre-rounded
 //   literals, one switch per step hoisted over the vector's elements;
-//   GENERAL (int and float16 steps): a value travels as 32 bits, an integer
-//   as its two's complement pattern (int steps are 32-bit unsigned
-//   arithmetic, whose sums and products reduce correctly mod 2^8 and 2^16,
-//   then wrap to the step's width), a float as float32 bits.
+//   GENERAL (int, float16 and bfloat16 steps): a value travels as 32 bits,
+//   an integer as its two's complement pattern (int steps are 32-bit
+//   unsigned arithmetic, whose sums and products reduce correctly mod 2^8
+//   and 2^16, then wrap to the step's width), a float as float32 bits.
+// - Instantiations by width, not by dtype: the float32-chain variant is
+//   instantiated for each of the 9 input dtypes (its one conversion to
+//   float), the general one for each pair of input and output widths
+//   (1, 2 or 4 bytes: 9 pairs), an element's dtype selecting at run time,
+//   once per vector, how its bits widen to 32 (zero or sign extension,
+//   float16 or bfloat16 to float32) and narrow again (truncation, or
+//   rounding to float16 or bfloat16): 18 kernels.  A kernel per (input,
+//   output) dtype pair, 90 of them, built five times as long and ran
+//   within 0.1 us of these (PERF.md, findings).
 // - Plain write-back stores: the filter's first conv reads the output next,
 //   from L2.
 //
 // Numerics follow the JAX kernel, bit for bit with the plain version:
-// - float16 steps compute in float32 and round to half after every step
-//   (exact for + - * since float32 holds 2*11+2 bits);
+// - float16 and bfloat16 steps compute in float32 and round to half or to
+//   bfloat16 (nearest even) after every step, as XLA computes them; an int
+//   converts to either through float32 (two roundings, as XLA converts);
+// - a bfloat16 division by a literal is a multiplication by its float32
+//   reciprocal (XLA widens the division to float32 first);
 // - division by a literal arrives as a multiplication by its reciprocal,
 //   which is what XLA compiles x / const into on every backend;
 // - round-to-nearest intrinsics throughout (__fadd_rn, __fmul_rn, ...), no
@@ -64,10 +76,12 @@
 // - float -> int truncates and saturates, NaN to 0 (cvt.rzi, which clamps
 //   to its 32-bit range, then a clamp to a narrow int's range), as XLA's
 //   convert;
-// - clamp is XLA's max(lo, x) then min(hi, x): NaN propagates; integer
-//   bounds arrive inside the step dtype's range (ops/kernels.py::_int_clamp).
+// - clamp is XLA's max(lo, x) then min(hi, x): NaN propagates, -0.0 orders
+//   below +0.0; integer bounds arrive inside the step dtype's range
+//   (ops/kernels.py::_int_clamp).
 // The kernel allocates nothing and launches on the caller's stream.
 
+#include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -92,20 +106,27 @@ struct Program {
 
 namespace {
 
-enum Dt { U8 = 0, I8 = 1, U16 = 2, I16 = 3, U32 = 4, I32 = 5, F16 = 6, F32 = 7 };
+enum Dt { U8 = 0, I8 = 1, U16 = 2, I16 = 3, U32 = 4, I32 = 5, F16 = 6, F32 = 7, BF16 = 8 };
 // Must match ops/kernels.py::CONV, OP and FLOAT_CHAIN / GENERAL.
 enum Conv {
   C_NONE = 0, C_WRAP_U8 = 1, C_WRAP_I8 = 2, C_WRAP_U16 = 3, C_WRAP_I16 = 4,
   C_I2F = 5, C_U2F = 6, C_I2H = 7, C_U2H = 8, C_F2H = 9,
-  C_F2U8 = 10, C_F2I8 = 11, C_F2U16 = 12, C_F2I16 = 13, C_F2U32 = 14, C_F2I32 = 15
+  C_F2U8 = 10, C_F2I8 = 11, C_F2U16 = 12, C_F2I16 = 13, C_F2U32 = 14, C_F2I32 = 15,
+  C_I2B = 16, C_U2B = 17, C_F2B = 18
 };
 enum Op {
   O_NONE = 0, O_IADD = 1, O_ISUB = 2, O_IMUL = 3, O_ICLAMP = 4, O_UCLAMP = 5,
   O_FADD = 6, O_FSUB = 7, O_FMUL = 8, O_FCLAMP = 9
 };
 enum Variant { FLOAT_CHAIN = 0, GENERAL = 1 };
+// How the general variant widens an element's bits to 32, and narrows them.
+enum Load { L_ZERO = 0, L_SIGN = 1, L_F16 = 2, L_BF16 = 3 };
+enum Store { S_TRUNC = 0, S_F16 = 1, S_BF16 = 2 };
 
 struct f16 {  // a float16 in memory
+  uint16_t bits;
+};
+struct bf16 {  // a bfloat16 in memory: the high half of a float32
   uint16_t bits;
 };
 
@@ -120,30 +141,18 @@ template <> __device__ __forceinline__ float to_float<uint32_t>(uint32_t v) {
 template <> __device__ __forceinline__ float to_float<f16>(f16 v) {
   return __half2float(__ushort_as_half(v.bits));
 }
+template <> __device__ __forceinline__ float to_float<bf16>(bf16 v) {
+  return __uint_as_float((uint32_t)v.bits << 16);
+}
 template <> __device__ __forceinline__ float to_float<float>(float v) { return v; }
-
-// The 32-bit representation of an input element.
-template <typename T> __device__ __forceinline__ uint32_t to_bits(T v) {
-  return (uint32_t)(int32_t)v;  // sign- or zero-extended
-}
-template <> __device__ __forceinline__ uint32_t to_bits<f16>(f16 v) {
-  return __float_as_uint(to_float(v));
-}
-template <> __device__ __forceinline__ uint32_t to_bits<float>(float v) {
-  return __float_as_uint(v);
-}
-
-// An output element from its 32-bit representation (already in range).
-template <typename T> __device__ __forceinline__ T from_bits(uint32_t r) { return (T)r; }
-template <> __device__ __forceinline__ f16 from_bits<f16>(uint32_t r) {
-  return f16{__half_as_ushort(__float2half_rn(__uint_as_float(r)))};
-}
-template <> __device__ __forceinline__ float from_bits<float>(uint32_t r) {
-  return __uint_as_float(r);
-}
 
 __device__ __forceinline__ uint32_t half_bits(float f) {
   return __float_as_uint(__half2float(__float2half_rn(f)));
+}
+
+// f rounded to bfloat16 (nearest even), as float32 bits.
+__device__ __forceinline__ uint32_t bf16_bits(float f) {
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(f)) << 16;
 }
 
 __device__ __forceinline__ uint32_t saturate(float f, int32_t lo, int32_t hi) {
@@ -152,12 +161,18 @@ __device__ __forceinline__ uint32_t saturate(float f, int32_t lo, int32_t hi) {
   return (uint32_t)(v > hi ? hi : v);
 }
 
-// max(lo, v) then min(hi, v), as XLA's clamp: a float NaN propagates.
+// max(lo, v) then min(hi, v), as XLA's clamp.
 template <typename T> __device__ __forceinline__ T xla_clamp(T v, T lo, T hi) {
   v = lo >= v ? lo : v;
   return hi <= v ? hi : v;
 }
-__device__ __forceinline__ float fclamp(float v, float lo, float hi) { return xla_clamp(v, lo, hi); }
+// The float clamp: a NaN propagates, and -0.0 orders below +0.0, as XLA's
+// max and min order them (of two equal values max takes the AND of their
+// bits and min the OR, which differ only for zeros of opposite signs).
+__device__ __forceinline__ float fclamp(float v, float lo, float hi) {
+  v = lo > v ? lo : (lo == v ? __int_as_float(__float_as_int(lo) & __float_as_int(v)) : v);
+  return hi < v ? hi : (hi == v ? __int_as_float(__float_as_int(hi) | __float_as_int(v)) : v);
+}
 
 // -- the steps, each switch hoisted over a vector's elements ----------------
 
@@ -177,6 +192,7 @@ __device__ __forceinline__ void wrap_or_round(uint32_t (&r)[kN], int c) {
     case C_WRAP_U16: EACH(x & 0xFFFFu)
     case C_WRAP_I16: EACH((uint32_t)(int32_t)(int16_t)(x & 0xFFFFu))
     case C_F2H: EACH(half_bits(__uint_as_float(x)))
+    case C_F2B: EACH(bf16_bits(__uint_as_float(x)))
     default: break;
   }
 }
@@ -188,6 +204,8 @@ __device__ __forceinline__ void convert(uint32_t (&r)[kN], int c) {
     case C_U2F: EACH(__float_as_uint(__uint2float_rn(x)))
     case C_I2H: EACH(half_bits(__int2float_rn((int32_t)x)))
     case C_U2H: EACH(half_bits(__uint2float_rn(x)))
+    case C_I2B: EACH(bf16_bits(__int2float_rn((int32_t)x)))
+    case C_U2B: EACH(bf16_bits(__uint2float_rn(x)))
     case C_F2U8: EACH(saturate(__uint_as_float(x), 0, 255))
     case C_F2I8: EACH(saturate(__uint_as_float(x), -128, 127))
     case C_F2U16: EACH(saturate(__uint_as_float(x), 0, 65535))
@@ -258,8 +276,76 @@ __device__ __forceinline__ void float_steps(float (&v)[kN], const Program& p) {
   }
 }
 
+// The 32-bit representation of a vector's input elements, stored as their
+// width W: an int zero- or sign-extended, a float as its float32 bits.
+template <typename W, int kN>
+__device__ __forceinline__ void load_bits(const W (&in)[kN], uint32_t (&r)[kN], int ld) {
+  if constexpr (sizeof(W) == 2) {
+    switch (ld) {
+      case L_SIGN:
+#pragma unroll
+        for (int e = 0; e < kN; ++e) r[e] = (uint32_t)(int32_t)(int16_t)in[e];
+        break;
+      case L_F16:
+#pragma unroll
+        for (int e = 0; e < kN; ++e) r[e] = __float_as_uint(__half2float(__ushort_as_half(in[e])));
+        break;
+      case L_BF16:
+#pragma unroll
+        for (int e = 0; e < kN; ++e) r[e] = (uint32_t)in[e] << 16;
+        break;
+      default:
+#pragma unroll
+        for (int e = 0; e < kN; ++e) r[e] = in[e];
+        break;
+    }
+  } else if constexpr (sizeof(W) == 1) {
+    if (ld == L_SIGN) {
+#pragma unroll
+      for (int e = 0; e < kN; ++e) r[e] = (uint32_t)(int32_t)(int8_t)in[e];
+    } else {
+#pragma unroll
+      for (int e = 0; e < kN; ++e) r[e] = in[e];
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < kN; ++e) r[e] = in[e];
+  }
+}
+
+// Output elements of width W from their 32-bit representation (already in
+// range): an int's low bits, a float16 or bfloat16 rounded from float32.
+template <typename W, int kN>
+__device__ __forceinline__ void store_bits(const uint32_t (&r)[kN], W (&out)[kN], int st) {
+  if constexpr (sizeof(W) == 2) {
+    switch (st) {
+      case S_F16:
+#pragma unroll
+        for (int e = 0; e < kN; ++e)
+          out[e] = __half_as_ushort(__float2half_rn(__uint_as_float(r[e])));
+        break;
+      case S_BF16:
+#pragma unroll
+        for (int e = 0; e < kN; ++e)
+          out[e] = __bfloat16_as_ushort(__float2bfloat16_rn(__uint_as_float(r[e])));
+        break;
+      default:
+#pragma unroll
+        for (int e = 0; e < kN; ++e) out[e] = (W)r[e];
+        break;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < kN; ++e) out[e] = (W)r[e];
+  }
+}
+
+// kFloat: InT is the input dtype and OutT float.  Else both are the
+// elements' widths (uint8_t, uint16_t, uint32_t), `ld` and `st` their
+// dtypes' Load and Store codes.
 template <bool kFloat, typename InT, typename OutT, int kN>
-__device__ __forceinline__ void eval(const InT (&in)[kN], OutT (&out)[kN], const Program& p) {
+__device__ __forceinline__ void eval(const InT (&in)[kN], OutT (&out)[kN], const Program& p,
+                                     int ld, int st) {
   if constexpr (kFloat) {
     static_assert(sizeof(OutT) == 4, "the float32 chain writes float32");
     float v[kN];
@@ -270,11 +356,9 @@ __device__ __forceinline__ void eval(const InT (&in)[kN], OutT (&out)[kN], const
     for (int e = 0; e < kN; ++e) out[e] = v[e];
   } else {
     uint32_t r[kN];
-#pragma unroll
-    for (int e = 0; e < kN; ++e) r[e] = to_bits(in[e]);
+    load_bits(in, r, ld);
     general_steps(r, p);
-#pragma unroll
-    for (int e = 0; e < kN; ++e) out[e] = from_bits<OutT>(r[e]);
+    store_bits(r, out, st);
   }
 }
 
@@ -317,7 +401,8 @@ __device__ __forceinline__ int slot(int vec, int part) {
 template <typename InT, typename OutT, bool kFloat>
 __global__ void __launch_bounds__(kThreads)
 fused_arith_kernel(const InT* __restrict__ x, OutT* __restrict__ y, long long head,
-                   long long nvec, long long tail, const __grid_constant__ Program p) {
+                   long long nvec, long long tail, int ld, int st,
+                   const __grid_constant__ Program p) {
   constexpr int kN = kVecBytes / (int)sizeof(InT);
   constexpr int kParts = kN * (int)sizeof(OutT) / 16;
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -329,7 +414,7 @@ fused_arith_kernel(const InT* __restrict__ x, OutT* __restrict__ y, long long he
     InT in[kN];
     memcpy(in, &w, kVecBytes);
     OutT out[kN];
-    eval<kFloat>(in, out, p);
+    eval<kFloat>(in, out, p, ld, st);
     if constexpr (kParts >= 2) {
       __shared__ uint4 stage[kThreads * kParts];
       uint4* s = stage + (threadIdx.x - lane) * kParts;
@@ -352,7 +437,7 @@ fused_arith_kernel(const InT* __restrict__ x, OutT* __restrict__ y, long long he
     const long long i = t < head ? t : t + nvec * kN;
     const InT in[1] = {x[i]};
     OutT out[1];
-    eval<kFloat>(in, out, p);
+    eval<kFloat>(in, out, p, ld, st);
     y[i] = out[0];
   }
 }
@@ -364,28 +449,39 @@ struct Launch {
 };
 
 template <typename InT, typename OutT, bool kFloat>
-cudaError_t launch(const void* x, void* y, const Launch& l, const Program& p) {
+cudaError_t launch(const void* x, void* y, const Launch& l, const Program& p, int ld = 0,
+                   int st = 0) {
   fused_arith_kernel<InT, OutT, kFloat><<<l.blocks, kThreads, 0, l.stream>>>(
-      static_cast<const InT*>(x), static_cast<OutT*>(y), l.head, l.nvec, l.tail, p);
+      static_cast<const InT*>(x), static_cast<OutT*>(y), l.head, l.nvec, l.tail, ld, st, p);
   return cudaGetLastError();
 }
 
-template <typename InT>
-cudaError_t launch_in(const void* x, void* y, int out_dt, const Launch& l, const Program& p) {
-  if (p.variant == FLOAT_CHAIN)
-    return out_dt == F32 ? launch<InT, float, true>(x, y, l, p) : cudaErrorInvalidValue;
-  switch (out_dt) {
-    case U8: return launch<InT, uint8_t, false>(x, y, l, p);
-    case I8: return launch<InT, int8_t, false>(x, y, l, p);
-    case U16: return launch<InT, uint16_t, false>(x, y, l, p);
-    case I16: return launch<InT, int16_t, false>(x, y, l, p);
-    case U32: return launch<InT, uint32_t, false>(x, y, l, p);
-    case I32: return launch<InT, int32_t, false>(x, y, l, p);
-    case F16: return launch<InT, f16, false>(x, y, l, p);
-    case F32: return launch<InT, float, false>(x, y, l, p);
+// The general variant at input width InW: one kernel per output width.
+template <typename InW>
+cudaError_t launch_general(const void* x, void* y, int out_bytes, const Launch& l,
+                           const Program& p, int ld, int st) {
+  switch (out_bytes) {
+    case 1: return launch<InW, uint8_t, false>(x, y, l, p, ld, st);
+    case 2: return launch<InW, uint16_t, false>(x, y, l, p, ld, st);
+    case 4: return launch<InW, uint32_t, false>(x, y, l, p, ld, st);
     default: return cudaErrorInvalidValue;
   }
 }
+
+int dt_bytes(int dt) {
+  switch (dt) {
+    case U8: case I8: return 1;
+    case U16: case I16: case F16: case BF16: return 2;
+    case U32: case I32: case F32: return 4;
+    default: return 0;
+  }
+}
+
+int load_code(int dt) {
+  return dt == I8 || dt == I16 ? L_SIGN : dt == F16 ? L_F16 : dt == BF16 ? L_BF16 : L_ZERO;
+}
+
+int store_code(int dt) { return dt == F16 ? S_F16 : dt == BF16 ? S_BF16 : S_TRUNC; }
 
 }  // namespace
 
@@ -399,15 +495,26 @@ extern "C" int nns_fused_arith(const void* x, void* y, int in_dt, int out_dt,
     return (int)cudaErrorInvalidValue;
   const Program& p = *prog;
   const Launch l{head, nvec, tail, blocks, static_cast<cudaStream_t>(stream)};
-  switch (in_dt) {
-    case U8: return (int)launch_in<uint8_t>(x, y, out_dt, l, p);
-    case I8: return (int)launch_in<int8_t>(x, y, out_dt, l, p);
-    case U16: return (int)launch_in<uint16_t>(x, y, out_dt, l, p);
-    case I16: return (int)launch_in<int16_t>(x, y, out_dt, l, p);
-    case U32: return (int)launch_in<uint32_t>(x, y, out_dt, l, p);
-    case I32: return (int)launch_in<int32_t>(x, y, out_dt, l, p);
-    case F16: return (int)launch_in<f16>(x, y, out_dt, l, p);
-    case F32: return (int)launch_in<float>(x, y, out_dt, l, p);
-    default: return (int)cudaErrorInvalidValue;
+  const int out_bytes = dt_bytes(out_dt);
+  if (dt_bytes(in_dt) == 0 || out_bytes == 0) return (int)cudaErrorInvalidValue;
+  if (p.variant == FLOAT_CHAIN) {
+    if (out_dt != F32) return (int)cudaErrorInvalidValue;
+    switch (in_dt) {
+      case U8: return (int)launch<uint8_t, float, true>(x, y, l, p);
+      case I8: return (int)launch<int8_t, float, true>(x, y, l, p);
+      case U16: return (int)launch<uint16_t, float, true>(x, y, l, p);
+      case I16: return (int)launch<int16_t, float, true>(x, y, l, p);
+      case U32: return (int)launch<uint32_t, float, true>(x, y, l, p);
+      case I32: return (int)launch<int32_t, float, true>(x, y, l, p);
+      case F16: return (int)launch<f16, float, true>(x, y, l, p);
+      case F32: return (int)launch<float, float, true>(x, y, l, p);
+      default: return (int)launch<bf16, float, true>(x, y, l, p);
+    }
+  }
+  const int ld = load_code(in_dt), st = store_code(out_dt);
+  switch (dt_bytes(in_dt)) {
+    case 1: return (int)launch_general<uint8_t>(x, y, out_bytes, l, p, ld, st);
+    case 2: return (int)launch_general<uint16_t>(x, y, out_bytes, l, p, ld, st);
+    default: return (int)launch_general<uint32_t>(x, y, out_bytes, l, p, ld, st);
   }
 }

@@ -39,6 +39,10 @@ def get_decoder(name: str):
         importlib.import_module(_BUILTIN[name])
         cls = _DECODERS.get(name)
     if cls is None:
+        from ..conf import lookup_with_plugin_fallback
+
+        cls = lookup_with_plugin_fallback(lambda: _DECODERS.get(name))
+    if cls is None:
         raise ValueError(f"unknown decoder mode {name!r}; known: {sorted(known_decoders())}")
     return cls()
 

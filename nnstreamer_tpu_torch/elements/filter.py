@@ -97,7 +97,10 @@ class TensorFilter(Node):
     def start(self) -> None:
         super().start()
         if not self._opened:
-            self.backend.open(self.model, self.custom)
+            # a backend handed in with its model loaded (model=None) keeps
+            # its state and its warm captures: no re-open
+            if self.model is not None or getattr(self.backend, "model", None) is None:
+                self.backend.open(self.model, self.custom)
             self._opened = True
 
     def stop(self) -> None:
@@ -127,6 +130,11 @@ class TensorFilter(Node):
         try:
             if self._fused_pre or self._fused_post:
                 out_spec = self.backend.reconfigure_fused(in_spec, self._install_fusion(in_spec))
+                set_hook = getattr(self.backend, "set_drift_hook", None)
+                if set_hook is not None:
+                    # a frame that drifts without a caps event rebuilds
+                    # the fused chain, not just the capture
+                    set_hook(self._drift_reinstall)
             else:
                 out_spec = self.backend.reconfigure(in_spec)
         except ValueError as exc:
@@ -143,6 +151,12 @@ class TensorFilter(Node):
         if in_spec.rate is not None and out_spec.rate is None:
             out_spec = TensorsSpec(tensors=out_spec.tensors, rate=in_spec.rate)
         return {"src": out_spec}
+
+    def _drift_reinstall(self, drifted: TensorsSpec) -> None:
+        """Rebind the fused chain to a drifted input spec: its stages bake
+        the old geometry, so the wrapper is rebuilt before the backend
+        selects (or takes) the capture for the new spec."""
+        self.backend.reconfigure_fused(drifted, self._install_fusion(drifted))
 
     def _install_fusion(self, in_spec: TensorsSpec) -> TensorsSpec:
         """Wrap the model call with the fused pre- and post-stages, so the

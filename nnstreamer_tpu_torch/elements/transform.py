@@ -29,8 +29,14 @@ device.
 
 Literal binding and the negotiated output dtype follow the JAX rules
 (``_bind_chain``, :func:`~nnstreamer_tpu_torch.ops.kernels.chain_out_dtype`),
-not torch's promotion.  bfloat16 streams are refused at negotiation: the
-chains' dtype rules are numpy's, which has no bfloat16.
+not torch's promotion.  bfloat16 streams take all three: ``"pallas"``
+through the kernel, ``true`` through the plain chain, each step rounded to
+bfloat16 as XLA rounds it; ``false`` through the JAX element's numpy rule
+as numpy runs it on ``ml_dtypes``' bfloat16, which the card does not have:
+a bfloat16 array is held as float32 values, an op on it with a literal
+gives float32 (as numpy promotes ``ml_dtypes``' bfloat16 with a Python
+scalar), and a cast to bfloat16 rounds a float32 to nearest even (an int
+or a double through float32 first, as ``ml_dtypes`` casts).
 """
 
 from __future__ import annotations
@@ -44,9 +50,10 @@ from ..buffer import Frame
 from ..device import resolve_device
 from ..graph.node import NegotiationError, Node, Pad
 from ..graph.registry import register_element
-from ..ops.kernels import chain_out_dtype, fused_arith, fused_arith_plan, plan_chain, run_chain
+from ..ops.kernels import (bf16_round, chain_out_dtype, fused_arith, fused_arith_plan,
+                           plan_chain, run_chain)
 from ..spec import (BFLOAT16, NNS_TENSOR_RANK_LIMIT, TensorSpec, TensorsSpec, dtype_from_name,
-                    torch_dtype)
+                    numpy_dtype, torch_dtype)
 from ..utils.props import parse_bool
 
 MODES = ("typecast", "arithmetic", "transpose", "dimchg", "stand", "clamp")
@@ -92,7 +99,7 @@ def _parse_clamp(option: str) -> Tuple[object, object]:
 def _bind_num(v: object, dtype: np.dtype) -> object:
     """Keep an integer literal integral only when the current stream dtype
     can hold it; otherwise demote it to float so the op promotes."""
-    if isinstance(v, int) and np.issubdtype(dtype, np.integer):
+    if isinstance(v, int) and dtype.kind in ("i", "u"):
         info = np.iinfo(dtype)
         if info.min <= v <= info.max:
             return v
@@ -102,7 +109,7 @@ def _bind_num(v: object, dtype: np.dtype) -> object:
 
 def _bind_chain(ops: List[Tuple[str, object]], in_dtype) -> List[Tuple[str, object]]:
     """Bind op literals to the dtype flowing through the chain."""
-    cur = np.dtype(in_dtype)
+    cur = numpy_dtype(in_dtype)
     bound: List[Tuple[str, object]] = []
     for op, val in ops:
         if op == "typecast":
@@ -228,7 +235,7 @@ class TensorTransform(Node):
     def host_fn(self, t: TensorSpec) -> Callable[[np.ndarray], np.ndarray]:
         """The ``acceleration=false`` function for a fixed input spec: the
         JAX element's numpy rule on a host array, cast at the end to the
-        negotiated dtype."""
+        negotiated dtype.  A bfloat16 array is its float32 values."""
         mode, option = self.mode, self.option
         out_dtype = self.out_spec_for(t).dtype
         r = NNS_TENSOR_RANK_LIMIT
@@ -240,7 +247,7 @@ class TensorTransform(Node):
             def fn(x):
                 for op, val in chain:
                     if op == "typecast":
-                        x = x.astype(val)
+                        x = _astype(x, val)
                     elif op == "add":
                         x = x + val
                     elif op == "sub":
@@ -278,18 +285,10 @@ class TensorTransform(Node):
                     mean, std = x.mean(), x.std()
                 return (x - mean) / (std + 1e-10)
 
-        return lambda x: np.ascontiguousarray(fn(x).astype(out_dtype, copy=False))
+        return lambda x: np.ascontiguousarray(_astype(fn(x), out_dtype))
 
     def configure(self, in_specs: Dict[str, TensorsSpec]) -> Dict[str, TensorsSpec]:
         spec = in_specs["sink"]
-        casts = []  # the dtypes the chain casts to
-        if self.mode == "typecast":
-            casts = [dtype_from_name(self.option)]
-        elif self.mode == "arithmetic":
-            casts = [v for op, v in _parse_arith_ops(self.option) if op == "typecast"]
-        if BFLOAT16 in [t.dtype for t in spec.tensors] + casts:
-            raise NegotiationError(f"{self.name}: bfloat16 streams are not supported by "
-                                   "tensor_transform")
         outs = tuple(self.out_spec_for(t) for t in spec.tensors)
         for t, o in zip(spec.tensors, outs):
             chain = self._chain_ops(t)
@@ -305,6 +304,7 @@ class TensorTransform(Node):
                     f"the negotiated spec says {o.dtype}")
         build = self.build_fn if self.acceleration else self.host_fn
         self._fns = [build(t) for t in spec.tensors]
+        self._out = outs
         return {"src": TensorsSpec(tensors=outs, rate=spec.rate)}
 
     def process(self, pad: Pad, frame: Frame):
@@ -312,6 +312,24 @@ class TensorTransform(Node):
         if self.acceleration:
             out = [fn(x.to(self.device).contiguous()) for fn, x in zip(self._fns, frame.tensors)]
         else:
-            out = [torch.from_numpy(fn(x.cpu().numpy())).to(self.device)
-                   for fn, x in zip(self._fns, frame.tensors)]
+            out = [_to_torch(fn(_to_host(x)), o.dtype).to(self.device)
+                   for fn, x, o in zip(self._fns, frame.tensors, self._out)]
         return frame.with_tensors(out)
+
+
+def _astype(x: np.ndarray, dtype) -> np.ndarray:
+    """numpy's astype, with bfloat16 as float32 values rounded to it."""
+    if dtype == BFLOAT16:
+        return bf16_round(x.astype(np.float32))
+    return x.astype(dtype, copy=False)
+
+
+def _to_host(x: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array on the host (bfloat16: its float32 values)."""
+    x = x.cpu()
+    return (x.to(torch.float32) if x.dtype == torch.bfloat16 else x).numpy()
+
+
+def _to_torch(a: np.ndarray, dtype) -> torch.Tensor:
+    t = torch.from_numpy(a)
+    return t.to(torch.bfloat16) if dtype == BFLOAT16 else t

@@ -1,7 +1,8 @@
 """Element registry: name → factory (``gst_element_factory_make``).
 
 Built-in elements register lazily: :func:`make` imports the defining
-module on first lookup.
+module on first lookup; a name still unknown then loads the external
+plugins (``conf.py``) and is looked up once more.
 """
 
 from __future__ import annotations
@@ -49,6 +50,10 @@ def make(factory_name: str, /, element_name: Optional[str] = None, **props) -> N
     if factory is None and factory_name in _BUILTIN_MODULES:
         importlib.import_module(_BUILTIN_MODULES[factory_name])
         factory = _FACTORIES.get(factory_name)
+    if factory is None:
+        from ..conf import lookup_with_plugin_fallback
+
+        factory = lookup_with_plugin_fallback(lambda: _FACTORIES.get(factory_name))
     if factory is None:
         raise ValueError(
             f"unknown element {factory_name!r}; known: {sorted(known_elements())}"

@@ -23,7 +23,12 @@ Params = Dict[str, Any]
 def _same_pads(size: int, k: int, stride: int) -> Tuple[int, int]:
     """(before, after) padding of XLA's "SAME": the extra pixel of an odd
     total goes after, so a 3x3 stride-2 conv on an even input pads (0, 1),
-    which ``nn.Conv2d(padding=1)`` does not reproduce."""
+    which ``nn.Conv2d(padding=1)`` does not reproduce.  The sizes are taken
+    as Python ints, also under ``torch.jit.trace`` (which would otherwise
+    record this arithmetic on size tensors, and a TorchScript file loaded
+    onto the card would then read them back to the host inside a CUDA-graph
+    capture): a traced model keeps the pads of its traced geometry."""
+    size, k = int(size), int(k)
     out = -(-size // stride)
     total = max((out - 1) * stride + k - size, 0)
     return total // 2, total - total // 2

@@ -44,7 +44,7 @@ def _make_divisible(v: float, divisor: int = 8) -> int:
     return new_v
 
 
-def _init_tree(seed: int, num_classes: int, width_mult: float) -> Params:
+def init_tree(seed: int, num_classes: int, width_mult: float) -> Params:
     """Random params in the JAX package's layout (HWIO numpy arrays)."""
     rng = np.random.default_rng(seed)
 
@@ -131,7 +131,7 @@ def params_from_jax(tree: Any, device="cuda") -> Params:
 def init_params(seed: int = 0, num_classes: int = 1001, width_mult: float = 1.0,
                 device="cuda") -> Params:
     """Random params from an int seed, in the port's layout on ``device``."""
-    return params_from_jax(_init_tree(seed, num_classes, width_mult), device)
+    return params_from_jax(init_tree(seed, num_classes, width_mult), device)
 
 
 def _block_apply(block: Params, x: torch.Tensor, dtype) -> torch.Tensor:
@@ -197,7 +197,7 @@ def build(num_classes: int = 1001, width_mult: float = 1.0, image_size: int = 22
           params: Optional[Params] = None, device="cuda") -> TorchModel:
     """A stream-ready float model.  ``params``, when given, is a tree in the
     JAX package's layout (numpy leaves, see :func:`params_from_jax`)."""
-    tree = params if params is not None else _init_tree(seed, num_classes, width_mult)
+    tree = params if params is not None else init_tree(seed, num_classes, width_mult)
     in_spec, out_spec = _spec(image_size, batch, num_classes)
     return TorchModel(
         apply=lambda p, x: apply(p, x, dtype=dtype),
@@ -220,7 +220,7 @@ def build_quantized(num_classes: int = 1001, width_mult: float = 1.0,
     yet."""
     if int8_convs or static_scales:
         raise NotImplementedError("int8_convs / static_scales are not ported yet")
-    tree = params if params is not None else _init_tree(seed, num_classes, width_mult)
+    tree = params if params is not None else init_tree(seed, num_classes, width_mult)
     fwd = apply_quantized_int8_head if int8_head else apply
     in_spec, out_spec = _spec(image_size, batch, num_classes)
     return TorchModel(

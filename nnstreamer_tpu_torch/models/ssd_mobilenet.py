@@ -53,7 +53,7 @@ NUM_PRIORS = num_priors(300)  # 1917
 
 def _init_tree(seed: int, num_labels: int, width_mult: float) -> Params:
     """Random params in the JAX package's layout (HWIO numpy arrays)."""
-    backbone = mobilenet_v2._init_tree(seed, 1, width_mult)
+    backbone = mobilenet_v2.init_tree(seed, 1, width_mult)
     rng = np.random.default_rng([seed, 1])
 
     def conv(cin, cout):

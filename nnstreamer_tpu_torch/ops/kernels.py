@@ -31,7 +31,7 @@ from typing import NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..spec import numpy_dtype, torch_dtype
+from ..spec import BFLOAT16, numpy_dtype, torch_dtype
 from .build import load
 
 # -- dtype rules of a transform chain (JAX's promotion, x64 disabled) -------
@@ -50,8 +50,33 @@ def _canon(dtype) -> np.dtype:
     return _CANON.get(dtype, dtype)
 
 
-def _is_int(dtype: np.dtype) -> bool:
-    return np.issubdtype(dtype, np.integer)
+def _is_int(dtype) -> bool:
+    return dtype.kind in ("i", "u")
+
+
+# -- bfloat16 ---------------------------------------------------------------
+# numpy has no bfloat16: a bfloat16 value is held as the float32 of the same
+# value.  Every conversion to it rounds a float32 to nearest even (an int or
+# a double goes through float32 first, as XLA and ml_dtypes convert).
+
+
+def bf16_round(f: np.ndarray) -> np.ndarray:
+    """float32 values rounded to bfloat16, as float32 (a NaN stays a NaN)."""
+    f = np.asarray(f, np.float32)
+    r = f.view(np.uint32).astype(np.uint64)
+    r = (r + 0x7FFF + ((r >> 16) & 1)) & 0xFFFF0000
+    r = np.where(np.isnan(f), 0x7FC00000, r).astype(np.uint32)
+    return r.view(np.float32).reshape(f.shape)
+
+
+def bf16_bits(f: np.ndarray) -> np.ndarray:
+    """The bfloat16 bits (uint16) of float32 values, rounded to nearest even."""
+    return (bf16_round(f).view(np.uint32) >> 16).astype(np.uint16)
+
+
+def bf16_value(bits: np.ndarray) -> np.ndarray:
+    """float32 values of bfloat16 bits (uint16)."""
+    return (np.asarray(bits, np.uint16).astype(np.uint32) << 16).view(np.float32)
 
 
 def step_dtype(cur, op: str, val) -> np.dtype:
@@ -88,7 +113,7 @@ def chain_out_dtype(in_dtype, ops: Sequence[Tuple[str, object]]) -> np.dtype:
 _DT_CODES = {
     np.dtype(np.uint8): 0, np.dtype(np.int8): 1, np.dtype(np.uint16): 2,
     np.dtype(np.int16): 3, np.dtype(np.uint32): 4, np.dtype(np.int32): 5,
-    np.dtype(np.float16): 6, np.dtype(np.float32): 7,
+    np.dtype(np.float16): 6, np.dtype(np.float32): 7, BFLOAT16: 8,
 }
 MAX_STEPS = 8
 
@@ -96,12 +121,14 @@ MAX_STEPS = 8
 # A value travels as 32 bits: an integer as its two's complement pattern
 # (sign-extended from a narrow signed dtype, zero-extended from a narrow
 # unsigned one), a float16 or float32 as the float32 bits of its value.
-# Each step is a conversion to the step's dtype, the operation on a literal
-# already in that dtype, and a post step that brings the result back to the
-# dtype's range: a wrap to a narrow int's width, or a rounding to half.
+# A bfloat16 travels as float32 bits too.  Each step is a conversion to the
+# step's dtype, the operation on a literal already in that dtype, and a post
+# step that brings the result back to the dtype's range: a wrap to a narrow
+# int's width, or a rounding to half or to bfloat16.
 CONV = {"none": 0, "wrap_u8": 1, "wrap_i8": 2, "wrap_u16": 3, "wrap_i16": 4,
         "i2f": 5, "u2f": 6, "i2h": 7, "u2h": 8, "f2h": 9,
-        "f2u8": 10, "f2i8": 11, "f2u16": 12, "f2i16": 13, "f2u32": 14, "f2i32": 15}
+        "f2u8": 10, "f2i8": 11, "f2u16": 12, "f2i16": 13, "f2u32": 14, "f2i32": 15,
+        "i2b": 16, "u2b": 17, "f2b": 18}
 OP = {"none": 0, "iadd": 1, "isub": 2, "imul": 3, "iclamp": 4, "uclamp": 5,
       "fadd": 6, "fsub": 7, "fmul": 8, "fclamp": 9}
 # FLOAT_CHAIN: every step computes in float32 (the normalize chain): the
@@ -115,6 +142,9 @@ _WRAP = {np.dtype(np.uint8): "wrap_u8", np.dtype(np.int8): "wrap_i8",
          np.dtype(np.uint16): "wrap_u16", np.dtype(np.int16): "wrap_i16"}
 
 
+_ROUND = {_F16: "h", BFLOAT16: "b"}  # the float dtypes a step rounds to
+
+
 def _conv_code(cur: np.dtype, dt: np.dtype) -> str:
     """The conversion from a ``cur`` value to ``dt`` (astype) on the 32-bit
     representation."""
@@ -124,16 +154,25 @@ def _conv_code(cur: np.dtype, dt: np.dtype) -> str:
         if _is_int(cur):  # a 32-bit pattern already holds any 32-bit int
             return _WRAP.get(dt, "none")
         return "f2" + dt.name[0] + str(dt.itemsize * 8)
-    if _is_int(cur):
-        return ("u2" if cur == _U32 else "i2") + ("h" if dt == _F16 else "f")
-    return "f2h" if dt == _F16 else "none"  # float16 -> float32 is exact
+    if _is_int(cur):  # through float32, as XLA converts an int to a half
+        return ("u2" if cur == _U32 else "i2") + _ROUND.get(dt, "f")
+    # to float32 is exact; to half or bfloat16 rounds the float32 value once
+    return "f2" + _ROUND[dt] if dt in _ROUND else "none"
+
+
+def _literal32(v, dt) -> np.float32:
+    """A float literal rounded once from double to ``dt``, as a float32
+    (bfloat16: through float32, as JAX binds a Python float to it)."""
+    with np.errstate(over="ignore"):  # beyond the dtype's range: inf
+        if dt == BFLOAT16:
+            return bf16_round(np.float32(v))[()]
+        return np.float32(dt.type(v))
 
 
 def _bits(v, dt: np.dtype) -> int:
-    """A float literal rounded once from double to ``dt`` (as the plain
-    version's ``_literal``), as the bits of its float32 value."""
-    with np.errstate(over="ignore"):  # beyond the dtype's range: inf, as in the plain version
-        return int(np.float32(dt.type(v)).view(np.uint32))
+    """A float literal rounded to ``dt`` (as the plain version's
+    ``_literal``), as the bits of its float32 value."""
+    return int(_literal32(v, dt).view(np.uint32))
 
 
 def _int_clamp(lo: int, hi: int, dt: np.dtype) -> Tuple[int, int]:
@@ -188,11 +227,15 @@ def lower_chain(start: np.dtype, steps) -> Program:
                 code = "i" + op
                 a32 = int(a) & 0xFFFFFFFF
                 after = _WRAP.get(dt, "none")
+        elif op == "rmul":  # a reciprocal kept in float32 (ChainPlan)
+            code = "fmul"
+            a32 = int(np.float32(a).view(np.uint32))
+            after = "f2" + _ROUND[dt]
         else:
             code = "f" + op
             a32 = _bits(a, dt)
             b32 = _bits(b, dt) if op == "clamp" else 0
-            after = "f2h" if dt == _F16 else "none"
+            after = "f2" + _ROUND[dt] if dt in _ROUND else "none"
         ops.append(OP[code])
         post.append(CONV[after])
         a_bits.append(a32)
@@ -215,10 +258,13 @@ def _reciprocal(val, dt: np.dtype) -> float:
     ``x * (1 / const)`` (its algebraic simplifier does so on every backend,
     so JAX's division by a literal is this product, not an IEEE division):
     the literal rounded to the step dtype, inverted in that dtype (float16
-    through float32, as Eigen's half does)."""
-    c = np.float32(dt.type(val))
-    inv = np.float32(1) / c
-    return float(dt.type(inv))
+    through float32, as Eigen's half does).  A bfloat16 division runs in
+    float32 (XLA widens it), so its reciprocal stays a float32: the product
+    rounded to bfloat16 equals the rounded quotient on every bfloat16 input
+    tried (all 65,536, at 13 divisors)."""
+    with np.errstate(divide="ignore", over="ignore"):
+        inv = np.float32(1) / _literal32(val, dt)
+    return float(inv) if dt == BFLOAT16 else float(dt.type(inv))
 
 
 class ChainPlan:
@@ -247,7 +293,11 @@ class ChainPlan:
             elif op == "clamp":
                 a, b = val
             elif op == "div":
-                op, a, b = "mul", _reciprocal(val, cur), 0.0
+                op, a, b = "rmul" if cur == BFLOAT16 else "mul", _reciprocal(val, cur), 0.0
+            elif op in ("add", "sub") and not _is_int(cur) and val == 0:
+                # XLA folds x + 0 and x - 0 into x (a -0.0 stays -0.0, where
+                # IEEE addition of +0.0 would give +0.0): no operation
+                op, a, b = "typecast", 0.0, 0.0
             else:
                 a, b = val, 0.0
             steps.append((op, cur, a, b))
@@ -272,9 +322,18 @@ class ChainPlan:
         return c
 
 
-@functools.lru_cache(maxsize=256)
 def plan_chain(in_dtype: np.dtype, ops: Tuple[Tuple[str, object], ...],
                promote: bool = True) -> ChainPlan:
+    """The chain's plan, cached.  The cache key spells each literal out:
+    0, 0.0 and -0.0 are one key to a dict, but an int literal keeps an int
+    stream's dtype where a float one promotes it, and -0.0 is a bound of
+    its own."""
+    return _cached_plan(in_dtype, tuple(ops), promote, tuple((op, repr(v)) for op, v in ops))
+
+
+@functools.lru_cache(maxsize=256)
+def _cached_plan(in_dtype, ops, promote, key) -> ChainPlan:
+    del key  # only tells apart literals that compare equal
     return ChainPlan(in_dtype, ops, promote)
 
 
@@ -292,6 +351,15 @@ def _round_half(v: torch.Tensor) -> torch.Tensor:
     return v.to(torch.float16).to(torch.float32)
 
 
+def _round_to(v: torch.Tensor, dt) -> torch.Tensor:
+    """A float32 result rounded to a narrower float step dtype."""
+    if dt == _F16:
+        return _round_half(v)
+    if dt == BFLOAT16:
+        return v.to(torch.bfloat16).to(torch.float32)
+    return v
+
+
 def _convert(v: torch.Tensor, cur: np.dtype, dt: np.dtype) -> torch.Tensor:
     """astype in the working representation: int64 for integer dtypes,
     float32 for float dtypes (float16 values held exactly)."""
@@ -304,7 +372,7 @@ def _convert(v: torch.Tensor, cur: np.dtype, dt: np.dtype) -> torch.Tensor:
         t = v.to(torch.float64).trunc().clamp(float(info.min), float(info.max))
         return torch.where(torch.isnan(v), torch.zeros_like(t), t).to(torch.int64)
     f = v.to(torch.float32) if _is_int(cur) else v
-    return _round_half(f) if dt == np.float16 else f
+    return _round_to(f, dt)
 
 
 def _literal(a, dt: np.dtype, device) -> torch.Tensor:
@@ -312,17 +380,37 @@ def _literal(a, dt: np.dtype, device) -> torch.Tensor:
     0-d tensor on ``device``."""
     if _is_int(dt):
         return torch.tensor(int(a), dtype=torch.int64, device=device)
-    return torch.tensor(float(dt.type(a)), dtype=torch.float32, device=device)
+    return torch.tensor(float(_literal32(a, dt)), dtype=torch.float32, device=device)
+
+
+def _same(a: torch.Tensor, b: torch.Tensor, bitop) -> torch.Tensor:
+    return bitop(a.view(torch.int32), b.view(torch.int32)).view(torch.float32)
+
+
+def _fmax(lo: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """XLA's float max(lo, x): a NaN x propagates, -0.0 orders below +0.0
+    (of two equal values, the AND of their bits)."""
+    return torch.where(lo > v, lo, torch.where(lo == v, _same(lo, v, torch.bitwise_and), v))
+
+
+def _fmin(hi: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """XLA's float min(hi, x), as :func:`_fmax` (the OR of equal bits)."""
+    return torch.where(hi < v, hi, torch.where(hi == v, _same(hi, v, torch.bitwise_or), v))
 
 
 def _apply_step(v: torch.Tensor, op: str, dt: np.dtype, a, b) -> torch.Tensor:
     if op == "typecast":
         return v
+    if op == "rmul":  # by a float32 reciprocal, then rounded to the step dtype
+        return _round_to(v * torch.tensor(float(a), dtype=torch.float32, device=v.device), dt)
     lit = _literal(a, dt, v.device)
     if op == "clamp":
         hi = _literal(b, dt, v.device)
-        v = torch.where(lit >= v, lit, v)  # XLA max(lo, x): NaN propagates
-        r = torch.where(hi <= v, hi, v)
+        if _is_int(dt):
+            v = torch.where(lit >= v, lit, v)  # XLA max(lo, x)
+            r = torch.where(hi <= v, hi, v)
+        else:
+            r = _fmin(hi, _fmax(lit, v))
     elif op == "add":
         r = v + lit
     elif op == "sub":
@@ -333,7 +421,7 @@ def _apply_step(v: torch.Tensor, op: str, dt: np.dtype, a, b) -> torch.Tensor:
         raise ValueError(f"unknown chain op {op!r}")
     if _is_int(dt):
         return _wrap_int(r, dt)
-    return _round_half(r) if dt == np.float16 else r
+    return _round_to(r, dt)
 
 
 def run_chain(x: torch.Tensor, plan: ChainPlan) -> torch.Tensor:
@@ -379,6 +467,10 @@ def _half_bits(f: np.ndarray) -> np.ndarray:
         return f.astype(np.float16).astype(np.float32).view(np.uint32)
 
 
+def _bf16_bits32(f: np.ndarray) -> np.ndarray:
+    return bf16_round(f).view(np.uint32)
+
+
 _CONV_FNS = {
     "none": lambda r: r,
     "wrap_u8": lambda r: _wrap_bits(r, np.uint8), "wrap_i8": lambda r: _wrap_bits(r, np.int8),
@@ -389,6 +481,9 @@ _CONV_FNS = {
     "i2h": lambda r: _half_bits(r.view(np.int32).astype(np.float32)),
     "u2h": lambda r: _half_bits(r.astype(np.float32)),
     "f2h": lambda r: _half_bits(_f(r)),
+    "i2b": lambda r: _bf16_bits32(r.view(np.int32).astype(np.float32)),
+    "u2b": lambda r: _bf16_bits32(r.astype(np.float32)),
+    "f2b": lambda r: _bf16_bits32(_f(r)),
     **{f"f2{dt.name[0]}{dt.itemsize * 8}": (lambda r, dt=dt: _saturate(r, dt))
        for dt in map(np.dtype, (np.uint8, np.int8, np.uint16, np.int16, np.uint32, np.int32))},
 }
@@ -416,18 +511,23 @@ def _op_eval(r: np.ndarray, op: str, a: int, b: int) -> np.ndarray:
             v = v - lo
         elif op == "fmul":
             v = v * lo
-        else:  # fclamp: max(lo, x) then min(hi, x), NaN propagates
+        else:  # fclamp: max(lo, x) then min(hi, x), NaN propagates, -0.0 < +0.0
+            r = np.where(lo > v, np.uint32(a), np.where(lo == v, r & np.uint32(a), r))
+            v = _f(r.astype(np.uint32))
             hi = np.uint32(b).view(np.float32)
-            v = np.where(lo >= v, lo, v)
-            v = np.where(hi <= v, hi, v)
+            r = np.where(hi < v, np.uint32(b), np.where(hi == v, r | np.uint32(b), r))
+            return r.astype(np.uint32)
     return v.astype(np.float32).view(np.uint32)
 
 
-def program_eval(x: np.ndarray, program: Program, out_dtype) -> np.ndarray:
+def program_eval(x: np.ndarray, program: Program, out_dtype, in_dtype=None) -> np.ndarray:
     """A model of ``csrc/fused_arith.cu`` in numpy: ``x`` through the
     lowered ``program`` on the kernel's 32-bit representation, step by
-    step as the kernel's variant computes it."""
+    step as the kernel's variant computes it.  A bfloat16 input
+    (``in_dtype=BFLOAT16``) or output is its uint16 bits."""
     x = np.asarray(x)
+    if in_dtype == BFLOAT16:
+        x = bf16_value(x)
     if program.variant == FLOAT_CHAIN:  # one conversion, then float32 ops
         r = x.astype(np.float32).view(np.uint32)
     elif _is_int(x.dtype):
@@ -440,6 +540,8 @@ def program_eval(x: np.ndarray, program: Program, out_dtype) -> np.ndarray:
             r = _CONV_FNS[_CONV_NAMES[program.conv[k]]](r)
         r = _op_eval(r, _OP_NAMES[op], program.a[k], program.b[k])
         r = _CONV_FNS[_CONV_NAMES[program.post[k]]](r)
+    if out_dtype == BFLOAT16:
+        return bf16_bits(_f(r))
     out = np.dtype(out_dtype)
     if _is_int(out):
         return r.view(np.int32 if out.kind == "i" else np.uint32).astype(out)

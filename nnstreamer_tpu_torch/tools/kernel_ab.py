@@ -7,22 +7,23 @@ unpacked with ``git archive <commit> | tar -x -C build/parent``.  Its
 ``nnstreamer_tpu_torch/csrc/fused_arith.cu``, ``nms_keep.cu`` and
 ``int8_matmul.cu`` are built with the same nvcc flags as the current
 sources (under other library names) and called through their plain C entry
-points as the sources before the lowered ``fused_arith`` program declare
-them: ``fused_arith`` with the earlier chain struct of doubles (kept here,
-filled from the plan's steps), ``int8_matmul`` with its ``k_per_rank``
-argument.  The current kernels are called through
-their wrappers.  The cases: ``fused_arith``'s normalize chain (uint8 ->
-float32) at (1,) (the launch floor), (224,224,3), (300,300,3) and a 4K
-frame (2160,3840,3) of 124.4 MB, more than the L2, so back-to-back calls
-read from device memory; ``nms_keep`` at K=100 and K=1280; ``int8_matmul``
-at (1,1280,1001).  Each case first checks that both versions give the same
+points, whose signatures have held since the lowered ``fused_arith``
+program (its ``Program`` struct, the wrapper's launch geometry), and
+``int8_matmul`` with its ``k_per_rank`` argument.  The current kernels are
+called through their wrappers.  The cases: ``fused_arith``'s normalize
+chain (uint8 -> float32, the float32-chain variant) at (1,) (the launch
+floor), (224,224,3), (300,300,3) and a 4K frame (2160,3840,3) of 124.4
+MB, more than the L2, so back-to-back calls read from device memory; the
+normalize ending in a cast to bfloat16 (the general variant) at (1,) and
+(224,224,3); ``nms_keep`` at K=100 and K=1280; ``int8_matmul`` at
+(1,1280,1001).  Each case first checks that both versions give the same
 output, bit for bit, then times them in the order old, new, new, old for
 each round: device time per call from a CUPTI trace (``torch.profiler``,
 the one kernel of each of ``--calls`` back-to-back calls), and reports the
 median of the rounds.  ``fused_arith``'s cases also time
-``x.to(torch.float32)`` in each round, a yardstick that moves the input's
-bytes and writes float32 (the port never calls it), and give the bytes
-bound at 3.35 TB/s.  It prints the card's name and power limit and, last,
+``x.to()`` of the output dtype in each round, a yardstick that moves the
+input's bytes and writes the output's (the port never calls it), and give
+the bytes bound at 3.35 TB/s.  It prints the card's name and power limit and, last,
 one JSON line.  Needs one CUDA GPU and nvcc.
 """
 
@@ -41,6 +42,7 @@ import torch
 from ..ops import build
 from ..ops import kernels as K
 from ..ops import nms as N
+from ..spec import BFLOAT16, torch_dtype
 
 
 def device_ms(fn, calls: int) -> float:
@@ -73,53 +75,38 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-class _OldStep(ctypes.Structure):  # the earlier csrc/fused_arith.cu::Step
-    _fields_ = [("op", ctypes.c_int), ("dt", ctypes.c_int),
-                ("a", ctypes.c_double), ("b", ctypes.c_double)]
-
-
-class _OldChain(ctypes.Structure):  # the earlier csrc/fused_arith.cu::Chain
-    _fields_ = [("start_dt", ctypes.c_int), ("n_steps", ctypes.c_int),
-                ("steps", _OldStep * K.MAX_STEPS)]
-
-
-_OLD_OPS = {"typecast": 0, "add": 1, "sub": 2, "mul": 3, "clamp": 5}
 NORMALIZE = [("typecast", np.float32), ("add", -127.5), ("div", 127.5)]
+BF16_NORMALIZE = NORMALIZE + [("typecast", BFLOAT16)]
 HBM_BYTES_PER_S = 3.35e12
 
 
-def old_chain(plan: K.ChainPlan) -> _OldChain:
-    c = _OldChain()
-    c.start_dt = K._DT_CODES[plan.start_dtype]
-    c.n_steps = len(plan.steps)
-    for i, (op, dt, a, b) in enumerate(plan.steps):
-        c.steps[i] = _OldStep(_OLD_OPS[op], K._DT_CODES[dt], float(a), float(b))
-    return c
-
-
-def fused_case(parent_lib, shape, seed: int):
-    """The normalize chain on a random uint8 frame of ``shape``."""
+def fused_case(parent_lib, shape, seed: int, ops=NORMALIZE):
+    """The chain ``ops`` on a random uint8 frame of ``shape``."""
     x = torch.from_numpy(np.random.default_rng(seed).integers(0, 256, shape).astype(np.uint8)).cuda()
-    plan = K.fused_arith_plan(np.uint8, NORMALIZE)
-    chain = old_chain(plan)
-    out = torch.empty(shape, dtype=torch.float32, device="cuda")
+    plan = K.fused_arith_plan(np.uint8, ops)
+    out_dtype = torch_dtype(plan.out_dtype)
+    out = torch.empty(shape, dtype=out_dtype, device="cuda")
     n = x.numel()
+    geo = K.fused_arith_geometry(n, 1, out.element_size(), x.data_ptr(), out.data_ptr())
+    codes = (K._DT_CODES[np.dtype(np.uint8)], K._DT_CODES[plan.out_dtype])
 
     def old():
-        err = parent_lib.nns_fused_arith(x.data_ptr(), out.data_ptr(), n, 0, 7,
-                                         ctypes.byref(chain), _stream())
+        err = parent_lib.nns_fused_arith(x.data_ptr(), out.data_ptr(), *codes,
+                                         ctypes.byref(plan.c_program), geo.head, geo.nvec,
+                                         geo.tail, geo.blocks, _stream())
         if err:
             raise RuntimeError(f"parent fused_arith: CUDA error {err}")
         return out
 
     def new():
-        return K.fused_arith(x, NORMALIZE)
+        return K.fused_arith(x, ops)
 
-    fill = torch.empty(shape, dtype=torch.float32, device="cuda")
-    yardsticks = {"x.to(float32)": lambda: x.to(torch.float32),
+    fill = torch.empty(shape, dtype=out_dtype, device="cuda")
+    yardsticks = {f"x.to({plan.out_dtype})": lambda: x.to(out_dtype),
                   "fill_ of the output": lambda: fill.fill_(1.0)}
-    return (f"fused_arith {shape} uint8 -> float32", old, new,
-            dict(yardsticks=yardsticks, bound_ms=n * 5 / HBM_BYTES_PER_S * 1e3))
+    return (f"fused_arith {shape} uint8 -> {plan.out_dtype}", old, new,
+            dict(yardsticks=yardsticks,
+                 bound_ms=n * (1 + out.element_size()) / HBM_BYTES_PER_S * 1e3))
 
 
 def nms_case(parent_lib, k: int, seed: int):
@@ -177,9 +164,10 @@ def parent_libs(parent: Path):
     mm.nns_int8_matmul.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     mm.nns_int8_matmul.restype = ctypes.c_int
     fa = build.load("parent_fused_arith", csrc / "fused_arith.cu")
-    fa.nns_fused_arith.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                                   ctypes.c_int, ctypes.c_int, ctypes.POINTER(_OldChain),
-                                   ctypes.c_void_p]
+    fa.nns_fused_arith.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(K._Program), ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_int, ctypes.c_void_p]
     fa.nns_fused_arith.restype = ctypes.c_int
     return fa, nms, mm
 
@@ -201,6 +189,8 @@ def main(argv=None) -> int:
     fa_lib, nms_lib, mm_lib = parent_libs(args.parent)
     cases = [fused_case(fa_lib, shape, 5 + i) for i, shape in enumerate(
                  [(1,), (224, 224, 3), (300, 300, 3), (2160, 3840, 3)])]
+    cases += [fused_case(fa_lib, shape, 9 + i, BF16_NORMALIZE)
+              for i, shape in enumerate([(1,), (224, 224, 3)])]
     cases += [nms_case(nms_lib, 100, 2), nms_case(nms_lib, 1280, 3),
               int8_case(mm_lib, 1, 1280, 1001, 4)]
     rows = []

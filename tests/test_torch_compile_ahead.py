@@ -378,3 +378,58 @@ def test_cuda_kernels_launch_inside_the_graph(cuda_device):
     for f, got in zip(frames, p["out"].frames):
         want = K.fused_arith_plain(torch.from_numpy(f).to(cuda_device), ops) * 2
         assert torch.equal(got.tensor(0), want)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_drift_recaptures_and_matches_eager(cuda_device):
+    """The drift guard on the card (``tests/test_torch_drift.py`` on the
+    CPU): a fused filter fed (8,8,3) uint8, (5,4,3), (8,8,3) again and an
+    int16 frame with no caps event recaptures twice, hits once, and every
+    output equals the eager call on the same frame."""
+    from nnstreamer_tpu_torch.buffer import Frame
+
+    be = TorchBackend()
+    be.open(TorchModel(apply=lambda p, x: x * 2, device=cuda_device))
+    filt = TensorFilter(backend=be)
+    tr = tnns.make("tensor_transform", mode="arithmetic",
+                   option="typecast:float32,add:-127.5,div:127.5", acceleration="pallas")
+    filt.set_fused_transforms([tr], [])
+    filt.start()
+    try:
+        first = spec(8, 8, 3, dtype=np.uint8)
+        tr.configure({"sink": first})
+        filt.configure({"sink": first})
+        frames = [torch.full((8, 8, 3), 7, dtype=torch.uint8),
+                  torch.full((5, 4, 3), 9, dtype=torch.uint8),
+                  torch.full((8, 8, 3), 11, dtype=torch.uint8),
+                  torch.full((8, 8, 3), 1000, dtype=torch.int16)]
+        for x in frames:
+            x = x.to(cuda_device)
+            out = filt.process(None, Frame.of(x)).tensors[0]
+            assert torch.equal(out, be.eager(x)[0])
+        assert be.stats["captures"] == 3 and be.stats["hits"] == 1
+        assert float(out.flatten()[0]) == pytest.approx((1000 - 127.5) / 127.5 * 2, rel=1e-6)
+    finally:
+        filt.stop()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["dtype", "shape"])
+def test_cuda_bare_drift_direct_invoke(cuda_device, case):
+    """C3 on the card, a bare model: an int32 frame to a (2,3) float32
+    capture of ``x * 2`` gives int32, and an (8,3,3) frame to a (4,6,3)
+    capture gives (8,3,3), each by a capture of its own (the JAX backend
+    recompiles; before the drift guard the first came back cast to float32
+    and the second raised)."""
+    be = TorchBackend()
+    be.open(TorchModel(apply=lambda p, x: x * 2, device=cuda_device))
+    if case == "dtype":
+        be.reconfigure(spec(2, 3))
+        x = torch.ones(2, 3, dtype=torch.int32, device=cuda_device)
+    else:
+        be.reconfigure(spec(4, 6, 3))
+        x = torch.arange(8 * 3 * 3, dtype=torch.float32, device=cuda_device).reshape(8, 3, 3)
+    (out,) = be.invoke((x,))
+    assert out.dtype == x.dtype and out.shape == x.shape
+    assert torch.equal(out, x * 2)
+    assert be.stats["captures"] == 2

@@ -22,11 +22,13 @@ import torch
 from hypothesis import assume, given, settings, strategies as st
 
 import jax.numpy as jnp
+import ml_dtypes
 
 from nnstreamer_tpu.elements.transform import _bind_chain as jax_bind_chain
 from nnstreamer_tpu.ops import pallas_kernels as jk
 from nnstreamer_tpu_torch.elements.transform import _bind_chain, _parse_arith_ops, _parse_clamp
 from nnstreamer_tpu_torch.ops import kernels as K
+from nnstreamer_tpu_torch.spec import BFLOAT16
 
 NORMALIZE = [("typecast", np.float32), ("add", -127.5), ("div", 127.5)]
 
@@ -138,7 +140,7 @@ class TestFusedArith:
         np.testing.assert_array_max_ulp(_port_fused(x, ops), _jax_fused(x, ops), maxulp=1)
 
     def test_unsupported_dtypes_raise(self):
-        for dtype in (torch.int64, torch.float64, torch.bool, torch.bfloat16):
+        for dtype in (torch.int64, torch.float64, torch.bool, torch.complex64):
             with pytest.raises(TypeError):
                 K.fused_arith(torch.zeros(4, dtype=dtype), [("add", 1)])
         with pytest.raises(TypeError):
@@ -188,6 +190,96 @@ _STEP = st.one_of(
 )
 
 
+_STEP_BF = st.one_of(_STEP, st.tuples(st.just("typecast"), st.sampled_from(DTYPES + [BFLOAT16])))
+J_BF16 = np.dtype(ml_dtypes.bfloat16)
+
+
+def _with_bf16(bf_in, dt, ops, pos):
+    """A bfloat16 input, or a typecast to bfloat16 inserted at ``pos``."""
+    if bf_in:
+        return BFLOAT16, ops
+    return dt, ops[:pos] + [("typecast", BFLOAT16)] + ops[pos:]
+
+
+# bfloat16 subnormals: the least, the greatest and two between, both signs
+BF16_SUBNORMAL_BITS = [0x0001, 0x8001, 0x007F, 0x807F, 0x002E, 0x803F]
+
+
+def _inputs(dt, rng, n: int = 61) -> np.ndarray:
+    """:func:`_extreme_inputs`; for bfloat16 the bits of random values with
+    NaN, +-inf, -0.0, values near the float32 limits and subnormals (on
+    which XLA diverges: :func:`_against_xla`)."""
+    if dt != BFLOAT16:
+        return _extreme_inputs(dt, rng, n)
+    x = (rng.standard_normal(n) * 300).astype(np.float32)
+    special = [np.nan, np.inf, -np.inf, -0.0, 0.0, 65504.0, 0.5, -2.5, 3e9, -3e9, 7e4,
+               2.0 ** 31, -(2.0 ** 31) - 512, 4.3e9, 1e38, 3.3e38]
+    x[:len(special)] = special
+    bits = K.bf16_bits(x)
+    bits[len(special):len(special) + len(BF16_SUBNORMAL_BITS)] = BF16_SUBNORMAL_BITS
+    return bits
+
+
+def _subnormal(x: np.ndarray, dt) -> np.ndarray:
+    """Where ``x`` (bfloat16 as its bits) holds a float32 subnormal."""
+    v = K.bf16_value(x) if dt == BFLOAT16 else x
+    if v.dtype != np.float32:
+        return np.zeros(v.shape, bool)
+    return (v != 0) & (np.abs(v) < np.finfo(np.float32).tiny)
+
+
+def _flushed(x: np.ndarray, dt) -> np.ndarray:
+    """``x`` with its float32 subnormals replaced by zeros of their sign."""
+    sub = _subnormal(x, dt)
+    if dt == BFLOAT16:
+        return np.where(sub, x & np.uint16(0x8000), x)
+    return np.where(sub, np.copysign(np.float32(0), x), x)
+
+
+def _against_xla(port, x, dt, got, want, out_dtype) -> None:
+    """The port's result ``got`` against XLA's ``want``: bit for bit, but
+    for the known divergence C6 (ROADMAP queue C): XLA on the CPU flushes
+    float32 subnormal operands of float arithmetic to zero, the port keeps
+    them.  So on a lane whose input is subnormal XLA gives either the
+    port's result (no arithmetic read the lane: a typecast) or the port's
+    result for the flushed input, ``port(_flushed(x))``."""
+    sub = _subnormal(x, dt)
+    _bitwise(_values(got[~sub], out_dtype), _values(want[~sub], out_dtype))
+    if sub.any():
+        flushed = port(_flushed(x, dt))[sub]
+        g, w, f = (_values(a, out_dtype) for a in (got[sub], want[sub], flushed))
+        bits = {1: np.uint8, 2: np.uint16, 4: np.uint32}[w.dtype.itemsize]
+        same = (g.view(bits) == w.view(bits)) | (f.view(bits) == w.view(bits))
+        if w.dtype.kind == "f":
+            same |= np.isnan(w) & (np.isnan(g) | np.isnan(f))
+        assert same.all(), (x[sub], g, f, w)
+
+
+def _values(a: np.ndarray, dt) -> np.ndarray:
+    """Comparable values: bfloat16 bits as float32."""
+    return K.bf16_value(a) if dt == BFLOAT16 else a
+
+
+def _plain(x: np.ndarray, dt, ops) -> np.ndarray:
+    t = torch.from_numpy(x.view(np.int16)).view(torch.bfloat16) if dt == BFLOAT16 \
+        else torch.from_numpy(x)
+    out = K.fused_arith_plain(t, ops)
+    return out.view(torch.int16).numpy().view(np.uint16) if out.dtype == torch.bfloat16 \
+        else out.numpy()
+
+
+def _jax_bf16(x: np.ndarray, dt, ops) -> np.ndarray:
+    """The Pallas kernel on bits and chains of the port's BFLOAT16.  A
+    chain JAX refuses (an int literal beyond int32 on a float stream) is
+    no example."""
+    ops = [(op, J_BF16 if v == BFLOAT16 else v) for op, v in ops]
+    try:
+        out = _jax_fused(x.view(J_BF16) if dt == BFLOAT16 else x, ops)
+    except OverflowError:
+        assume(False)
+    return out.view(np.uint16) if out.dtype == J_BF16 else out
+
+
 def _bitwise(got: np.ndarray, want: np.ndarray) -> None:
     """Equal bit for bit, but any NaN equals any NaN: the card and the CPU
     may give a NaN another payload."""
@@ -224,7 +316,7 @@ class TestChainProgram:
             assert plan.out_dtype == np.float32
             general = prog._replace(variant=K.GENERAL)
             _bitwise(K.program_eval(x, general, plan.out_dtype), want)
-        assert {K.CONV["none"], K.CONV["f2h"], K.CONV["wrap_u8"], K.CONV["wrap_i8"],
+        assert {K.CONV["none"], K.CONV["f2h"], K.CONV["f2b"], K.CONV["wrap_u8"], K.CONV["wrap_i8"],
                 K.CONV["wrap_u16"], K.CONV["wrap_i16"]} >= set(prog.post)
 
     @settings(max_examples=24, deadline=None, derandomize=True, database=None)
@@ -242,6 +334,142 @@ class TestChainProgram:
         assume(len(rounding) <= 1 and np.dtype(np.float16) not in rounding)
         x = _extreme_inputs(dt, np.random.default_rng(seed), n=37)
         _bitwise(K.program_eval(x, plan.program, plan.out_dtype), _jax_fused(x, ops))
+
+    # bfloat16 in, out or in between: the input's bits, or a typecast
+    # inserted into the chain.
+    @settings(max_examples=120, deadline=None, derandomize=True, database=None)
+    @given(bf_in=st.booleans(), dt=st.sampled_from(DTYPES),
+           ops=st.lists(_STEP_BF, min_size=0, max_size=K.MAX_STEPS - 1),
+           pos=st.integers(0, K.MAX_STEPS - 1), bind=st.booleans(), seed=st.integers(0, 2 ** 16))
+    def test_bf16_program_bitwise_against_plain(self, bf_in, dt, ops, pos, bind, seed):
+        dt, ops = _with_bf16(bf_in, dt, ops, pos)
+        if bind:
+            ops = _bind_chain(ops, dt)
+        x = _inputs(dt, np.random.default_rng(seed))
+        plan = K.fused_arith_plan(dt, ops)
+        want = _plain(x, dt, ops)
+        _bitwise(_values(K.program_eval(x, plan.program, plan.out_dtype, in_dtype=dt),
+                         plan.out_dtype), _values(want, plan.out_dtype))
+
+    @settings(max_examples=40, deadline=None, derandomize=True, database=None)
+    @given(bf_in=st.booleans(), dt=st.sampled_from(DTYPES),
+           ops=st.lists(_STEP_BF, min_size=0, max_size=K.MAX_STEPS - 1),
+           pos=st.integers(0, K.MAX_STEPS - 1), seed=st.integers(0, 2 ** 16))
+    def test_bf16_program_bitwise_against_pallas(self, bf_in, dt, ops, pos, seed):
+        """As above against the Pallas kernel in interpret mode: XLA rounds
+        a bfloat16 result after every step, so any number of bfloat16 steps
+        (float32 and float16 steps as in the test above)."""
+        dt, ops = _with_bf16(bf_in, dt, ops, pos)
+        ops = _bind_chain(ops, dt)
+        plan = K.fused_arith_plan(dt, ops)
+        rounding = [step_dt for op, step_dt, _, _ in plan.steps
+                    if op in ("add", "sub", "mul") and step_dt.kind == "f" and step_dt != BFLOAT16]
+        assume(len(rounding) <= 1 and np.dtype(np.float16) not in rounding)
+        x = _inputs(dt, np.random.default_rng(seed), n=37)
+
+        def port(a):
+            return K.program_eval(a, plan.program, plan.out_dtype, in_dtype=dt)
+
+        _against_xla(port, x, dt, port(x), _jax_bf16(x, dt, ops), plan.out_dtype)
+
+    @pytest.mark.parametrize("dt", [np.uint8, BFLOAT16])
+    def test_normalize_to_bf16_bitwise(self, dt):
+        """The normalize chain ending in ``typecast:bfloat16``, and the
+        plain normalize on a bfloat16 frame, against the Pallas kernel."""
+        rng = np.random.default_rng(5)
+        x = rng.integers(0, 256, (224, 224, 3)).astype(np.uint8) if dt == np.uint8 \
+            else _inputs(BFLOAT16, rng, 4099)
+        for option in ("typecast:float32,add:-127.5,div:127.5,typecast:bfloat16",
+                       "typecast:bfloat16,add:-127.5,div:127.5"):
+            ops = _bind_chain(_parse_arith_ops(option), dt)
+            plan = K.fused_arith_plan(dt, ops)
+            assert plan.out_dtype == BFLOAT16
+            want = _jax_bf16(x, dt, ops)
+            _against_xla(lambda a: _plain(a, dt, ops), x, dt, _plain(x, dt, ops), want, BFLOAT16)
+            _against_xla(lambda a: K.program_eval(a, plan.program, BFLOAT16, in_dtype=dt), x, dt,
+                         K.program_eval(x, plan.program, BFLOAT16, in_dtype=dt), want, BFLOAT16)
+
+    def test_int_to_bf16_rounds_through_float32(self):
+        """XLA converts an int32 to bfloat16 through float32: two roundings.
+        2**24 + 2**16 + 1 rounds to 2**24 + 2**16 in float32, a tie that goes
+        to the even 2**24 (rounded once it would be 2**24 + 2**17); odd values
+        near 2**31 round to 2**31."""
+        x = np.array([2 ** 24 + 1, 2 ** 24 + 2 ** 16 + 1, 2 ** 25 + 2 ** 17 + 1,
+                      -(2 ** 25 + 2 ** 17 + 1), 2 ** 31 - 1, 2 ** 31 - 3, -(2 ** 31) + 1,
+                      2 ** 31 - 2 ** 22 - 1], np.int32)
+        ops = [("typecast", BFLOAT16)]
+        want = _values(_jax_bf16(x, np.dtype(np.int32), ops), BFLOAT16)
+        np.testing.assert_array_equal(want[:5], [2 ** 24, 2 ** 24, 2 ** 25, -(2 ** 25), 2 ** 31])
+        plan = K.fused_arith_plan(np.int32, ops)
+        _bitwise(_values(_plain(x, np.dtype(np.int32), ops), BFLOAT16), want)
+        _bitwise(_values(K.program_eval(x, plan.program, BFLOAT16), BFLOAT16), want)
+
+    def test_bf16_division_keeps_a_float32_reciprocal(self):
+        """x / 3 on every bfloat16: the float32 reciprocal, not one rounded
+        to bfloat16 (which misses for hundreds of inputs)."""
+        x = np.arange(65536, dtype=np.uint32).astype(np.uint16)
+        v = K.bf16_value(x)
+        x = x[np.isfinite(v) & ((np.abs(v) >= np.float32(2.0 ** -120)) | (v == 0))]
+        ops = [("div", 3)]
+        want = _values(_jax_bf16(x, BFLOAT16, ops), BFLOAT16)
+        _bitwise(_values(_plain(x, BFLOAT16, ops), BFLOAT16), want)
+        rounded = K.bf16_round(np.float32(1) / K.bf16_round(np.float32(3)))
+        assert np.count_nonzero(K.bf16_round(K.bf16_value(x) * rounded) != want) > 100
+
+    @pytest.mark.parametrize("dt", [np.dtype(np.float32), np.dtype(np.float16), BFLOAT16])
+    @pytest.mark.parametrize("ops", [[("clamp", (-0.0, 1.0))], [("clamp", (-1.0, 0.0))],
+                                     [("clamp", (-1, -0.0))], [("clamp", (0, 5))],
+                                     [("add", 0)], [("sub", -0.0)], [("add", 0.0), ("mul", 2)]])
+    def test_signed_zeros_as_xla_orders_them(self, dt, ops):
+        """XLA's max and min order -0.0 below +0.0, and it folds x + 0 and
+        x - 0 into x: on +-0.0 inputs the plain version and the kernel's
+        program give the Pallas kernel's signs."""
+        v = np.array([-0.0, 0.0, -0.0, 0.0, 1.5, -1.5, np.nan], np.float32)
+        x = K.bf16_bits(v) if dt == BFLOAT16 else v.astype(dt)
+        want = _values(_jax_bf16(x, dt, ops), dt)
+        plan = K.fused_arith_plan(dt, ops)
+        _bitwise(_values(_plain(x, dt, ops), dt), want)
+        _bitwise(_values(K.program_eval(x, plan.program, dt, in_dtype=dt), dt), want)
+
+    @pytest.mark.parametrize("dt", [np.dtype(np.float32), BFLOAT16])
+    @pytest.mark.parametrize("ops,flushes", [
+        ([("mul", 2)], True), ([("div", 2)], True), ([("add", 2e-38)], True),
+        ([("clamp", (-1.0, 1.0))], True), ([("typecast", np.float32)], False),
+        ([("typecast", BFLOAT16)], False), ([("add", 0.0)], False), ([("mul", 1)], False)])
+    def test_subnormals_xla_flushes_the_port_keeps(self, dt, ops, flushes):
+        """C6, a known divergence: on float32 and bfloat16 subnormals XLA
+        on the CPU flushes each operand of float arithmetic to a zero of
+        its sign (a typecast, and the ``x + 0.0`` and ``x * 1`` it folds
+        away, keep them); the plain version and the kernel's program keep
+        them, as IEEE float32 arithmetic does."""
+        if dt == BFLOAT16:
+            x = np.array(BF16_SUBNORMAL_BITS[:5] + [0x4000], np.uint16)  # ..., 2.0
+        else:
+            x = np.array([1e-39, -1e-39, 1.4e-45, -5.8e-39, 1.1754942e-38, 2.0], np.float32)
+        sub = _subnormal(x, dt)
+        assert sub[:5].all() and not sub[5]
+        ops = [(op, BFLOAT16 if isinstance(val, type) and val is BFLOAT16 else val)
+               for op, val in ops]
+        plan = K.fused_arith_plan(dt, ops)
+        plain = _plain(x, dt, ops)
+        _bitwise(_values(K.program_eval(x, plan.program, plan.out_dtype, in_dtype=dt),
+                         plan.out_dtype), _values(plain, plan.out_dtype))
+        xla = _jax_bf16(x, dt, ops)
+        want = _plain(_flushed(x, dt), dt, ops) if flushes else plain
+        _bitwise(_values(xla, plan.out_dtype), _values(want, plan.out_dtype))
+        if flushes:  # and the port differs there
+            assert not np.array_equal(_values(plain, plan.out_dtype)[sub],
+                                      _values(xla, plan.out_dtype)[sub])
+
+    def test_plan_cache_tells_equal_literals_apart(self):
+        """0, 0.0 and -0.0 compare equal, so a cache keyed by the chain
+        alone handed ``add:0.0`` the plan of ``add:0`` (uint8 out, where
+        JAX gives float32) and a clamp at 0 the plan of one at -0.0."""
+        u8 = np.dtype(np.uint8)
+        assert K.plan_chain(u8, (("add", 0),)).out_dtype == np.uint8
+        assert K.plan_chain(u8, (("add", 0.0),)).out_dtype == np.float32
+        assert K.plan_chain(BFLOAT16, (("clamp", (-0.0, 1)),)).program.a == (1 << 31,)
+        assert K.plan_chain(BFLOAT16, (("clamp", (0, 1)),)).program.a == (0,)
 
     def test_variants(self):
         norm = K.fused_arith_plan(np.uint8, NORMALIZE).program
@@ -292,7 +520,8 @@ class TestChainProgram:
         assert enum("Conv", "C_") == K.CONV
         assert enum("Op", "O_") == K.OP
         assert enum("Variant", "") == {"float_chain": K.FLOAT_CHAIN, "general": K.GENERAL}
-        assert enum("Dt", "") == {d.name[0] + str(d.itemsize * 8): c for d, c in K._DT_CODES.items()}
+        assert enum("Dt", "") == {("bf" if d == BFLOAT16 else d.name[0]) + str(d.itemsize * 8): c
+                                  for d, c in K._DT_CODES.items()}
 
 
 # (in dtype, out dtype) pairs of every width, each once.
@@ -564,6 +793,39 @@ def test_kernel_timing_tool_needs_a_gpu(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert kernel_ab.main(["--parent", "."]) == 2
     assert "no CUDA GPU" in capsys.readouterr().err
+
+
+NVCC_TIME_CSV = """source file name , phase name , phase input files , phase output file , arch , tool, metric , unit
+fused_arith.cu , gcc (preprocessing 4) , fused_arith.cu  , a.ii ,  , nvcc , 403.1390 , ms
+fused_arith.cu , cicc , a.ii  , a.ptx , compute_90a , nvcc , 28601.0 , ms
+fused_arith.cu , ptxas , a.ptx  , a.cubin , sm_90a , nvcc , 34577.5 , ms
+fused_arith.cu , cicc , b.ii  , b.ptx , compute_90a , nvcc , 1000.0 , ms
+"""
+
+
+def test_build_time_tool_reads_nvcc_phases():
+    """``tools/build_time.py`` sums ``nvcc --time``'s rows by phase."""
+    from nnstreamer_tpu_torch.tools.build_time import phase_seconds
+
+    got = phase_seconds(NVCC_TIME_CSV)
+    assert got == pytest.approx({"gcc (preprocessing 4)": 0.403139, "cicc": 29.601,
+                                 "ptxas": 34.5775})
+    assert phase_seconds("") == {}
+
+
+def test_fused_arith_instantiates_by_width():
+    """The general variant is instantiated per (input width, output width),
+    the float32-chain variant per input dtype: 18 kernels, each dtype
+    mapped to its width and to its widening and narrowing at run time."""
+    src = (Path(K.__file__).resolve().parent.parent / "csrc" / "fused_arith.cu").read_text()
+    general = set(re.findall(r"launch<(\w+), (\w+), false>", src))
+    widths = {"InW"} | {"uint8_t", "uint16_t", "uint32_t"}
+    assert {w for _, w in general} == {"uint8_t", "uint16_t", "uint32_t"}
+    assert {w for w, _ in general} <= widths
+    assert len(re.findall(r"launch_general<(\w+)>\(", src)) == 3
+    float_chain = set(re.findall(r"launch<(\w+), float, true>", src))
+    assert float_chain == {"uint8_t", "int8_t", "uint16_t", "int16_t", "uint32_t", "int32_t",
+                           "f16", "float", "bf16"}
 
 
 @pytest.fixture

@@ -142,7 +142,9 @@ def test_port_runs_with_jax_blocked():
         from nnstreamer_tpu_torch.elements import aggregator, converter, sink, testsrc
         from nnstreamer_tpu_torch.elements.filter import TensorFilter
         from nnstreamer_tpu_torch.models import audio_cnn, mobilenet_v2
-        from nnstreamer_tpu_torch.utils import props
+        from nnstreamer_tpu_torch.utils import checkpoint, props
+        from nnstreamer_tpu_torch import conf
+        from nnstreamer_tpu_torch.backends import custom, custom_so, torch_backend
         m = mobilenet_v2.build_quantized(num_classes={CLASSES}, width_mult=0.35,
                                          image_size={SIZE}, int8_head=True, device="cpu")
         p = nns.Pipeline()
@@ -166,6 +168,15 @@ def test_port_runs_with_jax_blocked():
         a["out"].connect("new-data", lambda f: words.append(f.meta["label"]))
         a.run(timeout=120)
         assert len(words) == 2 and nns.BFLOAT16.name == "bfloat16"
+        filters = "nnstreamer_tpu_torch/examples/custom_filters"
+        c = nns.parse_launch(
+            "videotestsrc num-buffers=2 width=64 height=48 ! tensor_converter ! "
+            f"tensor_filter framework=custom-python model={{filters}}/scaler.py custom=32x16 ! "
+            f"tensor_filter framework=custom-python model={{filters}}/average.py ! "
+            f"tensor_filter framework=custom-python model={{filters}}/passthrough.py ! "
+            "tensor_sink name=out collect=true")
+        c.run(timeout=60)
+        assert [tuple(f.tensor(0).shape) for f in c["out"].frames] == [(1, 1, 3)] * 2
         assert not any(k in ("jax", "ml_dtypes") or k.startswith(("jax.", "nnstreamer_tpu."))
                        for k, v in sys.modules.items() if v is not None)
         print("labels", [f.meta["label"] for f in chain[-1].frames])
@@ -176,14 +187,21 @@ def test_port_runs_with_jax_blocked():
     assert re.search(r"labels \['\d+', '\d+'\]", out.stdout), out.stdout
 
 
+# The ini file both packages read (conf.py) is named after the JAX
+# package; naming it names no module of that package.
+INI_PATHS = re.compile(r"(\.config/nnstreamer_tpu/)?nnstreamer_tpu\.ini")
+
+
 def test_no_port_file_names_jax():
     pattern = re.compile(r"import jax|from jax|import ml_dtypes|from ml_dtypes|nnstreamer_tpu[^_]")
     files = sorted((REPO / "nnstreamer_tpu_torch").rglob("*.py"))
-    files += sorted((REPO / "nnstreamer_tpu_torch").rglob("*.cu"))
+    for ext in ("*.cu", "*.h", "*.hh"):
+        files += sorted((REPO / "nnstreamer_tpu_torch").rglob(ext))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20
     for f in files:
         for i, line in enumerate(f.read_text().splitlines(), 1):
+            line = INI_PATHS.sub("", line)
             assert not pattern.search(line), f"{f.relative_to(REPO)}:{i}: {line}"
 
 
@@ -253,3 +271,66 @@ def test_midstream_shape_change_renegotiates_like_jax():
     assert [tuple(f.tensor(0).shape) for f in got] == [(4,), (6,)]
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.tensor(0).numpy(), np.asarray(w.tensor(0)))
+
+
+SO_SRC = r"""
+#include "nns_custom_filter.h"
+extern "C" int nns_get_input_spec(nns_tensors_spec *s) {
+  s->num_tensors = 1; s->tensors[0].dtype = NNS_FLOAT32; s->tensors[0].rank = 1;
+  s->tensors[0].dims[0] = 4; return 0;
+}
+extern "C" int nns_get_output_spec(nns_tensors_spec *s) { return nns_get_input_spec(s); }
+extern "C" int nns_invoke(const void *const *in, const uint64_t *in_sz, void *const *out,
+                          const uint64_t *out_sz) {
+  for (int i = 0; i < 4; ++i) ((float *)out[0])[i] = ((const float *)in[0])[i] * 2.0f;
+  return 0;
+}
+"""
+
+
+def _framework_model(name, tmp_path):
+    """A model of x * 2 on a (4,) float32 stream, in the form ``name`` takes."""
+    from nnstreamer_tpu_torch.backends import custom
+
+    if name == "torch":
+        return TorchModel(apply=lambda p, x: x * 2, device="cpu")
+    if name in ("torch-cpu", "custom"):
+        return lambda x: x * 2
+    if name == "custom-python":
+        (tmp_path / "double.py").write_text(
+            "class CustomFilter:\n"
+            "    def set_input_spec(self, spec):\n        return spec\n"
+            "    def invoke(self, x):\n        return x * 2\n")
+        return str(tmp_path / "double.py")
+    if name == "custom-easy":
+        spec = tnns.TensorsSpec.of(tnns.TensorSpec(dtype=np.float32, shape=(4,)))
+        custom.register_custom_easy("double", lambda x: x * 2, spec, spec)
+        return "double"
+    assert name == "custom-so"
+    (tmp_path / "double.cc").write_text(SO_SRC)
+    subprocess.run(["g++", "-O2", "-shared", "-fPIC",
+                    f"-I{REPO / 'nnstreamer_tpu_torch' / 'native'}", str(tmp_path / "double.cc"),
+                    "-o", str(tmp_path / "libdouble.so")], check=True, capture_output=True)
+    return str(tmp_path / "libdouble.so")
+
+
+@pytest.mark.parametrize("name", ["torch", "torch-cpu", "custom", "custom-python", "custom-easy",
+                                  "custom-so"])
+def test_every_framework_opens_a_model_on_the_cpu(name, tmp_path):
+    from nnstreamer_tpu_torch.backends import base, custom
+
+    assert set(base._BUILTIN_MODULES) == {"torch", "torch-cpu", "custom", "custom-python",
+                                          "custom-easy", "custom-so"}
+    p = tnns.Pipeline()
+    data = [torch.arange(4, dtype=torch.float32) + i for i in range(2)]
+    src = p.add(tnns.make("datasrc", data=data))
+    filt = p.add(tnns.make("tensor_filter", framework=name, model=_framework_model(name, tmp_path)))
+    sink = p.add(tnns.make("tensor_sink", collect=True))
+    p.link_chain(src, filt, sink)
+    try:
+        p.run(timeout=60)
+    finally:
+        custom.unregister_custom_easy("double")
+    assert filt.backend.name == name
+    for x, f in zip(data, sink.frames):
+        assert torch.equal(f.tensor(0).cpu(), x * 2)

@@ -184,9 +184,24 @@ class TestHostRule:
 
 @pytest.mark.parametrize("props", [dict(mode="typecast", option="bfloat16"),
                                    dict(mode="arithmetic", option="typecast:bfloat16,add:1")])
-def test_bfloat16_streams_refused(props):
-    with pytest.raises(tnns.NegotiationError, match="bfloat16"):
-        _run_port(np.zeros(4, np.float32), **props)
+def test_bfloat16_streams_match_reference(props):
+    """bfloat16 streams were refused at negotiation before the kernel and
+    the chains took bfloat16; now every acceleration takes them, and they
+    give the reference's bits (``tests/test_torch_bf16.py`` has the rest)."""
+    x = np.array([0.5, -3.25, 1e10, 7.0], np.float32)
+    for accel in ("pallas", True, False):
+        want, want_spec = _run_jax(x, acceleration=accel, **props)
+        p = tnns.Pipeline()
+        src = p.add(DataSrc(data=[torch.from_numpy(x)]))
+        tr = p.add(TensorTransform(device="cpu", acceleration=accel, **props))
+        sink = p.add(TensorSink(collect=True))
+        p.link_chain(src, tr, sink)
+        p.run(timeout=60)
+        got = sink.frames[0].tensor(0)
+        assert got.dtype == torch.bfloat16 and tr.src_pads["src"].spec.tensors[0].dtype.name \
+            == want_spec.dtype.name == "bfloat16"
+        np.testing.assert_array_equal(got.view(torch.int16).numpy().view(np.uint16),
+                                      want.view(np.uint16))
 
 
 def test_pallas_rejects_dtypes_without_kernel():
