@@ -27,7 +27,11 @@ In order, it
    misaligned), a bfloat16 chain with a division and a clamp, a clamp at
    -1:0 (signed zeros), bfloat16 to int8 with NaN and inf, and int32 to
    bfloat16 (two roundings through float32); the bfloat16 inputs hold
-   subnormals, which the kernel keeps as its plain version does.
+   subnormals, which float arithmetic flushes to zeros of their sign, as
+   XLA does (ROADMAP C6), in the kernel as in its plain version; and C6's
+   own inputs, float32 1e-39 and -5.8e-39 and bfloat16 bits 0x0001,
+   0x007F and 0x8001, under ``mul:2``, ``div:2`` and ``clamp:-1:1``, each
+   of which must give the zero of the input's sign.
    Then it times kernel, plain version and, where one exists, the one
    PyTorch call that computes the same function (a yardstick only; the
    port never calls it); each kernel at its smallest case as its launch
@@ -73,7 +77,21 @@ In order, it
    classes exactly, probs within ``PROB_ATOL``); then the fused-decode
    variant (``fused_decode=100``, ``fused-ssd`` decoder) with segments on
    and off must agree bitwise;
-7. audio phase: builds the 1-D conv keyword-spotting classifier
+7. obs phase: slices 1 and 2 again from their launch strings, 64 frames
+   each, with the ``latency``, ``stats``, ``drops``, ``copies`` and
+   ``spans`` tracers attached and a scrape endpoint on an ephemeral port:
+   prints the source->sink latency (p50, p90, p99), each element's
+   dispatch time a frame from the spans (its span, and its own time
+   without the dispatches nested in it), host copies a frame (the upload's
+   one, which it must be) and drops, fps with and without the tracers;
+   scrapes ``/metrics`` (the latency histogram must count every frame
+   delivered) and ``/stats.json``; writes the Chrome trace to
+   ``build/chip_smoke/`` and reads it back; then a traced run with the
+   tracers and profiling on must pass the per-frame launch check with 5
+   host-issued operations a frame, and the filter's profiled invoke p50
+   must be at least 0.9 of the device's busy time a frame (the profiled
+   invoke waits for its outputs);
+8. audio phase: builds the 1-D conv keyword-spotting classifier
    (``models/audio_cnn``: a 16000 x 1 window of 16 kHz S16LE audio,
    channels (32, 64, 64), width 9, 12 classes, bf16, random weights from a
    fixed seed) and runs 64 windows through ``audiotestsrc ! tensor_converter
@@ -88,12 +106,12 @@ In order, it
    CPU run (plain ``fused_arith``) within 1/32 of the largest logit (bf16)
    with equal top-1 labels, and the 16-window trace must hold one
    ``fused_arith`` record per graph launch and none of the others;
-8. upload-wait phase: ``datasrc ! tensor_converter input-dim=8192:4096
+9. upload-wait phase: ``datasrc ! tensor_converter input-dim=8192:4096
    input-type=uint8 ! tensor_upload ! queue ! tensor_sink``, 32 MiB frames,
    the upload's stream held back about 0.1 s before each copy; a
    ``new-data`` callback reads each frame with ``.cpu()`` and must get the
    source bytes (the sink's dispatch waits for the copy);
-9. model-file phase (slice 7's path): writes MobileNet-v2 1.0's seed-0
+10. model-file phase (models named in the launch string): writes MobileNet-v2 1.0's seed-0
    params in the JAX package's layout with the port's ``save_state`` and
    runs 64 640x480 ``videotestsrc`` frames through a launch string that
    names everything: ``tensor_filter framework=custom-python`` with the
@@ -104,17 +122,17 @@ In order, it
    called 4 times each and ``nms_keep`` never, labels equal to the builder
    called directly on the same tree and scaled frames, and the 16-frame
    trace's per-launch check;
-10. TorchScript phase: MobileNet-v2 1.0 (bf16) traced on the card, saved,
+11. TorchScript phase: MobileNet-v2 1.0 (bf16) traced on the card, saved,
    and named in slice 1's string (``model=<file>.pt``) for 16 frames: one
    capture, replays within 1e-3 relative of the eager call;
-11. drift phase: frames of (224,224,3) uint8, (300,300,3), (224,224,3) and
+12. drift phase: frames of (224,224,3) uint8, (300,300,3), (224,224,3) and
    an int16 frame reach a filter with the normalize folded in with no caps
    event: 3 captures (two while the pipeline plays) and 1 LRU hit, each
    output bitwise equal to eager, the int16 frame computed as int16;
-12. custom-so phase: a C filter built with ``g++`` here, behind
+13. custom-so phase: a C filter built with ``g++`` here, behind
    ``tensor_upload ! queue``, gets its 8 frames on the card, copies them to
    the host and returns exactly ``x * 10``;
-13. prints every path number beside the card's name and power limit, one
+14. prints every path number beside the card's name and power limit, one
    JSON line describing every kernel, and last one JSON line
    ``{"ok": true, "device": {...}}``.
 
@@ -331,7 +349,7 @@ def kernel_phase(torch, np, K, bind, jax_pkg):
     def bf16(shape):
         x = (rng.standard_normal(shape) * 300).astype(np.float32)
         x.flat[:6] = [np.nan, np.inf, -np.inf, -0.0, 0.0, 3e38]
-        x.flat[6:10] = [1e-39, -1e-39, 5.8e-39, -9.2e-41]  # subnormals: the kernel keeps them
+        x.flat[6:10] = [1e-39, -1e-39, 5.8e-39, -9.2e-41]  # subnormals: arithmetic flushes them
         return torch.from_numpy(x).to(torch.bfloat16)
 
     u8 = ints(np.uint8, 0, 256)
@@ -387,6 +405,29 @@ def kernel_phase(torch, np, K, bind, jax_pkg):
         err = max(err, float((got[finite].double() - want[finite].double()).abs().max()))
         where = f", {offset * xd.element_size()} bytes past a 16-byte boundary" if offset else ""
         print(f"fused_arith {dtype.name}{shape} '{option}'{where}: bitwise equal", flush=True)
+
+    # C6: a subnormal operand of float arithmetic becomes the zero of its
+    # sign, as XLA flushes it; the last lane (2.0) is a normal value.
+    c6_bits = np.array([0x0001, 0x007F, 0x8001, 0x4000], np.uint16)
+    for xd in (torch.tensor([1e-39, -5.8e-39, 2.0], dtype=torch.float32, device=dev),
+               torch.from_numpy(c6_bits.view(np.int16)).view(torch.bfloat16).to(dev)):
+        dtype = numpy_dtype(xd.dtype)
+        for option in ("mul:2", "div:2", "clamp:-1:1"):
+            c6_ops = bind(option, dtype)
+            got = K.fused_arith(xd, c6_ops)
+            want = K.fused_arith_plain(xd, c6_ops)
+            torch.cuda.synchronize()
+            check(bitwise_equal(torch, got, want),
+                  f"fused_arith {option} on {dtype.name} subnormals: not bitwise equal")
+            bits = got[:-1].view(torch.int16 if got.element_size() == 2 else torch.int32).cpu()
+            signs = torch.signbit(xd[:-1].float()).cpu()
+            zero = bits & ~(torch.tensor(1, dtype=bits.dtype) << (bits.element_size() * 8 - 1))
+            check(bool((zero == 0).all()) and bool((torch.signbit(got[:-1].float()).cpu()
+                                                    == signs).all()),
+                  f"fused_arith {option} on {dtype.name} subnormals: {got.tolist()}, not "
+                  "zeros of the inputs' signs")
+            print(f"fused_arith {dtype.name} C6 subnormals '{option}': zeros of their sign, "
+                  "bitwise equal", flush=True)
 
     ops = bind(NORMALIZE, np.dtype(np.uint8))
     rows = []
@@ -850,16 +891,19 @@ def loop_rates(torch, call, xs):
                 busy_ms_per_frame=tr["busy_ms"] / len(xs))
 
 
-def traced_run(nns, desc, model, n, seg=None):
+def traced_run(nns, desc, model, n, seg=None, tracers=()):
     """One pipeline run of ``n`` frames traced from its first frame: the
     upload's lock holds the source until start() (negotiation, warm-up,
     capture) has returned and the profiler runs, so the window holds the
-    ``n`` frames and nothing of the capture."""
+    ``n`` frames and nothing of the capture.  ``tracers`` (names of
+    ``obs.TRACERS``) are attached before the start."""
     p = nns.parse_launch(desc)
     if seg is not None:
         p.segment_compile = seg
     if model is not None:
         p["f"].model = model
+    for name in tracers:
+        p.attach_tracer(name)
     delivered = []
     p["out"].connect("new-data", delivered.append)
     gate = p["u"]._lock
@@ -959,7 +1003,7 @@ def report_path(name, res, card):
             print(f"  {name} {label}: {res[key]} [{card}]", flush=True)
 
 
-def slice_phase(torch, np, K, ops, root, card):
+def slice_phase(torch, np, K, ops, root, card, keep):
     import nnstreamer_tpu_torch as nns
     from nnstreamer_tpu_torch.models import mobilenet_v2
     from nnstreamer_tpu_torch.ops.quant import quantize_activations
@@ -1080,6 +1124,7 @@ def slice_phase(torch, np, K, ops, root, card):
     profile_path(lambda n: traced_run(nns, desc(n), model, n), res,
                  ("fused_arith", "int8_matmul"))
     report_path("image labeling", res, card)
+    keep["image_labeling"] = (desc, model, None, ("fused_arith", "int8_matmul"))
     return launches, res
 
 
@@ -1087,7 +1132,7 @@ def _objects(frame):
     return [(o.class_id, o.x, o.y, o.width, o.height) for o in frame.meta["objects"]]
 
 
-def detection_phase(torch, np, K, ops, root, card):
+def detection_phase(torch, np, K, ops, root, card, keep):
     """Slice 2: the object-detection pipeline at full width, with
     whole-segment compilation and the NMS kernel; then its fused-decode
     variant."""
@@ -1229,6 +1274,8 @@ def detection_phase(torch, np, K, ops, root, card):
     profile_path(lambda n: traced_run(nns, desc(n, "tflite-ssd"), model, n, seg=True), res,
                  ("fused_arith", "pallas_nms_keep"))
     report_path("object detection", res, card)
+    keep["object_detection"] = (lambda n: desc(n, "tflite-ssd"), model, True,
+                                ("fused_arith", "pallas_nms_keep"))
 
     # The fused-decode variant: decode_topk in the model, fused-ssd decoder.
     K.reset_launches()
@@ -1256,6 +1303,171 @@ def detection_phase(torch, np, K, ops, root, card):
     print(f"fused-ssd: {FUSED_FRAMES} frames, segments on and off bitwise equal "
           f"({fused_objects} detections, {fused_nms} nms_keep launches)", flush=True)
     return launches, res
+
+
+OBS_TRACERS = ("latency", "stats", "drops", "copies", "spans")
+
+
+def span_split(records, frames):
+    """Where a frame's host time goes, from the span records (ms a frame).
+    Per element: its dispatch span (which holds the dispatches of the
+    elements after it on the same thread: a pad push runs them inside it)
+    and its own time, the span less the dispatch spans nested in it.  Per
+    thread: the period between its frames (from the starts of its outermost
+    dispatch spans) and the part of it inside them; the rest is the
+    thread's own work outside every element (a source making its frame) or
+    its wait for the next one (a queue's worker)."""
+    import collections
+
+    dispatch = [r for r in records if r[0] == "X" and r[5] == "dispatch"]
+    ids = {r[7] for r in dispatch}
+    nested = collections.Counter()
+    for r in dispatch:
+        nested[r[8]] += r[2]
+    elements, outer = {}, collections.defaultdict(list)
+    for r in dispatch:
+        e = elements.setdefault(r[4], {"thread": r[3], "span_ms": 0.0, "self_ms": 0.0})
+        e["span_ms"] += r[2] / 1e6 / frames
+        e["self_ms"] += (r[2] - nested[r[7]]) / 1e6 / frames
+        if r[8] not in ids:
+            outer[r[3]].append(r)
+    threads = {}
+    for tid, top in outer.items():
+        top.sort(key=lambda r: r[1])
+        period = (top[-1][1] - top[0][1]) / (len(top) - 1) / 1e6 if len(top) > 1 else 0.0
+        threads[tid] = {"period_ms": period,
+                        "in_elements_ms": sum(r[2] for r in top) / len(top) / 1e6}
+    return elements, threads
+
+
+def scraped_latency_count(text, pipeline):
+    """The e2e latency histogram's count for ``pipeline`` in a /metrics
+    scrape (None when the series is missing)."""
+    import re
+
+    m = re.search(r'^nnstpu_e2e_latency_ms_count\{pipeline="%s",src="[^"]*",sink="[^"]*"\} '
+                  r"(\d+)$" % re.escape(pipeline), text, re.M)
+    return int(m.group(1)) if m else None
+
+
+def obs_checks(delivered, latency, scraped, host_ops, invoke_p50_ms, busy_ms):
+    """The obs phase's checks on one path: every frame delivered is in the
+    latency tracer and in the scraped histogram; with the tracers attached
+    the host still issues 5 device operations a frame (CUPTI may lose the
+    record of a runtime call now and then, as it did in a run without
+    tracers: 79 for 16 frames; it never adds one, so a tracer's operation
+    would show above 5); the profiled invoke (which waits for its outputs)
+    lasts at least 0.9 of the device's busy time a frame."""
+    check(latency == delivered and scraped == delivered,
+          f"{delivered} frames delivered, the latency tracer saw {latency}, the scraped "
+          f"histogram counts {scraped}")
+    check(4.5 <= host_ops <= 5, f"{host_ops} host-issued device operations a frame with the "
+                                "tracers attached, not 5")
+    check(invoke_p50_ms >= 0.9 * busy_ms,
+          f"profiled invoke p50 {invoke_p50_ms} ms is below 0.9 of the device's busy "
+          f"{busy_ms} ms a frame: the filter did not wait for its outputs")
+
+
+def obs_phase(torch, np, slices, root, card):
+    """Slices 1 and 2 with every tracer attached and a scrape endpoint up:
+    latency, the per-element split from the spans, host copies and drops,
+    a scrape of /metrics and /stats.json, the Chrome trace written and read
+    back; then a traced run with the tracers and profiling on, held to 5
+    host-issued operations a frame, one record of each path kernel per
+    graph launch, and a profiled invoke that covers the device's work."""
+    import urllib.request
+
+    import nnstreamer_tpu_torch as nns
+    from nnstreamer_tpu_torch.obs import REGISTRY, MetricsServer, spans
+    from nnstreamer_tpu_torch.utils import profiling
+
+    work = os.path.join(root, "build", "chip_smoke")
+    out = {}
+    server = MetricsServer(port=0).start()
+    try:
+        for path, (desc, model, seg, kernels) in slices.items():
+            _, plain_arrivals, _ = run_pipeline(nns, desc(FRAMES), model, FRAMES, seg=seg)
+            REGISTRY.reset()
+            spans.reset()
+            p = nns.parse_launch(desc(FRAMES))
+            p.name = f"obs_{path}"
+            if seg is not None:
+                p.segment_compile = seg
+            p["f"].model = model
+            for name in OBS_TRACERS:
+                p.attach_tracer(name)
+            arrivals = []
+            p["out"].connect("new-data", lambda frame: arrivals.append(time.perf_counter()))
+            p.start()
+            try:
+                check(p.wait(600), f"obs {path}: the pipeline did not finish")
+                stats = p.stats()["tracers"]
+                records = p.flight_snapshot()
+                base = server.url[: -len("/metrics")]
+                with urllib.request.urlopen(server.url, timeout=30) as resp:
+                    scrape = resp.read().decode("utf-8")
+                with urllib.request.urlopen(base + "/stats.json", timeout=30) as resp:
+                    served = json.loads(resp.read())
+            finally:
+                p.stop()
+            check(p.name in served and "latency" in served[p.name].get("tracers", {}),
+                  f"obs {path}: /stats.json lacks the pipeline's tracers: {sorted(served)}")
+            (latency,) = stats["latency"].values()
+            copies, drops = stats["copies"], stats["drops"]
+            split, threads = span_split(records, FRAMES)
+            trace_path = os.path.join(work, f"obs_{path}.trace.json")
+            with open(trace_path, "w", encoding="utf-8") as f:
+                json.dump(spans.chrome_trace(records, process_name=p.name), f)
+            with open(trace_path, encoding="utf-8") as f:
+                events = json.load(f)["traceEvents"]
+            named = {e["name"] for e in events if e["ph"] == "X"}
+            check(set(split) <= named and {"s", "f"} <= {e["ph"] for e in events},
+                  f"obs {path}: the Chrome trace lacks spans or flows: {sorted(named)}")
+            res = dict(frames=len(arrivals), fps=rates(arrivals, np)["fps"],
+                       fps_without_tracers=rates(plain_arrivals, np)["fps"],
+                       latency_ms={k: latency[k] for k in ("p50_ms", "p90_ms", "p99_ms",
+                                                             "mean_ms", "max_ms")},
+                       elements=split, threads=threads, copies_per_frame=sum(
+                           e["copies"] for e in copies["elements"].values()) / FRAMES,
+                       copy_bytes_per_frame=copies["bytes_per_frame"], drops=drops,
+                       spans=stats["spans"], chrome_trace_events=len(events))
+            last = {}
+
+            def profiled_run(n, desc=desc, model=model, seg=seg):
+                profiling.reset()
+                with profiling.profiled():
+                    tr = traced_run(nns, desc(n), model, n, seg=seg, tracers=OBS_TRACERS)
+                last.update(profiling.stats()["f"])
+                return tr
+
+            profile_path(profiled_run, res, kernels)
+            res["invoke_ms"] = {k: last[k] for k in ("p50_ms", "p90_ms", "mean_ms", "count")}
+            obs_checks(len(arrivals), latency["count"], scraped_latency_count(scrape, p.name),
+                       res["host_ops_per_frame"], last["p50_ms"],
+                       res["device_busy_ms_per_frame"])
+            # the upload stages each host frame once (the JAX package would not)
+            check(res["copies_per_frame"] == 1, f"obs {path}: {res['copies_per_frame']} host "
+                                                "copies a frame, not the upload's one")
+            profiling.reset()
+            print(f"obs {path} [{card}]: {res['frames']} frames, {res['fps']} fps with the "
+                  f"tracers, {res['fps_without_tracers']} without; source->sink latency p50 "
+                  f"{latency['p50_ms']} ms, p90 {latency['p90_ms']} ms, p99 "
+                  f"{latency['p99_ms']} ms; host copies a frame {res['copies_per_frame']} "
+                  f"({copies['bytes_per_frame']} B); drops {drops or 'none'}", flush=True)
+            for name, e in split.items():
+                print(f"  obs {path} {name} [{e['thread']}]: dispatch span {e['span_ms']} "
+                      f"ms a frame, own {e['self_ms']} ms", flush=True)
+            for tid, t in threads.items():
+                print(f"  obs {path} thread {tid}: a frame every {t['period_ms']} ms, "
+                      f"{t['in_elements_ms']} ms of it inside the elements", flush=True)
+            print(f"  obs {path}: profiled invoke p50 {last['p50_ms']} ms against "
+                  f"{res['device_busy_ms_per_frame']} ms device busy a frame; "
+                  f"{res['host_ops_per_frame']} host-issued operations a frame with the "
+                  f"tracers; Chrome trace {trace_path} ({len(events)} events)", flush=True)
+            out[path] = res
+    finally:
+        server.stop()
+    return out
 
 
 def audio_checks(stats, launches, got_idx, eager_idx, replay_logits, cpu_logits):
@@ -1786,8 +1998,10 @@ def main() -> int:
     ops = bind(NORMALIZE, np.dtype(np.uint8))
     audio_ops = bind(AUDIO_NORMALIZE, np.dtype(np.int16))
     in_graph = graph_kernel_phase(torch, np, K, ops, audio_ops, bind)
-    by_path = {"image_labeling": slice_phase(torch, np, K, ops, root, card)}
-    by_path["object_detection"] = detection_phase(torch, np, K, ops, root, card)
+    slices = {}
+    by_path = {"image_labeling": slice_phase(torch, np, K, ops, root, card, slices)}
+    by_path["object_detection"] = detection_phase(torch, np, K, ops, root, card, slices)
+    observed = obs_phase(torch, np, slices, root, card)
     by_path["audio"] = audio_phase(torch, np, K, audio_ops, root, card)
     upload_wait = upload_wait_phase(torch, np)
     by_path["model_file"] = model_file_phase(torch, np, K, ops, root, card)
@@ -1806,7 +2020,7 @@ def main() -> int:
                       "slice2": by_path["object_detection"][1],
                       "audio": by_path["audio"][1], "upload_wait": upload_wait,
                       "model_file": by_path["model_file"][1], "torchscript": torchscript,
-                      "drift": drift, "custom_so": custom_so}), flush=True)
+                      "drift": drift, "custom_so": custom_so, "obs": observed}), flush=True)
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

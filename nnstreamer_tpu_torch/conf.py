@@ -19,7 +19,8 @@ package's default but one: ``[filter] torch_device`` defaults to ``cuda``
 card unless asked for the CPU (``NNSTPU_FILTER_TORCH_DEVICE=cpu``).  The
 JAX package's ``[segment] pallas_nms`` is not ported: fused segments here
 always call the NMS kernel's wrapper, which runs the plain version on CPU
-tensors.
+tensors.  Nor is ``[common] xplane_trace_dir`` (a device trace of the whole
+PLAYING interval), which waits for the port's ``obs/profiler.py``.
 
 External plugins are ``nnstpu_*.py`` files in the plugin dirs
 (``$NNSTPU_PLUGIN_PATH``, then ``[common] plugin_path``; ``:``-separated).
@@ -49,9 +50,21 @@ PLUGIN_PREFIX = "nns_torch_plugins."
 DEFAULTS: Dict[str, Dict[str, str]] = {
     "common": {
         "plugin_path": "",          # colon-separated dirs of nnstpu_*.py
+        "enable_profiling": "false",  # time each filter's invoke (Pipeline.stats)
+        "dump_dot_dir": "",         # write <pipeline>.<STATE>.dot here
+        "tracers": "",              # GST_TRACERS analog: "latency;stats;drops"
+        "metrics_port": "",         # Prometheus scrape port ("" = disabled)
     },
     "filter": {
         "torch_device": "cuda",     # where models from files live
+    },
+    # Observability (nnstreamer_tpu_torch/obs).  The short env spellings
+    # NNSTPU_METRICS_BUCKETS / NNSTPU_FLIGHT_RECORDS take precedence over
+    # the NNSTPU_OBS_* forms mapped here.
+    "obs": {
+        "buckets": "",              # latency-histogram bounds, ms ("0.1,1,10")
+        "flight_records": "",       # span flight-recorder ring size per thread
+        "flight_dump_dir": "",      # write {pipeline}.error.trace.json here
     },
     "segment": {
         "enabled": "false",         # plan and fold segments in Pipeline.start (a
@@ -64,6 +77,10 @@ DEFAULTS: Dict[str, Dict[str, str]] = {
 SHORT_ENV: Dict[str, Optional[tuple]] = {
     "NNSTPU_CONF": None,
     "NNSTPU_PLUGIN_PATH": ("common", "plugin_path"),
+    "NNSTPU_TRACERS": ("common", "tracers"),
+    "NNSTPU_METRICS_PORT": ("common", "metrics_port"),
+    "NNSTPU_METRICS_BUCKETS": ("obs", "buckets"),
+    "NNSTPU_FLIGHT_RECORDS": ("obs", "flight_records"),
 }
 
 

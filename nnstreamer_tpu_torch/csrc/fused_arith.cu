@@ -78,7 +78,14 @@
 //   convert;
 // - clamp is XLA's max(lo, x) then min(hi, x): NaN propagates, -0.0 orders
 //   below +0.0; integer bounds arrive inside the step dtype's range
-//   (ops/kernels.py::_int_clamp).
+//   (ops/kernels.py::_int_clamp);
+// - float arithmetic (add, sub, mul, clamp) flushes float32 subnormals, as
+//   XLA does: each operand, and each result, that is subnormal becomes the
+//   zero of its sign (ftz below; the host flushes the literals).  A
+//   conversion keeps them, and so do the steps XLA folds away, which the
+//   host lowers to no operation (x + 0, x * 1, clamp(-inf, inf)) or to a
+//   sign flip (x * -1).  The flush is explicit, not nvcc's --ftz=true,
+//   which would change int8_matmul's epilogue too.
 // The kernel allocates nothing and launches on the caller's stream.
 
 #include <cuda_bf16.h>
@@ -116,7 +123,7 @@ enum Conv {
 };
 enum Op {
   O_NONE = 0, O_IADD = 1, O_ISUB = 2, O_IMUL = 3, O_ICLAMP = 4, O_UCLAMP = 5,
-  O_FADD = 6, O_FSUB = 7, O_FMUL = 8, O_FCLAMP = 9
+  O_FADD = 6, O_FSUB = 7, O_FMUL = 8, O_FCLAMP = 9, O_FNEG = 10
 };
 enum Variant { FLOAT_CHAIN = 0, GENERAL = 1 };
 // How the general variant widens an element's bits to 32, and narrows them.
@@ -160,6 +167,14 @@ __device__ __forceinline__ uint32_t saturate(float f, int32_t lo, int32_t hi) {
   v = v < lo ? lo : v;
   return (uint32_t)(v > hi ? hi : v);
 }
+
+// A float32 subnormal replaced by the zero of its sign (a NaN stays: its
+// magnitude compares false).
+__device__ __forceinline__ float ftz(float v) {
+  return fabsf(v) < 1.17549435e-38f ? __uint_as_float(__float_as_uint(v) & 0x80000000u) : v;
+}
+
+__device__ __forceinline__ uint32_t neg_bits(uint32_t x) { return x ^ 0x80000000u; }
 
 // max(lo, v) then min(hi, v), as XLA's clamp.
 template <typename T> __device__ __forceinline__ T xla_clamp(T v, T lo, T hi) {
@@ -225,10 +240,11 @@ __device__ __forceinline__ void apply(uint32_t (&r)[kN], int op, uint32_t a, uin
     case O_IMUL: EACH(x * a)
     case O_ICLAMP: EACH((uint32_t)xla_clamp((int32_t)x, (int32_t)a, (int32_t)b))
     case O_UCLAMP: EACH(xla_clamp(x, a, b))
-    case O_FADD: EACH(__float_as_uint(__fadd_rn(__uint_as_float(x), fa)))
-    case O_FSUB: EACH(__float_as_uint(__fsub_rn(__uint_as_float(x), fa)))
-    case O_FMUL: EACH(__float_as_uint(__fmul_rn(__uint_as_float(x), fa)))
-    case O_FCLAMP: EACH(__float_as_uint(fclamp(__uint_as_float(x), fa, fb)))
+    case O_FADD: EACH(__float_as_uint(ftz(__fadd_rn(ftz(__uint_as_float(x)), fa))))
+    case O_FSUB: EACH(__float_as_uint(ftz(__fsub_rn(ftz(__uint_as_float(x)), fa))))
+    case O_FMUL: EACH(__float_as_uint(ftz(__fmul_rn(ftz(__uint_as_float(x)), fa))))
+    case O_FCLAMP: EACH(__float_as_uint(fclamp(ftz(__uint_as_float(x)), fa, fb)))
+    case O_FNEG: EACH(neg_bits(x))
     default: break;
   }
 }
@@ -255,19 +271,23 @@ __device__ __forceinline__ void float_steps(float (&v)[kN], const Program& p) {
       switch (p.op[k]) {
         case O_FADD:
 #pragma unroll
-          for (int e = 0; e < kN; ++e) v[e] = __fadd_rn(v[e], a);
+          for (int e = 0; e < kN; ++e) v[e] = ftz(__fadd_rn(ftz(v[e]), a));
           break;
         case O_FSUB:
 #pragma unroll
-          for (int e = 0; e < kN; ++e) v[e] = __fsub_rn(v[e], a);
+          for (int e = 0; e < kN; ++e) v[e] = ftz(__fsub_rn(ftz(v[e]), a));
           break;
         case O_FMUL:
 #pragma unroll
-          for (int e = 0; e < kN; ++e) v[e] = __fmul_rn(v[e], a);
+          for (int e = 0; e < kN; ++e) v[e] = ftz(__fmul_rn(ftz(v[e]), a));
           break;
         case O_FCLAMP:
 #pragma unroll
-          for (int e = 0; e < kN; ++e) v[e] = fclamp(v[e], a, b);
+          for (int e = 0; e < kN; ++e) v[e] = fclamp(ftz(v[e]), a, b);
+          break;
+        case O_FNEG:
+#pragma unroll
+          for (int e = 0; e < kN; ++e) v[e] = __uint_as_float(neg_bits(__float_as_uint(v[e])));
           break;
         default:  // a typecast to float32: nothing to do
           break;

@@ -18,10 +18,17 @@ converter before it and a decoder's device head after it
 the model call in the backend so one ``invoke`` runs the whole chain; on
 CUDA the backend captures that chain once per negotiated geometry as a
 CUDA graph and replays it per frame (``backends/torch_backend.py``).
+
+With profiling on (``utils/profiling.py``) each invoke is timed until its
+outputs are done on the device, waiting on the filter stream's work alone,
+and recorded under the filter's name (``Pipeline.stats``).  With a tracer
+attached, ``device_dispatch`` fires after the invoke has returned (on the
+host, never inside a capture).
 """
 
 from __future__ import annotations
 
+import time
 from typing import Dict, Optional
 
 import torch
@@ -30,7 +37,9 @@ from ..backends.base import FilterBackend, get_backend
 from ..buffer import Frame
 from ..graph.node import NegotiationError, Node, Pad
 from ..graph.registry import register_element
+from ..obs import hooks as _hooks
 from ..spec import TensorSpec, TensorsSpec, dtype_from_name
+from ..utils import profiling
 
 
 @register_element("tensor_filter")
@@ -230,7 +239,19 @@ class TensorFilter(Node):
     def process(self, pad: Pad, frame: Frame):
         del pad
         with torch.inference_mode():
-            outs = self.backend.invoke(frame.tensors)
+            if profiling.enabled():
+                t0 = time.perf_counter_ns()
+                outs = self.backend.invoke(frame.tensors)
+                profiling.block_outputs(outs)
+                profiling.record(self.name, time.perf_counter_ns() - t0)
+                if _hooks.enabled:
+                    _hooks.emit("device_dispatch", self, frame, outs, t0)
+            elif _hooks.enabled:
+                t0 = time.perf_counter_ns()
+                outs = self.backend.invoke(frame.tensors)
+                _hooks.emit("device_dispatch", self, frame, outs, t0)
+            else:
+                outs = self.backend.invoke(frame.tensors)
         if not outs:
             return None
         return frame.with_tensors(outs)

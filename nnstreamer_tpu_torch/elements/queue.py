@@ -11,8 +11,12 @@ stages and uploads frame N+1 while the queue's thread runs frame N.
 
 Leak modes follow GStreamer's: ``no`` (backpressure), ``downstream`` (drop
 the oldest queued frame), ``upstream`` (drop the incoming frame); in-band
-events (EOS, caps) are never dropped.  Not ported yet: the dispatcher-lane
-mode (``lane_task``), ``recover()`` and the ``obs.hooks`` calls.
+events (EOS, caps) are never dropped.  The hook bus sees each push and pop
+with the depth after it (``queue_push``/``queue_pop``) and each leaky drop
+with its reason (``queue_drop``).  As in the JAX package, a push becomes
+poppable before its ``queue_push`` fires, so a fast consumer's ``queue_pop``
+may come first.  Not ported yet: the dispatcher-lane mode (``lane_task``)
+and ``recover()`` (with its ``recovery`` drops).
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from ..graph.node import Node, Pad
 from ..graph.registry import register_element
 from ..native import DROPPED_INCOMING, OK, OK_DROPPED_OLDEST, SHUTDOWN
 from ..native.queue import make_frame_queue
+from ..obs import hooks as _hooks
 
 _POLL_MS = 100  # the worker wakes this often, so a shutdown is never missed
 
@@ -51,9 +56,15 @@ class Queue(Node):
     def _dispatch(self, pad: Pad, item) -> None:
         del pad
         self._ensure_queue()
-        status = self._q.push(item, leaky=self.leaky)
+        q = self._q  # stop() may drop the attribute meanwhile
+        status = q.push(item, leaky=self.leaky)
         if status in (OK_DROPPED_OLDEST, DROPPED_INCOMING):
             self.dropped += 1
+            if _hooks.enabled:
+                _hooks.emit("queue_drop", self,
+                            "downstream" if status == OK_DROPPED_OLDEST else "upstream")
+        if _hooks.enabled:
+            _hooks.emit("queue_push", self, len(q))
 
     def spawn_threads(self) -> List[threading.Thread]:
         self._ensure_queue()
@@ -69,6 +80,8 @@ class Queue(Node):
                 return
             if status != OK:
                 continue  # poll timeout
+            if _hooks.enabled:
+                _hooks.emit("queue_pop", self, len(q))
             try:
                 if isinstance(item, Event):
                     # EOS drains and forwards; caps renegotiates downstream

@@ -24,8 +24,14 @@ Spec-transparent: logical shapes and dtypes pass as they are (the JAX
 package's flat wire layout is a TPU transfer trick the card does not
 need).  Transform fusion and the segment planner hop over this element
 (``graph/optimize.py``), so ``transform → upload → queue → filter`` still
-folds into one call, fed the raw uint8 frame.  Not ported yet: the
-sharded wire rule (``_sharding_for``).
+folds into one call, fed the raw uint8 frame.
+
+Each staging copy fires the ``copy`` hook with its bytes and whether it
+allocated its slot (0 once the two slots are warm).  The port stages every
+host frame, where the JAX package stages only a strided one (a contiguous
+frame goes to ``jax.device_put`` as it is), so the ``copies`` tracer counts
+one host copy per uploaded tensor here and none there.  Not ported yet:
+the sharded wire rule (``_sharding_for``).
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from ..buffer import Frame
 from ..device import resolve_device
 from ..graph.node import Node, Pad
 from ..graph.registry import register_element
+from ..obs import hooks as _hooks
 from ..pool import WireStager, mark_ready
 from ..spec import TensorsSpec
 
@@ -81,6 +88,9 @@ class TensorUpload(Node):
                 out.append(t)  # already there: nothing to move
                 continue
             slot = self._stager.stage(i, t)
+            if _hooks.enabled:
+                _hooks.emit("copy", self, slot.numel() * slot.element_size(),
+                            self._stager.last_alloc)
             with torch.cuda.stream(self._stream):
                 d = slot.to(self.device, non_blocking=True)
                 event = torch.cuda.Event()

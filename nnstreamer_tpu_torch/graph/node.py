@@ -14,15 +14,22 @@ aggregator) reads the frame after its copy, each with one wait per tensor.
 A ``queue`` only enqueues the frame and overrides ``_dispatch``: it does not
 wait, so the copy of one frame never holds up the work queued on the stream
 for the one before.
+
+Tracer hook points (``obs/hooks.py``) bracket each dispatch
+(``dispatch_enter``/``dispatch_exit``, the wait for the upload's copy
+included) and mark each pad push (``pad_push``); with no tracer attached
+each site costs one flag test and the clock is never read.
 """
 
 from __future__ import annotations
 
 import itertools
 import threading
+import time
 from typing import Dict, Iterable, Optional, Tuple, Union
 
 from ..buffer import Event, Frame
+from ..obs import hooks as _hooks
 from ..pool import wait_ready
 from ..spec import ANY, TensorsSpec, numpy_dtype
 
@@ -80,6 +87,8 @@ class Pad:
             sig = _frame_sig(item.tensors)
             if sig != self.sig:
                 self._spec_changed(sig, item)
+        if _hooks.enabled:
+            _hooks.emit("pad_push", self, item)
         self.peer.node._dispatch(self.peer, item)
 
     def _spec_changed(self, sig: tuple, frame: Frame) -> None:
@@ -181,13 +190,25 @@ class Node:
     def _dispatch(self, pad: Pad, item: Union[Frame, Event]) -> None:
         """Items arriving on a sink pad; serialized per element.  A frame's
         tensors are waited for (their upload's copy) before ``process``."""
+        if _hooks.enabled:
+            t0 = time.perf_counter_ns()
+            _hooks.emit("dispatch_enter", self, pad, item, t0)
+            try:
+                with self._lock:
+                    self._dispatch_locked(pad, item)
+            finally:
+                _hooks.emit("dispatch_exit", self, pad, item, time.perf_counter_ns() - t0)
+            return
         with self._lock:
-            if isinstance(item, Event):
-                self._handle_event(pad, item)
-            else:
-                for t in item.tensors:
-                    wait_ready(t)
-                self._emit(self.process(pad, item))
+            self._dispatch_locked(pad, item)
+
+    def _dispatch_locked(self, pad: Pad, item: Union[Frame, Event]) -> None:
+        if isinstance(item, Event):
+            self._handle_event(pad, item)
+        else:
+            for t in item.tensors:
+                wait_ready(t)
+            self._emit(self.process(pad, item))
 
     def _emit(self, result: ProcessResult) -> None:
         if result is None:

@@ -23,7 +23,8 @@ element at configure time when the decoder refuses its negotiated geometry
 puts the decoder back on the host).
 
 Enable with ``[segment] enabled`` (``NNSTPU_SEGMENT_ENABLED=1``) or per
-pipeline with ``pipeline.segment_compile = True``.
+pipeline with ``pipeline.segment_compile = True``.  Each install and each
+restore fires the ``segment`` hook (``obs/hooks.py``).
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ import dataclasses
 import warnings
 from typing import List, Tuple
 
+from ..obs import hooks as _hooks
 from .node import Node
 from .optimize import _hop_transparent, _is_fusable_filter, _splice_out
 from .pipeline import Pipeline
@@ -233,14 +235,21 @@ def fuse_segments(pipeline: Pipeline) -> List:
         be = filt.backend
         prev_label = be.segment_label
         be.segment_label = plan.label
+        if _hooks.enabled:
+            _hooks.emit("segment", pipeline.name, filt.name, plan.label,
+                        f"pre={len(plan.pre)} post={len(plan.post)} "
+                        f"fallbacks={len(plan.fallbacks)}", "install")
 
-        def undo_install(f=filt, d=dec, b=be, prev=prev_label, op=old_pre, opost=old_post):
+        def undo_install(f=filt, d=dec, b=be, prev=prev_label, op=old_pre, opost=old_post,
+                         label=plan.label, pname=pipeline.name):
             f.set_fused_transforms(op, opost)
             if not op and not opost:
                 b.set_wrapper(None)  # nothing fused: the bare model again
             b.segment_label = prev
             if d is not None:
                 d.plugin.set_lowered(None)
+            if _hooks.enabled:
+                _hooks.emit("segment", pname, f.name, label, "", "restore")
 
         undos.append(undo_install)
     pipeline._segment_undos = list(undos)

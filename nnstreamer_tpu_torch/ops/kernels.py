@@ -130,7 +130,7 @@ CONV = {"none": 0, "wrap_u8": 1, "wrap_i8": 2, "wrap_u16": 3, "wrap_i16": 4,
         "f2u8": 10, "f2i8": 11, "f2u16": 12, "f2i16": 13, "f2u32": 14, "f2i32": 15,
         "i2b": 16, "u2b": 17, "f2b": 18}
 OP = {"none": 0, "iadd": 1, "isub": 2, "imul": 3, "iclamp": 4, "uclamp": 5,
-      "fadd": 6, "fsub": 7, "fmul": 8, "fclamp": 9}
+      "fadd": 6, "fsub": 7, "fmul": 8, "fclamp": 9, "fneg": 10}
 # FLOAT_CHAIN: every step computes in float32 (the normalize chain): the
 # kernel converts the input to float once and runs float ops on float
 # literals.  GENERAL: any chain, int and float16 steps included.
@@ -169,10 +169,39 @@ def _literal32(v, dt) -> np.float32:
         return np.float32(dt.type(v))
 
 
+# Float arithmetic flushes subnormals, as XLA does (C6): on the CPU it runs
+# with denormals-are-zero and flush-to-zero set, and the TPU has no float32
+# subnormals.  Every float step but a conversion and the steps XLA folds
+# away (:func:`_xla_fold`) reads each operand, and writes its result, with
+# a float32 subnormal replaced by a zero of its sign.  A float16 value is
+# never a float32 subnormal, so float16 steps keep float16 subnormals, as
+# XLA's do (it computes them in float32).
+_TINY = np.float32(np.finfo(np.float32).tiny)
+
+
+def _flush32(f) -> np.float32:
+    """A float32 with a subnormal replaced by a zero of its sign."""
+    f = np.float32(f)
+    return np.copysign(np.float32(0), f) if abs(f) < _TINY else f
+
+
 def _bits(v, dt: np.dtype) -> int:
-    """A float literal rounded to ``dt`` (as the plain version's
-    ``_literal``), as the bits of its float32 value."""
-    return int(_literal32(v, dt).view(np.uint32))
+    """A float literal rounded to ``dt`` and flushed (as the plain
+    version's ``_literal``), as the bits of its float32 value."""
+    return int(_flush32(_literal32(v, dt)).view(np.uint32))
+
+
+def _xla_fold(op: str, dt: np.dtype, a, b) -> str:
+    """A float step that XLA's algebraic simplifier removes: ``x * 1`` is
+    ``x``, ``x * -1`` is ``-x`` (a sign flip), ``clamp(-inf, inf)`` is
+    ``x``; none of them does arithmetic, so a subnormal stays.  The
+    literal is compared as rounded to ``dt`` (``rmul`` keeps a float32)."""
+    if op in ("mul", "rmul"):
+        lit = np.float32(a) if op == "rmul" else _literal32(a, dt)
+        return "typecast" if lit == 1 else "neg" if lit == -1 else op
+    if op == "clamp" and _literal32(a, dt) == -np.inf and _literal32(b, dt) == np.inf:
+        return "typecast"
+    return op
 
 
 def _int_clamp(lo: int, hi: int, dt: np.dtype) -> Tuple[int, int]:
@@ -218,6 +247,8 @@ def lower_chain(start: np.dtype, steps) -> Program:
         after = "none"
         if op == "typecast":
             code = "none"
+        elif op == "neg":  # a sign flip: exact, no flush
+            code = "fneg"
         elif _is_int(dt):
             if op == "clamp":
                 lo, hi = _int_clamp(int(a), int(b), dt)
@@ -229,7 +260,7 @@ def lower_chain(start: np.dtype, steps) -> Program:
                 after = _WRAP.get(dt, "none")
         elif op == "rmul":  # a reciprocal kept in float32 (ChainPlan)
             code = "fmul"
-            a32 = int(np.float32(a).view(np.uint32))
+            a32 = int(_flush32(a).view(np.uint32))
             after = "f2" + _ROUND[dt]
         else:
             code = "f" + op
@@ -294,12 +325,14 @@ class ChainPlan:
                 a, b = val
             elif op == "div":
                 op, a, b = "rmul" if cur == BFLOAT16 else "mul", _reciprocal(val, cur), 0.0
-            elif op in ("add", "sub") and not _is_int(cur) and val == 0:
+            elif op in ("add", "sub") and not _is_int(cur) and _literal32(val, cur) == 0:
                 # XLA folds x + 0 and x - 0 into x (a -0.0 stays -0.0, where
                 # IEEE addition of +0.0 would give +0.0): no operation
                 op, a, b = "typecast", 0.0, 0.0
             else:
                 a, b = val, 0.0
+            if not _is_int(cur):
+                op = _xla_fold(op, cur, a, b)
             steps.append((op, cur, a, b))
         self.steps = tuple(steps)
 
@@ -380,7 +413,14 @@ def _literal(a, dt: np.dtype, device) -> torch.Tensor:
     0-d tensor on ``device``."""
     if _is_int(dt):
         return torch.tensor(int(a), dtype=torch.int64, device=device)
-    return torch.tensor(float(_literal32(a, dt)), dtype=torch.float32, device=device)
+    return torch.tensor(float(_flush32(_literal32(a, dt))), dtype=torch.float32, device=device)
+
+
+def _flush(v: torch.Tensor) -> torch.Tensor:
+    """A float32 tensor with its subnormals replaced by zeros of their sign
+    (:func:`_flush32`), explicit on any device: nothing here depends on the
+    device's or the process's denormal mode."""
+    return torch.where(v.abs() < float(_TINY), v * 0, v)
 
 
 def _same(a: torch.Tensor, b: torch.Tensor, bitop) -> torch.Tensor:
@@ -401,8 +441,13 @@ def _fmin(hi: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 def _apply_step(v: torch.Tensor, op: str, dt: np.dtype, a, b) -> torch.Tensor:
     if op == "typecast":
         return v
+    if op == "neg":
+        return -v
+    if not _is_int(dt):
+        v = _flush(v)
     if op == "rmul":  # by a float32 reciprocal, then rounded to the step dtype
-        return _round_to(v * torch.tensor(float(a), dtype=torch.float32, device=v.device), dt)
+        r = v * torch.tensor(float(_flush32(a)), dtype=torch.float32, device=v.device)
+        return _round_to(_flush(r), dt)
     lit = _literal(a, dt, v.device)
     if op == "clamp":
         hi = _literal(b, dt, v.device)
@@ -421,7 +466,7 @@ def _apply_step(v: torch.Tensor, op: str, dt: np.dtype, a, b) -> torch.Tensor:
         raise ValueError(f"unknown chain op {op!r}")
     if _is_int(dt):
         return _wrap_int(r, dt)
-    return _round_to(r, dt)
+    return _round_to(_flush(r), dt)
 
 
 def run_chain(x: torch.Tensor, plan: ChainPlan) -> torch.Tensor:
@@ -503,6 +548,9 @@ def _op_eval(r: np.ndarray, op: str, a: int, b: int) -> np.ndarray:
         v, lo, hi = r.view(t), np.uint32(a).view(t), np.uint32(b).view(t)
         v = np.where(lo >= v, lo, v)
         return np.where(hi <= v, hi, v).astype(t).view(np.uint32)
+    if op == "fneg":
+        return r ^ np.uint32(0x80000000)
+    r = _flush_bits(r)
     v, lo = _f(r), np.uint32(a).view(np.float32)
     with np.errstate(all="ignore"):  # IEEE results: inf, NaN
         if op == "fadd":
@@ -517,7 +565,12 @@ def _op_eval(r: np.ndarray, op: str, a: int, b: int) -> np.ndarray:
             hi = np.uint32(b).view(np.float32)
             r = np.where(hi < v, np.uint32(b), np.where(hi == v, r | np.uint32(b), r))
             return r.astype(np.uint32)
-    return v.astype(np.float32).view(np.uint32)
+    return _flush_bits(v.astype(np.float32).view(np.uint32))
+
+
+def _flush_bits(r: np.ndarray) -> np.ndarray:
+    """float32 bits with each subnormal replaced by the zero of its sign."""
+    return np.where((r & np.uint32(0x7F800000)) == 0, r & np.uint32(0x80000000), r)
 
 
 def program_eval(x: np.ndarray, program: Program, out_dtype, in_dtype=None) -> np.ndarray:

@@ -45,6 +45,7 @@ class WireStager:
         self._depth = max(1, int(depth))
         self._pin = pin
         self._slots: Dict[int, dict] = {}
+        self.last_alloc = 0  # 1 if the last stage() allocated its slot, else 0
 
     def stage(self, idx: int, x: torch.Tensor) -> torch.Tensor:
         slot = self._slots.get(idx)
@@ -59,8 +60,10 @@ class WireStager:
             event.synchronize()  # the copy from this slot is done: rewrite it
             slot["busy"][k] = None
         buf = slot["bufs"][k]
+        self.last_alloc = 0
         if buf is None or tuple(buf.shape) != tuple(x.shape) or buf.dtype != x.dtype:
             buf = slot["bufs"][k] = torch.empty(x.shape, dtype=x.dtype, pin_memory=self._pin)
+            self.last_alloc = 1
         buf.copy_(x)
         return buf
 

@@ -146,3 +146,74 @@ def test_upload_wait_check(smoke):
         smoke.upload_wait_check(stale, sent)
     with pytest.raises(SystemExit):
         smoke.upload_wait_check(stale[:2], sent)
+
+
+# -- the obs phase ---------------------------------------------------------------
+
+
+def _records():
+    """Two frames' span records as ``obs.spans`` writes them: on the
+    source's thread conv's span holds u's, on the queue's thread f's holds
+    dec's, which holds out's.  (ph, ts, dur, thread, name, cat, trace,
+    span, parent, args), times in ns."""
+    recs = []
+    for k, t in enumerate((0, 4_000_000)):
+        root, base = 100 + k, 10 * (k + 1)
+        recs += [("i", t, 0, "src:src", "src.push", "source", 1, root, 0, None),
+                 ("X", t + 1000, 300_000, "src:src", "conv", "dispatch", 1, base, root, None),
+                 ("X", t + 2000, 200_000, "src:src", "u", "dispatch", 1, base + 1, base, None),
+                 ("X", t + 900_000, 2_000_000, "queue:q", "f", "dispatch", 1, base + 2, root,
+                  None),
+                 ("X", t + 2_500_000, 400_000, "queue:q", "dec", "dispatch", 1, base + 3,
+                  base + 2, None),
+                 ("X", t + 2_600_000, 100_000, "queue:q", "out", "dispatch", 1, base + 4,
+                  base + 3, None),
+                 ("C", t + 500_000, 0, "src:src", "q depth", "queue", 0, 0, 0, 1)]
+    return recs
+
+
+def test_span_split(smoke):
+    elements, threads = smoke.span_split(_records(), 2)
+    assert elements == {
+        "conv": {"thread": "src:src", "span_ms": 0.3, "self_ms": pytest.approx(0.1)},
+        "u": {"thread": "src:src", "span_ms": 0.2, "self_ms": 0.2},
+        "f": {"thread": "queue:q", "span_ms": 2.0, "self_ms": 1.6},
+        "dec": {"thread": "queue:q", "span_ms": 0.4, "self_ms": pytest.approx(0.3)},
+        "out": {"thread": "queue:q", "span_ms": 0.1, "self_ms": 0.1}}
+    assert threads == {"src:src": {"period_ms": 4.0, "in_elements_ms": 0.3},
+                       "queue:q": {"period_ms": 4.0, "in_elements_ms": 2.0}}
+
+
+def test_scraped_latency_count(smoke):
+    text = "\n".join([
+        '# TYPE nnstpu_e2e_latency_ms histogram',
+        'nnstpu_e2e_latency_ms_bucket{pipeline="obs_a",src="src",sink="out",le="+Inf"} 64',
+        'nnstpu_e2e_latency_ms_count{pipeline="obs_a",src="src",sink="out"} 64',
+        'nnstpu_e2e_latency_ms_count{pipeline="obs_ab",src="src",sink="out"} 3'])
+    assert smoke.scraped_latency_count(text, "obs_a") == 64
+    assert smoke.scraped_latency_count(text, "obs_ab") == 3
+    assert smoke.scraped_latency_count(text, "obs_b") is None
+
+
+@pytest.mark.parametrize("host_ops", [5.0, 79 / 16])   # a runtime record lost by CUPTI
+def test_obs_checks_pass(smoke, host_ops):
+    smoke.obs_checks(64, 64, 64, host_ops, 1.30, 1.33)
+
+
+@pytest.mark.parametrize("fault", ["latency_missed_a_frame", "scrape_missed_a_frame",
+                                   "series_missing", "host_op_more", "invoke_enqueue_only"])
+def test_obs_checks_fail(smoke, fault):
+    args = dict(delivered=64, latency=64, scraped=64, host_ops=5.0, invoke_p50_ms=1.30,
+                busy_ms=1.33)
+    if fault == "latency_missed_a_frame":
+        args["latency"] = 63
+    elif fault == "scrape_missed_a_frame":
+        args["scraped"] = 63
+    elif fault == "series_missing":
+        args["scraped"] = None
+    elif fault == "host_op_more":       # a tracer read one frame's tensor: a copy more
+        args["host_ops"] = 81 / 16
+    elif fault == "invoke_enqueue_only":  # block_outputs did not wait
+        args["invoke_p50_ms"] = 0.05
+    with pytest.raises(SystemExit):
+        smoke.obs_checks(**args)

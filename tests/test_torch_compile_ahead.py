@@ -433,3 +433,42 @@ def test_cuda_bare_drift_direct_invoke(cuda_device, case):
     assert out.dtype == x.dtype and out.shape == x.shape
     assert torch.equal(out, x * 2)
     assert be.stats["captures"] == 2
+
+
+@pytest.mark.cuda
+def test_cuda_profiled_invoke_covers_the_replay(cuda_device):
+    """With profiling on, the filter's recorded time of an invoke that
+    replays a captured graph is at least the device time of the same
+    replay between two CUDA events: ``block_outputs`` waits for the
+    replay, not only for its enqueue.  The model spins the card about
+    25 ms a call, so either time is that of the work; 0.95 allows for the
+    host clock against the card's."""
+    from nnstreamer_tpu_torch.utils import profiling
+
+    model = TorchModel(apply=lambda params, x: (torch.cuda._sleep(50_000_000), x * 2)[1],
+                       device=cuda_device)
+    frames = [np.full((6, 4), i, np.uint8) for i in range(4)]
+    p = _cuda_pipeline(frames, model)
+    profiling.reset()
+    with profiling.profiled():
+        p.start()
+        try:
+            assert p.wait(120)
+            be = p["f"].backend
+            assert be.stats["captures"] == 1 and be.stats["replays"] == 4
+            x = torch.from_numpy(frames[0]).to(cuda_device)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            with torch.inference_mode():
+                be.invoke((x,))
+            end.record()
+            end.synchronize()
+            replay_ms = start.elapsed_time(end)
+        finally:
+            p.stop()
+    recorded = profiling.stats()["f"]
+    profiling.reset()
+    assert recorded["count"] == 4
+    assert replay_ms > 5.0
+    assert recorded["min_ms"] >= 0.95 * replay_ms, (recorded, replay_ms)

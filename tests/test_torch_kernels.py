@@ -207,8 +207,8 @@ BF16_SUBNORMAL_BITS = [0x0001, 0x8001, 0x007F, 0x807F, 0x002E, 0x803F]
 
 def _inputs(dt, rng, n: int = 61) -> np.ndarray:
     """:func:`_extreme_inputs`; for bfloat16 the bits of random values with
-    NaN, +-inf, -0.0, values near the float32 limits and subnormals (on
-    which XLA diverges: :func:`_against_xla`)."""
+    NaN, +-inf, -0.0, values near the float32 limits and subnormals (which
+    float arithmetic flushes, as XLA does: C6)."""
     if dt != BFLOAT16:
         return _extreme_inputs(dt, rng, n)
     x = (rng.standard_normal(n) * 300).astype(np.float32)
@@ -236,23 +236,11 @@ def _flushed(x: np.ndarray, dt) -> np.ndarray:
     return np.where(sub, np.copysign(np.float32(0), x), x)
 
 
-def _against_xla(port, x, dt, got, want, out_dtype) -> None:
-    """The port's result ``got`` against XLA's ``want``: bit for bit, but
-    for the known divergence C6 (ROADMAP queue C): XLA on the CPU flushes
-    float32 subnormal operands of float arithmetic to zero, the port keeps
-    them.  So on a lane whose input is subnormal XLA gives either the
-    port's result (no arithmetic read the lane: a typecast) or the port's
-    result for the flushed input, ``port(_flushed(x))``."""
-    sub = _subnormal(x, dt)
-    _bitwise(_values(got[~sub], out_dtype), _values(want[~sub], out_dtype))
-    if sub.any():
-        flushed = port(_flushed(x, dt))[sub]
-        g, w, f = (_values(a, out_dtype) for a in (got[sub], want[sub], flushed))
-        bits = {1: np.uint8, 2: np.uint16, 4: np.uint32}[w.dtype.itemsize]
-        same = (g.view(bits) == w.view(bits)) | (f.view(bits) == w.view(bits))
-        if w.dtype.kind == "f":
-            same |= np.isnan(w) & (np.isnan(g) | np.isnan(f))
-        assert same.all(), (x[sub], g, f, w)
+def _against_xla(got, want, out_dtype) -> None:
+    """The port's result ``got`` against XLA's ``want``, bit for bit on
+    every lane, subnormal inputs included (C6, repaired: the port flushes
+    them in float arithmetic as XLA does)."""
+    _bitwise(_values(got, out_dtype), _values(want, out_dtype))
 
 
 def _values(a: np.ndarray, dt) -> np.ndarray:
@@ -367,10 +355,8 @@ class TestChainProgram:
         assume(len(rounding) <= 1 and np.dtype(np.float16) not in rounding)
         x = _inputs(dt, np.random.default_rng(seed), n=37)
 
-        def port(a):
-            return K.program_eval(a, plan.program, plan.out_dtype, in_dtype=dt)
-
-        _against_xla(port, x, dt, port(x), _jax_bf16(x, dt, ops), plan.out_dtype)
+        _against_xla(K.program_eval(x, plan.program, plan.out_dtype, in_dtype=dt),
+                     _jax_bf16(x, dt, ops), plan.out_dtype)
 
     @pytest.mark.parametrize("dt", [np.uint8, BFLOAT16])
     def test_normalize_to_bf16_bitwise(self, dt):
@@ -385,9 +371,8 @@ class TestChainProgram:
             plan = K.fused_arith_plan(dt, ops)
             assert plan.out_dtype == BFLOAT16
             want = _jax_bf16(x, dt, ops)
-            _against_xla(lambda a: _plain(a, dt, ops), x, dt, _plain(x, dt, ops), want, BFLOAT16)
-            _against_xla(lambda a: K.program_eval(a, plan.program, BFLOAT16, in_dtype=dt), x, dt,
-                         K.program_eval(x, plan.program, BFLOAT16, in_dtype=dt), want, BFLOAT16)
+            _against_xla(_plain(x, dt, ops), want, BFLOAT16)
+            _against_xla(K.program_eval(x, plan.program, BFLOAT16, in_dtype=dt), want, BFLOAT16)
 
     def test_int_to_bf16_rounds_through_float32(self):
         """XLA converts an int32 to bfloat16 through float32: two roundings.
@@ -435,13 +420,18 @@ class TestChainProgram:
     @pytest.mark.parametrize("ops,flushes", [
         ([("mul", 2)], True), ([("div", 2)], True), ([("add", 2e-38)], True),
         ([("clamp", (-1.0, 1.0))], True), ([("typecast", np.float32)], False),
-        ([("typecast", BFLOAT16)], False), ([("add", 0.0)], False), ([("mul", 1)], False)])
+        ([("typecast", BFLOAT16)], False), ([("add", 0.0)], False), ([("mul", 1)], False),
+        ([("sub", 1e-39)], True), ([("clamp", (-1.0, 0.0))], True), ([("mul", -1)], False),
+        ([("div", 1)], False), ([("clamp", (-np.inf, np.inf))], False),
+        ([("clamp", (-np.inf, 1.0))], True), ([("mul", 1e-39)], True)])
     def test_subnormals_xla_flushes_the_port_keeps(self, dt, ops, flushes):
-        """C6, a known divergence: on float32 and bfloat16 subnormals XLA
-        on the CPU flushes each operand of float arithmetic to a zero of
-        its sign (a typecast, and the ``x + 0.0`` and ``x * 1`` it folds
-        away, keep them); the plain version and the kernel's program keep
-        them, as IEEE float32 arithmetic does."""
+        """C6, repaired: XLA (on the CPU, as the TPU) flushes float32 and
+        bfloat16 subnormals in float arithmetic, each operand and each
+        result to a zero of its sign; a typecast, and the steps XLA folds
+        away (``x + 0``, ``x * 1``, ``x * -1`` as a sign flip,
+        ``clamp(-inf, inf)``), keep them.  The plain version and the
+        kernel's program now give XLA's bits; ``flushes`` says which of the
+        two a step does."""
         if dt == BFLOAT16:
             x = np.array(BF16_SUBNORMAL_BITS[:5] + [0x4000], np.uint16)  # ..., 2.0
         else:
@@ -452,14 +442,13 @@ class TestChainProgram:
                for op, val in ops]
         plan = K.fused_arith_plan(dt, ops)
         plain = _plain(x, dt, ops)
-        _bitwise(_values(K.program_eval(x, plan.program, plan.out_dtype, in_dtype=dt),
-                         plan.out_dtype), _values(plain, plan.out_dtype))
         xla = _jax_bf16(x, dt, ops)
-        want = _plain(_flushed(x, dt), dt, ops) if flushes else plain
-        _bitwise(_values(xla, plan.out_dtype), _values(want, plan.out_dtype))
-        if flushes:  # and the port differs there
-            assert not np.array_equal(_values(plain, plan.out_dtype)[sub],
-                                      _values(xla, plan.out_dtype)[sub])
+        _bitwise(_values(plain, plan.out_dtype), _values(xla, plan.out_dtype))
+        _bitwise(_values(K.program_eval(x, plan.program, plan.out_dtype, in_dtype=dt),
+                         plan.out_dtype), _values(xla, plan.out_dtype))
+        flushed = _values(_plain(_flushed(x, dt), dt, ops), plan.out_dtype)[sub]
+        kept = _values(plain, plan.out_dtype)[sub]
+        assert np.array_equal(kept.view(np.uint32), flushed.view(np.uint32)) == flushes
 
     def test_plan_cache_tells_equal_literals_apart(self):
         """0, 0.0 and -0.0 compare equal, so a cache keyed by the chain

@@ -5,6 +5,7 @@ tensor_sink``, on the same numpy input; the port runs with
 ``device="cpu"``.  Both the data and the negotiated output spec must agree.
 """
 
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -31,7 +32,7 @@ def _run_jax(x, **props):
 
 def _run_port(x, **props):
     p = tnns.Pipeline()
-    src = p.add(DataSrc(data=[torch.from_numpy(x)]))
+    src = p.add(DataSrc(data=[torch.from_numpy(x) if isinstance(x, np.ndarray) else x]))
     tr = p.add(TensorTransform(device="cpu", **props))
     sink = p.add(TensorSink(collect=True))
     p.link_chain(src, tr, sink)
@@ -180,6 +181,47 @@ class TestHostRule:
         tr.configure({"sink": spec})
         out = tr.process(None, tnns.Frame.of(torch.tensor([14, 190, 121], dtype=torch.uint8)))
         assert out.tensor(0).dtype == torch.float32 and out.tensor(0).device.type == "cpu"
+
+
+# ROADMAP C6's inputs: float32 1e-39 and -5.8e-39, bfloat16 bits 0x0001,
+# 0x007F and 0x8001 (9.2e-41, 1.166e-38, -9.2e-41), beside a normal value.
+C6_F32 = np.array([1e-39, -5.8e-39, 2.0], np.float32)
+C6_BF16_BITS = np.array([0x0001, 0x007F, 0x8001, 0x4000], np.uint16)
+
+
+class TestSubnormals:
+    """C6, repaired: the jit rules (``true``, ``pallas``) flush float32 and
+    bfloat16 subnormals in float arithmetic to zeros of their sign, as XLA
+    does; the host rule (``false``) keeps them, as the reference's numpy
+    does.  Compared bit for bit, so a zero's sign counts."""
+
+    @pytest.mark.parametrize("accel", [False, True, "pallas"])
+    @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("props", [dict(mode="arithmetic", option="mul:2"),
+                                       dict(mode="arithmetic", option="div:2"),
+                                       dict(mode="clamp", option="-1:1")])
+    def test_roadmap_c6_inputs_match_reference(self, props, dt, accel):
+        if dt == "bfloat16":
+            jx = C6_BF16_BITS.view(ml_dtypes.bfloat16)
+            tx = torch.from_numpy(C6_BF16_BITS.view(np.int16)).view(torch.bfloat16)
+        else:
+            jx, tx = C6_F32, torch.from_numpy(C6_F32)
+        want, _ = _run_jax(jx, acceleration=accel, **props)
+        p = tnns.Pipeline()
+        src = p.add(DataSrc(data=[tx]))
+        tr = p.add(TensorTransform(device="cpu", acceleration=accel, **props))
+        sink = p.add(TensorSink(collect=True))
+        p.link_chain(src, tr, sink)
+        p.run(timeout=60)
+        got = sink.frames[0].tensor(0)
+        bits = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+        got = got.view(bits).numpy()
+        want = want.view(got.dtype)
+        np.testing.assert_array_equal(got, want)
+        sub = slice(0, len(got) - 1)
+        mag = np.int32(0x7FFF) if bits == torch.int16 else np.int32(0x7FFFFFFF)
+        kept = (got[sub] & mag) != 0  # the host rule may still underflow one to 0
+        assert kept.any() if accel is False else not kept.any()
 
 
 @pytest.mark.parametrize("props", [dict(mode="typecast", option="bfloat16"),

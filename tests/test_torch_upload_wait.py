@@ -132,3 +132,22 @@ def test_cuda_aggregator_windows_uploaded_frames_after_their_copy(cuda_device):
     assert [d for d, _ in seen] == ["cuda", "cuda"]
     for i, (_, got) in enumerate(seen):
         np.testing.assert_array_equal(got, np.concatenate(blocks[3 * i:3 * i + 3]))
+
+
+@pytest.mark.cuda
+def test_cuda_upload_stages_one_host_copy_per_frame(cuda_device):
+    """The ``copies`` tracer on the card: the port's upload stages every
+    host frame into a pinned slot (the JAX package stages only a strided
+    one), one ``copy`` a frame of the frame's bytes, allocating only its
+    two ping-pong slots."""
+    del cuda_device
+    frames = [torch.full((64, 48, 3), i, dtype=torch.uint8) for i in range(6)]
+    p = tnns.parse_launch("datasrc name=s ! tensor_upload name=u ! queue ! "
+                          "tensor_sink name=out collect=true")
+    p["s"].data = frames
+    p.attach_tracer("copies")
+    p.run(timeout=120)
+    copies = p.stats()["tracers"]["copies"]
+    assert copies["elements"] == {"u": {"bytes": 6 * 64 * 48 * 3, "copies": 6, "allocs": 2}}
+    assert copies["frames"] == 6 and copies["bytes_per_frame"] == 64 * 48 * 3
+    assert all(f.tensor(0).is_cuda for f in p["out"].frames)
