@@ -31,7 +31,11 @@ In order, it
    XLA does (ROADMAP C6), in the kernel as in its plain version; and C6's
    own inputs, float32 1e-39 and -5.8e-39 and bfloat16 bits 0x0001,
    0x007F and 0x8001, under ``mul:2``, ``div:2`` and ``clamp:-1:1``, each
-   of which must give the zero of the input's sign.
+   of which must give the zero of the input's sign; and XLA's folds
+   (ROADMAP C7 to C9) at (224,224,3): the multiply-first normalize (one
+   ``ffma`` step), float32 chains with folded literals and two fused
+   multiply-adds, float16 chains (``hfma``, a fold in XLA's order), and
+   float32 values whose float64 ``x * b + c`` lands on a float32 midpoint.
    Then it times kernel, plain version and, where one exists, the one
    PyTorch call that computes the same function (a yardstick only; the
    port never calls it); each kernel at its smallest case as its launch
@@ -39,7 +43,7 @@ In order, it
    beside it, ``x.to(torch.float32)`` on the same frames (the same bytes and
    one conversion, a yardstick for the chain), and the two bfloat16 chains
    at the path's shapes beside their bytes bound, their launch floor and
-   the cast to their output dtype;
+   the cast to their output dtype, and the multiply-first normalize;
 4. graph phase: each kernel captured in a CUDA graph (``fused_arith`` at
    the three paths' frames and the two bfloat16 chains, ``int8_matmul`` on its split-K cluster branch and
    its tiled branch, ``nms_keep`` on its bit walk, its barrier walk and
@@ -132,7 +136,20 @@ In order, it
 13. custom-so phase: a C filter built with ``g++`` here, behind
    ``tensor_upload ! queue``, gets its 8 frames on the card, copies them to
    the host and returns exactly ``x * 10``;
-14. prints every path number beside the card's name and power limit, one
+14. quant phase (the full-int8 trunk): config 1q, slice 1's string with
+   ``model=<npz> custom=builder=mobilenet_v2:build_quantized,int8_convs=1,
+   static_scales=1`` (35 int8 convs on ``torch._int_mm``, scales calibrated
+   when the filter opens), 64 frames: one capture, the replays equal to
+   eager bit for bit, the labels equal to the builder's called directly,
+   the card's logits within QUANT_LOGIT_REL_TOL of the port's CPU forward
+   on the same params and scales; a 16-frame traced run with 5 host
+   operations, one ``fused_arith`` and 35 int8 GEMM records (cuBLASLt's,
+   by name) a launch; the same string with ``int8_head=1`` (one
+   ``int8_matmul`` record more); the int8 SSD through slice 2's string
+   (50 int8 GEMMs and one ``nms_keep`` a launch, detections equal to the
+   host decode of the eager forward); the device time a frame split into
+   int8 GEMM, quantize and rescale, depthwise conv and other;
+15. prints every path number beside the card's name and power limit, one
    JSON line describing every kernel, and last one JSON line
    ``{"ok": true, "device": {...}}``.
 
@@ -157,6 +174,11 @@ PROFILED = 16
 IMAGE = 224
 CLASSES = 1001
 NORMALIZE = "typecast:float32,add:-127.5,div:127.5"
+# The normalize written multiply-first: one fused multiply-add (ffma)
+MUL_FIRST_NORMALIZE = "typecast:float32,mul:0.00784313725,add:-1.0"
+# x * 38737 * 2**-30 + 2**30: the float64 sum of 1774001 * b lands on a
+# float32 midpoint, the exact sum above it; rounding twice misses
+FMA_MIDPOINTS = f"mul:{38737 * 2.0 ** -30!r},add:{2.0 ** 30!r}"
 # Slice 2: SSD-MobileNet-v2 at full width, 91 labels (COCO's label map).
 SSD_IMAGE = 300
 SSD_LABELS = 91
@@ -383,6 +405,18 @@ def kernel_phase(torch, np, K, bind, jax_pkg):
         ((100_003,), bf16, "typecast:int8", 0),
         ((100_003,), ints(np.int32, -2 ** 31, 2 ** 31), "typecast:bfloat16", 0),
         ((100_003,), u8, "typecast:bfloat16,add:-127.5,div:127.5", 0),
+        # XLA's folds (ROADMAP C7 to C9): literals folded, a multiply and an
+        # add as one fused multiply-add (ffma; hfma in float16)
+        ((IMAGE, IMAGE, 3), u8, MUL_FIRST_NORMALIZE, 0),
+        ((IMAGE, IMAGE, 3), floats(np.float32), "mul:3,add:0.2", 0),
+        ((IMAGE, IMAGE, 3), floats(np.float32), "add:0.1,mul:3,add:0.2,mul:0.5,sub:1", 0),
+        ((IMAGE, IMAGE, 3), floats(np.float32), "add:0.1,add:0.2,add:0.3", 0),
+        ((IMAGE, IMAGE, 3), floats(np.float32), "mul:3,div:3", 0),
+        ((IMAGE, IMAGE, 3), floats(np.float16), "mul:1.5,add:0.0001", 0),
+        ((IMAGE, IMAGE, 3), floats(np.float16), "mul:3,add:0.2,mul:7", 0),
+        ((IMAGE, IMAGE, 3), floats(np.float16), "sub:3551.710205078125,add:1,add:-79", 0),
+        ((5,), lambda shape: np.array([1774001.0, 233415.0, -1774001.0, 1.0, -3.0], np.float32),
+         FMA_MIDPOINTS, 0),
     ]
     err = 0.0
     for shape, make, option, offset in cases:
@@ -482,9 +516,22 @@ def kernel_phase(torch, np, K, bind, jax_pkg):
         row["launch_floor_ms"] = device_ms(lambda one=one, o=bops: K.fused_arith(one, o),
                                            activities=1)[0]
         rows.append(row)
+    # the normalize written multiply-first: one ffma step a value
+    fops = bind(MUL_FIRST_NORMALIZE, np.dtype(np.uint8))
+    check(K.fused_arith_plan(np.uint8, fops).program.op[-1] == K.OP["ffma"],
+          f"'{MUL_FIRST_NORMALIZE}' did not lower to one fused multiply-add")
+    n = xb.numel()
+    t_bytes, by = bound_ms(n * 1 + n * 4, n * 2, "float32")
+    row = timed(dict(shape=f"{tuple(xb.shape)} uint8 -> float32, '{MUL_FIRST_NORMALIZE}' (ffma)",
+                     bound_ms=t_bytes, bound_by=by),
+                kernel=lambda: K.fused_arith(xb, fops), plain=lambda: K.fused_arith_plain(xb, fops))
+    row["cast_ms"] = device_ms(lambda: xb.to(torch.float32), activities=1)[0]
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    rows.append(row)
     results["fused_arith"] = rows[0]
     keys = ("shape", "ms", "plain_ms", "cast_ms", "call_ms", "bound_ms", "bound_by",
             "share_of_bound")
+    rows[0]["ffma"] = {key: rows[6][key] for key in keys}
     rows[0]["at_detection_shape"] = {key: rows[1][key] for key in keys}
     rows[0]["at_4k"] = {key: rows[2][key] for key in keys}
     rows[0]["at_audio_shape"] = {key: rows[3][key] for key in keys}
@@ -798,14 +845,20 @@ def trace(fn):
                        and e.name in ("cudaGraphLaunch", "cuGraphLaunch")),
                       key=lambda e: e.time_range.start)
     by_launch = collections.defaultdict(collections.Counter)
+    names = collections.defaultdict(collections.Counter)
     total = collections.Counter(e.id for e in device)
+    us_by_name = collections.Counter()
     for e in device:
+        names[e.id][e.name] += 1
+        us_by_name[e.name] += e.device_time_total
         for w, syms in KERNEL_SYMBOLS.items():
             if any(s in e.name for s in syms):
                 by_launch[e.id][w] += 1
     return dict(busy_ms=sum(e.device_time_total for e in device) / 1e3,
                 activities=len(device), records=records, calls=dict(calls),
-                per_launch=[(dict(by_launch.get(e.id, {})), total[e.id]) for e in launches])
+                per_launch=[(dict(by_launch.get(e.id, {})), total[e.id]) for e in launches],
+                names_per_launch=[dict(names.get(e.id, {})) for e in launches],
+                us_by_name=dict(us_by_name))
 
 
 def run_pipeline(nns, desc, model, frames_expected, seg=None, during=None, got=None):
@@ -958,7 +1011,7 @@ def profile_path(run, res, kernels):
     kernels and none of the other kernels.  A trace that misses the mark is
     taken again, three times in all; the last one must then pass
     ``launch_check``, which allows a launch to lack a record only where the
-    tracer demonstrably lost that launch's records."""
+    tracer demonstrably lost that launch's records.  Returns the trace."""
     want = {k: PROFILED if k in kernels else 0 for k in KERNEL_SYMBOLS}
     for attempt in range(3):
         tr = run(PROFILED)
@@ -984,6 +1037,7 @@ def profile_path(run, res, kernels):
                device_activities_per_frame=tr["activities"] / PROFILED,
                host_ops_per_frame=host_ops(tr["calls"]) / PROFILED,
                host_calls_per_frame={k: v / PROFILED for k, v in tr["calls"].items()})
+    return tr
 
 
 def report_path(name, res, card):
@@ -1928,6 +1982,393 @@ def upload_wait_phase(torch, np):
     return res
 
 
+# The full-int8 trunk (quant phase): the flagship runs QUANT_FRAMES frames,
+# its int8-head variant and the int8 SSD QUANT_SIDE_FRAMES; QUANT_CPU_FRAMES
+# of the flagship's frames are held against the port's CPU forward.
+QUANT_SIDE_FRAMES = 16
+QUANT_CPU_FRAMES = 8
+# Card against CPU (same params and scales, bf16): cuDNN's depthwise convs
+# and oneDNN's round differently now and then, and a value that crosses a
+# rounding step of the next int8 quantize moves a whole int8 step: the
+# logits may differ by this share of the frame's largest logit (0.00046
+# measured on the H100), and the labels must agree where the top-1 leads
+# by twice that.
+QUANT_LOGIT_REL_TOL = 0.01
+# cuBLASLt's int8 GEMM kernels (torch._int_mm on the H100), by name: its
+# CUTLASS 2 kernels (cutlass_80_tensorop_i16832gemm_s8_...) and its Hopper
+# ones (sm90_xmma_gemm_i8i32_...).
+INT8_GEMM_RE = r"gemm_s8|gemm_i8|i8i32"
+# Device time classes of the int8 path, by the step that launched a kernel:
+# the layer functions each class's kernels come from (models/layers.py).
+SPLIT_STEPS = {"int_mm": "int8 GEMM", "_int8_quantize": "quantize and rescale",
+               "_im2col": "quantize and rescale", "_int8_rescale": "quantize and rescale"}
+SPLIT_CLASSES = ("int8 GEMM", "quantize and rescale", "depthwise conv", "other")
+
+
+def int8_gemms(names) -> int:
+    """The int8 GEMM kernel records in one launch's ``{name: count}``."""
+    import re
+
+    return sum(n for name, n in names.items() if re.search(INT8_GEMM_RE, name))
+
+
+def split_by_step(events):
+    """Device ms of each SPLIT_CLASSES class from a profiler's events: a
+    kernel belongs to the class of the nearest enclosing range named after
+    one (its launching runtime call shares its id), else to "other".  The
+    ranges' own spans on the device timeline (CUPTI's user annotations,
+    named as the range) are no kernels."""
+    from torch.autograd import DeviceType
+
+    cpu = {e.id: e for e in events if e.device_type == DeviceType.CPU}
+    split = {c: 0.0 for c in SPLIT_CLASSES}
+    for e in events:
+        if e.device_type != DeviceType.CUDA or e.name in split:
+            continue
+        cls, parent = "other", cpu.get(e.id)
+        while parent is not None:
+            if parent.name in split:
+                cls = parent.name
+                break
+            parent = parent.cpu_parent
+        split[cls] += e.device_time_total / 1e3
+    return split
+
+
+def device_split(torch, fn, frames):
+    """Device ms per frame of each class, from one traced eager run of
+    ``fn`` (``frames`` forwards): the replay's kernels are these, launched
+    from a graph, where no host range can mark them."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from nnstreamer_tpu_torch.models import layers
+
+    def marked(label, f):
+        def call(*a, **k):
+            with record_function(label):
+                return f(*a, **k)
+        return call
+
+    saved = {name: getattr(layers, name) for name in (*SPLIT_STEPS, "conv2d")}
+    for name, label in SPLIT_STEPS.items():
+        setattr(layers, name, marked(label, saved[name]))
+    conv = saved["conv2d"]
+
+    def conv2d(params, x, stride=1, groups=1, dtype=None, int8=False):
+        if groups > 1:
+            with record_function("depthwise conv"):
+                return conv(params, x, stride, groups, dtype, int8)
+        return conv(params, x, stride, groups, dtype, int8)
+
+    layers.conv2d = conv2d
+    try:
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        for name, f in saved.items():
+            setattr(layers, name, f)
+    return {c: ms / frames for c, ms in split_by_step(prof.events()).items()}
+
+
+def quant_checks(tr, gemms, kernels):
+    """The quant paths' per-launch check on a traced run: 5 host-issued
+    device operations a frame (the graph launch and 4 copies), as obs_checks
+    counts them (CUPTI may lose the record of a runtime call, never adds
+    one); each graph launch replays one captured graph that holds ``gemms``
+    int8 GEMM records, one record of each path kernel in ``kernels`` and
+    none of the other kernels (launch_check has held the path kernels; this
+    adds the GEMMs).  The fullest launch must hold all of them, and no
+    launch more.  A launch with fewer device records than the fullest lost
+    them in the tracer (CUPTI drops one now and then, most often the first
+    kernel of the trace's first launch): it may lack as many of these
+    records as it lost, no more.  Returns the device records of a launch."""
+    frames = len(tr["per_launch"])
+    check(len(tr["names_per_launch"]) == frames > 0, "the trace holds no graph launch")
+    ops = host_ops(tr["calls"])
+    check(4.5 * frames <= ops <= 5 * frames,
+          f"{ops} host-issued device operations over {frames} frames, expected 5 a frame")
+    full = max(total for _, total in tr["per_launch"])
+    for i, (names, (rec, total)) in enumerate(zip(tr["names_per_launch"], tr["per_launch"])):
+        n = int8_gemms(names)
+        check(n <= gemms, f"graph launch {i} holds {n} int8 GEMM records, expected {gemms}")
+        for k in KERNEL_SYMBOLS:
+            want = 1 if k in kernels else 0
+            check(rec.get(k, 0) <= want, f"graph launch {i}: {rec.get(k, 0)} records of {k}, "
+                                         f"expected {want}")
+        missing = [k for k in kernels if not rec.get(k)]
+        check(gemms - n + len(missing) <= full - total,
+              f"graph launch {i} holds {n} int8 GEMM records of {gemms} and no record of "
+              f"{missing}, yet {total} of the fullest launch's {full} device records: the "
+              f"trunk did not run int8, or a path kernel left the graph (kernels: "
+              f"{sorted(names)[:8]}...)")
+    return full
+
+
+def count_int8_gemms(torch, model, x):
+    """The int8 products one eager forward of ``model`` calls."""
+    from nnstreamer_tpu_torch.models import layers
+
+    calls = []
+    real = layers.int_mm
+    layers.int_mm = lambda a, b: calls.append(a.shape) or real(a, b)
+    try:
+        with torch.inference_mode():
+            model(x)
+    finally:
+        layers.int_mm = real
+    return len(calls)
+
+
+def quant_phase(torch, np, K, ops, root, card, float_busy_ms):
+    """The full-int8 trunk (ROADMAP item 7) at full width from launch
+    strings: config 1q, MobileNet-v2 1.0 with every ungrouped conv int8 and
+    static scales calibrated when the filter opens (``model=<file>.npz
+    custom=builder=mobilenet_v2:build_quantized,int8_convs=1,
+    static_scales=1``); the same with the int8 head; and the int8 SSD
+    (dynamic per-sample scales) through slice 2's detection string."""
+    import nnstreamer_tpu_torch as nns
+    from nnstreamer_tpu_torch.decoders import bounding_boxes as bb
+    from nnstreamer_tpu_torch.models import mobilenet_v2, ssd_mobilenet
+    from nnstreamer_tpu_torch.utils.checkpoint import save_state
+
+    work = os.path.join(root, "build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    tree = mobilenet_v2.init_tree(0, CLASSES, 1.0)
+    ckpt = os.path.join(work, "mobilenet_v2.npz")
+    save_state(tree, ckpt)
+    labels_path = os.path.join(work, "labels_1001.txt")
+    with open(labels_path, "w", encoding="utf-8") as f:
+        f.write("\n".join(f"class_{i}" for i in range(CLASSES)))
+
+    def desc(n, head=False):
+        return (f"videotestsrc name=src num-buffers={n} width={IMAGE} height={IMAGE} "
+                "pattern=random seed=7 ! tensor_converter ! "
+                f"tensor_transform mode=arithmetic option={NORMALIZE} acceleration=pallas ! "
+                "tensor_upload name=u ! queue max-size-buffers=16 ! "
+                f"tensor_filter framework=torch name=f model={ckpt} "
+                "custom=builder=mobilenet_v2:build_quantized,int8_convs=1,static_scales=1"
+                f"{',int8_head=1' if head else ''} ! "
+                f"tensor_decoder mode=image_labeling option1={labels_path} ! tensor_sink name=out")
+
+    # The builder called directly on the same tree: its wall time is the
+    # calibration's (four frames, on the CPU) with the quantize and build.
+    t0 = time.perf_counter()
+    direct = mobilenet_v2.build_quantized(params=tree, int8_convs=True, static_scales=True,
+                                          device="cuda")
+    calib_s = time.perf_counter() - t0
+    scales = [d["act_scale"] for d in _conv_dicts(direct.params) if "act_scale" in d]
+    check(len(scales) == 35 and all(type(v) is float and v > 0 for v in scales),
+          f"{len(scales)} calibrated scales, expected 35 Python floats")
+    x0 = K.fused_arith(torch.from_numpy(np.zeros((IMAGE, IMAGE, 3), np.uint8)).cuda(), ops)
+    gemms = count_int8_gemms(torch, direct, x0)
+    check(gemms == 35, f"the full-int8 MobileNet-v2 calls {gemms} int8 GEMMs, expected 35 "
+                       "(stem, 16 expand, 17 project, head)")
+    print(f"config 1q: build_quantized(int8_convs, static_scales) with calibration in "
+          f"{calib_s:.3f} s wall [{card}]; 35 scales, 35 int8 GEMMs a frame", flush=True)
+
+    state = {}
+
+    def during(p):
+        be = p["f"].backend
+        state.update(stats=dict(be.stats), launches={k.__name__: k.launches for k in K.KERNELS},
+                     transform_folded=not any(type(n).__name__ == "TensorTransform"
+                                              for n in p.nodes.values()),
+                     model=be.model.name,
+                     scales=[d["act_scale"] for d in _conv_dicts(be.model.params)
+                             if "act_scale" in d])
+        src = p["src"]
+        xs = [torch.from_numpy(src._make_frame(i)) for i in range(8)]
+        captured_against_eager(torch, be, xs, exact=True)
+        return p
+
+    def run_path(n, head):
+        run_pipeline(nns, desc(WARMUP_FRAMES, head), None, WARMUP_FRAMES)
+        K.reset_launches()
+        got = []
+        p, arrivals, _ = run_pipeline(nns, desc(n, head), None, n, during=during, got=got)
+        stats, launches = state["stats"], state["launches"]
+        print(f"config 1q{' + int8 head' if head else ''} over {n} frames: {state['model']}, "
+              f"backend {stats}, wrapper launches {launches}", flush=True)
+        check(state["transform_folded"], "the normalize did not fold into the filter")
+        check(stats["captures"] == 1 and stats["replays"] == n,
+              f"expected one capture and {n} replays: {stats}")
+        check(state["scales"] == scales, "the filter's model calibrated to other scales than "
+                                         "the builder called directly")
+        want = {"fused_arith": stats["warmup_calls"] + 1,
+                "int8_matmul": stats["warmup_calls"] + 1 if head else 0, "pallas_nms_keep": 0}
+        check(launches == want, f"wrapper launches {launches}, expected {want}")
+        print("captured against eager: logits bitwise equal on 8 frames", flush=True)
+        return p, arrivals, got, stats, launches
+
+    p, arrivals, got, stats, launches = run_path(FRAMES, False)
+    # The pipeline's labels against the direct build on the card, and the
+    # card's logits against the port's CPU forward of the same params and
+    # scales on the same normalized frames.
+    cpu = mobilenet_v2.build_quantized(params=tree, int8_convs=True, static_scales=True,
+                                       device="cpu")
+    check([d["act_scale"] for d in _conv_dicts(cpu.params) if "act_scale" in d] == scales,
+          "the CPU build calibrated to other scales")
+    src = p["src"]
+    want_idx, rel_err, compared = [], 0.0, 0
+    with torch.inference_mode():
+        for i in range(FRAMES):
+            x = K.fused_arith(torch.from_numpy(src._make_frame(i)).cuda(), ops)
+            logits = direct(x)
+            check(bool(torch.isfinite(logits).all()) and logits.shape == (CLASSES,),
+                  f"frame {i}: logits not finite / wrong shape")
+            want_idx.append(int(torch.argmax(logits)))
+            if i < QUANT_CPU_FRAMES:
+                ref = cpu(x.cpu()).double()
+                scale = float(ref.abs().max())
+                rel_err = max(rel_err, float((logits.double().cpu() - ref).abs().max()) / scale)
+                top2 = torch.topk(ref, 2).values
+                if float(top2[0] - top2[1]) > 2 * QUANT_LOGIT_REL_TOL * scale:
+                    compared += 1
+                    check(int(torch.argmax(ref)) == want_idx[-1],
+                          f"frame {i}: label {want_idx[-1]} on the card, "
+                          f"{int(torch.argmax(ref))} on the CPU")
+    got_idx = [f.meta["label_index"] for f in got]
+    check(got_idx == want_idx, f"labels differ from the direct build: {got_idx} vs {want_idx}")
+    check(rel_err <= QUANT_LOGIT_REL_TOL,
+          f"card logits differ from the CPU forward by {rel_err} of the largest logit")
+    res = dict(frames=FRAMES, replays=stats["replays"], **rates(arrivals, np),
+               distinct_labels=len(set(got_idx)), calibration_build_s=calib_s,
+               cpu_logit_rel_err=rel_err, cpu_labels_compared=compared,
+               capture_s=stats["capture_s"], warmup_s=stats["warmup_s"])
+    print(f"config 1q: labels equal to the direct build ({len(set(got_idx))} distinct); card "
+          f"logits within {rel_err:.4g} of the largest of the CPU forward's (tolerance "
+          f"{QUANT_LOGIT_REL_TOL}), labels equal on the {compared} of {QUANT_CPU_FRAMES} frames "
+          f"whose top-1 leads by more than twice that", flush=True)
+    tr = profile_path(lambda n: traced_run(nns, desc(n), None, n), res, ("fused_arith",))
+    res["device_records_per_launch"] = quant_checks(tr, 35, ("fused_arith",))
+    xs = [K.fused_arith(torch.from_numpy(src._make_frame(i)).cuda(), ops) for i in range(4)]
+
+    def forwards(model):
+        def run():
+            with torch.inference_mode():
+                for x in xs:
+                    model(x)
+        return run
+
+    res["device_ms_per_frame_by_class"] = device_split(torch, forwards(direct), len(xs))
+    res["slice1_float_busy_ms_per_frame"] = float_busy_ms
+    top = sorted(tr["us_by_name"].items(), key=lambda kv: -kv[1])[:12]
+    report_path("config 1q", res, card)
+    print(f"  config 1q device records a launch: {res['device_records_per_launch']}, of them "
+          f"35 int8 GEMMs and 1 fused_arith [{card}]", flush=True)
+    for cls, ms in res["device_ms_per_frame_by_class"].items():
+        print(f"  config 1q device ms/frame, {cls} (eager, {len(xs)} frames): {ms} [{card}]",
+              flush=True)
+    print(f"  config 1q busy {res['device_busy_ms_per_frame']} ms/frame against slice 1's float "
+          f"trunk {float_busy_ms} ms/frame, same run [{card}]", flush=True)
+    for name, us in top:
+        print(f"  config 1q kernel {us / PROFILED:.2f} us/frame: {name[:160]}", flush=True)
+    quant = (launches, res)
+
+    # The same string with the int8 head: int8_matmul once a frame.
+    _, h_arrivals, _, h_stats, h_launches = run_path(QUANT_SIDE_FRAMES, True)
+    h_res = dict(frames=QUANT_SIDE_FRAMES, replays=h_stats["replays"],
+                 **rates(h_arrivals, np))
+    tr = profile_path(lambda n: traced_run(nns, desc(n, True), None, n), h_res,
+                      ("fused_arith", "int8_matmul"))
+    h_res["device_records_per_launch"] = quant_checks(tr, 35, ("fused_arith", "int8_matmul"))
+    head = mobilenet_v2.build_quantized(params=tree, int8_convs=True, static_scales=True,
+                                        int8_head=True, device="cuda")
+    h_res["device_ms_per_frame_by_class"] = device_split(torch, forwards(head), len(xs))
+    report_path("config 1q + int8 head", h_res, card)
+
+    # The int8 SSD through slice 2's detection string, segments on.
+    labels = os.path.join(work, "labels.txt")
+    with open(labels, "w", encoding="utf-8") as f:
+        f.write("\n".join(["background"] + [f"object_{i}" for i in range(1, SSD_LABELS)]))
+    priors_path = ssd_mobilenet.write_priors_file(os.path.join(work, "priors.txt"), SSD_IMAGE)
+    model = ssd_mobilenet.build_quantized(num_labels=SSD_LABELS, image_size=SSD_IMAGE, seed=0,
+                                          device="cuda")
+    xs0 = K.fused_arith(torch.from_numpy(np.zeros((SSD_IMAGE, SSD_IMAGE, 3), np.uint8)).cuda(),
+                        ops)
+    ssd_gemms = count_int8_gemms(torch, model, xs0)
+    check(ssd_gemms == 50, f"the int8 SSD calls {ssd_gemms} int8 GEMMs, expected 50 (stem, 33 "
+                           "expand and project, 4 extras, 12 heads)")
+    wh = f"{SSD_IMAGE}:{SSD_IMAGE}"
+
+    def sdesc(n):
+        return (f"videotestsrc name=src num-buffers={n} width={SSD_IMAGE} height={SSD_IMAGE} "
+                "pattern=random seed=11 ! tensor_converter name=conv ! "
+                f"tensor_transform mode=arithmetic option={NORMALIZE} acceleration=pallas ! "
+                "tensor_upload name=u ! queue max-size-buffers=16 ! "
+                "tensor_filter framework=torch name=f ! "
+                f"tensor_decoder name=dec mode=bounding_boxes option1=tflite-ssd "
+                f"option2={labels} option3={priors_path} option4={wh} option5={wh} ! "
+                "tensor_sink name=out collect=true")
+
+    sstate = {}
+
+    def sduring(p):
+        be = p["f"].backend
+        sstate.update(stats=dict(be.stats), launches={k.__name__: k.launches for k in K.KERNELS},
+                      lowered=p["dec"].plugin._lowered is not None)
+        xs = [torch.from_numpy(p["src"]._make_frame(i)) for i in range(8)]
+        captured_against_eager(torch, be, xs, exact=True)
+        return p
+
+    run_pipeline(nns, sdesc(WARMUP_FRAMES), model, WARMUP_FRAMES, seg=True)
+    K.reset_launches()
+    sp, s_arrivals, _ = run_pipeline(nns, sdesc(QUANT_SIDE_FRAMES), model, QUANT_SIDE_FRAMES,
+                                     seg=True, during=sduring)
+    s_stats, s_launches = sstate["stats"], sstate["launches"]
+    print(f"int8 SSD over {QUANT_SIDE_FRAMES} frames: backend {s_stats}, wrapper launches "
+          f"{s_launches}", flush=True)
+    check(sstate["lowered"] and s_stats["captures"] == 1
+          and s_stats["replays"] == QUANT_SIDE_FRAMES,
+          f"int8 SSD: lowered {sstate['lowered']}, backend {s_stats}")
+    want = {"fused_arith": s_stats["warmup_calls"] + 1, "int8_matmul": 0,
+            "pallas_nms_keep": s_stats["warmup_calls"] + 1}
+    check(s_launches == want, f"int8 SSD wrapper launches {s_launches}, expected {want}")
+    priors = ssd_mobilenet.generate_priors(SSD_IMAGE)
+    n_objects = 0
+    with torch.inference_mode():
+        for i, frame in enumerate(sp["out"].frames):
+            x = K.fused_arith(torch.from_numpy(sp["src"]._make_frame(i)).cuda(), ops)
+            boxes, scores = model(x)
+            check(bool(torch.isfinite(boxes).all()) and bool(torch.isfinite(scores).all()),
+                  f"int8 SSD frame {i}: raw outputs not finite")
+            host = bb.nms(bb.decode_tflite_ssd(boxes.cpu().numpy(), scores.cpu().numpy(),
+                                               priors, SSD_IMAGE, SSD_IMAGE))
+            check([(o.class_id, o.x, o.y, o.width, o.height) for o in host] == _objects(frame),
+                  f"int8 SSD frame {i}: device detections differ from the host decode of the "
+                  "eager forward")
+            n_objects += len(host)
+    check(n_objects > 0, "int8 SSD: no detections")
+    s_res = dict(frames=QUANT_SIDE_FRAMES, replays=s_stats["replays"], objects=n_objects,
+                 **rates(s_arrivals, np))
+    print(f"int8 SSD: {n_objects} detections equal to the host decode of the eager forward; "
+          f"replays bitwise equal to eager on 8 frames", flush=True)
+    tr = profile_path(lambda n: traced_run(nns, sdesc(n), model, n, seg=True), s_res,
+                      ("fused_arith", "pallas_nms_keep"))
+    s_res["device_records_per_launch"] = quant_checks(tr, 50, ("fused_arith", "pallas_nms_keep"))
+    xs = [K.fused_arith(torch.from_numpy(sp["src"]._make_frame(i)).cuda(), ops)
+          for i in range(4)]
+    s_res["device_ms_per_frame_by_class"] = device_split(torch, forwards(model), len(xs))
+    report_path("int8 SSD", s_res, card)
+    for cls, ms in s_res["device_ms_per_frame_by_class"].items():
+        print(f"  int8 SSD device ms/frame, {cls} (eager, {len(xs)} frames): {ms} [{card}]",
+              flush=True)
+    return quant, (h_launches, h_res), (s_launches, s_res)
+
+
+def _conv_dicts(tree):
+    """Every dict of a params tree that holds a weight ``"w"``, in order."""
+    if isinstance(tree, dict):
+        return ([tree] if "w" in tree else []) + [d for v in tree.values()
+                                                 for d in _conv_dicts(v)]
+    if isinstance(tree, list):
+        return [d for v in tree for d in _conv_dicts(v)]
+    return []
+
+
 def main() -> int:
     import torch
 
@@ -2008,6 +2449,8 @@ def main() -> int:
     torchscript = torchscript_phase(torch, np, K, ops, root)
     drift = drift_phase(torch, np, K, ops, bind)
     custom_so = custom_so_phase(torch, np, root)
+    by_path["quant"], by_path["quant_int8_head"], by_path["quant_ssd"] = quant_phase(
+        torch, np, K, ops, root, card, by_path["image_labeling"][1]["device_busy_ms_per_frame"])
     wrapper = {"fused_arith": "fused_arith", "int8_matmul": "int8_matmul",
                "nms_keep": "pallas_nms_keep"}
     for name, r in kernels.items():
@@ -2020,7 +2463,9 @@ def main() -> int:
                       "slice2": by_path["object_detection"][1],
                       "audio": by_path["audio"][1], "upload_wait": upload_wait,
                       "model_file": by_path["model_file"][1], "torchscript": torchscript,
-                      "drift": drift, "custom_so": custom_so, "obs": observed}), flush=True)
+                      "drift": drift, "custom_so": custom_so, "obs": observed,
+                      "quant": by_path["quant"][1], "quant_int8_head": by_path["quant_int8_head"][1],
+                      "quant_ssd": by_path["quant_ssd"][1]}), flush=True)
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

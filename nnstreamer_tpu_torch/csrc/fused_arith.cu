@@ -69,8 +69,15 @@
 //   reciprocal (XLA widens the division to float32 first);
 // - division by a literal arrives as a multiplication by its reciprocal,
 //   which is what XLA compiles x / const into on every backend;
-// - round-to-nearest intrinsics throughout (__fadd_rn, __fmul_rn, ...), no
-//   fused multiply-add (-fmad=false);
+// - round-to-nearest intrinsics throughout (__fadd_rn, __fmul_rn, ...), and
+//   no contraction by the compiler (-fmad=false): the only fused
+//   multiply-adds are the ones the host asks for.  XLA on the CPU folds the
+//   literals of consecutive adds and of consecutive multiplies and contracts
+//   a multiply followed by an add into one rounding (ROADMAP C7 to C9); the
+//   host replays that (ops/kernels.py::ChainPlan), so a chain arrives with
+//   its literals folded and a multiply-add as one step, O_FFMA
+//   (__fmaf_rn, the operand and result flushed) or, for float16, O_HFMA
+//   (__hfma: one rounding to half, as the CPU's native half arithmetic);
 // - int -> float rounds from the exact value (__int2float_rn, and
 //   __uint2float_rn for uint32);
 // - float -> int truncates and saturates, NaN to 0 (cvt.rzi, which clamps
@@ -123,7 +130,7 @@ enum Conv {
 };
 enum Op {
   O_NONE = 0, O_IADD = 1, O_ISUB = 2, O_IMUL = 3, O_ICLAMP = 4, O_UCLAMP = 5,
-  O_FADD = 6, O_FSUB = 7, O_FMUL = 8, O_FCLAMP = 9, O_FNEG = 10
+  O_FADD = 6, O_FSUB = 7, O_FMUL = 8, O_FCLAMP = 9, O_FNEG = 10, O_FFMA = 11, O_HFMA = 12
 };
 enum Variant { FLOAT_CHAIN = 0, GENERAL = 1 };
 // How the general variant widens an element's bits to 32, and narrows them.
@@ -175,6 +182,17 @@ __device__ __forceinline__ float ftz(float v) {
 }
 
 __device__ __forceinline__ uint32_t neg_bits(uint32_t x) { return x ^ 0x80000000u; }
+
+// x * a + b rounded once in float32, the operand and the result flushed.
+__device__ __forceinline__ float ffma(float x, float a, float b) {
+  return ftz(__fmaf_rn(ftz(x), a, b));
+}
+
+// x * a + b rounded once in float16, all three float16 values held as
+// float32 (exact both ways), as the float32 bits of the result.
+__device__ __forceinline__ uint32_t hfma_bits(uint32_t x, __half a, __half b) {
+  return __float_as_uint(__half2float(__hfma(__float2half_rn(__uint_as_float(x)), a, b)));
+}
 
 // max(lo, v) then min(hi, v), as XLA's clamp.
 template <typename T> __device__ __forceinline__ T xla_clamp(T v, T lo, T hi) {
@@ -234,6 +252,7 @@ __device__ __forceinline__ void convert(uint32_t (&r)[kN], int c) {
 template <int kN>
 __device__ __forceinline__ void apply(uint32_t (&r)[kN], int op, uint32_t a, uint32_t b) {
   const float fa = __uint_as_float(a), fb = __uint_as_float(b);
+  const __half ha = __float2half_rn(fa), hb = __float2half_rn(fb);
   switch (op) {
     case O_IADD: EACH(x + a)
     case O_ISUB: EACH(x - a)
@@ -245,6 +264,8 @@ __device__ __forceinline__ void apply(uint32_t (&r)[kN], int op, uint32_t a, uin
     case O_FMUL: EACH(__float_as_uint(ftz(__fmul_rn(ftz(__uint_as_float(x)), fa))))
     case O_FCLAMP: EACH(__float_as_uint(fclamp(ftz(__uint_as_float(x)), fa, fb)))
     case O_FNEG: EACH(neg_bits(x))
+    case O_FFMA: EACH(__float_as_uint(ffma(__uint_as_float(x), fa, fb)))
+    case O_HFMA: EACH(hfma_bits(x, ha, hb))
     default: break;
   }
 }
@@ -288,6 +309,10 @@ __device__ __forceinline__ void float_steps(float (&v)[kN], const Program& p) {
         case O_FNEG:
 #pragma unroll
           for (int e = 0; e < kN; ++e) v[e] = __uint_as_float(neg_bits(__float_as_uint(v[e])));
+          break;
+        case O_FFMA:
+#pragma unroll
+          for (int e = 0; e < kN; ++e) v[e] = ffma(v[e], a, b);
           break;
         default:  // a typecast to float32: nothing to do
           break;

@@ -2,9 +2,12 @@
 
 The port of the JAX package's ``models/mobilenet_v2.py``: the same
 inverted-residual network and params tree, bf16 compute over float32
-params, NHWC in and logits out.  :func:`build_quantized` with
-``int8_head=True`` runs the classifier on the hand-written ``int8_matmul``
-kernel, with every conv kernel stored as int8 and dequantized on the fly.
+params, NHWC in and logits out.  :func:`build_quantized` stores every conv
+and dense kernel as int8: ``int8_head=True`` runs the classifier on the
+hand-written ``int8_matmul`` kernel, ``int8_convs=True`` every ungrouped
+conv int8 x int8 → int32 (:func:`~.layers.conv2d_int8`), with per-sample
+activation scales or, with ``static_scales=True``, scales calibrated once
+at build time.
 
 Weights are random.  :func:`init_params` seeds numpy from an int (the JAX
 package seeds it from a JAX key, so the two draw different weights);
@@ -21,9 +24,10 @@ import torch
 from ..backends.torch_backend import TorchModel
 from ..device import resolve_device
 from ..ops.kernels import int8_matmul
-from ..ops.quant import QuantizedWeight, quantize_activations, quantize_params
+from ..ops.quant import (QuantizedWeight, calibrate_static_scales, quantize_activations,
+                         quantize_params)
 from ..spec import TensorSpec, TensorsSpec
-from .layers import Params, conv_bn_relu6, dense, ensure_batched
+from .layers import Params, conv_bn_relu6, dense, ensure_batched, prepare_int8
 
 # (expansion t, out channels c, repeats n, stride s): the paper's Table 2.
 _CFG: Sequence[Tuple[int, int, int, int]] = (
@@ -116,6 +120,8 @@ def params_from_jax(tree: Any, device="cuda") -> Params:
     def walk(node, key=None):
         if key == "w":
             return _weight_from_jax(node, dev)
+        if key == "act_scale":  # a calibrated scale stays a Python float
+            return float(np.asarray(node))
         if isinstance(node, dict):
             return {k: walk(v, k) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
@@ -134,33 +140,36 @@ def init_params(seed: int = 0, num_classes: int = 1001, width_mult: float = 1.0,
     return params_from_jax(init_tree(seed, num_classes, width_mult), device)
 
 
-def _block_apply(block: Params, x: torch.Tensor, dtype) -> torch.Tensor:
+def _block_apply(block: Params, x: torch.Tensor, dtype, int8: bool = False) -> torch.Tensor:
     y = x
     if "expand" in block:
-        y = conv_bn_relu6(block["expand"], y, dtype=dtype)
+        y = conv_bn_relu6(block["expand"], y, dtype=dtype, int8=int8)
     y = conv_bn_relu6(block["depthwise"], y, stride=block["stride"], groups=y.shape[1],
                       dtype=dtype)
-    y = conv_bn_relu6(block["project"], y, dtype=dtype, act=False)
+    y = conv_bn_relu6(block["project"], y, dtype=dtype, act=False, int8=int8)
     if block["residual"]:
         y = y + x
     return y
 
 
-def features(params: Params, x: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
-    """Trunk and global average pool: (N, H, W, 3) → (N, C) in ``dtype``."""
+def features(params: Params, x: torch.Tensor, dtype=torch.bfloat16,
+             int8: bool = False) -> torch.Tensor:
+    """Trunk and global average pool: (N, H, W, 3) → (N, C) in ``dtype``.
+    ``int8=True``: every ungrouped conv with a quantized weight runs int8
+    (the depthwise convs stay in ``dtype``)."""
     y = x.to(dtype).permute(0, 3, 1, 2)  # NHWC → NCHW view (channels_last)
-    y = conv_bn_relu6(params["stem"], y, stride=2, dtype=dtype)
+    y = conv_bn_relu6(params["stem"], y, stride=2, dtype=dtype, int8=int8)
     for block in params["blocks"]:
-        y = _block_apply(block, y, dtype)
-    y = conv_bn_relu6(params["head"], y, dtype=dtype)
+        y = _block_apply(block, y, dtype, int8=int8)
+    y = conv_bn_relu6(params["head"], y, dtype=dtype, int8=int8)
     return y.mean(dim=(2, 3))
 
 
-def apply(params: Params, x: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+def apply(params: Params, x: torch.Tensor, dtype=torch.bfloat16, int8: bool = False) -> torch.Tensor:
     """(N,H,W,3) or (H,W,3) float input → (N,classes) or (classes,) float32
-    logits."""
+    logits; ``int8`` as :func:`features`."""
     x, squeezed = ensure_batched(x, 4)
-    logits = dense(params["classifier"], features(params, x, dtype), dtype=dtype)
+    logits = dense(params["classifier"], features(params, x, dtype, int8), dtype=dtype)
     logits = logits.to(torch.float32)
     return logits[0] if squeezed else logits
 
@@ -175,11 +184,12 @@ def int8_head(head: Params, feats: torch.Tensor) -> torch.Tensor:
     return int8_matmul(q, w.q, scale, w.scale, head["b"])
 
 
-def apply_quantized_int8_head(params: Params, x: torch.Tensor,
-                              dtype=torch.bfloat16) -> torch.Tensor:
-    """Forward pass with the classifier on the int8 kernel."""
+def apply_quantized_int8_head(params: Params, x: torch.Tensor, dtype=torch.bfloat16,
+                              int8: bool = False) -> torch.Tensor:
+    """Forward pass with the classifier on the int8 kernel; ``int8=True``
+    runs the conv trunk full-int8 as well."""
     x, squeezed = ensure_batched(x, 4)
-    logits = int8_head(params["classifier"], features(params, x, dtype))
+    logits = int8_head(params["classifier"], features(params, x, dtype, int8))
     return logits[0] if squeezed else logits
 
 
@@ -212,20 +222,50 @@ def build_quantized(num_classes: int = 1001, width_mult: float = 1.0,
                     dtype=torch.bfloat16, seed: int = 0,
                     params: Optional[Params] = None, int8_head: bool = False,
                     int8_convs: bool = False, static_scales: bool = False,
+                    calib_samples: int = 4, calib_data=None,
                     device="cuda") -> TorchModel:
     """Int8-weight model: every conv and dense kernel is stored as
-    per-channel int8 and dequantized in ``dtype`` on the fly.
-    ``int8_head=True`` runs the classifier on the ``int8_matmul`` kernel.
-    The full-int8 trunk (``int8_convs``, ``static_scales``) is not ported
-    yet."""
-    if int8_convs or static_scales:
-        raise NotImplementedError("int8_convs / static_scales are not ported yet")
+    per-channel int8 and dequantized in ``dtype`` on the fly, as the JAX
+    package's ``build_quantized``.
+
+    - ``int8_convs=True``: every ungrouped conv runs int8 x int8 → int32
+      (``torch._int_mm``), activations quantized per sample.
+    - ``static_scales=True`` (with ``int8_convs`` or ``int8_head``): the
+      activation scales are calibrated once here, on the CPU, over
+      ``calib_data`` (normalized (H, W, 3) frames) or ``calib_samples``
+      uniform [-1, 1] frames from ``seed + 1``, and the quantize becomes
+      elementwise.  ``params`` may carry calibrated ``act_scale`` leaves
+      already (the JAX package's own, say); they are used as they are.
+    - ``int8_head=True``: the classifier runs on the ``int8_matmul``
+      kernel; it composes with ``int8_convs``.
+    Each int8 conv's weight matrix and rescale are prepared here, once."""
     tree = params if params is not None else init_tree(seed, num_classes, width_mult)
-    fwd = apply_quantized_int8_head if int8_head else apply
+    if int8_head:
+        def fwd(p, x, dtype=dtype, _i8=int8_convs):
+            return apply_quantized_int8_head(p, x, dtype=dtype, int8=_i8)
+    elif int8_convs:
+        def fwd(p, x, dtype=dtype):
+            return apply(p, x, dtype=dtype, int8=True)
+    else:
+        fwd = apply
+    qparams = params_from_jax(quantize_params(tree), device)
+    if static_scales and (int8_convs or int8_head):
+        if calib_data is not None:
+            samples = [np.asarray(x, np.float32) for x in calib_data]
+            if not samples:
+                raise ValueError("calib_data is empty")
+        else:
+            rng = np.random.default_rng(seed + 1)
+            samples = [rng.uniform(-1.0, 1.0, (image_size, image_size, 3)).astype(np.float32)
+                       for _ in range(max(1, calib_samples))]
+        calibrate_static_scales(lambda p, x: apply(p, x, dtype=dtype, int8=True), qparams,
+                                samples)
+    if int8_convs:
+        prepare_int8(qparams)
     in_spec, out_spec = _spec(image_size, batch, num_classes)
     return TorchModel(
         apply=lambda p, x: fwd(p, x, dtype=dtype),
-        params=params_from_jax(quantize_params(tree), device),
+        params=qparams,
         input_spec=in_spec, output_spec=out_spec,
         name=f"mobilenet_v2_q8_{width_mult}_{image_size}", device=device,
     )

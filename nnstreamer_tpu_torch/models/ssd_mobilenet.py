@@ -24,9 +24,10 @@ import torch
 
 from ..backends.torch_backend import TorchModel
 from ..ops.kernels import _reciprocal
+from ..ops.quant import quantize_model
 from ..spec import TensorSpec, TensorsSpec
 from . import mobilenet_v2
-from .layers import Params, conv2d, conv_bn_relu6, ensure_batched
+from .layers import Params, conv2d, conv_bn_relu6, ensure_batched, prepare_int8
 
 # anchors per cell at the six detection scales (tflite-SSD convention)
 ANCHORS_PER_SCALE: Tuple[int, ...] = (3, 6, 6, 6, 6, 6)
@@ -101,27 +102,29 @@ def _to_anchor_rows(y: torch.Tensor, width: int) -> torch.Tensor:
     return y.permute(0, 2, 3, 1).reshape(y.shape[0], -1, width)
 
 
-def apply(params: Params, x: torch.Tensor, dtype=torch.bfloat16):
+def apply(params: Params, x: torch.Tensor, dtype=torch.bfloat16, int8: bool = False):
     """(N,H,W,3) or (H,W,3) float input → float32 (boxes (…,P,4), scores
-    (…,P,num_labels))."""
+    (…,P,num_labels)).  ``int8=True``: every ungrouped conv with a
+    quantized weight (stem, expand and project, extras, both heads) runs
+    int8 x int8 → int32; the depthwise convs stay in ``dtype``."""
     x, squeezed = ensure_batched(x, 4)
     y = x.to(dtype).permute(0, 3, 1, 2)  # NHWC → NCHW view (channels_last)
-    y = conv_bn_relu6(params["stem"], y, stride=2, dtype=dtype)
+    y = conv_bn_relu6(params["stem"], y, stride=2, dtype=dtype, int8=int8)
     features: List[torch.Tensor] = []
     for i, block in enumerate(params["blocks"]):
-        y = mobilenet_v2._block_apply(block, y, dtype)
+        y = mobilenet_v2._block_apply(block, y, dtype, int8=int8)
         if i == 12:  # end of the 96-channel stage, stride 16
             features.append(y)
     features.append(y)  # stride 32, 320 channels
     for extra in params["extras"]:
-        y = conv_bn_relu6(extra, y, stride=2, dtype=dtype)
+        y = conv_bn_relu6(extra, y, stride=2, dtype=dtype, int8=int8)
         features.append(y)
 
     num_labels = params["num_labels"]
     boxes, scores = [], []
     for feat, bh, ch in zip(features, params["box_heads"], params["cls_heads"]):
-        boxes.append(_to_anchor_rows(conv2d(bh, feat, dtype=dtype), 4))
-        scores.append(_to_anchor_rows(conv2d(ch, feat, dtype=dtype), num_labels))
+        boxes.append(_to_anchor_rows(conv2d(bh, feat, dtype=dtype, int8=int8), 4))
+        scores.append(_to_anchor_rows(conv2d(ch, feat, dtype=dtype, int8=int8), num_labels))
     boxes = torch.cat(boxes, dim=1).to(torch.float32)
     scores = torch.cat(scores, dim=1).to(torch.float32)
     if squeezed:
@@ -197,12 +200,14 @@ def write_priors_file(path: str, image_size: int = 300) -> str:
 
 def build(num_labels: int = 91, image_size: int = 300, batch: Optional[int] = None,
           dtype=torch.bfloat16, seed: int = 0, params: Optional[Params] = None,
-          fused_decode: Optional[int] = None, device="cuda") -> TorchModel:
+          fused_decode: Optional[int] = None, device="cuda", int8: bool = False) -> TorchModel:
     """A stream-ready detector.  ``fused_decode=K`` appends
     :func:`decode_topk`: the model then emits one ``(K, 6)`` detection tensor
     (the ``fused-ssd`` decoder's input) instead of raw boxes and scores.
     ``params``, when given, is a tree in the JAX package's layout (numpy
-    leaves, see :func:`params_from_jax`)."""
+    leaves, see :func:`params_from_jax`).  ``int8=True`` routes the convs
+    with quantized weights through the int8 path (pass quantized params,
+    or use :func:`build_quantized`)."""
     tree = params if params is not None else _init_tree(seed, num_labels, 1.0)
     p = params_from_jax(tree, device)
     num_labels = p["num_labels"]
@@ -212,13 +217,13 @@ def build(num_labels: int = 91, image_size: int = 300, batch: Optional[int] = No
         priors = torch.from_numpy(generate_priors(image_size)).to(device)
 
         def fwd(params_, x):
-            boxes, scores = apply(params_, x, dtype=dtype)
+            boxes, scores = apply(params_, x, dtype=dtype, int8=int8)
             return decode_topk(boxes, scores, priors, k=fused_decode)
 
         outs = (TensorSpec(dtype=np.float32, shape=lead + (min(fused_decode, n), 6)),)
     else:
         def fwd(params_, x):
-            return apply(params_, x, dtype=dtype)
+            return apply(params_, x, dtype=dtype, int8=int8)
 
         outs = (TensorSpec(dtype=np.float32, shape=lead + (n, 4)),
                 TensorSpec(dtype=np.float32, shape=lead + (n, num_labels)))
@@ -229,3 +234,17 @@ def build(num_labels: int = 91, image_size: int = 300, batch: Optional[int] = No
         output_spec=TensorsSpec(tensors=outs),
         name="ssd_mobilenet_v2", device=device,
     )
+
+
+def build_quantized(num_labels: int = 91, image_size: int = 300, batch: Optional[int] = None,
+                    dtype=torch.bfloat16, seed: int = 0, params: Optional[Params] = None,
+                    fused_decode: Optional[int] = None, device="cuda") -> TorchModel:
+    """Full-int8 detector, as the JAX package's: every ungrouped conv
+    (stem, expand and project, extras, box and class heads) runs int8 x
+    int8 → int32 with per-sample activation scales, its weight stored per
+    output channel (:func:`~..ops.quant.quantize_model`) and prepared for
+    the int8 product once, here."""
+    m = quantize_model(build(num_labels, image_size, batch, dtype, seed, params,
+                             fused_decode=fused_decode, device=device, int8=True))
+    prepare_int8(m.params)
+    return m

@@ -130,7 +130,7 @@ CONV = {"none": 0, "wrap_u8": 1, "wrap_i8": 2, "wrap_u16": 3, "wrap_i16": 4,
         "f2u8": 10, "f2i8": 11, "f2u16": 12, "f2i16": 13, "f2u32": 14, "f2i32": 15,
         "i2b": 16, "u2b": 17, "f2b": 18}
 OP = {"none": 0, "iadd": 1, "isub": 2, "imul": 3, "iclamp": 4, "uclamp": 5,
-      "fadd": 6, "fsub": 7, "fmul": 8, "fclamp": 9, "fneg": 10}
+      "fadd": 6, "fsub": 7, "fmul": 8, "fclamp": 9, "fneg": 10, "ffma": 11, "hfma": 12}
 # FLOAT_CHAIN: every step computes in float32 (the normalize chain): the
 # kernel converts the input to float once and runs float ops on float
 # literals.  GENERAL: any chain, int and float16 steps included.
@@ -262,6 +262,10 @@ def lower_chain(start: np.dtype, steps) -> Program:
             code = "fmul"
             a32 = int(_flush32(a).view(np.uint32))
             after = "f2" + _ROUND[dt]
+        elif op == "fma":  # x * a + b, rounded once in the step dtype (ChainPlan)
+            code = "hfma" if dt == _F16 else "ffma"
+            a32, b32 = _bits(a, dt), _bits(b, dt)
+            after = "f2h" if dt == _F16 else "none"
         else:
             code = "f" + op
             a32 = _bits(a, dt)
@@ -298,10 +302,114 @@ def _reciprocal(val, dt: np.dtype) -> float:
     return float(inv) if dt == BFLOAT16 else float(dt.type(inv))
 
 
+# XLA folds and contracts consecutive float32 and float16 steps with
+# literals (ROADMAP C7 to C9); bfloat16 steps it computes one by one.
+_FOLDED = (_F32, _F16)
+# Casts that XLA removes as a pair, X → Y → X, Y holding every X exactly.
+_ROUND_TRIPS = {(_F16, _F32), (BFLOAT16, _F32)}
+
+
+def _eval_literal(e, dt: np.dtype) -> float:
+    """A literal expression of :func:`_xla_fold_run` evaluated as XLA's
+    constant folding does: each operation in ``dt``."""
+    if e[0] == "c":
+        return e[1]
+    with np.errstate(over="ignore", invalid="ignore"):
+        if e[0] == "neg":
+            return -_eval_literal(e[1], dt)
+        x, y = dt.type(_eval_literal(e[1], dt)), dt.type(_eval_literal(e[2], dt))
+        return float(x + y if e[0] == "add" else x * y)
+
+
+def _xla_fold_run(dt: np.dtype, run) -> list:
+    """Consecutive float32 or float16 steps ``(op, literal)`` (add, sub,
+    mul, div; literals rounded to ``dt``) as the JAX package's compiled chain
+    computes them: a list of ``("add", c)`` and ``("mul", m)``.
+
+    This replays XLA's passes on the CPU (read from its per-pass HLO dumps).
+    Its algebraic simplifier visits the steps in order, and visits again
+    until a visit changes nothing; a step it makes is visited only in the
+    next visit.  It drops ``x + 0``, ``x - 0``, ``x * 1`` and ``x / 1``,
+    rewrites ``x - c`` into ``x + negate(c)`` and ``x / c`` into
+    ``x * c'`` (the reciprocal, a literal at once), ``(x + c1) + c2`` into
+    ``x + (c1 + c2)`` where both are literals, and ``(x * c1) * e`` into
+    ``x * (c1 * e)`` where ``c1`` is a literal and ``e`` a literal or an
+    expression of literals.  Constant folding then
+    evaluates each expression, and the two repeat until nothing changes.
+    So the order in which literals fold depends on the chain (ROADMAP C7)."""
+    nodes = [(op, ("c", lit)) for op, lit in run]
+    while True:
+        folded = False
+        while True:  # one algebraic-simplifier pass
+            out, changed = [], False
+            for op, e in nodes:
+                lit = e[0] == "c"
+                prev = out[-1] if out else None
+                if lit and (op, e[1]) in (("add", 0), ("sub", 0), ("mul", 1), ("div", 1)):
+                    changed = True  # x + 0, x - 0, x * 1, x / 1: x
+                elif lit and op == "sub":
+                    out.append(("add", ("neg", e)))
+                    changed = True
+                elif lit and op == "div":
+                    out.append(("mul", ("c", _reciprocal(e[1], dt))))
+                    changed = True
+                elif op in ("add", "mul") and prev is not None and prev[0] == op \
+                        and prev[1][0] == "c" and (lit or op == "mul"):
+                    out[-1] = (op, (op, prev[1], e))
+                    changed = True
+                else:
+                    out.append((op, e))
+            nodes = out
+            folded |= changed
+            if not changed:
+                break
+        if not folded and all(e[0] == "c" for _, e in nodes):
+            return [(op, e[1]) for op, e in nodes]
+        nodes = [(op, ("c", _eval_literal(e, dt))) for op, e in nodes]
+
+
+def _contract(dt: np.dtype, nodes) -> list:
+    """The steps of a folded run as LLVM computes them on the CPU: a
+    multiply followed by an add contracts into one fused multiply-add,
+    rounded once (float16 too: its arithmetic is native there), and a
+    multiply by -1 alone is a sign flip."""
+    steps = []
+    for op, c in nodes:
+        if op == "add" and steps and steps[-1][0] == "mul":
+            steps[-1] = ("fma", dt, steps[-1][2], c)
+        else:
+            steps.append((op, dt, c, 0.0))
+    return [("neg", dt, 0.0, 0.0) if (op, a) == ("mul", -1.0) else (op, dt, a, b)
+            for op, dt, a, b in steps]
+
+
+def _without_round_trips(start: np.dtype, ops) -> list:
+    """``(op, value, dtype before)`` for each step of ``ops``, without the
+    casts that change nothing: a typecast to the stream's own dtype (JAX
+    emits no conversion) and a cast pair that XLA removes
+    (:data:`_ROUND_TRIPS`)."""
+    seq, cur = [], start
+    for op, val in ops:
+        if op == "typecast":
+            to = _canon(val)
+            if to == cur:
+                continue
+            if seq and seq[-1][0] == "typecast" and (to, cur) in _ROUND_TRIPS \
+                    and seq[-1][2] == to:
+                cur = seq.pop()[2]
+                continue
+        seq.append((op, val, cur))
+        cur = step_dtype(cur, op, val)
+    return seq
+
+
 class ChainPlan:
     """A bound chain, resolved for one input dtype: the dtype it starts
     from, each step's (op, result dtype, operand a, operand b), and the
-    output dtype; for the kernel, the chain lowered (:attr:`program`)."""
+    output dtype; for the kernel, the chain lowered (:attr:`program`).
+    Consecutive float32 and float16 arithmetic steps are folded as XLA
+    folds them (:func:`_xla_fold_run`, :func:`_contract`), so a step may
+    also be ``fma`` (``x * a + b``, rounded once) or ``neg``."""
 
     def __init__(self, in_dtype: np.dtype, ops: Tuple[Tuple[str, object], ...],
                  promote: bool = True):
@@ -315,10 +423,31 @@ class ChainPlan:
         promote = (promote and self.out_dtype != in_dtype and _is_int(in_dtype)
                    and in_dtype.itemsize < 4)
         self.start_dtype = _I32 if promote else _canon(in_dtype)
-        steps = []
+        steps: list = []
+        run: list = []  # float arithmetic XLA may fold, since the run's start
+        run_from = self.start_dtype
+
+        def end_run(dt):
+            folded = _contract(dt, _xla_fold_run(dt, run)) if run else []
+            if run and not folded and dt != run_from:
+                folded = [("typecast", dt, 0.0, 0.0)]  # the conversion stays
+            steps.extend(folded)
+            run.clear()
+
         cur = self.start_dtype
-        for op, val in ops:
-            cur = step_dtype(cur, op, val)
+        for op, val, before in _without_round_trips(self.start_dtype, ops):
+            cur = step_dtype(before, op, val)
+            if cur in _FOLDED and op == "clamp" and _xla_fold(op, cur, *val) == "typecast":
+                continue  # clamp(-inf, inf): XLA removes it, the run goes on
+            if cur in _FOLDED and op in ("add", "sub", "mul", "div"):
+                if run and before != cur:
+                    end_run(before)
+                if not run:
+                    run_from = before
+                run.append((op, float(_literal32(val, cur))))
+                continue
+            if run:
+                end_run(before)
             if op == "typecast":
                 a = b = 0.0
             elif op == "clamp":
@@ -334,6 +463,8 @@ class ChainPlan:
             if not _is_int(cur):
                 op = _xla_fold(op, cur, a, b)
             steps.append((op, cur, a, b))
+        if run:
+            end_run(cur)
         self.steps = tuple(steps)
 
     @functools.cached_property
@@ -347,12 +478,16 @@ class ChainPlan:
 
     @functools.cached_property
     def c_program(self) -> _Program:
-        p = self.program
-        c = _Program()
-        c.variant, c.n_steps = p.variant, len(p.op)
-        for field in ("conv", "op", "post", "a", "b"):
-            getattr(c, field)[:len(p.op)] = getattr(p, field)
-        return c
+        return c_program(self.program)
+
+
+def c_program(p: Program) -> _Program:
+    """A lowered program as the kernel's C struct."""
+    c = _Program()
+    c.variant, c.n_steps = p.variant, len(p.op)
+    for field in ("conv", "op", "post", "a", "b"):
+        getattr(c, field)[:len(p.op)] = getattr(p, field)
+    return c
 
 
 def plan_chain(in_dtype: np.dtype, ops: Tuple[Tuple[str, object], ...],
@@ -438,6 +573,27 @@ def _fmin(hi: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.where(hi < v, hi, torch.where(hi == v, _same(hi, v, torch.bitwise_or), v))
 
 
+def _fma(v: torch.Tensor, a: float, b: float, dt: np.dtype) -> torch.Tensor:
+    """``v * a + b`` rounded once to ``dt`` (float32, or float16 whose values
+    ``v``, ``a`` and ``b`` hold exactly), as float32; on any device.
+
+    The product is exact in a wider type (float64, or float32 for float16
+    operands); the sum is rounded to that type with its exact error (TwoSum)
+    and made odd where the error is not zero, which makes the one rounding
+    to ``dt`` after it exact (rounding to odd carries the sticky bit)."""
+    wide, ibits = (torch.float64, torch.int64) if dt == _F32 else (torch.float32, torch.int32)
+    p = v.to(wide) * a
+    c = torch.tensor(b, dtype=wide, device=v.device)
+    s = p + c
+    bb = s - p
+    e = (p - (s - bb)) + (c - bb)
+    bits = s.view(ibits)
+    odd = torch.isfinite(s) & (e != 0) & (torch.bitwise_and(bits, 1) == 0)
+    away = torch.where((e > 0) == (s > 0), 1, -1).to(ibits)  # toward the exact sum
+    s = torch.where(odd, bits + away, bits).view(wide)
+    return s.to(torch.float32 if dt == _F32 else torch.float16).to(torch.float32)
+
+
 def _apply_step(v: torch.Tensor, op: str, dt: np.dtype, a, b) -> torch.Tensor:
     if op == "typecast":
         return v
@@ -445,6 +601,9 @@ def _apply_step(v: torch.Tensor, op: str, dt: np.dtype, a, b) -> torch.Tensor:
         return -v
     if not _is_int(dt):
         v = _flush(v)
+    if op == "fma":
+        lit = [float(_flush32(_literal32(c, dt))) for c in (a, b)]
+        return _round_to(_flush(_fma(v, lit[0], lit[1], dt)), dt)
     if op == "rmul":  # by a float32 reciprocal, then rounded to the step dtype
         r = v * torch.tensor(float(_flush32(a)), dtype=torch.float32, device=v.device)
         return _round_to(_flush(r), dt)
@@ -551,6 +710,9 @@ def _op_eval(r: np.ndarray, op: str, a: int, b: int) -> np.ndarray:
     if op == "fneg":
         return r ^ np.uint32(0x80000000)
     r = _flush_bits(r)
+    if op in ("ffma", "hfma"):
+        m, c = (float(np.uint32(w).view(np.float32)) for w in (a, b))
+        return _flush_bits(_fma_np(_f(r), m, c, _F16 if op == "hfma" else _F32).view(np.uint32))
     v, lo = _f(r), np.uint32(a).view(np.float32)
     with np.errstate(all="ignore"):  # IEEE results: inf, NaN
         if op == "fadd":
@@ -566,6 +728,22 @@ def _op_eval(r: np.ndarray, op: str, a: int, b: int) -> np.ndarray:
             r = np.where(hi < v, np.uint32(b), np.where(hi == v, r | np.uint32(b), r))
             return r.astype(np.uint32)
     return _flush_bits(v.astype(np.float32).view(np.uint32))
+
+
+def _fma_np(v: np.ndarray, a: float, b: float, dt: np.dtype) -> np.ndarray:
+    """:func:`_fma` in numpy: ``v * a + b`` rounded once to ``dt``, as
+    float32."""
+    wide, ibits = (np.float64, np.int64) if dt == _F32 else (np.float32, np.int32)
+    with np.errstate(all="ignore"):  # IEEE results: inf, NaN
+        p = v.astype(wide) * wide(a)
+        c = wide(b)
+        s = p + c
+        bb = s - p
+        e = (p - (s - bb)) + (c - bb)
+        bits = s.view(ibits)
+        odd = np.isfinite(s) & (e != 0) & ((bits & 1) == 0)
+        bits = np.where(odd, bits + np.where((e > 0) == (s > 0), 1, -1).astype(ibits), bits)
+        return bits.view(wide).astype(dt).astype(np.float32)
 
 
 def _flush_bits(r: np.ndarray) -> np.ndarray:

@@ -15,7 +15,9 @@ chain (uint8 -> float32, the float32-chain variant) at (1,) (the launch
 floor), (224,224,3), (300,300,3) and a 4K frame (2160,3840,3) of 124.4
 MB, more than the L2, so back-to-back calls read from device memory; the
 normalize ending in a cast to bfloat16 (the general variant) at (1,) and
-(224,224,3); ``nms_keep`` at K=100 and K=1280; ``int8_matmul`` at
+(224,224,3); the normalize written multiply-first at (224,224,3), one
+fused multiply-add step (``ffma``) here and a multiply and an add in the
+parent; ``nms_keep`` at K=100 and K=1280; ``int8_matmul`` at
 (1,1280,1001).  Each case first checks that both versions give the same
 output, bit for bit, then times them in the order old, new, new, old for
 each round: device time per call from a CUPTI trace (``torch.profiler``,
@@ -77,13 +79,17 @@ def _stream() -> int:
 
 NORMALIZE = [("typecast", np.float32), ("add", -127.5), ("div", 127.5)]
 BF16_NORMALIZE = NORMALIZE + [("typecast", BFLOAT16)]
+MUL_FIRST_NORMALIZE = [("typecast", np.float32), ("mul", 0.00784313725), ("add", -1.0)]
 HBM_BYTES_PER_S = 3.35e12
 
 
-def fused_case(parent_lib, shape, seed: int, ops=NORMALIZE):
-    """The chain ``ops`` on a random uint8 frame of ``shape``."""
+def fused_case(parent_lib, shape, seed: int, ops=NORMALIZE, parent_program=None):
+    """The chain ``ops`` on a random uint8 frame of ``shape``; the parent
+    runs ``parent_program`` (a lowered program it knows the ops of) when
+    given, else the current plan's."""
     x = torch.from_numpy(np.random.default_rng(seed).integers(0, 256, shape).astype(np.uint8)).cuda()
     plan = K.fused_arith_plan(np.uint8, ops)
+    program = K.c_program(parent_program) if parent_program is not None else plan.c_program
     out_dtype = torch_dtype(plan.out_dtype)
     out = torch.empty(shape, dtype=out_dtype, device="cuda")
     n = x.numel()
@@ -92,7 +98,7 @@ def fused_case(parent_lib, shape, seed: int, ops=NORMALIZE):
 
     def old():
         err = parent_lib.nns_fused_arith(x.data_ptr(), out.data_ptr(), *codes,
-                                         ctypes.byref(plan.c_program), geo.head, geo.nvec,
+                                         ctypes.byref(program), geo.head, geo.nvec,
                                          geo.tail, geo.blocks, _stream())
         if err:
             raise RuntimeError(f"parent fused_arith: CUDA error {err}")
@@ -191,6 +197,12 @@ def main(argv=None) -> int:
                  [(1,), (224, 224, 3), (300, 300, 3), (2160, 3840, 3)])]
     cases += [fused_case(fa_lib, shape, 9 + i, BF16_NORMALIZE)
               for i, shape in enumerate([(1,), (224, 224, 3)])]
+    # The normalize written multiply-first: one ffma step here, a multiply
+    # and an add in the parent (before ffma); on uint8 frames the two agree.
+    f32 = np.dtype(np.float32)
+    two_steps = K.lower_chain(np.dtype(np.int32), [
+        ("mul", f32, float(np.float32(0.00784313725)), 0.0), ("add", f32, -1.0, 0.0)])
+    cases += [fused_case(fa_lib, (224, 224, 3), 11, MUL_FIRST_NORMALIZE, two_steps)]
     cases += [nms_case(nms_lib, 100, 2), nms_case(nms_lib, 1280, 3),
               int8_case(mm_lib, 1, 1280, 1001, 4)]
     rows = []

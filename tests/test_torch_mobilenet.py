@@ -128,6 +128,17 @@ def test_int8_head_on_identical_features(int8_head_model):
     assert np.all(np.abs(got - want) <= np.spacing(np.abs(prod)) + np.spacing(np.abs(got)))
 
 
+def test_params_from_jax_keeps_act_scale_a_float():
+    """A calibrated ``act_scale`` stays a Python float: a tensor there would
+    be read back to the host by every int8 conv, inside the capture too."""
+    tree = jm.build_quantized(**KW, dtype=jnp.float32, int8_convs=True, static_scales=True,
+                              calib_samples=1).params
+    params = tm.params_from_jax(_numpy_tree(tree), "cpu")
+    scale = params["blocks"][2]["expand"]["conv"]["act_scale"]
+    assert type(scale) is float and scale == float(tree["blocks"][2]["expand"]["conv"]["act_scale"])
+    assert torch.is_tensor(params["blocks"][2]["expand"]["bn"]["scale"])
+
+
 def test_quantize_params_matches_jax():
     tree = _numpy_tree(jm.init_params(jax.random.PRNGKey(1), 10, 0.35))
     port = tm.build_quantized(**KW, params=tree, int8_head=True, device="cpu").params

@@ -189,6 +189,30 @@ class TestCheckpointModels:
             want = direct(K.fused_arith(torch.from_numpy(f), ops))
             assert torch.equal(out.tensor(0), want)
 
+    def test_full_int8_builder_calibrates_when_opened(self, jax_checkpoint):
+        """``int8_convs=1,static_scales=1,calib_samples=2`` reach the
+        built-in builder as ints: the model is calibrated and every int8
+        conv's operands prepared by ``open``, before negotiation, so the
+        filter's capture only reads them; invoking changes no scale."""
+        from nnstreamer_tpu_torch.ops import quant as tq
+
+        path, params = jax_checkpoint
+        be = TorchBackend()
+        be.open(path, f"builder=mobilenet_v2:build_quantized,int8_convs=1,static_scales=1,"
+                      f"calib_samples=2,{BUILDER_KW}")
+        expand = be.model.params["blocks"][1]["expand"]["conv"]
+        assert type(expand["act_scale"]) is float and expand["int8"].act_scale == expand["act_scale"]
+        assert not tq.is_calibrating()
+        direct = tm.build_quantized(params=params, int8_convs=True, static_scales=True,
+                                    calib_samples=2, device="cpu", **KW)
+        assert expand["act_scale"] == direct.params["blocks"][1]["expand"]["conv"]["act_scale"]
+        prepared = expand["int8"]
+        be.reconfigure(TensorsSpec.of(TensorSpec(dtype=np.float32, shape=(64, 64, 3))))
+        x = _frames(4, n=1)[0]
+        got = be.invoke((torch.from_numpy(x),))[0]
+        assert expand["int8"] is prepared
+        assert torch.equal(got, direct(torch.from_numpy(x)))
+
     def test_reserved_keys_are_not_builder_kwargs(self, tmp_path, jax_checkpoint):
         path, _ = jax_checkpoint
         builder = tmp_path / "builder.py"

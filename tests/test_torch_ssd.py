@@ -148,6 +148,34 @@ def test_build_specs():
     assert torch.all(det[:-1, 5] >= det[1:, 5])
 
 
+def test_int8_build_and_fused_decode_match_jax(jax_params):
+    """``build(int8=True)`` on float params takes the float path in both
+    packages; ``build_quantized(fused_decode=K)`` decodes the int8
+    detector's output on the device: float32 compute, detections within
+    the int8 trunk's drift (test_torch_quant.py) of the JAX package's, the
+    same classes."""
+    from nnstreamer_tpu_torch.ops import quant as tq
+
+    x = np.random.default_rng(2).uniform(-1, 1, (SIZE, SIZE, 3)).astype(np.float32)
+    tree = jax.tree_util.tree_map(np.asarray, jax_params)
+    flag = ts.build(num_labels=LABELS, image_size=SIZE, dtype=torch.float32, params=tree,
+                    int8=True, device="cpu")
+    plain = ts.build(num_labels=LABELS, image_size=SIZE, dtype=torch.float32, params=tree,
+                     device="cpu")
+    for a, b in zip(flag(torch.from_numpy(x)), plain(torch.from_numpy(x))):
+        assert torch.equal(a, b)
+    port = ts.build_quantized(num_labels=LABELS, image_size=SIZE, dtype=torch.float32,
+                              params=tree, fused_decode=16, device="cpu")
+    ref = js.build_quantized(num_labels=LABELS, image_size=SIZE, dtype=jnp.float32,
+                             params=jax_params, fused_decode=16)
+    assert isinstance(port.params["extras"][0]["conv"]["w"], tq.QuantizedWeight)
+    got = port(torch.from_numpy(x)).numpy()
+    want = np.asarray(jax.jit(ref.fn())(jnp.asarray(x)))
+    assert got.shape == want.shape == (16, 6)
+    np.testing.assert_allclose(got, want, atol=0.05)
+    np.testing.assert_array_equal(got[:4, 4], want[:4, 4])
+
+
 def _objects(frame):
     return [(o.class_id, o.x, o.y, o.width, o.height, o.label) for o in frame.meta["objects"]]
 

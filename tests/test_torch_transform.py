@@ -189,6 +189,34 @@ C6_F32 = np.array([1e-39, -5.8e-39, 2.0], np.float32)
 C6_BF16_BITS = np.array([0x0001, 0x007F, 0x8001, 0x4000], np.uint16)
 
 
+class TestXlaFolds:
+    """ROADMAP C7 to C9 (repaired): XLA folds the literals of consecutive
+    float adds and multiplies, contracts a multiply followed by an add into
+    one rounding, and has its own float16 rules; both packages' ``true``
+    and ``pallas`` rules agree bit for bit on 10,000 values (numpy seed 0),
+    and ``acceleration=false`` still rounds every step, as numpy does."""
+
+    CASES = [(np.float32, "add:0.1,add:0.2"), (np.float32, "add:0.1,add:0.2,add:0.3"),
+             (np.float32, "mul:3,div:3"), (np.float32, "div:3,div:7"),
+             (np.float32, "mul:3,mul:7"), (np.float32, "mul:3,add:0.2"),
+             (np.float32, "add:0.1,mul:3,add:0.2"), (np.float32, "mul:0.00784313725,add:-1.0"),
+             (np.uint8, "typecast:float32,mul:0.00784313725,add:-1.0"),
+             (np.float16, "add:0.1,add:0.2"), (np.float16, "mul:3,add:0.2"),
+             (np.float16, "sub:3551.710205078125,add:1,add:-79")]
+
+    @staticmethod
+    def _input(dt):
+        rng = np.random.default_rng(0)
+        if dt == np.uint8:
+            return rng.integers(0, 256, 10_000).astype(np.uint8)
+        return (rng.standard_normal(10_000) * (300 if dt == np.float32 else 30)).astype(dt)
+
+    @pytest.mark.parametrize("accel", [True, "pallas", False])
+    @pytest.mark.parametrize("dt,option", CASES)
+    def test_roadmap_inputs_match_reference(self, dt, option, accel):
+        _check(self._input(dt), mode="arithmetic", option=option, acceleration=accel)
+
+
 class TestSubnormals:
     """C6, repaired: the jit rules (``true``, ``pallas``) flush float32 and
     bfloat16 subnormals in float arithmetic to zeros of their sign, as XLA
