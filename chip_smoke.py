@@ -35,7 +35,9 @@ In order, it
    (ROADMAP C7 to C9) at (224,224,3): the multiply-first normalize (one
    ``ffma`` step), float32 chains with folded literals and two fused
    multiply-adds, float16 chains (``hfma``, a fold in XLA's order), and
-   float32 values whose float64 ``x * b + c`` lands on a float32 midpoint.
+   float32 values whose float64 ``x * b + c`` lands on a float32 midpoint;
+   and the lanes that a float -> int conversion saturated before a fused
+   multiply-add, which take a multiply and an add (ROADMAP C10).
    Then it times kernel, plain version and, where one exists, the one
    PyTorch call that computes the same function (a yardstick only; the
    port never calls it); each kernel at its smallest case as its launch
@@ -149,7 +151,32 @@ In order, it
    (50 int8 GEMMs and one ``nms_keep`` a launch, detections equal to the
    host decode of the eager forward); the device time a frame split into
    int8 GEMM, quantize and rescale, depthwise conv and other;
-15. prints every path number beside the card's name and power limit, one
+15. pose phase (config 3): PoseNet (MobileNet-v2 1.0 truncated at stride 16,
+   a 1x1 head to 14 heatmaps, bf16, seed-0 weights) named in slice 1's
+   string (``model=<posenet.npz> custom=builder=posenet:build,fused_decode=1``,
+   ``tensor_decoder mode=pose_estimation option1=224:224 option2=14:14
+   option3=<joints>``), 64 frames: one capture, the replays equal to eager
+   bit for bit, each frame's keypoints equal to the numpy argmax over the
+   card's eager heatmaps and, on 8 frames, to the port's CPU forward's
+   wherever a channel's top-1 leads by more than POSE_MARGIN; a 16-frame
+   trace with 5 host operations and one ``fused_arith`` record a launch;
+   then the heatmap form (``fused_decode`` off, the decoder's host argmax)
+   and ``posenet:build_quantized`` (27 int8 GEMMs a launch), 16 frames each;
+16. recurrence phase (config 4 and 4b): the LSTM cell (``lstm.build_cell``,
+   hidden 64) in the repo-slot cycle of ``examples/pipelines/
+   recurrence_lstm.py`` (repo sources for h and c on the card, a data source
+   for x, ``tensor_mux sync-mode=nosync``, the filter, ``tensor_demux``, a
+   tee, repo sinks) for 200 steps: one capture, every h equal to the eager
+   cell fed the same states bit for bit and within LSTM_CPU_ATOL of the
+   port's CPU forward; a 16-step trace with no device-to-host copy (CUPTI)
+   and none in the ``copies`` tracer; stopped after 100 steps,
+   ``checkpoint_pipeline``, a new pipeline, ``restore_pipeline``, 100 more:
+   every h equal to the uninterrupted run's; then ``lstm.build_sequence``
+   (input and hidden 512, 128 steps a window) through ``datasrc !
+   tensor_upload ! queue ! tensor_filter ! tensor_sink``, 32 windows: one
+   capture, replays equal to eager bit for bit, within SEQ_CPU_ATOL of the
+   CPU forward;
+17. prints every path number beside the card's name and power limit, one
    JSON line describing every kernel, and last one JSON line
    ``{"ok": true, "device": {...}}``.
 
@@ -417,6 +444,13 @@ def kernel_phase(torch, np, K, bind, jax_pkg):
         ((IMAGE, IMAGE, 3), floats(np.float16), "sub:3551.710205078125,add:1,add:-79", 0),
         ((5,), lambda shape: np.array([1774001.0, 233415.0, -1774001.0, 1.0, -3.0], np.float32),
          FMA_MIDPOINTS, 0),
+        # ROADMAP C10: the lanes a float -> int conversion saturated take a
+        # multiply and an add after it, the others one fused multiply-add
+        ((IMAGE, IMAGE, 3), floats(np.float32), "typecast:int8,div:130,add:0.001", 0),
+        ((IMAGE, IMAGE, 3), floats(np.float32),
+         "typecast:uint8,add:3,typecast:float32,mul:1.37,add:0.0071", 0),
+        ((IMAGE, IMAGE, 3), floats(np.float16),
+         "typecast:int16,typecast:float16,mul:1.5,add:0.0001", 0),
     ]
     err = 0.0
     for shape, make, option, offset in cases:
@@ -848,9 +882,11 @@ def trace(fn):
     names = collections.defaultdict(collections.Counter)
     total = collections.Counter(e.id for e in device)
     us_by_name = collections.Counter()
+    count_by_name = collections.Counter()
     for e in device:
         names[e.id][e.name] += 1
         us_by_name[e.name] += e.device_time_total
+        count_by_name[e.name] += 1
         for w, syms in KERNEL_SYMBOLS.items():
             if any(s in e.name for s in syms):
                 by_launch[e.id][w] += 1
@@ -858,12 +894,14 @@ def trace(fn):
                 activities=len(device), records=records, calls=dict(calls),
                 per_launch=[(dict(by_launch.get(e.id, {})), total[e.id]) for e in launches],
                 names_per_launch=[dict(names.get(e.id, {})) for e in launches],
-                us_by_name=dict(us_by_name))
+                us_by_name=dict(us_by_name), count_by_name=dict(count_by_name))
 
 
-def run_pipeline(nns, desc, model, frames_expected, seg=None, during=None, got=None):
+def run_pipeline(nns, desc, model, frames_expected, seg=None, during=None, got=None,
+                 setup=None):
     """Build ``desc`` with parse_launch, set the filter's model (unless
-    ``model`` is None: the string names it), run it to EOS; ``during(p)`` runs after EOS while the pipeline still plays (its
+    ``model`` is None: the string names it), run ``setup(p)`` if given, run
+    it to EOS; ``during(p)`` runs after EOS while the pipeline still plays (its
     backend open).  The sink's frames arrive through ``connect("new-data",
     ...)`` (into ``got`` when given).  Returns (pipeline, sink arrival times,
     during's result)."""
@@ -879,6 +917,8 @@ def run_pipeline(nns, desc, model, frames_expected, seg=None, during=None, got=N
         p.segment_compile = seg
     if model is not None:  # else the launch string names the model
         p["f"].model = model
+    if setup is not None:
+        setup(p)
     p["out"].connect("new-data", on_frame)
     p.start()
     try:
@@ -891,9 +931,14 @@ def run_pipeline(nns, desc, model, frames_expected, seg=None, during=None, got=N
     return p, arrivals, result
 
 
-def rates(arrivals, np):
+def rates(arrivals, np, end=None):
+    """Frames a second over the sink's arrivals, and the p50 and p90 gap.
+    ``end``: the time the card finished the last frame (a synchronize after
+    EOS), where nothing on the path reads the outputs back, so that the
+    arrivals are only the host's enqueue."""
     gaps = np.diff(np.asarray(arrivals)) * 1e3
-    return dict(fps=(len(arrivals) - 1) / (arrivals[-1] - arrivals[0]),
+    last = arrivals[-1] if end is None else end
+    return dict(fps=(len(arrivals) - 1) / (last - arrivals[0]),
                 p50_ms=float(np.median(gaps)), p90_ms=float(np.percentile(gaps, 90)))
 
 
@@ -944,17 +989,20 @@ def loop_rates(torch, call, xs):
                 busy_ms_per_frame=tr["busy_ms"] / len(xs))
 
 
-def traced_run(nns, desc, model, n, seg=None, tracers=()):
+def traced_run(nns, desc, model, n, seg=None, tracers=(), setup=None):
     """One pipeline run of ``n`` frames traced from its first frame: the
     upload's lock holds the source until start() (negotiation, warm-up,
     capture) has returned and the profiler runs, so the window holds the
     ``n`` frames and nothing of the capture.  ``tracers`` (names of
-    ``obs.TRACERS``) are attached before the start."""
+    ``obs.TRACERS``) are attached before the start; ``setup(p)`` runs
+    after the parse."""
     p = nns.parse_launch(desc)
     if seg is not None:
         p.segment_compile = seg
     if model is not None:
         p["f"].model = model
+    if setup is not None:
+        setup(p)
     for name in tracers:
         p.attach_tracer(name)
     delivered = []
@@ -2359,6 +2407,557 @@ def quant_phase(torch, np, K, ops, root, card, float_busy_ms):
     return quant, (h_launches, h_res), (s_launches, s_res)
 
 
+# -- config 3 (pose) and config 4 / 4b (the LSTM recurrence) ---------------
+
+DEVICE = "cuda"         # where the pose and recurrence phases build their models
+POSE_SIDE_FRAMES = 16   # the heatmap form and the int8 form
+POSE_CPU_FRAMES = 8     # frames held against the port's CPU forward
+POSE_CONV_FRAMES = 2    # frames whose every conv is held to its accumulation bounds
+# A keypoint's cell must be the CPU forward's wherever its channel's top-1
+# leads the second by more than this (bf16 heatmaps: 1/256 a step near 1).
+POSE_MARGIN = 0.03
+POSE_JOINTS = ("top", "neck", "r_shoulder", "r_elbow", "r_wrist", "l_shoulder", "l_elbow",
+               "l_wrist", "r_hip", "r_knee", "r_ankle", "l_hip", "l_knee", "l_ankle")
+LSTM_STEPS = 200        # config 4's steps (bench.py's leg_config4)
+LSTM_HIDDEN = 64        # bench.py's width
+LSTM_SLOTS = (90, 91)   # bench.py's slots for h and c
+# The card's h against the port's CPU forward, over 200 steps (PR 11's
+# runs: 2.09e-07); TF32 products, which must stay off, exceed it.
+LSTM_CPU_ATOL = 1e-5
+SEQ_WINDOWS = 32        # config 4b
+SEQ_LEN = 128
+SEQ_WIDTH = 512
+SEQ_CPU_WINDOWS = 2
+SEQ_CPU_ATOL = 1e-5     # config 4b's windows (PR 11's runs: 8.64e-07)
+
+
+def with_tf32(torch, fn):
+    """``fn()`` with TF32 on for float32 matmuls, then off again (``main``
+    turns it off): shows that a tolerance rejects TF32 products."""
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        return fn()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def keypoints_of(np, hm):
+    """The decoder's host decode of (H, W, 14) heatmaps: per channel the
+    argmax cell (the first of equal maxima) as (x, y, score)."""
+    hm = np.asarray(hm, np.float32)
+    flat = hm.reshape(-1, hm.shape[-1])
+    idx = flat.argmax(axis=0)
+    ys, xs = np.unravel_index(idx, hm.shape[:2])
+    return [(int(x), int(y), float(flat[i, k]))
+            for k, (x, y, i) in enumerate(zip(xs, ys, idx))]
+
+
+def keypoint_check(np, got, eager_hm, cpu_hm, margin):
+    """A frame's keypoints from the pipeline: equal to the argmax over the
+    card's eager heatmaps (cells and scores), and each cell equal to the CPU
+    forward's wherever that channel's top-1 leads by more than ``margin``.
+    Returns the channels held against the CPU."""
+    want = keypoints_of(np, eager_hm)
+    check(list(got) == want, f"keypoints {list(got)} differ from the argmax of the eager "
+                             f"heatmaps {want}")
+    if cpu_hm is None:
+        return 0
+    ref = keypoints_of(np, cpu_hm)
+    top2 = np.sort(np.asarray(cpu_hm, np.float32).reshape(-1, len(ref)), axis=0)[-2:]
+    compared = 0
+    for k, ((gx, gy, _), (wx, wy, _)) in enumerate(zip(got, ref)):
+        if top2[1, k] - top2[0, k] > margin:
+            compared += 1
+            check((gx, gy) == (wx, wy),
+                  f"keypoint {k}: ({gx}, {gy}) on the card, ({wx}, {wy}) on the CPU")
+    return compared
+
+
+def accumulation_bounds(torch, x, w, stride, padding, groups):
+    """The least and greatest bfloat16 value of each lane of a bfloat16 conv
+    whose products (exact in float32: 8 x 8 significand bits) are summed in
+    float32, in any order, rounding to nearest or toward zero, and rounded to
+    bfloat16 once: the exact sum ``s`` (float64) widened by
+    ``2 * K * 2**-24 * sum(|products|)``, ``K`` the products of a lane,
+    then rounded (rounding is monotone, so the bounds hold)."""
+    F = torch.nn.functional
+    xd, wd = x.detach().cpu().double(), w.detach().cpu().double()
+    s = F.conv2d(xd, wd, stride=stride, padding=padding, groups=groups)
+    e = F.conv2d(xd.abs(), wd.abs(), stride=stride, padding=padding, groups=groups)
+    e = e * (2 * wd[0].numel() * 2.0 ** -24)
+    return (s - e).to(torch.bfloat16), (s + e).to(torch.bfloat16)
+
+
+def conv_calls(torch, fn, replace=None):
+    """Run ``fn()`` with every conv of the port's ``models/layers.py``
+    recorded: returns ``fn``'s result and a list of calls, each a dict of
+    ``x``, ``w``, ``stride``, ``padding``, ``groups`` and its output ``out``.
+    ``replace(i, call)``, when given, returns the tensor that the ``i``-th
+    conv hands on in place of its own output."""
+    from nnstreamer_tpu_torch.models import layers
+
+    F, calls = torch.nn.functional, []
+
+    class Recorder:
+        def __getattr__(self, name):
+            return getattr(F, name)
+
+        def conv2d(self, x, w, stride=1, padding=0, groups=1):
+            call = dict(x=x, w=w, stride=stride, padding=padding, groups=groups,
+                        out=F.conv2d(x, w, stride=stride, padding=padding, groups=groups))
+            calls.append(call)
+            return call["out"] if replace is None else replace(len(calls) - 1, call)
+
+    layers.F = Recorder()
+    try:
+        return fn(), calls
+    finally:
+        layers.F = F
+
+
+def conv_lanes_outside(torch, call, out=None):
+    """The lanes of a recorded bfloat16 conv (or of ``out``, another
+    result for the same operands) outside :func:`accumulation_bounds`."""
+    lo, hi = accumulation_bounds(torch, call["x"], call["w"], call["stride"], call["padding"],
+                                 call["groups"])
+    out = (call["out"] if out is None else out).detach().cpu()
+    return int(((out < lo) | (out > hi)).sum())
+
+
+def pose_conv_check(torch, apply, card_params, cpu_params, x):
+    """The pose net's every bfloat16 conv on the card against the float32
+    accumulation bounds of its own operands, and every other step (batch
+    norm, relu6, the residual adds, the sigmoid) against the port's CPU
+    forward fed the card's conv outputs: each conv's input and the heatmaps
+    bit for bit.  Returns (convs, lanes, heatmap values compared)."""
+    hm, calls = conv_calls(torch, lambda: apply(card_params, x))
+    lanes = 0
+    for i, call in enumerate(calls):
+        check(call["x"].device == x.device and call["out"].dtype == torch.bfloat16,
+              f"pose conv {i} did not run in bfloat16 on {x.device}")
+        bad = conv_lanes_outside(torch, call)
+        check(bad == 0, f"pose conv {i}: {bad} lanes outside the float32 accumulation bounds")
+        lanes += call["out"].numel()
+
+    def card_out(i, call):
+        check(bitwise_equal(torch, call["x"], calls[i]["x"].cpu()),
+              f"pose conv {i}: its input differs from the card's")
+        return calls[i]["out"].cpu()
+
+    cpu_hm, cpu_calls = conv_calls(torch, lambda: apply(cpu_params, x.cpu()), card_out)
+    check(len(cpu_calls) == len(calls), "the CPU forward made another number of convs")
+    check(bitwise_equal(torch, hm.cpu(), cpu_hm),
+          "the card's heatmaps differ from the CPU forward fed the card's conv outputs")
+    return len(calls), lanes, hm.numel()
+
+
+def memcpy_counts(count_by_name):
+    """Device copies in a trace by direction, from CUPTI's record names."""
+    out = {"DtoH": 0, "HtoD": 0, "DtoD": 0}
+    for name, n in count_by_name.items():
+        for kind in out:
+            if name.startswith("Memcpy") and kind in name:
+                out[kind] += n
+    return out
+
+
+def recurrence_checks(stats, steps, copies, dtoh):
+    """Config 4's cycle: one capture (the repo sources' zero bootstrap has
+    the captured spec and device, so nothing recaptures), a replay a step,
+    and no device→host copy: the ``copies`` tracer counts none and CUPTI
+    records no DtoH copy."""
+    check(stats["captures"] == 1 and stats["replays"] == steps,
+          f"expected one capture and {steps} replays: {stats}")
+    check(copies == 0, f"the copies tracer counted {copies} host copies on the cycle")
+    check(dtoh == 0, f"{dtoh} device-to-host copies on the cycle")
+
+
+def pose_phase(torch, np, K, ops, root, card):
+    """Config 3 at full width from launch strings: PoseNet on MobileNet-v2
+    1.0 at 224x224x3 uint8, bf16, a 14x14 grid, the model named in the
+    string with its keypoints decoded on the card (``fused_decode=1``);
+    then the heatmap form (the decoder's host argmax) and the int8 model."""
+    import nnstreamer_tpu_torch as nns
+    from nnstreamer_tpu_torch.models import posenet
+    from nnstreamer_tpu_torch.utils.checkpoint import save_state
+
+    work = os.path.join(root, "build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    tree = posenet.init_tree(0)
+    ckpt = os.path.join(work, "posenet.npz")
+    save_state(tree, ckpt)
+    joints = os.path.join(work, "joints.txt")
+    with open(joints, "w", encoding="utf-8") as f:
+        f.write("\n".join(POSE_JOINTS))
+    grid = posenet.grid_size(IMAGE)
+
+    def desc(n, builder="build", fused=True):
+        return (f"videotestsrc name=src num-buffers={n} width={IMAGE} height={IMAGE} "
+                "pattern=random seed=7 ! tensor_converter ! "
+                f"tensor_transform mode=arithmetic option={NORMALIZE} acceleration=pallas ! "
+                "tensor_upload name=u ! queue max-size-buffers=16 ! "
+                f"tensor_filter framework=torch name=f model={ckpt} "
+                f"custom=builder=posenet:{builder}{',fused_decode=1' if fused else ''} ! "
+                f"tensor_decoder mode=pose_estimation option1={IMAGE}:{IMAGE} "
+                f"option2={grid}:{grid} option3={joints} ! tensor_sink name=out")
+
+    heat = posenet.build(params=tree, device=DEVICE)
+    heat_q = posenet.build_quantized(params=tree, device=DEVICE)
+    cpu = posenet.build(params=tree, device="cpu")
+    x0 = K.fused_arith(torch.from_numpy(np.zeros((IMAGE, IMAGE, 3), np.uint8)).to(DEVICE), ops)
+    gemms = count_int8_gemms(torch, heat_q, x0)
+    check(gemms == 27, f"the int8 pose net calls {gemms} int8 GEMMs, expected 27 (stem, 12 "
+                       "expand, 13 project, head)")
+    state = {}
+
+    def during(p):
+        be = p["f"].backend
+        state.update(stats=dict(be.stats), launches={k.__name__: k.launches for k in K.KERNELS},
+                     transform_folded=not any(type(n).__name__ == "TensorTransform"
+                                              for n in p.nodes.values()))
+        xs = [torch.from_numpy(p["src"]._make_frame(i)) for i in range(8)]
+        captured_against_eager(torch, be, xs, exact=True)
+        return p
+
+    def run_form(n, builder, fused, model, cpu_model):
+        run_pipeline(nns, desc(WARMUP_FRAMES, builder, fused), None, WARMUP_FRAMES)
+        K.reset_launches()
+        got = []
+        p, arrivals, _ = run_pipeline(nns, desc(n, builder, fused), None, n, during=during,
+                                      got=got)
+        stats, launches = state["stats"], state["launches"]
+        name = f"pose {builder}{' fused' if fused else ' heatmaps'}"
+        print(f"{name} over {n} frames: backend {stats}, wrapper launches {launches}",
+              flush=True)
+        check(state["transform_folded"], "the normalize did not fold into the filter")
+        check(stats["captures"] == 1 and stats["replays"] == n,
+              f"expected one capture and {n} replays: {stats}")
+        want = {"fused_arith": stats["warmup_calls"] + 1, "int8_matmul": 0,
+                "pallas_nms_keep": 0}
+        check(launches == want, f"wrapper launches {launches}, expected {want}")
+        compared = 0
+        with torch.inference_mode():
+            for i, frame in enumerate(got):
+                x = K.fused_arith(torch.from_numpy(p["src"]._make_frame(i)).to(DEVICE), ops)
+                hm = model(x)
+                check(bool(torch.isfinite(hm).all()) and tuple(hm.shape) == (grid, grid, 14),
+                      f"{name} frame {i}: heatmaps not finite / wrong shape")
+                check(frame.tensor(0).shape == (IMAGE, IMAGE, 4), f"{name}: overlay shape")
+                ref = cpu_model(x.cpu()).numpy() if i < POSE_CPU_FRAMES and cpu_model else None
+                compared += keypoint_check(np, frame.meta["pose"], hm.cpu().numpy(), ref,
+                                           POSE_MARGIN)
+        res = dict(frames=n, replays=stats["replays"], **rates(arrivals, np),
+                   cpu_keypoints_compared=compared, capture_s=stats["capture_s"],
+                   warmup_s=stats["warmup_s"])
+        print(f"{name}: replays bitwise equal to eager on 8 frames; keypoints equal to the "
+              f"argmax of the eager heatmaps on {n} frames; {compared} keypoints of "
+              f"{POSE_CPU_FRAMES if cpu_model else 0} frames held against the CPU forward "
+              f"(top-1 margin above {POSE_MARGIN})", flush=True)
+        return p, launches, res
+
+    p, launches, res = run_form(FRAMES, "build", True, heat, cpu)
+    convs = lanes = values = 0
+    with torch.inference_mode():
+        for i in range(POSE_CONV_FRAMES):
+            x = K.fused_arith(torch.from_numpy(p["src"]._make_frame(i)).to(DEVICE), ops)
+            c, n, v = pose_conv_check(torch, posenet.apply, heat.params, cpu.params, x)
+            convs, lanes, values = convs + c, lanes + n, values + v
+    res.update(conv_checked=convs, conv_lanes_checked=lanes, heatmap_values_bitwise=values)
+    print(f"pose: {convs} bfloat16 convs of {POSE_CONV_FRAMES} frames on the card ({lanes} "
+          "lanes) within the float32 accumulation bounds of their operands; the card's "
+          f"heatmaps ({values} values) equal the CPU forward fed the card's conv outputs, bit "
+          "for bit", flush=True)
+    tr = profile_path(lambda n: traced_run(nns, desc(n), None, n), res, ("fused_arith",))
+    res["device_records_per_launch"] = quant_checks(tr, 0, ("fused_arith",))
+    report_path("pose (config 3)", res, card)
+    print(f"  pose device records a launch: {res['device_records_per_launch']}, of them 1 "
+          f"fused_arith [{card}]", flush=True)
+    _, _, h_res = run_form(POSE_SIDE_FRAMES, "build", False, heat, None)
+    tr = profile_path(lambda n: traced_run(nns, desc(n, fused=False), None, n), h_res,
+                      ("fused_arith",))
+    h_res["device_records_per_launch"] = quant_checks(tr, 0, ("fused_arith",))
+    report_path("pose, heatmaps decoded on the host", h_res, card)
+    _, _, q_res = run_form(POSE_SIDE_FRAMES, "build_quantized", True, heat_q, None)
+    tr = profile_path(lambda n: traced_run(nns, desc(n, "build_quantized"), None, n), q_res,
+                      ("fused_arith",))
+    q_res["device_records_per_launch"] = quant_checks(tr, gemms, ("fused_arith",))
+    report_path("pose, int8", q_res, card)
+    print(f"  pose int8 device records a launch: {q_res['device_records_per_launch']}, of "
+          f"them {gemms} int8 GEMMs and 1 fused_arith [{card}]", flush=True)
+    return (launches, res), h_res, q_res
+
+
+def lstm_pipeline(nns, torch, np, xs, model, slots, tracers=()):
+    """Config 4's graph (``examples/pipelines/recurrence_lstm.py``) through
+    the Pipeline API: repo sources for h and c (their bootstrap on the card)
+    and a data source for x → ``tensor_mux sync-mode=nosync`` → the LSTM
+    cell → ``tensor_demux`` → h through a tee to its repo sink and the sink,
+    c to its repo sink."""
+    from nnstreamer_tpu_torch.buffer import SECOND, Frame
+    from nnstreamer_tpu_torch.elements.filter import TensorFilter
+    from nnstreamer_tpu_torch.elements.repo import TensorRepoSink, TensorRepoSrc
+
+    caps = nns.TensorsSpec(tensors=(nns.TensorSpec(dtype=np.float32, shape=(LSTM_HIDDEN,)),))
+    src_kw = {"device": DEVICE}
+    dur = SECOND // 30
+    p = nns.Pipeline(name="lstm")
+    p.add(TensorRepoSrc(name="h_src", slot_index=slots[0], caps=caps, **src_kw),
+          TensorRepoSrc(name="c_src", slot_index=slots[1], caps=caps, **src_kw),
+          nns.make("datasrc", "x_src", data=[Frame.of(torch.from_numpy(x), pts=i * dur,
+                                                      duration=dur) for i, x in xs]),
+          nns.make("tensor_mux", "mux", sync_mode="nosync"),
+          TensorFilter(name="f", framework="torch", model=model),
+          nns.make("tensor_demux", "demux"), nns.make("tee", "tee"),
+          TensorRepoSink(name="h_sink", slot_index=slots[0]),
+          TensorRepoSink(name="c_sink", slot_index=slots[1]),
+          nns.make("tensor_sink", "out"))
+    for i, src in enumerate(("h_src", "c_src", "x_src")):
+        p.link(src, f"mux.sink_{i}")
+    p.link_chain("mux", "f", "demux")
+    p.link("demux.src_0", "tee")
+    p.link("tee", "h_sink")
+    p.link("tee", "out")
+    p.link("demux.src_1", "c_sink")
+    for name in tracers:
+        p.attach_tracer(name)
+    return p
+
+
+def run_lstm(nns, torch, np, xs, model, during=None, restore=None, tracers=(),
+             traced=False):
+    """Run config 4 over ``xs`` ((step, x) pairs); the h of every step, the
+    sink's arrival times and last the card's end of the last step, the
+    pipeline, and ``during(p)``'s result (it runs after EOS while the filter
+    is open), or with ``traced`` the trace of the steps: the x source waits
+    until start() (negotiation, capture) returned and the profiler runs.
+    ``restore(p)`` runs before start."""
+    import threading
+
+    from nnstreamer_tpu_torch.elements.repo import GLOBAL_REPO
+
+    p = lstm_pipeline(nns, torch, np, xs, model, LSTM_SLOTS, tracers)
+    hs, arrivals = [], []
+    p["out"].connect("new-data", lambda f: (arrivals.append(time.perf_counter()),
+                                            hs.append(f.tensor(0))))
+    if restore is not None:
+        restore(p)
+    gate = threading.Event()
+    if traced:
+        frames = p["x_src"].frames
+
+        def gated():
+            gate.wait()
+            yield from frames()
+
+        p["x_src"].frames = gated
+    p.start()
+    try:
+        if traced:
+            result = trace(lambda: (time.sleep(0.25), gate.set(),
+                                    check(p.wait(600), "traced config 4 did not finish")))
+        else:
+            check(p.wait(600), "config 4 did not finish within 600 s")
+            torch.cuda.synchronize()
+            arrivals.append(time.perf_counter())  # the card's end of the last step
+            result = during(p) if during is not None else None
+    finally:
+        gate.set()
+        p.stop()
+    check(len(hs) == len(xs), f"config 4 delivered {len(hs)} of {len(xs)} steps")
+    for s in LSTM_SLOTS:
+        check(GLOBAL_REPO.slot(s).eos, f"slot {s} did not reach EOS")
+    return hs, arrivals, p, result
+
+
+def recurrence_phase(torch, np, K, root, card):
+    """Config 4: the LSTM cell (``lstm:build_cell``, hidden 64) in the
+    repo-slot cycle for 200 steps, then stopped after 100, checkpointed,
+    restored into a new pipeline and run 100 more; config 4b: the sequence
+    model (input and hidden 512, 128 steps a window) over 32 windows."""
+    import nnstreamer_tpu_torch as nns
+    from nnstreamer_tpu_torch.elements.repo import GLOBAL_REPO
+    from nnstreamer_tpu_torch.models import lstm
+    from nnstreamer_tpu_torch.utils.checkpoint import checkpoint_pipeline, restore_pipeline
+
+    work = os.path.join(root, "build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    tree = lstm.init_tree(0, LSTM_HIDDEN, LSTM_HIDDEN)
+    model = lstm.build_cell(LSTM_HIDDEN, LSTM_HIDDEN, params=tree, device=DEVICE)
+    cpu = lstm.build_cell(LSTM_HIDDEN, LSTM_HIDDEN, params=tree, device="cpu")
+    rng = np.random.default_rng(4)
+    xs = list(enumerate(rng.uniform(-1, 1, (LSTM_STEPS, LSTM_HIDDEN)).astype(np.float32)))
+    state = {}
+
+    def during(p):
+        be = p["f"].backend
+        state.update(stats=dict(be.stats), launches={k.__name__: k.launches for k in K.KERNELS})
+        h = c = torch.zeros(LSTM_HIDDEN, device=DEVICE)
+        eager = []
+        with torch.inference_mode():
+            for _, x in xs:
+                h, c = be.eager(h, c, torch.from_numpy(x))
+                eager.append(h)
+        state["eager"] = eager
+        return p
+
+    GLOBAL_REPO.reset()
+    run_lstm(nns, torch, np, xs[:8], model)  # CUDA context, cuBLAS handles
+    GLOBAL_REPO.reset()
+    K.reset_launches()
+    hs, arrivals, p, _ = run_lstm(nns, torch, np, xs, model, during=during)
+    stats = state["stats"]
+    print(f"config 4 over {LSTM_STEPS} steps: backend {stats}, wrapper launches "
+          f"{state['launches']}", flush=True)
+    check(all(h.device.type == torch.device(DEVICE).type for h in hs), "h left the card")
+    for i, (g, w) in enumerate(zip(hs, state["eager"])):
+        check(bitwise_equal(torch, g, w), f"step {i}: h differs from the eager cell")
+    h = c = torch.zeros(LSTM_HIDDEN)
+    cpu_hs = []
+    with torch.inference_mode():
+        for _, x in xs:
+            h, c = cpu(h, c, torch.from_numpy(x))
+            cpu_hs.append(h)
+
+    def tf32_cell():
+        h = c = torch.zeros(LSTM_HIDDEN, device=DEVICE)
+        out = []
+        with torch.inference_mode():
+            for _, x in xs:
+                h, c = model(h, c, torch.from_numpy(x).to(DEVICE))
+                out.append(h.cpu())
+        return out
+
+    def err(got):
+        return max(float((g.cpu() - w).abs().max()) for g, w in zip(got, cpu_hs))
+
+    tf32_hs = with_tf32(torch, tf32_cell)
+    cpu_err, tf32_err = err(hs), err(tf32_hs)
+    tf32_used = not all(bitwise_equal(torch, a, b.cpu()) for a, b in zip(tf32_hs, hs))
+    check(cpu_err <= LSTM_CPU_ATOL, f"config 4: h differs from the CPU forward by {cpu_err}")
+    check(not tf32_used or tf32_err > LSTM_CPU_ATOL,
+          f"config 4: with TF32 on, h is within {tf32_err} of the CPU forward: the tolerance "
+          f"{LSTM_CPU_ATOL} misses TF32")
+    tf32_note = "rejected" if tf32_used else "the products did not change: no TF32 here"
+    res = dict(steps=LSTM_STEPS, replays=stats["replays"],
+               **rates(arrivals[:-1], np, end=arrivals[-1]),
+               cpu_abs_err=cpu_err, tf32_abs_err=tf32_err, capture_s=stats["capture_s"],
+               warmup_s=stats["warmup_s"])
+    res["steps_per_s"] = res.pop("fps")
+    print(f"config 4: h bitwise equal to the eager cell fed the same states on {LSTM_STEPS} "
+          f"steps; within {cpu_err:.3g} of the port's CPU forward (tolerance {LSTM_CPU_ATOL}; "
+          f"with TF32 on, {tf32_err:.3g}: {tf32_note})", flush=True)
+
+    # A traced run: the copies tracer and CUPTI's copy records on the cycle.
+    GLOBAL_REPO.reset()
+    _, _, tp, tr = run_lstm(nns, torch, np, xs[:PROFILED], model, tracers=("copies",),
+                            traced=True)
+    copy_count = sum(v["copies"] for v in tp.stats()["tracers"]["copies"]["elements"].values())
+    kinds = memcpy_counts(tr["count_by_name"])
+    launches = tr["calls"].get("cudaGraphLaunch", 0) + tr["calls"].get("cuGraphLaunch", 0)
+    check(launches == PROFILED, f"{launches} graph launches for {PROFILED} steps")
+    recurrence_checks(stats, LSTM_STEPS, copy_count, kinds["DtoH"])
+    busy = tr["busy_ms"] / PROFILED
+    res.update(device_busy_ms_per_step=busy,
+               device_idle_share=1 - busy * res["steps_per_s"] / 1e3,
+               host_ops_per_step=host_ops(tr["calls"]) / PROFILED,
+               device_records_per_launch=max(t for _, t in tr["per_launch"]),
+               copies_per_step={k: v / PROFILED for k, v in kinds.items()},
+               copies_tracer=copy_count)
+    for key in ("steps_per_s", "p50_ms", "p90_ms", "device_busy_ms_per_step",
+                "device_idle_share", "host_ops_per_step", "device_records_per_launch",
+                "copies_per_step", "capture_s"):
+        print(f"  config 4 {key}: {res[key]} [{card}]", flush=True)
+
+    # Stop after 100 steps, checkpoint, restore into a new pipeline, 100 more.
+    half = LSTM_STEPS // 2
+    GLOBAL_REPO.reset()
+    first, _, p1, _ = run_lstm(nns, torch, np, xs[:half], model)
+    path = os.path.join(work, "lstm_checkpoint.npz")
+    ck = checkpoint_pipeline(p1, path)
+    check(all(ck["repo"][str(s)]["frame"] is not None for s in LSTM_SLOTS),
+          "the checkpoint holds no state of the cycle")
+    GLOBAL_REPO.reset()
+    rstate = {}
+
+    def rduring(p):
+        rstate["stats"] = dict(p["f"].backend.stats)
+
+    rest, _, _, _ = run_lstm(nns, torch, np, xs[half:], model, during=rduring,
+                             restore=lambda p: restore_pipeline(p, path))
+    check(rstate["stats"]["captures"] == 1, f"the restored run recaptured: {rstate['stats']}")
+    for i, (g, w) in enumerate(zip(first + rest, hs)):
+        check(bitwise_equal(torch, g, w), f"step {i}: the resumed run differs from the "
+                                          "uninterrupted one")
+    print(f"config 4: stopped after {half} steps, checkpointed ({os.path.getsize(path)} B), "
+          f"restored into a new pipeline and run {LSTM_STEPS - half} more: all {LSTM_STEPS} h "
+          "bitwise equal to the uninterrupted run", flush=True)
+    GLOBAL_REPO.reset()
+
+    # Config 4b: whole windows, one capture of the 128-step loop.
+    seq = lstm.build_sequence(SEQ_WIDTH, SEQ_WIDTH, seq_len=SEQ_LEN, seed=0, device=DEVICE)
+    seq_cpu = lstm.build_sequence(SEQ_WIDTH, SEQ_WIDTH, seq_len=SEQ_LEN, seed=0, device="cpu")
+    windows = [np.random.default_rng(100 + i).standard_normal((SEQ_LEN, SEQ_WIDTH))
+               .astype(np.float32) for i in range(SEQ_WINDOWS)]
+    sdesc = ("datasrc name=s ! tensor_upload name=u ! queue max-size-buffers=16 ! "
+             "tensor_filter framework=torch name=f ! tensor_sink name=out")
+    sstate = {}
+
+    def feed(n):
+        def setup(p):
+            p["s"].data = [torch.from_numpy(w) for w in windows[:n]]
+        return setup
+
+    def sduring(p):
+        torch.cuda.synchronize()
+        sstate["end"] = time.perf_counter()  # the card's end of the last window
+        be = p["f"].backend
+        sstate["stats"] = dict(be.stats)
+        captured_against_eager(torch, be, [torch.from_numpy(w) for w in windows[:4]],
+                               exact=True)
+
+    run_pipeline(nns, sdesc, seq, WARMUP_FRAMES, setup=feed(WARMUP_FRAMES))
+    got = []
+    _, arrivals, _ = run_pipeline(nns, sdesc, seq, SEQ_WINDOWS, during=sduring, got=got,
+                                  setup=feed(SEQ_WINDOWS))
+    got = [f.tensor(0) for f in got]
+    s_stats = sstate["stats"]
+    check(s_stats["captures"] == 1 and s_stats["replays"] == SEQ_WINDOWS,
+          f"config 4b: expected one capture and {SEQ_WINDOWS} replays: {s_stats}")
+    with torch.inference_mode():
+        seq_want = [seq_cpu(torch.from_numpy(w)) for w in windows[:SEQ_CPU_WINDOWS]]
+        seq_tf32 = with_tf32(torch, lambda: [seq(torch.from_numpy(w).to(DEVICE)).cpu()
+                                             for w in windows[:SEQ_CPU_WINDOWS]])
+
+    def seq_error(outs):
+        return max(float((g.cpu() - w).abs().max()) for g, w in zip(outs, seq_want))
+
+    seq_err, seq_tf32_err = seq_error(got), seq_error(seq_tf32)
+    check(seq_err <= SEQ_CPU_ATOL, f"config 4b differs from the CPU forward by {seq_err}")
+    check(seq_tf32_err > SEQ_CPU_ATOL, f"config 4b: with TF32 on, within {seq_tf32_err} of the "
+                                       f"CPU forward: the tolerance {SEQ_CPU_ATOL} misses TF32")
+    s_res = dict(windows=SEQ_WINDOWS, replays=s_stats["replays"],
+                 **rates(arrivals, np, sstate["end"]),
+                 cpu_abs_err=seq_err, tf32_abs_err=seq_tf32_err, capture_s=s_stats["capture_s"])
+    s_res["windows_per_s"] = s_res.pop("fps")
+    s_res["steps_per_s"] = s_res["windows_per_s"] * SEQ_LEN
+    tr = traced_run(nns, sdesc, seq, PROFILED, setup=feed(PROFILED))
+    launches = tr["calls"].get("cudaGraphLaunch", 0) + tr["calls"].get("cuGraphLaunch", 0)
+    check(launches == PROFILED, f"config 4b: {launches} graph launches for {PROFILED} windows")
+    busy = tr["busy_ms"] / PROFILED
+    s_res.update(device_busy_ms_per_window=busy,
+                 device_idle_share=1 - busy * s_res["windows_per_s"] / 1e3,
+                 host_ops_per_window=host_ops(tr["calls"]) / PROFILED,
+                 device_records_per_launch=max(t for _, t in tr["per_launch"]))
+    print(f"config 4b: replays bitwise equal to eager on 4 windows; within {seq_err:.3g} of "
+          f"the CPU forward on {SEQ_CPU_WINDOWS} (tolerance {SEQ_CPU_ATOL}; with TF32 on, "
+          f"{seq_tf32_err:.3g}: rejected)", flush=True)
+    for key in ("windows_per_s", "steps_per_s", "p50_ms", "p90_ms", "device_busy_ms_per_window",
+                "device_idle_share", "host_ops_per_window", "device_records_per_launch",
+                "capture_s"):
+        print(f"  config 4b {key}: {s_res[key]} [{card}]", flush=True)
+    return (state["launches"], res), s_res
+
+
 def _conv_dicts(tree):
     """Every dict of a params tree that holds a weight ``"w"``, in order."""
     if isinstance(tree, dict):
@@ -2451,6 +3050,12 @@ def main() -> int:
     custom_so = custom_so_phase(torch, np, root)
     by_path["quant"], by_path["quant_int8_head"], by_path["quant_ssd"] = quant_phase(
         torch, np, K, ops, root, card, by_path["image_labeling"][1]["device_busy_ms_per_frame"])
+    t1 = time.perf_counter()
+    by_path["pose"], pose_heatmaps, pose_int8 = pose_phase(torch, np, K, ops, root, card)
+    t2 = time.perf_counter()
+    by_path["lstm"], lstm_seq = recurrence_phase(torch, np, K, root, card)
+    print(f"phase wall s: up to the quant phase {t1 - t0:.3f}, pose {t2 - t1:.3f}, "
+          f"recurrence {time.perf_counter() - t2:.3f}", flush=True)
     wrapper = {"fused_arith": "fused_arith", "int8_matmul": "int8_matmul",
                "nms_keep": "pallas_nms_keep"}
     for name, r in kernels.items():
@@ -2465,7 +3070,9 @@ def main() -> int:
                       "model_file": by_path["model_file"][1], "torchscript": torchscript,
                       "drift": drift, "custom_so": custom_so, "obs": observed,
                       "quant": by_path["quant"][1], "quant_int8_head": by_path["quant_int8_head"][1],
-                      "quant_ssd": by_path["quant_ssd"][1]}), flush=True)
+                      "quant_ssd": by_path["quant_ssd"][1], "pose": by_path["pose"][1],
+                      "pose_heatmaps": pose_heatmaps, "pose_int8": pose_int8,
+                      "lstm": by_path["lstm"][1], "lstm_seq": lstm_seq}), flush=True)
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

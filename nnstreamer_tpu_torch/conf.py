@@ -58,6 +58,9 @@ DEFAULTS: Dict[str, Dict[str, str]] = {
     "filter": {
         "torch_device": "cuda",     # where models from files live
     },
+    "fleet": {
+        "repo_addr": "",            # a remote tensor repo: not ported, refused
+    },
     # Observability (nnstreamer_tpu_torch/obs).  The short env spellings
     # NNSTPU_METRICS_BUCKETS / NNSTPU_FLIGHT_RECORDS take precedence over
     # the NNSTPU_OBS_* forms mapped here.

@@ -77,7 +77,10 @@
 //   host replays that (ops/kernels.py::ChainPlan), so a chain arrives with
 //   its literals folded and a multiply-add as one step, O_FFMA
 //   (__fmaf_rn, the operand and result flushed) or, for float16, O_HFMA
-//   (__hfma: one rounding to half, as the CPU's native half arithmetic);
+//   (__hfma: one rounding to half, as the CPU's native half arithmetic),
+//   except on the lanes that a float -> int conversion before it saturated
+//   to the int's maximum (or NaN to 0, for a signed int), which XLA's CPU
+//   code computes one rounding a step (ROADMAP C10; mark_constant below);
 // - int -> float rounds from the exact value (__int2float_rn, and
 //   __uint2float_rn for uint32);
 // - float -> int truncates and saturates, NaN to 0 (cvt.rzi, which clamps
@@ -249,8 +252,49 @@ __device__ __forceinline__ void convert(uint32_t (&r)[kN], int c) {
   }
 }
 
+// ROADMAP C10: XLA's CPU code converts a float to an int through selects,
+// one arm a constant for a value at or above the int's maximum (as a
+// float32) and, for a signed int, for NaN.  LLVM folds every later step of
+// that arm one rounding at a time, so a multiply-add that it contracts
+// elsewhere is a multiply and an add on those lanes.  Bit e of `sat` marks
+// such a lane; only O_FFMA and O_HFMA read it.
 template <int kN>
-__device__ __forceinline__ void apply(uint32_t (&r)[kN], int op, uint32_t a, uint32_t b) {
+__device__ __forceinline__ void mark_constant(const uint32_t (&r)[kN], int c, uint32_t& sat) {
+  float top;
+  bool nan_too;
+  switch (c) {
+    case C_F2U8: top = 255.0f; nan_too = false; break;
+    case C_F2I8: top = 127.0f; nan_too = true; break;
+    case C_F2U16: top = 65535.0f; nan_too = false; break;
+    case C_F2I16: top = 32767.0f; nan_too = true; break;
+    case C_F2U32: top = 4294967296.0f; nan_too = false; break;
+    case C_F2I32: top = 2147483648.0f; nan_too = true; break;
+    default: return;
+  }
+#pragma unroll
+  for (int e = 0; e < kN; ++e) {
+    const float f = __uint_as_float(r[e]);
+    if (f >= top || (nan_too && f != f)) sat |= 1u << e;
+  }
+}
+
+// x * a + b one rounding a step: the multiply and the add of O_FFMA, each
+// operand and result flushed, as O_FMUL and O_FADD.
+__device__ __forceinline__ float fmul_fadd(float x, float a, float b) {
+  return ftz(__fadd_rn(ftz(__fmul_rn(ftz(x), a)), b));
+}
+
+// The same in float16: the product of two halves is exact in float32 and
+// the sum of two is rounded once more to half, which float32's 24 bits
+// make correct (2 x 11 + 2 <= 24).
+__device__ __forceinline__ uint32_t hmul_hadd_bits(uint32_t x, float a, float b) {
+  const float p = __uint_as_float(half_bits(__fmul_rn(__uint_as_float(x), a)));
+  return half_bits(__fadd_rn(p, b));
+}
+
+template <int kN>
+__device__ __forceinline__ void apply(uint32_t (&r)[kN], int op, uint32_t a, uint32_t b,
+                                      uint32_t sat) {
   const float fa = __uint_as_float(a), fb = __uint_as_float(b);
   const __half ha = __float2half_rn(fa), hb = __float2half_rn(fb);
   switch (op) {
@@ -264,8 +308,10 @@ __device__ __forceinline__ void apply(uint32_t (&r)[kN], int op, uint32_t a, uin
     case O_FMUL: EACH(__float_as_uint(ftz(__fmul_rn(ftz(__uint_as_float(x)), fa))))
     case O_FCLAMP: EACH(__float_as_uint(fclamp(ftz(__uint_as_float(x)), fa, fb)))
     case O_FNEG: EACH(neg_bits(x))
-    case O_FFMA: EACH(__float_as_uint(ffma(__uint_as_float(x), fa, fb)))
-    case O_HFMA: EACH(hfma_bits(x, ha, hb))
+    case O_FFMA:
+      EACH(__float_as_uint((sat >> e) & 1u ? fmul_fadd(__uint_as_float(x), fa, fb)
+                                           : ffma(__uint_as_float(x), fa, fb)))
+    case O_HFMA: EACH((sat >> e) & 1u ? hmul_hadd_bits(x, fa, fb) : hfma_bits(x, ha, hb))
     default: break;
   }
 }
@@ -273,11 +319,13 @@ __device__ __forceinline__ void apply(uint32_t (&r)[kN], int op, uint32_t a, uin
 
 template <int kN>
 __device__ __forceinline__ void general_steps(uint32_t (&r)[kN], const Program& p) {
+  uint32_t sat = 0;  // C10's lanes, set by a float -> int conversion
 #pragma unroll
   for (int k = 0; k < kMaxSteps; ++k) {
     if (k < p.n_steps) {
+      mark_constant(r, p.conv[k], sat);
       convert(r, p.conv[k]);
-      apply(r, p.op[k], p.a[k], p.b[k]);
+      apply(r, p.op[k], p.a[k], p.b[k], sat);
       wrap_or_round(r, p.post[k]);
     }
   }

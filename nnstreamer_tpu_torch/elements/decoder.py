@@ -20,6 +20,7 @@ _LOCK = threading.Lock()
 _BUILTIN = {
     "image_labeling": "nnstreamer_tpu_torch.decoders.image_label",
     "bounding_boxes": "nnstreamer_tpu_torch.decoders.bounding_boxes",
+    "pose_estimation": "nnstreamer_tpu_torch.decoders.pose",
 }
 
 

@@ -1,0 +1,57 @@
+"""``tensor_demux``: one frame of several tensors → one stream per tensor.
+
+The port of the JAX package's ``elements/demux.py``: a src pad per picked
+tensor, in pad order; ``tensorpick`` picks a subset by index (comma
+separated), all of them by default.  Each output frame holds the input's
+tensor itself, with the input's timing.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+from ..buffer import Frame
+from ..graph.node import NegotiationError, Node, Pad
+from ..graph.registry import register_element
+from ..spec import TensorsSpec
+
+
+@register_element("tensor_demux")
+class TensorDemux(Node):
+    REQUEST_SRC_PADS = True
+
+    def __init__(self, name: Optional[str] = None, tensorpick: str = ""):
+        super().__init__(name)
+        self.add_sink_pad("sink")
+        self.tensorpick: Optional[List[int]] = None
+        if tensorpick:
+            self.tensorpick = [int(x) for x in str(tensorpick).split(",")]
+
+    def _pad_order(self) -> List[str]:
+        return sorted(self.src_pads, key=lambda n: (len(n), n))
+
+    def _selected(self, num_tensors: int) -> List[int]:
+        return self.tensorpick if self.tensorpick is not None else list(range(num_tensors))
+
+    def configure(self, in_specs: Dict[str, TensorsSpec]) -> Dict[str, TensorsSpec]:
+        spec = in_specs["sink"]
+        sel = self._selected(spec.num_tensors)
+        order = self._pad_order()
+        if len(order) > len(sel):
+            raise NegotiationError(
+                f"{self.name}: {len(order)} src pads but only {len(sel)} tensors picked")
+        out = {}
+        for i, pad_name in enumerate(order):
+            idx = sel[i]
+            if idx >= spec.num_tensors:
+                raise NegotiationError(f"{self.name}: tensorpick index {idx} out of range "
+                                       f"({spec.num_tensors} tensors)")
+            out[pad_name] = TensorsSpec(tensors=(spec.tensors[idx],), rate=spec.rate)
+        return out
+
+    def process(self, pad: Pad, frame: Frame):
+        del pad
+        sel = self._selected(frame.num_tensors)
+        return [(pad_name, Frame.of(frame.tensor(sel[i]), pts=frame.pts,
+                                    duration=frame.duration))
+                for i, pad_name in enumerate(self._pad_order())]

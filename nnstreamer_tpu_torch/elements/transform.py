@@ -51,9 +51,9 @@ from ..device import resolve_device
 from ..graph.node import NegotiationError, Node, Pad
 from ..graph.registry import register_element
 from ..ops.kernels import (bf16_round, chain_out_dtype, fused_arith, fused_arith_plan,
-                           plan_chain, run_chain)
+                           plan_chain, run_chain, to_canonical)
 from ..spec import (BFLOAT16, NNS_TENSOR_RANK_LIMIT, TensorSpec, TensorsSpec, dtype_from_name,
-                    numpy_dtype, torch_dtype)
+                    numpy_dtype)
 from ..utils.props import parse_bool
 
 MODES = ("typecast", "arithmetic", "transpose", "dimchg", "stand", "clamp")
@@ -197,8 +197,11 @@ class TensorTransform(Node):
                 str(t.dtype), program)
 
     def build_fn(self, t: TensorSpec) -> Callable[[torch.Tensor], torch.Tensor]:
-        """The per-tensor function for a fixed input spec."""
-        out_dtype = torch_dtype(self.out_spec_for(t).dtype)
+        """The per-tensor function for a fixed input spec.  As under JAX
+        with x64 disabled, a 64-bit input is wrapped to 32 bits on entry and
+        a 64-bit result is its 32-bit dtype (ROADMAP C12): the frames then
+        carry a spec other than the negotiated one, and the src pad
+        renegotiates downstream, as the JAX element's does."""
         chain = self._chain_ops(t)
         if chain is not None:
             if self.acceleration == "pallas":
@@ -206,7 +209,12 @@ class TensorTransform(Node):
                 # folded into a filter
                 return lambda x: fused_arith(x.contiguous(), chain)
             plan = plan_chain(t.dtype, tuple(chain), promote=False)
-            return lambda x: run_chain(x, plan).to(out_dtype)
+            return lambda x: run_chain(x, plan)
+        fn = self._shape_fn(t)
+        return lambda x: fn(to_canonical(x))
+
+    def _shape_fn(self, t: TensorSpec) -> Callable[[torch.Tensor], torch.Tensor]:
+        """The function of a shape-changing mode (transpose, dimchg, stand)."""
         r = NNS_TENSOR_RANK_LIMIT
         pad_shape = tuple(reversed(t.nns_dims))  # rank-4 numpy-order view
         out_shape = self.out_spec_for(t).shape

@@ -6,7 +6,9 @@ do:
 
 - ``passthrough.py``: identity, shape-polymorphic;
 - ``scaler.py``: nearest-neighbour video resize to ``custom="WxH"``;
-- ``average.py``: spatial mean per channel, (H, W, C) → (1, 1, C).
+- ``average.py``: spatial mean per channel, (H, W, C) → (1, 1, C);
+- ``lstm.py``: one parameter-free LSTM-like step, (h, c, x) → (h', c');
+- ``rnn.py``: one tanh RNN step, (h, x) → h'.
 
 From a launch string::
 

@@ -4,7 +4,9 @@ The port's copy of the JAX package's ``graph/node.py``: pads link nodes,
 negotiation is an explicit pass over the graph (``graph/pipeline.py``), a
 pad push runs the downstream chain synchronously in the pusher's thread, and
 events (EOS, caps) travel in band with frames.  Each source runs in its own
-thread.
+thread.  Elements with request pads (mux and merge on the sink side,
+demux, split and tee on the src side) make a pad when a link names one
+they lack, or names none once every pad is linked (``sink_N``, ``src_N``).
 
 A frame's tensor may still be arriving: ``tensor_upload`` copies on a side
 stream and marks the tensor with the copy's event.  :meth:`Node._dispatch`
@@ -125,6 +127,16 @@ class Node:
     out), :meth:`process` (per frame), :meth:`start` and :meth:`stop`.
     """
 
+    # Set by elements that make sink pads on demand (mux, merge) and src
+    # pads on demand (demux, split, tee): a link to a pad name they lack,
+    # or to no name once every pad is linked, adds the pad.
+    REQUEST_SINK_PADS = False
+    REQUEST_SRC_PADS = False
+    # Set by elements that block on the outside world (repo slots): the
+    # JAX package's dispatcher lanes move such a node off a lane; the port
+    # reads it once its lanes are ported.
+    LANE_BLOCKING = False
+
     _AUTO_IDS = itertools.count()
 
     def __init__(self, name: Optional[str] = None):
@@ -149,24 +161,32 @@ class Node:
         self.src_pads[name] = pad
         return pad
 
-    @staticmethod
-    def _get_pad(pads: Dict[str, Pad], kind: str, owner: str, name: Optional[str]) -> Pad:
+    def _get_pad(self, pads: Dict[str, Pad], request: bool, kind: str,
+                 name: Optional[str]) -> Pad:
         if name is None:
-            for pad in pads.values():
+            for pad in pads.values():  # the first unlinked pad
                 if pad.peer is None:
                     return pad
-            if not pads:
-                raise ValueError(f"{owner} has no {kind} pads")
-            raise ValueError(f"{owner}: all {kind} pads linked")
+            if request:
+                name = f"{kind}_{len(pads)}"
+            elif not pads:
+                raise ValueError(f"{self.name} has no {kind} pads")
+            else:
+                raise ValueError(f"{self.name}: all {kind} pads linked")
         if name in pads:
             return pads[name]
-        raise ValueError(f"{owner} has no {kind} pad {name!r}")
+        if request:
+            adder = self.add_sink_pad if kind == "sink" else self.add_src_pad
+            return adder(name)
+        raise ValueError(f"{self.name} has no {kind} pad {name!r}")
 
     def get_sink_pad(self, name: Optional[str] = None) -> Pad:
-        return self._get_pad(self.sink_pads, "sink", self.name, name)
+        """The pad of that name, the first unlinked one, or a new request
+        pad where the element makes them."""
+        return self._get_pad(self.sink_pads, self.REQUEST_SINK_PADS, "sink", name)
 
     def get_src_pad(self, name: Optional[str] = None) -> Pad:
-        return self._get_pad(self.src_pads, "src", self.name, name)
+        return self._get_pad(self.src_pads, self.REQUEST_SRC_PADS, "src", name)
 
     # -- negotiation --------------------------------------------------------
 
@@ -231,12 +251,24 @@ class Node:
         elif event.kind == "caps":
             self._handle_caps(pad, event.payload)
         else:
-            for spad in self.src_pads.values():
-                spad.push(event)
+            self.on_event(pad, event)
+
+    def on_event(self, pad: Pad, event: Event) -> None:
+        """Events other than EOS and caps: forwarded downstream."""
+        del pad
+        for spad in self.src_pads.values():
+            spad.push(event)
 
     def _handle_caps(self, pad: Pad, new_spec: TensorsSpec) -> None:
         """Re-run negotiation from this node down for a mid-stream change;
         an incompatible change raises."""
+        for spad, event in self._recompute_caps(pad, new_spec):
+            spad.peer.node._dispatch(spad.peer, event)
+
+    def _recompute_caps(self, pad: Pad, new_spec: TensorsSpec):
+        """Commit a mid-stream spec change here; the caps events to send
+        on, as (src pad, event), which the caller pushes (a collecting node
+        defers them to its turn)."""
         template = self.sink_spec(pad.name)
         merged = template.intersect(new_spec)
         if merged is None:
@@ -252,13 +284,15 @@ class Node:
             if p.peer is not None and p.spec is not None
         }
         out_specs = self.reconfigure(in_specs)
+        events = []
         for name, spad in self.src_pads.items():
             spec = out_specs.get(name)
             if spad.peer is None or spec is None or spec == spad.spec:
                 continue
             spad.spec = spec
             spad.sig = None
-            spad.peer.node._dispatch(spad.peer, Event.caps(spec))
+            events.append((spad, Event.caps(spec)))
+        return events
 
     def _on_eos(self) -> None:
         """Every sink pad reached EOS: drain and forward."""

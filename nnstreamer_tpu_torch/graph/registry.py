@@ -29,6 +29,13 @@ _BUILTIN_MODULES: Dict[str, str] = {
     "tensor_aggregator": "nnstreamer_tpu_torch.elements.aggregator",
     "queue": "nnstreamer_tpu_torch.elements.queue",
     "tensor_upload": "nnstreamer_tpu_torch.elements.upload",
+    "tensor_mux": "nnstreamer_tpu_torch.elements.mux",
+    "tensor_demux": "nnstreamer_tpu_torch.elements.demux",
+    "tee": "nnstreamer_tpu_torch.elements.tee",
+    "tensor_merge": "nnstreamer_tpu_torch.elements.merge",
+    "tensor_split": "nnstreamer_tpu_torch.elements.split",
+    "tensor_reposink": "nnstreamer_tpu_torch.elements.repo",
+    "tensor_reposrc": "nnstreamer_tpu_torch.elements.repo",
 }
 
 

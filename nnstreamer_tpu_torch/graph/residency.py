@@ -7,8 +7,11 @@ filter downstream for the device to copy to, and the fusion passes hop
 over the same plumbing (``graph/optimize.py::_hop_transparent``).
 
 The passthrough types (:func:`passthrough_types`) are ``queue`` and
-``tensor_upload`` for now; tee, mux, demux and the batch elements join as
-they are ported, and with them the JAX package's ``chain_device_resident``.
+``tensor_upload``: the two walks here, as in the JAX package, hop no fan
+point (tee, mux, demux), which would move a transform across other
+branches' streams.  The JAX package's wider residency walk
+(``chain_device_resident``, which also crosses tee, mux, demux and the
+batch elements) comes with the batch elements.
 """
 
 from __future__ import annotations

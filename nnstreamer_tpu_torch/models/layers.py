@@ -37,6 +37,20 @@ def _same_pads(size: int, k: int, stride: int) -> Tuple[int, int]:
     return total // 2, total - total // 2
 
 
+_TINY = 1.17549435e-38  # float32's smallest normal
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` as XLA computes it on the CPU: ``1 / (1 + exp(-x))``
+    in ``x``'s dtype, each step rounded to it (in bfloat16 this differs from
+    ``torch.sigmoid``, rounded once, on 1,116 of the 65,280 finite inputs),
+    a subnormal result flushed to zero.  The pose net's bfloat16 heatmaps
+    use it; float32 models, compared within a tolerance, use
+    ``torch.sigmoid``."""
+    r = torch.reciprocal(1 + torch.exp(-x))
+    return torch.where(r.abs() < _TINY, r * 0, r)
+
+
 def conv2d(params: Params, x: torch.Tensor, stride: int = 1, groups: int = 1,
            dtype=None, int8: bool = False) -> torch.Tensor:
     """SAME-padded conv of an NCHW tensor; depthwise with ``groups=C``.

@@ -17,8 +17,8 @@ answers the per-frame question:
   thread to the queue's);
 - coalescing elements stamp the combined frame with a fresh span whose
   **parent links** name every constituent frame's span
-  (:func:`merge_context`; its callers, ``tensor_mux`` and
-  ``tensor_dynbatch``, are not ported yet);
+  (:func:`merge_context`, called by ``tensor_mux`` for each collection
+  round; ``tensor_dynbatch``, its other caller, is not ported yet);
 - records land in a bounded per-thread ring (:class:`~.flight.
   FlightRecorder`) — zero cost when disabled (the ``enabled`` module
   flag is one load + truth test, same discipline as ``obs/hooks.py``);

@@ -50,6 +50,19 @@ def _canon(dtype) -> np.dtype:
     return _CANON.get(dtype, dtype)
 
 
+def to_canonical(x: torch.Tensor) -> torch.Tensor:
+    """A 64-bit tensor as JAX holds it with x64 disabled (ROADMAP C12): an
+    int64 or uint64 wrapped to its low 32 bits (two's complement), a
+    float64 rounded to float32; any other tensor as it is."""
+    if x.dtype == torch.int64:
+        return _wrap_int(x, _I32).to(torch.int32)
+    if x.dtype == torch.uint64:
+        return torch.bitwise_and(x.view(torch.int64), 0xFFFFFFFF).to(torch.uint32)
+    if x.dtype == torch.float64:
+        return x.to(torch.float32)
+    return x
+
+
 def _is_int(dtype) -> bool:
     return dtype.kind in ("i", "u")
 
@@ -594,7 +607,20 @@ def _fma(v: torch.Tensor, a: float, b: float, dt: np.dtype) -> torch.Tensor:
     return s.to(torch.float32 if dt == _F32 else torch.float16).to(torch.float32)
 
 
-def _apply_step(v: torch.Tensor, op: str, dt: np.dtype, a, b) -> torch.Tensor:
+def _constant_lanes(v: torch.Tensor, dt: np.dtype) -> torch.Tensor:
+    """The lanes of a float32 tensor that XLA's CPU code converts to the
+    int ``dt`` through a constant arm of a select (ROADMAP C10): a value at
+    or above the int's maximum (as a float32) and, for a signed int, NaN.
+    LLVM folds every later step of such a lane one rounding at a time, so
+    a multiply-add it contracts elsewhere is a multiply and an add there."""
+    info = np.iinfo(dt)
+    lanes = v >= float(np.float32(info.max))
+    return lanes | torch.isnan(v) if info.min < 0 else lanes
+
+
+def _apply_step(v: torch.Tensor, op: str, dt: np.dtype, a, b, const=None) -> torch.Tensor:
+    """One step on the working representation; ``const`` marks the lanes
+    of :func:`_constant_lanes` (None: no float → int conversion so far)."""
     if op == "typecast":
         return v
     if op == "neg":
@@ -603,7 +629,11 @@ def _apply_step(v: torch.Tensor, op: str, dt: np.dtype, a, b) -> torch.Tensor:
         v = _flush(v)
     if op == "fma":
         lit = [float(_flush32(_literal32(c, dt))) for c in (a, b)]
-        return _round_to(_flush(_fma(v, lit[0], lit[1], dt)), dt)
+        fused = _round_to(_flush(_fma(v, lit[0], lit[1], dt)), dt)
+        if const is None:
+            return fused
+        m = _round_to(_flush(v * lit[0]), dt)
+        return torch.where(const, _round_to(_flush(m + lit[1]), dt), fused)
     if op == "rmul":  # by a float32 reciprocal, then rounded to the step dtype
         r = v * torch.tensor(float(_flush32(a)), dtype=torch.float32, device=v.device)
         return _round_to(_flush(r), dt)
@@ -629,15 +659,21 @@ def _apply_step(v: torch.Tensor, op: str, dt: np.dtype, a, b) -> torch.Tensor:
 
 
 def run_chain(x: torch.Tensor, plan: ChainPlan) -> torch.Tensor:
-    """Plain PyTorch evaluation of a resolved chain, step by step."""
-    cur = _canon(x.dtype)
+    """Plain PyTorch evaluation of a resolved chain, step by step; a 64-bit
+    input is wrapped to 32 bits first (:func:`to_canonical`)."""
+    x = to_canonical(x)
+    cur = numpy_dtype(x.dtype)
     v = x.to(torch.int64) if _is_int(cur) else x.to(torch.float32)
     v = _convert(v, cur, plan.start_dtype)
     cur = plan.start_dtype
+    const = None  # ROADMAP C10: lanes XLA computes one rounding a step
     for op, dt, a, b in plan.steps:
+        if _is_int(dt) and not _is_int(cur):
+            lanes = _constant_lanes(v, dt)
+            const = lanes if const is None else const | lanes
         v = _convert(v, cur, dt)
         cur = dt
-        v = _apply_step(v, op, dt, a, b)
+        v = _apply_step(v, op, dt, a, b, const)
     v = _convert(v, cur, plan.out_dtype)
     return v.to(torch_dtype(plan.out_dtype))
 
@@ -695,7 +731,21 @@ _CONV_NAMES = {v: k for k, v in CONV.items()}
 _OP_NAMES = {v: k for k, v in OP.items()}
 
 
-def _op_eval(r: np.ndarray, op: str, a: int, b: int) -> np.ndarray:
+# The float → int conversions, with the int each saturates to.
+_F2I = {CONV[f"f2{dt.name[0]}{dt.itemsize * 8}"]: dt
+        for dt in map(np.dtype, (np.uint8, np.int8, np.uint16, np.int16, np.uint32, np.int32))}
+
+
+def _constant_bits(r: np.ndarray, dt: np.dtype) -> np.ndarray:
+    """:func:`_constant_lanes` on float32 bits."""
+    info = np.iinfo(dt)
+    f = _f(r)
+    with np.errstate(invalid="ignore"):
+        lanes = f >= np.float32(info.max)
+    return lanes | np.isnan(f) if info.min < 0 else lanes
+
+
+def _op_eval(r: np.ndarray, op: str, a: int, b: int, const=None) -> np.ndarray:
     if op == "none":
         return r
     if op in ("iadd", "isub", "imul"):
@@ -712,7 +762,14 @@ def _op_eval(r: np.ndarray, op: str, a: int, b: int) -> np.ndarray:
     r = _flush_bits(r)
     if op in ("ffma", "hfma"):
         m, c = (float(np.uint32(w).view(np.float32)) for w in (a, b))
-        return _flush_bits(_fma_np(_f(r), m, c, _F16 if op == "hfma" else _F32).view(np.uint32))
+        dt = _F16 if op == "hfma" else _F32
+        fused = _flush_bits(_fma_np(_f(r), m, c, dt).view(np.uint32))
+        if const is None:
+            return fused
+        with np.errstate(all="ignore"):  # IEEE results: inf, NaN
+            p = _flush_bits((_f(r) * np.float32(m)).astype(dt).astype(np.float32).view(np.uint32))
+            s = _flush_bits((_f(p) + np.float32(c)).astype(dt).astype(np.float32).view(np.uint32))
+        return np.where(const, s, fused)
     v, lo = _f(r), np.uint32(a).view(np.float32)
     with np.errstate(all="ignore"):  # IEEE results: inf, NaN
         if op == "fadd":
@@ -766,10 +823,14 @@ def program_eval(x: np.ndarray, program: Program, out_dtype, in_dtype=None) -> n
     else:
         r = x.astype(np.float32).view(np.uint32)
     r = np.array(r, np.uint32, copy=True)
+    const = None  # ROADMAP C10, as the kernel's per-lane mask
     for k, op in enumerate(program.op):
         if program.variant == GENERAL:
+            if program.conv[k] in _F2I:
+                lanes = _constant_bits(r, _F2I[program.conv[k]])
+                const = lanes if const is None else const | lanes
             r = _CONV_FNS[_CONV_NAMES[program.conv[k]]](r)
-        r = _op_eval(r, _OP_NAMES[op], program.a[k], program.b[k])
+        r = _op_eval(r, _OP_NAMES[op], program.a[k], program.b[k], const)
         r = _CONV_FNS[_CONV_NAMES[program.post[k]]](r)
     if out_dtype == BFLOAT16:
         return bf16_bits(_f(r))

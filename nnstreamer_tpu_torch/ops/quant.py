@@ -116,7 +116,9 @@ def quantize_model(m, name_suffix: str = "_q8"):
 
 # XLA compiles ``amax / 127.0`` into ``amax * (1/127)`` (division by a
 # constant becomes a product with its float32 reciprocal); the port computes
-# the scale the same way so that it matches the compiled JAX model bit for bit.
+# the scale the same way so that it matches the compiled JAX model bit for
+# bit.  Calibration runs the JAX model eagerly, where the division stays a
+# true division (ROADMAP C11), so there the port divides too.
 _INV_127 = float(np.float32(1) / np.float32(127))
 
 
@@ -132,10 +134,14 @@ def quantize_activations(x: torch.Tensor, dtype=torch.int8, axes=None):
     as XLA computes them (a bfloat16 ``amax / 127`` is the float32 product
     with the reciprocal, rounded to bfloat16); the quotient ``x / scale`` is
     a true division in float32, the scale being no constant.  ``scale``
-    stays a device tensor, so nothing synchronizes with the host."""
+    stays a device tensor, so nothing synchronizes with the host.  While
+    :func:`is_calibrating`, ``amax / 127`` is a true division, as the JAX
+    package's eager calibration computes it."""
     a = x.abs()
     amax = a.amax() if axes is None else a.amax(dim=tuple(axes), keepdim=True)
-    scale = (amax.to(torch.float32) * _INV_127).to(x.dtype).to(torch.float32)
+    wide = amax.to(torch.float32)
+    scale = wide / 127.0 if is_calibrating() else wide * _INV_127
+    scale = scale.to(x.dtype).to(torch.float32)
     scale = torch.where(amax > 0, scale, torch.ones_like(scale))
     q = torch.clamp(torch.round(x.to(torch.float32) / scale), -127, 127).to(dtype)
     return q, scale

@@ -9,7 +9,10 @@ The audio phase's checks get backend stats, wrapper counts, labels and
 logits; the upload-wait check gets the frames a sink callback read.  The
 quant phase's check gets traces whose launches hold cuBLASLt's int8 GEMM
 records (35 a frame): one missing, or none, fails; its device-time split
-gets profiler events.
+gets profiler events.  The pose phase's keypoint check gets heatmaps and
+keypoint lists; its conv check runs a small pose net with the CPU standing
+in for the card, and fails a conv lane or a heatmap moved; the recurrence
+phase's checks get backend stats and copy counts.
 """
 
 import importlib.util
@@ -335,3 +338,103 @@ def test_split_by_step(smoke):
     split = smoke.split_by_step(events)
     assert split == {"int8 GEMM": 0.4, "quantize and rescale": 0.05, "depthwise conv": 0.1,
                      "other": 0.008}
+
+
+def test_keypoints_of_takes_the_first_of_equal_maxima(smoke):
+    hm = np.full((4, 5, 14), 0.25, np.float32)
+    hm[2, 1, 3] = hm[3, 4, 3] = 0.75  # the row-major first is (x=1, y=2)
+    kps = smoke.keypoints_of(np, hm)
+    assert kps[3] == (1, 2, 0.75) and kps[0] == (0, 0, 0.25) and len(kps) == 14
+
+
+@pytest.mark.parametrize("fault", [None, "cell", "score", "cpu_cell"])
+def test_keypoint_check(smoke, fault):
+    """The decoded keypoints must be the eager heatmaps' argmax, cells and
+    scores; against the CPU forward only where the top-1 leads by more than
+    the margin: a CPU cell that differs on a channel within it passes."""
+    rng = np.random.default_rng(3)
+    hm = rng.random((14, 14, 14)).astype(np.float32)
+    got = smoke.keypoints_of(np, hm)
+    cpu = hm.copy()
+    flat = cpu.reshape(-1, 14)
+    lead = int(np.argmax(flat[:, 0]))
+    flat[lead, 0] = flat[:, 0].max() + 0.5  # channel 0 leads by far on the CPU
+    flat[(lead + 1) % flat.shape[0], 5] = flat[:, 5].max() + 1e-3  # channel 5: within margin
+    if fault == "cell":
+        got[2] = ((got[2][0] + 1) % 14, got[2][1], got[2][2])
+    elif fault == "score":
+        got[2] = (got[2][0], got[2][1], got[2][2] + 1e-3)
+    elif fault == "cpu_cell":
+        flat[lead, 0] = 0.0
+        flat[(lead + 3) % flat.shape[0], 0] = 2.0  # the CPU's cell moves, by far
+    if fault in ("cell", "score", "cpu_cell"):
+        with pytest.raises(SystemExit):
+            smoke.keypoint_check(np, got, hm, cpu, 0.03)
+    else:
+        assert smoke.keypoint_check(np, got, hm, cpu, 0.03) >= 1
+        assert smoke.keypoint_check(np, got, hm, None, 0.03) == 0
+
+
+def test_memcpy_counts(smoke):
+    names = {"Memcpy DtoH (Device -> Pageable)": 2, "Memcpy HtoD (Pageable -> Device)": 16,
+             "Memcpy DtoD (Device -> Device)": 62, "void at::native::copy_kernel": 9}
+    assert smoke.memcpy_counts(names) == {"DtoH": 2, "HtoD": 16, "DtoD": 62}
+
+
+@pytest.mark.parametrize("fault", [None, "recapture", "replays", "tracer_copy", "dtoh"])
+def test_recurrence_checks(smoke, fault):
+    stats = {"captures": 2 if fault == "recapture" else 1,
+             "replays": 199 if fault == "replays" else 200}
+    args = (stats, 200, 1 if fault == "tracer_copy" else 0, 3 if fault == "dtoh" else 0)
+    if fault is None:
+        smoke.recurrence_checks(*args)
+    else:
+        with pytest.raises(SystemExit):
+            smoke.recurrence_checks(*args)
+
+
+@pytest.mark.parametrize("fault", [None, "conv", "sigmoid"])
+def test_pose_conv_check(smoke, fault):
+    """Every bfloat16 conv of the pose net within its accumulation bounds,
+    the rest bit for bit against the CPU forward fed the same conv outputs
+    (here the "card" is the CPU too): a lane moved by 1/4 in one conv, or a
+    heatmap moved after the last conv, fails."""
+    import torch
+
+    from nnstreamer_tpu_torch.models import posenet
+
+    params = posenet.init_params(0, 0.35, device="cpu")
+    x = torch.from_numpy(np.random.default_rng(2).uniform(-1, 1, (64, 64, 3))
+                         .astype(np.float32))
+    calls = []
+
+    def apply(p, x):
+        if p is not params:
+            return posenet.apply(p, x)
+        if fault == "sigmoid":
+            return posenet.apply(p, x) + 2.0 ** -10
+        if fault == "conv":  # the 20th conv, one lane
+            F = torch.nn.functional
+            real = F.conv2d
+
+            def conv2d(*a, **kw):
+                y = real(*a, **kw)
+                calls.append(1)
+                if len(calls) == 20:
+                    y = y.clone()
+                    y[0, 0, 0, 0] += 0.25
+                return y
+
+            F.conv2d = conv2d
+            try:
+                return posenet.apply(p, x)
+            finally:
+                F.conv2d = real
+        return posenet.apply(p, x)
+
+    cpu = {k: v for k, v in params.items()}  # the same leaves, another tree
+    if fault is None:
+        assert smoke.pose_conv_check(torch, apply, params, cpu, x) == (40, 215776, 224)
+    else:
+        with pytest.raises(SystemExit):
+            smoke.pose_conv_check(torch, apply, params, cpu, x)

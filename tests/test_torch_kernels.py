@@ -247,14 +247,17 @@ def _against_xla(got, want, out_dtype) -> None:
     _bitwise(_values(got, out_dtype), _values(want, out_dtype))
 
 
-def _c10(plan) -> bool:
-    """ROADMAP C10 (open): a float value converted to an int at or above
-    the int's maximum, and a fused multiply-add after it.  XLA's CPU code
-    computes such a lane at compile time, one rounding a step."""
-    cur, converted = plan.start_dtype, False
+def _c13(plan) -> bool:
+    """ROADMAP C13 (open): a float → int conversion, a second float → int
+    conversion after it, and a fused multiply-add after that.  Whether XLA's
+    CPU code keeps the first conversion's saturated lanes constant through
+    the second depends on how LLVM folds the second conversion's selects;
+    the port keeps them (C10's rule)."""
+    cur, conversions = plan.start_dtype, 0
     for op, dt, _, _ in plan.steps:
-        converted |= op == "typecast" and dt.kind in "iu" and cur.kind == "f"
-        if op == "fma" and converted:
+        if op == "typecast" and dt.kind in "iu" and cur.kind == "f":
+            conversions += 1
+        if op == "fma" and conversions >= 2:
             return True
         cur = dt
     return False
@@ -332,10 +335,13 @@ class TestChainProgram:
         """Every bound chain of 1 to 8 steps, float32 and float16 included,
         against the Pallas kernel in interpret mode: XLA's folded literals
         (C7), its fused multiply-adds (C8) and its float16 rules (C9) are
-        the port's too.  The one class left out is ROADMAP C10 (open)."""
+        the port's too, and so are the lanes XLA computes one rounding a
+        step after a saturating float → int conversion (C10).  The one class
+        left out is ROADMAP C13 (open): a second float → int conversion
+        before the fused multiply-add."""
         ops = _bind_chain(ops, dt)
         plan = K.fused_arith_plan(dt, ops)
-        assume(not _c10(plan))
+        assume(not _c13(plan))
         x = _extreme_inputs(dt, np.random.default_rng(seed), n=37)
         _bitwise(K.program_eval(x, plan.program, plan.out_dtype), _jax_bf16(x, dt, ops))
 
@@ -366,7 +372,7 @@ class TestChainProgram:
         dt, ops = _with_bf16(bf_in, dt, ops, pos)
         ops = _bind_chain(ops, dt)
         plan = K.fused_arith_plan(dt, ops)
-        assume(not _c10(plan))
+        assume(not _c13(plan))
         x = _inputs(dt, np.random.default_rng(seed), n=37)
 
         _against_xla(K.program_eval(x, plan.program, plan.out_dtype, in_dtype=dt),
@@ -672,18 +678,73 @@ class TestXlaFolds:
 
     @pytest.mark.parametrize("src", [np.float32, np.float16])
     def test_roadmap_c10_saturated_lanes_step_rounded(self, src):
-        """ROADMAP C10 (open): a float at or above an int's maximum,
-        converted to it, then a fused multiply-add: XLA computes the lane
-        one rounding a step (at compile time), the port fuses it.  The
-        other lanes agree."""
+        """ROADMAP C10 (repaired): a float at or above an int's maximum,
+        converted to it, then a fused multiply-add: XLA's CPU code computes
+        that lane one rounding a step (LLVM folds the constant arm of the
+        conversion's select), and so does the port, lane by lane; the
+        other lanes stay fused."""
         x = np.array([np.inf, 127, 500, 5.3, -500], src)
         ops = [("typecast", np.dtype(np.int8)), ("div", 130), ("add", 0.001)]
         want = _jax_fused(x, ops)
-        got = _port_fused(x, ops)
-        assert _c10(K.fused_arith_plan(np.dtype(src), ops))
-        assert list(np.flatnonzero(got != want)) == [0, 1, 2]
+        plan = K.fused_arith_plan(np.dtype(src), ops)
+        assert [op for op, *_ in plan.steps] == ["typecast", "fma"]
         np.testing.assert_array_equal(want[:3], np.float32(0.97792304))
-        np.testing.assert_array_equal(got[:3], np.float32(0.9779231))
+        _bitwise(_port_fused(x, ops), want)
+        _bitwise(K.program_eval(x, plan.program, plan.out_dtype), want)
+
+    # Values of each class a float → int conversion meets: beyond and at
+    # the maximum, the float just below it, the minimum and beyond it, NaN,
+    # values in range; an int add after the conversion moves each class's
+    # int to one where a multiply-add rounded once and twice differ.
+    C10_LANES = [np.inf, 1e30, -np.inf, -1e30, np.nan, 1.5, -0.5, -5.0, 7.0, 100.25]
+
+    @pytest.mark.parametrize("to", [np.float32, np.float16])
+    @pytest.mark.parametrize("it,shift", [
+        (it, shift) for it in (np.int8, np.uint8, np.int16, np.uint16, np.int32, np.uint32)
+        for shift in (0, 1, -1, 100, -12345)
+        if np.iinfo(it).min <= shift <= np.iinfo(it).max])
+    def test_c10_every_saturation_class_bitwise(self, it, shift, to):
+        """Every class of lane through ``typecast:int, add:shift,
+        typecast:float, mul, add`` against the Pallas kernel in interpret
+        mode: the lanes at or above the int's maximum, and NaN for a signed
+        int, one rounding a step; the minimum's lanes and the rest fused."""
+        info = np.iinfo(it)
+        top = np.float32(info.max)
+        x = np.array(self.C10_LANES + [top, np.nextafter(top, np.float32(0)),
+                                       np.float32(info.min)], np.float32)
+        ops = [("typecast", np.dtype(it))] + ([("add", shift)] if shift else []) + \
+            [("typecast", np.dtype(to)), ("mul", 1.37), ("add", 0.0071)]
+        ops = _bind_chain(ops, np.dtype(np.float32))
+        want = _jax_fused(x, ops)
+        plan = K.fused_arith_plan(np.dtype(np.float32), ops)
+        assert plan.steps[-1][0] == "fma"
+        _bitwise(_port_fused(x, ops), want)
+        _bitwise(K.program_eval(x, plan.program, plan.out_dtype), want)
+
+
+# ROADMAP C13's input: float16 [inf, 255, -inf, 3] through a second
+# conversion (int32, clamp, uint16) before the fused multiply-add.
+C13_OPS = [("typecast", np.dtype(np.int32)), ("clamp", (1.0330171742977412, 221.0729442728292)),
+           ("typecast", np.dtype(np.uint16)), ("mul", -0.42657339572906494),
+           ("add", -1.033626914024353), ("sub", 226)]
+
+
+def test_roadmap_c13_second_conversion_pinned():
+    """ROADMAP C13 (open): the +inf lane saturates to int32's maximum, the
+    clamp and the uint16 conversion give 221 as on the 255 lane, and XLA
+    fuses the multiply-add there (-321.30637), where the port, keeping
+    the lane constant since the first conversion, rounds it twice
+    (-321.30634).  The other lanes agree."""
+    x = np.array([np.inf, 255, -np.inf, 3], np.float16)
+    ops = _bind_chain(C13_OPS, np.dtype(np.float16))
+    plan = K.fused_arith_plan(np.dtype(np.float16), ops)
+    assert _c13(plan)
+    want = _jax_fused(x, ops)
+    got = _port_fused(x, ops)
+    assert list(np.flatnonzero(got != want)) == [0]
+    assert want[0] == want[1] == np.float32(-321.30637)
+    assert got[0] == np.float32(-321.30634)
+    _bitwise(K.program_eval(x, plan.program, plan.out_dtype), got)
 
 
 # (in dtype, out dtype) pairs of every width, each once.

@@ -177,6 +177,38 @@ def test_port_runs_with_jax_blocked():
             "tensor_sink name=out collect=true")
         c.run(timeout=60)
         assert [tuple(f.tensor(0).shape) for f in c["out"].frames] == [(1, 1, 3)] * 2
+        from nnstreamer_tpu_torch.elements import collect, demux, merge, mux, repo, split, tee
+        from nnstreamer_tpu_torch.models import lstm, posenet
+        from nnstreamer_tpu_torch.decoders import pose
+        from nnstreamer_tpu_torch.utils.checkpoint import checkpoint_pipeline, restore_pipeline
+        import torch
+        caps = nns.TensorsSpec(tensors=(nns.TensorSpec(dtype="float32", shape=(8,)),))
+        r = nns.Pipeline()
+        srcs = [r.add(repo.TensorRepoSrc(name=n, slot_index=i, caps=caps, device="cpu"))
+                for i, n in ((40, "h"), (41, "c"))]
+        srcs.append(r.add(nns.make("datasrc", "x", data=[torch.ones(8)] * 3)))
+        m = r.add(nns.make("tensor_mux", "m", sync_mode="nosync"))
+        for i, s_ in enumerate(srcs):
+            r.link(s_, f"m.sink_{{i}}")
+        r.link_chain(m, r.add(TensorFilter(framework="torch", name="f", model=lstm.build_cell(
+            8, 8, device="cpu"))), r.add(nns.make("tensor_demux", "d")))
+        r.link("d.src_0", r.add(nns.make("tee", "t")))
+        r.link("t", r.add(repo.TensorRepoSink(name="hs", slot_index=40)))
+        out = r.add(nns.make("tensor_sink", "out", collect=True))
+        r.link("t", out)
+        r.link("d.src_1", r.add(repo.TensorRepoSink(name="cs", slot_index=41)))
+        r.run(timeout=60)
+        assert len(out.frames) == 3
+        g = nns.Pipeline()
+        hm = posenet.build(image_size=32, params=posenet.init_tree(0, 0.35), fused_decode=True,
+                           device="cpu")
+        g.link_chain(g.add(nns.make("datasrc", data=[torch.zeros(32, 32, 3)])),
+                     g.add(TensorFilter(framework="torch", model=hm)),
+                     g.add(nns.make("tensor_decoder", mode="pose_estimation",
+                                    option1="32:32", option2="2:2")),
+                     g.add(nns.make("tensor_sink", "out", collect=True)))
+        g.run(timeout=60)
+        assert len(g["out"].frames[0].meta["pose"]) == 14
         assert not any(k in ("jax", "ml_dtypes") or k.startswith(("jax.", "nnstreamer_tpu."))
                        for k, v in sys.modules.items() if v is not None)
         print("labels", [f.meta["label"] for f in chain[-1].frames])

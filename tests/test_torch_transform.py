@@ -274,6 +274,48 @@ def test_bfloat16_streams_match_reference(props):
                                       want.view(np.uint16))
 
 
+class TestSixtyFourBit:
+    """ROADMAP C12: the JAX element runs with x64 disabled, so a 64-bit
+    input is wrapped to 32 bits on entry (two's complement for int64 and
+    uint64, a float32 round for float64) and a 64-bit target yields 32-bit
+    frames; the src pad then renegotiates downstream to their spec."""
+
+    CASES = [
+        (np.array([2 ** 62 + 1, -(2 ** 62) - 3, 2 ** 53 + 1, 2 ** 31, -1, 2 ** 63 - 1], np.int64),
+         "float32", np.array([1, -3, 1, -2147483648, -1, -1], np.float32)),
+        (np.array([2 ** 64 - 1, 2 ** 63 + 5, 2 ** 53 + 1, 0], np.uint64),
+         "float32", np.array([4294967296, 5, 1, 0], np.float32)),
+        (np.array([1.5, -2.25, 3e38, 1e-40], np.float32), "float64", None),
+    ]
+
+    @pytest.mark.parametrize("case", range(len(CASES)))
+    def test_roadmap_c12_inputs_match_reference(self, case):
+        x, to, want = self.CASES[case]
+        _check(x, mode="typecast", option=to, acceleration=True)
+        got, spec = _run_port(x, mode="typecast", option=to, acceleration=True)
+        assert spec.dtype == np.float32
+        np.testing.assert_array_equal(got, x if want is None else want)
+
+    @pytest.mark.parametrize("dt", [np.int64, np.uint64, np.float64])
+    @pytest.mark.parametrize("props", [
+        dict(mode="arithmetic", option="mul:3,add:1"),
+        dict(mode="clamp", option="-5:70"),
+        dict(mode="transpose", option="1:0:2:3"),
+        dict(mode="dimchg", option="0:1"),
+        dict(mode="stand", option="default")])
+    def test_every_mode_wraps_on_entry(self, dt, props):
+        x = np.array([[2 ** 40 + 7, 3, 2 ** 33 - 1], [-(2 ** 35) - 9 if dt != np.uint64 else 2 ** 63,
+                                                     12, 2 ** 32 + 100]]).astype(dt)
+        _check(x, exact=props["mode"] != "stand", acceleration=True, **props)
+
+    def test_false_keeps_sixty_four_bits(self):
+        """``acceleration=false`` is numpy's rule, 64 bits through."""
+        x = self.CASES[1][0]
+        _check(x, mode="typecast", option="float64", acceleration=False)
+        got, spec = _run_port(x, mode="typecast", option="float64", acceleration=False)
+        assert spec.dtype == np.float64 and got[0] == 2.0 ** 64
+
+
 def test_pallas_rejects_dtypes_without_kernel():
     with pytest.raises(tnns.NegotiationError):
         _run_port(np.zeros(4, np.int64), mode="arithmetic", option="add:1",
