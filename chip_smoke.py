@@ -37,7 +37,14 @@ In order, it
    multiply-adds, float16 chains (``hfma``, a fold in XLA's order), and
    float32 values whose float64 ``x * b + c`` lands on a float32 midpoint;
    and the lanes that a float -> int conversion saturated before a fused
-   multiply-add, which take a multiply and an add (ROADMAP C10).
+   multiply-add, which take a multiply and an add (ROADMAP C10), and keep
+   doing so through a second conversion only where the program's reset
+   bit says (C13: ROADMAP C13's input chain and two probed classes, their
+   reset bits checked on the host); then ``int8_matmul`` at M = 2, 4, 8,
+   16 (split-K) and 32 (tiled) x (1280, 1001), exact in int32 and within
+   1 ulp, and ``fused_arith``'s normalize at (4, 224, 224, 3) and (8, 224,
+   224, 3), bitwise, each timed beside its bound (``int8_matmul`` beside
+   ``torch._int_mm`` at the same M).
    Then it times kernel, plain version and, where one exists, the one
    PyTorch call that computes the same function (a yardstick only; the
    port never calls it); each kernel at its smallest case as its launch
@@ -176,7 +183,31 @@ In order, it
    tensor_upload ! queue ! tensor_filter ! tensor_sink``, 32 windows: one
    capture, replays equal to eager bit for bit, within SEQ_CPU_ATOL of the
    CPU forward;
-17. prints every path number beside the card's name and power limit, one
+17. batch phase (config 5 and config 1d): MobileNet-v2 1.0 (seed-0
+   weights, bf16) from a checkpoint named in config 5's string,
+   ``datasrc``x N ``! tensor_mux sync_mode=nosync ! tensor_batch !`` the
+   normalize ``! tensor_upload ! queue ! tensor_filter`` (``batch=N``) ``!
+   tensor_unbatch ! tensor_demux !`` N sinks, 24 rounds at N=4 (the float
+   head) and N=8 (``build_quantized,int8_head=1``): one capture, a replay a
+   round, each wrapper called only in the capture's warm-up and the
+   capture; every stream's frames equal, in order, the rows of the eager
+   forward of the same batch bit for bit; rows within BATCH_LOGIT_REL
+   (int8 head: BATCH_INT8_LOGIT_REL) of the batch-1 forward, top-1 equal,
+   and every row farther than that from any other frame's forward; a
+   16-round trace with 5 host operations and one record of each path
+   kernel a launch. Config 1d: ``datasrc ! tensor_dynbatch max_batch=8 !``
+   the normalize ``! tensor_upload ! queue ! tensor_filter ! tensor_dynunbatch
+   ! tensor_sink`` on the int8-head model with a ``(None, 224, 224, 3)``
+   input, ``[compile] warmup`` on: 4 captures before the first frame and
+   none while PLAYING, 96 frames out in pts order, each batch's rows equal
+   to the eager forward of the same rows (the frames of each batch
+   recorded as it leaves dynbatch); then a coverage run (made-up bursts
+   of 1 to 8 frames, to reach every bucket) traced: a graph launch a batch, with one ``fused_arith`` and one
+   ``int8_matmul`` record, the head at M = the batch's bucket. Last the
+   pool's fence: config 5 with the upload's stream held before each copy;
+   a recycled lease waits for the copy that reads it, and every round's
+   rows stay those of its own frames;
+18. prints every path number beside the card's name and power limit, one
    JSON line describing every kernel, and last one JSON line
    ``{"ok": true, "device": {...}}``.
 
@@ -186,6 +217,7 @@ beside it, the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import subprocess
@@ -205,6 +237,10 @@ NORMALIZE = "typecast:float32,add:-127.5,div:127.5"
 MUL_FIRST_NORMALIZE = "typecast:float32,mul:0.00784313725,add:-1.0"
 # x * 38737 * 2**-30 + 2**30: the float64 sum of 1774001 * b lands on a
 # float32 midpoint, the exact sum above it; rounding twice misses
+# ROADMAP C13's input chain (float16 in): int32, a float clamp, uint16, a
+# fused multiply-add.
+C13_CHAIN = ("typecast:int32,clamp:1.0330171742977412:221.0729442728292,typecast:uint16,"
+             "mul:-0.42657339572906494,add:-1.033626914024353,sub:226")
 FMA_MIDPOINTS = f"mul:{38737 * 2.0 ** -30!r},add:{2.0 ** 30!r}"
 # Slice 2: SSD-MobileNet-v2 at full width, 91 labels (COCO's label map).
 SSD_IMAGE = 300
@@ -451,7 +487,22 @@ def kernel_phase(torch, np, K, bind, jax_pkg):
          "typecast:uint8,add:3,typecast:float32,mul:1.37,add:0.0071", 0),
         ((IMAGE, IMAGE, 3), floats(np.float16),
          "typecast:int16,typecast:float16,mul:1.5,add:0.0001", 0),
+        # ROADMAP C13: a second float -> int conversion drops those lanes
+        # after a float step, or where LLVM's round trip is no int
+        # conversion (the program's reset bit), and keeps them otherwise
+        ((100_003,), floats(np.float16), C13_CHAIN, 0),
+        ((IMAGE, IMAGE, 3), floats(np.float32),
+         "typecast:int8,typecast:float32,typecast:int16,mul:1.37,add:0.0071", 0),
+        ((IMAGE, IMAGE, 3), floats(np.float32),
+         "typecast:int8,typecast:float32,typecast:uint16,mul:1.37,add:0.0071", 0),
     ]
+    for dtype, option, reset in ((np.float16, C13_CHAIN, 4),
+                                 (np.float32, "typecast:int8,typecast:float32,typecast:int16,"
+                                              "mul:1.37,add:0.0071", 4),
+                                 (np.float32, "typecast:int8,typecast:float32,typecast:uint16,"
+                                              "mul:1.37,add:0.0071", 0)):
+        got = K.fused_arith_plan(np.dtype(dtype), bind(option, np.dtype(dtype))).program.reset
+        check(got == reset, f"'{option}': reset bits {got}, expected {reset}")
     err = 0.0
     for shape, make, option, offset in cases:
         x = make(shape)
@@ -2958,6 +3009,512 @@ def recurrence_phase(torch, np, K, root, card):
     return (state["launches"], res), s_res
 
 
+# The batch phase (configs 5 and 1d).  Config 5 runs BATCH_ROUNDS rounds of
+# N streams, N in BATCH_STREAMS (the float model at 4, bench's default
+# streams; the int8 head at 8); config 1d DYN_FRAMES frames through
+# tensor_dynbatch max_batch=DYN_MAX_BATCH with every bucket captured before
+# PLAYING.  A batched row is held to the batch-1 forward of its frame within
+# BATCH_LOGIT_REL of the frame's largest logit (two bf16 steps: a batch may
+# sum its convs in other tiles), the int8 head within BATCH_INT8_LOGIT_REL
+# (its one activation scale a batch moves every activation's rounding), top-1
+# equal.  On the H100 the sound readings were 0.0 (float head) and 0.0081
+# (int8 head), the control (a row against another frame's batch-1 forward)
+# 0.087 and 0.075 at the least.  The uniform-noise frames share their top-1
+# label through the seed-0 weights (the phase prints how many labels there
+# are), so the limit is what tells two rows swapped apart, and batch1_check
+# fails if the control does not lie beyond it.
+BATCH_STREAMS = (4, 8)
+BATCH_ROUNDS = 24
+BATCH_M = (2, 4, 8, 16, 32)
+BATCH_LOGIT_REL = 1 / 128
+BATCH_INT8_LOGIT_REL = 1 / 32
+DYN_FRAMES = 96
+DYN_MAX_BATCH = 8
+# config 1d's coverage run: made-up bursts (no traffic source behind them)
+# that reach buckets 1 to 4, so that int8_matmul runs at every M in the trace
+DYN_BURSTS = (1, 3, 8, 2, 5, 8, 4, 7, 6)
+DYN_BURST_GAP_S = 0.008
+FENCE_ROUNDS = 4
+FENCE_HOLD_CYCLES = 100_000_000
+
+
+def batch_kernel_phase(torch, np, K, ops, jax_pkg):
+    """The kernels at the batch phase's shapes, held against their plain
+    versions and timed beside their bounds: ``int8_matmul`` at M in
+    BATCH_M x (1280, CLASSES) (the split-K branch's MT 1 to 16 and the
+    tiled branch), beside ``torch._int_mm`` at the same M, and
+    ``fused_arith``'s normalize at (N, 224, 224, 3) for N in
+    BATCH_STREAMS."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(11)
+    mm_rows = {}
+    k, n = 1280, CLASSES
+    wq = torch.from_numpy(rng.integers(-127, 128, (k, n)).astype(np.int8)).to(dev)
+    ws = torch.from_numpy((rng.random((1, n)) * 0.01 + 1e-4).astype(np.float32)).to(dev)
+    b = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
+    wp = torch.zeros((k, -(-n // 8) * 8), dtype=torch.int8, device=dev)
+    wp[:, :n] = wq
+    for m in BATCH_M:
+        xq = torch.from_numpy(rng.integers(-127, 128, (m, k)).astype(np.int8)).to(dev)
+        xs = torch.tensor(np.float32(0.01), device=dev)
+        acc = K.int8_matmul(xq, wq, torch.tensor(1.0, device=dev), torch.ones(1, n, device=dev),
+                            None)
+        exact = xq.cpu().to(torch.int64) @ wq.cpu().to(torch.int64)
+        check(int(exact.abs().max()) < 2 ** 24, "the int32 check needs |acc| < 2**24")
+        torch.cuda.synchronize()
+        check(torch.equal(acc.cpu().to(torch.int64), exact),
+              f"int8_matmul ({m},{k},{n}): int32 accumulator not exact")
+        got, want = K.int8_matmul(xq, wq, xs, ws, b), K.int8_matmul_plain(xq, wq, xs, ws, b)
+        torch.cuda.synchronize()
+        ulps = max_ulp(got, want)
+        check(ulps <= 1, f"int8_matmul ({m},{k},{n}): {ulps} ulp from its plain version")
+        xp = torch.zeros((max(m, 32), k), dtype=torch.int8, device=dev)  # _int_mm: M > 16
+        xp[:m] = xq
+        t_bytes, by = bound_ms(m * k + k * n + 4 + 8 * n + 4 * m * n, 2 * m * k * n, "int8")
+        geo = K.int8_matmul_geometry(m, k, n)
+        row = timed(dict(shape=f"({m},{k})x({k},{n})", branch=geo.branch, ulps=ulps,
+                         max_abs_err=float((got - want).abs().max()), bound_ms=t_bytes,
+                         bound_by=by),
+                    kernel=lambda xq=xq, xs=xs: K.int8_matmul(xq, wq, xs, ws, b),
+                    plain=lambda xq=xq, xs=xs: K.int8_matmul_plain(xq, wq, xs, ws, b),
+                    library=lambda xp=xp: torch._int_mm(xp, wp))
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        mm_rows[m] = row
+        print(f"int8_matmul ({m},{k},{n}) {geo.branch}: int32 exact, float32 max {ulps} ulp; "
+              f"kernel {row['ms']} ms, plain {row['plain_ms']} ms, torch._int_mm "
+              f"{row['library_ms']} ms, bound {row['bound_ms']} ms ({by})", flush=True)
+    fa_rows = {}
+    for nb in BATCH_STREAMS:
+        x = torch.from_numpy(rng.integers(0, 256, (nb, IMAGE, IMAGE, 3)).astype(np.uint8)).to(dev)
+        got, want = K.fused_arith(x, ops), K.fused_arith_plain(x, ops)
+        torch.cuda.synchronize()
+        check(bitwise_equal(torch, got, want),
+              f"fused_arith {tuple(x.shape)}: not bitwise equal to its plain version")
+        e = x.numel()
+        t_bytes, by = bound_ms(e * 1 + e * 4, e * 2, "float32")
+        row = timed(dict(shape=f"{tuple(x.shape)} uint8 -> float32, '{NORMALIZE}'",
+                         bound_ms=t_bytes, bound_by=by),
+                    kernel=lambda x=x: K.fused_arith(x, ops),
+                    plain=lambda x=x: K.fused_arith_plain(x, ops))
+        row["cast_ms"] = device_ms(lambda x=x: x.to(torch.float32), activities=1)[0]
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        fa_rows[nb] = row
+        print(f"fused_arith {row['shape']}: bitwise equal; kernel {row['ms']} ms, plain "
+              f"{row['plain_ms']} ms, cast {row['cast_ms']} ms, bound {row['bound_ms']} ms "
+              f"({row['share_of_bound']} of it)", flush=True)
+    return mm_rows, fa_rows
+
+
+def batch_capture_check(stats, rounds, launches, kernels):
+    """One capture, a replay a round, and each path kernel's wrapper called
+    only in the pre-capture warm-up calls and the capture."""
+    check(stats["captures"] == 1 and stats["replays"] == rounds,
+          f"expected one capture and {rounds} replays: {stats}")
+    want = {k: (stats["warmup_calls"] + 1 if k in kernels else 0) for k in KERNEL_SYMBOLS}
+    check(launches == want, f"wrapper launches {launches}, expected {want}")
+
+
+def stream_check(np, got, eager_rows, rounds):
+    """Each stream got ``rounds`` frames, in order: frame r of stream i is
+    row i of round r's eager forward, bit for bit (``eager_rows[r][i]``)."""
+    check(sorted(got) == list(range(len(got))), f"streams {sorted(got)}")
+    for i, frames in got.items():
+        check(len(frames) == rounds, f"stream {i} got {len(frames)} of {rounds} frames")
+        for r, x in enumerate(frames):
+            check(np.array_equal(x.view(np.uint32), eager_rows[r][i].view(np.uint32)),
+                  f"stream {i} round {r}: the replay's row differs from the eager forward of "
+                  "the same batch")
+
+
+def batch1_check(np, rows, single, rel):
+    """Batched rows against the batch-1 forward of each frame: within
+    ``rel`` of the frame's largest logit, the same top-1 label.  The
+    control holds row i to frame j's batch-1 forward (j != i): it must lie
+    beyond ``rel``, or the check could not tell two rows swapped.  Returns
+    the largest difference and the smallest control, both relative to the
+    batch-1 forward's largest logit, and how many distinct top-1 labels
+    the batch-1 forwards hold (with one, the label check cannot see a
+    swap)."""
+    def rel_diff(a, b):
+        return float(np.abs(a.astype(np.float64) - b).max() / max(np.abs(b).max(), 1e-30))
+
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(rows, single)):
+        d = rel_diff(a, b)
+        worst = max(worst, d)
+        check(d <= rel, f"frame {i}: batched row {d} of its largest logit from the batch-1 "
+                        f"forward (tolerance {rel})")
+        check(int(np.argmax(a)) == int(np.argmax(b)), f"frame {i}: top-1 differs from batch 1")
+    control = min(rel_diff(a, b) for i, a in enumerate(rows)
+                  for j, b in enumerate(single) if i != j)
+    check(control > rel, f"control: a batched row lies within {control} of another frame's "
+                         f"batch-1 forward, inside the tolerance {rel}: a swap would pass")
+    return worst, control, len({int(np.argmax(b)) for b in single})
+
+
+def dyn_checks(np, captures_before, captures_after, report, buckets, pts_out, n_frames):
+    """Config 1d: the whole ladder captured before PLAYING and nothing
+    after, every frame out once and in pts order.  Returns the histogram
+    of the buckets that occurred."""
+    ladder = []
+    b = 1
+    while b <= DYN_MAX_BATCH:
+        ladder.append(b)
+        b <<= 1
+    check(captures_before == len(ladder),
+          f"{captures_before} captures before the first frame, expected {len(ladder)}")
+    check(captures_after == captures_before,
+          f"{captures_after - captures_before} captures while PLAYING")
+    check(report is not None and [c["label"] for c in report["compiled"]] ==
+          [f"bucket{b}" for b in ladder], f"warmup report {report}")
+    check(pts_out == sorted(pts_out) and len(pts_out) == n_frames == len(set(pts_out)),
+          f"{len(pts_out)} frames out of {n_frames}, in order: {pts_out == sorted(pts_out)}")
+    check(all(b in ladder for b in buckets), f"buckets {sorted(set(buckets))}")
+    return {str(b): buckets.count(b) for b in ladder}
+
+
+def dyn_launch_check(tr, buckets):
+    """Config 1d's trace: a graph launch a batch, in the order the batches
+    left dynbatch, each with one fused_arith and one int8_matmul record
+    (the head at M = that batch's bucket) and no nms_keep.  A launch with
+    fewer device records than the fullest launch of its bucket lost them
+    in the tracer and may lack as many path records.  Returns the
+    int8_matmul records by M."""
+    check(len(tr["per_launch"]) == len(buckets),
+          f"{len(tr['per_launch'])} graph launches for {len(buckets)} batches")
+    full = {}
+    for b, (_, total) in zip(buckets, tr["per_launch"]):
+        full[b] = max(full.get(b, 0), total)
+    by_m = {}
+    for i, (b, (rec, total)) in enumerate(zip(buckets, tr["per_launch"])):
+        check(rec.get("pallas_nms_keep", 0) == 0 and rec.get("fused_arith", 0) <= 1
+              and rec.get("int8_matmul", 0) <= 1, f"graph launch {i} (bucket {b}): {rec}")
+        missing = [k for k in ("fused_arith", "int8_matmul") if not rec.get(k)]
+        check(len(missing) <= full[b] - total,
+              f"graph launch {i} (bucket {b}) holds no record of {missing}")
+        by_m[b] = by_m.get(b, 0) + rec.get("int8_matmul", 0)
+    check(all(by_m[b] > 0 for b in by_m), f"no int8_matmul record at some M: {by_m}")
+    return by_m
+
+
+def batch_desc(n, ckpt, builder, frames_per_stream=None):
+    """Config 5's string: N datasrcs into tensor_mux, tensor_batch, the
+    normalize, tensor_upload ! queue, the filter on the checkpoint,
+    tensor_unbatch, tensor_demux, N sinks."""
+    srcs = " ".join(f"datasrc name=cam{i} ! m.sink_{i}" for i in range(n))
+    sinks = " ".join(f"d.src_{i} ! tensor_sink name=out{i}" for i in range(n))
+    return (f"tensor_mux name=m sync_mode=nosync ! tensor_batch ! "
+            f"tensor_transform mode=arithmetic option={NORMALIZE} acceleration=pallas ! "
+            "tensor_upload name=u ! queue max-size-buffers=16 ! "
+            f"tensor_filter framework=torch name=f model={ckpt} "
+            f"custom=builder=mobilenet_v2:{builder},batch={n},image_size={IMAGE} ! "
+            f"tensor_unbatch ! tensor_demux name=d {srcs} {sinks}")
+
+
+def dyn_desc():
+    return ("datasrc name=s ! tensor_dynbatch name=dyn max_batch="
+            f"{DYN_MAX_BATCH} ! tensor_transform mode=arithmetic option={NORMALIZE} "
+            "acceleration=pallas ! tensor_upload name=u ! queue max-size-buffers=16 ! "
+            "tensor_filter framework=torch name=f ! tensor_dynunbatch ! tensor_sink name=out")
+
+
+def run_batch(nns, torch, desc, n, frames, setup=None, traced=False, during=None):
+    """Config 5 once: ``frames[i]`` into stream i; returns (pipeline, each
+    stream's outputs as host numpy, the last sink's arrival times, the
+    trace or during's result)."""
+    p = nns.parse_launch(desc)
+    for i in range(n):
+        p[f"cam{i}"].data = list(frames[i])
+    got = {i: [] for i in range(n)}
+    arrivals = []
+
+    def on_frame(f, i):
+        got[i].append(f.tensor(0).numpy())
+        if i == n - 1:
+            arrivals.append(time.perf_counter())
+
+    for i in range(n):
+        p[f"out{i}"].connect("new-data", lambda f, i=i: on_frame(f, i))
+    if setup is not None:
+        setup(p)
+    result = None
+    if traced:
+        gate = p["u"]._lock
+        gate.acquire()
+        try:
+            p.start()
+        except BaseException:
+            gate.release()
+            raise
+        try:
+            result = trace(lambda: (time.sleep(0.25), gate.release(),
+                                    check(p.wait(600), "traced run did not finish")))
+        finally:
+            p.stop()
+    else:
+        p.start()
+        try:
+            check(p.wait(600), f"config 5 did not finish: {desc}")
+            result = during(p) if during is not None else None
+        finally:
+            p.stop()
+    return p, got, arrivals, result
+
+
+def batch_phase(torch, np, K, ops, root, card):
+    """Config 5 at N=4 (float) and N=8 (int8 head), config 1d with every
+    bucket captured before PLAYING, and the pool's fence under a held
+    upload stream."""
+    import nnstreamer_tpu_torch as nns
+    from nnstreamer_tpu_torch import pool as P
+    from nnstreamer_tpu_torch.backends.torch_backend import TorchModel
+    from nnstreamer_tpu_torch.buffer import Frame
+    from nnstreamer_tpu_torch.models import mobilenet_v2
+    from nnstreamer_tpu_torch.spec import TensorSpec, TensorsSpec
+    from nnstreamer_tpu_torch.utils.checkpoint import save_state
+
+    work = os.path.join(root, "build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    tree = mobilenet_v2.init_tree(0, CLASSES, 1.0)
+    ckpt = os.path.join(work, "mobilenet_v2_batch.npz")
+    save_state(tree, ckpt)
+    rng = np.random.default_rng(12)
+    out = {}
+
+    def frames_for(n, rounds):
+        return [[Frame.of(torch.from_numpy(rng.integers(0, 256, (IMAGE, IMAGE, 3),
+                                                        dtype=np.uint8)), pts=r)
+                 for r in range(rounds)] for _ in range(n)]
+
+    for n, builder, rel, kernels in ((BATCH_STREAMS[0], "build", BATCH_LOGIT_REL,
+                                      ("fused_arith",)),
+                                     (BATCH_STREAMS[1], "build_quantized,int8_head=1",
+                                      BATCH_INT8_LOGIT_REL, ("fused_arith", "int8_matmul"))):
+        name = f"config 5, {n} streams{', int8 head' if 'int8' in builder else ''}"
+        desc = batch_desc(n, ckpt, builder)
+        frames = frames_for(n, BATCH_ROUNDS)
+        state = {}
+
+        def during(p, frames=frames, n=n):
+            be = p["f"].backend
+            state.update(stats=dict(be.stats),
+                         launches={k.__name__: k.launches for k in K.KERNELS},
+                         folded=not any(type(x).__name__ == "TensorTransform"
+                                        for x in p.nodes.values()))
+            rows = []
+            with torch.inference_mode():
+                for r in range(BATCH_ROUNDS):
+                    x = torch.stack([frames[i][r].tensor(0) for i in range(n)]).cuda()
+                    rows.append(be.eager(x)[0].cpu().numpy())
+            state["eager"] = rows
+
+        run_batch(nns, torch, desc, n, frames_for(n, 2))  # the kernels' one-time work
+        K.reset_launches()
+        t0 = time.perf_counter()
+        p, got, arrivals, _ = run_batch(nns, torch, desc, n, frames, during=during)
+        wall = time.perf_counter() - t0
+        check(state["folded"], f"{name}: the normalize did not fold into the filter")
+        batch_capture_check(state["stats"], BATCH_ROUNDS, state["launches"], kernels)
+        stream_check(np, got, state["eager"], BATCH_ROUNDS)
+        if "int8" in builder:
+            single = mobilenet_v2.build_quantized(params=tree, int8_head=True,
+                                                  image_size=IMAGE, device=DEVICE)
+        else:
+            single = mobilenet_v2.build(params=tree, image_size=IMAGE, device=DEVICE)
+        with torch.inference_mode():
+            xs = [K.fused_arith(frames[i][r].tensor(0).cuda(), ops)
+                  for r in range(2) for i in range(n)]
+            one = [single(x).float().cpu().numpy() for x in xs]
+        worst, control, labels = batch1_check(
+            np, [got[i][r] for r in range(2) for i in range(n)], one, rel)
+        r = rates(arrivals, np)
+        res = dict(streams=n, rounds=BATCH_ROUNDS, replays=state["stats"]["replays"],
+                   fps=r["fps"], frames_per_s=r["fps"] * n, p50_ms=r["p50_ms"],
+                   p90_ms=r["p90_ms"], wall_s=wall, capture_s=state["stats"]["capture_s"],
+                   batch1_rel=worst, batch1_control=control, batch1_top1_labels=labels, launches=state["launches"])
+        tr = profile_path(lambda m: run_batch(nns, torch, desc, n, frames_for(n, m),
+                                              traced=True)[3], res, kernels)
+        res["device_records_per_launch"] = quant_checks(tr, 0, kernels)
+        res["frames_per_s"] = res["fps"] * n
+        print(f"{name}: {BATCH_ROUNDS} rounds through parse_launch, one capture, "
+              f"{res['replays']} replays; every stream's rows equal the eager forward of "
+              f"the same batch bit for bit; rows within {worst} of the batch-1 forward's "
+              f"largest logit (tolerance {rel}; another frame's forward at {control} at the "
+              f"least), top-1 equal ({labels} distinct top-1 labels) [{card}]", flush=True)
+        print(f"  {name}: {res['frames_per_s']} frames/s over all streams, {res['fps']} "
+              f"rounds/s, device busy {res['device_busy_ms_per_frame']} ms a round, idle share "
+              f"{res['device_idle_share']}, host-issued operations {res['host_ops_per_frame']} "
+              f"a round [{card}]", flush=True)
+        out[f"config5_n{n}"] = res
+
+    # -- config 1d: dynbatch, every bucket captured before PLAYING -----------
+    base = mobilenet_v2.build_quantized(params=tree, int8_head=True, image_size=IMAGE,
+                                        device=DEVICE)
+    poly = TorchModel(apply=base.apply, params=base.params, name="mobilenet_v2_poly_int8_head",
+                      input_spec=TensorsSpec.of(TensorSpec(np.float32, (None, IMAGE, IMAGE, 3))),
+                      output_spec=TensorsSpec.of(TensorSpec(np.float32, (None, CLASSES))),
+                      device=DEVICE)
+    dyn_frames = [torch.from_numpy(rng.integers(0, 256, (IMAGE, IMAGE, 3), dtype=np.uint8))
+                  for _ in range(DYN_FRAMES)]
+    os.environ["NNSTPU_COMPILE_WARMUP"] = "1"
+    try:
+        state = {"batches": []}
+
+        def setup(p):
+            p["s"].data = [Frame.of(x, pts=i) for i, x in enumerate(dyn_frames)]
+            p["f"].model = poly
+            dyn = p["dyn"]
+            push = dyn.push
+
+            def recording_push(frame, pad_name=None):
+                state["batches"].append((list(frame.meta["dynbatch"]["pts"]),
+                                         int(frame.tensors[0].shape[0])))
+                push(frame, pad_name)
+
+            dyn.push = recording_push
+
+        def dyn_run(traced=False, bursty=False):
+            state["batches"] = []
+            p = nns.parse_launch(dyn_desc())
+            setup(p)
+            if bursty:  # the coverage run: bursts of DYN_BURSTS frames, gaps between
+                src, frames = p["s"], p["s"].frames
+
+                def bursts():
+                    it = iter(frames())
+                    for k in itertools.cycle(DYN_BURSTS):
+                        chunk = list(itertools.islice(it, k))
+                        if not chunk:
+                            return
+                        yield from chunk
+                        time.sleep(DYN_BURST_GAP_S)
+
+                src.frames = bursts
+            got = []
+            arrivals = []
+            p["out"].connect("new-data", lambda f: (got.append((f.pts, f.tensor(0).numpy())),
+                                                    arrivals.append(time.perf_counter())))
+            gate = p["u"]._lock
+            gate.acquire()
+            try:
+                p.start()
+            except BaseException:
+                gate.release()
+                raise
+            be = p["f"].backend
+            before = be.stats["captures"]
+            tr = None
+            try:
+                if traced:
+                    tr = trace(lambda: (gate.release(),
+                                        check(p.wait(600), "traced run did not finish")))
+                else:
+                    gate.release()
+                    check(p.wait(600), "config 1d did not finish")
+                launches = {k.__name__: k.launches for k in K.KERNELS}  # before eager
+                eager = {}
+                with torch.inference_mode():
+                    for pts, b in state["batches"]:
+                        x = torch.stack([dyn_frames[i] for i in pts] +
+                                        [dyn_frames[pts[-1]]] * (b - len(pts))).cuda()
+                        eager[tuple(pts)] = be.eager(x)[0].cpu().numpy()
+                after = be.stats["captures"]
+                report = p.warmup_report
+            finally:
+                p.stop()
+            buckets = [b for _, b in state["batches"]]
+            hist = dyn_checks(np, before, after, report, buckets, [pts for pts, _ in got],
+                              DYN_FRAMES)
+            by_pts = dict(got)
+            for pts, b in state["batches"]:
+                for j, f in enumerate(pts):
+                    check(np.array_equal(by_pts[f].view(np.uint32),
+                                         eager[tuple(pts)][j].view(np.uint32)),
+                          f"config 1d frame {f} (bucket {b}): the replay's row differs from "
+                          "the eager forward of the same rows")
+            return hist, buckets, arrivals, before, report, tr, launches
+
+        dyn_run()  # the kernels' one-time work
+        K.reset_launches()
+        hist, buckets, arrivals, before, report, _, launches = dyn_run()
+        check(launches["fused_arith"] > 0 and launches["int8_matmul"] > 0
+              and launches["pallas_nms_keep"] == 0, f"config 1d wrapper launches {launches}")
+        r = rates(arrivals, np)
+        res = dict(frames=DYN_FRAMES, batches=len(buckets), buckets=hist, fps=r["fps"],
+                   p50_ms=r["p50_ms"], p90_ms=r["p90_ms"], captures_before_playing=before,
+                   warmup_s=report["seconds"], launches=launches)
+        bhist, bbuckets, _, _, _, tr, _ = dyn_run(traced=True, bursty=True)
+        by_m = dyn_launch_check(tr, bbuckets)
+        res.update(coverage=dict(bursts=DYN_BURSTS, gap_s=DYN_BURST_GAP_S, buckets=bhist,
+                                 int8_matmul_records_by_m={str(m): c
+                                                           for m, c in sorted(by_m.items())},
+                                 device_busy_ms_per_batch=tr["busy_ms"] / len(bbuckets),
+                                 host_ops_per_batch=host_ops(tr["calls"]) / len(bbuckets)))
+    finally:
+        os.environ.pop("NNSTPU_COMPILE_WARMUP", None)
+    b = res["coverage"]
+    print(f"config 1d: {DYN_FRAMES} frames, {before} captures before the first frame (warmup "
+          f"{res['warmup_s']} s) and none while PLAYING; every frame out in pts order; each "
+          f"batch's rows equal the eager forward of the same rows bit for bit; buckets {hist}, "
+          f"{res['fps']} frames/s [{card}]", flush=True)
+    print(f"  config 1d's coverage run (made-up bursts {DYN_BURSTS}, {DYN_BURST_GAP_S} s "
+          f"apart): buckets {b['buckets']}, int8_matmul records by M in the trace "
+          f"{b['int8_matmul_records_by_m']}; device busy {b['device_busy_ms_per_batch']} ms a "
+          f"batch, host-issued operations {b['host_ops_per_batch']} a batch [{card}]",
+          flush=True)
+    out["config1d"] = res
+
+    # -- the pool's fence: a recycled lease is not rewritten under its copy --
+    n = BATCH_STREAMS[0]
+    frames = frames_for(n, FENCE_ROUNDS)
+    waited = []
+
+    def hold(p):
+        u = p["u"]
+        upload = u.process
+
+        def held_upload(pad, frame):
+            with torch.cuda.stream(u._stream):
+                torch.cuda._sleep(FENCE_HOLD_CYCLES)
+            return upload(pad, frame)
+
+        u.process = held_upload
+
+    pool = P.default_pool()
+    wait = pool._wait_fences
+
+    def counting_wait(raw):
+        events = list(pool._fences.get(id(raw), ()))
+        waited.append(sum(not e.query() for e in events))
+        wait(raw)
+
+    pool._wait_fences = counting_wait
+    hits = pool.stats()["hits"]
+    state = {}
+
+    def fence_during(p):
+        be = p["f"].backend
+        with torch.inference_mode():
+            state["eager"] = [be.eager(torch.stack([frames[i][r].tensor(0) for i in range(n)])
+                                       .cuda())[0].cpu().numpy() for r in range(FENCE_ROUNDS)]
+
+    try:
+        _, got, _, _ = run_batch(nns, torch, batch_desc(n, ckpt, "build"), n, frames,
+                                 setup=hold, during=fence_during)
+    finally:
+        pool._wait_fences = wait
+    stream_check(np, got, state["eager"], FENCE_ROUNDS)
+    reused = pool.stats()["hits"] - hits
+    check(reused >= FENCE_ROUNDS - 1 and sum(waited) > 0,
+          f"the pool reused {reused} leases and waited on {sum(waited)} copies in flight")
+    out["fence"] = dict(rounds=FENCE_ROUNDS, leases_reused=reused,
+                        copies_in_flight_waited=sum(waited), hold_cycles=FENCE_HOLD_CYCLES)
+    print(f"pool fence: config 5 with the upload's stream held {FENCE_HOLD_CYCLES} cycles "
+          f"before each copy; {reused} leases reused, {sum(waited)} waits on a copy still in "
+          "flight, every round's rows equal the eager forward of its own frames", flush=True)
+    return out
+
+
 def _conv_dicts(tree):
     """Every dict of a params tree that holds a weight ``"w"``, in order."""
     if isinstance(tree, dict):
@@ -3036,6 +3593,8 @@ def main() -> int:
     kernels = kernel_phase(torch, np, K, bind, jax_pkg)
     kernels["fused_arith"]["ptxas"] = ptxas
     ops = bind(NORMALIZE, np.dtype(np.uint8))
+    kernels["int8_matmul"]["at_m"], kernels["fused_arith"]["at_batch"] = batch_kernel_phase(
+        torch, np, K, ops, jax_pkg)
     audio_ops = bind(AUDIO_NORMALIZE, np.dtype(np.int16))
     in_graph = graph_kernel_phase(torch, np, K, ops, audio_ops, bind)
     slices = {}
@@ -3054,8 +3613,12 @@ def main() -> int:
     by_path["pose"], pose_heatmaps, pose_int8 = pose_phase(torch, np, K, ops, root, card)
     t2 = time.perf_counter()
     by_path["lstm"], lstm_seq = recurrence_phase(torch, np, K, root, card)
+    t3 = time.perf_counter()
+    batched = batch_phase(torch, np, K, ops, root, card)
+    for key in ("config5_n4", "config5_n8", "config1d"):
+        by_path[key] = (batched[key]["launches"], batched[key])
     print(f"phase wall s: up to the quant phase {t1 - t0:.3f}, pose {t2 - t1:.3f}, "
-          f"recurrence {time.perf_counter() - t2:.3f}", flush=True)
+          f"recurrence {t3 - t2:.3f}, batch {time.perf_counter() - t3:.3f}", flush=True)
     wrapper = {"fused_arith": "fused_arith", "int8_matmul": "int8_matmul",
                "nms_keep": "pallas_nms_keep"}
     for name, r in kernels.items():
@@ -3072,7 +3635,10 @@ def main() -> int:
                       "quant": by_path["quant"][1], "quant_int8_head": by_path["quant_int8_head"][1],
                       "quant_ssd": by_path["quant_ssd"][1], "pose": by_path["pose"][1],
                       "pose_heatmaps": pose_heatmaps, "pose_int8": pose_int8,
-                      "lstm": by_path["lstm"][1], "lstm_seq": lstm_seq}), flush=True)
+                      "lstm": by_path["lstm"][1], "lstm_seq": lstm_seq,
+                      "config5_n4": batched["config5_n4"], "config5_n8": batched["config5_n8"],
+                      "config1d": batched["config1d"], "pool_fence": batched["fence"]}),
+          flush=True)
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -40,6 +40,12 @@ new wrapper never replays an old function's capture; old captures age out
 of the LRU.  :meth:`TorchBackend.open` drops them all, since they read the
 old model's tensors.
 
+The warmup phase (``graph/warmup.py``) captures the geometries a stream
+will bring later, ``tensor_dynbatch``'s buckets, before PLAYING:
+:meth:`TorchBackend.warm_compile` adds a capture to the LRU without
+changing the active one, and :meth:`TorchBackend.ensure_cache_capacity`
+grows the LRU to hold the ladder.
+
 Transform fusion and whole-segment compilation (``graph/optimize.py``,
 ``graph/segments.py``) install a wrapper (:meth:`TorchBackend.set_wrapper`):
 a function of the model call that runs the fused pre-stages, the model and
@@ -408,7 +414,7 @@ class TorchBackend(FilterBackend):
         model-spec check already ran against the fused pre-stages' output
         (``TensorFilter._install_fusion``)."""
         if not raw_spec.tensors_fixed:
-            raise ValueError(f"torch backend: fused input spec {raw_spec} is not fixed")
+            raw_spec = raw_spec.fixate()  # a None batch dim: 1 until frames come
         self._out_spec = out_spec
         self._select(raw_spec)
         return out_spec
@@ -431,23 +437,35 @@ class TorchBackend(FilterBackend):
         spec_key = tuple((numpy_dtype(t.dtype).str, tuple(t.shape)) for t in in_spec.tensors)
         return spec_key, self.segment_label, self._fingerprint
 
-    def _select(self, in_spec: TensorsSpec) -> None:
-        """Point ``invoke`` at the capture for ``in_spec``: the LRU's entry,
-        else a new capture (evicting the least recently used).  The spec
-        becomes the drift guard's only once that succeeded: after a failed
-        capture no frame runs uncaptured."""
-        expected = tuple((torch.Size(t.shape), torch_dtype(t.dtype)) for t in in_spec.tensors)
+    def ensure_cache_capacity(self, n: int) -> None:
+        """Grow the capture LRU to hold ``n`` entries, so that a warmed
+        bucket ladder is not evicted by its own warmup (never shrinks)."""
+        self._cache_size = max(self._cache_size, int(n))
+
+    def warm_compile(self, in_spec: TensorsSpec) -> None:
+        """Capture the bare function at ``in_spec`` into the LRU (or find
+        it there) without changing the active entry: the warmup phase's
+        work for a bucket (``graph/warmup.py``).  A fused filter warms
+        through ``TensorFilter.warm_spec``, which rebuilds its wrapper."""
+        if not in_spec.tensors_fixed:
+            in_spec = in_spec.fixate()
         capture = self._capture_fn()
         if capture is None:
-            self._entry, self._expected = None, expected
-            return
+            return  # the CPU: nothing is captured
+        active = next((k for k, e in self._graphs.items() if e is self._entry), None)
+        self._lookup(in_spec, capture)
+        if active is not None:
+            self._graphs.move_to_end(active)
+
+    def _lookup(self, in_spec: TensorsSpec, capture: Callable):
+        """The LRU's entry for ``in_spec``, else a new capture (evicting the
+        least recently used)."""
         key = self._key(in_spec)
         entry = self._graphs.get(key)
         if entry is not None:
             self._graphs.move_to_end(key)
             self.stats["hits"] += 1
-            self._entry, self._expected = entry, expected
-            return
+            return entry
         try:
             entry = capture(self._fn, in_spec, self.device)
         except Exception as exc:  # noqa: BLE001 - any capture failure refuses the geometry
@@ -463,7 +481,16 @@ class TorchBackend(FilterBackend):
         while len(self._graphs) > self._cache_size:
             self._graphs.popitem(last=False)
             self.stats["evictions"] += 1
-        self._entry, self._expected = entry, expected
+        return entry
+
+    def _select(self, in_spec: TensorsSpec) -> None:
+        """Point ``invoke`` at the capture for ``in_spec`` (:meth:`_lookup`).
+        The spec becomes the drift guard's only once that succeeded: after
+        a failed capture no frame runs uncaptured."""
+        expected = tuple((torch.Size(t.shape), torch_dtype(t.dtype)) for t in in_spec.tensors)
+        capture = self._capture_fn()
+        self._entry = self._lookup(in_spec, capture) if capture is not None else None
+        self._expected = expected
 
     def eager(self, *tensors) -> Tuple:
         """The function ``invoke`` replays, called eagerly (a reference)."""

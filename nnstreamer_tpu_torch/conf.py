@@ -69,6 +69,17 @@ DEFAULTS: Dict[str, Dict[str, str]] = {
         "flight_records": "",       # span flight-recorder ring size per thread
         "flight_dump_dir": "",      # write {pipeline}.error.trace.json here
     },
+    # The shared host buffer pool (pool.py).
+    "pool": {
+        "enabled": "true",          # false: every lease allocates afresh
+        "max_per_class": "4",       # free buffers kept per (shape, dtype)
+        "max_bytes": "67108864",    # free-list bytes in all (64 MiB)
+    },
+    # The warmup phase (graph/warmup.py).
+    "compile": {
+        "warmup": "false",          # capture every planned geometry before PLAYING
+        "warmup_timeout_s": "600",  # the whole phase's deadline (0: none)
+    },
     "segment": {
         "enabled": "false",         # plan and fold segments in Pipeline.start (a
                                     # pipeline's segment_compile attr overrides it)

@@ -119,6 +119,7 @@ struct Program {
   int post[kMaxSteps];  // Conv: wrap to a narrow int, or round to half
   uint32_t a[kMaxSteps];
   uint32_t b[kMaxSteps];
+  uint32_t reset;       // bit k: step k's conversion drops the constant lanes (C13)
 };
 
 namespace {
@@ -257,7 +258,10 @@ __device__ __forceinline__ void convert(uint32_t (&r)[kN], int c) {
 // float32) and, for a signed int, for NaN.  LLVM folds every later step of
 // that arm one rounding at a time, so a multiply-add that it contracts
 // elsewhere is a multiply and an add on those lanes.  Bit e of `sat` marks
-// such a lane; only O_FFMA and O_HFMA read it.
+// such a lane; only O_FFMA and O_HFMA read it.  A later float -> int
+// conversion keeps those lanes only where LLVM folds the int -> float -> int
+// round trip (ROADMAP C13): where it cannot, the program's reset bit for
+// that step drops them first (ops/kernels.py::constant_resets).
 template <int kN>
 __device__ __forceinline__ void mark_constant(const uint32_t (&r)[kN], int c, uint32_t& sat) {
   float top;
@@ -323,6 +327,7 @@ __device__ __forceinline__ void general_steps(uint32_t (&r)[kN], const Program& 
 #pragma unroll
   for (int k = 0; k < kMaxSteps; ++k) {
     if (k < p.n_steps) {
+      if ((p.reset >> k) & 1u) sat = 0;
       mark_constant(r, p.conv[k], sat);
       convert(r, p.conv[k]);
       apply(r, p.op[k], p.a[k], p.b[k], sat);

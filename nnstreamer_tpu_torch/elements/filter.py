@@ -19,6 +19,10 @@ the model call in the backend so one ``invoke`` runs the whole chain; on
 CUDA the backend captures that chain once per negotiated geometry as a
 CUDA graph and replays it per frame (``backends/torch_backend.py``).
 
+:meth:`TensorFilter.warm_spec` captures a geometry the stream will bring
+later (a ``tensor_dynbatch`` bucket) before PLAYING, for the warmup phase
+(``graph/warmup.py``).
+
 With profiling on (``utils/profiling.py``) each invoke is timed until its
 outputs are done on the device, waiting on the filter stream's work alone,
 and recorded under the filter's name (``Pipeline.stats``).  With a tracer
@@ -138,7 +142,9 @@ class TensorFilter(Node):
         in_spec = in_specs["sink"]
         try:
             if self._fused_pre or self._fused_post:
-                out_spec = self.backend.reconfigure_fused(in_spec, self._install_fusion(in_spec))
+                # a None batch dim (tensor_dynbatch) is 1 until frames come
+                fixed = in_spec if in_spec.tensors_fixed else in_spec.fixate()
+                out_spec = self.backend.reconfigure_fused(fixed, self._install_fusion(fixed))
                 set_hook = getattr(self.backend, "set_drift_hook", None)
                 if set_hook is not None:
                     # a frame that drifts without a caps event rebuilds
@@ -235,6 +241,25 @@ class TensorFilter(Node):
 
         self.backend.set_wrapper(wrapper, stages=stages)
         return spec_o
+
+    def warm_spec(self, spec: TensorsSpec) -> None:
+        """Capture one geometry the stream will bring (a ``tensor_dynbatch``
+        bucket) before PLAYING, leaving the negotiated one active: the
+        warmup planner's work for a bucket (``graph/warmup.py``).  A fused
+        filter captures the bucket with its own wrapper, built for that
+        spec, and then reinstalls the negotiated spec's wrapper, as a
+        drifted frame would.  Under the dispatch lock, so that no frame
+        sees the bucket's state in between."""
+        with self._lock:
+            if self._fused_pre or self._fused_post:
+                active = self.sink_pads["sink"].spec
+                self._drift_reinstall(spec)
+                if active is not None:
+                    self._drift_reinstall(active if active.tensors_fixed else active.fixate())
+                return
+            warm = getattr(self.backend, "warm_compile", None)
+            if warm is not None:  # a backend without captures has nothing to warm
+                warm(spec)
 
     def process(self, pad: Pad, frame: Frame):
         del pad

@@ -26,12 +26,18 @@ need).  Transform fusion and the segment planner hop over this element
 (``graph/optimize.py``), so ``transform → upload → queue → filter`` still
 folds into one call, fed the raw uint8 frame.
 
+A page-locked lease of the shared pool (``tensor_batch`` and
+``tensor_dynbatch`` assemble their batches in one) is copied from as it
+is, with no staging copy, and fenced with the copy's event
+(:func:`~nnstreamer_tpu_torch.pool.fence`): the pool hands the buffer out
+again only after the copy has read it.
+
 Each staging copy fires the ``copy`` hook with its bytes and whether it
 allocated its slot (0 once the two slots are warm).  The port stages every
 host frame, where the JAX package stages only a strided one (a contiguous
 frame goes to ``jax.device_put`` as it is), so the ``copies`` tracer counts
-one host copy per uploaded tensor here and none there.  Not ported yet:
-the sharded wire rule (``_sharding_for``).
+one host copy per uploaded tensor that is not a lease here and none
+there.  Not ported yet: the sharded wire rule (``_sharding_for``).
 """
 
 from __future__ import annotations
@@ -45,7 +51,7 @@ from ..device import resolve_device
 from ..graph.node import Node, Pad
 from ..graph.registry import register_element
 from ..obs import hooks as _hooks
-from ..pool import WireStager, mark_ready
+from ..pool import WireStager, fence, mark_ready
 from ..spec import TensorsSpec
 
 
@@ -87,15 +93,22 @@ class TensorUpload(Node):
             if t.device == self.device:
                 out.append(t)  # already there: nothing to move
                 continue
-            slot = self._stager.stage(i, t)
-            if _hooks.enabled:
-                _hooks.emit("copy", self, slot.numel() * slot.element_size(),
-                            self._stager.last_alloc)
+            leased = hasattr(t, "_pool_lease") and t.is_pinned()
+            if leased:
+                src = t  # a batch element's page-locked lease: no staging copy
+            else:
+                src = self._stager.stage(i, t)
+                if _hooks.enabled:
+                    _hooks.emit("copy", self, src.numel() * src.element_size(),
+                                self._stager.last_alloc)
             with torch.cuda.stream(self._stream):
-                d = slot.to(self.device, non_blocking=True)
+                d = src.to(self.device, non_blocking=True)
                 event = torch.cuda.Event()
                 event.record(self._stream)
-            self._stager.track(i, event)
+            if leased:
+                fence(t, event)  # no rewrite of the lease before the copy is done
+            else:
+                self._stager.track(i, event)
             out.append(mark_ready(d, event))
         return frame.with_tensors(out)
 

@@ -205,6 +205,14 @@ class Node:
         """Mid-stream renegotiation; the same commit phase by default."""
         return self.configure(in_specs)
 
+    def warmup_plan(self):
+        """Work for the warmup phase (``graph/warmup.py``): ``(label,
+        thunk)`` pairs, each thunk capturing one geometry this node will
+        bring downstream at run time.  Called after negotiation, before
+        PLAYING.  Default: nothing (negotiation captured the negotiated
+        geometry); ``tensor_dynbatch`` plans its bucket ladder."""
+        return []
+
     # -- dataflow -----------------------------------------------------------
 
     def _dispatch(self, pad: Pad, item: Union[Frame, Event]) -> None:

@@ -31,13 +31,17 @@ dump_dot_dir`` writes it on every state change and on an error, and
 error.  Observability never takes the pipeline down: its failures are
 warnings.
 
+With ``[compile] warmup`` on, :meth:`Pipeline.start` runs the warmup
+phase after negotiation (``graph/warmup.py``): every geometry a node plans
+(``tensor_dynbatch``'s buckets) is captured before PLAYING, and
+:attr:`Pipeline.warmup_report` says what was captured and how long it
+took; :meth:`Pipeline.warmup` runs the phase on a started pipeline.
+
 Not ported yet: restart policies and quarantine (and ``stats()``'s
 ``recovery`` key), the dispatcher lanes (``stats()``'s ``lanes``), the
-JAX package's warmup phase (``graph/warmup.py``, ``Pipeline.warmup``),
-which only its batching element plans work for, the device trace of the
-whole PLAYING interval (``[common] xplane_trace_dir``), and the device
-memory sidecars of a flight dump, which wait for the port's device lane
-and profiler.
+device trace of the whole PLAYING interval (``[common]
+xplane_trace_dir``), and the device memory sidecars of a flight dump,
+which wait for the port's device lane and profiler.
 """
 
 from __future__ import annotations
@@ -74,6 +78,7 @@ class Pipeline:
         self._error_node: Optional[str] = None
         self._lock = threading.Lock()
         self._tracers: List = []  # attached obs tracers (GST_TRACERS analog)
+        self.warmup_report: Optional[dict] = None  # the last warmup phase's report
 
     # -- graph construction -------------------------------------------------
 
@@ -196,6 +201,9 @@ class Pipeline:
                 node.start()
                 started.append(node)
             self.negotiate()
+            from .warmup import run_warmup
+
+            run_warmup(self)  # [compile] warmup: every planned capture, before PLAYING
         except BaseException:
             for node in started:
                 try:
@@ -337,6 +345,17 @@ class Pipeline:
                 raise PipelineError(f"pipeline did not finish within {timeout}s")
         finally:
             self.stop()
+
+    def warmup(self) -> dict:
+        """Run the warmup phase now, on a started pipeline (it needs the
+        negotiated specs), whatever ``[compile] warmup`` says; returns the
+        report, also kept as :attr:`warmup_report`."""
+        from .warmup import collect_plan, execute
+
+        if self.state != "PLAYING":
+            raise PipelineError("warmup() needs a started pipeline (negotiated specs)")
+        self.warmup_report = execute(collect_plan(self), pipeline=self)
+        return self.warmup_report
 
     # -- introspection ------------------------------------------------------
 

@@ -36,6 +36,10 @@ _BUILTIN_MODULES: Dict[str, str] = {
     "tensor_split": "nnstreamer_tpu_torch.elements.split",
     "tensor_reposink": "nnstreamer_tpu_torch.elements.repo",
     "tensor_reposrc": "nnstreamer_tpu_torch.elements.repo",
+    "tensor_batch": "nnstreamer_tpu_torch.elements.batch",
+    "tensor_unbatch": "nnstreamer_tpu_torch.elements.batch",
+    "tensor_dynbatch": "nnstreamer_tpu_torch.elements.dynbatch",
+    "tensor_dynunbatch": "nnstreamer_tpu_torch.elements.dynbatch",
 }
 
 

@@ -246,6 +246,7 @@ class Program(NamedTuple):
     post: Tuple[int, ...]
     a: Tuple[int, ...]
     b: Tuple[int, ...]
+    reset: int = 0  # bit k: step k's conversion drops the constant lanes (C13)
 
 
 def lower_chain(start: np.dtype, steps) -> Program:
@@ -289,8 +290,9 @@ def lower_chain(start: np.dtype, steps) -> Program:
         a_bits.append(a32)
         b_bits.append(b32)
     f32 = bool(steps) and all(dt == _F32 for _, dt, _, _ in steps)
+    reset = sum(1 << k for k, r in enumerate(constant_resets(start, steps)) if r)
     return Program(FLOAT_CHAIN if f32 else GENERAL, tuple(conv), tuple(ops), tuple(post),
-                   tuple(a_bits), tuple(b_bits))
+                   tuple(a_bits), tuple(b_bits), reset)
 
 
 class _Program(ctypes.Structure):
@@ -298,7 +300,7 @@ class _Program(ctypes.Structure):
     _fields_ = [("variant", ctypes.c_int), ("n_steps", ctypes.c_int),
                 ("conv", ctypes.c_int * MAX_STEPS), ("op", ctypes.c_int * MAX_STEPS),
                 ("post", ctypes.c_int * MAX_STEPS), ("a", ctypes.c_uint32 * MAX_STEPS),
-                ("b", ctypes.c_uint32 * MAX_STEPS)]
+                ("b", ctypes.c_uint32 * MAX_STEPS), ("reset", ctypes.c_uint32)]
 
 
 def _reciprocal(val, dt: np.dtype) -> float:
@@ -497,7 +499,7 @@ class ChainPlan:
 def c_program(p: Program) -> _Program:
     """A lowered program as the kernel's C struct."""
     c = _Program()
-    c.variant, c.n_steps = p.variant, len(p.op)
+    c.variant, c.n_steps, c.reset = p.variant, len(p.op), p.reset
     for field in ("conv", "op", "post", "a", "b"):
         getattr(c, field)[:len(p.op)] = getattr(p, field)
     return c
@@ -618,6 +620,51 @@ def _constant_lanes(v: torch.Tensor, dt: np.dtype) -> torch.Tensor:
     return lanes | torch.isnan(v) if info.min < 0 else lanes
 
 
+_I8, _U8, _I16 = np.dtype(np.int8), np.dtype(np.uint8), np.dtype(np.int16)
+
+
+def _keeps_constant(it: np.dtype, ft: np.dtype, to: np.dtype) -> bool:
+    """Whether XLA's CPU code keeps the lanes that an earlier float → int
+    conversion made constant through a later one (ROADMAP C13): the lane
+    went from the int ``it`` to the float ``ft`` with no float step
+    between and converts to the int ``to``.  Probed class by class
+    against the Pallas kernel in interpret mode: where LLVM folds the
+    round trip into an int conversion the lane stays a constant arm;
+    where it does not, the lane is fused again."""
+    if ft == _F32:
+        bits, tbits = it.itemsize * 8, to.itemsize * 8
+        return bits <= 16 and (to == it or (to.kind == "u" and tbits >= bits))
+    if it == _I8:
+        return True
+    if it == _I16:
+        return to == _I32
+    if it == _U8:
+        return to == (_I32 if ft == _F16 else _U32)
+    return False
+
+
+def constant_resets(start: np.dtype, steps) -> Tuple[bool, ...]:
+    """For each step of a plan: whether its float → int conversion drops
+    the lanes that earlier conversions made constant (ROADMAP C13): after
+    a float step since the last int → float conversion, or where
+    :func:`_keeps_constant` says so.  False for the first such conversion
+    and for every other step."""
+    out = []
+    cur, converted, last_int, arith = start, False, None, False
+    for op, dt, _, _ in steps:
+        reset = False
+        if _is_int(dt) and not _is_int(cur):
+            if converted:
+                reset = arith or not _keeps_constant(last_int, cur, dt)
+            converted = True
+        elif _is_int(cur) and not _is_int(dt):
+            last_int, arith = cur, False
+        out.append(reset)
+        arith |= not _is_int(dt) and op != "typecast"
+        cur = dt
+    return tuple(out)
+
+
 def _apply_step(v: torch.Tensor, op: str, dt: np.dtype, a, b, const=None) -> torch.Tensor:
     """One step on the working representation; ``const`` marks the lanes
     of :func:`_constant_lanes` (None: no float → int conversion so far)."""
@@ -667,10 +714,10 @@ def run_chain(x: torch.Tensor, plan: ChainPlan) -> torch.Tensor:
     v = _convert(v, cur, plan.start_dtype)
     cur = plan.start_dtype
     const = None  # ROADMAP C10: lanes XLA computes one rounding a step
-    for op, dt, a, b in plan.steps:
+    for (op, dt, a, b), reset in zip(plan.steps, constant_resets(cur, plan.steps)):
         if _is_int(dt) and not _is_int(cur):
             lanes = _constant_lanes(v, dt)
-            const = lanes if const is None else const | lanes
+            const = lanes if const is None or reset else const | lanes
         v = _convert(v, cur, dt)
         cur = dt
         v = _apply_step(v, op, dt, a, b, const)
@@ -828,7 +875,7 @@ def program_eval(x: np.ndarray, program: Program, out_dtype, in_dtype=None) -> n
         if program.variant == GENERAL:
             if program.conv[k] in _F2I:
                 lanes = _constant_bits(r, _F2I[program.conv[k]])
-                const = lanes if const is None else const | lanes
+                const = lanes if const is None or program.reset >> k & 1 else const | lanes
             r = _CONV_FNS[_CONV_NAMES[program.conv[k]]](r)
         r = _op_eval(r, _OP_NAMES[op], program.a[k], program.b[k], const)
         r = _CONV_FNS[_CONV_NAMES[program.post[k]]](r)

@@ -438,3 +438,150 @@ def test_pose_conv_check(smoke, fault):
     else:
         with pytest.raises(SystemExit):
             smoke.pose_conv_check(torch, apply, params, cpu, x)
+
+
+# The batch phase's checks (configs 5 and 1d).
+
+def _batch_stats(captures=1, replays=24):
+    return dict(captures=captures, replays=replays, warmup_calls=3)
+
+
+@pytest.mark.parametrize("case,ok", [
+    ("exact", True), ("two captures", False), ("a replay short", False),
+    ("int8 launched off the path", False), ("an eager call counted", False)])
+def test_batch_capture_check(smoke, case, ok):
+    stats = _batch_stats(captures=2 if case == "two captures" else 1,
+                         replays=23 if case == "a replay short" else 24)
+    launches = {"fused_arith": 4, "int8_matmul": 4 if case == "int8 launched off the path" else 0,
+                "pallas_nms_keep": 0}
+    if case == "an eager call counted":
+        launches["fused_arith"] = 5
+    if ok:
+        smoke.batch_capture_check(stats, 24, launches, ("fused_arith",))
+    else:
+        with pytest.raises(SystemExit):
+            smoke.batch_capture_check(stats, 24, launches, ("fused_arith",))
+
+
+def _rows(rounds=3, n=4):
+    rng = np.random.default_rng(0)
+    return [rng.standard_normal((n, 10)).astype(np.float32) for _ in range(rounds)]
+
+
+@pytest.mark.parametrize("case", ["exact", "swapped streams", "late round", "one ulp",
+                                  "a frame short"])
+def test_stream_check(smoke, case):
+    """Each stream's frames are the eager forward's rows of its index, in
+    round order, bit for bit."""
+    eager = _rows()
+    got = {i: [eager[r][i].copy() for r in range(3)] for i in range(4)}
+    if case == "swapped streams":
+        got[0], got[1] = got[1], got[0]
+    elif case == "late round":
+        got[2] = [got[2][1], got[2][0], got[2][2]]
+    elif case == "one ulp":
+        got[3][2] = np.nextafter(got[3][2], np.float32(np.inf))
+    elif case == "a frame short":
+        got[1] = got[1][:2]
+    if case == "exact":
+        smoke.stream_check(np, got, eager, 3)
+    else:
+        with pytest.raises(SystemExit):
+            smoke.stream_check(np, got, eager, 3)
+
+
+def test_batch1_check(smoke):
+    one = [np.array([1.0, 5.0, -2.0], np.float32), np.array([3.0, 0.5, 0.0], np.float32)]
+    near = [o + np.float32(0.1) for o in one]  # 0.1 of 5 and of 3
+    worst, control, labels = smoke.batch1_check(np, near, one, 1 / 16)
+    assert worst == pytest.approx(0.1 / 3) and labels == 2
+    assert control == pytest.approx(4.4 / 5)  # row 1 against frame 0: 0.6 - 5.0, of 5
+    with pytest.raises(SystemExit):  # beyond the tolerance
+        smoke.batch1_check(np, near, one, 1 / 32)
+    flipped = [one[0], np.array([3.0, 3.1, 0.0], np.float32)]
+    with pytest.raises(SystemExit):  # the top-1 label moved
+        smoke.batch1_check(np, flipped, one, 1.0)
+
+
+@pytest.mark.parametrize("case", ["swapped", "blind"])
+def test_batch1_check_control(smoke, capsys, case):
+    """Two rows swapped fail the limit; frames whose batch-1 forwards lie
+    within the limit of each other fail the control: a swap would pass."""
+    one = [np.array([1.0, 5.0, -2.0], np.float32), np.array([3.0, 0.5, 0.0], np.float32),
+           np.array([0.0, 0.2, 4.0], np.float32)]
+    if case == "swapped":
+        assert smoke.batch1_check(np, list(one), one, 1 / 16)[0] == 0.0
+        rows, rel, why = [one[1], one[0], one[2]], 1 / 16, "frame 0: batched row"
+    else:
+        one[1] = one[0] + np.float32(0.01)  # two frames alike to 0.002 of 5
+        rows, rel, why = list(one), 1 / 64, "control"
+    with pytest.raises(SystemExit):
+        smoke.batch1_check(np, rows, one, rel)
+    assert why in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("case,ok", [
+    ("exact", True), ("a capture while playing", False), ("a bucket missing", False),
+    ("a frame lost", False), ("out of order", False), ("a bucket off the ladder", False)])
+def test_dyn_checks(smoke, case, ok):
+    report = {"compiled": [{"label": f"bucket{b}"} for b in (1, 2, 4, 8)]}
+    before, after = 4, 4
+    buckets = [1, 8, 8, 4, 2, 8]
+    pts = list(range(20))
+    if case == "a capture while playing":
+        after = 5
+    elif case == "a bucket missing":
+        before, report = 3, {"compiled": report["compiled"][:3]}
+    elif case == "a frame lost":
+        pts = pts[:-1]
+    elif case == "out of order":
+        pts[3], pts[4] = pts[4], pts[3]
+    elif case == "a bucket off the ladder":
+        buckets[2] = 6
+    if ok:
+        hist = smoke.dyn_checks(np, before, after, report, buckets, pts, 20)
+        assert hist == {"1": 1, "2": 1, "4": 1, "8": 3}
+    else:
+        with pytest.raises(SystemExit):
+            smoke.dyn_checks(np, before, after, report, buckets, pts, 20)
+
+
+def _dyn_trace(per_launch):
+    return dict(per_launch=per_launch)
+
+
+@pytest.mark.parametrize("case,ok", [
+    ("exact", True), ("a record lost", True), ("no int8 at a bucket", False),
+    ("nms_keep launched", False), ("a launch short", False)])
+def test_dyn_launch_check(smoke, case, ok):
+    """Config 1d's trace: a graph launch a batch, each with one
+    fused_arith and one int8_matmul record; graphs of different buckets
+    hold different record counts, so a lost record is judged within its
+    bucket."""
+    buckets = [8, 8, 4, 8, 1]
+    sizes = {8: 700, 4: 650, 1: 600}
+    per = [({"fused_arith": 1, "int8_matmul": 1}, sizes[b]) for b in buckets]
+    if case == "a record lost":
+        per[1] = ({"fused_arith": 1}, 699)
+    elif case == "no int8 at a bucket":
+        per[4] = ({"fused_arith": 1}, 600)
+    elif case == "nms_keep launched":
+        per[2] = ({"fused_arith": 1, "int8_matmul": 1, "pallas_nms_keep": 1}, 651)
+    elif case == "a launch short":
+        per = per[:-1]
+    if ok:
+        assert smoke.dyn_launch_check(_dyn_trace(per), buckets) == \
+            {8: 3 - (case == "a record lost"), 4: 1, 1: 1}
+    else:
+        with pytest.raises(SystemExit):
+            smoke.dyn_launch_check(_dyn_trace(per), buckets)
+
+
+def test_batch_strings_name_the_path(smoke):
+    desc = smoke.batch_desc(4, "m.npz", "build")
+    assert desc.count("datasrc name=cam") == 4 and desc.count("tensor_sink") == 4
+    assert "tensor_batch" in desc and "tensor_unbatch" in desc and "batch=4" in desc
+    assert "acceleration=pallas" in desc and "tensor_upload name=u" in desc
+    d = smoke.dyn_desc()
+    assert f"tensor_dynbatch name=dyn max_batch={smoke.DYN_MAX_BATCH}" in d
+    assert d.index("tensor_dynbatch") < d.index("tensor_transform") < d.index("tensor_filter")

@@ -247,20 +247,37 @@ def _against_xla(got, want, out_dtype) -> None:
     _bitwise(_values(got, out_dtype), _values(want, out_dtype))
 
 
-def _c13(plan) -> bool:
-    """ROADMAP C13 (open): a float → int conversion, a second float → int
-    conversion after it, and a fused multiply-add after that.  Whether XLA's
-    CPU code keeps the first conversion's saturated lanes constant through
-    the second depends on how LLVM folds the second conversion's selects;
-    the port keeps them (C10's rule)."""
-    cur, conversions = plan.start_dtype, 0
-    for op, dt, _, _ in plan.steps:
-        if op == "typecast" and dt.kind in "iu" and cur.kind == "f":
+def _c13_open(plan) -> bool:
+    """ROADMAP C13's open class: a float → int conversion after an earlier
+    one, then a fused multiply-add, outside the form that was probed
+    class by class.  Whether LLVM keeps a saturated lane a constant arm
+    through the second conversion depends on what it proves about the
+    whole expression (the input's float type, float steps before the
+    first conversion or between the two, the literals' ranges, a cast
+    before the multiply-add), and the port's rule
+    (``ops/kernels.py::constant_resets``) is exact on the probed form
+    only: a float32 input converted to an int, int steps in that int, one
+    int → float conversion, the second conversion, and at once the fused
+    multiply-add, then float steps."""
+    steps, cur, conversions, open_ = plan.steps, plan.start_dtype, 0, False
+    for op, dt, _, _ in steps:
+        if dt.kind in "iu" and cur.kind not in "iu":
             conversions += 1
-        if op == "fma" and conversions >= 2:
-            return True
+        elif op == "fma" and conversions >= 2:
+            open_ = True
         cur = dt
-    return False
+    if not open_:
+        return False
+    if plan.start_dtype != np.dtype(np.float32) or steps[0][0] != "typecast" \
+            or steps[0][1].kind not in "iu":
+        return True
+    i = 1
+    while steps[i][1] == steps[0][1] and steps[i][0] != "typecast":
+        i += 1  # int steps in the first int
+    form = [(op, dt.kind in "iu") for op, dt, _, _ in steps[i:i + 3]]
+    if form != [("typecast", False), ("typecast", True), ("fma", False)]:
+        return True
+    return any(dt.kind in "iu" for _, dt, _, _ in steps[i + 3:])
 
 
 def _values(a: np.ndarray, dt) -> np.ndarray:
@@ -336,12 +353,12 @@ class TestChainProgram:
         against the Pallas kernel in interpret mode: XLA's folded literals
         (C7), its fused multiply-adds (C8) and its float16 rules (C9) are
         the port's too, and so are the lanes XLA computes one rounding a
-        step after a saturating float → int conversion (C10).  The one class
-        left out is ROADMAP C13 (open): a second float → int conversion
-        before the fused multiply-add."""
+        step after a saturating float → int conversion (C10), and whether a
+        later float → int conversion keeps them so (C13).  The one class
+        left out is C13's open one (:func:`_c13_open`)."""
         ops = _bind_chain(ops, dt)
         plan = K.fused_arith_plan(dt, ops)
-        assume(not _c13(plan))
+        assume(not _c13_open(plan))
         x = _extreme_inputs(dt, np.random.default_rng(seed), n=37)
         _bitwise(K.program_eval(x, plan.program, plan.out_dtype), _jax_bf16(x, dt, ops))
 
@@ -372,7 +389,7 @@ class TestChainProgram:
         dt, ops = _with_bf16(bf_in, dt, ops, pos)
         ops = _bind_chain(ops, dt)
         plan = K.fused_arith_plan(dt, ops)
-        assume(not _c13(plan))
+        assume(not _c13_open(plan))
         x = _inputs(dt, np.random.default_rng(seed), n=37)
 
         _against_xla(K.program_eval(x, plan.program, plan.out_dtype, in_dtype=dt),
@@ -515,7 +532,7 @@ class TestChainProgram:
         for (ctype, name, array), (_, pytype) in zip(fields, K._Program._fields_):
             base = ctypes.c_int if ctype == "int" else ctypes.c_uint32
             assert pytype == (base * K.MAX_STEPS if array else base), name
-        assert ctypes.sizeof(K._Program) == 8 + 5 * 4 * K.MAX_STEPS
+        assert ctypes.sizeof(K._Program) == 12 + 5 * 4 * K.MAX_STEPS
         prog = K.fused_arith_plan(np.uint8, NORMALIZE).c_program
         assert (prog.variant, prog.n_steps, list(prog.op)) == (K.FLOAT_CHAIN, 3, [0, 6, 8] + [0] * 5)
 
@@ -730,21 +747,106 @@ C13_OPS = [("typecast", np.dtype(np.int32)), ("clamp", (1.0330171742977412, 221.
 
 
 def test_roadmap_c13_second_conversion_pinned():
-    """ROADMAP C13 (open): the +inf lane saturates to int32's maximum, the
-    clamp and the uint16 conversion give 221 as on the 255 lane, and XLA
-    fuses the multiply-add there (-321.30637), where the port, keeping
-    the lane constant since the first conversion, rounds it twice
-    (-321.30634).  The other lanes agree."""
+    """ROADMAP C13's input, now bitwise: the +inf lane saturates to int32's
+    maximum, the float clamp and the uint16 conversion give 221 as on the
+    255 lane, and XLA fuses the multiply-add there again (-321.30637):
+    after a float step a second conversion drops the first one's constant
+    lanes.  (A float16 input puts the chain in C13's open class, where
+    the rule holds at these literals.)"""
     x = np.array([np.inf, 255, -np.inf, 3], np.float16)
     ops = _bind_chain(C13_OPS, np.dtype(np.float16))
     plan = K.fused_arith_plan(np.dtype(np.float16), ops)
-    assert _c13(plan)
+    assert K.constant_resets(plan.start_dtype, plan.steps) == (False, False, True, False)
+    want = _jax_fused(x, ops)
+    assert want[0] == want[1] == np.float32(-321.30637)
+    _bitwise(_port_fused(x, ops), want)
+    _bitwise(K.program_eval(x, plan.program, plan.out_dtype), want)
+
+
+# ROADMAP C13's open class, two of its members: uint8 → float add → int8
+# (200.0 saturates only int8, 300.0 both), and a float16 input through a
+# multiply, int8, float32 and int32 (the probed float32 form drops int8's
+# lanes at int32; from float16 XLA keeps them).
+C13_OPEN = [
+    (np.array([200.0, 300.0, 3.0, -7.0], np.float32),
+     [("typecast", np.dtype(np.uint8)), ("typecast", np.dtype(np.float32)), ("add", 2.5),
+      ("typecast", np.dtype(np.int8)), ("mul", -2.423351526260376),
+      ("add", 192.6956329345703)], [0, 1]),
+    (np.array([np.inf, 122.56, 3.0, -7.0], np.float16),
+     [("mul", 1.4892958402633667), ("typecast", np.dtype(np.int8)),
+      ("typecast", np.dtype(np.float32)), ("typecast", np.dtype(np.int32)),
+      ("mul", -1.8834797143936157), ("add", 161.36981201171875)], [0, 1]),
+]
+
+
+@pytest.mark.parametrize("x,raw,lanes", C13_OPEN)
+def test_roadmap_c13_open_class_pinned(x, raw, lanes):
+    """ROADMAP C13 (open class, :func:`_c13_open`): on the saturated lanes
+    XLA and the port disagree on fusing the multiply-add, and only there,
+    by at most two float32 steps."""
+    ops = _bind_chain(raw, x.dtype)
+    plan = K.fused_arith_plan(x.dtype, ops)
+    assert _c13_open(plan)
     want = _jax_fused(x, ops)
     got = _port_fused(x, ops)
-    assert list(np.flatnonzero(got != want)) == [0]
-    assert want[0] == want[1] == np.float32(-321.30637)
-    assert got[0] == np.float32(-321.30634)
+    assert list(np.flatnonzero(got != want)) == lanes
+    assert np.all(np.abs(got[lanes].view(np.int32) - want[lanes].view(np.int32)) <= 2)
     _bitwise(K.program_eval(x, plan.program, plan.out_dtype), got)
+
+
+# One class of each rule of ops/kernels.py::_keeps_constant: the lanes that
+# the first conversion saturated (inf, 1e30, 200 and NaN) through int →
+# float → int and a fused multiply-add, with nothing or an int add between;
+# and four members of the open class (a float clamp or add between) where
+# the rule holds at these literals.
+C13_CLASSES = [
+    (np.int8, None, np.float32, None, np.uint16), (np.int8, None, np.float32, None, np.int16),
+    (np.int16, None, np.float32, None, np.uint32), (np.uint8, None, np.float32, None, np.int32),
+    (np.int8, ("add", 3), np.float32, None, np.int8),
+    (np.int16, ("add", 3), np.float32, None, np.uint8),
+    (np.int8, None, np.float16, None, np.int16), (np.uint8, None, np.float16, None, np.int32),
+    (np.uint8, None, np.float16, None, np.uint16),
+    (np.int16, ("add", 3), np.float16, None, np.int32),
+    (np.int8, None, BFLOAT16, None, np.uint8), (np.uint8, None, BFLOAT16, None, np.uint32),
+    (np.uint8, None, BFLOAT16, None, np.int32), (np.int32, ("add", 3), np.float32, None, np.uint32),
+    (np.int8, None, np.float16, ("clamp", (1.25, 100.5)), np.uint16),
+    (np.uint8, None, np.float32, ("add", 2.5), np.uint16),
+    (np.int8, None, np.float32, ("clamp", (1.25, 100.5)), np.uint16),
+    (np.int8, None, np.float32, ("add", 2.5), np.uint16),
+]
+
+
+@pytest.mark.parametrize("it,mid_int,ft,mid_float,to", C13_CLASSES)
+def test_c13_classes_bitwise(it, mid_int, ft, mid_float, to, monkeypatch):
+    """Each class against the Pallas kernel in interpret mode, under the
+    first literals of the multiply-add for which keeping and dropping the
+    constant lanes give different results."""
+    x = np.array([np.inf, 1e30, np.nan, -np.inf, 3.0, 200.0, -7.0], np.float32)
+    head = [("typecast", np.dtype(it))] + ([mid_int] if mid_int else []) + \
+        [("typecast", ft if ft == BFLOAT16 else np.dtype(ft))] + \
+        ([mid_float] if mid_float else []) + [("typecast", np.dtype(to))]
+    rng = np.random.default_rng(0)
+    resets = K.constant_resets
+    for _ in range(200):
+        a = float(np.float32(rng.uniform(-3, 3)))
+        b = float(np.float32(rng.uniform(-300, 300)))
+        ops = _bind_chain(head + [("mul", a), ("add", b)], np.dtype(np.float32))
+        plan = K.fused_arith_plan(np.dtype(np.float32), ops)
+        if plan.steps[-1][0] != "fma":
+            continue
+        got = K.run_chain(torch.from_numpy(x), plan).numpy()
+        # the other rule at every conversion
+        monkeypatch.setattr(K, "constant_resets",
+                            lambda s, st: tuple(not r for r in resets(s, st)))
+        other = K.run_chain(torch.from_numpy(x), plan).numpy()
+        monkeypatch.setattr(K, "constant_resets", resets)
+        if not np.array_equal(got, other, equal_nan=True):
+            break
+    else:
+        pytest.fail("no literals tell the two rules apart")
+    want = _jax_bf16(x, np.dtype(np.float32), ops)
+    _bitwise(got, want)
+    _bitwise(K.program_eval(x, plan.program, plan.out_dtype), want)
 
 
 # (in dtype, out dtype) pairs of every width, each once.

@@ -237,6 +237,44 @@ def test_no_port_file_names_jax():
             assert not pattern.search(line), f"{f.relative_to(REPO)}:{i}: {line}"
 
 
+def test_guard_covers_the_batching_modules():
+    """The import guard above reads every file of the port: the batching
+    slice's modules among them."""
+    files = {f.relative_to(REPO).as_posix() for f in (REPO / "nnstreamer_tpu_torch").rglob("*.py")}
+    assert {"nnstreamer_tpu_torch/elements/batch.py", "nnstreamer_tpu_torch/elements/dynbatch.py",
+            "nnstreamer_tpu_torch/graph/warmup.py", "nnstreamer_tpu_torch/pool.py",
+            "nnstreamer_tpu_torch/graph/residency.py"} <= files
+
+
+def test_port_batching_leaves_the_reference_untouched():
+    """Registering and running the port's tensor_batch and tensor_dynbatch,
+    and making and resetting its default pool, changes neither the JAX
+    package's element registry nor its default pool."""
+    from nnstreamer_tpu import pool as jpool
+    from nnstreamer_tpu.graph import registry as jreg
+    from nnstreamer_tpu_torch import pool as tpool
+
+    jpool.default_pool()
+    factories, jdefault = dict(jreg._FACTORIES), jpool._default_pool
+    p = tnns.parse_launch("tensor_mux name=m sync_mode=nosync ! tensor_batch ! tensor_unbatch ! "
+                          "tensor_demux name=d datasrc name=a ! m.sink_0 datasrc name=b ! "
+                          "m.sink_1 d.src_0 ! tensor_sink d.src_1 ! tensor_sink")
+    p["a"].data = p["b"].data = [torch.zeros(3)] * 2
+    p.run(timeout=20)
+    q = tnns.parse_launch("datasrc name=s ! tensor_dynbatch max_batch=2 ! tensor_dynunbatch ! "
+                          "tensor_sink")
+    q["s"].data = [torch.zeros(3)] * 3
+    q.run(timeout=20)
+    tpool.default_pool()
+    tpool.reset_default_pool()
+    assert jreg._FACTORIES == factories
+    assert all(jreg._FACTORIES[k] is v for k, v in factories.items())
+    assert jpool._default_pool is jdefault
+    for name in ("tensor_batch", "tensor_dynbatch"):
+        assert jnns.make(name).__module__.startswith("nnstreamer_tpu.")
+        assert tnns.make(name).__module__.startswith("nnstreamer_tpu_torch.")
+
+
 def test_filter_default_device_raises_without_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     filt = TensorFilter(framework="torch", model=TorchModel(apply=lambda p, x: x))
