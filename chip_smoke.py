@@ -39,12 +39,15 @@ In order, it
    and the lanes that a float -> int conversion saturated before a fused
    multiply-add, which take a multiply and an add (ROADMAP C10), and keep
    doing so through a second conversion only where the program's reset
-   bit says (C13: ROADMAP C13's input chain and two probed classes, their
-   reset bits checked on the host); then ``int8_matmul`` at M = 2, 4, 8,
+   bit says, a conversion LLVM folds marking none of its own (C13: ROADMAP
+   C13's input chain, two probed classes and an int8 lane wrapped to its
+   maximum before a folded conversion, their reset bits checked on the
+   host); then ``int8_matmul`` at M = 2, 4, 8,
    16 (split-K) and 32 (tiled) x (1280, 1001), exact in int32 and within
    1 ulp, and ``fused_arith``'s normalize at (4, 224, 224, 3) and (8, 224,
-   224, 3), bitwise, each timed beside its bound (``int8_matmul`` beside
-   ``torch._int_mm`` at the same M).
+   224, 3) (config 5) and at (1, 2 and 4, 300, 300, 3) (config 2c's
+   dynbatch buckets), bitwise, each timed beside its bound (``int8_matmul``
+   beside ``torch._int_mm`` at the same M).
    Then it times kernel, plain version and, where one exists, the one
    PyTorch call that computes the same function (a yardstick only; the
    port never calls it); each kernel at its smallest case as its launch
@@ -207,7 +210,44 @@ In order, it
    pool's fence: config 5 with the upload's stream held before each copy;
    a recycled lease waits for the copy that reads it, and every round's
    rows stay those of its own frames;
-18. prints every path number beside the card's name and power limit, one
+18. cascade phase (config 2c): ``leg_config2c``'s model, SSD-MobileNet-v2
+   1.0 (300x300, 91 labels, seed 0) with ``decode_topk`` k=16, each box
+   resampled to 96x96 (``cascade.crop_and_resize``) and classified by
+   MobileNet-v2 1.0 (1001 classes, seed 1), bf16, named by its checkpoint
+   in ``videotestsrc ! tensor_converter !`` the normalize ``! tensor_upload
+   ! queue ! tensor_filter model=<npz> custom=builder=cascade:
+   build_detect_classify,... ! tensor_sink``, 64 frames: the normalize
+   folds into the cascade's capture (``fused_arith`` called only in the
+   warm-up calls and the capture), one capture, a replay a frame, the
+   replays equal to the model called eagerly on the plain chain's output
+   (bitwise or within CASCADE_REPLAY_REL); on 4 frames the replays against
+   the port's CPU run (``cascade_check`` against the CPU detector's whole
+   ranking, read through ``ssd_mobilenet.rank_anchors`` as the model reads
+   it: each row the decode of the CPU's anchor at that rank or of one whose
+   score lies within the margin of it, boxes, classes, logits and top-1
+   labels within CASCADE_CPU_LIMITS); a 16-frame trace (one
+   ``fused_arith`` record a graph launch).  Then its dynbatch form
+   (``tensor_dynbatch max_batch=4``, every bucket captured before PLAYING,
+   32 frames, rows against the eager batch on the plain chain, and each
+   row against its frame's batch-1 cascade on the card under
+   CASCADE_BATCH1_LIMITS, with a control that holds row i to frame i + 1
+   and must be refused) and ``examples/pipelines/crop_cascade.py``'s
+   element cascade (tee, a detector filter, ``tensor_crop size=16:16
+   num=2``, a classifier filter; torch stubs) bit for bit against the same
+   run on the CPU;
+19. app phase: ``PipelineHandle`` on ``appsrc ! `` the normalize ``!
+   tensor_upload ! queue ! valve ! tensor_filter`` (slice 1's model with
+   the int8 head, from a checkpoint) ``! output-selector`` into two sinks:
+   32 frames pushed, 8 of them while the valve is closed (dropped), the
+   selector switched halfway, each sink's pts checked; ``SingleShot`` on
+   the same model and normalized frames, half directly and half with a
+   timeout (on its worker thread), its logits equal to the pipeline's
+   (bitwise or within APP_REL); the same invoke through the C ABI
+   (``libnnstreamer_tpu_torch_capi.so``, built with ``g++``, loaded with
+   ctypes) giving SingleShot's bytes; the CLI (``python -m
+   nnstreamer_tpu_torch``) as a subprocess on an 8-frame string: exit 0,
+   its report lines;
+20. prints every path number beside the card's name and power limit, one
    JSON line describing every kernel, and last one JSON line
    ``{"ok": true, "device": {...}}``.
 
@@ -242,6 +282,10 @@ MUL_FIRST_NORMALIZE = "typecast:float32,mul:0.00784313725,add:-1.0"
 C13_CHAIN = ("typecast:int32,clamp:1.0330171742977412:221.0729442728292,typecast:uint16,"
              "mul:-0.42657339572906494,add:-1.033626914024353,sub:226")
 FMA_MIDPOINTS = f"mul:{38737 * 2.0 ** -30!r},add:{2.0 ** 30!r}"
+# ROADMAP C13, the folded second conversion: int8, an int add that wraps
+# the minimum to the maximum, bfloat16, int8 again, a fused multiply-add.
+C13_FOLDED = ("typecast:int8,add:-1,typecast:bfloat16,typecast:int8,"
+              "mul:-1.9924718141555786,add:271.73095703125")
 # Slice 2: SSD-MobileNet-v2 at full width, 91 labels (COCO's label map).
 SSD_IMAGE = 300
 SSD_LABELS = 91
@@ -495,12 +539,16 @@ def kernel_phase(torch, np, K, bind, jax_pkg):
          "typecast:int8,typecast:float32,typecast:int16,mul:1.37,add:0.0071", 0),
         ((IMAGE, IMAGE, 3), floats(np.float32),
          "typecast:int8,typecast:float32,typecast:uint16,mul:1.37,add:0.0071", 0),
+        # a conversion LLVM folds marks no lanes of its own: int8's minimum
+        # wrapped to its maximum by an int add stays fused
+        ((IMAGE, IMAGE, 3), floats(np.float32), C13_FOLDED, 0),
     ]
     for dtype, option, reset in ((np.float16, C13_CHAIN, 4),
                                  (np.float32, "typecast:int8,typecast:float32,typecast:int16,"
                                               "mul:1.37,add:0.0071", 4),
                                  (np.float32, "typecast:int8,typecast:float32,typecast:uint16,"
-                                              "mul:1.37,add:0.0071", 0)):
+                                              "mul:1.37,add:0.0071", 0),
+                                 (np.float32, C13_FOLDED, 0)):
         got = K.fused_arith_plan(np.dtype(dtype), bind(option, np.dtype(dtype))).program.reset
         check(got == reset, f"'{option}': reset bits {got}, expected {reset}")
     err = 0.0
@@ -3044,7 +3092,8 @@ def batch_kernel_phase(torch, np, K, ops, jax_pkg):
     BATCH_M x (1280, CLASSES) (the split-K branch's MT 1 to 16 and the
     tiled branch), beside ``torch._int_mm`` at the same M, and
     ``fused_arith``'s normalize at (N, 224, 224, 3) for N in
-    BATCH_STREAMS."""
+    BATCH_STREAMS (config 5) and at (N, 300, 300, 3) for N on config 2c's
+    dynbatch ladder (its buckets 1, 2 and 4)."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(11)
     mm_rows = {}
@@ -3084,8 +3133,10 @@ def batch_kernel_phase(torch, np, K, ops, jax_pkg):
               f"kernel {row['ms']} ms, plain {row['plain_ms']} ms, torch._int_mm "
               f"{row['library_ms']} ms, bound {row['bound_ms']} ms ({by})", flush=True)
     fa_rows = {}
-    for nb in BATCH_STREAMS:
-        x = torch.from_numpy(rng.integers(0, 256, (nb, IMAGE, IMAGE, 3)).astype(np.uint8)).to(dev)
+    shapes = [(nb, IMAGE, IMAGE, 3) for nb in BATCH_STREAMS]
+    shapes += [(nb, SSD_IMAGE, SSD_IMAGE, 3) for nb in ladder(CASCADE_DYN_MAX_BATCH)]
+    for shape in shapes:
+        x = torch.from_numpy(rng.integers(0, 256, shape).astype(np.uint8)).to(dev)
         got, want = K.fused_arith(x, ops), K.fused_arith_plain(x, ops)
         torch.cuda.synchronize()
         check(bitwise_equal(torch, got, want),
@@ -3098,7 +3149,7 @@ def batch_kernel_phase(torch, np, K, ops, jax_pkg):
                     plain=lambda x=x: K.fused_arith_plain(x, ops))
         row["cast_ms"] = device_ms(lambda x=x: x.to(torch.float32), activities=1)[0]
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
-        fa_rows[nb] = row
+        fa_rows[str(shape)] = row
         print(f"fused_arith {row['shape']}: bitwise equal; kernel {row['ms']} ms, plain "
               f"{row['plain_ms']} ms, cast {row['cast_ms']} ms, bound {row['bound_ms']} ms "
               f"({row['share_of_bound']} of it)", flush=True)
@@ -3152,25 +3203,32 @@ def batch1_check(np, rows, single, rel):
     return worst, control, len({int(np.argmax(b)) for b in single})
 
 
-def dyn_checks(np, captures_before, captures_after, report, buckets, pts_out, n_frames):
-    """Config 1d: the whole ladder captured before PLAYING and nothing
-    after, every frame out once and in pts order.  Returns the histogram
-    of the buckets that occurred."""
-    ladder = []
-    b = 1
-    while b <= DYN_MAX_BATCH:
-        ladder.append(b)
+def ladder(max_batch):
+    """tensor_dynbatch's buckets up to ``max_batch``: the powers of two."""
+    out, b = [], 1
+    while b <= max_batch:
+        out.append(b)
         b <<= 1
-    check(captures_before == len(ladder),
-          f"{captures_before} captures before the first frame, expected {len(ladder)}")
+    return out
+
+
+def dyn_checks(np, captures_before, captures_after, report, buckets, pts_out, n_frames,
+               max_batch=None):
+    """Config 1d (and config 2c's dynbatch form, with its ``max_batch``):
+    the whole ladder captured before PLAYING and nothing after, every frame
+    out once and in pts order.  Returns the histogram of the buckets that
+    occurred."""
+    buckets_of = ladder(max_batch or DYN_MAX_BATCH)
+    check(captures_before == len(buckets_of),
+          f"{captures_before} captures before the first frame, expected {len(buckets_of)}")
     check(captures_after == captures_before,
           f"{captures_after - captures_before} captures while PLAYING")
     check(report is not None and [c["label"] for c in report["compiled"]] ==
-          [f"bucket{b}" for b in ladder], f"warmup report {report}")
+          [f"bucket{b}" for b in buckets_of], f"warmup report {report}")
     check(pts_out == sorted(pts_out) and len(pts_out) == n_frames == len(set(pts_out)),
           f"{len(pts_out)} frames out of {n_frames}, in order: {pts_out == sorted(pts_out)}")
-    check(all(b in ladder for b in buckets), f"buckets {sorted(set(buckets))}")
-    return {str(b): buckets.count(b) for b in ladder}
+    check(all(b in buckets_of for b in buckets), f"buckets {sorted(set(buckets))}")
+    return {str(b): buckets.count(b) for b in buckets_of}
 
 
 def dyn_launch_check(tr, buckets):
@@ -3211,9 +3269,11 @@ def batch_desc(n, ckpt, builder, frames_per_stream=None):
             f"tensor_unbatch ! tensor_demux name=d {srcs} {sinks}")
 
 
-def dyn_desc():
+def dyn_desc(max_batch=None):
+    """Config 1d's string (and config 2c's dynbatch form, with its
+    ``max_batch``)."""
     return ("datasrc name=s ! tensor_dynbatch name=dyn max_batch="
-            f"{DYN_MAX_BATCH} ! tensor_transform mode=arithmetic option={NORMALIZE} "
+            f"{max_batch or DYN_MAX_BATCH} ! tensor_transform mode=arithmetic option={NORMALIZE} "
             "acceleration=pallas ! tensor_upload name=u ! queue max-size-buffers=16 ! "
             "tensor_filter framework=torch name=f ! tensor_dynunbatch ! tensor_sink name=out")
 
@@ -3515,6 +3575,658 @@ def batch_phase(torch, np, K, ops, root, card):
     return out
 
 
+# -- config 2c, the detect -> crop -> classify cascade (phase 18) -----------
+
+CASCADE_LABELS = 91
+CASCADE_K = 16             # leg_config2c's k
+CASCADE_CROP = 96          # leg_config2c's crop_size
+CASCADE_FRAMES = 64
+CASCADE_CPU_FRAMES = 4     # frames held against the port's CPU run and the eager call
+CASCADE_DYN_FRAMES = 32
+CASCADE_DYN_MAX_BATCH = 4
+# The card against the port's CPU run (``cascade_faults``): both bfloat16,
+# the convs summed in another order (ROADMAP C14).  Two anchors whose CPU
+# scores lie within ``score`` of each other may swap ranks; a box of the
+# same anchor within ``box_atol + box_rtol`` of its value (bfloat16 steps
+# are 1/128 relative, and the decode's exp spreads them); a crop's logits
+# within ``logit_rel`` of its largest CPU logit, and its top-1 label equal
+# where the CPU's top two lie farther apart than ``label_margin`` of it.
+CASCADE_CPU_LIMITS = dict(score=1e-3, box_atol=1 / 32, box_rtol=1 / 16, logit_rel=1 / 16,
+                          label_margin=1 / 32)
+# The dynbatch rows against the batch-1 cascade on the card: the same rules,
+# the same limits (cuDNN may pick other conv algorithms at another batch).
+CASCADE_BATCH1_LIMITS = dict(CASCADE_CPU_LIMITS)
+# The replay against the eager call on the card: bitwise, or within 1e-3
+# relative where a conv algorithm was picked differently (as slice 1's).
+CASCADE_REPLAY_REL = 1e-3
+CROP_FRAMES = 6            # examples/pipelines/crop_cascade.py's size and topology
+CROP_SIDE, CROP_K, CROP_W, CROP_H = 64, 2, 16, 16
+
+
+def cascade_custom():
+    return (f"builder=cascade:build_detect_classify,num_labels={CASCADE_LABELS},"
+            f"det_size={SSD_IMAGE},k={CASCADE_K},crop_size={CASCADE_CROP},num_classes={CLASSES}")
+
+
+def cascade_desc(n, ckpt):
+    """Config 2c's string (``leg_config2c``'s model, named by its
+    checkpoint): the normalize folds into the cascade's filter."""
+    return (f"videotestsrc name=src num-buffers={n} width={SSD_IMAGE} height={SSD_IMAGE} "
+            "pattern=random seed=11 ! tensor_converter ! "
+            f"tensor_transform mode=arithmetic option={NORMALIZE} acceleration=pallas ! "
+            "tensor_upload name=u ! queue max-size-buffers=16 ! "
+            f"tensor_filter framework=torch name=f model={ckpt} custom={cascade_custom()} ! "
+            "tensor_sink name=out")
+
+
+def cascade_reference(torch, model, x, priors):
+    """The detector's whole ranking of one normalized frame, called eagerly
+    on ``x``'s device with ``model``'s detector: every anchor decoded in
+    rank order (``decode_topk`` at k = every anchor, rows ``[x, y, w, h,
+    class, score]``) and those anchors' scores by class (``rank_anchors``,
+    the ranking ``decode_topk`` reads), both as host arrays."""
+    from nnstreamer_tpu_torch.models import ssd_mobilenet
+
+    with torch.inference_mode():
+        boxes, scores = ssd_mobilenet.apply(model.params["det"], x, dtype=torch.bfloat16)
+        n = boxes.shape[-2]
+        ranked = ssd_mobilenet.decode_topk(boxes, scores, priors, k=n)
+        by_class, _, idx = ssd_mobilenet.rank_anchors(scores, n)
+        return ranked.cpu().numpy(), by_class[idx].cpu().numpy()
+
+
+def cascade_crop_logits(torch, model, x, dets):
+    """``model``'s classifier on the crops of ``x`` at the boxes of
+    ``dets``, called eagerly on ``x``'s device (float32 logits, host)."""
+    from nnstreamer_tpu_torch.models import cascade, mobilenet_v2
+
+    boxes = torch.from_numpy(np.ascontiguousarray(dets[:, :4])).to(x.device)
+    with torch.inference_mode():
+        crops = cascade.crop_and_resize(x, boxes, CASCADE_CROP)
+        return mobilenet_v2.apply(model.params["cls"], crops,
+                                  dtype=torch.bfloat16).float().cpu().numpy()
+
+
+def cascade_replay_check(np, replays, eagers, rel):
+    """Each replay's (dets, logits) against the eager call's on the same
+    frame: bitwise, or within ``rel`` of the largest output with the same
+    classes and the same top-1 label a crop.  Returns (every frame
+    bitwise, the largest relative difference)."""
+    exact, worst = True, 0.0
+    for i, (got, want) in enumerate(zip(replays, eagers)):
+        check(len(got) == len(want) == 2, f"frame {i}: {len(got)} outputs")
+        for a, b in zip(got, want):
+            check(a.shape == b.shape and a.dtype == b.dtype,
+                  f"frame {i}: {a.dtype}{a.shape} against {b.dtype}{b.shape}")
+            if np.array_equal(a.view(np.uint32), b.view(np.uint32)):
+                continue
+            exact = False
+            d = float(np.abs(a.astype(np.float64) - b).max() / max(np.abs(b).max(), 1e-30))
+            worst = max(worst, d)
+            check(d <= rel, f"frame {i}: the replay differs from eager by {d} (relative)")
+        check(np.array_equal(got[0][:, 4], want[0][:, 4]), f"frame {i}: classes differ")
+        check(np.array_equal(got[1].argmax(-1), want[1].argmax(-1)),
+              f"frame {i}: a crop's top-1 label differs from eager")
+    return exact, worst
+
+
+def cascade_faults(np, dets, logits, ranked, by_class, ref_logits, limits):
+    """One frame of a cascade's output against a reference run of the same
+    frame, as a list of faults (empty where it agrees).
+
+    Detector: ``ranked`` and ``by_class`` are the reference's whole ranking
+    (:func:`cascade_reference`).  The row at rank r must be the decode of
+    an anchor whose reference score lies within ``limits["score"]`` of the
+    reference's rank-r score (scores that close may swap ranks): its box
+    and score within ``box_atol + box_rtol * |value|`` of that anchor's,
+    preferring the reference's rank-r anchor itself; and its class the
+    reference's or one whose reference score for that anchor lies within
+    ``limits["score"]`` of it.  Classifier: ``ref_logits`` are the
+    reference's crops and classifier on the tested boxes (a box a few
+    bfloat16 steps off moves a 96x96 crop by pixels, so the two stages are
+    held apart): every crop's logits within ``limits["logit_rel"]`` of its
+    largest reference logit, and its top-1 label equal unless the
+    reference's top two lie within ``limits["label_margin"]`` of it.
+    Returns (what was compared and the largest differences, the faults)."""
+    faults = []
+    swapped = compared = labels = classes_swapped = 0
+    box_err = logit_err = 0.0
+    ref = ranked.astype(np.float64)
+    cols = [0, 1, 2, 3, 5]
+    tol = limits["box_atol"] + limits["box_rtol"] * np.abs(ref[:, cols])
+    for r, g in enumerate(dets.astype(np.float64)):
+        err = np.abs(ref[:, cols] - g[cols])
+        near = np.abs(ref[:, 5] - ref[r, 5]) <= limits["score"]
+        fits = near & (err <= tol).all(axis=1)
+        if not fits.any():
+            faults.append(f"rank {r}: row {g} is the decode of no anchor whose reference score "
+                          f"lies within {limits['score']} of the rank's {ref[r, 5]} (the "
+                          f"reference's row {ref[r]})")
+            continue
+        a = r if fits[r] else int(np.argmin(np.where(fits, err.max(axis=1), np.inf)))
+        swapped += a != r
+        compared += a == r
+        box_err = max(box_err, float(err[a].max()))
+        cg, cw = int(g[4]) - 1, int(ref[a, 4]) - 1  # class 0 is the background
+        gap = abs(float(by_class[a][cg]) - float(by_class[a][cw]))
+        if gap > limits["score"]:
+            faults.append(f"rank {r}: class {cg + 1} against {cw + 1}, reference scores {gap} "
+                          "apart")
+        classes_swapped += cg != cw
+    for i, (g, w) in enumerate(zip(logits, ref_logits)):
+        scale = max(float(np.abs(w).max()), 1e-30)
+        d = float(np.abs(g.astype(np.float64) - w).max()) / scale
+        logit_err = max(logit_err, d)
+        top2 = np.sort(w)[-2:]
+        if top2[1] - top2[0] > limits["label_margin"] * scale:
+            labels += 1
+            if int(g.argmax()) != int(w.argmax()):
+                faults.append(f"crop {i}: top-1 label {g.argmax()} against {w.argmax()}")
+    if logit_err > limits["logit_rel"]:
+        faults.append(f"a crop's logits lie {logit_err} of its largest from the reference's "
+                      f"(tolerance {limits['logit_rel']})")
+    return dict(ranks_swapped=swapped, ranks_compared=compared, classes_swapped=classes_swapped,
+                labels_compared=labels, box_abs_err=box_err, logit_rel_err=logit_err), faults
+
+
+def cascade_check(np, dets, logits, ranked, by_class, ref_logits, limits, what):
+    """:func:`cascade_faults`, failing the run on any fault; returns what
+    was compared."""
+    stats, faults = cascade_faults(np, dets, logits, ranked, by_class, ref_logits, limits)
+    check(not faults, f"{what}: {'; '.join(faults[:4])}")
+    return stats
+
+
+def cascade_batch1_check(np, rows, refs, limits):
+    """Config 2c's dynbatch rows against the batch-1 cascade of each frame
+    on the card: ``rows[i]`` is frame i's (dets, logits) out of the batched
+    capture, ``refs[i]`` frame i's batch-1 reference (ranked, by_class)
+    and the batch-1 classifier's logits on row i's boxes, cropped from
+    frame i and from frame j = i + 1 (the control).  Every row must agree
+    with its own frame (:func:`cascade_faults` under ``limits``), and the
+    control, row i against frame j's ranking and crops, must be refused
+    for every i, or the check could not tell two rows swapped.  Returns
+    the sound reading (summed counts, largest differences) and the
+    control's (the fewest faults a pair, its smallest logit difference)."""
+    n = len(rows)
+    check(n > 1 and len(refs) == n, f"{n} rows against {len(refs)} references")
+    per, control_faults, control_logit = [], [], []
+    for i, ((dets, logits), (ranked, by_class, own, other)) in enumerate(zip(rows, refs)):
+        per.append(cascade_check(np, dets, logits, ranked, by_class, own, limits,
+                                 f"dynbatch row {i} against its batch-1 cascade"))
+        ranked_j, by_class_j = refs[(i + 1) % n][:2]
+        c, faults = cascade_faults(np, dets, logits, ranked_j, by_class_j, other, limits)
+        control_faults.append(len(faults))
+        control_logit.append(c["logit_rel_err"])
+    sound = {k: (max if k.endswith("_err") else sum)(r[k] for r in per) for k in per[0]}
+    check(min(control_faults) > 0, "control: a row agrees with the next frame's batch-1 "
+                                   f"cascade (faults a row: {control_faults}): a swap would pass")
+    return sound, dict(min_faults=min(control_faults), min_logit_rel_err=min(control_logit))
+
+
+def crop_cascade(nns, torch, device, frames_out):
+    """``examples/pipelines/crop_cascade.py`` with its stubs as torch models
+    on ``device``: videotestsrc 64x64 into a tee, a detector filter giving
+    two regions from the frame's content, ``tensor_crop size=16:16 num=2
+    sync_mode=slowest``, a classifier filter pooling each crop to 4 int32
+    values (the channel sums and their largest).  Both stubs compute in
+    int32, exact on any device.  Returns the classifier's outputs a
+    frame."""
+    from nnstreamer_tpu_torch.backends.torch_backend import TorchModel
+    from nnstreamer_tpu_torch.spec import TensorSpec, TensorsSpec
+
+    W = H = CROP_SIDE
+    dev = torch.device(device)
+    regions = {"base": torch.tensor([[0, 0, CROP_W, CROP_H], [W - CROP_W, H - CROP_H, CROP_W,
+                                                             CROP_H]], dtype=torch.int32,
+                                    device=dev),
+               "shift": torch.tensor([[1, 0, 0, 0], [0, 0, 0, 0]], dtype=torch.int32,
+                                     device=dev)}
+
+    def detect(p, img):
+        return p["base"] + p["shift"] * (img.to(torch.int32).sum() % 32).to(torch.int32)
+
+    def classify(p, crops):
+        del p
+        pooled = crops.to(torch.int32).sum(dim=(1, 2))
+        return torch.cat([pooled, pooled.amax(dim=-1, keepdim=True)], dim=-1)
+
+    det = TorchModel(apply=detect, params=regions, device=dev, name="crop_cascade_detector",
+                     input_spec=TensorsSpec.of(TensorSpec(np.uint8, (H, W, 3))),
+                     output_spec=TensorsSpec.of(TensorSpec(np.int32, (CROP_K, 4))))
+    cls = TorchModel(apply=classify, device=dev, name="crop_cascade_classifier",
+                     input_spec=TensorsSpec.of(TensorSpec(np.uint8, (CROP_K, CROP_H, CROP_W, 3))),
+                     output_spec=TensorsSpec.of(TensorSpec(np.int32, (CROP_K, 4))))
+    p = nns.Pipeline(name="crop_cascade")
+    src = p.add(nns.make("videotestsrc", name="cam", num_buffers=CROP_FRAMES, width=W, height=H))
+    conv = p.add(nns.make("tensor_converter", name="conv"))
+    tee = p.add(nns.make("tee", name="t"))
+    fdet = p.add(nns.make("tensor_filter", name="det", framework="torch", model=det))
+    crop = p.add(nns.make("tensor_crop", name="crop", size=f"{CROP_W}:{CROP_H}", num=CROP_K,
+                          sync_mode="slowest"))
+    fcls = p.add(nns.make("tensor_filter", name="cls", framework="torch", model=cls))
+    sink = p.add(nns.make("tensor_sink", name="out"))
+    sink.connect("new-data", lambda f: frames_out.append(
+        (f.pts, f.tensor(0).cpu().numpy(), f.meta["tensor_crop"]["regions"])))
+    p.link_chain(src, conv, tee)
+    p.link("t.src_0", "crop.raw")
+    p.link("t.src_1", "det.sink")
+    p.link(fdet, "crop.info")
+    p.link_chain(crop, fcls, sink)
+    p.run(timeout=600)
+    return p
+
+
+def element_cascade_check(np, card, cpu):
+    """The element cascade on the card against the same run on the CPU:
+    every frame, bit for bit, with its pts and region count."""
+    check(len(card) == len(cpu) == CROP_FRAMES,
+          f"{len(card)} frames on the card, {len(cpu)} on the CPU, of {CROP_FRAMES}")
+    for (pg, g, rg), (pw, w, rw) in zip(card, cpu):
+        check(pg == pw and rg == rw == CROP_K, f"pts {pg}/{pw}, regions {rg}/{rw}")
+        check(g.shape == w.shape == (CROP_K, 4) and np.array_equal(g.view(np.uint32),
+                                                                    w.view(np.uint32)),
+              f"frame at pts {pg}: the card's crops classify to {g}, the CPU's to {w}")
+
+
+def cascade_phase(torch, np, K, ops, root, card):
+    """Config 2c at full width, its dynbatch form, and the element cascade."""
+    import nnstreamer_tpu_torch as nns
+    from nnstreamer_tpu_torch.backends.torch_backend import TorchModel
+    from nnstreamer_tpu_torch.buffer import Frame
+    from nnstreamer_tpu_torch.models import cascade, mobilenet_v2, ssd_mobilenet
+    from nnstreamer_tpu_torch.spec import TensorSpec, TensorsSpec
+    from nnstreamer_tpu_torch.utils.checkpoint import save_state
+
+    work = os.path.join(root, "build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    tree = {"det": ssd_mobilenet._init_tree(0, CASCADE_LABELS, 1.0),
+            "cls": mobilenet_v2.init_tree(1, CLASSES, 1.0)}
+    ckpt = os.path.join(work, "cascade.npz")
+    save_state(tree, ckpt)
+    kwargs = dict(num_labels=CASCADE_LABELS, det_size=SSD_IMAGE, k=CASCADE_K,
+                  crop_size=CASCADE_CROP, num_classes=CLASSES, params=tree)
+    state = {}
+
+    def during(p):
+        torch.cuda.synchronize()  # nothing on the path reads the outputs back
+        state["end"] = time.perf_counter()
+        be = p["f"].backend
+        state.update(stats=dict(be.stats), launches={k.__name__: k.launches for k in K.KERNELS},
+                     folded=not any(type(n).__name__ == "TensorTransform"
+                                    for n in p.nodes.values()))
+        state["model"] = be.model
+        state["frames"] = [torch.from_numpy(p["src"]._make_frame(i))
+                           for i in range(CASCADE_CPU_FRAMES)]
+
+    run_pipeline(nns, cascade_desc(WARMUP_FRAMES, ckpt), None, WARMUP_FRAMES)
+    K.reset_launches()
+    got = []
+    t0 = time.perf_counter()
+    _, arrivals, _ = run_pipeline(nns, cascade_desc(CASCADE_FRAMES, ckpt), None, CASCADE_FRAMES,
+                                  during=during, got=got)
+    stats, launches = state["stats"], state["launches"]
+    print(f"config 2c over {CASCADE_FRAMES} frames: backend {stats}, wrapper launches "
+          f"{launches} ({time.perf_counter() - t0:.3f} s)", flush=True)
+    check(state["folded"], "config 2c: the normalize did not fold into the cascade's filter")
+    batch_capture_check(stats, CASCADE_FRAMES, launches, ("fused_arith",))
+    replays = [tuple(t.cpu().numpy() for t in f.tensors) for f in got[:CASCADE_CPU_FRAMES]]
+    with torch.inference_mode():  # the model on the plain chain's output, eagerly
+        eager = [tuple(o.cpu().numpy() for o in state["model"](K.fused_arith_plain(x.cuda(), ops)))
+                 for x in state["frames"]]
+    exact, replay_rel = cascade_replay_check(np, replays, eager, CASCADE_REPLAY_REL)
+    for f in got:
+        check(tuple(f.tensors[0].shape) == (CASCADE_K, 6) and
+              tuple(f.tensors[1].shape) == (CASCADE_K, CLASSES) and
+              bool(torch.isfinite(f.tensors[0]).all()) and bool(torch.isfinite(f.tensors[1]).all()),
+              f"config 2c output {[tuple(t.shape) for t in f.tensors]}, not finite or misshapen")
+
+    cpu_model = cascade.build_detect_classify(**kwargs, device="cpu")
+    priors = ssd_mobilenet.generate_priors(SSD_IMAGE)
+    per_frame = []
+    t1 = time.perf_counter()
+    for i, x in enumerate(state["frames"]):
+        xn = K.fused_arith(x, ops)  # the plain chain, on the CPU
+        ranked, by_class = cascade_reference(torch, cpu_model, xn, priors)
+        per_frame.append(cascade_check(np, *replays[i], ranked, by_class,
+                                       cascade_crop_logits(torch, cpu_model, xn, replays[i][0]),
+                                       CASCADE_CPU_LIMITS,
+                                       f"config 2c frame {i} against the port's CPU run"))
+    vs_cpu = {k: (max if k.endswith("_err") else sum)(r[k] for r in per_frame)
+              for k in per_frame[0]}
+    check(vs_cpu["ranks_compared"] > 0 and vs_cpu["labels_compared"] > 0,
+          f"config 2c against the CPU compared nothing: {vs_cpu}")
+    r = rates(arrivals, np, end=state["end"])
+    res = dict(frames=CASCADE_FRAMES, replays=stats["replays"], **r, capture_s=stats["capture_s"],
+               warmup_s=stats["warmup_s"], replay_bitwise_eager=exact,
+               replay_vs_eager_rel=replay_rel, vs_cpu=vs_cpu,
+               cpu_s_per_frame=(time.perf_counter() - t1) / len(per_frame), launches=launches)
+    print(f"config 2c: replays {'bitwise equal to' if exact else 'within ' + str(replay_rel)} "
+          f"eager on {CASCADE_CPU_FRAMES} frames; against the port's CPU run {vs_cpu}", flush=True)
+    tr = profile_path(lambda n: traced_run(nns, cascade_desc(n, ckpt), None, n), res,
+                      ("fused_arith",))
+    res["device_records_per_launch"] = max(t for _, t in tr["per_launch"])
+    report_path("config 2c", res, card)
+
+    # -- the dynbatch form: every bucket captured before PLAYING ---------------
+    m = cascade.build_detect_classify(**kwargs, device=DEVICE)
+    poly = TorchModel(apply=m.apply, params=m.params, name="cascade_poly", device=DEVICE,
+                      input_spec=TensorsSpec.of(TensorSpec(np.float32,
+                                                           (None, SSD_IMAGE, SSD_IMAGE, 3))),
+                      output_spec=TensorsSpec.of(TensorSpec(np.float32, (None, CASCADE_K, 6)),
+                                                 TensorSpec(np.float32,
+                                                            (None, CASCADE_K, CLASSES))))
+    rng = np.random.default_rng(13)
+    dyn_frames = [torch.from_numpy(rng.integers(0, 256, (SSD_IMAGE, SSD_IMAGE, 3), dtype=np.uint8))
+                  for _ in range(CASCADE_DYN_FRAMES)]
+    batches, out, arrivals = [], [], []
+    p = nns.parse_launch(dyn_desc(CASCADE_DYN_MAX_BATCH))
+    p["s"].data = [Frame.of(x, pts=i) for i, x in enumerate(dyn_frames)]
+    p["f"].model = poly
+    dyn, push = p["dyn"], p["dyn"].push
+
+    def recording_push(frame, pad_name=None):
+        batches.append((list(frame.meta["dynbatch"]["pts"]), int(frame.tensors[0].shape[0])))
+        push(frame, pad_name)
+
+    dyn.push = recording_push
+    p["out"].connect("new-data", lambda f: (out.append((f.pts, tuple(t.cpu().numpy()
+                                                                      for t in f.tensors))),
+                                            arrivals.append(time.perf_counter())))
+    os.environ["NNSTPU_COMPILE_WARMUP"] = "1"
+    K.reset_launches()
+    gate = p["u"]._lock
+    gate.acquire()
+    try:
+        try:
+            p.start()
+        finally:
+            gate.release()
+        be = p["f"].backend
+        before = be.stats["captures"]
+        check(p.wait(600), "config 2c's dynbatch form did not finish")
+        dyn_launches = {k.__name__: k.launches for k in K.KERNELS}
+        eager = {}
+        with torch.inference_mode():  # the model on the plain chain's output, eagerly
+            for pts, b in batches:
+                x = torch.stack([dyn_frames[i] for i in pts] +
+                                [dyn_frames[pts[-1]]] * (b - len(pts))).cuda()
+                eager[tuple(pts)] = tuple(o.cpu().numpy()
+                                          for o in m(K.fused_arith_plain(x, ops)))
+        after, dyn_stats, report = be.stats["captures"], dict(be.stats), p.warmup_report
+    finally:
+        os.environ.pop("NNSTPU_COMPILE_WARMUP", None)
+        p.stop()
+    buckets = [b for _, b in batches]
+    hist = dyn_checks(np, before, after, report, buckets, [pts for pts, _ in out],
+                      CASCADE_DYN_FRAMES, max_batch=CASCADE_DYN_MAX_BATCH)
+    check(dyn_launches == {"fused_arith": dyn_stats["warmup_calls"] + dyn_stats["captures"],
+                           "int8_matmul": 0, "pallas_nms_keep": 0},
+          f"config 2c dynbatch: wrapper launches {dyn_launches}, stats {dyn_stats}")
+    by_pts = dict(out)
+    rows_got, rows_want = [], []
+    for pts, b in batches:
+        for j, f in enumerate(pts):
+            rows_got.append(by_pts[f])
+            rows_want.append(tuple(o[j] for o in eager[tuple(pts)]))
+    dyn_exact, dyn_rel = cascade_replay_check(np, rows_got, rows_want, CASCADE_REPLAY_REL)
+    # each row against the batch-1 cascade of its own frame, and of the next
+    refs = []
+    xns = [K.fused_arith_plain(x.cuda(), ops) for x in dyn_frames]
+    for i, xn in enumerate(xns):
+        dets = by_pts[i][0]
+        refs.append(cascade_reference(torch, m, xn, priors) +
+                    (cascade_crop_logits(torch, m, xn, dets),
+                     cascade_crop_logits(torch, m, xns[(i + 1) % len(xns)], dets)))
+    sound, control = cascade_batch1_check(np, [by_pts[i] for i in range(len(xns))], refs,
+                                          CASCADE_BATCH1_LIMITS)
+    r = rates(arrivals, np)
+    dyn_res = dict(frames=CASCADE_DYN_FRAMES, batches=len(batches), buckets=hist, fps=r["fps"],
+                   p50_ms=r["p50_ms"], p90_ms=r["p90_ms"], captures_before_playing=before,
+                   warmup_s=report["seconds"], rows_bitwise_eager=dyn_exact,
+                   rows_vs_eager_rel=dyn_rel, vs_batch1=sound, batch1_control=control,
+                   launches=dyn_launches)
+    print(f"config 2c dynbatch: {CASCADE_DYN_FRAMES} frames, {before} captures before the first "
+          f"frame and none while PLAYING, buckets {hist}, rows "
+          f"{'bitwise equal to' if dyn_exact else 'within ' + str(dyn_rel) + ' of'} the eager "
+          f"forward of the same rows, {r['fps']} frames/s [{card}]; against each frame's "
+          f"batch-1 cascade {sound}, control (row i against frame i + 1) {control}", flush=True)
+
+    # -- the element cascade: tee, detector, tensor_crop, classifier ----------
+    on_card, on_cpu = [], []
+    K.reset_launches()
+    crop_cascade(nns, torch, DEVICE, on_card)
+    crop_launches = {k.__name__: k.launches for k in K.KERNELS}
+    crop_cascade(nns, torch, "cpu", on_cpu)
+    element_cascade_check(np, on_card, on_cpu)
+    print(f"crop cascade ({CROP_FRAMES} frames, tensor_crop size={CROP_W}:{CROP_H} "
+          f"num={CROP_K}): the card's outputs equal the CPU's bit for bit", flush=True)
+    return launches, res, dict(dyn_res, element_cascade=dict(frames=len(on_card),
+                                                             launches=crop_launches))
+
+
+# -- the app surface: PipelineHandle, SingleShot, the C ABI, the CLI (19) --
+
+APP_FRAMES = 32
+APP_CLOSED = range(8, 16)  # frames pushed while the valve is closed
+APP_SWITCH = 16            # the output-selector sends frames to src_1 from here on
+APP_REL = 1e-3             # logits apart by a conv algorithm picked differently
+CLI_FRAMES = 8
+
+
+def app_custom():
+    return (f"builder=mobilenet_v2:build_quantized,int8_head=1,image_size={IMAGE},"
+            f"num_classes={CLASSES}")
+
+
+def app_desc(ckpt):
+    """The app path: an appsrc, the normalize (on the card), upload and
+    queue, a valve, slice 1's int8-head model, an output-selector into two
+    sinks."""
+    caps = (f"other/tensor, dimension=(string)3:{IMAGE}:{IMAGE}:1, type=(string)uint8, "
+            "framerate=(fraction)0/1")
+    return (f"appsrc name=in caps='{caps}' ! "
+            f"tensor_transform mode=arithmetic option={NORMALIZE} acceleration=pallas ! "
+            "tensor_upload name=u ! queue max-size-buffers=16 ! valve name=v ! "
+            f"tensor_filter framework=torch name=f model={ckpt} custom={app_custom()} ! "
+            "output-selector name=s s.src_0 ! tensor_sink name=a s.src_1 ! tensor_sink name=b")
+
+
+def cli_desc(ckpt):
+    return (f"videotestsrc num-buffers={CLI_FRAMES} width={IMAGE} height={IMAGE} ! "
+            f"tensor_converter ! tensor_transform mode=arithmetic option={NORMALIZE} "
+            "acceleration=pallas ! tensor_upload ! queue ! "
+            f"tensor_filter framework=torch model={ckpt} custom={app_custom()} ! "
+            "tensor_sink name=out")
+
+
+def app_checks(got_a, got_b, n, closed, switch):
+    """The pts each sink received: sink a the frames before the valve
+    closed, sink b those from the switch on, none pushed while closed."""
+    want_a = [i for i in range(n) if i < closed.start]
+    want_b = [i for i in range(switch, n)]
+    check(got_a == want_a, f"sink a got pts {got_a}, expected {want_a}")
+    check(got_b == want_b, f"sink b got pts {got_b}, expected {want_b}")
+    check(not set(closed) & (set(got_a) | set(got_b)), "a frame passed the closed valve")
+
+
+def logits_check(np, got, want, rel):
+    """Two forms' logits, frame by frame: bitwise, or within ``rel`` of the
+    largest with the same top-1.  Returns (all bitwise, largest relative)."""
+    exact, worst = True, 0.0
+    check(len(got) == len(want) > 0, f"{len(got)} outputs against {len(want)}")
+    for i, (a, b) in enumerate(zip(got, want)):
+        check(a.shape == b.shape and a.dtype == b.dtype, f"frame {i}: {a.shape}/{b.shape}")
+        if np.array_equal(a.view(np.uint32), b.view(np.uint32)):
+            continue
+        exact = False
+        d = float(np.abs(a.astype(np.float64) - b).max() / max(np.abs(b).max(), 1e-30))
+        worst = max(worst, d)
+        check(d <= rel and int(a.argmax()) == int(b.argmax()),
+              f"frame {i}: logits {d} of the largest apart (tolerance {rel}), top-1 "
+              f"{a.argmax()} against {b.argmax()}")
+    return exact, worst
+
+
+def cli_check(rc, stdout, stderr, frames):
+    """The CLI's run: exit code 0, a report line a frame, the EOS line."""
+    check(rc == 0, f"the CLI exited {rc}: {stderr[-2000:]}")
+    lines = [ln for ln in stdout.splitlines() if ln.startswith("out: frame ")]
+    check(len(lines) == frames and lines[-1].startswith(f"out: frame {frames} ")
+          and "float32(1001,)" in lines[-1], f"the CLI's frame reports: {lines}")
+    check(f"; {frames} sink frames" in stdout and "EOS after" in stdout,
+          f"the CLI's EOS line is missing: {stdout[-500:]}")
+
+
+def app_phase(torch, np, K, ops, root, card):
+    """The app surface on the card: PipelineHandle with appsrc, a valve and
+    an output-selector; SingleShot on the same model (direct and with a
+    timeout, on its worker thread); the C ABI through ctypes; the CLI."""
+    import ctypes
+
+    from nnstreamer_tpu_torch.api import PipelineHandle, SingleShot
+    from nnstreamer_tpu_torch.models import mobilenet_v2
+    from nnstreamer_tpu_torch.native import capi
+    from nnstreamer_tpu_torch.utils.checkpoint import save_state
+
+    work = os.path.join(root, "build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    ckpt = os.path.join(work, "mobilenet_v2_app.npz")
+    save_state(mobilenet_v2.init_tree(0, CLASSES, 1.0), ckpt)
+    rng = np.random.default_rng(17)
+    frames = [rng.integers(0, 256, (IMAGE, IMAGE, 3), dtype=np.uint8) for _ in range(APP_FRAMES)]
+
+    def wait_until(cond, what):
+        deadline = time.monotonic() + 120
+        while not cond():
+            check(time.monotonic() < deadline, f"app path: timed out waiting for {what}")
+            time.sleep(0.002)
+
+    h = PipelineHandle.construct(app_desc(ckpt))
+    got = {"a": [], "b": []}
+    for name in got:
+        h.sink_register(name, lambda f, name=name: got[name].append(
+            (f.pts, f.tensor(0).cpu().numpy())))
+    valve = h.valves["v"]
+    seen = []
+    valve_process = valve.process
+
+    def counting(pad, frame):
+        seen.append(frame.pts)
+        return valve_process(pad, frame)
+
+    valve.process = counting
+    K.reset_launches()
+    t0 = time.perf_counter()
+    with h:
+        h.start()
+        for i in range(APP_FRAMES):
+            if i == APP_CLOSED.start:
+                wait_until(lambda: len(got["a"]) == i, f"{i} frames at sink a")
+                h.valve_set_open("v", False)
+            if i == APP_CLOSED.stop:
+                wait_until(lambda: len(seen) == i, f"{i} frames at the valve")
+                h.valve_set_open("v", True)
+            if i == APP_SWITCH:
+                h.switch_select("s", "src_1")
+            h.src_input("in", frames[i], pts=i)
+        h.src_eos("in")
+        check(h.wait(600), "the app path did not finish")
+        launches = {k.__name__: k.launches for k in K.KERNELS}
+        stats = dict(h.pipeline["f"].backend.stats)
+    wall = time.perf_counter() - t0
+    app_checks([pts for pts, _ in got["a"]], [pts for pts, _ in got["b"]], APP_FRAMES,
+               APP_CLOSED, APP_SWITCH)
+    delivered = sorted(got["a"] + got["b"], key=lambda t: t[0])
+    check(stats["captures"] == 1 and stats["replays"] == len(delivered),
+          f"app path: one capture and {len(delivered)} replays expected: {stats}")
+    check(launches == {"fused_arith": APP_FRAMES, "int8_matmul": stats["warmup_calls"] + 1,
+                       "pallas_nms_keep": 0},
+          f"app path wrapper launches {launches}: the normalize once a frame pushed, the head "
+          "in the filter's warm-up calls and capture")
+    print(f"app path: {APP_FRAMES} frames pushed through appsrc, {len(APP_CLOSED)} dropped at "
+          f"the closed valve, {len(got['a'])} to sink a, {len(got['b'])} to sink b after the "
+          f"switch; wrapper launches {launches}; {wall:.3f} s", flush=True)
+
+    # SingleShot on the same model and normalized frames: half directly, half
+    # with a timeout (each invoke on the worker thread, on the opening
+    # thread's stream)
+    xs = [K.fused_arith(torch.from_numpy(frames[pts]).cuda(), ops) for pts, _ in delivered]
+    K.reset_launches()
+    with SingleShot(framework="torch", model=ckpt, custom=app_custom()) as s:
+        half = len(xs) // 2
+        single = [s.invoke(x)[0].cpu().numpy() for x in xs[:half]]
+        s.set_timeout(120.0)
+        single += [s.invoke(x)[0].cpu().numpy() for x in xs[half:]]
+        check(s.input_spec().tensors[0].shape == (IMAGE, IMAGE, 3)
+              and s.output_spec().tensors[0].shape == (CLASSES,), "SingleShot's specs")
+    single_launches = {k.__name__: k.launches for k in K.KERNELS}
+    check(single_launches["int8_matmul"] > 0, f"SingleShot's launches {single_launches}")
+    single_exact, single_rel = logits_check(np, [lg for _, lg in delivered], single, APP_REL)
+
+    # the C ABI, loaded into this interpreter with ctypes
+    t1 = time.perf_counter()
+    lib = ctypes.CDLL(capi.build_capi())
+    build_s = time.perf_counter() - t1
+    lib.ml_tensors_info_create.argtypes = [ctypes.POINTER(ctypes.c_void_p)]
+    lib.ml_tensors_data_get_tensor_data.argtypes = [
+        ctypes.c_void_p, ctypes.c_uint, ctypes.POINTER(ctypes.c_void_p),
+        ctypes.POINTER(ctypes.c_size_t)]
+    lib.ml_tensors_data_set_tensor_data.argtypes = [ctypes.c_void_p, ctypes.c_uint,
+                                                    ctypes.c_void_p, ctypes.c_size_t]
+    info, single_h = ctypes.c_void_p(), ctypes.c_void_p()
+    check(lib.ml_tensors_info_create(ctypes.byref(info)) == 0, "ml_tensors_info_create")
+    lib.ml_tensors_info_set_count(info, 1)
+    lib.ml_tensors_info_set_tensor_type(info, 0, 7)  # ML_TENSOR_TYPE_FLOAT32
+    lib.ml_tensors_info_set_tensor_dimension(info, 0, 3, (ctypes.c_uint32 * 8)(IMAGE, IMAGE, 3))
+    K.reset_launches()
+    check(lib.ml_single_open(ctypes.byref(single_h), ckpt.encode(), b"torch",
+                             app_custom().encode(), info) == 0, "ml_single_open")
+    capi_bytes = []
+    try:
+        for x in xs[:4]:
+            data, out = ctypes.c_void_p(), ctypes.c_void_p()
+            host = x.cpu().numpy()
+            check(lib.ml_tensors_data_create(info, ctypes.byref(data)) == 0, "data_create")
+            check(lib.ml_tensors_data_set_tensor_data(data, 0, host.ctypes.data, host.nbytes) == 0,
+                  "set_tensor_data")
+            check(lib.ml_single_invoke(single_h, data, ctypes.byref(out)) == 0, "ml_single_invoke")
+            raw, size = ctypes.c_void_p(), ctypes.c_size_t()
+            check(lib.ml_tensors_data_get_tensor_data(out, 0, ctypes.byref(raw),
+                                                      ctypes.byref(size)) == 0, "get_tensor_data")
+            capi_bytes.append(ctypes.string_at(raw, size.value))
+            lib.ml_tensors_data_destroy(data)
+            lib.ml_tensors_data_destroy(out)
+    finally:
+        check(lib.ml_single_close(single_h) == 0, "ml_single_close")
+        lib.ml_tensors_info_destroy(info)
+    capi_launches = {k.__name__: k.launches for k in K.KERNELS}
+    check(capi_launches["int8_matmul"] > 0, f"the C ABI's launches {capi_launches}")
+    check(capi_bytes == [lg.tobytes() for lg in single[:4]],
+          "the C ABI's output bytes differ from SingleShot's on the same frames")
+
+    # the CLI, as its own process on the card
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([root] + [q for q in env.get("PYTHONPATH", "").split(
+        os.pathsep) if q])
+    t2 = time.perf_counter()
+    cli = subprocess.run([sys.executable, "-m", "nnstreamer_tpu_torch", cli_desc(ckpt)],
+                         capture_output=True, text=True, timeout=600, env=env, cwd=root)
+    cli_s = time.perf_counter() - t2
+    cli_check(cli.returncode, cli.stdout, cli.stderr, CLI_FRAMES)
+    print(f"app surface: SingleShot's logits {'bitwise equal to' if single_exact else 'within ' + str(single_rel) + ' of'} "
+          f"the pipeline's on {len(xs)} frames ({half} direct, {len(xs) - half} on its worker "
+          f"thread); the C ABI's output bytes equal SingleShot's on 4 frames (library built in "
+          f"{build_s:.3f} s); the CLI exited 0 with {CLI_FRAMES} frame reports in {cli_s:.3f} s "
+          f"[{card}]", flush=True)
+    res = dict(frames=APP_FRAMES, dropped=len(APP_CLOSED), sink_a=len(got["a"]),
+               sink_b=len(got["b"]), wall_s=wall, launches=launches,
+               single_bitwise=single_exact, single_rel=single_rel,
+               single_launches=single_launches, capi_frames=len(capi_bytes),
+               capi_launches=capi_launches, capi_build_s=build_s, cli_s=cli_s)
+    return res, {"app_single": single_launches, "app_capi": capi_launches}
+
+
 def _conv_dicts(tree):
     """Every dict of a params tree that holds a weight ``"w"``, in order."""
     if isinstance(tree, dict):
@@ -3617,8 +4329,19 @@ def main() -> int:
     batched = batch_phase(torch, np, K, ops, root, card)
     for key in ("config5_n4", "config5_n8", "config1d"):
         by_path[key] = (batched[key]["launches"], batched[key])
+    t4 = time.perf_counter()
+    launches, config2c, config2c_more = cascade_phase(torch, np, K, ops, root, card)
+    by_path["config2c"] = (launches, config2c)
+    by_path["config2c_dynbatch"] = (config2c_more["launches"], config2c_more)
+    by_path["crop_cascade"] = (config2c_more["element_cascade"]["launches"], {})
+    t5 = time.perf_counter()
+    app, app_launches = app_phase(torch, np, K, ops, root, card)
+    by_path["app"] = (app["launches"], app)
+    for key, counts in app_launches.items():
+        by_path[key] = (counts, {})
     print(f"phase wall s: up to the quant phase {t1 - t0:.3f}, pose {t2 - t1:.3f}, "
-          f"recurrence {t3 - t2:.3f}, batch {time.perf_counter() - t3:.3f}", flush=True)
+          f"recurrence {t3 - t2:.3f}, batch {t4 - t3:.3f}, cascade {t5 - t4:.3f}, "
+          f"app {time.perf_counter() - t5:.3f}", flush=True)
     wrapper = {"fused_arith": "fused_arith", "int8_matmul": "int8_matmul",
                "nms_keep": "pallas_nms_keep"}
     for name, r in kernels.items():
@@ -3637,7 +4360,8 @@ def main() -> int:
                       "pose_heatmaps": pose_heatmaps, "pose_int8": pose_int8,
                       "lstm": by_path["lstm"][1], "lstm_seq": lstm_seq,
                       "config5_n4": batched["config5_n4"], "config5_n8": batched["config5_n8"],
-                      "config1d": batched["config1d"], "pool_fence": batched["fence"]}),
+                      "config1d": batched["config1d"], "pool_fence": batched["fence"],
+                      "config2c": config2c, "config2c_dynbatch": config2c_more, "app": app}),
           flush=True)
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -260,8 +260,11 @@ __device__ __forceinline__ void convert(uint32_t (&r)[kN], int c) {
 // elsewhere is a multiply and an add on those lanes.  Bit e of `sat` marks
 // such a lane; only O_FFMA and O_HFMA read it.  A later float -> int
 // conversion keeps those lanes only where LLVM folds the int -> float -> int
-// round trip (ROADMAP C13): where it cannot, the program's reset bit for
-// that step drops them first (ops/kernels.py::constant_resets).
+// round trip (ROADMAP C13), and then marks none of its own (the folded
+// conversion has no select); where it cannot, the program's reset bit for
+// that step drops them and marks its own (ops/kernels.py::constant_resets).
+__device__ __forceinline__ bool is_f2i(int c) { return c >= C_F2U8 && c <= C_F2I32; }
+
 template <int kN>
 __device__ __forceinline__ void mark_constant(const uint32_t (&r)[kN], int c, uint32_t& sat) {
   float top;
@@ -324,11 +327,15 @@ __device__ __forceinline__ void apply(uint32_t (&r)[kN], int op, uint32_t a, uin
 template <int kN>
 __device__ __forceinline__ void general_steps(uint32_t (&r)[kN], const Program& p) {
   uint32_t sat = 0;  // C10's lanes, set by a float -> int conversion
+  bool converted = false;
 #pragma unroll
   for (int k = 0; k < kMaxSteps; ++k) {
     if (k < p.n_steps) {
-      if ((p.reset >> k) & 1u) sat = 0;
-      mark_constant(r, p.conv[k], sat);
+      if (is_f2i(p.conv[k]) && (!converted || ((p.reset >> k) & 1u))) {
+        sat = 0;
+        mark_constant(r, p.conv[k], sat);
+        converted = true;
+      }
       convert(r, p.conv[k]);
       apply(r, p.op[k], p.a[k], p.b[k], sat);
       wrap_or_round(r, p.post[k]);

@@ -40,6 +40,12 @@ _BUILTIN_MODULES: Dict[str, str] = {
     "tensor_unbatch": "nnstreamer_tpu_torch.elements.batch",
     "tensor_dynbatch": "nnstreamer_tpu_torch.elements.dynbatch",
     "tensor_dynunbatch": "nnstreamer_tpu_torch.elements.dynbatch",
+    "valve": "nnstreamer_tpu_torch.elements.valve",
+    "input-selector": "nnstreamer_tpu_torch.elements.selector",
+    "output-selector": "nnstreamer_tpu_torch.elements.selector",
+    "appsrc": "nnstreamer_tpu_torch.elements.app",
+    "appsink": "nnstreamer_tpu_torch.elements.app",
+    "tensor_crop": "nnstreamer_tpu_torch.elements.crop",
 }
 
 

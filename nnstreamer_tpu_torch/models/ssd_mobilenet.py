@@ -9,10 +9,10 @@ all, in (row, col, anchor) order: the heads run NCHW here and are permuted
 to NHWC before the reshape, so each anchor meets its prior.
 
 :func:`decode_topk` is the on-device decode head of ``build(fused_decode=K)``
-(sigmoid, best class, top K, prior decode), emitting the ``(K, 6)`` tensor
-the ``fused-ssd`` decoder takes.  Weights are random: :func:`init_params`
-seeds numpy from an int; :func:`params_from_jax` takes the JAX package's
-own params instead.
+(sigmoid, best class, top K as :func:`rank_anchors` ranks them, prior
+decode), emitting the ``(K, 6)`` tensor the ``fused-ssd`` decoder takes.
+Weights are random: :func:`init_params` seeds numpy from an int;
+:func:`params_from_jax` takes the JAX package's own params instead.
 """
 
 from __future__ import annotations
@@ -138,11 +138,23 @@ _INV10 = _reciprocal(10.0, _F32)
 _INV5 = _reciprocal(5.0, _F32)
 
 
+def rank_anchors(scores: torch.Tensor, k: int):
+    """The decode head's ranking of ``(..., P, 1 + labels)`` class logits:
+    each anchor's sigmoid score per non-background class ``(..., P,
+    labels)``, its best score ``(..., P)``, and the ``k`` best anchors'
+    indices ``(..., k)``, best first, ties to the lower index (as
+    ``lax.top_k``)."""
+    by_class = torch.sigmoid(scores[..., 1:].to(torch.float32))
+    best = by_class.amax(dim=-1)
+    top_i = torch.sort(best, dim=-1, descending=True, stable=True).indices[..., :k]
+    return by_class, best, top_i
+
+
 def decode_topk(boxes: torch.Tensor, scores: torch.Tensor, priors, k: int = 100) -> torch.Tensor:
-    """On-device SSD decode head: sigmoid scores → best non-background class
-    per anchor → the ``k`` best anchors (ties to the lower index, as
-    ``lax.top_k``) → prior decode.  Rows ``[x, y, w, h, class, score]``,
-    geometry normalized to [0, 1]; ``priors`` is (4, P) ycenter/xcenter/h/w."""
+    """On-device SSD decode head: the anchors ranked by :func:`rank_anchors`
+    → the best non-background class of each of the ``k`` best → prior
+    decode.  Rows ``[x, y, w, h, class, score]``, geometry normalized to
+    [0, 1]; ``priors`` is (4, P) ycenter/xcenter/h/w."""
     squeezed = boxes.dim() == 2
     if squeezed:
         boxes, scores = boxes[None], scores[None]
@@ -150,10 +162,8 @@ def decode_topk(boxes: torch.Tensor, scores: torch.Tensor, priors, k: int = 100)
         raise ValueError(
             f"decode_topk: {boxes.shape[-2]} boxes vs {priors.shape[-1]} priors — priors "
             "must come from generate_priors(image_size) for the model's input size")
-    s = torch.sigmoid(scores[..., 1:].to(torch.float32))
-    best = s.amax(dim=-1)
+    s, best, top_i = rank_anchors(scores, k)
     cls = (s.argmax(dim=-1) + 1).to(torch.float32)  # class 0 = background
-    top_i = torch.sort(best, dim=-1, descending=True, stable=True).indices[..., :k]
     top_s = best.gather(1, top_i)
     loc = boxes.to(torch.float32).gather(1, top_i[..., None].expand(-1, -1, 4))
     pri = torch.as_tensor(priors, dtype=torch.float32, device=boxes.device).T[top_i]

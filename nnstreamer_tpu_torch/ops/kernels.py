@@ -645,10 +645,14 @@ def _keeps_constant(it: np.dtype, ft: np.dtype, to: np.dtype) -> bool:
 
 def constant_resets(start: np.dtype, steps) -> Tuple[bool, ...]:
     """For each step of a plan: whether its float → int conversion drops
-    the lanes that earlier conversions made constant (ROADMAP C13): after
-    a float step since the last int → float conversion, or where
-    :func:`_keeps_constant` says so.  False for the first such conversion
-    and for every other step."""
+    the lanes that earlier conversions made constant and marks its own
+    (ROADMAP C13): after a float step since the last int → float
+    conversion, or where :func:`_keeps_constant` says LLVM does not fold
+    the int → float → int round trip.  Where it folds it (False), the
+    conversion is gone from the compiled code: the earlier conversions'
+    lanes stay constant, and the lanes this one would saturate (a value an
+    int step took to the int's maximum) stay fused.  False for the first
+    such conversion (which marks its lanes) and for every other step."""
     out = []
     cur, converted, last_int, arith = start, False, None, False
     for op, dt, _, _ in steps:
@@ -715,9 +719,8 @@ def run_chain(x: torch.Tensor, plan: ChainPlan) -> torch.Tensor:
     cur = plan.start_dtype
     const = None  # ROADMAP C10: lanes XLA computes one rounding a step
     for (op, dt, a, b), reset in zip(plan.steps, constant_resets(cur, plan.steps)):
-        if _is_int(dt) and not _is_int(cur):
-            lanes = _constant_lanes(v, dt)
-            const = lanes if const is None or reset else const | lanes
+        if _is_int(dt) and not _is_int(cur) and (const is None or reset):
+            const = _constant_lanes(v, dt)  # a folded conversion marks none
         v = _convert(v, cur, dt)
         cur = dt
         v = _apply_step(v, op, dt, a, b, const)
@@ -873,9 +876,8 @@ def program_eval(x: np.ndarray, program: Program, out_dtype, in_dtype=None) -> n
     const = None  # ROADMAP C10, as the kernel's per-lane mask
     for k, op in enumerate(program.op):
         if program.variant == GENERAL:
-            if program.conv[k] in _F2I:
-                lanes = _constant_bits(r, _F2I[program.conv[k]])
-                const = lanes if const is None or program.reset >> k & 1 else const | lanes
+            if program.conv[k] in _F2I and (const is None or program.reset >> k & 1):
+                const = _constant_bits(r, _F2I[program.conv[k]])
             r = _CONV_FNS[_CONV_NAMES[program.conv[k]]](r)
         r = _op_eval(r, _OP_NAMES[op], program.a[k], program.b[k], const)
         r = _CONV_FNS[_CONV_NAMES[program.post[k]]](r)

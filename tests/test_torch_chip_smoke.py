@@ -12,7 +12,13 @@ records (35 a frame): one missing, or none, fails; its device-time split
 gets profiler events.  The pose phase's keypoint check gets heatmaps and
 keypoint lists; its conv check runs a small pose net with the CPU standing
 in for the card, and fails a conv lane or a heatmap moved; the recurrence
-phase's checks get backend stats and copy counts.
+phase's checks get backend stats and copy counts.  The cascade phase's
+checks get detections, a reference's whole anchor ranking and logits (a far
+anchor, class, box or label fails; scores within the margin may swap), its
+dynbatch rows each frame's batch-1 reference and the next frame's (a
+swapped row fails, and so do frames too alike to tell apart); the element
+cascade's and the app phase's get output frames, sink pts, logits and the
+CLI's output.
 """
 
 import importlib.util
@@ -585,3 +591,275 @@ def test_batch_strings_name_the_path(smoke):
     d = smoke.dyn_desc()
     assert f"tensor_dynbatch name=dyn max_batch={smoke.DYN_MAX_BATCH}" in d
     assert d.index("tensor_dynbatch") < d.index("tensor_transform") < d.index("tensor_filter")
+
+
+# -- config 2c and the app surface (the cascade and app phases) -------------
+
+def _dets(rng, k=4):
+    d = rng.uniform(0, 1, (k, 6)).astype(np.float32)
+    d[:, 4] = rng.integers(1, 6, k)
+    d[:, 5] = 1.0
+    return d
+
+
+@pytest.mark.parametrize("case,ok", [
+    ("bitwise", True), ("within the tolerance", True), ("beyond the tolerance", False),
+    ("a class changed", False), ("a top-1 label changed", False), ("misshapen", False)])
+def test_cascade_replay_check(smoke, case, ok):
+    rng = np.random.default_rng(0)
+    want = [(_dets(rng), rng.standard_normal((4, 10)).astype(np.float32)) for _ in range(2)]
+    got = [(d.copy(), l.copy()) for d, l in want]
+    if case == "within the tolerance":
+        got[1][1][0, 0] += 1e-5
+    elif case == "beyond the tolerance":
+        got[1][1][0, 0] += 0.1
+    elif case == "a class changed":
+        got[0][0][2, 4] += 1
+    elif case == "a top-1 label changed":
+        i = int(got[0][1][3].argmin())
+        got[0][1][3, i] = got[0][1][3].max() + 1e-4 * abs(got[0][1][3].max())
+    elif case == "misshapen":
+        got[0] = (got[0][0][:3], got[0][1])
+    if ok:
+        exact, rel = smoke.cascade_replay_check(np, got, want, 1e-3)
+        assert exact == (case == "bitwise") and (rel > 0) == (case != "bitwise")
+    else:
+        with pytest.raises(SystemExit):
+            smoke.cascade_replay_check(np, got, want, 1e-3)
+
+
+LIMITS = dict(score=1e-3, box_atol=1 / 32, box_rtol=1 / 16, logit_rel=1 / 16, label_margin=1 / 32)
+
+
+def _ranking(rng, p=40, labels=5):
+    """A reference's whole ranking: rows [x, y, w, h, class, score], best
+    first (4 anchors at 1.0, two close behind, the rest far), and each
+    ranked anchor's scores by class (its class on top)."""
+    ranked = rng.uniform(0.05, 0.95, (p, 6)).astype(np.float32)
+    ranked[:, 4] = rng.integers(1, labels + 1, p)
+    ranked[:, 5] = np.concatenate([np.ones(4), [1.0 - 1e-4] * 2,
+                                   np.linspace(0.4, 0.1, p - 6)]).astype(np.float32)
+    by_class = rng.uniform(0, 0.05, (p, labels)).astype(np.float32)
+    by_class[np.arange(p), ranked[:, 4].astype(int) - 1] = ranked[:, 5]
+    return ranked, by_class
+
+
+def _cascade_frame(rng, k=4, classes=10):
+    ranked, by_class = _ranking(rng)
+    logits = rng.standard_normal((k, classes)).astype(np.float32)
+    logits[:, 3] += 5  # a clear top-1
+    return dict(dets=ranked[:k].copy(), logits=logits.copy(), ranked=ranked, by_class=by_class,
+                ref_logits=logits)
+
+
+@pytest.mark.parametrize("case,ok", [
+    ("equal", True), ("close anchors swapped", True), ("a tied class", True),
+    ("boxes a bfloat16 step apart", True), ("logits within the tolerance", True),
+    ("a far anchor picked", False), ("a far class", False), ("a box moved", False),
+    ("logits apart", False), ("a top-1 label changed", False)])
+def test_cascade_check(smoke, case, ok):
+    f = _cascade_frame(np.random.default_rng(1))
+    if case == "close anchors swapped":
+        f["dets"][1] = f["ranked"][4]  # 1e-4 below rank 1's score
+    elif case == "a tied class":
+        c = int(f["dets"][0, 4])
+        other = 1 if c != 1 else 2
+        f["by_class"][0, other - 1] = 1.0 - 1e-5
+        f["dets"][0, 4] = other
+    elif case == "boxes a bfloat16 step apart":
+        f["dets"][:, :4] *= 1 + 1 / 128
+    elif case == "logits within the tolerance":
+        f["logits"] += 0.01
+    elif case == "a far anchor picked":
+        f["dets"][2] = f["ranked"][10]  # score 0.4
+    elif case == "a far class":
+        c = int(f["dets"][0, 4])
+        f["dets"][0, 4] = 1 if c != 1 else 2
+    elif case == "a box moved":
+        f["dets"][3, 2] += 0.2
+    elif case == "logits apart":
+        f["logits"][2, 0] += 2.0
+    elif case == "a top-1 label changed":
+        f["logits"][1, 7] = f["logits"][1, 3] + 0.01
+    args = (np, f["dets"], f["logits"], f["ranked"], f["by_class"], f["ref_logits"], LIMITS)
+    r, faults = smoke.cascade_faults(*args)
+    assert bool(faults) != ok
+    if ok:
+        assert smoke.cascade_check(*args, "frame") == r
+        assert r["ranks_swapped"] == (case == "close anchors swapped")
+        assert r["ranks_compared"] + r["ranks_swapped"] == 4 and r["labels_compared"] == 4
+        assert r["classes_swapped"] == (case == "a tied class")
+    else:
+        with pytest.raises(SystemExit):
+            smoke.cascade_check(*args, "frame")
+
+
+def _batch1(rng, n=3, k=4, classes=10):
+    """Rows of ``n`` frames and each frame's batch-1 reference, with the
+    next frame's crops (the control) classifying elsewhere."""
+    rows, refs, logits = [], [], []
+    for _ in range(n):
+        ranked, by_class = _ranking(rng)
+        lg = rng.standard_normal((k, classes)).astype(np.float32)
+        lg[:, rng.integers(0, classes)] += 5
+        rows.append((ranked[:k].copy(), lg.copy()))
+        refs.append([ranked, by_class, lg])
+        logits.append(lg)
+    for i, r in enumerate(refs):
+        r.append(logits[(i + 1) % n])
+    return rows, refs
+
+
+@pytest.mark.parametrize("case,ok", [("sound", True), ("a row off", False),
+                                     ("two rows swapped", False), ("frames alike", False)])
+def test_cascade_batch1_check(smoke, case, ok):
+    rows, refs = _batch1(np.random.default_rng(3))
+    if case == "a row off":
+        rows[1][0][2, 1] += 0.2
+    elif case == "two rows swapped":
+        rows[0], rows[1] = rows[1], rows[0]
+    elif case == "frames alike":  # every frame ranks and classifies as the first
+        refs = [[refs[0][0], refs[0][1], r[2], r[2]] for r in refs]
+        rows = [(refs[0][0][:4].copy(), r[2].copy()) for r in refs]
+    refs = [tuple(r) for r in refs]
+    if ok:
+        sound, control = smoke.cascade_batch1_check(np, rows, refs, LIMITS)
+        assert sound["ranks_compared"] == 12 and sound["box_abs_err"] == 0
+        assert control["min_faults"] > 0 and control["min_logit_rel_err"] > LIMITS["logit_rel"]
+    else:
+        with pytest.raises(SystemExit):
+            smoke.cascade_batch1_check(np, rows, refs, LIMITS)
+
+
+def test_cascade_reference_is_the_models_ranking(smoke):
+    """``cascade_reference`` and ``cascade_crop_logits`` on a small cascade
+    on the CPU: the ranking's first k rows are the model's detections bit
+    for bit, each ranked anchor's best class score its score, and the crops'
+    logits the model's."""
+    import torch
+
+    from nnstreamer_tpu_torch.models import cascade, ssd_mobilenet
+
+    m = cascade.build_detect_classify(num_labels=11, det_size=96, k=4, crop_size=32,
+                                      num_classes=16, width_mult=0.35, device="cpu")
+    x = torch.from_numpy(np.random.default_rng(4).uniform(-1, 1, (96, 96, 3)).astype(np.float32))
+    with torch.inference_mode():
+        dets, logits = (t.numpy() for t in m(x))
+    ranked, by_class = smoke.cascade_reference(torch, m, x, ssd_mobilenet.generate_priors(96))
+    assert ranked.shape == (ssd_mobilenet.num_priors(96), 6)
+    assert np.array_equal(ranked[:4], dets)
+    assert np.array_equal(by_class.max(axis=-1), ranked[:, 5])
+    assert np.all(np.diff(ranked[:, 5]) <= 0)
+    crop_cascade = smoke.CASCADE_CROP
+    try:
+        smoke.CASCADE_CROP = 32
+        np.testing.assert_allclose(smoke.cascade_crop_logits(torch, m, x, dets), logits,
+                                   rtol=0, atol=1e-6)
+    finally:
+        smoke.CASCADE_CROP = crop_cascade
+
+
+@pytest.mark.parametrize("case,ok", [("equal", True), ("one bit", False), ("a frame lost", False),
+                                     ("pts moved", False), ("a region lost", False)])
+def test_element_cascade_check(smoke, case, ok):
+    rng = np.random.default_rng(2)
+    cpu = [(i, rng.integers(0, 1000, (2, 4)).astype(np.int32), 2) for i in range(6)]
+    card = [(p, o.copy(), r) for p, o, r in cpu]
+    if case == "one bit":
+        card[3][1][1, 2] ^= 1
+    elif case == "a frame lost":
+        card = card[:-1]
+    elif case == "pts moved":
+        card[2] = (7, card[2][1], 2)
+    elif case == "a region lost":
+        card[0] = (0, card[0][1], 1)
+    if ok:
+        smoke.element_cascade_check(np, card, cpu)
+    else:
+        with pytest.raises(SystemExit):
+            smoke.element_cascade_check(np, card, cpu)
+
+
+@pytest.mark.parametrize("case,ok", [("as sent", True), ("a closed frame passed", False),
+                                     ("the switch missed", False), ("a frame lost", False)])
+def test_app_checks(smoke, case, ok):
+    a, b = list(range(8)), list(range(16, 32))
+    if case == "a closed frame passed":
+        a = a + [9]
+    elif case == "the switch missed":
+        a, b = a + [16], b[1:]
+    elif case == "a frame lost":
+        b = b[:-1]
+    if ok:
+        smoke.app_checks(a, b, 32, range(8, 16), 16)
+    else:
+        with pytest.raises(SystemExit):
+            smoke.app_checks(a, b, 32, range(8, 16), 16)
+
+
+@pytest.mark.parametrize("case,ok", [("bitwise", True), ("within", True), ("beyond", False),
+                                     ("top-1 moved", False), ("none compared", False)])
+def test_logits_check(smoke, case, ok):
+    rng = np.random.default_rng(3)
+    want = [rng.standard_normal(1001).astype(np.float32) for _ in range(3)]
+    got = [w.copy() for w in want]
+    if case == "within":
+        got[1][5] += 1e-4 * np.abs(want[1]).max()
+    elif case == "beyond":
+        got[1][5] += 0.01 * np.abs(want[1]).max()
+    elif case == "top-1 moved":
+        got[2][int(want[2].argmin())] = want[2].max() + 1e-6
+    elif case == "none compared":
+        got, want = [], []
+    if ok:
+        exact, rel = smoke.logits_check(np, got, want, 1e-3)
+        assert exact == (case == "bitwise")
+    else:
+        with pytest.raises(SystemExit):
+            smoke.logits_check(np, got, want, 1e-3)
+
+
+CLI_OUT = "".join(f"out: frame {i} pts={i * 33333333} float32(1001,)\n" for i in range(1, 9)) + \
+    "EOS after 1.23s; 8 sink frames\n"
+
+
+@pytest.mark.parametrize("case,ok", [("ok", True), ("rc 1", False), ("a report missing", False),
+                                     ("no EOS line", False), ("wrong output", False)])
+def test_cli_check(smoke, case, ok):
+    rc, out = 0, CLI_OUT
+    if case == "rc 1":
+        rc = 1
+    elif case == "a report missing":
+        out = "".join(ln + "\n" for ln in out.splitlines() if not ln.startswith("out: frame 4 "))
+    elif case == "no EOS line":
+        out = out.replace("EOS after 1.23s; 8 sink frames\n", "")
+    elif case == "wrong output":
+        out = out.replace("float32(1001,)", "float32(10,)")
+    if ok:
+        smoke.cli_check(rc, out, "", 8)
+    else:
+        with pytest.raises(SystemExit):
+            smoke.cli_check(rc, out, "", 8)
+
+
+def test_dyn_checks_with_a_smaller_ladder(smoke):
+    report = {"compiled": [{"label": f"bucket{b}"} for b in (1, 2, 4)]}
+    assert smoke.dyn_checks(np, 3, 3, report, [4, 4, 2], list(range(10)), 10, max_batch=4) == \
+        {"1": 0, "2": 1, "4": 2}
+    with pytest.raises(SystemExit):  # bucket 8 is off a ladder of 4
+        smoke.dyn_checks(np, 3, 3, report, [4, 8], list(range(12)), 12, max_batch=4)
+
+
+def test_cascade_and_app_strings_name_the_path(smoke):
+    d = smoke.cascade_desc(64, "c.npz")
+    assert "model=c.npz" in d and "builder=cascade:build_detect_classify" in d
+    assert f"k={smoke.CASCADE_K}" in d and f"crop_size={smoke.CASCADE_CROP}" in d
+    assert d.index("acceleration=pallas") < d.index("tensor_upload name=u") < \
+        d.index("tensor_filter")
+    d = smoke.dyn_desc(smoke.CASCADE_DYN_MAX_BATCH)
+    assert f"max_batch={smoke.CASCADE_DYN_MAX_BATCH}" in d and "tensor_dynunbatch" in d
+    a = smoke.app_desc("m.npz")
+    assert a.index("appsrc name=in") < a.index("tensor_upload") < a.index("valve name=v") < \
+        a.index("tensor_filter") < a.index("output-selector name=s")
+    assert "int8_head=1" in a and "s.src_1 ! tensor_sink name=b" in a
+    assert f"num-buffers={smoke.CLI_FRAMES}" in smoke.cli_desc("m.npz")

@@ -763,10 +763,16 @@ def test_roadmap_c13_second_conversion_pinned():
     _bitwise(K.program_eval(x, plan.program, plan.out_dtype), want)
 
 
-# ROADMAP C13's open class, two of its members: uint8 → float add → int8
-# (200.0 saturates only int8, 300.0 both), and a float16 input through a
+# ROADMAP C13's open class, four of its members: uint8 → float add → int8
+# (200.0 saturates only int8, 300.0 both); a float16 input through a
 # multiply, int8, float32 and int32 (the probed float32 form drops int8's
-# lanes at int32; from float16 XLA keeps them).
+# lanes at int32; from float16 XLA keeps them); an int → int cast between
+# the two conversions (uint8 → int32 → float32 → uint16: the rule at the
+# last int drops uint8's lanes, XLA keeps them); and a cast before the
+# multiply-add (int32 → float32 → int16 → int32: the rule drops int32's
+# lanes at int16, XLA keeps them).  The last two sub-classes were probed
+# class by class and swept at random: no rule of the int and float types
+# alone fits either (ROADMAP C13).
 C13_OPEN = [
     (np.array([200.0, 300.0, 3.0, -7.0], np.float32),
      [("typecast", np.dtype(np.uint8)), ("typecast", np.dtype(np.float32)), ("add", 2.5),
@@ -776,6 +782,14 @@ C13_OPEN = [
      [("mul", 1.4892958402633667), ("typecast", np.dtype(np.int8)),
       ("typecast", np.dtype(np.float32)), ("typecast", np.dtype(np.int32)),
       ("mul", -1.8834797143936157), ("add", 161.36981201171875)], [0, 1]),
+    (np.array([np.inf, 300.0, 3.0, -7.0], np.float32),
+     [("typecast", np.dtype(np.uint8)), ("typecast", np.dtype(np.int32)),
+      ("typecast", np.dtype(np.float32)), ("typecast", np.dtype(np.uint16)),
+      ("mul", 1.8951213359832764), ("add", -298.3569030761719)], [0, 1]),
+    (np.array([3e9, np.inf, 3.0, -7.0], np.float32),
+     [("typecast", np.dtype(np.int32)), ("typecast", np.dtype(np.float32)),
+      ("typecast", np.dtype(np.int16)), ("typecast", np.dtype(np.int32)),
+      ("mul", -0.9425551295280457), ("add", -228.31716918945312)], [0, 1]),
 ]
 
 
@@ -792,6 +806,36 @@ def test_roadmap_c13_open_class_pinned(x, raw, lanes):
     assert list(np.flatnonzero(got != want)) == lanes
     assert np.all(np.abs(got[lanes].view(np.int32) - want[lanes].view(np.int32)) <= 2)
     _bitwise(K.program_eval(x, plan.program, plan.out_dtype), got)
+
+
+# ROADMAP C13, a folded second conversion: int8, an int add of -1 (int8's
+# minimum wraps to its maximum), bfloat16, int8 again, a multiply-add.
+C13_FOLDED_OPS = [("typecast", np.dtype(np.int8)), ("add", -1), ("typecast", BFLOAT16),
+                  ("typecast", np.dtype(np.int8)), ("mul", -1.9924718141555786),
+                  ("add", 271.73095703125)]
+
+
+def test_c13_folded_conversion_marks_no_lanes():
+    """Where LLVM folds the int → float → int round trip, the second
+    conversion is gone from XLA's compiled code, so it marks no lanes of
+    its own: the lanes at int8's minimum (-inf, -1e30, -129), which the add
+    wraps to 127, reach it at the maximum and stay fused, while the lanes
+    the first conversion saturated (inf, 1e30, 200, NaN) stay one rounding
+    a step.  Found by a random sweep of the repaired form; the port marked
+    the wrapped lanes before.  Bitwise against the Pallas kernel, in the
+    plain version and the numpy model of the kernel."""
+    x = np.array([np.inf, -np.inf, np.nan, 1e30, -1e30, 200.0, -129.0, 3.0, -7.0, 127.0],
+                 np.float32)
+    ops = _bind_chain(C13_FOLDED_OPS, np.dtype(np.float32))
+    plan = K.fused_arith_plan(np.dtype(np.float32), ops)
+    assert [op for op, *_ in plan.steps][-1] == "fma"
+    assert not any(K.constant_resets(plan.start_dtype, plan.steps))
+    assert not _c13_open(plan)
+    want = _jax_bf16(x, np.dtype(np.float32), ops)
+    got = K.run_chain(torch.from_numpy(x), plan).numpy()
+    _bitwise(got, want)
+    _bitwise(K.program_eval(x, plan.program, plan.out_dtype), want)
+    assert got[1] == got[4] == got[6] != got[0]  # the wrapped lanes fused, unlike inf's
 
 
 # One class of each rule of ops/kernels.py::_keeps_constant: the lanes that

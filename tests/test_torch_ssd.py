@@ -133,6 +133,21 @@ def test_decode_topk_ties_take_the_lower_index():
     np.testing.assert_allclose(got, want, rtol=0, atol=GEOM_ATOL)
 
 
+def test_rank_anchors_is_lax_top_k():
+    """The decode head's ranking, with ties: the indices ``lax.top_k`` picks
+    from the same best scores, in its order, and each anchor's scores by
+    class the reference's sigmoid (atol PROB_ATOL)."""
+    rng = np.random.default_rng(5)
+    n = ts.num_priors(SIZE)
+    scores = rng.choice([-1.0, 0.5, 2.0, 20.0], (n, LABELS)).astype(np.float32)
+    want_s = np.asarray(jax.nn.sigmoid(jnp.asarray(scores[:, 1:])))
+    _, want_i = jax.lax.top_k(jnp.asarray(want_s.max(axis=-1)), 100)
+    by_class, best, top_i = ts.rank_anchors(torch.from_numpy(scores), 100)
+    np.testing.assert_array_equal(top_i.numpy(), np.asarray(want_i))
+    np.testing.assert_allclose(by_class.numpy(), want_s, rtol=0, atol=PROB_ATOL)
+    assert torch.equal(best, by_class.amax(dim=-1))
+
+
 def test_build_specs():
     model = ts.build(num_labels=LABELS, image_size=SIZE, dtype=torch.float32, device="cpu")
     n = ts.num_priors(SIZE)
