@@ -247,7 +247,38 @@ In order, it
    ctypes) giving SingleShot's bytes; the CLI (``python -m
    nnstreamer_tpu_torch``) as a subprocess on an 8-frame string: exit 0,
    its report lines;
-20. prints every path number beside the card's name and power limit, one
+20. ViT phase: ViT-B/16 (224x224, patch 16, width 768, 12 heads, 12
+   layers, MLP 3072, 1000 classes, bf16, seed-0 weights from the port's
+   numpy init) handed to the filter of slice 1's string, 64 frames: one
+   capture, a replay a frame, ``fused_arith`` called only in the capture's
+   warm-up calls and the capture (the other kernels never), the replays
+   equal to eager bit for bit, the card's logits within VIT_LOGIT_REL of
+   the port's CPU forward of the same params on VIT_CPU_FRAMES frames with
+   the same top-1 (``vit_cpu_check``); the 16-frame trace (one
+   ``fused_arith`` record a launch), and the model's FLOPs a frame from its
+   shapes over the busy time (TFLOP/s, the share of the bf16 peak); then
+   the W8A8 form (``vit.build_quantized``, every trunk matmul on
+   ``torch._int_mm``), 16 frames, the same checks against its own eager
+   run;
+21. config 4c: bench.py's DECODE_CELL (``transformer.build_decode_cell``,
+   float32) in the repo-slot cycle of ``run_kvdecode_fps`` (a data source
+   for x_t, repo sources 92 and 93 for the cache and the position on the
+   card, ``tensor_mux sync-mode=nosync``, the filter, ``tensor_demux``,
+   the sink and two repo sinks), 120 steps: one capture, the outputs
+   finite and bit for bit the eager decode loop's on the card, within
+   DECODE_REL of the port's CPU cell on 8 steps, and a 16-step trace with
+   no device-to-host copy (CUPTI and the ``copies`` tracer);
+22. config 4d: ``ContinuousBatcher(capacity=8)`` over the same cell, its
+   step one CUDA graph and each prefill bucket one (``warmup_prefill``):
+   12 streams joining 2 steps apart, 16 steps each (all 8 slots fill, 4
+   are reused), each bit for bit the same stream served alone in its slot
+   and within DECODE_REL of the eager loop; every slot streaming 119 steps
+   (aggregate steps a second, ticks: 8 steps a tick), a 16-step trace for
+   the busy time a tick; prefill + decode against all-stepwise and
+   prefill's tokens a second (119-token prompts); a ``window=True`` stream
+   past t_max against the eager ring; and, timing only, the engine at
+   ViT-B's trunk width (768 wide, 12 heads, 12 layers, 75.5 MB of cache);
+23. prints every path number beside the card's name and power limit, one
    JSON line describing every kernel, and last one JSON line
    ``{"ok": true, "device": {...}}``.
 
@@ -358,7 +389,7 @@ extern "C" int nns_invoke(const void *const *in, const uint64_t *in_sz,
 """
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"float32": 67e12, "int8": 1979e12}
+PEAK_OPS_PER_S = {"float32": 67e12, "int8": 1979e12, "bfloat16": 989e12}
 
 
 def fail(msg: str) -> None:
@@ -2823,18 +2854,20 @@ def lstm_pipeline(nns, torch, np, xs, model, slots, tracers=()):
 
 
 def run_lstm(nns, torch, np, xs, model, during=None, restore=None, tracers=(),
-             traced=False):
+             traced=False, build=None, slots=LSTM_SLOTS):
     """Run config 4 over ``xs`` ((step, x) pairs); the h of every step, the
     sink's arrival times and last the card's end of the last step, the
     pipeline, and ``during(p)``'s result (it runs after EOS while the filter
     is open), or with ``traced`` the trace of the steps: the x source waits
     until start() (negotiation, capture) returned and the profiler runs.
-    ``restore(p)`` runs before start."""
+    ``restore(p)`` runs before start.  ``build`` (default
+    :func:`lstm_pipeline`) and ``slots`` give another repo-slot cycle of the
+    same shape (config 4c's)."""
     import threading
 
     from nnstreamer_tpu_torch.elements.repo import GLOBAL_REPO
 
-    p = lstm_pipeline(nns, torch, np, xs, model, LSTM_SLOTS, tracers)
+    p = (build or lstm_pipeline)(nns, torch, np, xs, model, slots, tracers)
     hs, arrivals = [], []
     p["out"].connect("new-data", lambda f: (arrivals.append(time.perf_counter()),
                                             hs.append(f.tensor(0))))
@@ -2863,7 +2896,7 @@ def run_lstm(nns, torch, np, xs, model, during=None, restore=None, tracers=(),
         gate.set()
         p.stop()
     check(len(hs) == len(xs), f"config 4 delivered {len(hs)} of {len(xs)} steps")
-    for s in LSTM_SLOTS:
+    for s in slots:
         check(GLOBAL_REPO.slot(s).eos, f"slot {s} did not reach EOS")
     return hs, arrivals, p, result
 
@@ -4227,6 +4260,482 @@ def app_phase(torch, np, K, ops, root, card):
     return res, {"app_single": single_launches, "app_capi": capi_launches}
 
 
+# The transformer family (ViT-B/16, config 4c and config 4d).  ViT-B/16 at
+# the paper's widths (Dosovitskiy et al. 2020, Table 1), seed-0 weights from
+# the port's numpy init, bfloat16; the card's logits are held to the port's
+# CPU forward of the same params within VIT_LOGIT_REL of the largest (twelve
+# layers of bfloat16 products summed in another order), with the same top-1
+# wherever the CPU's top-1 leads its runner-up by more than that.  The decode
+# cell is bench.py's DECODE_CELL (configs 4c and 4d share it); float32, TF32
+# off, so a stream's outputs are held to the port's CPU forward and to the
+# eager loop on the card within DECODE_REL of the largest output.
+VIT_B16 = dict(num_classes=1000, patch=16, d_model=768, n_heads=12, n_layers=12)
+VIT_Q8_FRAMES = 16
+VIT_CPU_FRAMES = 2
+VIT_REPLAY_FRAMES = 8
+VIT_LOGIT_REL = 1 / 32
+DECODE_CELL = dict(t_max=128, d_in=64, n_out=16, d_model=256, n_heads=8, n_layers=2)
+DECODE_STEPS = 120      # leg_config4c's clamp: the t_max=128 cache bounds the stream
+DECODE_SLOTS = (92, 93)
+DECODE_CPU_STEPS = 8
+DECODE_REL = 1e-5
+ENGINE_CAPACITY = 8     # leg_config4d's capacity
+ENGINE_STEPS = 119      # leg_config4d's steps a stream (warm-up step + 119 <= t_max)
+STAGGER_STREAMS = 12    # the staggered-join run: stream k joins at step STAGGER_GAP * k,
+STAGGER_STEPS = 16      # runs STAGGER_STEPS steps and leaves; all 8 slots fill, and
+STAGGER_GAP = 2         # streams 8 to 11 take the slots freed by 0 to 3
+PREFILL_PROMPT = 64
+PREFILL_TOKENS = 119    # leg_config4d's prefill length (the 128 bucket)
+PREFILL_REPS = 16
+WINDOW_EXTRA = 8        # ring-window steps past t_max
+ENGINE_WIDE = dict(t_max=128, d_in=64, n_out=16, d_model=768, n_heads=12, n_layers=12)
+ENGINE_WIDE_STEPS = 64
+
+
+def vit_checks(stats, launches, frames):
+    """The ViT path: one capture, a replay a frame, ``fused_arith`` launched
+    only in the capture's warm-up calls and the capture, no other kernel."""
+    check(stats["captures"] == 1 and stats["replays"] == frames,
+          f"expected one capture and {frames} replays: {stats}")
+    check(launches["fused_arith"] == stats["warmup_calls"] + 1,
+          f"fused_arith: {launches['fused_arith']} wrapper launches, expected the "
+          f"{stats['warmup_calls']} warm-up calls and the capture")
+    check(launches["int8_matmul"] == 0 and launches["pallas_nms_keep"] == 0,
+          f"a kernel off the ViT path launched: {launches}")
+
+
+def vit_cpu_check(np, card, cpu, rel):
+    """The card's logits against the port's CPU forward of the same params on
+    the same frames: within ``rel`` of the largest CPU logit; the same top-1
+    where the CPU's top-1 leads its runner-up by more than that, else the
+    card's top-1 within that margin of the CPU's largest logit.  Returns the
+    largest relative difference and the frames decided by the margin."""
+    check(len(card) == len(cpu) > 0, f"{len(card)} card frames against {len(cpu)}")
+    worst, close = 0.0, 0
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        scale = float(np.abs(b).max())
+        d = float(np.abs(a.astype(np.float64) - b).max()) / scale
+        worst = max(worst, d)
+        check(d <= rel, f"frame {i}: card logits {d} of the largest from the CPU's "
+                        f"(tolerance {rel})")
+        runner, top = np.sort(b)[-2:]
+        if top - runner > rel * scale:
+            check(int(a.argmax()) == int(b.argmax()),
+                  f"frame {i}: top-1 {a.argmax()} on the card, {b.argmax()} on the CPU")
+        else:
+            close += 1
+            check(top - b[int(a.argmax())] <= rel * scale,
+                  f"frame {i}: the card's top-1 {a.argmax()} is not within the margin of the "
+                  "CPU's largest logit")
+    return worst, close
+
+
+def decode_checks(np, stats, steps, copies, dtoh, got, eager):
+    """Config 4c's cycle: the recurrence checks (one capture, a replay a
+    step, no device→host copy), and every output finite and bit for bit the
+    eager decode loop's on the card."""
+    recurrence_checks(stats, steps, copies, dtoh)
+    check(len(got) == len(eager) == steps, f"{len(got)} outputs, {len(eager)} eager")
+    for i, (a, b) in enumerate(zip(got, eager)):
+        check(bool(np.isfinite(a).all()), f"step {i}: output not finite")
+        check(a.shape == b.shape and np.array_equal(a.view(np.uint32), b.view(np.uint32)),
+              f"step {i}: the cycle's output differs from the eager decode loop")
+
+
+def staggered_check(np, served, alone, eager, rel):
+    """Config 4d's exactness: each stream served among the others that
+    joined and left around it equals, bit for bit, the same stream served
+    alone in the same slot of the engine (no reduction crosses the slot
+    axis), and lies within ``rel`` of the largest output of the eager
+    single-stream decode loop.  Returns the largest relative difference."""
+    worst = 0.0
+    check(served.keys() == alone.keys() == eager.keys() and served,
+          f"streams {sorted(served)} / {sorted(alone)} / {sorted(eager)}")
+    for k in served:
+        check(len(served[k]) == len(alone[k]) == len(eager[k]) > 0,
+              f"stream {k}: {len(served[k])} outputs, alone {len(alone[k])}")
+        for i, (a, b, e) in enumerate(zip(served[k], alone[k], eager[k])):
+            check(np.array_equal(a.view(np.uint32), b.view(np.uint32)),
+                  f"stream {k} step {i}: served among others differs from served alone")
+            d = float(np.abs(a.astype(np.float64) - e).max()) / float(np.abs(e).max())
+            worst = max(worst, d)
+            check(d <= rel, f"stream {k} step {i}: {d} of the largest from the eager loop "
+                            f"(tolerance {rel})")
+    return worst
+
+
+def vit_desc(n, labels):
+    return (f"videotestsrc name=src num-buffers={n} width={IMAGE} height={IMAGE} "
+            "pattern=random seed=7 ! tensor_converter name=conv ! "
+            f"tensor_transform mode=arithmetic option={NORMALIZE} acceleration=pallas ! "
+            "tensor_upload name=u ! queue max-size-buffers=16 ! "
+            "tensor_filter framework=torch name=f ! "
+            f"tensor_decoder mode=image_labeling option1={labels} ! "
+            "tensor_sink name=out collect=true")
+
+
+def vit_phase(torch, np, K, ops, root, card):
+    """ViT-B/16 (bfloat16) handed to the filter of slice 1's launch string,
+    64 frames; then its W8A8 form, 16 frames."""
+    import nnstreamer_tpu_torch as nns
+    from nnstreamer_tpu_torch.models import vit
+
+    cfg = dict(VIT_B16, image_size=IMAGE)
+    tree = vit.init_tree(0, **cfg)
+    t0 = time.perf_counter()
+    model = vit.build(**cfg, dtype="bfloat16", params=tree, device=DEVICE)
+    build_s = time.perf_counter() - t0
+    work = os.path.join(root, "build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    labels = os.path.join(work, f"labels_{cfg['num_classes']}.txt")
+    with open(labels, "w", encoding="utf-8") as f:
+        f.write("\n".join(f"class_{i}" for i in range(cfg["num_classes"])))
+    state = {}
+
+    def during(p, replay_frames, cpu_frames):
+        be = p["f"].backend
+        state.update(stats=dict(be.stats), launches={k.__name__: k.launches for k in K.KERNELS},
+                     transform_folded=not any(type(n).__name__ == "TensorTransform"
+                                              for n in p.nodes.values()))
+        src = p["src"]
+        xs = [torch.from_numpy(src._make_frame(i)) for i in range(replay_frames)]
+        captured_against_eager(torch, be, xs, exact=True)
+        with torch.inference_mode():
+            state["card"] = [be.invoke((x,))[0].float().cpu().numpy() for x in xs[:cpu_frames]]
+        state["src"] = src
+        return p
+
+    run_pipeline(nns, vit_desc(WARMUP_FRAMES, labels), model, WARMUP_FRAMES)
+    K.reset_launches()
+    p, arrivals, _ = run_pipeline(nns, vit_desc(FRAMES, labels), model, FRAMES,
+                                  during=lambda p: during(p, VIT_REPLAY_FRAMES, VIT_CPU_FRAMES))
+    stats, launches = state["stats"], state["launches"]
+    print(f"ViT-B/16 over {FRAMES} frames: backend {stats}, wrapper launches {launches}",
+          flush=True)
+    check(state["transform_folded"], "the normalize did not fold across upload and queue")
+    vit_checks(stats, launches, FRAMES)
+    got = p["out"].frames
+    check(all(0 <= f.meta["label_index"] < cfg["num_classes"] for f in got), "labels out of range")
+    cpu = vit.build(**cfg, dtype="bfloat16", params=tree, device="cpu")
+    t1 = time.perf_counter()
+    with torch.inference_mode():
+        cpu_logits = [cpu(K.fused_arith_plain(torch.from_numpy(state["src"]._make_frame(i)), ops))
+                      .numpy() for i in range(VIT_CPU_FRAMES)]
+    cpu_s = time.perf_counter() - t1
+    worst, close = vit_cpu_check(np, state["card"], cpu_logits, VIT_LOGIT_REL)
+    print(f"ViT-B/16: replays bitwise equal to eager on {VIT_REPLAY_FRAMES} frames; card logits "
+          f"within {worst:.3g} of the port's CPU forward on {VIT_CPU_FRAMES} frames (tolerance "
+          f"{VIT_LOGIT_REL}, {close} top-1 decided by the margin; CPU forward {cpu_s:.1f} s)",
+          flush=True)
+    flops = vit.flops_per_frame(cfg["image_size"], cfg["patch"], cfg["d_model"],
+                                cfg["n_layers"], cfg["num_classes"])
+    res = dict(frames=FRAMES, replays=stats["replays"], **rates(arrivals, np), build_s=build_s,
+               capture_s=stats["capture_s"], warmup_s=stats["warmup_s"], cpu_rel_err=worst,
+               top1_by_margin=close, flops_per_frame=flops)
+    profile_path(lambda n: traced_run(nns, vit_desc(n, labels), model, n), res, ("fused_arith",))
+    busy_s = res["device_busy_ms_per_frame"] / 1e3
+    res.update(tflops_busy=flops / busy_s / 1e12, tflops_wall=flops * res["fps"] / 1e12,
+               busy_share_of_bf16_peak=flops / busy_s / PEAK_OPS_PER_S["bfloat16"])
+    report_path("ViT-B/16", res, card)
+    for key in ("flops_per_frame", "tflops_busy", "tflops_wall", "busy_share_of_bf16_peak"):
+        print(f"  ViT-B/16 {key}: {res[key]} [{card}]", flush=True)
+
+    # The W8A8 form: every trunk matmul int8 on torch._int_mm.
+    q8 = vit.build_quantized(**cfg, dtype="bfloat16", params=tree, device=DEVICE)
+    state.clear()
+    K.reset_launches()
+    qp, qarrivals, _ = run_pipeline(nns, vit_desc(VIT_Q8_FRAMES, labels), q8, VIT_Q8_FRAMES,
+                                    during=lambda p: during(p, 4, 0))
+    vit_checks(state["stats"], state["launches"], VIT_Q8_FRAMES)
+    qlaunches = state["launches"]
+    qres = dict(frames=VIT_Q8_FRAMES, replays=state["stats"]["replays"], **rates(qarrivals, np),
+                capture_s=state["stats"]["capture_s"])
+    print(f"ViT-B/16 W8A8 over {VIT_Q8_FRAMES} frames: backend {state['stats']}; replays "
+          "bitwise equal to eager on 4 frames", flush=True)
+    profile_path(lambda n: traced_run(nns, vit_desc(n, labels), q8, n), qres, ("fused_arith",))
+    report_path("ViT-B/16 W8A8", qres, card)
+    return (launches, res), (qlaunches, qres)
+
+
+def decode_pipeline(nns, torch, np, xs, model, slots, tracers=()):
+    """Config 4c's graph (bench.py's run_kvdecode_fps): a data source for
+    x_t and repo sources for the cache and the position (their bootstrap on
+    the card) → ``tensor_mux sync-mode=nosync`` → the decode cell →
+    ``tensor_demux`` → y_t to the sink, cache and position to their repo
+    sinks."""
+    from nnstreamer_tpu_torch.buffer import SECOND, Frame
+    from nnstreamer_tpu_torch.elements.filter import TensorFilter
+    from nnstreamer_tpu_torch.elements.repo import TensorRepoSink, TensorRepoSrc
+
+    cell = DECODE_CELL
+    cache = nns.TensorsSpec(tensors=(nns.TensorSpec(
+        dtype=np.float32, shape=(cell["n_layers"], 2, cell["t_max"], cell["d_model"])),))
+    pos = nns.TensorsSpec(tensors=(nns.TensorSpec(dtype=np.int32, shape=(1,)),))
+    dur = SECOND // 30
+    p = nns.Pipeline(name="kvdecode")
+    p.add(nns.make("datasrc", "x_src", data=[Frame.of(torch.from_numpy(x), pts=i * dur,
+                                                      duration=dur) for i, x in xs]),
+          TensorRepoSrc(name="kv_src", slot_index=slots[0], caps=cache, device=DEVICE),
+          TensorRepoSrc(name="pos_src", slot_index=slots[1], caps=pos, device=DEVICE),
+          nns.make("tensor_mux", "mux", sync_mode="nosync"),
+          TensorFilter(name="f", framework="torch", model=model),
+          nns.make("tensor_demux", "demux"), nns.make("tensor_sink", "out"),
+          TensorRepoSink(name="kv_sink", slot_index=slots[0]),
+          TensorRepoSink(name="pos_sink", slot_index=slots[1]))
+    for i, src in enumerate(("x_src", "kv_src", "pos_src")):
+        p.link(src, f"mux.sink_{i}")
+    p.link_chain("mux", "f", "demux")
+    p.link("demux.src_0", "out")
+    p.link("demux.src_1", "kv_sink")
+    p.link("demux.src_2", "pos_sink")
+    for name in tracers:
+        p.attach_tracer(name)
+    return p
+
+
+def decode_phase(torch, np, K, root, card):
+    """Config 4c: the decode cell through repo slots 92/93 for 120 steps,
+    and a traced run of PROFILED steps."""
+    import nnstreamer_tpu_torch as nns
+    from nnstreamer_tpu_torch.elements.repo import GLOBAL_REPO
+    from nnstreamer_tpu_torch.models import transformer
+
+    cell = DECODE_CELL
+    tree = transformer.init_tree(0, cell["d_model"], cell["n_heads"], cell["n_layers"],
+                                 4 * cell["d_model"], cell["d_in"], cell["n_out"])
+    model = transformer.build_decode_cell(**cell, params=tree, device=DEVICE)
+    rng = np.random.default_rng(5)
+    xs = list(enumerate(rng.standard_normal((DECODE_STEPS, cell["d_in"])).astype(np.float32)))
+    shape = (cell["n_layers"], 2, cell["t_max"], cell["d_model"])
+    state = {}
+    kw = dict(build=decode_pipeline, slots=DECODE_SLOTS)
+
+    def during(p):
+        be = p["f"].backend
+        state.update(stats=dict(be.stats), launches={k.__name__: k.launches for k in K.KERNELS})
+        c = torch.zeros(shape, device=DEVICE)
+        ps = torch.zeros(1, dtype=torch.int32, device=DEVICE)
+        eager = []
+        with torch.inference_mode():
+            for _, x in xs:
+                y, c, ps = be.eager(torch.from_numpy(x), c, ps)
+                eager.append(y.cpu().numpy())
+        state["eager"] = eager
+        return p
+
+    GLOBAL_REPO.reset()
+    run_lstm(nns, torch, np, xs[:3], model, **kw)  # CUDA context, cuBLAS handles
+    GLOBAL_REPO.reset()
+    K.reset_launches()
+    ys, arrivals, _, _ = run_lstm(nns, torch, np, xs, model, during=during, **kw)
+    stats = state["stats"]
+    got = [y.cpu().numpy() for y in ys]
+    GLOBAL_REPO.reset()
+    _, _, tp, tr = run_lstm(nns, torch, np, xs[:PROFILED], model, tracers=("copies",),
+                            traced=True, **kw)
+    GLOBAL_REPO.reset()
+    copy_count = sum(v["copies"] for v in tp.stats()["tracers"]["copies"]["elements"].values())
+    kinds = memcpy_counts(tr["count_by_name"])
+    launches = tr["calls"].get("cudaGraphLaunch", 0) + tr["calls"].get("cuGraphLaunch", 0)
+    check(launches == PROFILED, f"config 4c: {launches} graph launches for {PROFILED} steps")
+    decode_checks(np, stats, DECODE_STEPS, copy_count, kinds["DtoH"], got, state["eager"])
+    cpu = transformer.build_decode_cell(**cell, params=tree, device="cpu")
+    c, ps, cpu_err = torch.zeros(shape), torch.zeros(1, dtype=torch.int32), 0.0
+    with torch.inference_mode():
+        for (_, x), g in zip(xs[:DECODE_CPU_STEPS], got):
+            y, c, ps = cpu(torch.from_numpy(x), c, ps)
+            cpu_err = max(cpu_err, float(np.abs(g - y.numpy()).max() / np.abs(y.numpy()).max()))
+    check(cpu_err <= DECODE_REL, f"config 4c: {cpu_err} of the largest output from the CPU "
+                                 f"forward (tolerance {DECODE_REL})")
+    res = dict(steps=DECODE_STEPS, replays=stats["replays"],
+               **rates(arrivals[:-1], np, end=arrivals[-1]), cpu_rel_err=cpu_err,
+               capture_s=stats["capture_s"])
+    res["steps_per_s"] = res.pop("fps")
+    busy = tr["busy_ms"] / PROFILED
+    res.update(device_busy_ms_per_step=busy,
+               device_idle_share=1 - busy * res["steps_per_s"] / 1e3,
+               host_ops_per_step=host_ops(tr["calls"]) / PROFILED,
+               copies_per_step={k: v / PROFILED for k, v in kinds.items()},
+               copies_tracer=copy_count)
+    print(f"config 4c over {DECODE_STEPS} steps: backend {stats}; outputs bitwise equal to the "
+          f"eager decode loop, within {cpu_err:.3g} of the CPU forward on {DECODE_CPU_STEPS} "
+          f"steps (tolerance {DECODE_REL}); no device-to-host copy", flush=True)
+    for key in ("steps_per_s", "p50_ms", "p90_ms", "device_busy_ms_per_step",
+                "device_idle_share", "host_ops_per_step", "copies_per_step", "capture_s"):
+        print(f"  config 4c {key}: {res[key]} [{card}]", flush=True)
+    return (state["launches"], res), tree
+
+
+def eager_stream(torch, np, cell_model, xs, window=False):
+    """The single-stream decode loop, eager on the model's device."""
+    from nnstreamer_tpu_torch.models import transformer
+
+    p = cell_model.params
+    c = transformer.init_decode_cache(len(p["blocks"]), p["ln_f"]["scale"].shape[-1],
+                                      DECODE_CELL["t_max"], device=DEVICE)
+    ps = torch.zeros(1, dtype=torch.int32, device=DEVICE)
+    out = []
+    with torch.inference_mode():
+        for x in xs:
+            y, c, ps = transformer.decode_step(p, torch.from_numpy(x).to(DEVICE), c, ps,
+                                               window=window)
+            out.append(y.cpu().numpy())
+    return out
+
+
+def served_alone(eng, slot, xs, prompt=None):
+    """One stream through ``eng`` in ``slot``, with no other stream fed
+    (the sessions opened before its slot came up stay idle)."""
+    idle = []
+    s = eng.open_session(timeout=30)
+    while s.slot != slot:
+        idle.append(s)
+        s = eng.open_session(timeout=30)
+    out = []
+    if prompt is not None:
+        s.prefill(prompt)
+        out.append(s.get(timeout=60))
+    for x in xs:
+        s.feed(x)
+        out.append(s.get(timeout=60))
+    for t in idle + [s]:
+        t.close()
+    return out
+
+
+def engine_rate(eng, np, rng, steps):
+    """All of ``eng``'s slots streaming: a warm-up step each, then ``steps``
+    steps a stream queued up front.  Returns aggregate steps a second,
+    ticks and steps served."""
+    d_in, cap = eng.d_in, eng.capacity
+    sessions = [eng.open_session(timeout=30) for _ in range(cap)]
+    warm = rng.standard_normal(d_in).astype(np.float32)
+    for s in sessions:
+        s.feed(warm)
+    for s in sessions:
+        s.get(timeout=600)
+    feeds = [rng.standard_normal(d_in).astype(np.float32) for _ in range(steps)]
+    ticks0, served0 = eng.ticks, eng.steps_total
+    t0 = time.perf_counter()
+    for x in feeds:
+        for s in sessions:
+            s.feed(x)
+    outs = [[s.get(timeout=600) for _ in range(steps)] for s in sessions]
+    dt = time.perf_counter() - t0
+    for s in sessions:
+        s.close()
+    check(all(np.isfinite(o).all() for row in outs for o in row), "engine outputs not finite")
+    return cap * steps / dt, eng.ticks - ticks0, eng.steps_total - served0
+
+
+def serving_phase(torch, np, card, tree, single_steps_per_s):
+    """Config 4d: ContinuousBatcher(capacity=8) over config 4c's cell."""
+    from nnstreamer_tpu_torch.models import transformer
+    from nnstreamer_tpu_torch.serving import ContinuousBatcher
+
+    cell = DECODE_CELL
+    cell_model = transformer.build_decode_cell(**cell, params=tree, device=DEVICE)
+    rng = np.random.default_rng(6)
+    res = {}
+    t0 = time.perf_counter()
+    eng = ContinuousBatcher(capacity=ENGINE_CAPACITY, params=tree, device=DEVICE, **cell)
+    res["construct_s"], res["capture_s"] = time.perf_counter() - t0, eng.capture_s
+    report = eng.warmup_prefill()
+    res["prefill_buckets"] = [c["label"] for c in report["compiled"]]
+    res["prefill_warmup_s"] = report["seconds"]
+    with eng:
+        # staggered joins: stream k joins STAGGER_GAP steps after k - 1 and
+        # leaves after its last step; later streams take the freed slots
+        streams = {k: list(rng.standard_normal((STAGGER_STEPS, cell["d_in"])).astype(np.float32))
+                   for k in range(STAGGER_STREAMS)}
+        sessions, served, slot_of, step = {}, {k: [] for k in streams}, {}, 0
+        while any(len(served[k]) < STAGGER_STEPS for k in streams):
+            for k in streams:
+                if k not in sessions and step >= STAGGER_GAP * k:
+                    sessions[k] = eng.open_session(timeout=30)
+                    slot_of[k] = sessions[k].slot
+            live = [k for k in sessions if len(served[k]) < STAGGER_STEPS]
+            for k in live:
+                sessions[k].feed(streams[k][len(served[k])])
+            for k in live:
+                served[k].append(sessions[k].get(timeout=60))
+                if len(served[k]) == STAGGER_STEPS:
+                    sessions[k].close()
+            step += 1
+        alone = {k: served_alone(eng, slot_of[k], streams[k]) for k in streams}
+        eager = {k: eager_stream(torch, np, cell_model, streams[k]) for k in streams}
+        res["stagger_rel_err"] = staggered_check(np, served, alone, eager, DECODE_REL)
+        res["stagger_slots"] = slot_of
+        check(len(set(slot_of.values())) == ENGINE_CAPACITY,
+              f"config 4d: the staggered streams used slots {slot_of}, not all {ENGINE_CAPACITY}")
+        print(f"config 4d: {STAGGER_STREAMS} staggered streams of {STAGGER_STEPS} steps (slots "
+              f"{slot_of}) bitwise equal to each served alone; within "
+              f"{res['stagger_rel_err']:.3g} of the eager decode loop", flush=True)
+
+        # throughput: every slot streaming, steps queued up front
+        agg, ticks, steps = engine_rate(eng, np, rng, ENGINE_STEPS)
+        check(ticks < steps, f"config 4d: {ticks} ticks for {steps} steps: ticks do not coalesce")
+        res.update(aggregate_steps_per_s=agg, ticks=ticks, steps=steps, coalescing=steps / ticks,
+                   vs_single_stream=agg / single_steps_per_s)
+        tr = trace(lambda: engine_rate(eng, np, rng, 16))
+        launches = tr["calls"].get("cudaGraphLaunch", 0) + tr["calls"].get("cuGraphLaunch", 0)
+        res.update(traced_graph_launches=launches,
+                   device_busy_ms_per_tick=tr["busy_ms"] / max(launches, 1))
+        # busy time a tick (traced run) times ticks a second (untraced run)
+        res["device_idle_share"] = 1 - res["device_busy_ms_per_tick"] * ticks * agg / steps / 1e3
+
+        # prefill + decode against all-stepwise, and prefill's rate
+        xs = list(rng.standard_normal((PREFILL_PROMPT + 8, cell["d_in"])).astype(np.float32))
+        stepped = served_alone(eng, 0, xs)
+        mixed = served_alone(eng, 0, xs[PREFILL_PROMPT:], prompt=np.stack(xs[:PREFILL_PROMPT]))
+        pre_err = 0.0
+        for a, b in zip(mixed, stepped[PREFILL_PROMPT - 1:]):
+            pre_err = max(pre_err, float(np.abs(a - b).max() / np.abs(b).max()))
+        check(pre_err <= DECODE_REL, f"config 4d: prefill + decode {pre_err} of the largest "
+                                     f"from all-stepwise (tolerance {DECODE_REL})")
+        prompt = rng.standard_normal((PREFILL_TOKENS, cell["d_in"])).astype(np.float32)
+        s = eng.open_session(timeout=30)
+        s.prefill(prompt)
+        s.get(timeout=60)
+        t1 = time.perf_counter()
+        for _ in range(PREFILL_REPS):
+            s.prefill(prompt)
+            s.get(timeout=60)
+        res["prefill_tokens_per_s"] = PREFILL_TOKENS * PREFILL_REPS / (time.perf_counter() - t1)
+        s.close()
+        res.update(prefill_rel_err=pre_err, stats=eng.stats())
+
+    # the ring: one stream past t_max
+    n = cell["t_max"] + WINDOW_EXTRA
+    ring_xs = list(rng.standard_normal((n, cell["d_in"])).astype(np.float32))
+    with ContinuousBatcher(capacity=2, window=True, params=tree, device=DEVICE, **cell) as ring:
+        got = served_alone(ring, 0, ring_xs)
+    want = eager_stream(torch, np, cell_model, ring_xs, window=True)
+    check(all(np.isfinite(g).all() for g in got), "config 4d: the ring's outputs not finite")
+    ring_err = max(float(np.abs(a - b).max() / np.abs(b).max()) for a, b in zip(got, want))
+    check(ring_err <= DECODE_REL, f"config 4d: the ring {ring_err} of the largest from the eager "
+                                  f"loop (tolerance {DECODE_REL})")
+    res["ring_rel_err"], res["ring_steps"] = ring_err, n
+
+    # timing only: the engine at ViT-B's trunk width
+    wide = ENGINE_WIDE
+    wtree = transformer.init_tree(0, wide["d_model"], wide["n_heads"], wide["n_layers"],
+                                  4 * wide["d_model"], wide["d_in"], wide["n_out"])
+    with ContinuousBatcher(capacity=ENGINE_CAPACITY, params=wtree, device=DEVICE, **wide) as weng:
+        cache_mb = weng._caches.numel() * weng._caches.element_size() / 1e6
+        wagg, wticks, wsteps = engine_rate(weng, np, rng, ENGINE_WIDE_STEPS)
+    res.update(wide_aggregate_steps_per_s=wagg, wide_ticks=wticks, wide_cache_mb=cache_mb,
+               wide_ms_per_tick=ENGINE_CAPACITY / wagg * 1e3)
+    print(f"config 4d: prefill + decode within {pre_err:.3g} of all-stepwise; the ring past "
+          f"t_max ({n} steps) within {ring_err:.3g} of the eager loop", flush=True)
+    for key in ("aggregate_steps_per_s", "ticks", "coalescing", "vs_single_stream",
+                "device_busy_ms_per_tick", "device_idle_share", "prefill_tokens_per_s",
+                "capture_s", "prefill_warmup_s", "wide_aggregate_steps_per_s", "wide_ms_per_tick",
+                "wide_cache_mb"):
+        print(f"  config 4d {key}: {res[key]} [{card}]", flush=True)
+    return res
+
+
 def _conv_dicts(tree):
     """Every dict of a params tree that holds a weight ``"w"``, in order."""
     if isinstance(tree, dict):
@@ -4339,9 +4848,20 @@ def main() -> int:
     by_path["app"] = (app["launches"], app)
     for key, counts in app_launches.items():
         by_path[key] = (counts, {})
+    t6 = time.perf_counter()
+    by_path["vit"], by_path["vit_w8a8"] = vit_phase(torch, np, K, ops, root, card)
+    t7 = time.perf_counter()
+    K.reset_launches()
+    by_path["config4c"], decode_tree = decode_phase(torch, np, K, root, card)
+    t8 = time.perf_counter()
+    K.reset_launches()
+    config4d = serving_phase(torch, np, card, decode_tree,
+                             by_path["config4c"][1]["steps_per_s"])
+    by_path["config4d"] = ({k.__name__: k.launches for k in K.KERNELS}, config4d)
     print(f"phase wall s: up to the quant phase {t1 - t0:.3f}, pose {t2 - t1:.3f}, "
           f"recurrence {t3 - t2:.3f}, batch {t4 - t3:.3f}, cascade {t5 - t4:.3f}, "
-          f"app {time.perf_counter() - t5:.3f}", flush=True)
+          f"app {t6 - t5:.3f}, vit {t7 - t6:.3f}, config 4c {t8 - t7:.3f}, "
+          f"config 4d {time.perf_counter() - t8:.3f}", flush=True)
     wrapper = {"fused_arith": "fused_arith", "int8_matmul": "int8_matmul",
                "nms_keep": "pallas_nms_keep"}
     for name, r in kernels.items():
@@ -4361,7 +4881,9 @@ def main() -> int:
                       "lstm": by_path["lstm"][1], "lstm_seq": lstm_seq,
                       "config5_n4": batched["config5_n4"], "config5_n8": batched["config5_n8"],
                       "config1d": batched["config1d"], "pool_fence": batched["fence"],
-                      "config2c": config2c, "config2c_dynbatch": config2c_more, "app": app}),
+                      "config2c": config2c, "config2c_dynbatch": config2c_more, "app": app,
+                      "vit_b16": by_path["vit"][1], "vit_b16_w8a8": by_path["vit_w8a8"][1],
+                      "config4c": by_path["config4c"][1], "config4d": config4d}),
           flush=True)
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

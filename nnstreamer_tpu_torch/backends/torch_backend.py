@@ -239,10 +239,12 @@ def _failing_op(exc: BaseException) -> str:
     return "unknown op"
 
 
-def capture_graph(fn: Callable, in_spec: TensorsSpec, device: torch.device,
-                  warmup_calls: int = WARMUP_CALLS) -> CapturedGraph:
-    """Capture ``fn`` at ``in_spec`` on ``device`` as one CUDA graph: zeros
-    as static inputs, ``warmup_calls`` eager calls on a side stream first.
+def capture_calls(fn: Callable[[], Any], device: torch.device,
+                  warmup_calls: int = WARMUP_CALLS):
+    """``fn()`` captured on ``device`` as one CUDA graph over the tensors it
+    reads, after ``warmup_calls`` eager calls on a side stream.  Returns
+    the graph, the captured call's outputs (each replay rewrites them), and
+    the warm-up's and the capture's wall seconds.
 
     ``capture_error_mode="thread_local"``: the capture refuses an unsafe
     call (a host synchronization) from this thread, but not the upload's
@@ -252,23 +254,31 @@ def capture_graph(fn: Callable, in_spec: TensorsSpec, device: torch.device,
     upload's copies already issued, but cannot deadlock against them, since
     those copies wait on nothing of the filter's and the upload's thread
     takes no lock that the filter's thread holds."""
-    static_in = tuple(torch.zeros(t.shape, dtype=torch_dtype(t.dtype), device=device)
-                      for t in in_spec.tensors)
     side = torch.cuda.Stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
     t0 = time.perf_counter()
     with torch.inference_mode(), torch.cuda.stream(side):
         for _ in range(warmup_calls):
-            fn(*static_in)
+            fn()
     torch.cuda.current_stream(device).wait_stream(side)
     torch.cuda.synchronize(device)
     t1 = time.perf_counter()
     graph = torch.cuda.CUDAGraph()
     with torch.inference_mode(), torch.cuda.graph(graph, capture_error_mode="thread_local"):
-        static_out = _as_tuple(fn(*static_in))
+        out = fn()
     torch.cuda.synchronize(device)
-    return CapturedGraph(graph, fn, static_in, static_out, warmup_calls, t1 - t0,
-                         time.perf_counter() - t1)
+    return graph, out, t1 - t0, time.perf_counter() - t1
+
+
+def capture_graph(fn: Callable, in_spec: TensorsSpec, device: torch.device,
+                  warmup_calls: int = WARMUP_CALLS) -> CapturedGraph:
+    """Capture ``fn`` at ``in_spec`` on ``device`` as one CUDA graph, zeros
+    as its static inputs (:func:`capture_calls`)."""
+    static_in = tuple(torch.zeros(t.shape, dtype=torch_dtype(t.dtype), device=device)
+                      for t in in_spec.tensors)
+    graph, static_out, warmup_s, capture_s = capture_calls(
+        lambda: _as_tuple(fn(*static_in)), device, warmup_calls)
+    return CapturedGraph(graph, fn, static_in, static_out, warmup_calls, warmup_s, capture_s)
 
 
 @register_backend("torch")

@@ -1,1 +1,3 @@
-"""Model zoo of the port: MobileNet-v2 for the image-labeling pipeline."""
+"""Model zoo of the port: the CNNs of the image, detection, pose and audio
+paths, the LSTM, and the transformer family (encoder, decode cell, ViT, the
+byte-level text classifier)."""

@@ -22,9 +22,10 @@ Not ported yet, and answered 404 until their modules are: ``/profile``
 (an on-demand device trace, ``obs/profiler.py``) and ``/trace.json`` (the
 flight snapshot a cluster collector federates, ``obs/collector.py``).  The
 SLO engine behind ``/alerts`` (``obs/slo.py``, which the JAX package's
-server starts with itself), the serving engine's gauges
-(``register_engine``) and the fleet's incarnation nonce in ``/healthz``
-come with the subsystems that use them.
+server starts with itself) and the fleet's incarnation nonce in
+``/healthz`` come with the subsystems that use them.  The serving engine's
+``stats()`` reaches the scrape as ``nnstpu_serving_*`` gauges through
+:func:`register_engine` (``ContinuousBatcher.publish_metrics``).
 """
 
 from __future__ import annotations
@@ -391,3 +392,21 @@ def shutdown_server() -> None:
         if _server is not None:
             _server.stop()
             _server = None
+
+
+def register_engine(engine, registry: Optional[MetricsRegistry] = None,
+                    prefix: str = "nnstpu_serving"):
+    """Republish a serving engine's ``stats()`` as gauges, refreshed at each
+    scrape (its numeric and boolean fields; the per-slot map is left out).
+    Returns the collector for :meth:`MetricsRegistry.remove_collector`."""
+    registry = registry if registry is not None else REGISTRY
+
+    def collect():
+        for key, val in engine.stats().items():
+            if isinstance(val, bool):
+                val = int(val)
+            if not isinstance(val, (int, float)):
+                continue
+            registry.gauge(f"{prefix}_{key}", f"serving engine stats() field {key!r}").set(val)
+
+    return registry.add_collector(collect)

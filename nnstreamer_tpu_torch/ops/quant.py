@@ -198,13 +198,17 @@ def int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(a, b)[:m]
 
 
-def matmul_int8(x: torch.Tensor, qw: QuantizedWeight, dtype=torch.float32) -> torch.Tensor:
+def matmul_int8(x: torch.Tensor, qw: QuantizedWeight, dtype=torch.float32,
+                w_mat=None) -> torch.Tensor:
     """W8A8 ``(..., d) @ (d, dout)``: int8 operands, int32 accumulation,
     one scale per row (``axes=(-1,)``), the product rescaled by ``row scale
-    * channel scale`` in float32."""
+    * channel scale`` in float32.  ``w_mat``: ``qw.q`` as
+    :func:`int8_weight_matrix` gives it, made once by the caller (else it
+    is made on each call)."""
     q, s = quantize_activations(x, axes=(-1,))
     dout = qw.q.shape[1]
-    y = int_mm(q.reshape(-1, q.shape[-1]), int8_weight_matrix(qw.q))[:, :dout]
+    w_mat = int8_weight_matrix(qw.q) if w_mat is None else w_mat
+    y = int_mm(q.reshape(-1, q.shape[-1]), w_mat)[:, :dout]
     y = y.reshape(*q.shape[:-1], dout)
     rescale = s * qw.scale.reshape(-1).to(torch.float32)
     return (y.to(torch.float32) * rescale).to(dtype)

@@ -18,7 +18,12 @@ anchor, class, box or label fails; scores within the margin may swap), its
 dynbatch rows each frame's batch-1 reference and the next frame's (a
 swapped row fails, and so do frames too alike to tell apart); the element
 cascade's and the app phase's get output frames, sink pts, logits and the
-CLI's output.
+CLI's output.  The transformer family's checks get backend stats and wrapper
+counts (the ViT path), card and CPU logits (a drift past the tolerance or a
+top-1 flip past a clear lead fails; a close call may swap), config 4c's
+outputs against its eager loop (one bit apart fails) and config 4d's
+streams served among others, alone and eagerly (a bit apart, or a stream's
+outputs in another's place, fails).
 """
 
 import importlib.util
@@ -863,3 +868,144 @@ def test_cascade_and_app_strings_name_the_path(smoke):
         a.index("tensor_filter") < a.index("output-selector name=s")
     assert "int8_head=1" in a and "s.src_1 ! tensor_sink name=b" in a
     assert f"num-buffers={smoke.CLI_FRAMES}" in smoke.cli_desc("m.npz")
+
+
+# -- the transformer family's checks (ViT-B/16, config 4c, config 4d) -----------------
+
+VIT_STATS = {"captures": 1, "replays": 64, "warmup_calls": 3}
+VIT_LAUNCHES = {"fused_arith": 4, "int8_matmul": 0, "pallas_nms_keep": 0}
+
+
+@pytest.mark.parametrize("case, ok", [
+    ("exact", True), ("recapture", False), ("replays", False), ("fused_in_replay", False),
+    ("int8_matmul", False), ("nms", False)])
+def test_vit_checks(smoke, case, ok):
+    stats, launches = dict(VIT_STATS), dict(VIT_LAUNCHES)
+    if case == "recapture":
+        stats["captures"] = 2
+    elif case == "replays":
+        stats["replays"] = 63
+    elif case == "fused_in_replay":
+        launches["fused_arith"] = 68  # the normalize ran outside the capture
+    elif case == "int8_matmul":
+        launches["int8_matmul"] = 1
+    elif case == "nms":
+        launches["pallas_nms_keep"] = 4
+    if ok:
+        smoke.vit_checks(stats, launches, 64)
+    else:
+        with pytest.raises(SystemExit):
+            smoke.vit_checks(stats, launches, 64)
+
+
+def _logits(seed, n=4, classes=1000):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(classes).astype(np.float32) for _ in range(n)]
+
+
+@pytest.mark.parametrize("case, ok", [
+    ("equal", True), ("drift_within", True), ("close_call_swap", True), ("drift", False),
+    ("top1_flip", False), ("far_swap", False), ("frame_order", False)])
+def test_vit_cpu_check(smoke, case, ok):
+    rel = 1 / 32
+    cpu = _logits(1)
+    for c in cpu:  # each frame's top-1 leads clearly
+        c[int(c.argmax())] += np.float32(4 * rel) * np.abs(c).max()
+    card = [c.copy() for c in cpu]
+    if case == "drift_within":
+        card = [c + np.float32(0.5 * rel) * np.abs(c).max() for c in card]
+    elif case == "close_call_swap":
+        # the CPU's top two within the margin: the card may rank them the other way
+        top, second = np.argsort(cpu[0])[-1], np.argsort(cpu[0])[-2]
+        cpu[0][second] = cpu[0][top] - np.float32(0.25 * rel) * np.abs(cpu[0]).max()
+        card[0] = cpu[0].copy()
+        card[0][second], card[0][top] = cpu[0][top], cpu[0][second]
+    elif case == "drift":
+        card[1] = card[1] + np.float32(2 * rel) * np.abs(card[1]).max()
+    elif case in ("top1_flip", "far_swap"):
+        # a class far below the top pushed above it: beyond the tolerance, or
+        # (far_swap) within it but past a clear lead
+        order = np.argsort(cpu[2])
+        top = order[-1]
+        lead = cpu[2][top] - cpu[2][order[-2]]
+        scale = np.abs(cpu[2]).max()
+        if case == "far_swap":
+            cpu[2][order[-2]] = cpu[2][top] - np.float32(3 * rel) * scale
+            card[2] = cpu[2].copy()
+            card[2][order[-2]] = cpu[2][top] + np.float32(0.1 * rel) * scale
+        else:
+            card[2][order[0]] = cpu[2][top] + lead + np.float32(rel) * scale
+    elif case == "frame_order":
+        card = card[1:] + card[:1]
+    if ok:
+        worst, close = smoke.vit_cpu_check(np, card, cpu, rel)
+        assert worst <= rel and close == (1 if case == "close_call_swap" else 0)
+    else:
+        with pytest.raises(SystemExit):
+            smoke.vit_cpu_check(np, card, cpu, rel)
+
+
+@pytest.mark.parametrize("case, ok", [
+    ("exact", True), ("one_bit", False), ("nan", False), ("short", False), ("dtoh", False),
+    ("recapture", False)])
+def test_decode_checks(smoke, case, ok):
+    got = _logits(2, n=6, classes=16)
+    eager = [g.copy() for g in got]
+    stats, dtoh = {"captures": 1, "replays": 6}, 0
+    if case == "one_bit":
+        got[3] = got[3].copy()
+        got[3].view(np.uint32)[5] ^= 1
+    elif case == "nan":
+        got[4] = np.full(16, np.nan, np.float32)
+        eager[4] = got[4].copy()
+    elif case == "short":
+        got = got[:5]
+    elif case == "dtoh":
+        dtoh = 1  # the cache read back to the host
+    elif case == "recapture":
+        stats["captures"] = 2
+    args = (np, stats, 6, 0, dtoh, got, eager)
+    if ok:
+        smoke.decode_checks(*args)
+    else:
+        with pytest.raises(SystemExit):
+            smoke.decode_checks(*args)
+
+
+@pytest.mark.parametrize("case, ok", [
+    ("exact", True), ("eager_within", True), ("bit_apart", False), ("eager_far", False),
+    ("swapped_streams", False), ("missing_stream", False)])
+def test_staggered_check(smoke, case, ok):
+    rel = 1e-5
+    served = {k: _logits(10 + k, n=5, classes=16) for k in range(3)}
+    alone = {k: [o.copy() for o in v] for k, v in served.items()}
+    eager = {k: [o.copy() for o in v] for k, v in served.items()}
+    if case == "eager_within":
+        eager = {k: [o * np.float32(1 + 0.5 * rel) for o in v] for k, v in served.items()}
+    elif case == "bit_apart":
+        alone[1][2] = alone[1][2].copy()
+        alone[1][2].view(np.uint32)[0] ^= 1
+    elif case == "eager_far":
+        eager[2][4] = eager[2][4] + np.float32(10 * rel) * np.abs(eager[2][4]).max()
+    elif case == "swapped_streams":
+        served[0], served[1] = served[1], served[0]  # a slot's state leaked into another
+    elif case == "missing_stream":
+        del served[2]
+    if ok:
+        assert smoke.staggered_check(np, served, alone, eager, rel) <= rel
+    else:
+        with pytest.raises(SystemExit):
+            smoke.staggered_check(np, served, alone, eager, rel)
+
+
+def test_transformer_constants_are_the_bench_cells(smoke):
+    """Config 4c/4d's cell is bench.py's DECODE_CELL, the engine's capacity
+    and steps leg_config4d's; ViT-B/16 the paper's widths."""
+    assert smoke.DECODE_CELL == dict(t_max=128, d_in=64, n_out=16, d_model=256, n_heads=8,
+                                     n_layers=2)
+    assert (smoke.ENGINE_CAPACITY, smoke.ENGINE_STEPS, smoke.DECODE_STEPS) == (8, 119, 120)
+    assert smoke.DECODE_SLOTS == (92, 93)
+    assert smoke.VIT_B16 == dict(num_classes=1000, patch=16, d_model=768, n_heads=12,
+                                 n_layers=12)
+    assert smoke.STAGGER_STREAMS > smoke.ENGINE_CAPACITY
+    assert smoke.STAGGER_GAP * (smoke.ENGINE_CAPACITY - 1) < smoke.STAGGER_STEPS

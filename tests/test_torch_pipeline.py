@@ -209,6 +209,20 @@ def test_port_runs_with_jax_blocked():
                      g.add(nns.make("tensor_sink", "out", collect=True)))
         g.run(timeout=60)
         assert len(g["out"].frames[0].meta["pose"]) == 14
+        from nnstreamer_tpu_torch import serving
+        from nnstreamer_tpu_torch.models import text_classifier, transformer, vit
+        from nnstreamer_tpu_torch.parallel import full_attention
+        v = vit.build(num_classes=3, image_size=16, patch=8, d_model=16, n_heads=2,
+                      n_layers=1, device="cpu")
+        assert v(torch.zeros(16, 16, 3)).shape == (3,)
+        t = text_classifier.build(seq_len=8, d_model=16, n_heads=2, n_layers=1, device="cpu")
+        assert t(torch.ones(8, dtype=torch.uint8)).shape == (4,)
+        with serving.ContinuousBatcher(capacity=2, t_max=4, d_in=4, n_out=2, d_model=8,
+                                       n_heads=2, n_layers=1, device="cpu") as eng:
+            sess = eng.open_session()
+            sess.prefill(torch.ones(2, 4).numpy())
+            sess.feed(torch.ones(4).numpy())
+            assert [sess.get(timeout=30).shape for _ in range(2)] == [(2,), (2,)]
         assert not any(k in ("jax", "ml_dtypes") or k.startswith(("jax.", "nnstreamer_tpu."))
                        for k, v in sys.modules.items() if v is not None)
         print("labels", [f.meta["label"] for f in chain[-1].frames])
@@ -244,6 +258,16 @@ def test_guard_covers_the_batching_modules():
     assert {"nnstreamer_tpu_torch/elements/batch.py", "nnstreamer_tpu_torch/elements/dynbatch.py",
             "nnstreamer_tpu_torch/graph/warmup.py", "nnstreamer_tpu_torch/pool.py",
             "nnstreamer_tpu_torch/graph/residency.py"} <= files
+
+
+def test_guard_covers_the_transformer_modules():
+    """The import guard reads the transformer family's and the serving
+    engine's files too."""
+    files = {f.relative_to(REPO).as_posix() for f in (REPO / "nnstreamer_tpu_torch").rglob("*.py")}
+    assert {"nnstreamer_tpu_torch/models/transformer.py", "nnstreamer_tpu_torch/models/vit.py",
+            "nnstreamer_tpu_torch/models/text_classifier.py", "nnstreamer_tpu_torch/serving.py",
+            "nnstreamer_tpu_torch/parallel/__init__.py",
+            "nnstreamer_tpu_torch/parallel/ring_attention.py"} <= files
 
 
 def test_port_batching_leaves_the_reference_untouched():
