@@ -278,7 +278,37 @@ In order, it
    prefill's tokens a second (119-token prompts); a ``window=True`` stream
    past t_max against the eager ring; and, timing only, the engine at
    ViT-B's trunk width (768 wide, 12 heads, 12 layers, 75.5 MB of cache);
-23. prints every path number beside the card's name and power limit, one
+23. recovery phase (self-healing on slice 1's string, its queue named
+   ``q``, 64 frames, the filter ``f``): (a) ``invoke_raise@f:every=16``
+   under the ``restart`` policy: 60 frames delivered, 4 restarts and 4
+   frames shed in ``recovery_stats()``, 5 captures (the first and one a
+   restart, each on the filter's thread while the pipeline plays),
+   ``fused_arith`` and ``int8_matmul`` launched in each capture's warm-up
+   and capture, each label equal to the fault-free run's for the same frame
+   and the logits bit for bit (or within 1e-3 relative, a conv algorithm
+   picked differently), the device bytes in use after the run within
+   POOL_SLACK of their value after the first capture (no graph pool
+   leaked), and each restart's wall time from its fault to its recovery
+   record; (b) one fault under ``quarantine-passthrough``: the later frames
+   shed (the filter's in and out specs differ), delivered + shed ==
+   offered; (c) ``compile_raise:count=1``: under ``fail-pipeline`` the start
+   raises the injected fault, under ``restart`` every frame is served from
+   the card after one restart; (d) ``recover_queue`` on a queue wedged by
+   ``queue_wedge`` (every frame drained and counted dropped, the EOS kept,
+   the run ends) and ``restart_source`` on a live source after its first
+   frames (the restarted stream delivers frames 0 to 63 in order);
+24. device-lane phase: the ``device`` tracer on slice 1 and on ViT-B/16
+   (the ViT phase's string), 64 frames each and a traced run of 16: one
+   ``device_exec`` span a dispatch, reaped == dispatched, no probe dropped,
+   each span's CUDA event pair within its enqueue→done time, the mean event
+   pair a frame at least 0.9 of CUPTI's busy time a frame in the traced run,
+   ``nnstpu_compile_total`` moved as the backend's ``stats``, the busy
+   fraction in (0, 1] while playing and 0 after ``stop()`` (``[obs]
+   busy_window_s`` 1), ``device_memory_snapshot()``'s ``cuda:0`` entry
+   (peak >= in use, ViT's parameter bytes in use); ViT's registry FLOPs
+   within 2% of ``vit.flops_per_frame`` and its ``nnstpu_mfu`` at most 1.1
+   of the busy-time share of the peak; then the wire probe;
+25. prints every path number beside the card's name and power limit, one
    JSON line describing every kernel, and last one JSON line
    ``{"ok": true, "device": {...}}``.
 
@@ -4374,7 +4404,7 @@ def vit_desc(n, labels):
             "tensor_sink name=out collect=true")
 
 
-def vit_phase(torch, np, K, ops, root, card):
+def vit_phase(torch, np, K, ops, root, card, keep):
     """ViT-B/16 (bfloat16) handed to the filter of slice 1's launch string,
     64 frames; then its W8A8 form, 16 frames."""
     import nnstreamer_tpu_torch as nns
@@ -4405,6 +4435,7 @@ def vit_phase(torch, np, K, ops, root, card):
         state["src"] = src
         return p
 
+    keep["vit"] = (lambda n: vit_desc(n, labels), model)
     run_pipeline(nns, vit_desc(WARMUP_FRAMES, labels), model, WARMUP_FRAMES)
     K.reset_launches()
     p, arrivals, _ = run_pipeline(nns, vit_desc(FRAMES, labels), model, FRAMES,
@@ -4736,6 +4767,400 @@ def serving_phase(torch, np, card, tree, single_steps_per_s):
     return res
 
 
+RECOVERY_FRAMES = 64
+RESTART_EVERY = 16      # invoke_raise@f:every=16: frames 16, 32, 48 and 64 fault
+QUARANTINE_AFTER = 8    # invoke_raise@f:after=8: one fault, at the ninth frame
+POOL_SLACK = 64 << 20   # device bytes in use after the restarts, over the first capture's
+WEDGE_FRAMES = 12       # the recover_queue run: every frame waits behind the wedge
+LIVE_RATE = 200         # the restart_source run's live source, frames a second
+LANE_WINDOW_S = "1"     # [obs] busy_window_s of the device-lane runs
+EVENT_SLACK_MS = 1e-3   # the event timer's resolution (0.5 us) and the host clock's
+
+
+def device_memory():
+    """The device lane's allocator snapshot (``{"cuda:0": {...}}``)."""
+    from nnstreamer_tpu_torch.obs.device import device_memory_snapshot
+
+    return device_memory_snapshot()
+
+
+def recovery_desc(n, labels, live=False):
+    """Slice 1's launch string with its queue named ``q`` (``live``: a
+    source at LIVE_RATE frames a second)."""
+    pace = f"is-live=true framerate={LIVE_RATE}/1 " if live else ""
+    return (f"videotestsrc name=src num-buffers={n} width={IMAGE} height={IMAGE} "
+            f"pattern=random seed=7 {pace}! tensor_converter name=conv ! "
+            f"tensor_transform mode=arithmetic option={NORMALIZE} acceleration=pallas ! "
+            "tensor_upload name=u ! queue name=q max-size-buffers=16 ! "
+            "tensor_filter framework=torch name=f ! "
+            f"tensor_decoder mode=image_labeling option1={labels} ! "
+            "tensor_sink name=out collect=true")
+
+
+def faulted_run(nns, faults, hooks, desc, model, spec, policy, expect_error=False):
+    """One run of ``desc`` under the fault ``spec`` with ``policy`` on the
+    filter ``f``.  Logs every filter output (pts, tensor) through
+    ``device_dispatch``, and each restart's wall time from its fault to its
+    ``recovery`` record.  Returns (pipeline, outputs, restart seconds, the
+    device bytes in use after the first capture, the error raised)."""
+    outs, walls, fault_t, first_capture = [], [], [], []
+
+    def on_dispatch(node, frame, o, t0):
+        outs.append((frame.pts, o[0]))
+
+    def on_fault(point, kind, target):
+        fault_t.append(time.perf_counter())
+
+    def on_recovery(pipeline, action, target, result):
+        if action == "restart_node" and fault_t:
+            walls.append(time.perf_counter() - fault_t[-1])
+
+    def on_compile(backend, key, result, dur, info):
+        if result == "miss" and not first_capture:
+            first_capture.append(device_memory()["cuda:0"]["bytes_in_use"])
+
+    p = nns.parse_launch(desc)
+    p["f"].model = model
+    if policy is not None:
+        p.set_restart_policy("f", **policy)
+    eng = faults.install(spec) if spec else None
+    hooked = (("device_dispatch", on_dispatch), ("fault", on_fault),
+              ("recovery", on_recovery), ("compile", on_compile))
+    for name, fn in hooked:
+        hooks.connect(name, fn)
+    error = None
+    try:
+        try:
+            p.start()
+            check(p.wait(600), f"the pipeline did not finish within 600 s: {desc}")
+        except Exception as exc:  # noqa: BLE001 - the caller checks what was raised
+            if not expect_error:
+                raise
+            error = exc
+        mem = device_memory()["cuda:0"]["bytes_in_use"] if not expect_error else None
+    finally:
+        p.stop()
+        for name, fn in hooked:
+            hooks.disconnect(name, fn)
+        faults.deactivate()
+    return p, outs, walls, (first_capture[0] if first_capture else None, mem), eng, error
+
+
+def recovery_phase(torch, np, K, root, card, keep):
+    """Self-healing on slice 1 at full width: restarts under injected
+    invoke faults (labels and logits against the fault-free run, 5 captures,
+    no graph pool leaked), quarantine, compile faults under fail-pipeline and
+    restart, and restart_source and recover_queue on running pipelines."""
+    import nnstreamer_tpu_torch as nns
+    from nnstreamer_tpu_torch import faults
+    from nnstreamer_tpu_torch.obs import hooks
+
+    _, model, _, _ = keep["image_labeling"]
+    labels = os.path.join(root, "build", "chip_smoke", "labels_1001.txt")
+    desc = recovery_desc(RECOVERY_FRAMES, labels)
+    restart = dict(mode="restart", backoff_ms=1, backoff_cap_ms=5, max_restarts=8)
+    res = {}
+
+    # (a) the fault-free run, then restart under invoke_raise@f:every=16
+    p0, clean, _, _, _, _ = faulted_run(nns, faults, hooks, desc, model, None, None)
+    want = {pts: o for pts, o in clean}
+    want_labels = {f.pts: f.meta["label_index"] for f in p0["out"].frames}
+    check(len(want) == RECOVERY_FRAMES, f"the fault-free run gave {len(want)} outputs")
+    K.reset_launches()
+    p, outs, walls, (mem_first, mem_after), eng, _ = faulted_run(
+        nns, faults, hooks, desc, model, f"invoke_raise@f:every={RESTART_EVERY}", restart)
+    launches = {k.__name__: k.launches for k in K.KERNELS}
+    got = p["out"].frames
+    rec, stats = p.recovery_stats(), dict(p["f"].backend.stats)
+    faults_n = RECOVERY_FRAMES // RESTART_EVERY
+    print(f"recovery (a) restart: {len(got)} of {RECOVERY_FRAMES} frames delivered, "
+          f"{rec}, backend {stats}, wrapper launches {launches} [{card}]", flush=True)
+    check(eng.injections == {"invoke_raise": faults_n}, f"injections {eng.injections}")
+    check(len(got) == RECOVERY_FRAMES - faults_n, f"{len(got)} frames delivered")
+    check(rec.get("actions") == {"restart_node": faults_n} and rec.get("shed_total") == faults_n,
+          f"recovery ledger {rec}")
+    check(stats["captures"] == faults_n + 1, f"{stats['captures']} captures, expected "
+                                             f"{faults_n + 1}")
+    for name in ("fused_arith", "int8_matmul"):
+        check(launches[name] == (faults_n + 1) * (stats["warmup_calls"] // stats["captures"] + 1),
+              f"{name}: {launches[name]} launches over {stats['captures']} captures")
+    check([f.meta["label_index"] for f in got] == [want_labels[f.pts] for f in got],
+          "a label differs from the fault-free run's frame")
+    check(len(outs) == len(got), f"{len(outs)} filter outputs for {len(got)} frames")
+    worst = 0.0
+    for pts, o in outs:
+        w = want[pts]
+        if not bitwise_equal(torch, o, w):
+            worst = max(worst, float((o.double() - w.double()).abs().max()
+                                     / w.double().abs().max()))
+    check(worst <= 1e-3, f"logits differ from the fault-free run's by {worst} (relative)")
+    growth = mem_after - mem_first
+    print(f"recovery (a): logits {'bitwise equal to' if worst == 0.0 else 'within '}"
+          f"{'' if worst == 0.0 else f'{worst:.3g} of'} the fault-free run's on "
+          f"{len(outs)} frames; restart wall s {[round(w, 4) for w in walls]}; device bytes "
+          f"in use {mem_first} after the first capture, {mem_after} after the run "
+          f"({growth:+d}) [{card}]", flush=True)
+    check(len(walls) == faults_n, f"{len(walls)} restart walls")
+    check(growth <= POOL_SLACK, f"device bytes in use grew by {growth} over {faults_n} "
+                                "restarts: a graph pool leaked")
+    res.update(delivered=len(got), recovery=rec, captures=stats["captures"],
+               restart_wall_s=walls, logits_rel_err=worst, bytes_in_use_first_capture=mem_first,
+               bytes_in_use_after=mem_after, launches=launches)
+
+    # (b) quarantine-passthrough: f's in and out specs differ, so every
+    # frame after the fault is shed
+    p, _, _, _, eng, _ = faulted_run(nns, faults, hooks, desc, model,
+                                     f"invoke_raise@f:after={QUARANTINE_AFTER}",
+                                     dict(mode="quarantine-passthrough"))
+    rec = p.recovery_stats()
+    n_out = len(p["out"].frames)
+    print(f"recovery (b) quarantine: {n_out} delivered, {rec} [{card}]", flush=True)
+    check(n_out == QUARANTINE_AFTER and rec.get("quarantined") == ["f"],
+          f"quarantine delivered {n_out}: {rec}")
+    check(n_out + rec["shed_total"] == RECOVERY_FRAMES, "delivered + shed != offered")
+    res["quarantine"] = dict(delivered=n_out, recovery=rec)
+
+    # (c) compile_raise:count=1 under fail-pipeline, then under restart
+    p, _, _, _, _, error = faulted_run(nns, faults, hooks, desc, model, "compile_raise:count=1",
+                                       None, expect_error=True)
+    check(isinstance(error, faults.InjectedFault), f"fail-pipeline raised {error!r}")
+    t0 = time.perf_counter()
+    p, outs, _, _, eng, _ = faulted_run(nns, faults, hooks, desc, model, "compile_raise:count=1",
+                                        restart)
+    wall = time.perf_counter() - t0
+    stats, rec = dict(p["f"].backend.stats), p.recovery_stats()
+    on_card = sum(o.is_cuda for _, o in outs)
+    print(f"recovery (c) compile_raise: fail-pipeline raised {type(error).__name__}; restart "
+          f"delivered {len(p['out'].frames)}, {on_card} outputs on the card, backend {stats}, "
+          f"{rec}, run wall {wall:.3f} s [{card}]", flush=True)
+    check(len(p["out"].frames) == RECOVERY_FRAMES and on_card == RECOVERY_FRAMES,
+          "a frame was not served from the card after the compile fault")
+    check(stats["captures"] == 1 and stats["replays"] == RECOVERY_FRAMES, f"backend {stats}")
+    check(rec == {"actions": {"restart_node": 1}}, f"recovery ledger {rec}")
+    res["compile_raise"] = dict(fail_pipeline=type(error).__name__, recovery=rec,
+                                on_card=on_card, captures=stats["captures"])
+
+    # (d) recover_queue: every frame and the EOS wait behind a wedged queue
+    faults.install("queue_wedge@q:count=1,ms=1500")
+    p = nns.parse_launch(recovery_desc(WEDGE_FRAMES, labels))
+    p["f"].model = model
+    q = p["q"]
+    try:
+        p.start()
+        deadline = time.monotonic() + 30
+        while len(q._q) < WEDGE_FRAMES + 1 and time.monotonic() < deadline:
+            time.sleep(0.002)
+        depth = len(q._q)
+        drained = p.recover_queue("q")
+        left = len(q._q)
+        check(p.wait(600), "the run did not end after recover_queue")
+    finally:
+        p.stop()
+        faults.deactivate()
+    rec = p.recovery_stats()
+    print(f"recovery (d) recover_queue: depth {depth}, drained {drained}, dropped {q.dropped}, "
+          f"{left} left (the EOS), {len(p['out'].frames)} delivered, {rec} [{card}]", flush=True)
+    check(depth == WEDGE_FRAMES + 1 and drained == q.dropped == WEDGE_FRAMES and left == 1,
+          "recover_queue did not drain the frames and keep the EOS")
+    check(len(p["out"].frames) + rec["shed_total"] == WEDGE_FRAMES, "delivered + shed != offered")
+
+    # (d) restart_source on a live slice after its first frames
+    p = nns.parse_launch(recovery_desc(RECOVERY_FRAMES, labels, live=True))
+    p["f"].model = model
+    try:
+        p.start()
+        deadline = time.monotonic() + 30
+        while len(p["out"].frames) < 8 and time.monotonic() < deadline:
+            time.sleep(0.001)
+        t0 = time.perf_counter()
+        check(p.restart_source("src"), "restart_source refused")
+        restart_s = time.perf_counter() - t0
+        check(p.wait(600), "the run did not end after restart_source")
+    finally:
+        p.stop()
+    pts = [f.pts for f in p["out"].frames]
+    dur = 10**9 // LIVE_RATE  # a frame's pts step
+    first = [t // dur for t in pts[:-RECOVERY_FRAMES]]
+    print(f"recovery (d) restart_source: {len(first)} frames of the first stream, then "
+          f"{len(pts) - len(first)}; {p.recovery_stats()}, restart {restart_s:.4f} s [{card}]",
+          flush=True)
+    check(first == list(range(len(first))) and len(first) >= 8, f"first stream {first}")
+    check([t // dur for t in pts[-RECOVERY_FRAMES:]] == list(range(RECOVERY_FRAMES)),
+          "the restarted stream is not frames 0 to 63 in order")
+    check(p.recovery_stats() == {"actions": {"restart_source": 1}}, "restart_source ledger")
+    res["recover_queue"] = dict(drained=drained, dropped=q.dropped, depth=depth)
+    res["restart_source"] = dict(first_stream=len(first), restart_s=restart_s)
+    return launches, res
+
+
+def gauge_value(REGISTRY, name, **labels):
+    """The value of a gauge's child with these labels (None if absent)."""
+    metric = REGISTRY.get(name)
+    if metric is None:
+        return None
+    for values, child in metric.children():
+        if dict(zip(metric.labelnames, values)) == labels:
+            return child.value
+    return None
+
+
+def compile_counts(REGISTRY):
+    metric = REGISTRY.get("nnstpu_compile_total")
+    return {} if metric is None else {v[0]: c.value for v, c in metric.children()}
+
+
+def lane_run(nns, desc, model, n, traced):
+    """One run of ``desc`` (``n`` frames) with the ``device`` tracer
+    attached; ``traced``: under CUPTI, the upload's lock holding the source
+    until the start has returned.  Returns the readings."""
+    from nnstreamer_tpu_torch.obs import spans, util
+    from nnstreamer_tpu_torch.obs.device import DeviceTracer
+    from nnstreamer_tpu_torch.obs.metrics import REGISTRY
+
+    spans.clear()
+    p = nns.parse_launch(desc)
+    p["f"].model = model
+    tracer = p.attach_tracer(DeviceTracer())
+    before = compile_counts(REGISTRY)
+    gate = p["u"]._lock
+    if traced:
+        gate.acquire()
+    try:
+        p.start()
+    except BaseException:
+        if traced:
+            gate.release()
+        raise
+    try:
+        if traced:
+            tr = trace(lambda: (time.sleep(0.25), gate.release(),
+                                check(p.wait(600), "traced run did not finish")))
+        else:
+            tr = None
+            check(p.wait(600), "the device-lane run did not finish")
+        deadline = time.monotonic() + 30
+        while tracer.summary()["completed"] < n and time.monotonic() < deadline:
+            time.sleep(0.002)
+        REGISTRY.collect()
+        out = dict(busy_playing=gauge_value(REGISTRY, "nnstpu_device_busy_fraction",
+                                            device="cuda:0"),
+                   stats=dict(p["f"].backend.stats), cost=util.cost_of(p["f"].backend.cost_key()),
+                   memory=device_memory(), trace=tr)
+        out["mfu"] = next((c.value for v, c in REGISTRY.get("nnstpu_mfu").children()
+                           if v[1] == "f"), None)
+    finally:
+        p.stop()
+    out["summary"] = tracer.summary()
+    out["compiles"] = {k: v - before.get(k, 0) for k, v in compile_counts(REGISTRY).items()
+                       if v - before.get(k, 0)}
+    out["spans"] = [r for r in spans.snapshot() if r[4] == "device_exec"]
+    out["delivered"] = len(p["out"].frames)
+    out["tracer"] = tracer
+    return out
+
+
+def lane_checks(r, n, name):
+    """One device_exec span a dispatch, reaped == dispatched, no probe
+    dropped, each span's event-pair time within its enqueue→done time, the
+    compile counters equal to the backend's stats."""
+    s, stats = r["summary"], r["stats"]
+    check(r["delivered"] == n, f"{name}: {r['delivered']} of {n} frames delivered")
+    check(s["dispatches"] == s["completed"] == n and s["dropped"] == 0,
+          f"{name}: {s['dispatches']} dispatched, {s['completed']} reaped, {s['dropped']} dropped")
+    check(len(r["spans"]) == n, f"{name}: {len(r['spans'])} device_exec spans for {n} frames")
+    for rec in r["spans"]:
+        args = rec[9]
+        check(args["device"] == "cuda:0" and "device_ms" in args, f"{name}: span args {args}")
+        check(args["device_ms"] <= rec[2] / 1e6 + EVENT_SLACK_MS,
+              f"{name}: event pair {args['device_ms']} ms over enqueue→done {rec[2] / 1e6} ms")
+    want = {"miss": stats["captures"], "hit": stats["hits"], "evict": stats["evictions"]}
+    check({k: v for k, v in want.items() if v} == r["compiles"],
+          f"{name}: nnstpu_compile_total moved by {r['compiles']}, backend {stats}")
+    check(s["compiles"]["miss"] == stats["captures"] and s["compiles"]["hit"] == stats["hits"],
+          f"{name}: the tracer's compiles {s['compiles']}, backend {stats}")
+    return sum(rec[9]["device_ms"] for rec in r["spans"]) / n
+
+
+def device_lane_phase(torch, np, K, root, card, keep, busy_share):
+    """The ``device`` tracer on slice 1 and on ViT-B/16, 64 frames each and
+    a traced run of PROFILED frames: spans, event-pair device time against
+    CUPTI's busy time, the cost registry's FLOPs, MFU, capture counters,
+    memory, the busy fraction and its decay; then the wire probe."""
+    import nnstreamer_tpu_torch as nns
+    from nnstreamer_tpu_torch.models import vit
+    from nnstreamer_tpu_torch.obs import util
+    from nnstreamer_tpu_torch.obs.metrics import REGISTRY
+
+    os.environ["NNSTPU_OBS_BUSY_WINDOW_S"] = LANE_WINDOW_S
+    res = {}
+    try:
+        K.reset_launches()
+        for name in ("image_labeling", "vit"):
+            desc, model = keep[name][0], keep[name][1]
+            full = lane_run(nns, desc(FRAMES), model, FRAMES, traced=False)
+            event_ms = lane_checks(full, FRAMES, name)
+            traced = lane_run(nns, desc(PROFILED), model, PROFILED, traced=True)
+            traced_event_ms = lane_checks(traced, PROFILED, name)
+            busy_ms = traced["trace"]["busy_ms"] / PROFILED
+            mem = full["memory"]["cuda:0"]
+            r = dict(event_ms_per_frame=event_ms, traced_event_ms_per_frame=traced_event_ms,
+                     cupti_busy_ms_per_frame=busy_ms, busy_fraction_playing=full["busy_playing"],
+                     mfu=full["mfu"], cost=full["cost"], memory=mem,
+                     compiles=full["compiles"], enqueue_to_done_ms_per_frame=(
+                         full["summary"]["device_ns"] / FRAMES / 1e6))
+            print(f"device lane, {name}: event pair {event_ms:.4f} ms a frame ({FRAMES} frames), "
+                  f"{traced_event_ms:.4f} ms in the traced run against CUPTI busy "
+                  f"{busy_ms:.4f} ms; enqueue→done {r['enqueue_to_done_ms_per_frame']:.4f} ms; "
+                  f"busy fraction while playing {full['busy_playing']}; nnstpu_mfu {full['mfu']}; "
+                  f"cost {full['cost']}; compiles {full['compiles']}; memory {mem} [{card}]",
+                  flush=True)
+            check(traced_event_ms >= 0.9 * busy_ms, f"{name}: event pair {traced_event_ms} ms "
+                                                    f"under 0.9 x CUPTI busy {busy_ms} ms")
+            check(full["busy_playing"] is not None and 0.0 < full["busy_playing"] <= 1.0,
+                  f"{name}: busy fraction while playing {full['busy_playing']}")
+            check(mem["peak_bytes_in_use"] >= mem["bytes_in_use"] > 0, f"{name}: memory {mem}")
+            gauge = full["tracer"]._busy_gauge
+            deadline = time.monotonic() + 3 * float(LANE_WINDOW_S)
+            while time.monotonic() < deadline:
+                REGISTRY.collect()
+                if all(c.value == 0.0 for _, c in gauge.children()):
+                    break
+                time.sleep(0.05)
+            check(all(c.value == 0.0 for _, c in gauge.children()),
+                  f"{name}: the busy fraction did not decay to 0 after stop()")
+            res[name] = r
+        cfg = dict(VIT_B16, image_size=IMAGE)
+        flops = vit.flops_per_frame(cfg["image_size"], cfg["patch"], cfg["d_model"],
+                                    cfg["n_layers"], cfg["num_classes"])
+        v = res["vit"]
+        got = v["cost"]["flops"]
+        check(abs(got - flops) <= 0.02 * flops, f"ViT: the registry's {got} FLOPs against "
+                                               f"{flops} from the shapes")
+        from nnstreamer_tpu_torch.backends.torch_backend import _nbytes
+
+        params = _nbytes(keep["vit"][1].params)
+        check(v["memory"]["bytes_in_use"] >= params, f"ViT: {v['memory']} under its {params} "
+                                                     "parameter bytes")
+        share = flops / (v["cupti_busy_ms_per_frame"] / 1e3) / util.peak_tflops() / 1e12
+        check(v["mfu"] is not None and v["mfu"] <= 1.1 * share,
+              f"ViT: nnstpu_mfu {v['mfu']} above 1.1 x the busy-time share {share}")
+        v.update(flops_from_shapes=flops, busy_share_of_peak=share, parameter_bytes=params,
+                 peak_tflops=util.peak_tflops(), peak_gbs=util.peak_gbs())
+        print(f"device lane, ViT-B/16: registry FLOPs {got} against {flops} from the shapes "
+              f"({(got - flops) / flops:+.5f}); nnstpu_mfu {v['mfu']} against the CUPTI "
+              f"busy-time share {share} (the ViT phase's trace: {busy_share}); peaks "
+              f"{v['peak_tflops']} TFLOP/s, {v['peak_gbs']} GB/s [{card}]", flush=True)
+        wire = util.publish_wire_health(util.probe_wire_health())
+        print(f"device lane: wire probe {wire} [{card}]", flush=True)
+        res["wire"] = wire
+        launches = {k.__name__: k.launches for k in K.KERNELS}
+    finally:
+        os.environ.pop("NNSTPU_OBS_BUSY_WINDOW_S", None)
+    for r in res.values():
+        r.pop("tracer", None)
+    return launches, res
+
+
 def _conv_dicts(tree):
     """Every dict of a params tree that holds a weight ``"w"``, in order."""
     if isinstance(tree, dict):
@@ -4849,7 +5274,7 @@ def main() -> int:
     for key, counts in app_launches.items():
         by_path[key] = (counts, {})
     t6 = time.perf_counter()
-    by_path["vit"], by_path["vit_w8a8"] = vit_phase(torch, np, K, ops, root, card)
+    by_path["vit"], by_path["vit_w8a8"] = vit_phase(torch, np, K, ops, root, card, slices)
     t7 = time.perf_counter()
     K.reset_launches()
     by_path["config4c"], decode_tree = decode_phase(torch, np, K, root, card)
@@ -4858,10 +5283,16 @@ def main() -> int:
     config4d = serving_phase(torch, np, card, decode_tree,
                              by_path["config4c"][1]["steps_per_s"])
     by_path["config4d"] = ({k.__name__: k.launches for k in K.KERNELS}, config4d)
+    t9 = time.perf_counter()
+    by_path["recovery"] = recovery_phase(torch, np, K, root, card, slices)
+    t10 = time.perf_counter()
+    by_path["device_lane"] = device_lane_phase(torch, np, K, root, card, slices,
+                                               by_path["vit"][1]["busy_share_of_bf16_peak"])
     print(f"phase wall s: up to the quant phase {t1 - t0:.3f}, pose {t2 - t1:.3f}, "
           f"recurrence {t3 - t2:.3f}, batch {t4 - t3:.3f}, cascade {t5 - t4:.3f}, "
           f"app {t6 - t5:.3f}, vit {t7 - t6:.3f}, config 4c {t8 - t7:.3f}, "
-          f"config 4d {time.perf_counter() - t8:.3f}", flush=True)
+          f"config 4d {t9 - t8:.3f}, recovery {t10 - t9:.3f}, "
+          f"device lane {time.perf_counter() - t10:.3f}", flush=True)
     wrapper = {"fused_arith": "fused_arith", "int8_matmul": "int8_matmul",
                "nms_keep": "pallas_nms_keep"}
     for name, r in kernels.items():
@@ -4883,7 +5314,9 @@ def main() -> int:
                       "config1d": batched["config1d"], "pool_fence": batched["fence"],
                       "config2c": config2c, "config2c_dynbatch": config2c_more, "app": app,
                       "vit_b16": by_path["vit"][1], "vit_b16_w8a8": by_path["vit_w8a8"][1],
-                      "config4c": by_path["config4c"][1], "config4d": config4d}),
+                      "config4c": by_path["config4c"][1], "config4d": config4d,
+                      "recovery": by_path["recovery"][1],
+                      "device_lane": by_path["device_lane"][1]}),
           flush=True)
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -46,6 +46,23 @@ will bring later, ``tensor_dynbatch``'s buckets, before PLAYING:
 changing the active one, and :meth:`TorchBackend.ensure_cache_capacity`
 grows the LRU to hold the ladder.
 
+Every capture-LRU event is accounted in the device lane
+(``obs/device.py`` :func:`record_compile`, with the JAX package's metric
+names: a capture is a ``miss``, a cached capture selected again a ``hit``,
+an entry aged out an ``evict``), and each capture's cost goes to the
+utilization lane's registry (``obs/util.py``): its FLOPs, counted by
+``torch.utils.flop_counter.FlopCounterMode`` over the first of the eager
+warm-up calls that precede the capture (operations without a FLOP formula,
+the port's own kernels among them, count nothing), and a lower bound of its
+bytes, the parameters, inputs and outputs each once.  :meth:`TorchBackend.cost_key`
+names the active capture's entry for the device tracer.
+
+A ``backend_compile`` fault (``faults/``, ``compile_raise``) is consulted
+whenever a geometry is selected, before any capture and never inside
+``torch.cuda.graph``, so an injected raise never leaves a stream
+capturing.  There is no CPU fallback: the fault goes to the node's restart
+policy, or fails the pipeline.
+
 Transform fusion and whole-segment compilation (``graph/optimize.py``,
 ``graph/segments.py``) install a wrapper (:meth:`TorchBackend.set_wrapper`):
 a function of the model call that runs the fused pre-stages, the model and
@@ -92,6 +109,7 @@ from typing import Any, Callable, Optional, Tuple
 
 import torch
 
+from .. import faults as _faults
 from ..conf import conf
 from ..device import resolve_device
 from ..graph.node import NegotiationError
@@ -206,7 +224,8 @@ class CapturedGraph:
     static inputs and outputs, and the function (whose tensors the graph
     reads, so it stays alive with the entry)."""
 
-    def __init__(self, graph, fn, static_in, static_out, warmup_calls, warmup_s, capture_s):
+    def __init__(self, graph, fn, static_in, static_out, warmup_calls, warmup_s, capture_s,
+                 flops=None):
         self.graph = graph
         self.fn = fn
         self.static_in = static_in
@@ -214,6 +233,7 @@ class CapturedGraph:
         self.warmup_calls = warmup_calls
         self.warmup_s = warmup_s
         self.capture_s = capture_s
+        self.flops = flops  # FLOPs of one call, counted over the first warm-up call
 
     def run(self, xs) -> Tuple:
         for s, x in zip(self.static_in, xs):
@@ -273,12 +293,41 @@ def capture_calls(fn: Callable[[], Any], device: torch.device,
 def capture_graph(fn: Callable, in_spec: TensorsSpec, device: torch.device,
                   warmup_calls: int = WARMUP_CALLS) -> CapturedGraph:
     """Capture ``fn`` at ``in_spec`` on ``device`` as one CUDA graph, zeros
-    as its static inputs (:func:`capture_calls`)."""
+    as its static inputs (:func:`capture_calls`).  The first warm-up call
+    runs under ``FlopCounterMode``: the entry's ``flops``."""
+    from torch.utils.flop_counter import FlopCounterMode
+
     static_in = tuple(torch.zeros(t.shape, dtype=torch_dtype(t.dtype), device=device)
                       for t in in_spec.tensors)
-    graph, static_out, warmup_s, capture_s = capture_calls(
-        lambda: _as_tuple(fn(*static_in)), device, warmup_calls)
-    return CapturedGraph(graph, fn, static_in, static_out, warmup_calls, warmup_s, capture_s)
+    counted = []
+
+    def call():
+        if warmup_calls and not counted:
+            with FlopCounterMode(display=False) as counter:
+                out = _as_tuple(fn(*static_in))
+            counted.append(counter.get_total_flops())
+            return out
+        return _as_tuple(fn(*static_in))
+
+    graph, static_out, warmup_s, capture_s = capture_calls(call, device, warmup_calls)
+    return CapturedGraph(graph, fn, static_in, static_out, warmup_calls, warmup_s, capture_s,
+                         flops=counted[0] if counted else None)
+
+
+def _nbytes(obj) -> int:
+    """Bytes of every tensor in a params tree (dicts, lists, tuples,
+    objects with attributes, ``nn.Module`` state)."""
+    if isinstance(obj, torch.nn.Module):
+        obj = obj.state_dict()
+    if isinstance(obj, torch.Tensor):
+        return obj.numel() * obj.element_size()
+    if isinstance(obj, dict):
+        return sum(_nbytes(v) for v in obj.values())
+    if isinstance(obj, (list, tuple)):
+        return sum(_nbytes(v) for v in obj)
+    if hasattr(obj, "__dict__") and not callable(obj):
+        return _nbytes(vars(obj))
+    return 0
 
 
 @register_backend("torch")
@@ -311,6 +360,8 @@ class TorchBackend(FilterBackend):
         self.segment_label = ""
         self.stats = dict(captures=0, hits=0, evictions=0, replays=0, warmup_calls=0,
                           capture_s=0.0, warmup_s=0.0)
+        self._cost_keys: dict = {}  # LRU key -> cost registry key
+        self._cost_key: Optional[str] = None  # the active capture's
 
     def _file_device(self) -> str:
         return self.pinned_device or conf.get("filter", "torch_device")
@@ -338,6 +389,7 @@ class TorchBackend(FilterBackend):
         except ValueError:
             self._cache_size = DEFAULT_COMPILE_CACHE
         self._graphs.clear()  # captures read the old model's tensors
+        self._cost_keys.clear()
         self.set_wrapper(self._wrapper, stages=self._stages)
 
     def _load(self, path: str, custom: str) -> TorchModel:
@@ -361,7 +413,9 @@ class TorchBackend(FilterBackend):
         self._fn = None
         self._entry = None
         self._expected = None
-        self._graphs.clear()
+        self._graphs.clear()  # the graphs and their private memory pools go
+        self._cost_keys.clear()
+        self._cost_key = None
 
     def model_spec(self) -> Optional[TensorsSpec]:
         return self.model.input_spec if self.model is not None else None
@@ -469,13 +523,17 @@ class TorchBackend(FilterBackend):
 
     def _lookup(self, in_spec: TensorsSpec, capture: Callable):
         """The LRU's entry for ``in_spec``, else a new capture (evicting the
-        least recently used)."""
+        least recently used); each event accounted in the device lane."""
+        from ..obs.device import record_compile
+
         key = self._key(in_spec)
         entry = self._graphs.get(key)
         if entry is not None:
             self._graphs.move_to_end(key)
             self.stats["hits"] += 1
+            record_compile(self, key, "hit")
             return entry
+        t0 = time.perf_counter_ns()
         try:
             entry = capture(self._fn, in_spec, self.device)
         except Exception as exc:  # noqa: BLE001 - any capture failure refuses the geometry
@@ -483,23 +541,74 @@ class TorchBackend(FilterBackend):
                 f"torch backend: model {self.model.name!r} cannot be captured as a CUDA "
                 f"graph at {in_spec}: {_failing_op(exc)}: {type(exc).__name__}: {exc}"
             ) from exc
+        dur_ns = time.perf_counter_ns() - t0
         self.stats["captures"] += 1
         self.stats["warmup_calls"] += getattr(entry, "warmup_calls", 0)
         self.stats["capture_s"] += getattr(entry, "capture_s", 0.0)
         self.stats["warmup_s"] += getattr(entry, "warmup_s", 0.0)
         self._graphs[key] = entry
+        info = self._cost_info(in_spec, entry)
+        self._cost_keys[key] = self._register_cost(key, in_spec, info)
         while len(self._graphs) > self._cache_size:
-            self._graphs.popitem(last=False)
+            evicted, _ = self._graphs.popitem(last=False)
+            self._cost_keys.pop(evicted, None)
             self.stats["evictions"] += 1
+            record_compile(self, evicted, "evict")
+        record_compile(self, key, "miss", dur_ns, info)
         return entry
+
+    def _cost_info(self, in_spec: TensorsSpec, entry) -> dict:
+        """A capture's cost: the FLOPs of one call (``entry.flops``, counted
+        over its first warm-up call) and a lower bound of the bytes it
+        moves, the parameters, the inputs and the outputs each once (the
+        activations in between are not counted)."""
+        info = {}
+        flops = getattr(entry, "flops", None)
+        if flops:
+            info["flops"] = float(flops)
+        nbytes = _nbytes(self.model.apply if isinstance(self.model.apply, torch.nn.Module)
+                         else self.model.params)
+        nbytes += sum(t.nbytes for t in in_spec.tensors)
+        nbytes += _nbytes(list(getattr(entry, "static_out", ())))
+        if nbytes:
+            info["bytes"] = float(nbytes)
+        return info
+
+    def _register_cost(self, key, in_spec: TensorsSpec, info: dict) -> str:
+        """Register a capture's cost with the utilization lane
+        (``obs/util.py``) under a per-process fingerprint, and return the
+        key.  A cost-less capture registers too: its dispatches read
+        ``mfu=None`` instead of vanishing."""
+        from ..obs import util as _obs_util
+
+        bucket = 0
+        if in_spec.tensors and in_spec.tensors[0].shape:
+            bucket = int(in_spec.tensors[0].shape[0] or 0)
+        name = self.model.name
+        if self.segment_label:
+            name = f"{name}+{self.segment_label}"
+        fp = f"{name}:{hash(key) & 0xffffffffffff:012x}"
+        return _obs_util.register_cost(fp, flops=info.get("flops"), bytes=info.get("bytes"),
+                                       bucket=bucket, model=name, devices=1)
+
+    def cost_key(self) -> Optional[str]:
+        """The active capture's cost fingerprint (the device tracer reads it
+        at dispatch time, on the invoking thread)."""
+        return self._cost_key
 
     def _select(self, in_spec: TensorsSpec) -> None:
         """Point ``invoke`` at the capture for ``in_spec`` (:meth:`_lookup`).
         The spec becomes the drift guard's only once that succeeded: after
         a failed capture no frame runs uncaptured."""
+        if _faults.enabled:
+            # chaos point "backend_compile" (compile_raise), before any
+            # capture: the stream is never left capturing
+            _faults.maybe_compile(f"{self.name}:{self.model.name}")
         expected = tuple((torch.Size(t.shape), torch_dtype(t.dtype)) for t in in_spec.tensors)
         capture = self._capture_fn()
         self._entry = self._lookup(in_spec, capture) if capture is not None else None
+        self._cost_key = self._cost_keys.get(self._key(in_spec)) \
+            if self._entry is not None else None
         self._expected = expected
 
     def eager(self, *tensors) -> Tuple:

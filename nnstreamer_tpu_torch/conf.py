@@ -14,7 +14,8 @@ A knob ``[section] key`` is looked up in this order:
 Env vars are read at each lookup, so a knob set after import still counts.
 
 Only the knobs that ported modules read are here, each with the JAX
-package's default but one: ``[filter] torch_device`` defaults to ``cuda``
+package's default (``[recovery] cpu_fallback`` is left out: the port never
+serves a frame from the CPU after a capture fails) but one: ``[filter] torch_device`` defaults to ``cuda``
 (the JAX package's is ``cpu``), since the port's entry points run on the
 card unless asked for the CPU (``NNSTPU_FILTER_TORCH_DEVICE=cpu``).  The
 JAX package's ``[segment] pallas_nms`` is not ported: fused segments here
@@ -68,6 +69,37 @@ DEFAULTS: Dict[str, Dict[str, str]] = {
         "buckets": "",              # latency-histogram bounds, ms ("0.1,1,10")
         "flight_records": "",       # span flight-recorder ring size per thread
         "flight_dump_dir": "",      # write {pipeline}.error.trace.json here
+        # The device lane (obs/device.py): the bound of the completion-probe
+        # queue of the DeviceTracer's reaper thread (overflow drops probes,
+        # counted).
+        "device_probe_queue": "1024",
+        # The utilization lane (obs/util.py): MFU and roofline peaks ("" =
+        # the card's published default by its name, e.g. the H100 SXM's
+        # 989 TFLOP/s bf16 and 3350 GB/s), the sliding window behind
+        # nnstpu_device_busy_fraction, and the shortest device idle gap
+        # that becomes a device_idle flight span.
+        "peak_tflops": "",
+        "peak_gbs": "",
+        "busy_window_s": "10",
+        "device_idle_gap_ms": "5",
+    },
+    # The chaos engine (faults/): seeded fault injection.  The short env
+    # spelling NNSTPU_FAULTS takes precedence over NNSTPU_FAULTS_SPEC.
+    "faults": {
+        "spec": "",                 # e.g. "seed=42;invoke_raise@f:every=5"
+        "seed": "0",                # default seed (a seed= clause wins)
+    },
+    # Self-healing (graph/pipeline.py restart policies).  There is no
+    # [recovery] cpu_fallback: a capture that fails is never served from
+    # the CPU.
+    "recovery": {
+        "policy": "",               # default per-node policy: restart |
+                                    # quarantine-passthrough | fail-pipeline
+                                    # ("" = fail-pipeline)
+        "max_restarts": "5",        # restart-storm budget per node ...
+        "window_s": "30",           # ... within this sliding window
+        "backoff_ms": "50",         # first restart backoff (doubles)
+        "backoff_cap_ms": "2000",   # backoff ceiling
     },
     # The shared host buffer pool (pool.py).
     "pool": {
@@ -95,6 +127,9 @@ SHORT_ENV: Dict[str, Optional[tuple]] = {
     "NNSTPU_METRICS_PORT": ("common", "metrics_port"),
     "NNSTPU_METRICS_BUCKETS": ("obs", "buckets"),
     "NNSTPU_FLIGHT_RECORDS": ("obs", "flight_records"),
+    "NNSTPU_PEAK_TFLOPS": ("obs", "peak_tflops"),
+    "NNSTPU_PEAK_GBS": ("obs", "peak_gbs"),
+    "NNSTPU_FAULTS": ("faults", "spec"),
 }
 
 

@@ -27,7 +27,15 @@ With profiling on (``utils/profiling.py``) each invoke is timed until its
 outputs are done on the device, waiting on the filter stream's work alone,
 and recorded under the filter's name (``Pipeline.stats``).  With a tracer
 attached, ``device_dispatch`` fires after the invoke has returned (on the
-host, never inside a capture).
+host, never inside a capture); while a ``device`` tracer is attached
+(``obs/device.py``), a CUDA event is recorded on the filter's stream before
+the invoke and another right after it, and the pair rides on the node to
+the tracer, which times the dispatch on the card with them.
+
+A ``backend_invoke`` fault (``faults/``: ``invoke_delay``,
+``device_stall``, ``invoke_raise``) is consulted before the invoke, outside
+any capture; an injected raise is handled like a real one, by the node's
+restart policy or by halting the graph.
 """
 
 from __future__ import annotations
@@ -37,10 +45,12 @@ from typing import Dict, Optional
 
 import torch
 
+from .. import faults as _faults
 from ..backends.base import FilterBackend, get_backend
 from ..buffer import Frame
 from ..graph.node import NegotiationError, Node, Pad
 from ..graph.registry import register_element
+from ..obs import device as _device
 from ..obs import hooks as _hooks
 from ..spec import TensorSpec, TensorsSpec, dtype_from_name
 from ..utils import profiling
@@ -77,6 +87,8 @@ class TensorFilter(Node):
         self._opened = False
         self._fused_pre: list = []  # stages folded in before the model
         self._fused_post: list = []  # and after it
+        # the last dispatch's CUDA event pair, for the device tracer
+        self._device_events = None
 
     def set_fused_transforms(self, pre: list, post: list) -> None:
         """Install the stages folded into this filter (called by the graph
@@ -263,20 +275,31 @@ class TensorFilter(Node):
 
     def process(self, pad: Pad, frame: Frame):
         del pad
+        if _faults.enabled:
+            # chaos point "backend_invoke": invoke_delay / device_stall sleep
+            # here, invoke_raise raises (handled like a real fault)
+            _faults.maybe_invoke(self.name)
         with torch.inference_mode():
-            if profiling.enabled():
-                t0 = time.perf_counter_ns()
-                outs = self.backend.invoke(frame.tensors)
-                profiling.block_outputs(outs)
-                profiling.record(self.name, time.perf_counter_ns() - t0)
-                if _hooks.enabled:
-                    _hooks.emit("device_dispatch", self, frame, outs, t0)
-            elif _hooks.enabled:
-                t0 = time.perf_counter_ns()
-                outs = self.backend.invoke(frame.tensors)
-                _hooks.emit("device_dispatch", self, frame, outs, t0)
+            if _hooks.enabled or profiling.enabled():
+                outs = self._observed_invoke(frame)
             else:
                 outs = self.backend.invoke(frame.tensors)
         if not outs:
             return None
         return frame.with_tensors(outs)
+
+    def _observed_invoke(self, frame: Frame):
+        """The invoke with profiling (timed to its outputs' completion) or
+        tracers attached (``device_dispatch`` after it; with a device
+        tracer, a CUDA event pair around it)."""
+        t0 = time.perf_counter_ns()  # before the first event: the card cannot reach it sooner
+        begin = _device.record_begin(self.backend) if _device.event_timing() else None
+        outs = self.backend.invoke(frame.tensors)
+        if _device.event_timing():
+            self._device_events = _device.record_end(begin, outs)
+        if profiling.enabled():
+            profiling.block_outputs(outs)
+            profiling.record(self.name, time.perf_counter_ns() - t0)
+        if _hooks.enabled:
+            _hooks.emit("device_dispatch", self, frame, outs, t0)
+        return outs

@@ -15,8 +15,12 @@ events (EOS, caps) are never dropped.  The hook bus sees each push and pop
 with the depth after it (``queue_push``/``queue_pop``) and each leaky drop
 with its reason (``queue_drop``).  As in the JAX package, a push becomes
 poppable before its ``queue_push`` fires, so a fast consumer's ``queue_pop``
-may come first.  Not ported yet: the dispatcher-lane mode (``lane_task``)
-and ``recover()`` (with its ``recovery`` drops).
+may come first.  :meth:`Queue.recover` sheds a wedged backlog for
+``Pipeline.recover_queue`` (each frame a ``recovery`` drop, events kept in
+place) and hands back a fresh worker if the old one died; a
+``queue_wedge`` fault (``faults/``) sleeps in the worker loop, so pushes
+pile up while pops stop.  Not ported yet: the dispatcher-lane mode
+(``lane_task``).
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from __future__ import annotations
 import threading
 from typing import List, Optional
 
+from .. import faults as _faults
 from ..buffer import Event
 from ..graph.node import Node, Pad
 from ..graph.registry import register_element
@@ -75,6 +80,10 @@ class Queue(Node):
         q = self._q  # stop() may drop the attribute while this drains
         sink = self.sink_pads["sink"]
         while True:
+            if _faults.enabled:
+                # chaos: a queue_wedge fault sleeps here, so pushes pile up
+                # while pops stop
+                _faults.maybe_queue_wedge(self.name)
             status, item = q.pop(_POLL_MS)
             if status == SHUTDOWN:
                 return
@@ -106,6 +115,36 @@ class Queue(Node):
             "dropped": self.dropped,
             "leaky": self.leaky,
         }
+
+    def recover(self):
+        """Supervised recovery (``Pipeline.recover_queue``): shed the wedged
+        backlog (each frame dropped with typed accounting, the in-band
+        events, EOS and caps, queued again in order) and hand back a fresh
+        worker thread if the old one died.  Returns ``(frames_drained,
+        new_threads)``."""
+        q = self._q
+        drained = 0
+        if q is not None:
+            events = []
+            while True:
+                status, item = q.pop(0)
+                if status != OK:
+                    break
+                if isinstance(item, Event):
+                    events.append(item)
+                    continue
+                drained += 1
+                self.dropped += 1
+                if _hooks.enabled:
+                    _hooks.emit("queue_drop", self, "recovery")
+            for ev in events:
+                q.push(ev, leaky="no")
+        threads: List[threading.Thread] = []
+        t = self._worker_thread
+        if q is not None and (t is None or not t.is_alive()):
+            self._worker_thread = threading.Thread(target=self._worker, name=f"queue:{self.name}")
+            threads.append(self._worker_thread)
+        return drained, threads
 
     def interrupt(self) -> None:
         """Wake the worker and any producer blocked on a full queue."""

@@ -17,6 +17,11 @@ A ``queue`` only enqueues the frame and overrides ``_dispatch``: it does not
 wait, so the copy of one frame never holds up the work queued on the stream
 for the one before.
 
+A frame whose ``process`` raises goes to the pipeline's restart policy for
+the node (``graph/pipeline.py``), which may restart or quarantine the node
+and drop the frame; a quarantined node passes frames on unchanged or sheds
+them.
+
 Tracer hook points (``obs/hooks.py``) bracket each dispatch
 (``dispatch_enter``/``dispatch_exit``, the wait for the upload's copy
 included) and mark each pad push (``pad_push``); with no tracer attached
@@ -146,6 +151,11 @@ class Node:
         self.pipeline = None
         self._lock = threading.Lock()
         self._started = False
+        # restart policies (graph/pipeline.py): a quarantined node's process()
+        # is bypassed, its frames passed on unchanged when its specs allow,
+        # else shed (counted by the pipeline)
+        self._quarantined = False
+        self._quarantine_passthrough = False
 
     def add_sink_pad(self, name: str = "sink") -> Pad:
         if name in self.sink_pads:
@@ -234,9 +244,30 @@ class Node:
         if isinstance(item, Event):
             self._handle_event(pad, item)
         else:
-            for t in item.tensors:
-                wait_ready(t)
-            self._emit(self.process(pad, item))
+            self._handle_frame(pad, item)
+
+    def _handle_frame(self, pad: Pad, frame: Frame) -> None:
+        if self._quarantined:
+            # the quarantine-passthrough policy sidelined this node: the raw
+            # frame goes on when its in and out specs line up, else it is
+            # shed (counted either way)
+            if self._quarantine_passthrough:
+                self._emit(frame)
+            elif self.pipeline is not None:
+                self.pipeline._count_shed_frame(self)
+            return
+        for t in frame.tensors:
+            wait_ready(t)
+        try:
+            result = self.process(pad, frame)
+        except Exception as exc:
+            pl = self.pipeline
+            # the node's restart policy may absorb the fault (restart or
+            # quarantine the node, drop the frame); else it halts the graph
+            if pl is not None and pl._node_fault(self, exc):
+                return
+            raise
+        self._emit(result)
 
     def _emit(self, result: ProcessResult) -> None:
         if result is None:
@@ -349,6 +380,9 @@ class SourceNode(Node):
         super().__init__(name)
         self.add_src_pad("src")
         self._stop_evt = threading.Event()
+        # bumped by Pipeline.restart_source: a superseded streaming thread
+        # sees it and exits instead of pushing twice
+        self._epoch = 0
 
     def frames(self) -> Iterable[Frame]:
         raise NotImplementedError

@@ -37,16 +37,35 @@ phase after negotiation (``graph/warmup.py``): every geometry a node plans
 :attr:`Pipeline.warmup_report` says what was captured and how long it
 took; :meth:`Pipeline.warmup` runs the phase on a started pipeline.
 
-Not ported yet: restart policies and quarantine (and ``stats()``'s
-``recovery`` key), the dispatcher lanes (``stats()``'s ``lanes``), the
-device trace of the whole PLAYING interval (``[common]
-xplane_trace_dir``), and the device memory sidecars of a flight dump,
-which wait for the port's device lane and profiler.
+Supervised recovery: a node's restart policy (:meth:`Pipeline.set_restart_policy`,
+or ``[recovery] policy`` for every node) decides what a fault in its
+``process`` does.  ``restart`` drops the frame and runs the node's
+``stop()`` and ``start()`` and its commit phase again, on the thread that
+met the fault (a filter closes and reopens its backend, which drops its
+CUDA graphs and captures again while the pipeline plays), with capped
+exponential backoff and a storm budget; ``quarantine-passthrough``
+sidelines the node; ``fail-pipeline`` (the default) halts the graph.  A
+source whose ``frames()`` raises restarts under ``restart``.  A capture
+that fails while a node negotiates at start (``compile_raise``) goes to
+the node's ``restart`` policy too: the node restarts and negotiates again,
+and no frame is ever served from the CPU instead.
+:meth:`Pipeline.restart_source` and :meth:`Pipeline.recover_queue` are the
+escalations a watchdog calls; :meth:`Pipeline.recovery_stats` (also
+``stats()["recovery"]``) is the ledger: actions, frames shed per node,
+quarantined nodes.  ``[faults] spec`` (``NNSTPU_FAULTS``) installs the
+chaos engine at start (``faults/``).  An error's flight dump carries the
+card's memory (``obs/device.py``) as its ``otherData``.
+
+Not ported yet: the dispatcher lanes (``stats()``'s ``lanes``), the device
+trace of the whole PLAYING interval (``[common] xplane_trace_dir``) and the
+per-executable memory ledger of a flight dump, which wait for the port's
+lanes and profiler.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 import traceback
 import warnings
 from typing import Dict, List, Optional, Union
@@ -58,6 +77,55 @@ from .node import NegotiationError, Node, Pad, SourceNode
 
 class PipelineError(Exception):
     pass
+
+
+RESTART_MODES = ("restart", "quarantine-passthrough", "fail-pipeline")
+
+
+class RestartPolicy:
+    """Per-node supervision policy (an element error is always fatal in
+    GStreamer; a streaming system that must play through flaky sources needs
+    supervision, Erlang-style):
+
+    - ``restart``: stop()+start() the faulting node, drop the offending
+      frame, and keep streaming, with capped exponential backoff and a
+      restart-storm budget (``max_restarts`` within ``window_s``; a spent
+      budget escalates to pipeline failure).
+    - ``quarantine-passthrough``: sideline the node: later frames bypass its
+      ``process()``, passing through unchanged when the in and out specs
+      line up, shed otherwise, both counted.
+    - ``fail-pipeline``: the error halts the graph (the default).
+    """
+
+    __slots__ = ("mode", "max_restarts", "window_s", "backoff_ms", "backoff_cap_ms")
+
+    def __init__(self, mode: str = "restart", max_restarts: int = 5,
+                 window_s: float = 30.0, backoff_ms: float = 50.0,
+                 backoff_cap_ms: float = 2000.0):
+        if mode not in RESTART_MODES:
+            raise ValueError(f"unknown restart policy {mode!r} (known: {RESTART_MODES})")
+        self.mode = mode
+        self.max_restarts = int(max_restarts)
+        self.window_s = float(window_s)
+        self.backoff_ms = float(backoff_ms)
+        self.backoff_cap_ms = float(backoff_cap_ms)
+
+    @classmethod
+    def from_conf(cls) -> Optional["RestartPolicy"]:
+        """The conf'd default policy (``[recovery] policy`` /
+        ``NNSTPU_RECOVERY_POLICY``); None means fail-pipeline."""
+        from ..conf import conf
+
+        mode = (conf.get("recovery", "policy", "") or "").strip()
+        if not mode or mode == "fail-pipeline":
+            return None
+        return cls(
+            mode,
+            max_restarts=conf.get_int("recovery", "max_restarts", 5),
+            window_s=conf.get_float("recovery", "window_s", 30.0),
+            backoff_ms=conf.get_float("recovery", "backoff_ms", 50.0),
+            backoff_cap_ms=conf.get_float("recovery", "backoff_cap_ms", 2000.0),
+        )
 
 
 class Pipeline:
@@ -79,6 +147,13 @@ class Pipeline:
         self._lock = threading.Lock()
         self._tracers: List = []  # attached obs tracers (GST_TRACERS analog)
         self.warmup_report: Optional[dict] = None  # the last warmup phase's report
+        # supervised recovery: restart policies and their ledger
+        self._restart_policies: Dict[str, RestartPolicy] = {}
+        self._conf_policy: Optional[RestartPolicy] = None
+        self._recovery_lock = threading.Lock()
+        self._restart_log: Dict[str, List[float]] = {}  # node -> restart times
+        self._recovery_counts: Dict[str, int] = {}      # action -> count
+        self._shed_frames: Dict[str, int] = {}          # node -> frames shed
 
     # -- graph construction -------------------------------------------------
 
@@ -116,6 +191,231 @@ class Pipeline:
         for a, b in zip(nodes, nodes[1:]):
             self.link(a, b)
 
+    # -- supervised recovery ------------------------------------------------
+
+    def set_restart_policy(self, node: Union[Node, str] = "*", mode: str = "restart",
+                           max_restarts: int = 5, window_s: float = 30.0,
+                           backoff_ms: float = 50.0,
+                           backoff_cap_ms: float = 2000.0) -> RestartPolicy:
+        """Install a supervision policy for one node (``"*"``: every node
+        without one of its own).  See :class:`RestartPolicy`."""
+        name = node.name if isinstance(node, Node) else str(node)
+        pol = RestartPolicy(mode, max_restarts=max_restarts, window_s=window_s,
+                            backoff_ms=backoff_ms, backoff_cap_ms=backoff_cap_ms)
+        self._restart_policies[name] = pol
+        return pol
+
+    def restart_policy_for(self, name: str) -> Optional[RestartPolicy]:
+        """The node's own policy, else the ``"*"`` default, else the conf'd
+        ``[recovery] policy`` (read at start); None means fail-pipeline."""
+        pol = self._restart_policies.get(name)
+        if pol is None:
+            pol = self._restart_policies.get("*")
+        return pol if pol is not None else self._conf_policy
+
+    def _bump(self, action: str) -> None:
+        with self._recovery_lock:
+            self._recovery_counts[action] = self._recovery_counts.get(action, 0) + 1
+
+    def _count_shed_frame(self, node: Node) -> None:
+        """One frame shed by recovery (a restart's dropped frame, a
+        quarantine's shed, a queue drain): the typed-loss side of
+        delivered + shed == offered."""
+        with self._recovery_lock:
+            self._shed_frames[node.name] = self._shed_frames.get(node.name, 0) + 1
+
+    @staticmethod
+    def _specs_passthrough(node: Node) -> bool:
+        """Quarantine passthrough is sound only when the frames the node
+        would have produced have the spec of the ones it receives."""
+        sinks = [p.spec for p in node.sink_pads.values() if p.peer is not None]
+        srcs = [p.spec for p in node.src_pads.values() if p.peer is not None]
+        return len(sinks) == 1 and bool(srcs) and all(s == sinks[0] for s in srcs)
+
+    def _restart_budget_ok(self, node: Node, pol: RestartPolicy) -> Optional[int]:
+        """Charge one restart against the node's storm budget; returns the
+        restart ordinal (for the backoff), or None when the budget is
+        spent."""
+        now = time.monotonic()
+        with self._recovery_lock:
+            log = self._restart_log.setdefault(node.name, [])
+            log[:] = [t for t in log if now - t <= pol.window_s]
+            if len(log) >= pol.max_restarts:
+                return None
+            log.append(now)
+            return len(log)
+
+    def _attempt_restart(self, node: Node, exc: BaseException, pol: RestartPolicy, action: str,
+                 in_specs: Optional[Dict] = None):
+        """Charge the budget, back off, and stop()+start() the node, then run
+        its commit phase again: on the current pad specs, or on ``in_specs``
+        (a negotiation in progress).  Returns ``(True, out_specs)``, or
+        ``(False, None)`` after a storm or a failed restart (recorded)."""
+        from ..obs import recovery as _recovery
+
+        n = self._restart_budget_ok(node, pol)
+        if n is None:
+            # restart storm: stop resuscitating, escalate to pipeline failure
+            _recovery.record(self.name, action, "storm", node.name, repr(exc))
+            return False, None
+        backoff_s = min(pol.backoff_cap_ms, pol.backoff_ms * (2 ** (n - 1))) / 1e3
+        if backoff_s > 0:
+            time.sleep(backoff_s)
+        out_specs = None
+        try:
+            node.stop()
+            node.start()
+            # restore the negotiated state: a fresh-started filter must
+            # reinstall its fused wrapper and capture for the stream it is
+            # on (fusion folds pre-transforms into the filter, so the raw
+            # spec alone would mis-reconcile)
+            if in_specs is not None:  # a negotiation in progress
+                out_specs = node.configure(in_specs)
+            else:
+                specs = {p.name: p.spec for p in node.sink_pads.values()
+                         if p.peer is not None and p.spec is not None}
+                if specs:
+                    node.configure(specs)
+        except Exception as rexc:  # noqa: BLE001 - the restart itself failed
+            _recovery.record(self.name, action, "error", node.name, repr(rexc))
+            return False, None
+        self._bump(action)
+        _recovery.record(self.name, action, "ok", node.name, repr(exc))
+        return True, out_specs
+
+    def _node_fault(self, node: Node, exc: BaseException) -> bool:
+        """A node's ``process()`` raised: consult its restart policy.  True:
+        handled (frame dropped, node restarted or quarantined); False: the
+        error halts the graph."""
+        if self.state != "PLAYING":
+            return False
+        pol = self.restart_policy_for(node.name)
+        if pol is None or pol.mode == "fail-pipeline":
+            return False
+        from ..obs import recovery as _recovery
+
+        if pol.mode == "quarantine-passthrough":
+            node._quarantine_passthrough = self._specs_passthrough(node)
+            node._quarantined = True
+            self._bump("quarantine")
+            self._count_shed_frame(node)  # the offending frame is shed
+            _recovery.record(self.name, "quarantine", "ok", node.name, repr(exc))
+            return True
+        if not self._attempt_restart(node, exc, pol, "restart_node")[0]:
+            return False
+        self._count_shed_frame(node)
+        return True
+
+    def _configure_fault(self, node: Node, in_specs: Dict, exc: BaseException):
+        """A node's commit phase raised while the pipeline negotiates at
+        start (a capture that failed: ``compile_raise``).  Under ``restart``
+        the node restarts and negotiates again, and its output specs are
+        returned; otherwise the original error is raised.  No frame has
+        reached the node yet, so none is shed."""
+        pol = self.restart_policy_for(node.name)
+        if pol is not None and pol.mode == "restart":
+            ok, out_specs = self._attempt_restart(node, exc, pol, "restart_node", in_specs)
+            if ok:
+                return out_specs
+        raise exc
+
+    def _source_fault(self, node: SourceNode, exc: BaseException) -> bool:
+        """A source's ``frames()`` raised: only ``restart`` applies (a
+        quarantined source is a dead stream).  Restarting enters
+        ``frames()`` afresh: right for live sources; a finite data source
+        replays from its start."""
+        pol = self.restart_policy_for(node.name)
+        if pol is None or pol.mode != "restart":
+            return False
+        return self._attempt_restart(node, exc, pol, "restart_source")[0]
+
+    def restart_source(self, name: str) -> bool:
+        """Replace a stalled source's streaming thread (a watchdog's
+        escalation).  The stuck thread is joined briefly, then abandoned
+        with a bumped epoch (it exits when it unblocks instead of pushing
+        twice); the source restarts and streams on a fresh thread."""
+        from ..obs import recovery as _recovery
+
+        node = self.nodes.get(name)
+        if not isinstance(node, SourceNode) or self.state != "PLAYING":
+            return False
+        node._epoch += 1
+        node.request_stop()
+        interrupt = getattr(node, "interrupt", None)
+        if interrupt is not None:
+            try:
+                interrupt()
+            except Exception:  # noqa: BLE001 - the restart below decides
+                pass
+        for t in [t for t in self.threads if t.name == f"src:{name}"]:
+            t.join(timeout=2.0)
+            self.threads.remove(t)
+        node._stop_evt.clear()
+        try:
+            node.stop()
+            node.start()
+        except Exception as exc:  # noqa: BLE001
+            _recovery.record(self.name, "restart_source", "error", name, repr(exc))
+            return False
+        self._bump("restart_source")
+        if _hooks.enabled:
+            _hooks.emit("source_spawn", self, node)
+        t = threading.Thread(target=self._source_loop, args=(node,), name=f"src:{name}",
+                             daemon=True)
+        self.threads.append(t)
+        t.start()
+        _recovery.record(self.name, "restart_source", "ok", name)
+        return True
+
+    def source_alive(self, name: str) -> bool:
+        """Is the source's streaming thread alive?  (A watchdog keys its
+        stalled-source detection on this.)"""
+        return any(t.name == f"src:{name}" and t.is_alive() for t in self.threads)
+
+    def recover_queue(self, name: str) -> int:
+        """Drain a wedged queue (a watchdog's escalation): shed its backlog
+        with typed accounting, keeping its in-band events, and respawn its
+        worker if the thread died.  Returns the frames drained, -1 when the
+        node cannot recover."""
+        from ..obs import recovery as _recovery
+
+        node = self.nodes.get(name)
+        rec = getattr(node, "recover", None)
+        if rec is None:
+            _recovery.record(self.name, "drain_queue", "error", name, "node has no recover()")
+            return -1
+        try:
+            drained, new_threads = rec()
+        except Exception as exc:  # noqa: BLE001
+            _recovery.record(self.name, "drain_queue", "error", name, repr(exc))
+            return -1
+        for t in new_threads:
+            t.daemon = True
+            self.threads.append(t)
+            t.start()
+        with self._recovery_lock:
+            if drained:
+                self._shed_frames[name] = self._shed_frames.get(name, 0) + drained
+        self._bump("drain_queue")
+        _recovery.record(self.name, "drain_queue", "ok", name, f"drained={drained}")
+        return drained
+
+    def recovery_stats(self) -> dict:
+        """The self-healing ledger: actions taken, frames shed per node (the
+        typed-loss side of delivered + shed == offered), quarantined
+        nodes."""
+        with self._recovery_lock:
+            out: dict = {}
+            if self._recovery_counts:
+                out["actions"] = dict(self._recovery_counts)
+            if self._shed_frames:
+                out["shed_frames"] = dict(self._shed_frames)
+                out["shed_total"] = sum(self._shed_frames.values())
+        quarantined = [n.name for n in self.nodes.values() if n._quarantined]
+        if quarantined:
+            out["quarantined"] = quarantined
+        return out
+
     # -- negotiation --------------------------------------------------------
 
     def negotiate(self) -> None:
@@ -142,7 +442,12 @@ class Pipeline:
                             f"(template {template})"
                         )
                     in_specs[pad.name] = merged
-                out_specs = node.configure(in_specs)
+                try:
+                    out_specs = node.configure(in_specs)
+                except NegotiationError:
+                    raise
+                except Exception as exc:  # noqa: BLE001 - a failed capture
+                    out_specs = self._configure_fault(node, in_specs, exc)
                 for pad_name, pad in node.src_pads.items():
                     if pad.peer is None:
                         continue
@@ -169,6 +474,18 @@ class Pipeline:
         self._error = None
         self._error_node = None
         self._eos_leaves.clear()
+        self._conf_policy = RestartPolicy.from_conf()
+        with self._recovery_lock:
+            self._restart_log.clear()
+            self._recovery_counts.clear()
+            self._shed_frames.clear()
+        for node in self.nodes.values():
+            node._quarantined = False
+            node._quarantine_passthrough = False
+        # conf-driven chaos (NNSTPU_FAULTS): a bad spec fails the start
+        from ..faults import ensure_configured as _faults_configure
+
+        _faults_configure()
         fuse_undos = []
         if self.auto_fuse:
             from .optimize import fuse_transforms
@@ -200,10 +517,17 @@ class Pipeline:
             for node in self.nodes.values():
                 node.start()
                 started.append(node)
-            self.negotiate()
+            # every capture before PLAYING is warmup-phase: the "warmup"
+            # Perfetto track and phase="warmup" of nnstpu_compile_seconds
+            from ..obs.device import set_compile_phase
             from .warmup import run_warmup
 
-            run_warmup(self)  # [compile] warmup: every planned capture, before PLAYING
+            set_compile_phase("warmup")
+            try:
+                self.negotiate()
+                run_warmup(self)  # [compile] warmup: every planned capture, before PLAYING
+            finally:
+                set_compile_phase(None)
         except BaseException:
             for node in started:
                 try:
@@ -245,19 +569,30 @@ class Pipeline:
         return self
 
     def _source_loop(self, node: SourceNode) -> None:
-        try:
-            for frame in node.frames():
-                if node.stopped or self.state != "PLAYING":
-                    break
-                if _hooks.enabled:
-                    # before the first pad push: the latency tracer stamps
-                    # the frame here
-                    _hooks.emit("source_push", self, node, frame)
-                node.push(frame)
-            for pad in node.src_pads.values():
-                pad.push(Event.eos())
-        except BaseException as exc:  # noqa: BLE001 - any node failure halts the graph
-            self.post_error(node, exc)
+        epoch = node._epoch
+        while True:
+            try:
+                for frame in node.frames():
+                    if node.stopped or node._epoch != epoch or self.state != "PLAYING":
+                        break
+                    if _hooks.enabled:
+                        # before the first pad push: the latency tracer
+                        # stamps the frame here
+                        _hooks.emit("source_push", self, node, frame)
+                    node.push(frame)
+                if node._epoch != epoch:
+                    return  # superseded by restart_source: not this thread's EOS
+                for pad in node.src_pads.values():
+                    pad.push(Event.eos())
+                return
+            except BaseException as exc:  # noqa: BLE001 - any node failure
+                if node._epoch != epoch:
+                    return  # a replacement thread owns this source now
+                if (self.state == "PLAYING" and not node.stopped
+                        and self._source_fault(node, exc)):
+                    continue  # restarted: enter frames() afresh
+                self.post_error(node, exc)
+                return
 
     def post_error(self, node: Optional[Node], exc: BaseException) -> None:
         with self._lock:
@@ -419,12 +754,16 @@ class Pipeline:
     def stats(self) -> dict:
         """Per-node invoke-latency summary (ms) of this pipeline's nodes
         (recorded while profiling is on), plus one ``"tracers"`` entry per
-        attached tracer: latency, throughput, drops, copies, spans."""
+        attached tracer (latency, throughput, drops, copies, spans, device)
+        and, once recovery acted, the ``"recovery"`` ledger."""
         from ..utils import profiling
 
         out = {k: v for k, v in profiling.stats().items() if k in self.nodes}
         if self._tracers:
             out["tracers"] = {t.name: t.summary() for t in self._tracers}
+        rec = self.recovery_stats()
+        if rec:
+            out["recovery"] = rec
         return out
 
     def flight_snapshot(self) -> list:
@@ -476,6 +815,13 @@ class Pipeline:
             os.makedirs(dump_dir, exist_ok=True)
             path = os.path.join(dump_dir, f"{self.name}.{transition}.trace.json")
             doc = spans.chrome_trace(spans.snapshot(), process_name=self.name)
+            from ..obs.device import device_memory_snapshot
+
+            mem = device_memory_snapshot()
+            if mem:
+                # "otherData" is the trace-event format's sidecar slot: what
+                # the card's allocator held when the graph died
+                doc["otherData"] = {"device_memory": mem}
             with open(path, "w") as f:
                 json.dump(doc, f)
         except Exception as exc:  # noqa: BLE001 - observability stays non-fatal

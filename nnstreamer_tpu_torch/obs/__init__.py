@@ -14,7 +14,16 @@ no device runtime:
   (``NNSTPU_TRACERS=spans``): trace-context stamping, a bounded
   per-thread flight recorder, Chrome-trace/Perfetto + waterfall export;
 - :mod:`.export` — Prometheus text exposition + stdlib scrape endpoint
-  (plus ``/healthz``, the merged ``/stats.json`` and ``/alerts``).
+  (plus ``/healthz``, the merged ``/stats.json`` and ``/alerts``);
+- :mod:`.device` — the device lane (``NNSTPU_TRACERS=device``): device
+  timing of each filter dispatch from a CUDA event pair, capture
+  accounting (``nnstpu_compile_*``) and the card's memory gauges, sampled
+  at scrape time while the tracer is attached;
+- :mod:`.util` — the utilization lane: the per-capture cost registry, MFU
+  and roofline math against the card's peaks, busy and idle accounting,
+  and the host-to-device wire probe;
+- :mod:`.recovery` — the accounting of self-healing actions
+  (``nnstpu_recovery_total``).
 
 Activation is conf-driven — ``NNSTPU_TRACERS=latency;stats`` and
 ``NNSTPU_METRICS_PORT=9464`` (the short spellings take precedence;
@@ -22,10 +31,10 @@ Activation is conf-driven — ``NNSTPU_TRACERS=latency;stats`` and
 ``[common]`` keys also work) — or programmatic via
 ``pipeline.attach_tracer("latency")``.
 
-Not ported yet: the device lane, the utilization and cost models, the
-deep-profiling lane, the watchdog, recovery accounting, the cluster
-collector, tail forensics and the SLO engine (``obs/{device,util,
-costmodel,profiler,watchdog,recovery,collector,forensics,slo}.py``).
+Not ported yet: the cost model, the deep-profiling lane, the watchdog,
+the cluster collector, tail forensics and the SLO engine
+(``obs/{costmodel,profiler,watchdog,collector,forensics,slo}.py``), and the
+partition edges of ``obs/util.py``'s wire health.
 """
 
 from __future__ import annotations
@@ -70,6 +79,30 @@ from .tracers import (  # noqa: F401
 # importing .spans registers the "spans" tracer with TRACERS
 from . import spans  # noqa: E402,F401
 from .spans import SpanTracer, chrome_trace, waterfall  # noqa: F401
+from . import recovery  # noqa: E402,F401
+from .util import (  # noqa: F401
+    DeviceUsage,
+    busy_fraction,
+    cost_of,
+    idle_gaps,
+    last_wire_health,
+    merge_intervals,
+    peak_gbs,
+    peak_tflops,
+    probe_wire_health,
+    publish_wire_health,
+    register_cost,
+    roofline,
+    wire_regime,
+)
+
+# importing .device registers the "device" tracer with TRACERS
+from .device import (  # noqa: E402,F401
+    DeviceTracer,
+    device_memory_snapshot,
+    record_compile,
+    register_memory_gauges,
+)
 
 
 def configured_tracers() -> List[str]:

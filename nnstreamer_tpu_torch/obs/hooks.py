@@ -24,8 +24,10 @@ repo against the last ``HOOK_SIGNATURES`` it reads, which is this one).
 The port emits ``pad_push``, ``dispatch_enter``/``dispatch_exit``,
 ``queue_push``/``queue_pop``/``queue_drop``, ``source_push``,
 ``source_spawn``, ``state_change``, ``error``, ``copy``,
-``device_dispatch`` and ``segment``; the other points belong to elements
-and subsystems not ported yet.  On the port ``device_dispatch``'s ``outs``
+``device_dispatch``, ``segment``, ``compile`` (the backend's capture LRU,
+``obs/device.py``), ``recovery`` (``obs/recovery.py``), ``fault``
+(``faults/engine.py``) and ``device_exec`` (the device tracer's reaper);
+the other points belong to elements and subsystems not ported yet.  On the port ``device_dispatch``'s ``outs``
 are the filter's output tensors (a CUDA graph's replay, already enqueued).
 
 Hook points and their emit signatures (positional, no kwargs — emission

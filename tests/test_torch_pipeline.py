@@ -145,6 +145,9 @@ def test_port_runs_with_jax_blocked():
         from nnstreamer_tpu_torch.utils import checkpoint, props
         from nnstreamer_tpu_torch import conf
         from nnstreamer_tpu_torch.backends import custom, custom_so, torch_backend
+        from nnstreamer_tpu_torch import faults
+        from nnstreamer_tpu_torch.faults import engine
+        from nnstreamer_tpu_torch.obs import device, recovery, util
         m = mobilenet_v2.build_quantized(num_classes={CLASSES}, width_mult=0.35,
                                          image_size={SIZE}, int8_head=True, device="cpu")
         p = nns.Pipeline()
