@@ -308,7 +308,27 @@ In order, it
    (peak >= in use, ViT's parameter bytes in use); ViT's registry FLOPs
    within 2% of ``vit.flops_per_frame`` and its ``nnstpu_mfu`` at most 1.1
    of the busy-time share of the peak; then the wire probe;
-25. prints every path number beside the card's name and power limit, one
+25. lanes phase (the dispatcher lanes and the watchdog): config 5 at 8
+   streams with the int8 head, 24 rounds, under ``[dispatch] lanes`` 0, 1
+   and auto: each mode's stream and capture checks, no capture while
+   PLAYING, every round's rows bit for bit thread mode's, no lane parked
+   longer than two polls while a ready ring held work (a sampler of the
+   runtime), a traced run under lanes=auto holding ``fused_arith`` and
+   ``int8_matmul`` records; slice 1 (64 frames) under lanes=1 and
+   lanes=auto, labels and logits bit for bit thread mode's, the device
+   tracer's reaper waking the lanes on each completion, and a live source
+   promoted to a helper at start; config 1d under lanes=auto, every bucket
+   captured before PLAYING; the recovery phase's restart case (a) under
+   lanes=2 (60 of 64 frames, 5 captures, the fault-free run's labels);
+   then the watchdog with
+   ``recover`` in thread mode and under lanes=auto: a wedged queue
+   (``/healthz`` 503, ``nnstpu_health`` 0, the stall dump, a drain, 200
+   again, delivered + shed == offered), a source that stalls once
+   (restarted, its later frames delivered), and a ``torch.cuda._sleep``
+   filter past a 0.5 s device deadline (``overdue_device``, a live
+   breaker tripped, ``breaker_trip ok``), each with its times from fault to
+   verdict and to recovery;
+26. prints every path number beside the card's name and power limit, one
    JSON line describing every kernel, and last one JSON line
    ``{"ok": true, "device": {...}}``.
 
@@ -3341,10 +3361,11 @@ def dyn_desc(max_batch=None):
             "tensor_filter framework=torch name=f ! tensor_dynunbatch ! tensor_sink name=out")
 
 
-def run_batch(nns, torch, desc, n, frames, setup=None, traced=False, during=None):
-    """Config 5 once: ``frames[i]`` into stream i; returns (pipeline, each
-    stream's outputs as host numpy, the last sink's arrival times, the
-    trace or during's result)."""
+def run_batch(nns, torch, desc, n, frames, setup=None, traced=False, during=None,
+              on_start=None):
+    """Config 5 once: ``frames[i]`` into stream i; ``on_start(p)`` runs as
+    the start returns.  Returns (pipeline, each stream's outputs as host
+    numpy, the last sink's arrival times, the trace or during's result)."""
     p = nns.parse_launch(desc)
     for i in range(n):
         p[f"cam{i}"].data = list(frames[i])
@@ -3377,6 +3398,8 @@ def run_batch(nns, torch, desc, n, frames, setup=None, traced=False, during=None
     else:
         p.start()
         try:
+            if on_start is not None:
+                on_start(p)
             check(p.wait(600), f"config 5 did not finish: {desc}")
             result = during(p) if during is not None else None
         finally:
@@ -3384,10 +3407,11 @@ def run_batch(nns, torch, desc, n, frames, setup=None, traced=False, during=None
     return p, got, arrivals, result
 
 
-def batch_phase(torch, np, K, ops, root, card):
+def batch_phase(torch, np, K, ops, root, card, keep=None):
     """Config 5 at N=4 (float) and N=8 (int8 head), config 1d with every
     bucket captured before PLAYING, and the pool's fence under a held
-    upload stream."""
+    upload stream.  ``keep["batch"]`` gets the checkpoint and config 1d's
+    model for the lanes phase."""
     import nnstreamer_tpu_torch as nns
     from nnstreamer_tpu_torch import pool as P
     from nnstreamer_tpu_torch.backends.torch_backend import TorchModel
@@ -3479,6 +3503,8 @@ def batch_phase(torch, np, K, ops, root, card):
                       device=DEVICE)
     dyn_frames = [torch.from_numpy(rng.integers(0, 256, (IMAGE, IMAGE, 3), dtype=np.uint8))
                   for _ in range(DYN_FRAMES)]
+    if keep is not None:
+        keep["batch"] = dict(ckpt=ckpt, poly=poly, dyn_frames=dyn_frames)
     os.environ["NNSTPU_COMPILE_WARMUP"] = "1"
     try:
         state = {"batches": []}
@@ -4784,25 +4810,28 @@ def device_memory():
     return device_memory_snapshot()
 
 
-def recovery_desc(n, labels, live=False):
-    """Slice 1's launch string with its queue named ``q`` (``live``: a
-    source at LIVE_RATE frames a second)."""
+def recovery_desc(n, labels, live=False, queue=16):
+    """Slice 1's launch string with its queue named ``q`` holding ``queue``
+    frames (``live``: a source at LIVE_RATE frames a second)."""
     pace = f"is-live=true framerate={LIVE_RATE}/1 " if live else ""
     return (f"videotestsrc name=src num-buffers={n} width={IMAGE} height={IMAGE} "
             f"pattern=random seed=7 {pace}! tensor_converter name=conv ! "
             f"tensor_transform mode=arithmetic option={NORMALIZE} acceleration=pallas ! "
-            "tensor_upload name=u ! queue name=q max-size-buffers=16 ! "
+            f"tensor_upload name=u ! queue name=q max-size-buffers={queue} ! "
             "tensor_filter framework=torch name=f ! "
             f"tensor_decoder mode=image_labeling option1={labels} ! "
             "tensor_sink name=out collect=true")
 
 
-def faulted_run(nns, faults, hooks, desc, model, spec, policy, expect_error=False):
+def faulted_run(nns, faults, hooks, desc, model, spec, policy, expect_error=False, setup=None,
+                during=None):
     """One run of ``desc`` under the fault ``spec`` with ``policy`` on the
     filter ``f``.  Logs every filter output (pts, tensor) through
     ``device_dispatch``, and each restart's wall time from its fault to its
-    ``recovery`` record.  Returns (pipeline, outputs, restart seconds, the
-    device bytes in use after the first capture, the error raised)."""
+    ``recovery`` record.  ``setup(p)`` runs after the parse, ``during(p)``
+    after EOS while the pipeline still plays.  Returns (pipeline, outputs,
+    restart seconds, the device bytes in use after the first capture, the
+    error raised)."""
     outs, walls, fault_t, first_capture = [], [], [], []
 
     def on_dispatch(node, frame, o, t0):
@@ -4823,6 +4852,8 @@ def faulted_run(nns, faults, hooks, desc, model, spec, policy, expect_error=Fals
     p["f"].model = model
     if policy is not None:
         p.set_restart_policy("f", **policy)
+    if setup is not None:
+        setup(p)
     eng = faults.install(spec) if spec else None
     hooked = (("device_dispatch", on_dispatch), ("fault", on_fault),
               ("recovery", on_recovery), ("compile", on_compile))
@@ -4833,6 +4864,8 @@ def faulted_run(nns, faults, hooks, desc, model, spec, policy, expect_error=Fals
         try:
             p.start()
             check(p.wait(600), f"the pipeline did not finish within 600 s: {desc}")
+            if during is not None:
+                during(p)
         except Exception as exc:  # noqa: BLE001 - the caller checks what was raised
             if not expect_error:
                 raise
@@ -5161,6 +5194,639 @@ def device_lane_phase(torch, np, K, root, card, keep, busy_share):
     return launches, res
 
 
+# -- the dispatcher lanes and the watchdog (phase 25) -------------------------
+
+LANE_MODES = ("0", "1", "auto")     # config 5's modes: threads, one lane, min(4, cpus)
+LANE_SLICE_MODES = ("1", "auto")    # slice 1's lane modes, against its thread mode
+LANE_RESTART_MODE = "2"             # the recovery phase's case (a) under two lanes
+LANE_SAMPLE_S = 0.001               # the ready-ring sampler's period
+WD_INTERVAL_S = 0.05                # the watchdog's tick in the phase
+WD_STALL_S = 0.3                    # its stall window
+WD_WEDGE_MS = 1500                  # queue_wedge@q's sleep ...
+WD_WEDGE_AFTER = 8                  # ... at the consumer's ninth pop
+WD_WEDGE_QUEUE = 80                 # the wedged queue's size: the source never blocks on it
+WD_STALL_AFTER = 8                  # the stalling source's frames before it blocks
+WD_DEADLINE_S = 0.5                 # the device deadline of the overdue-device run
+WD_SLEEP_S = 1.5                    # the _sleep filter's device time a frame
+
+
+class dispatch_lanes:
+    """``[dispatch] lanes`` for the runs inside the ``with`` block."""
+
+    def __init__(self, mode):
+        self.mode = mode
+
+    def __enter__(self):
+        self.prev = os.environ.get("NNSTPU_DISPATCH_LANES")
+        os.environ["NNSTPU_DISPATCH_LANES"] = self.mode
+        return self
+
+    def __exit__(self, *exc):
+        if self.prev is None:
+            os.environ.pop("NNSTPU_DISPATCH_LANES", None)
+        else:
+            os.environ["NNSTPU_DISPATCH_LANES"] = self.prev
+
+
+class RingSampler:
+    """Samples a pipeline's lane runtime every LANE_SAMPLE_S while it runs:
+    the longest stretch in which a lane sat parked while a ready ring held a
+    task (stealing, or the wakeup of an arm, ends such a stretch within a
+    poll), and the largest ring depth seen."""
+
+    def __init__(self, pipeline):
+        import threading
+
+        self.p, self.samples, self.parked_with_work = pipeline, 0, 0
+        self.longest_s, self.max_ready = 0.0, 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, name="ring-sampler", daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        since = None
+        while not self._stop.wait(LANE_SAMPLE_S):
+            rt = self.p._lanes
+            if rt is None:
+                since = None
+                continue
+            ready = [len(r) for r in rt._rings]
+            self.samples += 1
+            self.max_ready = max(self.max_ready, max(ready))
+            now = time.perf_counter()
+            if rt._idle > 0 and sum(ready) > 0:
+                self.parked_with_work += 1
+                since = now if since is None else since
+                self.longest_s = max(self.longest_s, now - since)
+            else:
+                since = None
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join()
+        return dict(samples=self.samples, parked_with_work=self.parked_with_work,
+                    longest_parked_with_work_s=self.longest_s, max_ready=self.max_ready)
+
+
+def counter_sum(REGISTRY, name, **labels):
+    """The sum of a metric's children whose labels include these."""
+    metric = REGISTRY.get(name)
+    if metric is None:
+        return 0.0
+    return sum(c.value for v, c in metric.children()
+               if all(dict(zip(metric.labelnames, v)).get(k) == w for k, w in labels.items()))
+
+
+def take_launches(K, total, counts=None):
+    """Add ``counts`` (by default the wrappers' counts now) to ``total``
+    and set the wrappers' counts to 0.  A run that holds its outputs
+    against eager forwards passes the counts it read before them: those
+    launches compare, they are not the path's."""
+    if counts is None:
+        counts = {k.__name__: k.launches for k in K.KERNELS}
+    for name, n in counts.items():
+        total[name] = total.get(name, 0) + n
+    K.reset_launches()
+
+
+def rounds_matched(np, runs, rounds):
+    """Config 5 in each lane mode against thread mode (``runs["0"]``):
+    wherever both hold round r of every stream (stream_check holds each
+    mode's round r to the eager forward of the same frames), its rows must
+    be equal bit for bit.  Returns the rounds that matched in each mode."""
+    base = runs["0"]
+    matched = {}
+    for mode, got in runs.items():
+        if mode == "0":
+            continue
+        same = 0
+        for r in range(rounds):
+            if not all(r < len(got[i]) and r < len(base[i]) for i in base):
+                continue
+            check(all(np.array_equal(got[i][r].view(np.uint32), base[i][r].view(np.uint32))
+                      for i in base), f"lanes={mode}: round {r}'s logits differ from thread "
+                                      "mode's")
+            same += 1
+        matched[mode] = same
+    return matched
+
+
+def lane_ring_check(ring, mode):
+    """No lane sat parked for more than two polls while a ring held work."""
+    from nnstreamer_tpu_torch.graph import lanes
+
+    check(ring["longest_parked_with_work_s"] <= 2 * lanes._POLL_S,
+          f"lanes={mode}: a lane sat parked {ring['longest_parked_with_work_s']} s while a "
+          "ready ring held a task")
+
+
+def sleep_cycles(torch, seconds):
+    """The ``torch.cuda._sleep`` cycles that hold the current stream for
+    about ``seconds`` on this card (its rate timed with CUDA events)."""
+    probe = 50_000_000
+    begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(probe // 10)  # warm
+    begin.record()
+    torch.cuda._sleep(probe)
+    end.record()
+    end.synchronize()
+    return int(probe * seconds * 1e3 / begin.elapsed_time(end))
+
+
+class SleepFilter:
+    """A custom filter whose invoke enqueues ``torch.cuda._sleep`` on the
+    current stream: device work that really is slow, for the watchdog's
+    overdue-device verdict (the phase's own, not part of any path)."""
+
+    def __init__(self, torch, spec, cycles):
+        self.torch, self.spec, self.cycles = torch, spec, cycles
+
+    def get_input_spec(self):
+        return self.spec
+
+    def get_output_spec(self):
+        return self.spec
+
+    def invoke(self, x):
+        self.torch.cuda._sleep(self.cycles)
+        return x + 1
+
+
+def healthz(url):
+    """``/healthz``'s HTTP status and document."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=10) as r:
+            return r.status, json.loads(r.read().decode())
+    except urllib.error.HTTPError as exc:
+        return exc.code, json.loads(exc.read().decode())
+
+
+def wait_until(cond, timeout, what):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        check(time.monotonic() < deadline, f"timed out after {timeout} s waiting for {what}")
+        time.sleep(0.002)
+
+
+def watchdog_phase_runs(torch, np, nns, faults, hooks, REGISTRY, desc, model, labels_n, card,
+                        mode, cycles, dump_dir):
+    """The watchdog with ``recover`` on slice 1 (a wedged queue, a source
+    that stalls once) and on the _sleep filter (an overdue device, with a
+    live breaker), under ``[dispatch] lanes`` = ``mode``.  Returns the
+    times from each fault to its verdict and to its recovery record."""
+    from nnstreamer_tpu_torch.buffer import Frame
+    from nnstreamer_tpu_torch.elements.filter import TensorFilter
+    from nnstreamer_tpu_torch.obs.device import DeviceTracer
+    from nnstreamer_tpu_torch.obs.export import MetricsServer
+    from nnstreamer_tpu_torch.obs.watchdog import PipelineWatchdog
+    from nnstreamer_tpu_torch.sched.breaker import CircuitBreaker
+    from nnstreamer_tpu_torch.spec import TensorSpec, TensorsSpec
+
+    out = {}
+    marks = {}
+
+    def mark(key):
+        marks.setdefault(key, time.perf_counter())
+
+    def on_health(pipeline, healthy, reason):
+        mark("healthy" if healthy else "verdict")
+
+    def on_recovery(pipeline, action, target, result):
+        mark(f"recovery:{action}:{result}")
+
+    def on_fault(point, kind, target):
+        mark("fault")
+
+    def watched(p, **kw):
+        return p.attach_tracer(PipelineWatchdog(interval_s=WD_INTERVAL_S, stall_s=WD_STALL_S,
+                                                recover=True, **kw))
+
+    hooked = (("health", on_health), ("recovery", on_recovery), ("fault", on_fault))
+    for name, fn in hooked:
+        hooks.connect(name, fn)
+    try:
+        with dispatch_lanes(mode), MetricsServer(port=0) as ms:
+            url = f"http://{ms.host}:{ms.port}/healthz"
+            # (1) a wedged queue: 503, the gauge at 0, the stall dump, a drain, 200 again
+            marks.clear()
+            faults.install(f"queue_wedge@q:after={WD_WEDGE_AFTER},ms={WD_WEDGE_MS}")
+            p = nns.parse_launch(desc(RECOVERY_FRAMES, labels_n, queue=WD_WEDGE_QUEUE))
+            p.name = f"wd_wedge_{mode}"
+            p["f"].model = model
+            wd = watched(p)
+            try:
+                p.start()
+                wait_until(lambda: not wd.health()[0], 30, "the wedged queue's verdict")
+                code, doc = healthz(url)
+                gauge = gauge_value(REGISTRY, "nnstpu_health", pipeline=p.name)
+                reasons = list(wd.summary()["reasons"])
+                check(p.wait(600), "the wedged run did not end")
+                wait_until(lambda: wd.health()[0], 30, "health after the wedge")
+                code_after, _ = healthz(url)
+                rec = p.recovery_stats()
+            finally:
+                p.stop()
+                faults.deactivate()
+            delivered = len(p["out"].frames)
+            dump = os.path.join(dump_dir, f"{p.name}.stall.trace.json")
+            print(f"watchdog (lanes={mode}), wedged queue: /healthz {code} then {code_after}, "
+                  f"nnstpu_health {gauge}, reasons {reasons}, {rec}, {delivered} delivered; "
+                  f"fault to verdict {marks['verdict'] - marks['fault']:.4f} s, to the drain "
+                  f"{marks['recovery:drain_queue:ok'] - marks['fault']:.4f} s [{card}]",
+                  flush=True)
+            check(code == 503 and [r.split(":")[0] for r in reasons] == ["wedged_queue"]
+                  and p.name in doc["failures"], f"/healthz {code}: {doc}")
+            check(gauge == 0.0 and os.path.exists(dump), f"gauge {gauge}, dump {dump}")
+            check(rec["actions"].get("drain_queue", 0) >= 1 and code_after == 200,
+                  f"drain and health: {rec}, /healthz {code_after}")
+            check(delivered + rec["shed_total"] == RECOVERY_FRAMES, "delivered + shed != offered")
+            out["wedged_queue"] = dict(
+                fault_to_verdict_s=marks["verdict"] - marks["fault"],
+                fault_to_recovery_s=marks["recovery:drain_queue:ok"] - marks["fault"],
+                delivered=delivered, shed=rec["shed_total"], drains=rec["actions"]["drain_queue"])
+
+            # (2) a source that stalls once: restarted, its later frames arrive
+            marks.clear()
+            p = nns.parse_launch(desc(RECOVERY_FRAMES, labels_n))
+            p.name = f"wd_stall_{mode}"
+            p["f"].model = model
+            src = p["src"]
+            stream = src.frames
+            calls = []
+
+            def stall_once():
+                calls.append(1)
+                if len(calls) == 1:
+                    for i, f in enumerate(stream()):
+                        if i == WD_STALL_AFTER:
+                            mark("fault")
+                            src._stop_evt.wait()
+                            return
+                        yield f
+                yield from stream()
+
+            src.frames = stall_once
+            wd = watched(p)
+            try:
+                p.start()
+                check(p.wait(600), "the stalled source's run did not end")
+                wait_until(lambda: wd.health()[0], 30, "health after the restart")
+                rec = p.recovery_stats()
+            finally:
+                p.stop()
+            delivered = len(p["out"].frames)
+            print(f"watchdog (lanes={mode}), stalled source: {rec}, {delivered} delivered "
+                  f"({WD_STALL_AFTER} before the stall); fault to verdict "
+                  f"{marks['verdict'] - marks['fault']:.4f} s, to the restart "
+                  f"{marks['recovery:restart_source:ok'] - marks['fault']:.4f} s [{card}]",
+                  flush=True)
+            check(rec.get("actions", {}).get("restart_source", 0) >= 1 and len(calls) == 2,
+                  f"restart_source: {rec}, frames() entered {len(calls)} times")
+            check(delivered == WD_STALL_AFTER + RECOVERY_FRAMES,
+                  f"{delivered} delivered, expected {WD_STALL_AFTER} + {RECOVERY_FRAMES}")
+            out["stalled_source"] = dict(
+                fault_to_verdict_s=marks["verdict"] - marks["fault"],
+                fault_to_recovery_s=marks["recovery:restart_source:ok"] - marks["fault"],
+                delivered=delivered)
+
+            # (3) an overdue device: the _sleep filter, a live breaker tripped
+            marks.clear()
+            breaker = CircuitBreaker(failure_threshold=3, reset_timeout_s=60)
+            spec = TensorsSpec.of(TensorSpec(dtype=np.float32, shape=(4,)))
+            p = nns.Pipeline(name=f"wd_device_{mode}")
+            sleeper = p.add(TensorFilter(framework="custom", name="f",
+                                         model=SleepFilter(torch, spec, cycles)))
+            p.link_chain(p.add(nns.make("datasrc", "s", data=[
+                Frame.of(torch.zeros(4, device=DEVICE), pts=0)])), sleeper,
+                p.add(nns.make("tensor_sink", "out")))
+            dev = p.attach_tracer(DeviceTracer())
+
+            def on_dispatch(node, frame, o, t0):
+                marks.setdefault("fault", t0 / 1e9)  # the clock of perf_counter
+
+            hooks.connect("device_dispatch", on_dispatch)
+            trips = []
+            wd = watched(p, device_deadline_s=WD_DEADLINE_S)
+            try:
+                p.start()
+                wait_until(lambda: not wd.health()[0], 30, "the overdue device's verdict")
+                reasons = list(wd.summary()["reasons"])
+                check(p.wait(600), "the overdue device's run did not end")
+                wait_until(lambda: wd.health()[0], 30, "health after the device completed")
+                trips.append(breaker.stats())
+                rec = counter_sum(REGISTRY, "nnstpu_recovery_total", pipeline=p.name,
+                                  action="breaker_trip", result="ok")
+            finally:
+                p.stop()
+                hooks.disconnect("device_dispatch", on_dispatch)
+            print(f"watchdog (lanes={mode}), overdue device: reasons {reasons}, breaker "
+                  f"{trips[0]}, breaker_trip ok {rec}, device tracer {dev.summary()['completed']} "
+                  f"completed; fault to verdict {marks['verdict'] - marks['fault']:.4f} s, to "
+                  f"the breaker trip {marks['recovery:breaker_trip:ok'] - marks['fault']:.4f} s "
+                  f"[{card}]", flush=True)
+            check(any(r.startswith("overdue_device:f") for r in reasons), f"reasons {reasons}")
+            check(trips[0]["state"] == "open" and trips[0]["forced_trips"] >= 1 and rec >= 1,
+                  f"breaker {trips[0]}, breaker_trip ok {rec}")
+            out["overdue_device"] = dict(
+                fault_to_verdict_s=marks["verdict"] - marks["fault"],
+                fault_to_recovery_s=marks["recovery:breaker_trip:ok"] - marks["fault"],
+                breaker=trips[0])
+    finally:
+        for name, fn in hooked:
+            hooks.disconnect(name, fn)
+    return out
+
+
+def lanes_phase(torch, np, K, root, card, keep):
+    """The dispatcher lanes at full width: config 5 (8 streams, int8 head)
+    in three modes, slice 1 in two lane modes against thread mode (with the
+    device tracer's wakeups, and a live source promoted to a helper), config
+    1d under lanes=auto, the recovery phase's restart case under two
+    lanes, and the
+    watchdog's three verdicts with recovery in thread mode and under
+    lanes=auto."""
+    import nnstreamer_tpu_torch as nns
+    from nnstreamer_tpu_torch import faults
+    from nnstreamer_tpu_torch.buffer import Frame
+    from nnstreamer_tpu_torch.graph import lanes
+    from nnstreamer_tpu_torch.obs import hooks
+    from nnstreamer_tpu_torch.obs.metrics import REGISTRY
+
+    total = {}
+    K.reset_launches()
+    with dispatch_lanes("auto"):
+        res = {"auto_lanes": lanes.configured_lanes()}
+    batch = keep["batch"]
+    n = BATCH_STREAMS[1]
+    kernels = ("fused_arith", "int8_matmul")
+    desc = batch_desc(n, batch["ckpt"], "build_quantized,int8_head=1")
+    rng = np.random.default_rng(16)
+    frames = [[Frame.of(torch.from_numpy(rng.integers(0, 256, (IMAGE, IMAGE, 3),
+                                                      dtype=np.uint8)), pts=r)
+               for r in range(BATCH_ROUNDS)] for _ in range(n)]
+
+    # (a) config 5, 8 streams, in each mode
+    runs, per_mode = {}, {}
+    for mode in LANE_MODES:
+        state = {}
+
+        def setup(p, state=state):
+            state["ring"] = RingSampler(p)
+            state["name"] = p.name
+            state["steals"] = counter_sum(REGISTRY, "nnstpu_lane_steals_total", pipeline=p.name)
+            state["handoffs"] = counter_sum(REGISTRY, "nnstpu_lane_handoffs_total",
+                                            pipeline=p.name)
+
+        def on_start(p, state=state):
+            state["captures_at_start"] = p["f"].backend.stats["captures"]
+
+        def during(p, state=state):
+            be = p["f"].backend
+            state.update(stats=dict(be.stats), lanes=p.stats().get("lanes"),
+                         launches={k.__name__: k.launches for k in K.KERNELS})
+            with torch.inference_mode():
+                state["eager"] = [be.eager(torch.stack([frames[i][r].tensor(0)
+                                                        for i in range(n)]).cuda())[0]
+                                  .cpu().numpy() for r in range(BATCH_ROUNDS)]
+
+        with dispatch_lanes(mode):
+            take_launches(K, total)
+            try:
+                p, got, arrivals, _ = run_batch(nns, torch, desc, n, frames, setup=setup,
+                                                during=during, on_start=on_start)
+            finally:
+                ring = state["ring"].stop()
+            take_launches(K, total, state["launches"])
+        batch_capture_check(state["stats"], BATCH_ROUNDS, state["launches"], kernels)
+        stream_check(np, got, state["eager"], BATCH_ROUNDS)
+        check(state["captures_at_start"] == state["stats"]["captures"],
+              f"lanes={mode}: {state['stats']['captures'] - state['captures_at_start']} "
+              "captures while PLAYING")
+        r = rates(arrivals, np)
+        steals = counter_sum(REGISTRY, "nnstpu_lane_steals_total",
+                             pipeline=state["name"]) - state["steals"]
+        handoffs = counter_sum(REGISTRY, "nnstpu_lane_handoffs_total",
+                               pipeline=state["name"]) - state["handoffs"]
+        if mode != "0":
+            check(state["lanes"] is not None and state["lanes"]["promoted"] == [],
+                  f"lanes={mode}: stats {state['lanes']}")
+            lane_ring_check(ring, mode)
+        runs[mode] = got
+        per_mode[mode] = dict(frames_per_s=r["fps"] * n, rounds_per_s=r["fps"],
+                              p50_ms=r["p50_ms"], p90_ms=r["p90_ms"], lanes=state["lanes"],
+                              steals=steals, handoffs=handoffs, ring=ring,
+                              replays=state["stats"]["replays"])
+        print(f"lanes (a) config 5, {n} streams, int8 head, lanes={mode}: "
+              f"{per_mode[mode]['frames_per_s']} frames/s over all streams, p50 {r['p50_ms']} "
+              f"ms a round; stats()['lanes'] {state['lanes']}; steals {steals}, handoffs "
+              f"{handoffs}; ring sampler {ring} [{card}]", flush=True)
+    matched = rounds_matched(np, runs, BATCH_ROUNDS)
+    print(f"lanes (a): rounds bit for bit equal to thread mode's: {matched} of {BATCH_ROUNDS}; "
+          f"no capture while PLAYING in any mode [{card}]", flush=True)
+    check(all(v == BATCH_ROUNDS for v in matched.values()), f"matched rounds {matched}")
+    res["config5"] = dict(modes=per_mode, rounds_matched=matched)
+    with dispatch_lanes("auto"):
+        take_launches(K, total)
+        traced = dict(fps=per_mode["auto"]["rounds_per_s"])
+        samplers = []
+        tr = profile_path(lambda m: run_batch(nns, torch, desc, n, [f[:m] for f in frames],
+                                              setup=lambda p: samplers.append(RingSampler(p)),
+                                              traced=True)[3], traced, kernels)
+        rings = [r.stop() for r in samplers]
+        for ring in rings:
+            lane_ring_check(ring, "auto (traced)")
+        res["config5"]["traced_auto"] = dict(ring=rings[-1], kernel_records=tr["records"],
+                                             device_busy_ms_per_round=traced[
+                                                 "device_busy_ms_per_frame"],
+                                             device_idle_share=traced["device_idle_share"],
+                                             host_ops_per_round=traced["host_ops_per_frame"])
+    check(all(tr["records"][k] > 0 for k in kernels), f"lanes=auto trace: {tr['records']}")
+    print(f"lanes (a) traced under lanes=auto: kernel records {tr['records']}, device busy "
+          f"{traced['device_busy_ms_per_frame']} ms a round, idle share "
+          f"{traced['device_idle_share']}; ring sampler {rings[-1]} [{card}]", flush=True)
+
+    # (b) slice 1, 64 frames: lanes=1 and lanes=auto against thread mode
+    _, model, _, _ = keep["image_labeling"]
+    labels = os.path.join(root, "build", "chip_smoke", "labels_1001.txt")
+    slice_desc = recovery_desc(RECOVERY_FRAMES, labels)
+    wakeups = [0]
+    wakeup = lanes.device_wakeup
+
+    def counting_wakeup():
+        wakeups[0] += 1
+        wakeup()
+
+    slices = {}
+    for mode in ("0",) + LANE_SLICE_MODES + ("auto+device",):
+        state = {"arrivals": []}
+
+        def setup(p, state=state, mode=mode):
+            p["out"].connect("new-data", lambda f: state["arrivals"].append(time.perf_counter()))
+            state["ring"] = RingSampler(p)
+            if mode.endswith("+device"):
+                state["device"] = p.attach_tracer("device")
+
+        def during(p, state=state):
+            state["lanes"] = p.stats().get("lanes")
+
+        lanes.device_wakeup = counting_wakeup
+        try:
+            with dispatch_lanes(mode.split("+")[0]):
+                take_launches(K, total)
+                p, outs, _, _, _, _ = faulted_run(nns, faults, hooks, slice_desc, model, None,
+                                                  None, setup=setup, during=during)
+        finally:
+            lanes.device_wakeup = wakeup
+            ring = state["ring"].stop()
+        got = p["out"].frames
+        check(len(got) == RECOVERY_FRAMES, f"slice 1, lanes={mode}: {len(got)} frames")
+        r = rates(state["arrivals"], np)
+        slices[mode] = dict(labels={f.pts: f.meta["label_index"] for f in got},
+                            outs={pts: o for pts, o in outs}, fps=r["fps"], p50_ms=r["p50_ms"],
+                            lanes=state["lanes"], ring=ring)
+        if "device" in state:
+            summ = state["device"].summary()
+            slices[mode].update(wakeups=wakeups[0], reaped=summ["completed"])
+            check(wakeups[0] >= RECOVERY_FRAMES and summ["completed"] == RECOVERY_FRAMES,
+                  f"device_wakeup reached {wakeups[0]} times, {summ['completed']} reaped")
+        if mode != "0":
+            lane_ring_check(ring, mode)
+    base = slices["0"]
+    for mode in LANE_SLICE_MODES + ("auto+device",):
+        s = slices[mode]
+        check(s["labels"] == base["labels"], f"slice 1, lanes={mode}: labels differ")
+        check(sorted(s["outs"]) == sorted(base["outs"]) and all(
+            bitwise_equal(torch, s["outs"][k], base["outs"][k]) for k in base["outs"]),
+            f"slice 1, lanes={mode}: logits differ from thread mode's")
+    res["slice1"] = {m: {k: v for k, v in s.items() if k not in ("labels", "outs")}
+                     for m, s in slices.items()}
+    print(f"lanes (b) slice 1, {RECOVERY_FRAMES} frames: labels and logits under lanes=1 and "
+          f"lanes=auto (and with the device tracer) bit for bit thread mode's; fps " + ", ".join(
+              f"lanes={m} {s['fps']}" for m, s in slices.items()) +
+          f"; device_wakeup reached {slices['auto+device']['wakeups']} times, "
+          f"{slices['auto+device']['reaped']} reaped [{card}]", flush=True)
+    # a live source is a blocking boundary: promoted to a helper at start
+    with dispatch_lanes("auto"):
+        take_launches(K, total)
+        before = counter_sum(REGISTRY, "nnstpu_lane_promotions_total", reason="hint",
+                             result="ok")
+        live = {}
+        p, _, _, _, _, _ = faulted_run(nns, faults, hooks, recovery_desc(RECOVERY_FRAMES, labels,
+                                                                         live=True),
+                                       model, None, None,
+                                       during=lambda p: live.update(p.stats()["lanes"]))
+        promoted = counter_sum(REGISTRY, "nnstpu_lane_promotions_total", reason="hint",
+                               result="ok") - before
+    print(f"lanes (b) live source under lanes=auto: promoted {live['promoted']}, "
+          f"nnstpu_lane_promotions_total{{reason=hint}} +{promoted}, "
+          f"{len(p['out'].frames)} frames [{card}]", flush=True)
+    check(live["promoted"] == ["src:src"] and promoted == 1 and
+          len(p["out"].frames) == RECOVERY_FRAMES, f"live source: {live}, +{promoted}")
+    res["slice1"]["live_promoted"] = live["promoted"]
+
+    # (c) config 1d under lanes=auto: every bucket before PLAYING
+    dyn_frames, poly = batch["dyn_frames"], batch["poly"]
+    os.environ["NNSTPU_COMPILE_WARMUP"] = "1"
+    batches, got_dyn, arrivals = [], [], []
+    try:
+        with dispatch_lanes("auto"):
+            take_launches(K, total)
+            p = nns.parse_launch(dyn_desc())
+            p["s"].data = [Frame.of(x, pts=i) for i, x in enumerate(dyn_frames)]
+            p["f"].model = poly
+            push = p["dyn"].push
+
+            def recording_push(frame, pad_name=None):
+                batches.append((list(frame.meta["dynbatch"]["pts"]),
+                                int(frame.tensors[0].shape[0])))
+                push(frame, pad_name)
+
+            p["dyn"].push = recording_push
+            p["out"].connect("new-data", lambda f: (got_dyn.append((f.pts, f.tensor(0).numpy())),
+                                                    arrivals.append(time.perf_counter())))
+            gate = p["u"]._lock
+            gate.acquire()
+            try:
+                p.start()
+            except BaseException:
+                gate.release()
+                raise
+            try:
+                be = p["f"].backend
+                before = be.stats["captures"]
+                gate.release()
+                check(p.wait(600), "config 1d under lanes did not finish")
+                take_launches(K, total)  # before the eager forwards
+                eager = {}
+                with torch.inference_mode():
+                    for pts, b in batches:
+                        x = torch.stack([dyn_frames[i] for i in pts] +
+                                        [dyn_frames[pts[-1]]] * (b - len(pts))).cuda()
+                        eager[tuple(pts)] = be.eager(x)[0].cpu().numpy()
+                K.reset_launches()  # the eager forwards compare; they are not the path's
+                after = be.stats["captures"]
+                report = p.warmup_report
+            finally:
+                p.stop()
+    finally:
+        os.environ.pop("NNSTPU_COMPILE_WARMUP", None)
+    buckets = [b for _, b in batches]
+    hist = dyn_checks(np, before, after, report, buckets, [pts for pts, _ in got_dyn],
+                      DYN_FRAMES)
+    by_pts = dict(got_dyn)
+    for pts, b in batches:
+        for j, f in enumerate(pts):
+            check(np.array_equal(by_pts[f].view(np.uint32), eager[tuple(pts)][j].view(np.uint32)),
+                  f"config 1d under lanes: frame {f} differs from the eager forward of its batch")
+    r = rates(arrivals, np)
+    res["config1d"] = dict(buckets=hist, captures_before_playing=before, fps=r["fps"])
+    print(f"lanes (c) config 1d under lanes=auto: {before} captures before the first frame, none "
+          f"while PLAYING; {DYN_FRAMES} frames in pts order, rows equal to the eager forward of "
+          f"their batch bit for bit; buckets {hist}; {r['fps']} frames/s [{card}]", flush=True)
+
+    # (d) the recovery phase's case (a) under two lanes
+    restart = dict(mode="restart", backoff_ms=1, backoff_cap_ms=5, max_restarts=8)
+    faults_n = RECOVERY_FRAMES // RESTART_EVERY
+    with dispatch_lanes(LANE_RESTART_MODE):
+        take_launches(K, total)
+        p, outs, walls, _, eng, _ = faulted_run(
+            nns, faults, hooks, slice_desc, model, f"invoke_raise@f:every={RESTART_EVERY}",
+            restart)
+    got = p["out"].frames
+    rec, stats = p.recovery_stats(), dict(p["f"].backend.stats)
+    print(f"lanes (d) restart under lanes={LANE_RESTART_MODE}: {len(got)} of {RECOVERY_FRAMES} "
+          f"delivered, {rec}, backend {stats}, restart walls {[round(w, 4) for w in walls]} "
+          f"[{card}]", flush=True)
+    check(len(got) == RECOVERY_FRAMES - faults_n and stats["captures"] == faults_n + 1,
+          f"delivered {len(got)}, captures {stats['captures']}")
+    check(rec.get("actions") == {"restart_node": faults_n} and rec.get("shed_total") == faults_n,
+          f"recovery ledger {rec}")
+    check(all(f.meta["label_index"] == base["labels"][f.pts] for f in got),
+          "a label differs from the fault-free run's frame")
+    res["restart"] = dict(delivered=len(got), captures=stats["captures"], recovery=rec,
+                          restart_wall_s=walls)
+
+    # (e) the watchdog's three verdicts, in thread mode and under lanes=auto
+    dump_dir = os.path.join(root, "build", "chip_smoke", "stall_dumps")
+    os.makedirs(dump_dir, exist_ok=True)
+    os.environ["NNSTPU_OBS_FLIGHT_DUMP_DIR"] = dump_dir
+    cycles = sleep_cycles(torch, WD_SLEEP_S)
+    try:
+        take_launches(K, total)
+        res["watchdog"] = {mode: watchdog_phase_runs(
+            torch, np, nns, faults, hooks, REGISTRY, recovery_desc, model, labels, card, mode,
+            cycles, dump_dir) for mode in ("0", "auto")}
+    finally:
+        os.environ.pop("NNSTPU_OBS_FLIGHT_DUMP_DIR", None)
+    res["watchdog"]["sleep_cycles"] = cycles
+    take_launches(K, total)
+    check(total["fused_arith"] > 0 and total["int8_matmul"] > 0, f"lanes launches {total}")
+    return total, res
+
+
 def _conv_dicts(tree):
     """Every dict of a params tree that holds a weight ``"w"``, in order."""
     if isinstance(tree, dict):
@@ -5260,7 +5926,7 @@ def main() -> int:
     t2 = time.perf_counter()
     by_path["lstm"], lstm_seq = recurrence_phase(torch, np, K, root, card)
     t3 = time.perf_counter()
-    batched = batch_phase(torch, np, K, ops, root, card)
+    batched = batch_phase(torch, np, K, ops, root, card, slices)
     for key in ("config5_n4", "config5_n8", "config1d"):
         by_path[key] = (batched[key]["launches"], batched[key])
     t4 = time.perf_counter()
@@ -5288,11 +5954,14 @@ def main() -> int:
     t10 = time.perf_counter()
     by_path["device_lane"] = device_lane_phase(torch, np, K, root, card, slices,
                                                by_path["vit"][1]["busy_share_of_bf16_peak"])
+    t11 = time.perf_counter()
+    by_path["lanes"] = lanes_phase(torch, np, K, root, card, slices)
     print(f"phase wall s: up to the quant phase {t1 - t0:.3f}, pose {t2 - t1:.3f}, "
           f"recurrence {t3 - t2:.3f}, batch {t4 - t3:.3f}, cascade {t5 - t4:.3f}, "
           f"app {t6 - t5:.3f}, vit {t7 - t6:.3f}, config 4c {t8 - t7:.3f}, "
           f"config 4d {t9 - t8:.3f}, recovery {t10 - t9:.3f}, "
-          f"device lane {time.perf_counter() - t10:.3f}", flush=True)
+          f"device lane {t11 - t10:.3f}, lanes {time.perf_counter() - t11:.3f}; "
+          f"the script {time.perf_counter() - t0:.3f} after the import", flush=True)
     wrapper = {"fused_arith": "fused_arith", "int8_matmul": "int8_matmul",
                "nms_keep": "pallas_nms_keep"}
     for name, r in kernels.items():
@@ -5316,7 +5985,8 @@ def main() -> int:
                       "vit_b16": by_path["vit"][1], "vit_b16_w8a8": by_path["vit_w8a8"][1],
                       "config4c": by_path["config4c"][1], "config4d": config4d,
                       "recovery": by_path["recovery"][1],
-                      "device_lane": by_path["device_lane"][1]}),
+                      "device_lane": by_path["device_lane"][1],
+                      "lanes": by_path["lanes"][1]}),
           flush=True)
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

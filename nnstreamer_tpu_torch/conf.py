@@ -82,6 +82,19 @@ DEFAULTS: Dict[str, Dict[str, str]] = {
         "peak_gbs": "",
         "busy_window_s": "10",
         "device_idle_gap_ms": "5",
+        # The pipeline health watchdog (obs/watchdog.py, tracer "watchdog").
+        "watchdog_interval": "1.0",         # monitor tick, seconds
+        "watchdog_stall_s": "5.0",          # source and queue stall window
+        "watchdog_queue_depth": "1",        # least depth of a wedged queue
+        "watchdog_device_deadline_s": "30", # device completion deadline
+        "watchdog_recover": "false",        # escalate a verdict to recovery
+        "watchdog_recover_budget": "3",     # recovery attempts per target
+        # >0: the watchdog probes the host-to-device wire every this many
+        # seconds and publishes the nnstpu_wire_* gauges (obs/util.py)
+        "watchdog_wire_probe_s": "0",
+        # The deep-profiling lane's trigger (obs/profiler.py, not ported):
+        # true makes the watchdog's install raise.
+        "profile_auto": "false",
     },
     # The chaos engine (faults/): seeded fault injection.  The short env
     # spelling NNSTPU_FAULTS takes precedence over NNSTPU_FAULTS_SPEC.
@@ -111,6 +124,16 @@ DEFAULTS: Dict[str, Dict[str, str]] = {
     "compile": {
         "warmup": "false",          # capture every planned geometry before PLAYING
         "warmup_timeout_s": "600",  # the whole phase's deadline (0: none)
+    },
+    # The dispatcher lanes (graph/lanes.py): run-to-completion lane tasks
+    # in place of a thread an element.  NNSTPU_DISPATCH_* env vars map here
+    # (NNSTPU_DISPATCH_LANES is the documented spelling).
+    "dispatch": {
+        "lanes": "0",               # 0 = a thread an element; "auto" =
+                                    # min(4, cpus); N pins the lane count
+        "helpers": "16",            # the bounded helper pool of blocking tasks
+        "block_ms": "20",           # a source pull over this counts as blocking
+        "quantum": "8",             # items a task slice before the lane yields
     },
     "segment": {
         "enabled": "false",         # plan and fold segments in Pipeline.start (a

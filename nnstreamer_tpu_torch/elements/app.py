@@ -43,6 +43,8 @@ class AppSrc(SourceNode):
     :class:`TensorsSpec`) or from :meth:`set_spec` before the start.
     """
 
+    LANE_BLOCKING = True  # frames() waits on the application's push queue
+
     def __init__(self, name: Optional[str] = None, caps: Optional[str] = None,
                  max_buffers: int = 100):
         super().__init__(name)

@@ -1,8 +1,7 @@
 """``tensor_dynbatch`` / ``tensor_dynunbatch``: adaptive batching in one
 stream.
 
-The port of the JAX package's ``elements/dynbatch.py``, in its thread mode
-(the JAX package's dispatcher lanes are not ported).  Frames that pile up
+The port of the JAX package's ``elements/dynbatch.py``.  Frames that pile up
 behind a slow consumer coalesce into one batched invoke, while a stream
 that keeps up stays at batch 1:
 
@@ -23,6 +22,11 @@ that keeps up stays at batch 1:
   back into the frames (padding rows dropped) with their own timing.
 - A caps event renegotiates this element on its worker, after the frames
   queued before it have left.
+- Under the dispatcher lanes (``[dispatch] lanes``, ``graph/lanes.py``) a
+  drain task takes the worker's place (:meth:`DynBatch.lane_task`): each
+  slice coalesces what is queued, never blocking, and a full queue makes
+  the producer drain inline.  A bucket captured while PLAYING captures
+  inside one task slice, so no other task runs on that lane meanwhile.
 
 The model under the filter must take a leading batch dim of any size
 (an input spec of shape ``(None, ...)``).
@@ -73,6 +77,9 @@ class DynBatch(Node):
             raise ValueError(f"max_batch must be a power of two, got {self.max_batch}")
         self.max_size = int(max_size_buffers)
         self._q = None
+        # lane mode (graph/lanes.py): the drain task and its runtime
+        self._lane_rt = None
+        self._lane_task = None
         self.batches_emitted = 0
         self.frames_in = 0
         self._pool = None  # the shared pool, resolved on first use
@@ -123,11 +130,69 @@ class DynBatch(Node):
     def _dispatch(self, pad: Pad, item) -> None:
         del pad
         self._ensure_queue()
+        rt, task = self._lane_rt, self._lane_task
+        if rt is not None and task is not None and not task.promoted:
+            rt.backpressure_push(self._q, item, "no", task)
+            rt.arm(task)
+            return
         self._q.push(item, leaky="no")
 
     def spawn_threads(self) -> List[threading.Thread]:
         self._ensure_queue()
         return [threading.Thread(target=self._worker, name=f"dynbatch:{self.name}")]
+
+    def lane_task(self, rt):
+        """Lane-mode registration (``graph/lanes.py``): the coalescing
+        drain task that takes the worker thread's place."""
+        from ..graph.lanes import DrainTask
+
+        self._ensure_queue()
+        self._lane_rt = rt
+        self._lane_task = DrainTask(f"dynbatch:{self.name}", self, rt._assign_lane())
+        return self._lane_task
+
+    def _lane_step(self, rt) -> Optional[str]:
+        """One lane slice, the cooperative twin of :meth:`_worker`: pop a
+        frame, coalesce whatever else is queued (never blocking), emit the
+        batch; up to ``rt.quantum`` batches.  ``"done"`` ends the task."""
+        q = self._q
+        if q is None:
+            return "done"
+        for _ in range(rt.quantum):
+            status, item = q.pop(0)
+            if status == SHUTDOWN:
+                return "done"
+            if status != OK:
+                return None  # drained; the next push arms the task again
+            try:
+                if isinstance(item, Event):
+                    if self._event(item):
+                        return "done"
+                    continue
+                if self._coalesce(q, item):
+                    return "done"
+            except BaseException as exc:  # noqa: BLE001 - any failure halts the graph
+                if self.pipeline is not None:
+                    self.pipeline.post_error(self, exc)
+                return "done"
+        return None
+
+    def _coalesce(self, q, first: Frame) -> bool:
+        """``first`` and what is queued behind it, up to ``max_batch``, as
+        one batch; an event met on the way goes after the batch.  True: the
+        stream is over (EOS)."""
+        pending = [first]
+        while len(pending) < self.max_batch:
+            status, nxt = q.pop(0)
+            if status != OK:
+                break
+            if isinstance(nxt, Event):
+                # an event never passes the frames queued before it
+                self._emit_batch(pending)
+                return self._event(nxt)
+            pending.append(nxt)
+        self._emit_batch(pending)
+        return False
 
     def _pool_or_default(self):
         if self._pool is None:
@@ -173,7 +238,6 @@ class DynBatch(Node):
 
     def _worker(self) -> None:
         q = self._q
-        max_pending = self.max_batch
         while True:
             status, item = q.pop(_POLL_MS)
             if status == SHUTDOWN:
@@ -185,21 +249,8 @@ class DynBatch(Node):
                     if self._event(item):
                         return
                     continue
-                pending = [item]
-                while len(pending) < max_pending:  # what is queued already
-                    status, nxt = q.pop(0)
-                    if status != OK:
-                        break
-                    if isinstance(nxt, Event):
-                        # an event never passes the frames queued before it
-                        self._emit_batch(pending)
-                        pending = []
-                        if self._event(nxt):
-                            return
-                        break
-                    pending.append(nxt)
-                if pending:
-                    self._emit_batch(pending)
+                if self._coalesce(q, item):
+                    return
             except BaseException as exc:  # noqa: BLE001 - any failure halts the graph
                 if self.pipeline is not None:
                     self.pipeline.post_error(self, exc)
@@ -228,6 +279,8 @@ class DynBatch(Node):
         if self._q is not None:
             self._q.shutdown()
             self._q = None
+        self._lane_rt = None
+        self._lane_task = None
         super().stop()
 
 

@@ -19,8 +19,15 @@ may come first.  :meth:`Queue.recover` sheds a wedged backlog for
 ``Pipeline.recover_queue`` (each frame a ``recovery`` drop, events kept in
 place) and hands back a fresh worker if the old one died; a
 ``queue_wedge`` fault (``faults/``) sleeps in the worker loop, so pushes
-pile up while pops stop.  Not ported yet: the dispatcher-lane mode
-(``lane_task``).
+pile up while pops stop.
+
+Under the dispatcher lanes (``[dispatch] lanes``, ``graph/lanes.py``) the
+worker thread gives way to a drain task: :meth:`Queue.lane_task` registers
+it, each push arms it on a lane's ready ring, and :meth:`Queue._lane_step`
+drains up to ``[dispatch] quantum`` items a slice without blocking.  A
+push into a full queue (``leaky=no``) makes the producer run the drain
+inline (``LaneRuntime.backpressure_push``), and :meth:`Queue.recover`
+re-arms a dead drain task instead of respawning a thread.
 """
 
 from __future__ import annotations
@@ -52,6 +59,10 @@ class Queue(Node):
         self.leaky = str(leaky)
         self._q = None
         self._worker_thread: Optional[threading.Thread] = None
+        # lane mode (graph/lanes.py): the drain task in place of the worker
+        # thread, and the runtime that schedules it
+        self._lane_rt = None
+        self._lane_task = None
         self.dropped = 0  # leaky drops over the element's life (survives stop)
 
     def _ensure_queue(self) -> None:
@@ -62,7 +73,13 @@ class Queue(Node):
         del pad
         self._ensure_queue()
         q = self._q  # stop() may drop the attribute meanwhile
-        status = q.push(item, leaky=self.leaky)
+        rt, task = self._lane_rt, self._lane_task
+        if rt is not None and task is not None and not task.promoted:
+            # lane mode: a full queue is backpressure, never a parked lane;
+            # a push that times out makes the producer drain inline
+            status = rt.backpressure_push(q, item, self.leaky, task)
+        else:
+            status = q.push(item, leaky=self.leaky)
         if status in (OK_DROPPED_OLDEST, DROPPED_INCOMING):
             self.dropped += 1
             if _hooks.enabled:
@@ -70,15 +87,46 @@ class Queue(Node):
                             "downstream" if status == OK_DROPPED_OLDEST else "upstream")
         if _hooks.enabled:
             _hooks.emit("queue_push", self, len(q))
+        if rt is not None and task is not None:
+            rt.arm(task)  # the lane-to-lane handoff through a ready ring
 
     def spawn_threads(self) -> List[threading.Thread]:
         self._ensure_queue()
         self._worker_thread = threading.Thread(target=self._worker, name=f"queue:{self.name}")
         return [self._worker_thread]
 
+    def lane_task(self, rt):
+        """Lane-mode registration (``graph/lanes.py``): the drain task that
+        takes the worker thread's place."""
+        from ..graph.lanes import DrainTask
+
+        self._ensure_queue()
+        self._lane_rt = rt
+        self._lane_task = DrainTask(f"queue:{self.name}", self, rt._assign_lane())
+        return self._lane_task
+
+    def _lane_step(self, rt) -> Optional[str]:
+        """One lane slice: drain up to ``rt.quantum`` items without
+        blocking, the cooperative twin of :meth:`_worker` with its event,
+        fault and error semantics.  ``"done"`` ends the task."""
+        q = self._q
+        if q is None:
+            return "done"
+        for _ in range(rt.quantum):
+            if _faults.enabled:
+                # chaos: queue_wedge sleeps here, as in the worker loop
+                _faults.maybe_queue_wedge(self.name)
+            status, item = q.pop(0)
+            if status == SHUTDOWN:
+                return "done"
+            if status != OK:
+                return None  # drained; the next push arms the task again
+            if self._deliver(q, item):
+                return "done"
+        return None
+
     def _worker(self) -> None:
         q = self._q  # stop() may drop the attribute while this drains
-        sink = self.sink_pads["sink"]
         while True:
             if _faults.enabled:
                 # chaos: a queue_wedge fault sleeps here, so pushes pile up
@@ -89,21 +137,26 @@ class Queue(Node):
                 return
             if status != OK:
                 continue  # poll timeout
-            if _hooks.enabled:
-                _hooks.emit("queue_pop", self, len(q))
-            try:
-                if isinstance(item, Event):
-                    # EOS drains and forwards; caps renegotiates downstream
-                    # (a NegotiationError there reaches post_error below)
-                    self._handle_event(sink, item)
-                    if item.kind == "eos":
-                        return
-                else:
-                    self.push(item)
-            except BaseException as exc:  # noqa: BLE001 - any failure halts the graph
-                if self.pipeline is not None:
-                    self.pipeline.post_error(self, exc)
+            if self._deliver(q, item):
                 return
+
+    def _deliver(self, q, item) -> bool:
+        """One popped item into the downstream chain.  True: the drain is
+        over (EOS, or an error posted to the pipeline)."""
+        if _hooks.enabled:
+            _hooks.emit("queue_pop", self, len(q))
+        try:
+            if isinstance(item, Event):
+                # EOS drains and forwards; caps renegotiates downstream
+                # (a NegotiationError there reaches post_error below)
+                self._handle_event(self.sink_pads["sink"], item)
+                return item.kind == "eos"
+            self.push(item)
+            return False
+        except BaseException as exc:  # noqa: BLE001 - any failure halts the graph
+            if self.pipeline is not None:
+                self.pipeline.post_error(self, exc)
+            return True
 
     def stats(self) -> dict:
         """Occupancy and drops (GStreamer's ``current-level-buffers`` and
@@ -120,7 +173,8 @@ class Queue(Node):
         """Supervised recovery (``Pipeline.recover_queue``): shed the wedged
         backlog (each frame dropped with typed accounting, the in-band
         events, EOS and caps, queued again in order) and hand back a fresh
-        worker thread if the old one died.  Returns ``(frames_drained,
+        worker thread if the old one died (in lane mode, arm the drain task
+        again, made anew if it died).  Returns ``(frames_drained,
         new_threads)``."""
         q = self._q
         drained = 0
@@ -140,6 +194,12 @@ class Queue(Node):
             for ev in events:
                 q.push(ev, leaky="no")
         threads: List[threading.Thread] = []
+        rt, task = self._lane_rt, self._lane_task
+        if rt is not None and task is not None and not task.promoted:
+            # lane mode: no worker thread to respawn; a dead drain task (a
+            # faulted consumer) is made again and armed
+            self._lane_task = rt.ensure_armed(self)
+            return drained, threads
         t = self._worker_thread
         if q is not None and (t is None or not t.is_alive()):
             self._worker_thread = threading.Thread(target=self._worker, name=f"queue:{self.name}")
@@ -155,4 +215,6 @@ class Queue(Node):
         if self._q is not None:
             self._q.shutdown()
             self._q = None
+        self._lane_rt = None
+        self._lane_task = None
         super().stop()

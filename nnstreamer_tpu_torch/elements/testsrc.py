@@ -54,6 +54,9 @@ class VideoTestSrc(SourceNode):
             rate=Fraction(framerate),
         )
         self.is_live = parse_bool(is_live, name="is-live")
+        # a live source sleeps to keep the framerate: a blocking boundary
+        # for the dispatcher lanes (graph/lanes.py)
+        self.LANE_BLOCKING = self.is_live
         self.seed = int(seed)
 
     def output_spec(self) -> TensorsSpec:

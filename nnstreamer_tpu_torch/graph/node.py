@@ -4,7 +4,8 @@ The port's copy of the JAX package's ``graph/node.py``: pads link nodes,
 negotiation is an explicit pass over the graph (``graph/pipeline.py``), a
 pad push runs the downstream chain synchronously in the pusher's thread, and
 events (EOS, caps) travel in band with frames.  Each source runs in its own
-thread.  Elements with request pads (mux and merge on the sink side,
+thread, or as a task on the dispatcher lanes (``graph/lanes.py``).
+Elements with request pads (mux and merge on the sink side,
 demux, split and tee on the src side) make a pad when a link names one
 they lack, or names none once every pad is linked (``sink_N``, ``src_N``).
 
@@ -137,9 +138,11 @@ class Node:
     # or to no name once every pad is linked, adds the pad.
     REQUEST_SINK_PADS = False
     REQUEST_SRC_PADS = False
-    # Set by elements that block on the outside world (repo slots): the
-    # JAX package's dispatcher lanes move such a node off a lane; the port
-    # reads it once its lanes are ported.
+    # Set by elements that block on the outside world (repo slots, appsrc,
+    # a live videotestsrc): the dispatcher lanes (graph/lanes.py) run the
+    # fused segment of such a node on a helper thread, off the lanes.  An
+    # instance attribute ``lane_blocking`` overrides it either way (the
+    # segment planner sets it on decoders).
     LANE_BLOCKING = False
 
     _AUTO_IDS = itertools.count()

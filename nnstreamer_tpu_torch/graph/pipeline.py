@@ -56,10 +56,17 @@ quarantined nodes.  ``[faults] spec`` (``NNSTPU_FAULTS``) installs the
 chaos engine at start (``faults/``).  An error's flight dump carries the
 card's memory (``obs/device.py``) as its ``otherData``.
 
-Not ported yet: the dispatcher lanes (``stats()``'s ``lanes``), the device
-trace of the whole PLAYING interval (``[common] xplane_trace_dir``) and the
-per-executable memory ledger of a flight dump, which wait for the port's
-lanes and profiler.
+Scheduling substrate: with ``[dispatch] lanes`` > 0 (``NNSTPU_DISPATCH_LANES``)
+the start hands every queue and ``tensor_dynbatch`` (nodes with
+``lane_task``) and every source to a :class:`~.lanes.LaneRuntime` instead of
+a thread of its own; ``stats()["lanes"]`` reads it, ``stop`` ends it, and
+:meth:`Pipeline.restart_source`, :meth:`Pipeline.source_alive` and
+:meth:`Pipeline.recover_queue` act on its tasks.  ``lanes = 0`` (the
+default) keeps a thread an element.
+
+Not ported yet: the device trace of the whole PLAYING interval
+(``[common] xplane_trace_dir``) and the per-executable memory ledger of a
+flight dump, which wait for the port's profiler.
 """
 
 from __future__ import annotations
@@ -154,6 +161,9 @@ class Pipeline:
         self._restart_log: Dict[str, List[float]] = {}  # node -> restart times
         self._recovery_counts: Dict[str, int] = {}      # action -> count
         self._shed_frames: Dict[str, int] = {}          # node -> frames shed
+        # the dispatcher lanes (graph/lanes.py); None: a thread an element
+        # ([dispatch] lanes = 0)
+        self._lanes = None
 
     # -- graph construction -------------------------------------------------
 
@@ -333,7 +343,8 @@ class Pipeline:
         """Replace a stalled source's streaming thread (a watchdog's
         escalation).  The stuck thread is joined briefly, then abandoned
         with a bumped epoch (it exits when it unblocks instead of pushing
-        twice); the source restarts and streams on a fresh thread."""
+        twice); the source restarts and streams on a fresh thread, or, under
+        the lanes, the stale task is retired and a fresh one armed."""
         from ..obs import recovery as _recovery
 
         node = self.nodes.get(name)
@@ -350,6 +361,10 @@ class Pipeline:
         for t in [t for t in self.threads if t.name == f"src:{name}"]:
             t.join(timeout=2.0)
             self.threads.remove(t)
+        if self._lanes is not None:
+            # the lane twin of the join above: wait out the stale task's
+            # executor before the stop event is cleared below
+            self._lanes.retire_source(name)
         node._stop_evt.clear()
         try:
             node.stop()
@@ -360,23 +375,31 @@ class Pipeline:
         self._bump("restart_source")
         if _hooks.enabled:
             _hooks.emit("source_spawn", self, node)
-        t = threading.Thread(target=self._source_loop, args=(node,), name=f"src:{name}",
-                             daemon=True)
-        self.threads.append(t)
-        t.start()
+        if self._lanes is not None:
+            # the stale task exits on the bumped epoch; a fresh pull task
+            # takes over
+            self._lanes.respawn_source(node)
+        else:
+            t = threading.Thread(target=self._source_loop, args=(node,), name=f"src:{name}",
+                                 daemon=True)
+            self.threads.append(t)
+            t.start()
         _recovery.record(self.name, "restart_source", "ok", name)
         return True
 
     def source_alive(self, name: str) -> bool:
-        """Is the source's streaming thread alive?  (A watchdog keys its
-        stalled-source detection on this.)"""
+        """Is the source executing: its streaming thread alive, or under the
+        lanes its task mid-slice or its helper thread alive?  (A watchdog
+        keys its stalled-source detection on this.)"""
+        if self._lanes is not None:
+            return self._lanes.source_alive(name)
         return any(t.name == f"src:{name}" and t.is_alive() for t in self.threads)
 
     def recover_queue(self, name: str) -> int:
         """Drain a wedged queue (a watchdog's escalation): shed its backlog
         with typed accounting, keeping its in-band events, and respawn its
-        worker if the thread died.  Returns the frames drained, -1 when the
-        node cannot recover."""
+        worker if the thread died (under the lanes, arm its drain task).
+        Returns the frames drained, -1 when the node cannot recover."""
         from ..obs import recovery as _recovery
 
         node = self.nodes.get(name)
@@ -547,8 +570,20 @@ class Pipeline:
         self._post_negotiate_hooks()
         if _hooks.enabled:
             _hooks.emit("state_change", self, "NULL", "PLAYING")
+        # the scheduling substrate: with [dispatch] lanes > 0, queue drains
+        # and source pulls become lane tasks (graph/lanes.py); lanes = 0
+        # keeps a thread an element
+        from . import lanes as _lanes
+
+        nlanes = _lanes.configured_lanes()
+        if nlanes > 0:
+            self._lanes = _lanes.LaneRuntime(self, nlanes)
+            self._lanes.start()
         # threads that nodes ask for (queues), then the sources
         for node in self.nodes.values():
+            if self._lanes is not None and getattr(node, "lane_task", None) is not None:
+                self._lanes.add_element(node)
+                continue
             spawn = getattr(node, "spawn_threads", None)
             if spawn is not None:
                 for t in spawn():
@@ -560,6 +595,9 @@ class Pipeline:
                 node._stop_evt.clear()
                 if _hooks.enabled:
                     _hooks.emit("source_spawn", self, node)
+                if self._lanes is not None:
+                    self._lanes.add_source(node)
+                    continue
                 t = threading.Thread(
                     target=self._source_loop, args=(node,), name=f"src:{node.name}",
                     daemon=True,
@@ -654,6 +692,9 @@ class Pipeline:
             if t.is_alive():
                 leaked.append(t.name)
         self.threads.clear()
+        if self._lanes is not None:
+            leaked.extend(self._lanes.stop(timeout=5.0))
+            self._lanes = None
         if leaked:
             warnings.warn(
                 f"pipeline {self.name!r}: {len(leaked)} thread(s) did not exit "
@@ -755,7 +796,8 @@ class Pipeline:
         """Per-node invoke-latency summary (ms) of this pipeline's nodes
         (recorded while profiling is on), plus one ``"tracers"`` entry per
         attached tracer (latency, throughput, drops, copies, spans, device)
-        and, once recovery acted, the ``"recovery"`` ledger."""
+        and, once recovery acted, the ``"recovery"`` ledger; under the
+        dispatcher lanes, ``"lanes"`` (:meth:`~.lanes.LaneRuntime.stats`)."""
         from ..utils import profiling
 
         out = {k: v for k, v in profiling.stats().items() if k in self.nodes}
@@ -764,6 +806,9 @@ class Pipeline:
         rec = self.recovery_stats()
         if rec:
             out["recovery"] = rec
+        lanes = self._lanes
+        if lanes is not None:
+            out["lanes"] = lanes.stats()
         return out
 
     def flight_snapshot(self) -> list:
@@ -797,8 +842,9 @@ class Pipeline:
             warnings.warn(f"dot dump ({transition}) failed: {exc!r}", stacklevel=2)
 
     def _dump_flight(self, transition: str) -> None:
-        """Write the flight recorder as Chrome-trace JSON on an error
-        (``[obs] flight_dump_dir``): open ``{name}.error.trace.json`` in
+        """Write the flight recorder as Chrome-trace JSON on an error, or on
+        a watchdog's stall verdict (``[obs] flight_dump_dir``): open
+        ``{name}.error.trace.json`` or ``{name}.stall.trace.json`` in
         Perfetto."""
         import json
         import os

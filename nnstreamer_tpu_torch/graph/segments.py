@@ -16,6 +16,11 @@ non-trivial converters (frames-per-tensor batching), host transforms
 (acceleration off) and decoders without ``device_stage`` are recorded in
 the plan's ``fallbacks``, structural stops in its ``cuts``.
 
+A decoder's lowering sets its ``lane_blocking`` hint for the dispatcher
+lanes (``graph/lanes.py``): off when the heavy decode moved onto the card,
+on when the decode stays on the host behind the fused boundary (the undo
+puts back what was there).
+
 Undo closures restore the unfused graph: on a failed start, on
 ``Pipeline.stop`` (the next start plans the user's graph afresh), and per
 element at configure time when the decoder refuses its negotiated geometry
@@ -199,13 +204,16 @@ class _DecoderStage:
             built = None
         if built is None:
             plugin.set_lowered(None)
+            self.dec.lane_blocking = True  # the host decode stays: a heavy task
             return None
         fn, out_spec = built
         plugin.set_lowered(out_spec)
+        self.dec.lane_blocking = False  # the heavy decode moved onto the card
         return fn, out_spec
 
     def on_refuse(self):
         self.dec.plugin.set_lowered(None)
+        self.dec.lane_blocking = True
 
     def describe(self, spec):
         return ("tensor_decoder", self.dec.mode, self.dec.options, str(spec))
@@ -235,19 +243,24 @@ def fuse_segments(pipeline: Pipeline) -> List:
         be = filt.backend
         prev_label = be.segment_label
         be.segment_label = plan.label
+        prev_hint = getattr(dec, "lane_blocking", None) if dec is not None else None
         if _hooks.enabled:
             _hooks.emit("segment", pipeline.name, filt.name, plan.label,
                         f"pre={len(plan.pre)} post={len(plan.post)} "
                         f"fallbacks={len(plan.fallbacks)}", "install")
 
-        def undo_install(f=filt, d=dec, b=be, prev=prev_label, op=old_pre, opost=old_post,
-                         label=plan.label, pname=pipeline.name):
+        def undo_install(f=filt, d=dec, b=be, prev=prev_label, hint=prev_hint, op=old_pre,
+                         opost=old_post, label=plan.label, pname=pipeline.name):
             f.set_fused_transforms(op, opost)
             if not op and not opost:
                 b.set_wrapper(None)  # nothing fused: the bare model again
             b.segment_label = prev
             if d is not None:
                 d.plugin.set_lowered(None)
+                if hint is None:
+                    d.__dict__.pop("lane_blocking", None)
+                else:
+                    d.lane_blocking = hint
             if _hooks.enabled:
                 _hooks.emit("segment", pname, f.name, label, "", "restore")
 

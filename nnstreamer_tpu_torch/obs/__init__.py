@@ -23,7 +23,11 @@ no device runtime:
   and roofline math against the card's peaks, busy and idle accounting,
   and the host-to-device wire probe;
 - :mod:`.recovery` — the accounting of self-healing actions
-  (``nnstpu_recovery_total``).
+  (``nnstpu_recovery_total``);
+- :mod:`.watchdog` — the pipeline health watchdog (``NNSTPU_TRACERS=watchdog``):
+  stalled sources, wedged queues and overdue device dispatches flip
+  ``nnstpu_health`` and ``/healthz``, write a stall flight dump, and with
+  ``[obs] watchdog_recover`` escalate to restart, drain and breaker trips.
 
 Activation is conf-driven — ``NNSTPU_TRACERS=latency;stats`` and
 ``NNSTPU_METRICS_PORT=9464`` (the short spellings take precedence;
@@ -31,10 +35,10 @@ Activation is conf-driven — ``NNSTPU_TRACERS=latency;stats`` and
 ``[common]`` keys also work) — or programmatic via
 ``pipeline.attach_tracer("latency")``.
 
-Not ported yet: the cost model, the deep-profiling lane, the watchdog,
-the cluster collector, tail forensics and the SLO engine
-(``obs/{costmodel,profiler,watchdog,collector,forensics,slo}.py``), and the
-partition edges of ``obs/util.py``'s wire health.
+Not ported yet: the cost model, the deep-profiling lane (and with it the
+watchdog's ``profile_auto``), the cluster collector, tail forensics and
+the SLO engine (``obs/{costmodel,profiler,collector,forensics,slo}.py``),
+and the partition edges of ``obs/util.py``'s wire health.
 """
 
 from __future__ import annotations
@@ -103,6 +107,9 @@ from .device import (  # noqa: E402,F401
     record_compile,
     register_memory_gauges,
 )
+
+# importing .watchdog registers the "watchdog" tracer with TRACERS
+from .watchdog import PipelineWatchdog  # noqa: E402,F401
 
 
 def configured_tracers() -> List[str]:

@@ -47,8 +47,10 @@ lane of the obs subsystem:
   ``host_dispatch`` when nothing was enqueued, ``queue_wait`` otherwise).
 
 :func:`oldest_inflight` says how old the oldest dispatch still executing
-is.  Not ported yet: the per-shard reaping of a mesh dispatch (the port
-has no mesh), and the wakeup of the dispatcher lanes at each completion.
+is (the watchdog's overdue-device verdict reads it).  Each completion the
+reaper observes wakes the dispatcher lanes (``graph/lanes.device_wakeup``),
+so idle lanes and backpressured producers poll again at once.  Not ported
+yet: the per-shard reaping of a mesh dispatch (the port has no mesh).
 """
 
 from __future__ import annotations
@@ -545,10 +547,11 @@ class DeviceTracer(Tracer):
             cost_key = ck_fn()
         pid = next(spans._ids)
         fid = next(spans._flow_ids)
-        # flow start on the dispatching (host) thread, inside the host
+        # flow start on the dispatching (host) thread's row, inside the host
         # dispatch span: Perfetto draws the arrow host span -> device span
+        # (under the lanes the row is the task's logical name)
         spans._recorder.append((
-            spans.PH_FLOW_START, now_ns(), 0, threading.current_thread().name,
+            spans.PH_FLOW_START, now_ns(), 0, spans._tid(),
             "device", "device", trace_id, fid, 0, None))
         with self._cv:
             if len(self._q) >= self._cap:
@@ -622,6 +625,15 @@ class DeviceTracer(Tracer):
             finally:
                 with _inflight_lock:
                     _inflight.pop(pid, None)
+                # a device completion wakes the dispatcher lanes: idle lanes
+                # and backpressured producers poll again now, not at the
+                # next timeout tick
+                try:
+                    from ..graph import lanes as _lanes
+
+                    _lanes.device_wakeup()
+                except Exception:  # noqa: BLE001 - observability only
+                    pass
 
     # -- utilization attribution ---------------------------------------------
 

@@ -13,7 +13,8 @@ Beyond ``/metrics`` the server answers ``/healthz`` (liveness probe: a
 JSON ``{"status": "ok"|"warming"|"degraded"|"unhealthy", ...}`` document
 carrying every provider's reason — ``degraded`` and ``warming`` stay 200,
 ``unhealthy`` turns 503 once any registered health provider reports
-unhealthy), ``/stats.json`` — every registered stats provider (each
+unhealthy; the pipeline watchdog, ``obs/watchdog.py``, registers one a
+pipeline), ``/stats.json`` — every registered stats provider (each
 pipeline, from ``Pipeline.start``) merged into one JSON document, the
 structured twin of the Prometheus exposition — and ``/alerts``, the empty
 document of a process with no objectives.
@@ -83,7 +84,8 @@ def register_health(name: str, fn: Callable[[], tuple]) -> Callable:
     """Register a health provider under ``name``: a callable returning
     ``(healthy: bool, reason: str)``.  While any provider reports
     unhealthy, ``/healthz`` answers 503 with the reasons (the pipeline
-    watchdog is the canonical registrant)."""
+    watchdog, :class:`~.watchdog.PipelineWatchdog`, registers one per
+    pipeline while it runs)."""
     with _health_lock:
         _health_providers[name] = fn
     return fn

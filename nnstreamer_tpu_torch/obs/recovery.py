@@ -2,7 +2,8 @@
 
 The port's copy of the JAX package's ``obs/recovery.py``.  Every recovery
 path of the graph runtime (node restarts and quarantines, source restarts,
-queue drains) reports through :func:`record`, so one counter family answers
+queue drains) and the watchdog's breaker trips (``obs/watchdog.py``, on an
+overdue device) report through :func:`record`, so one counter family answers
 "what did the system do to keep itself alive, and did it work":
 
     nnstpu_recovery_total{pipeline,action,result}
@@ -36,7 +37,8 @@ def record(pipeline: str, action: str, result: str, target: str = "",
            detail: str = "") -> None:
     """One recovery action: ``action`` names what was attempted
     (``restart_node``, ``quarantine``, ``restart_source``,
-    ``drain_queue``), ``result`` its outcome (``ok`` / ``error`` / ``storm`` / ``escalate``)."""
+    ``drain_queue``, and the watchdog's ``breaker_trip``), ``result`` its
+    outcome (``ok`` / ``error`` / ``storm`` / ``escalate``)."""
     try:
         _recovery_counter().inc(
             1, pipeline=pipeline or "", action=action, result=result)

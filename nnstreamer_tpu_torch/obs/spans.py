@@ -18,7 +18,7 @@ answers the per-frame question:
 - coalescing elements stamp the combined frame with a fresh span whose
   **parent links** name every constituent frame's span
   (:func:`merge_context`, called by ``tensor_mux`` for each collection
-  round; ``tensor_dynbatch``, its other caller, is not ported yet);
+  round and by ``tensor_dynbatch`` for each batch);
 - records land in a bounded per-thread ring (:class:`~.flight.
   FlightRecorder`) — zero cost when disabled (the ``enabled`` module
   flag is one load + truth test, same discipline as ``obs/hooks.py``);
@@ -35,9 +35,11 @@ makes the filter wait for it (``utils/profiling.py``).
 Activation: ``NNSTPU_TRACERS=spans`` (conf-driven, like every tracer),
 ``pipeline.attach_tracer("spans")``, or :func:`enable`.  Ring capacity
 comes from ``NNSTPU_FLIGHT_RECORDS`` / ini ``[obs] flight_records``.
-Not ported yet: the logical thread names of the dispatcher lanes
-(``set_tid``), and the trace lookups of the query wire and tail
-forensics (``new_trace_id``, ``records_for_trace``).
+Under the dispatcher lanes (:mod:`..graph.lanes`), :func:`set_tid` gives
+each record its task's logical thread name, so a lane run renders the rows
+of thread mode plus one ``lane:<n>`` track of task slices.  Not ported yet:
+the trace lookups of the query wire and tail forensics (``new_trace_id``,
+``records_for_trace``).
 """
 
 from __future__ import annotations
@@ -86,7 +88,21 @@ now_ns = time.perf_counter_ns  # the one clock (see obs/hooks.py)
 
 
 def _tid() -> str:
-    return threading.current_thread().name
+    override = getattr(_tls, "tid_override", None)
+    return override if override is not None else threading.current_thread().name
+
+
+def set_tid(name: Optional[str]) -> Optional[str]:
+    """Set the calling thread's *logical* identity for span records
+    (``None`` restores the OS thread's name); returns the previous one, so
+    callers can nest.  The dispatcher lanes (:mod:`..graph.lanes`) set the
+    running task's name (``src:<name>``, ``queue:<name>``) around each
+    slice, so records, flow pairing and Perfetto rows of a lane run are
+    those of the thread-per-element mode.  The flight recorder's rings stay
+    per OS thread; a record's row is this name, never its ring's."""
+    prev = getattr(_tls, "tid_override", None)
+    _tls.tid_override = name
+    return prev
 
 
 def _rec(ph, ts, dur, name, cat, trace_id, span_id, parent_id, args) -> None:
@@ -317,9 +333,15 @@ class SpanTracer(Tracer):
     # -- hook callbacks ------------------------------------------------------
 
     def _stack(self) -> list:
-        stack = getattr(self._stacks, "stack", None)
+        # keyed by the logical tid, not the OS thread: a lane that runs a
+        # helped drain slice inside a producer's chain must not nest the
+        # drained dispatches under the producer's spans
+        stacks = getattr(self._stacks, "by_tid", None)
+        if stacks is None:
+            stacks = self._stacks.by_tid = {}
+        stack = stacks.get(_tid())
         if stack is None:
-            stack = self._stacks.stack = []
+            stack = stacks[_tid()] = []
         return stack
 
     def _on_source_push(self, pipeline, node, frame) -> None:

@@ -1009,3 +1009,99 @@ def test_transformer_constants_are_the_bench_cells(smoke):
                                  n_layers=12)
     assert smoke.STAGGER_STREAMS > smoke.ENGINE_CAPACITY
     assert smoke.STAGGER_GAP * (smoke.ENGINE_CAPACITY - 1) < smoke.STAGGER_STEPS
+
+
+# -- the lanes phase ------------------------------------------------------------
+
+def _streams(rng, n=3, rounds=4):
+    return {i: [rng.standard_normal(10).astype(np.float32) for _ in range(rounds)]
+            for i in range(n)}
+
+
+@pytest.mark.parametrize("case", ["equal", "short_run", "bit_apart", "swapped_rows"])
+def test_rounds_matched(smoke, case):
+    """Each lane mode's rounds against thread mode's: equal rows count, a
+    round a mode lacks is skipped, a row a bit apart or two streams'
+    rows swapped fail."""
+    rng = np.random.default_rng(4)
+    base = _streams(rng)
+    lane = {i: [r.copy() for r in rows] for i, rows in base.items()}
+    runs = {"0": base, "1": lane, "auto": {i: list(rows) for i, rows in base.items()}}
+    if case == "short_run":
+        runs["auto"] = {i: rows[:3] for i, rows in base.items()}
+        assert smoke.rounds_matched(np, runs, 4) == {"1": 4, "auto": 3}
+        return
+    if case == "equal":
+        assert smoke.rounds_matched(np, runs, 4) == {"1": 4, "auto": 4}
+        return
+    if case == "bit_apart":
+        lane[2][1].view(np.uint32)[5] ^= 1
+    else:
+        lane[0][3], lane[1][3] = lane[1][3], lane[0][3]
+    with pytest.raises(SystemExit):
+        smoke.rounds_matched(np, runs, 4)
+
+
+@pytest.mark.parametrize("parked_s,ok", [(0.0, True), (0.004, True), (0.1, True),
+                                         (0.2, False)])
+def test_lane_ring_check(smoke, parked_s, ok):
+    """A lane parked beside ready work for longer than two polls (the
+    steal or the arm's wakeup failed) fails; shorter stretches pass."""
+    ring = dict(samples=400, parked_with_work=3, longest_parked_with_work_s=parked_s,
+                max_ready=2)
+    if ok:
+        smoke.lane_ring_check(ring, "auto")
+    else:
+        with pytest.raises(SystemExit):
+            smoke.lane_ring_check(ring, "auto")
+
+
+def test_take_launches_counts_the_path_not_the_comparison(smoke):
+    class Wrapper:
+        def __init__(self, name):
+            self.__name__, self.launches = name, 0
+
+    class Kernels:
+        KERNELS = (Wrapper("fused_arith"), Wrapper("int8_matmul"))
+
+        @classmethod
+        def reset_launches(cls):
+            for k in cls.KERNELS:
+                k.launches = 0
+
+    total = {}
+    Kernels.KERNELS[0].launches, Kernels.KERNELS[1].launches = 4, 4
+    snapshot = {k.__name__: k.launches for k in Kernels.KERNELS}
+    Kernels.KERNELS[0].launches += 24  # eager forwards held against the replays
+    smoke.take_launches(Kernels, total, snapshot)
+    smoke.take_launches(Kernels, total)
+    Kernels.KERNELS[1].launches = 5
+    smoke.take_launches(Kernels, total)
+    assert total == {"fused_arith": 4, "int8_matmul": 9}
+    assert all(k.launches == 0 for k in Kernels.KERNELS)
+
+
+def test_counter_sum_selects_by_labels(smoke):
+    from nnstreamer_tpu_torch.obs.metrics import MetricsRegistry
+
+    reg = MetricsRegistry()
+    c = reg.counter("nnstpu_lane_steals_total", "steals", labelnames=("pipeline", "lane"))
+    c.inc(3, pipeline="a", lane="0")
+    c.inc(2, pipeline="a", lane="1")
+    c.inc(7, pipeline="b", lane="0")
+    assert smoke.counter_sum(reg, "nnstpu_lane_steals_total", pipeline="a") == 5
+    assert smoke.counter_sum(reg, "nnstpu_lane_steals_total", lane="0") == 10
+    assert smoke.counter_sum(reg, "nnstpu_lane_steals_total") == 12
+    assert smoke.counter_sum(reg, "nnstpu_nothing_total", pipeline="a") == 0.0
+
+
+def test_watchdog_constants_leave_room_for_the_verdicts(smoke):
+    """The wedged queue holds the whole stream (its source never blocks, so
+    the only verdict is the queue's); the device sleep outlasts the
+    deadline by more than a tick; the stall window spans several ticks."""
+    assert smoke.WD_WEDGE_QUEUE > smoke.RECOVERY_FRAMES
+    assert smoke.WD_WEDGE_AFTER < smoke.RECOVERY_FRAMES
+    assert smoke.WD_WEDGE_MS / 1e3 > smoke.WD_STALL_S + 2 * smoke.WD_INTERVAL_S
+    assert smoke.WD_SLEEP_S > smoke.WD_DEADLINE_S + 2 * smoke.WD_INTERVAL_S
+    assert smoke.WD_STALL_S >= 4 * smoke.WD_INTERVAL_S
+    assert smoke.LANE_MODES == ("0", "1", "auto")

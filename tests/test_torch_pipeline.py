@@ -226,6 +226,18 @@ def test_port_runs_with_jax_blocked():
             sess.prefill(torch.ones(2, 4).numpy())
             sess.feed(torch.ones(4).numpy())
             assert [sess.get(timeout=30).shape for _ in range(2)] == [(2,), (2,)]
+        import os
+        from nnstreamer_tpu_torch.graph import lanes
+        from nnstreamer_tpu_torch.obs import watchdog
+        from nnstreamer_tpu_torch.sched import breaker
+        os.environ["NNSTPU_DISPATCH_LANES"] = "2"
+        w = nns.parse_launch("videotestsrc num-buffers=3 width=8 height=8 ! tensor_converter ! "
+                             "queue ! tensor_sink name=out collect=true")
+        wd = w.attach_tracer("watchdog")
+        w.run(timeout=60)
+        assert len(w["out"].frames) == 3 and w._lanes is None and wd.health()[0]
+        assert isinstance(wd, watchdog.PipelineWatchdog) and lanes.configured_lanes() == 2
+        assert breaker.trip_all() == 0
         assert not any(k in ("jax", "ml_dtypes") or k.startswith(("jax.", "nnstreamer_tpu."))
                        for k, v in sys.modules.items() if v is not None)
         print("labels", [f.meta["label"] for f in chain[-1].frames])
