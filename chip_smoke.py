@@ -478,8 +478,12 @@ def profile_cuda(fn, iters: int):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from nnstreamer_tpu_torch.obs.profiler import capture_lock
+
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # one Kineto session a process: hold the deep-profiling lane's lock
+    with capture_lock("chip_smoke profile_cuda"), \
+            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
@@ -1042,8 +1046,12 @@ def trace(fn):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from nnstreamer_tpu_torch.obs.profiler import capture_lock
+
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # one Kineto session a process: hold the deep-profiling lane's lock
+    with capture_lock("chip_smoke trace"), \
+            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     events = prof.events()
@@ -5827,6 +5835,577 @@ def lanes_phase(torch, np, K, root, card, keep):
     return total, res
 
 
+# -- the deep-profiling lane (obs/profiler.py) ----------------------------------
+
+PROFILE_FRAMES = 64            # slice 1's frames inside the first capture window
+PROFILE_WINDOW_S = 2.0         # the window: the frames, and the device tracer's completions
+# The capture's device time a frame over traced_run's CUPTI busy time a frame
+# (slice 1's, from the slice phase): the same kernels, timed by the same
+# tracer in two windows of one process.
+PROFILE_BUSY_BAND = (0.8, 1.25)
+PROFILE_CATEGORIES = ("matmul", "conv", "elementwise", "copy", "infeed", "other")
+AUTO_FRAMES = 600              # the auto-capture run's stream
+AUTO_BASELINE = 48             # completions before the device stall (> min samples)
+AUTO_MIN_SAMPLES = "16"        # [obs] profile_min_samples of the run
+# a _sleep ahead of one replay on the filter's stream: far above the band,
+# which three sigmas of the run's first dispatches (the slowest) widen
+AUTO_STALL_S = 0.5
+WHOLE_RUN_FRAMES = 16          # the [common] xplane_trace_dir run
+
+
+def kernel_rows(rows, wrapper):
+    """The table rows of a wrapper's kernels, and their summed count."""
+    mine = [r for r in rows if any(s in r["name"] for s in KERNEL_SYMBOLS[wrapper])]
+    return mine, sum(r["count"] for r in mine)
+
+
+def profile_phase(torch, np, K, root, card, keep, busy_ms):
+    """The deep-profiling lane over a PLAYING slice 1: a capture window
+    (its device table against the frames and the traced busy time, the
+    typed busy error, /profile's 409 meanwhile and 200 after), the
+    watchdog's profile_auto on a device stall, the whole-run trace of
+    [common] xplane_trace_dir, and the captured graphs' memory ledger."""
+    import shutil
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import nnstreamer_tpu_torch as nns
+    from nnstreamer_tpu_torch.obs import hooks, profiler
+    from nnstreamer_tpu_torch.obs.export import MetricsServer, unregister_degraded
+    from nnstreamer_tpu_torch.obs.metrics import MetricsRegistry
+    from nnstreamer_tpu_torch.obs.watchdog import PipelineWatchdog
+
+    desc, model, _, kernels = keep["image_labeling"]
+    work = os.path.join(root, "build", "chip_smoke", "profile")
+    shutil.rmtree(work, ignore_errors=True)
+    env = {"NNSTPU_OBS_PROFILE_DIR": os.path.join(work, "gallery"),
+           "NNSTPU_OBS_PROFILE_TOP_K": "100000", "NNSTPU_OBS_PROFILE_KEEP": "16",
+           "NNSTPU_OBS_PROFILE_MAX_BYTES": str(1 << 31)}
+    saved = {k: os.environ.get(k) for k in list(env) + [
+        "NNSTPU_OBS_PROFILE_AUTO", "NNSTPU_OBS_PROFILE_AUTO_SECONDS",
+        "NNSTPU_OBS_PROFILE_AUTO_COOLDOWN_S", "NNSTPU_OBS_PROFILE_MIN_SAMPLES",
+        "NNSTPU_COMMON_XPLANE_TRACE_DIR"]}
+    os.environ.update(env)
+    profiler.reset_gallery()
+    res = {}
+    srv = MetricsServer(port=0).start()
+    url = f"http://127.0.0.1:{srv.port}/profile"
+
+    def get(query):
+        try:
+            with urllib.request.urlopen(f"{url}?{query}", timeout=120) as r:
+                return r.status, json.loads(r.read().decode())
+        except urllib.error.HTTPError as exc:
+            return exc.code, json.loads(exc.read().decode())
+
+    try:
+        # (a) one capture window over slice 1 while it plays; the upload's
+        # lock holds the source until the profiler runs, so the window holds
+        # every frame and no capture
+        K.reset_launches()
+        p = nns.parse_launch(desc(PROFILE_FRAMES))
+        p["f"].model = model
+        p.attach_tracer("device")
+        delivered = []
+        p["out"].connect("new-data", delivered.append)
+        gate = p["u"]._lock
+        gate.acquire()
+        try:
+            p.start()
+        except BaseException:
+            gate.release()
+            raise
+        box = {}
+
+        def capture():
+            try:
+                box["summary"] = profiler.capture_profile(seconds=PROFILE_WINDOW_S, pipeline=p)
+            except BaseException as exc:  # noqa: BLE001 - checked below
+                box["error"] = exc
+
+        t = threading.Thread(target=capture, name="chip_smoke-capture")
+        try:
+            t.start()
+            import torch.autograd.profiler as autograd_profiler
+
+            if hasattr(autograd_profiler, "_is_profiler_enabled"):
+                wait_until(lambda: autograd_profiler._is_profiler_enabled or not t.is_alive(),
+                           60, "the profiler's start")
+            else:  # this PyTorch keeps no flag: the start takes at most a few seconds
+                time.sleep(5.0)
+            time.sleep(0.25)
+            cost_key = p["f"].backend.cost_key()
+            gate.release()
+            gate = None
+            try:
+                profiler.capture_profile(seconds=0.1)
+                fail("a second capture during the first did not raise ProfileBusyError")
+            except profiler.ProfileBusyError as exc:
+                res["busy_error"] = str(exc)
+            status, doc = get("seconds=1")
+            check(status == 409 and doc.get("error") == "busy",
+                  f"GET /profile during a capture answered {status}: {doc}")
+            res["http_during"] = status
+            t.join(120)
+            check(p.wait(120), "the profiled slice did not finish")
+        finally:
+            if gate is not None:
+                gate.release()
+            p.stop()
+        launches = {k.__name__: k.launches for k in K.KERNELS}
+        check("error" not in box, f"capture_profile failed: {box.get('error')!r}")
+        check(len(delivered) == PROFILE_FRAMES,
+              f"the profiled run delivered {len(delivered)} of {PROFILE_FRAMES}")
+        s = box["summary"]
+        frames, rows = s["frames_observed"], s["ops"]
+        check(not s["aborted"], f"the window was abandoned: {s['aborted']}")
+        check(s["device_planes"] == 1 and s["ops_total"] == len(rows),
+              f"the capture's table: {s['device_planes']} devices, {len(rows)} of "
+              f"{s['ops_total']} rows")
+        check(frames == PROFILE_FRAMES, f"{frames} device_exec completions in the window, "
+                                        f"{PROFILE_FRAMES} frames sent")
+        counts = {}
+        for w in kernels:
+            mine, counts[w] = kernel_rows(rows, w)
+            check(mine, f"the capture's table has no row of {w}")
+            # one record a frame; CUPTI may drop the first record of a
+            # trace's first graph launch (ROADMAP queue B)
+            check(abs(counts[w] - frames) <= 1,
+                  f"{w}: {counts[w]} records in the table for {frames} frames")
+        bad = [r for r in rows if r["category"] not in PROFILE_CATEGORIES]
+        check(not bad, f"rows without a category: {bad[:3]}")
+        check(cost_key in s["executables"] and
+              s["executables"][cost_key]["dispatches"] == frames,
+              f"the filter's graph {cost_key} is not what the window observed: "
+              f"{s['executables']}")
+        check(all(r.get("executable") == cost_key for r in rows),
+              "a row is not attributed to the filter's graph")
+        us_frame = s["device_us_total"] / max(frames, 1)
+        ratio = us_frame / 1e3 / busy_ms
+        check(PROFILE_BUSY_BAND[0] <= ratio <= PROFILE_BUSY_BAND[1],
+              f"the capture's {us_frame:.1f} us a frame is {ratio:.3f} of traced_run's "
+              f"{busy_ms * 1e3:.1f}, outside {PROFILE_BUSY_BAND}")
+        top = sorted(s["op_categories"].items(), key=lambda kv: -kv[1])
+        res.update(frames_observed=frames, kernel_records=counts, rows=len(rows),
+                   device_us_per_frame=us_frame, busy_ratio_to_traced_run=ratio,
+                   op_categories_us=dict(top), window_s=s["seconds"],
+                   trace_bytes=sum(os.path.getsize(os.path.join(s["artifact_dir"], a))
+                                   for a in s["artifacts"]),
+                   top_ops=[(r["name"][:80], r["category"], r["dur_us"], r["count"])
+                            for r in rows[:5]])
+        print(f"profile window over slice 1: {frames} frames, {len(rows)} device ops, "
+              f"{us_frame:.2f} us a frame on the device ({ratio:.3f} of traced_run's busy "
+              f"time), records {counts}, by category {dict(top)} [{card}]", flush=True)
+
+        # (b) GET /profile after the window: 200 with the summary
+        t0 = time.perf_counter()
+        status, doc = get("seconds=1")
+        check(status == 200 and doc.get("trigger") == "http" and
+              doc.get("requested_seconds") == 1.0 and "ops_total" in doc,
+              f"GET /profile answered {status}: {str(doc)[:300]}")
+        res["http_after"] = dict(status=status, wall_s=time.perf_counter() - t0,
+                                 ops_total=doc["ops_total"])
+
+        # (c) [obs] profile_auto: a device stall ahead of one replay makes the
+        # watchdog bank exactly one capture (the cooldown outlasts the run)
+        os.environ.update({"NNSTPU_OBS_PROFILE_AUTO": "true",
+                           "NNSTPU_OBS_PROFILE_AUTO_SECONDS": "0.5",
+                           "NNSTPU_OBS_PROFILE_AUTO_COOLDOWN_S": "600",
+                           "NNSTPU_OBS_PROFILE_MIN_SAMPLES": AUTO_MIN_SAMPLES})
+        cycles = sleep_cycles(torch, AUTO_STALL_S)
+        before = sum(c["trigger"] == "watchdog" for c in profiler.recent_captures())
+        reg = MetricsRegistry()
+        wd = PipelineWatchdog(registry=reg, interval_s=0.02)
+        seen = [0]
+
+        def count(*_):
+            seen[0] += 1
+
+        p = nns.parse_launch(desc(AUTO_FRAMES))
+        p["f"].model = model
+        p.attach_tracer("device")
+        p.attach_tracer(wd)
+        hooks.connect("device_exec", count)
+        try:
+            p.start()
+            wait_until(lambda: seen[0] >= AUTO_BASELINE, 60, "the auto run's baseline")
+            torch.cuda._sleep(cycles)  # the filter replays on this default stream
+            deadline = time.monotonic() + 60
+            while wd.summary()["profile_auto"]["captures"] < 1:
+                if time.monotonic() > deadline:
+                    det = wd._profile_detector
+                    with det._lock:
+                        stats = {k: v.snapshot() for k, v in det._stats.items()}
+                    fail(f"no watchdog capture within 60 s: {det.verdicts} verdicts, "
+                         f"{seen[0]} completions, the detector's aggregates {stats}")
+                time.sleep(0.01)
+            check(p.wait(120), "the auto-capture run did not finish")
+            time.sleep(0.3)
+            summ = wd.summary()["profile_auto"]
+        finally:
+            hooks.disconnect("device_exec", count)
+            p.stop()
+            for k in ("NNSTPU_OBS_PROFILE_AUTO", "NNSTPU_OBS_PROFILE_AUTO_SECONDS",
+                      "NNSTPU_OBS_PROFILE_AUTO_COOLDOWN_S", "NNSTPU_OBS_PROFILE_MIN_SAMPLES"):
+                os.environ.pop(k, None)
+        autos = [c for c in profiler.recent_captures() if c["trigger"] == "watchdog"]
+        check(summ["captures"] == 1 and len(autos) - before == 1,
+              f"the watchdog banked {summ['captures']} captures ({len(autos) - before} in "
+              "the gallery's memory), expected exactly one")
+        check(counter_sum(reg, "nnstpu_profile_captures_total", trigger="watchdog",
+                          outcome="ok") == 1, "nnstpu_profile_captures_total{watchdog,ok} != 1")
+        last = autos[-1]
+        check(last["pipeline"] == p.name and not last["aborted"],
+              f"the auto capture: {last['pipeline']!r}, aborted {last['aborted']!r}")
+        res["auto"] = dict(captures=summ["captures"], verdicts=summ["verdicts"],
+                           stall_s=AUTO_STALL_S, rows=last["ops_total"],
+                           frames_observed=last["frames_observed"])
+        print(f"profile_auto: a {AUTO_STALL_S * 1e3:.0f} ms device stall gave "
+              f"{summ['verdicts']} verdicts and {summ['captures']} capture (trigger watchdog, "
+              f"{last['frames_observed']} frames, {last['ops_total']} rows)", flush=True)
+
+        # (d) [common] xplane_trace_dir: a Kineto trace of the whole PLAYING
+        # run, and (e) the memory ledger read while that run's graph is live
+        trace_dir = os.path.join(work, "whole_run")
+        os.environ["NNSTPU_COMMON_XPLANE_TRACE_DIR"] = trace_dir
+
+        def read_ledger(pl):
+            """The ledger of the graphs alive now, and the capacity check
+            against the card and against 1 byte."""
+            live = pl["f"].backend.cost_key()
+            ledger = profiler.hbm_ledger()
+            report = profiler.check_hbm_capacity()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                low = profiler.check_hbm_capacity(capacity_bytes=1)
+            unregister_degraded("hbm:pipeline")
+            warned = any(issubclass(w.category, profiler.HbmCapacityWarning) for w in caught)
+            return live, ledger, report, low, warned
+
+        try:
+            _, _, (live_key, ledger, report, low, warned) = run_pipeline(
+                nns, desc(WHOLE_RUN_FRAMES), model, WHOLE_RUN_FRAMES, during=read_ledger)
+        finally:
+            os.environ.pop("NNSTPU_COMMON_XPLANE_TRACE_DIR", None)
+        files = profiler.find_trace_files(trace_dir)
+        last = profiler.last_capture()
+        check(len(files) == 1 and last["trigger"] == "whole_run" and
+              last["artifact_dir"] == trace_dir,
+              f"the whole-run trace: files {files}, last capture {last.get('trigger')}")
+        whole = {}
+        for w in kernels:
+            _, whole[w] = kernel_rows(last["ops"], w)
+            check(WHOLE_RUN_FRAMES - 1 <= whole[w] <= WHOLE_RUN_FRAMES,
+                  f"the whole-run trace holds {whole[w]} records of {w} for "
+                  f"{WHOLE_RUN_FRAMES} frames")
+        res["whole_run"] = dict(frames=WHOLE_RUN_FRAMES, records=whole,
+                                trace_bytes=os.path.getsize(files[0]),
+                                device_planes=last["device_planes"])
+        print(f"whole-run trace: {os.path.basename(files[0])}, "
+              f"{os.path.getsize(files[0])} bytes, records {whole}", flush=True)
+
+        # (e) the ledger holds the graphs alive while that run played (the
+        # graphs of stopped pipelines left it with their pools) and names the
+        # largest; slice 1's graph leaves it when its pipeline stops
+        rows_by = ledger.get("executables") or {}
+        check(live_key in rows_by, "the ledger misses slice 1's live graph")
+        largest = max(rows_by, key=lambda fp: rows_by[fp]["resident_bytes"], default=None)
+        check(ledger.get("largest_resident") == largest,
+              "the ledger names another largest graph")
+        mine = rows_by.get(live_key, {})
+        check(mine.get("output_bytes") == CLASSES * 4 and mine.get("temp_bytes", 0) > 0 and
+              mine.get("parameter_bytes", 0) > 0, f"slice 1's ledger row: {mine}")
+        check(live_key not in (profiler.hbm_ledger().get("executables") or {}),
+              "slice 1's graph stayed in the ledger after its pipeline stopped")
+        free, total = torch.cuda.mem_get_info()
+        check(report["capacity_bytes"] == total and not report["over_capacity"],
+              f"check_hbm_capacity against the card: {report}")
+        check(low["over_capacity"] and warned,
+              "capacity_bytes=1 did not warn HbmCapacityWarning")
+        res["hbm"] = dict(graphs=len(rows_by), largest=largest,
+                          largest_resident_bytes=rows_by.get(largest, {}).get("resident_bytes"),
+                          resident_estimate_bytes=ledger.get("resident_estimate_bytes"),
+                          capacity_bytes=total, slice1=mine)
+        print(f"memory ledger while slice 1 plays: {len(rows_by)} live graphs, "
+              f"{res['hbm']['resident_estimate_bytes']} bytes resident in all, largest "
+              f"{largest} ({res['hbm']['largest_resident_bytes']} bytes); slice 1's graph "
+              f"{mine}; card {total} bytes [{card}]", flush=True)
+    finally:
+        srv.stop()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        profiler.reset_gallery()
+    return launches, res
+
+
+# -- streaming training (training.py, tensor_trainer) ----------------------------
+
+TRAIN_BATCH = 32
+TRAIN_STEPS = 40
+TRAIN_OPTIMIZER = "sgd,lr=0.001,momentum=0.9"
+TRAIN_SEED = 17
+TRAIN_CPU_LOSS_REL = 3e-2  # the first loss: bfloat16 convs on the card against the CPU's
+TRAIN_EAGER_STEPS = 3      # captured steps held against eager steps on the card
+TRAIN_EAGER_LOSS_REL = 1e-2
+TRAIN_EAGER_PARAM_SHARE = 0.05  # params apart, as a share of how far they moved
+TRAIN_DEPLOY_FRAMES = 8
+TRAIN_DEPLOY_REL = 1e-3    # the deployed replay against eager apply (as slice 1's)
+TRAIN_TRACE_STEPS = 8
+TRAIN_RATE_STEPS = 48      # the ungated run that times steps/s
+TRAIN_RATE_SKIP = 4        # its first steps (the capture among them) left out of the rate
+
+
+def train_desc():
+    """The training path: a uint8 batch, normalized by fused_arith, muxed
+    with its int32 labels into tensor_trainer, the loss curve to a sink."""
+    return ("tensor_mux name=m sync_mode=nosync ! "
+            f"tensor_trainer name=tr loss=softmax_ce optimizer={TRAIN_OPTIMIZER} ! "
+            "tensor_sink name=out "
+            f"datasrc name=x ! tensor_transform mode=arithmetic option={NORMALIZE} "
+            "acceleration=pallas ! m.sink_0 datasrc name=y ! m.sink_1")
+
+
+class GatedBatches:
+    """The batch source's data: one batch a step, the next yielded once the
+    trainer's step has left the sink, so that no normalized batch waits in
+    the mux while memory is read.  This lock-step pace adds a host round
+    trip a step: the rate is timed on an ungated run."""
+
+    def __init__(self, item, n):
+        import threading
+
+        self.item, self.n = item, n
+        self.turn = threading.Semaphore(1)
+
+    def __getitem__(self, i):  # the source's spec reads the first item
+        return self.item
+
+    def __iter__(self):
+        for _ in range(self.n):
+            self.turn.acquire()
+            yield self.item
+
+
+def diff_leaves(torch, tree):
+    from nnstreamer_tpu_torch.training import tree_flatten
+
+    return [t for t in tree_flatten(tree)[0]
+            if isinstance(t, torch.Tensor) and t.is_floating_point()]
+
+
+def train_phase(torch, np, K, ops, root, card, keep):
+    """MobileNet-v2 1.0 trained on the card at batch 32, 224x224: the
+    captured step against the CPU's loss and eager steps, the loss on a
+    fixed batch, constant memory and parameters updated in place, the
+    normalize's launches, the train -> deploy loop through slice 1's
+    string, the step's memory in the ledger, and the step's rates on an
+    ungated run."""
+    import nnstreamer_tpu_torch as nns
+    from nnstreamer_tpu_torch import training
+    from nnstreamer_tpu_torch.obs import profiler
+    from nnstreamer_tpu_torch.backends.torch_backend import TorchModel
+    from nnstreamer_tpu_torch.buffer import Frame
+    from nnstreamer_tpu_torch.models import mobilenet_v2
+
+    def apply(p, x):
+        return mobilenet_v2.apply(p, x, dtype=torch.bfloat16)
+
+    rng = np.random.default_rng(TRAIN_SEED)
+    xb = torch.from_numpy(rng.integers(0, 256, (TRAIN_BATCH, IMAGE, IMAGE, 3), dtype=np.uint8))
+    yb = torch.from_numpy(rng.integers(0, CLASSES, TRAIN_BATCH).astype(np.int32))
+    params = mobilenet_v2.init_params(seed=0, num_classes=CLASSES, device=DEVICE)
+    p = nns.parse_launch(train_desc())
+    p["tr"].model = TorchModel(apply=apply, params=params, name="mobilenet_v2_train",
+                               device=DEVICE)
+    gated = GatedBatches(xb, TRAIN_STEPS)
+    p["x"].data = gated
+    p["y"].data = [yb] * TRAIN_STEPS
+    losses = torch.zeros(TRAIN_STEPS, device=DEVICE)
+    marks, arrivals, snap = {}, [], {}
+
+    def on_frame(f):
+        step = int(f.tensor(1))
+        losses[step - 1].copy_(f.tensor(0))
+        arrivals.append(time.perf_counter())
+        tr = p["tr"]
+        if step == TRAIN_EAGER_STEPS:
+            snap["params"] = [t.detach().to("cpu", copy=True)
+                              for t in diff_leaves(torch, tr._params)]
+        if step in (2, TRAIN_STEPS):
+            state = diff_leaves(torch, tr._params) + training._state_tensors(tr._opt_state)
+            marks[step] = (torch.cuda.memory_allocated(), [t.data_ptr() for t in state])
+        gated.turn.release()
+
+    p["out"].connect("new-data", on_frame)
+    K.reset_launches()
+    t0 = time.perf_counter()
+    p.start()
+    try:
+        check(p.wait(600), "the training run did not finish")
+    finally:
+        p.stop()
+    wall = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in K.KERNELS}
+    tr = p["tr"]
+    curve = losses.cpu().tolist()
+    check(tr.step_count == TRAIN_STEPS and len(arrivals) == TRAIN_STEPS,
+          f"step_count {tr.step_count}, {len(arrivals)} loss frames, {TRAIN_STEPS} sent")
+    check(launches["fused_arith"] == TRAIN_STEPS and launches["int8_matmul"] == 0 and
+          launches["pallas_nms_keep"] == 0,
+          f"the training path's wrapper launches {launches}: fused_arith once a step")
+    check(all(np.isfinite(curve)), f"a loss is not finite: {curve}")
+    check(curve[-1] < 0.5 * curve[0], f"the loss on a fixed batch went {curve[0]} -> "
+                                      f"{curve[-1]}, not below half")
+    check(marks[2][1] == marks[TRAIN_STEPS][1], "a parameter or state tensor moved")
+    check(marks[2][0] == marks[TRAIN_STEPS][0],
+          f"device memory in use went {marks[2][0]} -> {marks[TRAIN_STEPS][0]} bytes "
+          f"between step 2 and step {TRAIN_STEPS}")
+    # the captured step's memory in the ledger: the parameters and the
+    # optimizer state as its parameter bytes, its pool as its temp bytes
+    state_bytes = sum(t.numel() * t.element_size() for t in diff_leaves(torch, tr._params) +
+                      training._state_tensors(tr._opt_state))
+    steps = {fp: r for fp, r in (profiler.hbm_ledger().get("executables") or {}).items()
+             if fp.startswith("train_step:")}
+    check(len(steps) == 1, f"the ledger holds {len(steps)} training graphs, not one")
+    (step_fp, step_row), = steps.items()
+    check(step_row["parameter_bytes"] == state_bytes and step_row.get("temp_bytes", 0) > 0,
+          f"the training graph's ledger row {step_row}: parameters and state "
+          f"{state_bytes} bytes")
+
+    # the first loss against the port's CPU forward of the same batch
+    xn = K.fused_arith(xb.to(DEVICE), ops)  # a comparison launch, after the path's count
+    cpu_params = mobilenet_v2.init_params(seed=0, num_classes=CLASSES, device="cpu")
+    with torch.no_grad():
+        cpu_loss = float(training.softmax_cross_entropy(apply(cpu_params, xn.cpu()), yb))
+    cpu_rel = abs(curve[0] - cpu_loss) / abs(cpu_loss)
+    check(cpu_rel <= TRAIN_CPU_LOSS_REL, f"the first loss {curve[0]} on the card against "
+                                         f"{cpu_loss} on the CPU: {cpu_rel} relative")
+
+    # the captured steps against eager steps on the card, from the same start
+    eager_params = mobilenet_v2.init_params(seed=0, num_classes=CLASSES, device=DEVICE)
+    init_fn, eager_step = training.make_train_step(apply, "softmax_ce", TRAIN_OPTIMIZER,
+                                                   donate=False)
+    opt = init_fn(eager_params)
+    start = [t.detach().clone() for t in diff_leaves(torch, eager_params)]
+    eager_losses = []
+    for _ in range(TRAIN_EAGER_STEPS):
+        eager_params, opt, loss = eager_step(eager_params, opt, xn, yb)
+        eager_losses.append(float(loss))
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(curve, eager_losses))
+    moved = max(float((a - s).abs().max()) for a, s in zip(diff_leaves(torch, eager_params),
+                                                           start))
+    apart = max(float((a.cpu() - b).abs().max())
+                for a, b in zip(diff_leaves(torch, eager_params), snap["params"]))
+    check(loss_rel <= TRAIN_EAGER_LOSS_REL and apart <= TRAIN_EAGER_PARAM_SHARE * moved,
+          f"captured against eager over {TRAIN_EAGER_STEPS} steps: losses {curve[:3]} vs "
+          f"{eager_losses} ({loss_rel} relative), params {apart} apart, moved {moved}")
+
+    # train -> deploy: the trained parameters through slice 1's string
+    desc = keep["image_labeling"][0]
+    trained = mobilenet_v2.build(num_classes=CLASSES, image_size=IMAGE,
+                                 params=mobilenet_v2.params_to_jax(tr.params), device=DEVICE)
+    dev_params = tr._params
+    deploy = {}
+
+    def during(pl):
+        be = pl["f"].backend
+        src = pl["src"]
+        err = 0.0
+        with torch.inference_mode():
+            for i in range(TRAIN_DEPLOY_FRAMES):
+                x = torch.from_numpy(src._make_frame(i)).to(DEVICE)
+                got = be.invoke((x,))[0]
+                want = apply(dev_params, K.fused_arith(x, ops)[None])[0]
+                err = max(err, float((got - want).abs().max() / want.abs().max()))
+        deploy["logit_rel"] = err
+
+    run_pipeline(nns, desc(TRAIN_DEPLOY_FRAMES), trained, TRAIN_DEPLOY_FRAMES, during=during)
+    check(deploy["logit_rel"] <= TRAIN_DEPLOY_REL,
+          f"the deployed filter's logits differ from eager apply of the trained parameters "
+          f"by {deploy['logit_rel']} (relative)")
+
+    # the step's rates: a trace of steady steps, the FLOPs of one step, then
+    # an ungated run from the same start (its rate from the first step after
+    # the capture to the card's end of the last) with the gated run's
+    # lock-step pace beside it.  The ungated run comes last: a trace that
+    # replays this trainer's graph while a second trainer's graph, captured
+    # on another pipeline's thread, is alive segfaults in the graph launch
+    # (ROADMAP C16)
+    gaps = np.diff(np.asarray(arrivals[1:]))
+    gated_steps_per_s = len(gaps) / float(np.sum(gaps))
+    frame = Frame.of(xn, yb)
+    tr.process(None, frame)
+    tr_trace = trace(lambda: [tr.process(None, frame) for _ in range(TRAIN_TRACE_STEPS)])
+    busy = tr_trace["busy_ms"] / TRAIN_TRACE_STEPS
+    # FlopCounterMode over a step counts a depthwise conv's backward as (1 +
+    # channels) forwards (its weight gradient taken for a dense conv): the
+    # step's FLOPs are 3 forwards (a conv's or a GEMM's input and weight
+    # gradients each cost its forward), the forward counted by FlopCounterMode
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with torch.no_grad(), FlopCounterMode(display=False) as counter:
+        apply(eager_params, xn)
+    flops = 3.0 * counter.get_total_flops()
+    with FlopCounterMode(display=False) as counter:  # an eager step on copies of the state
+        eager_step(eager_params, opt, xn, yb)
+    counted = float(counter.get_total_flops())
+    p2 = nns.parse_launch(train_desc())
+    p2["tr"].model = TorchModel(apply=apply, name="mobilenet_v2_train", device=DEVICE,
+                                params=mobilenet_v2.init_params(seed=0, num_classes=CLASSES,
+                                                                device=DEVICE))
+    p2["x"].data = [xb] * TRAIN_RATE_STEPS
+    p2["y"].data = [yb] * TRAIN_RATE_STEPS
+    free_arrivals = []
+    p2["out"].connect("new-data", lambda f: free_arrivals.append(time.perf_counter()))
+    p2.start()
+    try:
+        check(p2.wait(600), "the ungated training run did not finish")
+        torch.cuda.synchronize()
+        end = time.perf_counter()
+    finally:
+        p2.stop()
+    check(len(free_arrivals) == TRAIN_RATE_STEPS and p2["tr"].step_count == TRAIN_RATE_STEPS,
+          f"the ungated run: {len(free_arrivals)} loss frames, {TRAIN_RATE_STEPS} sent")
+    steps_per_s = (TRAIN_RATE_STEPS - TRAIN_RATE_SKIP) / (end -
+                                                          free_arrivals[TRAIN_RATE_SKIP - 1])
+    tflops = flops / (busy / 1e3) / 1e12
+    share = tflops * 1e12 / PEAK_OPS_PER_S["bfloat16"]
+    res = dict(steps=TRAIN_STEPS, batch=TRAIN_BATCH, optimizer=TRAIN_OPTIMIZER,
+               first_loss=curve[0], last_loss=curve[-1], loss_curve=curve[::4],
+               cpu_first_loss=cpu_loss, cpu_loss_rel=cpu_rel, eager_losses=eager_losses,
+               captured_vs_eager_loss_rel=loss_rel, captured_vs_eager_params=apart,
+               params_moved=moved, deploy_logit_rel=deploy["logit_rel"],
+               memory_bytes=marks[TRAIN_STEPS][0], ledger_row=step_row,
+               steps_per_s=steps_per_s, samples_per_s=steps_per_s * TRAIN_BATCH,
+               rate_steps=TRAIN_RATE_STEPS - TRAIN_RATE_SKIP,
+               gated_steps_per_s=gated_steps_per_s, run_wall_s=wall,
+               device_busy_ms_per_step=busy,
+               device_idle_share=1 - busy * steps_per_s / 1e3,
+               device_records_per_step=tr_trace["activities"] / TRAIN_TRACE_STEPS,
+               host_ops_per_step=host_ops(tr_trace["calls"]) / TRAIN_TRACE_STEPS,
+               flops_per_step=flops, flop_counter_step=counted, tflops_on_busy=tflops,
+               busy_share_of_bf16_peak=share)
+    print(f"training MobileNet-v2 1.0, batch {TRAIN_BATCH}, {IMAGE}x{IMAGE}, bf16 apply: "
+          f"loss {curve[0]:.4f} -> {curve[-1]:.4f} in {TRAIN_STEPS} steps; "
+          f"{steps_per_s:.2f} steps/s and {steps_per_s * TRAIN_BATCH:.1f} samples/s ungated "
+          f"({gated_steps_per_s:.2f} steps/s in lock step); device busy {busy:.3f} ms and "
+          f"{res['device_records_per_step']:.0f} records a step, idle share "
+          f"{res['device_idle_share']:.4f}; "
+          f"{flops / 1e9:.1f} GFLOP a step (3 forwards; FlopCounterMode over the step counts "
+          f"{counted / 1e9:.1f}), {tflops:.2f} TFLOP/s on the busy time, {share:.4f} of the "
+          f"bf16 peak [{card}]", flush=True)
+    print(f"  first loss {curve[0]} against the CPU's {cpu_loss} ({cpu_rel:.2e}); captured "
+          f"against eager: losses {loss_rel:.2e} relative, params {apart:.3g} apart of "
+          f"{moved:.3g} moved; deployed logits {deploy['logit_rel']:.2e}; memory "
+          f"{marks[2][0]} bytes at step 2 and step {TRAIN_STEPS}; the step's ledger row "
+          f"{step_row}", flush=True)
+    return launches, res
+
+
 def _conv_dicts(tree):
     """Every dict of a params tree that holds a weight ``"w"``, in order."""
     if isinstance(tree, dict):
@@ -5956,11 +6535,17 @@ def main() -> int:
                                                by_path["vit"][1]["busy_share_of_bf16_peak"])
     t11 = time.perf_counter()
     by_path["lanes"] = lanes_phase(torch, np, K, root, card, slices)
+    t12 = time.perf_counter()
+    by_path["profile"] = profile_phase(torch, np, K, root, card, slices,
+                                       by_path["image_labeling"][1]["device_busy_ms_per_frame"])
+    t13 = time.perf_counter()
+    by_path["train"] = train_phase(torch, np, K, ops, root, card, slices)
     print(f"phase wall s: up to the quant phase {t1 - t0:.3f}, pose {t2 - t1:.3f}, "
           f"recurrence {t3 - t2:.3f}, batch {t4 - t3:.3f}, cascade {t5 - t4:.3f}, "
           f"app {t6 - t5:.3f}, vit {t7 - t6:.3f}, config 4c {t8 - t7:.3f}, "
           f"config 4d {t9 - t8:.3f}, recovery {t10 - t9:.3f}, "
-          f"device lane {t11 - t10:.3f}, lanes {time.perf_counter() - t11:.3f}; "
+          f"device lane {t11 - t10:.3f}, lanes {t12 - t11:.3f}, profile {t13 - t12:.3f}, "
+          f"train {time.perf_counter() - t13:.3f}; "
           f"the script {time.perf_counter() - t0:.3f} after the import", flush=True)
     wrapper = {"fused_arith": "fused_arith", "int8_matmul": "int8_matmul",
                "nms_keep": "pallas_nms_keep"}
@@ -5986,7 +6571,8 @@ def main() -> int:
                       "config4c": by_path["config4c"][1], "config4d": config4d,
                       "recovery": by_path["recovery"][1],
                       "device_lane": by_path["device_lane"][1],
-                      "lanes": by_path["lanes"][1]}),
+                      "lanes": by_path["lanes"][1], "profile": by_path["profile"][1],
+                      "train": by_path["train"][1]}),
           flush=True)
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -53,8 +53,12 @@ an entry aged out an ``evict``), and each capture's cost goes to the
 utilization lane's registry (``obs/util.py``): its FLOPs, counted by
 ``torch.utils.flop_counter.FlopCounterMode`` over the first of the eager
 warm-up calls that precede the capture (operations without a FLOP formula,
-the port's own kernels among them, count nothing), and a lower bound of its
-bytes, the parameters, inputs and outputs each once.  :meth:`TorchBackend.cost_key`
+the port's own kernels among them, count nothing), a lower bound of its
+bytes, the parameters, inputs and outputs each once, and its memory
+footprint (``obs/device.py`` :func:`memory_info`: the parameters, the
+static inputs and outputs, and the graph's private memory pool,
+:func:`pool_bytes`), which the deep-profiling lane's
+memory ledger reads (``obs/profiler.py``).  :meth:`TorchBackend.cost_key`
 names the active capture's entry for the device tracer.
 
 A ``backend_compile`` fault (``faults/``, ``compile_raise``) is consulted
@@ -99,6 +103,7 @@ replay always copies a frame into the capture's static inputs.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import importlib
 import importlib.util
@@ -225,7 +230,7 @@ class CapturedGraph:
     reads, so it stays alive with the entry)."""
 
     def __init__(self, graph, fn, static_in, static_out, warmup_calls, warmup_s, capture_s,
-                 flops=None):
+                 flops=None, pool_bytes=None):
         self.graph = graph
         self.fn = fn
         self.static_in = static_in
@@ -234,6 +239,7 @@ class CapturedGraph:
         self.warmup_s = warmup_s
         self.capture_s = capture_s
         self.flops = flops  # FLOPs of one call, counted over the first warm-up call
+        self.pool_bytes = pool_bytes  # what the graph's private memory pool reserved
 
     def run(self, xs) -> Tuple:
         for s, x in zip(self.static_in, xs):
@@ -260,11 +266,14 @@ def _failing_op(exc: BaseException) -> str:
 
 
 def capture_calls(fn: Callable[[], Any], device: torch.device,
-                  warmup_calls: int = WARMUP_CALLS):
+                  warmup_calls: int = WARMUP_CALLS, inference: bool = True):
     """``fn()`` captured on ``device`` as one CUDA graph over the tensors it
     reads, after ``warmup_calls`` eager calls on a side stream.  Returns
     the graph, the captured call's outputs (each replay rewrites them), and
-    the warm-up's and the capture's wall seconds.
+    the warm-up's and the capture's wall seconds.  ``inference=False`` runs
+    the calls outside
+    ``torch.inference_mode``, for a function that takes gradients (the
+    trainer's step, ``training.py``).
 
     ``capture_error_mode="thread_local"``: the capture refuses an unsafe
     call (a host synchronization) from this thread, but not the upload's
@@ -276,18 +285,33 @@ def capture_calls(fn: Callable[[], Any], device: torch.device,
     takes no lock that the filter's thread holds."""
     side = torch.cuda.Stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
+    mode = torch.inference_mode if inference else contextlib.nullcontext
     t0 = time.perf_counter()
-    with torch.inference_mode(), torch.cuda.stream(side):
+    with mode(), torch.cuda.stream(side):
         for _ in range(warmup_calls):
             fn()
     torch.cuda.current_stream(device).wait_stream(side)
     torch.cuda.synchronize(device)
     t1 = time.perf_counter()
     graph = torch.cuda.CUDAGraph()
-    with torch.inference_mode(), torch.cuda.graph(graph, capture_error_mode="thread_local"):
+    with mode(), torch.cuda.graph(graph, capture_error_mode="thread_local"):
         out = fn()
     torch.cuda.synchronize(device)
     return graph, out, t1 - t0, time.perf_counter() - t1
+
+
+def pool_bytes(graph, device: torch.device) -> Optional[int]:
+    """The bytes the caching allocator holds in ``graph``'s private memory
+    pool (its segments in ``torch.cuda.memory_snapshot``), or None where
+    that cannot be read (no card)."""
+    if device.type != "cuda":
+        return None
+    try:
+        pool = tuple(graph.pool())
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg.get("segment_pool_id", ())) == pool)
+    except (AttributeError, KeyError, RuntimeError, TypeError):
+        return None
 
 
 def capture_graph(fn: Callable, in_spec: TensorsSpec, device: torch.device,
@@ -311,7 +335,8 @@ def capture_graph(fn: Callable, in_spec: TensorsSpec, device: torch.device,
 
     graph, static_out, warmup_s, capture_s = capture_calls(call, device, warmup_calls)
     return CapturedGraph(graph, fn, static_in, static_out, warmup_calls, warmup_s, capture_s,
-                         flops=counted[0] if counted else None)
+                         flops=counted[0] if counted else None,
+                         pool_bytes=pool_bytes(graph, device))
 
 
 def _nbytes(obj) -> int:
@@ -361,6 +386,7 @@ class TorchBackend(FilterBackend):
         self.stats = dict(captures=0, hits=0, evictions=0, replays=0, warmup_calls=0,
                           capture_s=0.0, warmup_s=0.0)
         self._cost_keys: dict = {}  # LRU key -> cost registry key
+        self._hbm: dict = {}  # LRU key -> its capture's memory record on that entry
         self._cost_key: Optional[str] = None  # the active capture's
 
     def _file_device(self) -> str:
@@ -388,8 +414,7 @@ class TorchBackend(FilterBackend):
                 "compile_cache", DEFAULT_COMPILE_CACHE)))
         except ValueError:
             self._cache_size = DEFAULT_COMPILE_CACHE
-        self._graphs.clear()  # captures read the old model's tensors
-        self._cost_keys.clear()
+        self._drop_graphs()  # captures read the old model's tensors
         self.set_wrapper(self._wrapper, stages=self._stages)
 
     def _load(self, path: str, custom: str) -> TorchModel:
@@ -413,8 +438,7 @@ class TorchBackend(FilterBackend):
         self._fn = None
         self._entry = None
         self._expected = None
-        self._graphs.clear()  # the graphs and their private memory pools go
-        self._cost_keys.clear()
+        self._drop_graphs()  # the graphs and their private memory pools go
         self._cost_key = None
 
     def model_spec(self) -> Optional[TensorsSpec]:
@@ -494,10 +518,8 @@ class TorchBackend(FilterBackend):
         """The LRU key: the input spec, the segment label and the
         fingerprint of the function."""
         if self._fingerprint is None:
-            self._fingerprint = exec_cache.fingerprint(
-                [self._stages, self.model.name],
-                self.model.apply if isinstance(self.model.apply, torch.nn.Module)
-                else self.model.params)
+            self._fingerprint = exec_cache.fingerprint([self._stages, self.model.name],
+                                                       self._param_tree())
         spec_key = tuple((numpy_dtype(t.dtype).str, tuple(t.shape)) for t in in_spec.tensors)
         return spec_key, self.segment_label, self._fingerprint
 
@@ -524,7 +546,7 @@ class TorchBackend(FilterBackend):
     def _lookup(self, in_spec: TensorsSpec, capture: Callable):
         """The LRU's entry for ``in_spec``, else a new capture (evicting the
         least recently used); each event accounted in the device lane."""
-        from ..obs.device import record_compile
+        from ..obs.device import memory_info, record_compile
 
         key = self._key(in_spec)
         entry = self._graphs.get(key)
@@ -548,14 +570,31 @@ class TorchBackend(FilterBackend):
         self.stats["warmup_s"] += getattr(entry, "warmup_s", 0.0)
         self._graphs[key] = entry
         info = self._cost_info(in_spec, entry)
-        self._cost_keys[key] = self._register_cost(key, in_spec, info)
+        hbm = memory_info(entry, _nbytes(self._param_tree()))
+        self._cost_keys[key] = self._register_cost(key, in_spec, info, hbm)
+        self._hbm[key] = hbm
         while len(self._graphs) > self._cache_size:
             evicted, _ = self._graphs.popitem(last=False)
-            self._cost_keys.pop(evicted, None)
+            self._release(evicted)
             self.stats["evictions"] += 1
             record_compile(self, evicted, "evict")
         record_compile(self, key, "miss", dur_ns, info)
         return entry
+
+    def _release(self, key) -> None:
+        """``key``'s capture is gone: its memory leaves the ledger
+        (``obs/util.release_hbm``)."""
+        from ..obs import util as _obs_util
+
+        fp = self._cost_keys.pop(key, None)
+        hbm = self._hbm.pop(key, None)
+        if fp is not None:
+            _obs_util.release_hbm(fp, hbm)
+
+    def _drop_graphs(self) -> None:
+        self._graphs.clear()
+        for key in list(self._cost_keys):
+            self._release(key)
 
     def _cost_info(self, in_spec: TensorsSpec, entry) -> dict:
         """A capture's cost: the FLOPs of one call (``entry.flops``, counted
@@ -566,19 +605,28 @@ class TorchBackend(FilterBackend):
         flops = getattr(entry, "flops", None)
         if flops:
             info["flops"] = float(flops)
-        nbytes = _nbytes(self.model.apply if isinstance(self.model.apply, torch.nn.Module)
-                         else self.model.params)
+        nbytes = _nbytes(self._param_tree())
         nbytes += sum(t.nbytes for t in in_spec.tensors)
         nbytes += _nbytes(list(getattr(entry, "static_out", ())))
         if nbytes:
             info["bytes"] = float(nbytes)
         return info
 
-    def _register_cost(self, key, in_spec: TensorsSpec, info: dict) -> str:
+    def _param_tree(self):
+        """What the model's parameters are: its module, or its params tree."""
+        return self.model.apply if isinstance(self.model.apply, torch.nn.Module) \
+            else self.model.params
+
+    def _register_cost(self, key, in_spec: TensorsSpec, info: dict,
+                       hbm: Optional[dict] = None) -> str:
         """Register a capture's cost with the utilization lane
         (``obs/util.py``) under a per-process fingerprint, and return the
-        key.  A cost-less capture registers too: its dispatches read
-        ``mfu=None`` instead of vanishing."""
+        key.  ``hbm`` is the graph's memory footprint
+        (``obs/device.py`` :func:`memory_info`), kept on the same registry
+        entry: the deep-profiling lane's memory ledger and
+        ``nnstpu_executable_hbm_bytes`` read it there.  A cost-less capture
+        registers too: its dispatches read ``mfu=None`` instead of
+        vanishing."""
         from ..obs import util as _obs_util
 
         bucket = 0
@@ -589,7 +637,7 @@ class TorchBackend(FilterBackend):
             name = f"{name}+{self.segment_label}"
         fp = f"{name}:{hash(key) & 0xffffffffffff:012x}"
         return _obs_util.register_cost(fp, flops=info.get("flops"), bytes=info.get("bytes"),
-                                       bucket=bucket, model=name, devices=1)
+                                       bucket=bucket, model=name, devices=1, hbm=hbm)
 
     def cost_key(self) -> Optional[str]:
         """The active capture's cost fingerprint (the device tracer reads it

@@ -20,8 +20,8 @@ serves a frame from the CPU after a capture fails) but one: ``[filter] torch_dev
 card unless asked for the CPU (``NNSTPU_FILTER_TORCH_DEVICE=cpu``).  The
 JAX package's ``[segment] pallas_nms`` is not ported: fused segments here
 always call the NMS kernel's wrapper, which runs the plain version on CPU
-tensors.  Nor is ``[common] xplane_trace_dir`` (a device trace of the whole
-PLAYING interval), which waits for the port's ``obs/profiler.py``.
+tensors.  ``[common] xplane_trace_dir`` keeps the JAX package's name; the
+port writes a ``torch.profiler`` (Kineto JSON) trace there.
 
 External plugins are ``nnstpu_*.py`` files in the plugin dirs
 (``$NNSTPU_PLUGIN_PATH``, then ``[common] plugin_path``; ``:``-separated).
@@ -55,6 +55,7 @@ DEFAULTS: Dict[str, Dict[str, str]] = {
         "dump_dot_dir": "",         # write <pipeline>.<STATE>.dot here
         "tracers": "",              # GST_TRACERS analog: "latency;stats;drops"
         "metrics_port": "",         # Prometheus scrape port ("" = disabled)
+        "xplane_trace_dir": "",     # torch.profiler trace of PLAYING (Kineto JSON)
     },
     "filter": {
         "torch_device": "cuda",     # where models from files live
@@ -92,9 +93,26 @@ DEFAULTS: Dict[str, Dict[str, str]] = {
         # >0: the watchdog probes the host-to-device wire every this many
         # seconds and publishes the nnstpu_wire_* gauges (obs/util.py)
         "watchdog_wire_probe_s": "0",
-        # The deep-profiling lane's trigger (obs/profiler.py, not ported):
-        # true makes the watchdog's install raise.
-        "profile_auto": "false",
+        # The deep-profiling lane (obs/profiler.py): torch.profiler capture
+        # windows, per-op attribution and the captured graphs' memory
+        # ledger.  The gallery holds the newest profile_keep captures under
+        # profile_max_bytes; the watchdog's trigger (profile_auto) starts a
+        # profile_auto_seconds window, at most once per
+        # profile_auto_cooldown_s, when a dispatch's device time leaves the
+        # profile_sigmas/profile_min_rel/profile_min_abs_us noise band after
+        # profile_min_samples.
+        "profile_dir": "",              # capture gallery ("" = process temp)
+        "profile_keep": "4",            # gallery entries retained (newest K)
+        "profile_max_bytes": "67108864",  # gallery byte cap (64 MiB)
+        "profile_default_seconds": "2.0",  # window when none requested
+        "profile_top_k": "20",          # op rows kept in the summary table
+        "profile_auto": "false",        # watchdog-triggered capture
+        "profile_auto_seconds": "1.0",  # its window
+        "profile_auto_cooldown_s": "120",  # least seconds between two
+        "profile_sigmas": "3.0",        # degrade noise-band sigmas
+        "profile_min_rel": "0.10",      # degrade noise-band relative floor
+        "profile_min_abs_us": "50.0",   # degrade noise-band absolute floor, us
+        "profile_min_samples": "32",    # per-capture samples before verdicts
     },
     # The chaos engine (faults/): seeded fault injection.  The short env
     # spelling NNSTPU_FAULTS takes precedence over NNSTPU_FAULTS_SPEC.

@@ -1,1 +1,2 @@
-"""Runnable examples of the port: custom filters (``custom_filters/``)."""
+"""Runnable examples of the port: custom filters (``custom_filters/``) and
+streaming training (``train_stream.py``)."""

@@ -54,7 +54,14 @@ escalations a watchdog calls; :meth:`Pipeline.recovery_stats` (also
 ``stats()["recovery"]``) is the ledger: actions, frames shed per node,
 quarantined nodes.  ``[faults] spec`` (``NNSTPU_FAULTS``) installs the
 chaos engine at start (``faults/``).  An error's flight dump carries the
-card's memory (``obs/device.py``) as its ``otherData``.
+card's memory (``obs/device.py``) and the captured graphs' memory ledger
+(``obs/profiler.py`` :func:`~..obs.profiler.hbm_ledger`) as its
+``otherData``.  ``[common] xplane_trace_dir`` traces the whole PLAYING
+interval with ``torch.profiler`` (the key keeps the JAX package's name;
+the trace is Kineto JSON), started at PLAYING and written at stop through
+the deep-profiling lane (:func:`~..obs.profiler.start_whole_run`).  The
+warmup phase's report carries the memory check of the captured graphs
+against the card (``report["hbm"]``, advisory).
 
 Scheduling substrate: with ``[dispatch] lanes`` > 0 (``NNSTPU_DISPATCH_LANES``)
 the start hands every queue and ``tensor_dynbatch`` (nodes with
@@ -63,10 +70,6 @@ a thread of its own; ``stats()["lanes"]`` reads it, ``stop`` ends it, and
 :meth:`Pipeline.restart_source`, :meth:`Pipeline.source_alive` and
 :meth:`Pipeline.recover_queue` act on its tasks.  ``lanes = 0`` (the
 default) keeps a thread an element.
-
-Not ported yet: the device trace of the whole PLAYING interval
-(``[common] xplane_trace_dir``) and the per-executable memory ledger of a
-flight dump, which wait for the port's profiler.
 """
 
 from __future__ import annotations
@@ -154,6 +157,7 @@ class Pipeline:
         self._lock = threading.Lock()
         self._tracers: List = []  # attached obs tracers (GST_TRACERS analog)
         self.warmup_report: Optional[dict] = None  # the last warmup phase's report
+        self._xplane_tracing = False  # a whole-run trace ([common] xplane_trace_dir) runs
         # supervised recovery: restart policies and their ledger
         self._restart_policies: Dict[str, RestartPolicy] = {}
         self._conf_policy: Optional[RestartPolicy] = None
@@ -712,6 +716,13 @@ class Pipeline:
         # reconnects the tracers
         for tracer in self._tracers:
             tracer.stop()
+        if self._xplane_tracing:
+            self._xplane_tracing = False
+            # the deep-profiling lane writes, parses and banks the trace;
+            # a failure surfaces on the health hook, never raises
+            from ..obs import profiler as _profiler
+
+            _profiler.stop_whole_run(self)
 
     def run(self, timeout: Optional[float] = None) -> None:
         """start() + wait() + stop() for finite streams."""
@@ -726,11 +737,12 @@ class Pipeline:
         """Run the warmup phase now, on a started pipeline (it needs the
         negotiated specs), whatever ``[compile] warmup`` says; returns the
         report, also kept as :attr:`warmup_report`."""
-        from .warmup import collect_plan, execute
+        from .warmup import check_memory, collect_plan, execute
 
         if self.state != "PLAYING":
             raise PipelineError("warmup() needs a started pipeline (negotiated specs)")
         self.warmup_report = execute(collect_plan(self), pipeline=self)
+        self.warmup_report["hbm"] = check_memory(self)
         return self.warmup_report
 
     # -- introspection ------------------------------------------------------
@@ -746,6 +758,15 @@ class Pipeline:
                 from ..utils import profiling
 
                 profiling.enable(True)
+            trace_dir = conf.get_path("common", "xplane_trace_dir", "")
+            if trace_dir:
+                # a torch.profiler trace of the whole PLAYING interval through
+                # the deep-profiling lane: the trace under the user's
+                # trace_dir, its summary in the capture gallery, /profile
+                # answering 409 meanwhile; written at stop()
+                from ..obs import profiler as _profiler
+
+                self._xplane_tracing = _profiler.start_whole_run(self, trace_dir)
             self._dump_dot("PLAYING")
         except Exception as exc:  # noqa: BLE001 - observability stays non-fatal
             warnings.warn(f"observability hooks failed: {exc!r}", stacklevel=2)
@@ -863,11 +884,18 @@ class Pipeline:
             doc = spans.chrome_trace(spans.snapshot(), process_name=self.name)
             from ..obs.device import device_memory_snapshot
 
+            from ..obs.profiler import hbm_ledger
+
             mem = device_memory_snapshot()
             if mem:
                 # "otherData" is the trace-event format's sidecar slot: what
                 # the card's allocator held when the graph died
                 doc["otherData"] = {"device_memory": mem}
+            ledger = hbm_ledger()
+            if ledger:
+                # each captured graph's memory beside the allocator's: an
+                # out-of-memory verdict can name the largest graph
+                doc.setdefault("otherData", {})["hbm_ledger"] = ledger
             with open(path, "w") as f:
                 json.dump(doc, f)
         except Exception as exc:  # noqa: BLE001 - observability stays non-fatal

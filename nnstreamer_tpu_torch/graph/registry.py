@@ -46,6 +46,7 @@ _BUILTIN_MODULES: Dict[str, str] = {
     "appsrc": "nnstreamer_tpu_torch.elements.app",
     "appsink": "nnstreamer_tpu_torch.elements.app",
     "tensor_crop": "nnstreamer_tpu_torch.elements.crop",
+    "tensor_trainer": "nnstreamer_tpu_torch.elements.trainer",
 }
 
 

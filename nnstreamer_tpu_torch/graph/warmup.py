@@ -115,11 +115,28 @@ def execute(items: List[WarmupItem], pipeline=None, timeout_s: Optional[float] =
     return report
 
 
+def check_memory(pipeline) -> dict:
+    """The captured graphs' memory against the card, after the captures
+    (``obs/profiler.py`` :func:`~..obs.profiler.check_hbm_capacity`):
+    over capacity is a typed ``HbmCapacityWarning`` and a degraded reason
+    on ``/healthz`` before PLAYING, never a start failure.  A check that
+    fails itself says why in the report."""
+    from ..obs.profiler import check_hbm_capacity
+
+    try:
+        return check_hbm_capacity(pipeline)
+    except Exception as exc:  # noqa: BLE001 - the residency check is advisory
+        return {"error": repr(exc)}
+
+
 def run_warmup(pipeline, force: bool = False) -> Optional[dict]:
     """``Pipeline.start``'s call: nothing unless ``[compile] warmup`` is on
-    (or ``force``); else collect and execute the plan and keep the report
-    as ``pipeline.warmup_report``."""
+    (or ``force``); else collect and execute the plan, check the captured
+    graphs' memory (``report["hbm"]``, :func:`check_memory`) and keep the
+    report as ``pipeline.warmup_report``."""
     if not force and not configured():
         return None
-    pipeline.warmup_report = execute(collect_plan(pipeline), pipeline=pipeline)
-    return pipeline.warmup_report
+    report = execute(collect_plan(pipeline), pipeline=pipeline)
+    report["hbm"] = check_memory(pipeline)
+    pipeline.warmup_report = report
+    return report

@@ -219,7 +219,34 @@ def batch_norm(params: Params, x: torch.Tensor, eps: float = 1e-3) -> torch.Tens
     return x * scale.view(1, -1, 1, 1) + bias.view(1, -1, 1, 1)
 
 
+class _Relu6(torch.autograd.Function):
+    """``clamp(x, 0, 6)`` with ``jnp.clip``'s gradient: XLA builds the clip
+    from ``maximum`` and ``minimum``, whose gradient splits a tie, so an
+    input exactly at 0 or 6 passes half the gradient, where
+    ``torch.clamp`` passes all of it.  Ties are common: a depthwise window
+    of an expand's ReLU zeros is exactly 0.  ``torch.minimum(
+    torch.maximum(x, 0), 6)`` splits ties too, but runs two passes forward
+    and a heavier backward: a slower captured training step on the card
+    (``tools/relu6_ab.py``)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.clamp(x, 0.0, 6.0)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (x,) = ctx.saved_tensors
+        inside = ((x > 0) & (x < 6)).to(grad.dtype)
+        tie = ((x == 0) | (x == 6)).to(grad.dtype)
+        return grad * (inside + 0.5 * tie)
+
+
 def relu6(x: torch.Tensor) -> torch.Tensor:
+    """ReLU6; under autograd its gradient is the JAX package's
+    (:class:`_Relu6`), else one ``clamp``."""
+    if x.requires_grad and torch.is_grad_enabled():
+        return _Relu6.apply(x)
     return torch.clamp(x, 0.0, 6.0)
 
 

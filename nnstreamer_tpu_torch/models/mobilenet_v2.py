@@ -11,7 +11,8 @@ at build time.
 
 Weights are random.  :func:`init_params` seeds numpy from an int (the JAX
 package seeds it from a JAX key, so the two draw different weights);
-:func:`params_from_jax` takes the JAX package's own params instead.
+:func:`params_from_jax` takes the JAX package's own params instead, and
+:func:`params_to_jax` gives a port tree back in that layout.
 """
 
 from __future__ import annotations
@@ -130,6 +131,26 @@ def params_from_jax(tree: Any, device="cuda") -> Params:
         if arr.ndim == 0 and arr.dtype.kind in "biu":
             return arr.item()  # block "stride" / "residual" (0-d once numpy'd)
         return _tensor(arr.astype(np.float32), dev)
+
+    return walk(tree)
+
+
+def params_to_jax(tree: Any) -> Params:
+    """The JAX package's params layout (numpy leaves, HWIO conv kernels)
+    from the port's (host or device tensors, or the numpy arrays a
+    trainer's ``params`` gives): the inverse of :func:`params_from_jax` for
+    a float tree, so trained parameters go back to ``build(params=...)``
+    or to the JAX package."""
+    def walk(node, key=None):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v) for v in node]
+        if isinstance(node, torch.Tensor):
+            node = node.detach().cpu().numpy()
+        if isinstance(node, np.ndarray):
+            return node.transpose(2, 3, 1, 0) if key == "w" and node.ndim == 4 else node
+        return node
 
     return walk(tree)
 

@@ -27,7 +27,14 @@ no device runtime:
 - :mod:`.watchdog` — the pipeline health watchdog (``NNSTPU_TRACERS=watchdog``):
   stalled sources, wedged queues and overdue device dispatches flip
   ``nnstpu_health`` and ``/healthz``, write a stall flight dump, and with
-  ``[obs] watchdog_recover`` escalate to restart, drain and breaker trips.
+  ``[obs] watchdog_recover`` escalate to restart, drain and breaker trips,
+  and with ``[obs] profile_auto`` a device-time degradation starts a
+  capture;
+- :mod:`.profiler` — the deep-profiling lane: ``torch.profiler`` capture
+  windows (``/profile``) into a bounded gallery, the table of device ops
+  per capture, the whole-run trace of ``[common] xplane_trace_dir`` and the
+  captured graphs' memory ledger (importing it installs the
+  ``nnstpu_executable_hbm_bytes`` scrape collector).
 
 Activation is conf-driven — ``NNSTPU_TRACERS=latency;stats`` and
 ``NNSTPU_METRICS_PORT=9464`` (the short spellings take precedence;
@@ -35,10 +42,9 @@ Activation is conf-driven — ``NNSTPU_TRACERS=latency;stats`` and
 ``[common]`` keys also work) — or programmatic via
 ``pipeline.attach_tracer("latency")``.
 
-Not ported yet: the cost model, the deep-profiling lane (and with it the
-watchdog's ``profile_auto``), the cluster collector, tail forensics and
-the SLO engine (``obs/{costmodel,profiler,collector,forensics,slo}.py``),
-and the partition edges of ``obs/util.py``'s wire health.
+Not ported yet: the cost model, the cluster collector, tail forensics and
+the SLO engine (``obs/{costmodel,collector,forensics,slo}.py``), and the
+partition edges of ``obs/util.py``'s wire health.
 """
 
 from __future__ import annotations
@@ -110,6 +116,21 @@ from .device import (  # noqa: E402,F401
 
 # importing .watchdog registers the "watchdog" tracer with TRACERS
 from .watchdog import PipelineWatchdog  # noqa: E402,F401
+
+# the deep-profiling lane; importing it installs the memory-ledger gauges
+from . import profiler  # noqa: E402,F401
+from .profiler import (  # noqa: E402,F401
+    DegradeDetector,
+    HbmCapacityWarning,
+    ProfileBusyError,
+    ProfileGallery,
+    annotate_chrome_trace,
+    capture_profile,
+    check_hbm_capacity,
+    hbm_ledger,
+    parse_capture_dir,
+    profiled_window,
+)
 
 
 def configured_tracers() -> List[str]:

@@ -29,7 +29,10 @@ lane of the obs subsystem:
   ``nnstpu_compile_total{result=...}`` counters, a capture wall-time
   histogram, the FLOPs and bytes of each capture, a ``compile`` span when
   span tracing is active, and the ``compile`` hook.  Counters are fed
-  whether a tracer is attached or not.
+  whether a tracer is attached or not.  :func:`memory_info` is a
+  capture's memory footprint, which the backend keeps on the capture's
+  cost-registry entry for the deep-profiling lane's ledger
+  (``obs/profiler.py``).
 - :func:`register_memory_gauges` / :func:`device_memory_snapshot` sample
   the caching allocator of each card (``torch.cuda.memory_stats()`` and
   ``torch.cuda.mem_get_info()``) as ``nnstpu_device_memory_bytes`` gauges
@@ -192,6 +195,32 @@ def _compile_metrics(registry: MetricsRegistry):
             "Sum of cost_analysis() bytes accessed over compiled executables",
         ),
     )
+
+
+def memory_info(entry, parameter_bytes: int = 0) -> dict:
+    """A captured graph's device-memory footprint, the counterpart of the
+    JAX package's ``memory_info`` over an executable's
+    ``memory_analysis()``, under its kinds: ``argument_bytes`` (the
+    parameters, ``parameter_bytes``, and the static inputs, ``input_bytes``),
+    ``output_bytes`` (the static outputs), ``temp_bytes`` (the graph's
+    private pool, ``entry.pool_bytes``, less its outputs; absent when the
+    pool was not measured), and ``alias_bytes`` and ``generated_code_bytes``
+    at 0 (a replay aliases nothing and owns no code)."""
+    import torch
+
+    def nbytes(tensors) -> int:
+        return sum(t.numel() * t.element_size() for t in tensors or ()
+                   if isinstance(t, torch.Tensor))
+
+    inputs = nbytes(getattr(entry, "static_in", ()))
+    outputs = nbytes(getattr(entry, "static_out", ()))
+    info = {"argument_bytes": int(parameter_bytes) + inputs,
+            "parameter_bytes": int(parameter_bytes), "input_bytes": inputs,
+            "output_bytes": outputs, "alias_bytes": 0, "generated_code_bytes": 0}
+    pool = getattr(entry, "pool_bytes", None)
+    if pool is not None:
+        info["temp_bytes"] = max(0, int(pool) - outputs)
+    return info
 
 
 def record_compile(backend, key, result: str, dur_ns: int = 0,

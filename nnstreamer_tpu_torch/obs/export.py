@@ -19,9 +19,13 @@ pipeline, from ``Pipeline.start``) merged into one JSON document, the
 structured twin of the Prometheus exposition — and ``/alerts``, the empty
 document of a process with no objectives.
 
-Not ported yet, and answered 404 until their modules are: ``/profile``
-(an on-demand device trace, ``obs/profiler.py``) and ``/trace.json`` (the
-flight snapshot a cluster collector federates, ``obs/collector.py``).  The
+``GET /profile?seconds=N&frames=M`` runs one deep-profiling window
+(``obs/profiler.py`` :func:`~.profiler.capture_profile`, trigger
+``http``) on the handler's thread and answers its summary (200), 409 with
+``{"error": "busy"}`` while another capture or a whole-run trace holds the
+profiler, and 400 on parameters that do not parse.  Not ported yet, and
+answered 404 until its module is: ``/trace.json`` (the flight snapshot a
+cluster collector federates, ``obs/collector.py``).  The
 SLO engine behind ``/alerts`` (``obs/slo.py``, which the JAX package's
 server starts with itself) and the fleet's incarnation nonce in
 ``/healthz`` come with the subsystems that use them.  The serving engine's
@@ -338,8 +342,37 @@ class MetricsServer:
                     body = json.dumps(doc, default=str,
                                       sort_keys=True).encode("utf-8")
                     self._reply(body, "application/json; charset=utf-8")
-                else:  # /profile and /trace.json included (not ported)
+                elif path == "/profile":
+                    self._profile(query)
+                else:  # /trace.json included (not ported)
                     self.send_error(404)
+
+            def _json(self, doc, status: int = 200) -> None:
+                body = json.dumps(doc, sort_keys=True, default=str).encode("utf-8")
+                self._reply(body, "application/json; charset=utf-8", status=status)
+
+            def _profile(self, query: str) -> None:
+                """One capture window on this handler's thread (the server
+                is threading: scrapes go on), serialized process-wide."""
+                from . import profiler
+
+                params = dict(p.split("=", 1) for p in query.split("&") if "=" in p)
+                try:
+                    seconds = float(params["seconds"]) if "seconds" in params else None
+                    frames = int(params["frames"]) if "frames" in params else None
+                except ValueError:
+                    self._json({"error": "bad_request",
+                                "detail": f"unparseable query {query!r}"}, status=400)
+                    return
+                try:
+                    summary = profiler.capture_profile(seconds=seconds, frames=frames,
+                                                       trigger="http", registry=registry)
+                except profiler.ProfileBusyError as exc:
+                    self._json({"error": "busy", "active": exc.active}, status=409)
+                except Exception as exc:  # noqa: BLE001 - a typed 500
+                    self._json({"error": "capture_failed", "detail": repr(exc)}, status=500)
+                else:
+                    self._json(summary)
 
             def log_message(self, *args):  # silence per-scrape stderr spam
                 del args

@@ -133,6 +133,18 @@ def register_cost(key: str, flops: Optional[float] = None,
     return key
 
 
+def release_hbm(key: str, hbm: Optional[dict]) -> None:
+    """The capture that registered ``hbm`` (its memory record) under
+    ``key`` is gone, and its graph pool with it: the record leaves the
+    entry, and so the memory ledger.  The cost stays, for the spans that
+    already read it.  Only that record goes: a live capture that has
+    registered the same fingerprint since keeps its own."""
+    with _cost_lock:
+        entry = _costs.get(key)
+        if entry is not None and hbm is not None and entry.get("hbm") is hbm:
+            del entry["hbm"]
+
+
 def cost_of(key: Optional[str]) -> Optional[dict]:
     """The registered cost profile for ``key``, or None."""
     if not key:

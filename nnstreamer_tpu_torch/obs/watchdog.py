@@ -44,10 +44,15 @@ With ``[obs] watchdog_wire_probe_s`` > 0 the monitor probes the local
 host-to-device wire on that cadence and publishes it
 (:func:`~.util.probe_wire_health`, :func:`~.util.publish_wire_health`);
 :meth:`PipelineWatchdog.summary` carries the last reading.  Not ported
-yet: the probes of remote wire edges (they come with the partitioner), and
-``[obs] profile_auto``, the deep-profiling capture on a device-time
-degradation, which needs ``obs/profiler.py``: with ``profile_auto`` on,
-the watchdog's start raises.
+yet: the probes of remote wire edges (they come with the partitioner).
+
+With ``[obs] profile_auto`` on, a :class:`~.profiler.DegradeDetector` on
+``device_exec`` (the ``device`` tracer's completions) watches each
+capture's device time, and when a dispatch leaves the noise band the
+monitor starts one deep-profiling capture in the background
+(``trigger="watchdog"``, ``[obs] profile_auto_seconds`` long), at most one
+per ``profile_auto_cooldown_s``; a capture already running (a typed
+:class:`~.profiler.ProfileBusyError`) is skipped, not raised.
 """
 
 from __future__ import annotations
@@ -71,11 +76,6 @@ DEFAULT_STALL_S = 5.0
 DEFAULT_QUEUE_DEPTH = 1
 DEFAULT_DEVICE_DEADLINE_S = 30.0
 DEFAULT_RECOVER_BUDGET = 3
-
-
-class ProfileAutoUnavailable(RuntimeError):
-    """``[obs] profile_auto`` is on, but the deep-profiling lane it needs
-    (``obs/profiler.py``) is not ported."""
 
 
 class PipelineWatchdog(Tracer):
@@ -114,6 +114,13 @@ class PipelineWatchdog(Tracer):
         self._health_fn = None
         self._wire_probe_s = 0.0
         self._last_wire_probe = 0.0
+        # [obs] profile_auto: read at each start
+        self._profile_auto = False
+        self._profile_detector = None
+        self._profile_auto_s = 1.0
+        self._profile_cooldown_s = 120.0
+        self._last_auto_profile: Optional[float] = None  # no capture yet
+        self._auto_captures = 0
 
     # -- lifecycle -----------------------------------------------------------
 
@@ -127,10 +134,6 @@ class PipelineWatchdog(Tracer):
     def _install(self) -> None:
         from ..conf import conf
 
-        if self._conf_value(conf.get_bool, "profile_auto", False):
-            raise ProfileAutoUnavailable(
-                "[obs] profile_auto needs the deep-profiling lane (obs/profiler.py, "
-                "ROADMAP item 12), which the port does not have yet")
         if self._interval is None:
             self._interval = self._conf_value(conf.get_float, "watchdog_interval",
                                               DEFAULT_INTERVAL_S)
@@ -152,6 +155,20 @@ class PipelineWatchdog(Tracer):
         # /metrics while the pipeline runs
         self._wire_probe_s = self._conf_value(conf.get_float, "watchdog_wire_probe_s", 0.0)
         self._last_wire_probe = 0.0
+        # [obs] profile_auto: when a dispatch's device time degrades beyond
+        # the noise band, start a deep-profiling capture (obs/profiler.py)
+        # while the regression is still happening, at most one a cooldown
+        self._profile_auto_s = self._conf_value(conf.get_float, "profile_auto_seconds", 1.0)
+        self._profile_cooldown_s = self._conf_value(conf.get_float, "profile_auto_cooldown_s",
+                                                    120.0)
+        self._last_auto_profile = None
+        self._profile_auto = self._conf_value(conf.get_bool, "profile_auto", False)
+        self._profile_detector = None
+        if self._profile_auto:
+            from .profiler import DegradeDetector
+
+            self._profile_detector = DegradeDetector()
+            self._connect("device_exec", self._profile_detector.on_device_exec)
         self._gauge = self._registry.gauge(
             "nnstpu_health",
             "Pipeline health as judged by the watchdog (1 healthy, 0 unhealthy)",
@@ -271,6 +288,15 @@ class PipelineWatchdog(Tracer):
             with self._lock:
                 self._checks += 1
             self._probe_wire()
+            if self._profile_detector is not None:
+                verdict = self._profile_detector.degraded()
+                # the first verdict always captures (the JAX package starts
+                # its cooldown clock at 0, which on a host up for less than
+                # the cooldown skips the first one)
+                if verdict and (self._last_auto_profile is None or time.monotonic()
+                                - self._last_auto_profile >= self._profile_cooldown_s):
+                    self._last_auto_profile = time.monotonic()
+                    self._auto_capture(verdict)
             try:
                 reasons = self._evaluate()
             except Exception:  # noqa: BLE001 - the monitor survives
@@ -285,6 +311,29 @@ class PipelineWatchdog(Tracer):
                         _LOG.exception("watchdog recovery failed")
             else:
                 self._recovered()
+
+    def _auto_capture(self, verdict: str) -> None:
+        """One watchdog-triggered capture, on a thread of its own (the
+        monitor's tick must not block for the window); a capture already
+        running skips it, the cooldown stamped either way."""
+        _LOG.warning("watchdog: device-time degradation (%s); starting a profile capture",
+                     verdict)
+
+        def run():
+            from . import profiler
+
+            try:
+                profiler.capture_profile(seconds=self._profile_auto_s, pipeline=self._pipeline,
+                                         trigger="watchdog", registry=self._registry)
+                with self._lock:
+                    self._auto_captures += 1
+            except profiler.ProfileBusyError:
+                pass
+            except Exception:  # noqa: BLE001 - the capture is best-effort
+                _LOG.exception("watchdog auto-capture failed")
+
+        threading.Thread(target=run, daemon=True,
+                         name=f"wd-profile:{self._pipeline.name}").start()
 
     def _flip(self, reasons: List[str], dump: bool = True) -> None:
         with self._lock:
@@ -377,6 +426,12 @@ class PipelineWatchdog(Tracer):
                 "recover": bool(self._recover),
                 "recoveries": self._recoveries,
             }
+            if self._profile_auto:
+                out["profile_auto"] = {
+                    "captures": self._auto_captures,
+                    "verdicts": (self._profile_detector.verdicts
+                                 if self._profile_detector else 0),
+                }
         # degraded-but-serving reasons ride along, so a stats.json reader
         # sees them beside the verdict without scraping /healthz
         degraded = degraded_snapshot()

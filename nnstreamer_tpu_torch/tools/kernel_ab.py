@@ -57,11 +57,15 @@ def device_ms(fn, calls: int) -> float:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from ..obs.profiler import capture_lock
+
     for _ in range(20):
         fn()
     for _ in range(5):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # one Kineto session a process: the deep-profiling lane's lock
+        with capture_lock("kernel_ab"), \
+                profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()

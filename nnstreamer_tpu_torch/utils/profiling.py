@@ -12,9 +12,8 @@ Recorded invoke latencies are also folded into the metrics registry
 ``nnstpu_node_invoke_latency_ms`` histogram, so enabling profiling makes
 per-node latencies scrapeable from the Prometheus endpoint.
 
-Not ported yet: ``device_trace`` (a whole-device trace of a region, which
-the port would take with ``torch.profiler``; it waits for
-``obs/profiler.py``).
+:func:`device_trace` traces a region with ``torch.profiler`` (Kineto, and
+CUPTI on a card) through the deep-profiling lane's capture lock.
 """
 
 from __future__ import annotations
@@ -115,3 +114,16 @@ def profiled():
         yield
     finally:
         enable(prev)
+
+
+@contextlib.contextmanager
+def device_trace(logdir: str):
+    """Trace a region with ``torch.profiler`` into ``logdir`` (a Kineto
+    ``*.pt.trace.json``).  Routed through the deep-profiling lane's
+    process-wide capture lock (``obs/profiler.py``), so a concurrent capture
+    raises its typed ``ProfileBusyError`` instead of starting a second
+    Kineto session."""
+    from ..obs.profiler import profiled_window
+
+    with profiled_window(label="device_trace", logdir=logdir, trigger="manual", parse=False):
+        yield

@@ -387,7 +387,7 @@ def test_metrics_server_endpoints():
         assert doc["health"]["status"] == "ok"
         status, _, body = _get(base + "/alerts")
         assert status == 200 and json.loads(body) == {"objectives": {}, "firing": []}
-        for path in ("/profile", "/trace.json", "/nope"):  # not ported: 404
+        for path in ("/trace.json", "/nope"):  # /trace.json not ported: 404
             assert _get(base + path)[0] == 404
         export.register_health("wd", lambda: (False, "queue q wedged"))
         status, _, body = _get(base + "/healthz")

@@ -57,7 +57,7 @@ from nnstreamer_tpu_torch.obs.device import DeviceTracer, oldest_inflight
 from nnstreamer_tpu_torch.obs.export import MetricsServer, health_snapshot, render_text
 from nnstreamer_tpu_torch.obs.metrics import REGISTRY, MetricsRegistry
 from nnstreamer_tpu_torch.obs.tracers import make_tracer
-from nnstreamer_tpu_torch.obs.watchdog import PipelineWatchdog, ProfileAutoUnavailable
+from nnstreamer_tpu_torch.obs.watchdog import PipelineWatchdog
 from nnstreamer_tpu_torch.sched import breaker as tbreaker
 from nnstreamer_tpu_torch.sched.breaker import BreakerOpenError, CircuitBreaker, trip_all
 from nnstreamer_tpu_torch.spec import TensorSpec, TensorsSpec
@@ -494,13 +494,45 @@ def test_breaker_rejects_bad_arguments():
 
 # -- configuration and the readouts -------------------------------------------
 
-def test_profile_auto_raises_naming_item_12(monkeypatch):
-    monkeypatch.setattr(tconf.conf, "_environ", {**os.environ, "NNSTPU_OBS_PROFILE_AUTO": "true"})
+def test_profile_auto_raises_naming_item_12(monkeypatch, tmp_path):
+    """``[obs] profile_auto``, which raised while ``obs/profiler.py`` was not
+    ported: a dispatch far beyond the noise band of its capture's device
+    time makes the watchdog bank one ``trigger="watchdog"`` capture."""
+    from nnstreamer_tpu_torch.obs import profiler
+
+    monkeypatch.setattr(tconf.conf, "_environ", {
+        **os.environ, "NNSTPU_OBS_PROFILE_AUTO": "true",
+        "NNSTPU_OBS_PROFILE_AUTO_SECONDS": "0.1", "NNSTPU_OBS_PROFILE_AUTO_COOLDOWN_S": "600",
+        "NNSTPU_OBS_PROFILE_MIN_SAMPLES": "8", "NNSTPU_OBS_PROFILE_DIR": str(tmp_path)})
+    profiler.reset_gallery()
     p = tnns.Pipeline(name="wd_prof")
-    wd = PipelineWatchdog(interval_s=0.05)
-    with pytest.raises(ProfileAutoUnavailable, match="item 12"):
-        wd.start(p)
-    assert not wd.active and wd._monitor is None
+    src = p.add(_stall_once_src(PORT))
+    p.link(src, p.add(TensorSink(name="out")))
+    reg = MetricsRegistry()
+    wd = PipelineWatchdog(registry=reg, interval_s=0.05, stall_s=60)
+    p.attach_tracer(wd)
+    p.start()
+    try:
+        assert wd._profile_detector is not None
+        for _ in range(12):  # a steady baseline, then one dispatch 50x slower
+            hooks.emit("device_exec", "wd_prof", "f", "cuda:0", 0, 1_000_000,
+                       {"cost_key": "wd:00000000000d"})
+        hooks.emit("device_exec", "wd_prof", "f", "cuda:0", 0, 50_000_000,
+                   {"cost_key": "wd:00000000000d"})
+        assert _wait_for(lambda: wd.summary()["profile_auto"]["captures"] >= 1, timeout=60)
+        for _ in range(3):  # later verdicts fall inside the cooldown
+            hooks.emit("device_exec", "wd_prof", "f", "cuda:0", 0, 50_000_000,
+                       {"cost_key": "wd:00000000000d"})
+        time.sleep(0.3)
+    finally:
+        p.stop()
+        profiler.reset_gallery()
+    assert wd.summary()["profile_auto"]["captures"] == 1
+    assert wd.summary()["profile_auto"]["verdicts"] >= 1
+    last = profiler.last_capture()
+    assert last["trigger"] == "watchdog" and last["pipeline"] == "wd_prof"
+    assert 'nnstpu_profile_captures_total{trigger="watchdog",outcome="ok"} 1' in \
+        render_text(reg)
     assert "wd_prof" not in health_snapshot()[1]
 
 
