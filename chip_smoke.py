@@ -328,7 +328,30 @@ In order, it
    filter past a 0.5 s device deadline (``overdue_device``, a live
    breaker tripped, ``breaker_trip ok``), each with its times from fault to
    verdict and to recovery;
-26. prints every path number beside the card's name and power limit, one
+26. profile phase and training phase (a capture window over slice 1,
+   ``/profile``, ``profile_auto``, the whole-run trace, the memory ledger;
+   MobileNet-v2 1.0 trained at batch 32, then deployed);
+27. query phase (serving over the NNSQ wire, loopback): (a) slice 1 split
+   at the converter, the normalize and the model behind a ``QueryServer``
+   on the ``fragment`` backend (captured by ``warmup`` before any
+   request), 64 frames after 4: logits and labels bit for bit the
+   in-process slice's, ``fused_arith`` and ``int8_matmul`` launched; (b)
+   4 client pipelines of 32 frames through ``QueryServer(batch=4)`` on the
+   batch-polymorphic model: every coalesced group bit for bit the
+   in-process batched filter on the same rows, every reply its client's
+   rows; (c) 8 decode streams (a 119-token prefill, then 8 steps) through a
+   ``DecodeServer`` on config 4d's engine within 1e-5 of the engine, and a
+   session migrated between two servers through a ``TensorRepoServer``
+   within 1e-5 of an unmigrated run; (d) slice 1 offloaded under ``[sched]
+   policy=drr`` with a rate (delivered + shed == offered, each shed a typed
+   ``QueryOverloadError``) and under ``socket_drop``, ``truncate`` and
+   ``corrupt`` on ``nnsq_send``; rates and round trips, the server's invoke
+   and its reply's read;
+28. C16 phase: ROADMAP C16's order (two trainers' graphs captured on two
+   pipelines' threads, both stopped, a profiler window replaying the
+   first): it ends in a trace or in ``ProfiledReplayHazard``, never in a
+   dead process;
+29. prints every path number beside the card's name and power limit, one
    JSON line describing every kernel, and last one JSON line
    ``{"ok": true, "device": {...}}``.
 
@@ -6406,6 +6429,529 @@ def train_phase(torch, np, K, ops, root, card, keep):
     return launches, res
 
 
+QUERY_FRAMES = 64          # path (a)'s timed frames, after QUERY_WARMUP frames
+QUERY_WARMUP = 4
+QUERY_CLIENTS = 4          # path (b): concurrent client pipelines ...
+QUERY_CLIENT_FRAMES = 32   # ... of this many frames each
+QUERY_BATCH = 4            # QueryServer(batch=4, max_batch=4)
+QUERY_WINDOW_MS = 5.0      # its batch window
+QUERY_STREAMS = 8          # path (c): decode streams, one a slot of config 4d's engine
+QUERY_STEPS = 8            # steps a stream after its prefill (119 + 8 < t_max)
+QUERY_MIGRATE_AT = 4       # the migrated stream's steps on server A
+QUERY_RATE_SHARE = 0.25    # path (d): [sched] rate, this share of path (a)'s frames/s
+QUERY_BURST = 4
+QUERY_OFFERED = 64         # the requests offered under the rate
+QUERY_FAULT_FRAMES = 32    # the requests under each wire fault
+QUERY_FAULTS = ("seed=3;socket_drop@server:every=5", "seed=3;truncate@client:every=6",
+                "seed=3;corrupt@client:every=7")
+
+
+def pcts(np, xs_ms):
+    return float(np.percentile(xs_ms, 50)), float(np.percentile(xs_ms, 90))
+
+
+def query_phase(torch, np, K, root, card, keep):
+    """Serving over the NNSQ wire on the card: (a) slice 1 offloaded to a
+    QueryServer on the fragment backend, against the in-process slice bit
+    for bit; (b) cross-client batching on the batch-polymorphic model, each
+    coalesced group against the in-process batched filter; (c) DecodeServer
+    on config 4d's engine with 8 concurrent streams and a migrated session;
+    (d) admission under [sched] policy=drr with a rate, and wire faults."""
+    import threading
+
+    import nnstreamer_tpu_torch as nns
+    from nnstreamer_tpu_torch import faults
+    from nnstreamer_tpu_torch.backends.torch_backend import TorchModel
+    from nnstreamer_tpu_torch.buffer import Frame
+    from nnstreamer_tpu_torch.elements import query
+    from nnstreamer_tpu_torch.elements.transform import _bind_chain, _parse_arith_ops
+    from nnstreamer_tpu_torch.fleet.repo import TensorRepoServer
+    from nnstreamer_tpu_torch.models import mobilenet_v2, transformer
+    from nnstreamer_tpu_torch.serving import ContinuousBatcher, DecodeServer
+    from nnstreamer_tpu_torch.spec import TensorSpec, TensorsSpec
+    from nnstreamer_tpu_torch.utils.checkpoint import save_state
+
+    work = os.path.join(root, "build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    tree = mobilenet_v2.init_tree(0, CLASSES, 1.0)  # slice 1's model (build_quantized seed 0)
+    ckpt = os.path.join(work, "query_mobilenet_v2.npz")
+    save_state(tree, ckpt)
+    labels = os.path.join(work, "labels_1001.txt")
+    with open(labels, "w", encoding="utf-8") as f:
+        f.write("\n".join(f"class_{i}" for i in range(CLASSES)))
+    model_props = (f"model={ckpt} custom=builder=mobilenet_v2:build_quantized,int8_head=1,"
+                   f"image_size={IMAGE},num_classes={CLASSES}")
+    normalize = f"tensor_transform mode=arithmetic option={NORMALIZE} acceleration=pallas"
+    fragment = f"{normalize} ! tensor_filter framework=torch name=f {model_props}"
+    tail = (f"tee name=t ! tensor_decoder mode=image_labeling option1={labels} ! "
+            "tensor_sink name=out collect=true t. ! tensor_sink name=lg collect=true")
+
+    def src(n, seed=7):
+        return (f"videotestsrc name=src num-buffers={n} width={IMAGE} height={IMAGE} "
+                f"pattern=random seed={seed} ! tensor_converter ! ")
+
+    def client_desc(n, port):
+        return src(n) + f"tensor_query_client name=q port={port} ! " + tail
+
+    def inproc_desc(n):
+        return (src(n) + f"{normalize} ! tensor_upload name=u ! queue max-size-buffers=16 ! "
+                f"tensor_filter framework=torch name=f {model_props} ! " + tail)
+
+    row_u8 = TensorsSpec.of(TensorSpec(np.uint8, (IMAGE, IMAGE, 3)))
+    res = {}
+
+    # -- (a) slice 1 offloaded: the fragment backend behind a QueryServer -----
+    K.reset_launches()
+    srv = query.QueryServer(framework="fragment", model=fragment).start()
+    try:
+        t0 = time.perf_counter()
+        warm = srv.warmup(row_u8)
+        res["a_server_warmup_s"] = time.perf_counter() - t0
+        run_pipeline(nns, client_desc(QUERY_WARMUP, srv.port), None, QUERY_WARMUP)
+        p, arrivals, _ = run_pipeline(nns, client_desc(QUERY_FRAMES, srv.port), None,
+                                      QUERY_FRAMES)
+        launches = {k.__name__: k.launches for k in K.KERNELS}
+        st = srv.stats()
+        (be,) = srv._backends.values()
+        (filt,) = be._nodes
+        bstats = dict(filt.backend.stats)
+    finally:
+        srv.stop()
+    got_lg = [f.tensor(0) for f in p["lg"].frames]
+    got = p["out"].frames
+    rtt = np.asarray(list(p["q"].rtt_ns)) / 1e6
+    check(launches["fused_arith"] > 0 and launches["int8_matmul"] > 0,
+          f"path (a): the wrappers' launches {launches}: both kernels must run on the path")
+    check(bstats["captures"] == 1 and bstats["replays"] >= QUERY_FRAMES + QUERY_WARMUP,
+          f"path (a): the server's filter {bstats}: one capture (the warmup), every frame "
+          "a replay")
+    check(len(got_lg) == QUERY_FRAMES and all(t.device.type == "cuda" for t in got_lg),
+          "path (a): the client's replies are not on the card")
+    ref, _, _ = run_pipeline(nns, inproc_desc(QUERY_FRAMES), None, QUERY_FRAMES)
+    want_lg = [f.tensor(0) for f in ref["lg"].frames]
+    check(all(torch.equal(a, b) for a, b in zip(got_lg, want_lg)),
+          "path (a): the offloaded logits differ from the in-process slice's")
+    check([f.meta["label_index"] for f in got] == [f.meta["label_index"] for f in ref["out"].frames],
+          "path (a): the offloaded labels differ from the in-process slice's")
+    res["a"] = dict(frames=QUERY_FRAMES, launches=launches, replays=bstats["replays"],
+                    warmup=[c["label"] for c in warm["compiled"]], **rates(arrivals, np),
+                    rtt_p50_ms=pcts(np, rtt[-QUERY_FRAMES:])[0],
+                    rtt_p90_ms=pcts(np, rtt[-QUERY_FRAMES:])[1],
+                    server_invoke_ms=st["invoke_s"] / st["invokes"] * 1e3,
+                    reply_read_ms=st["reply_read_s"] / st["replies"] * 1e3,
+                    distinct_labels=len({f.meta["label_index"] for f in got}))
+    print(f"query (a): slice 1 offloaded, {QUERY_FRAMES} frames after {QUERY_WARMUP} of "
+          f"warm-up: logits and labels bitwise equal to the in-process slice; wrapper "
+          f"launches {launches} (the server's warmup capture), {bstats['replays']} replays "
+          f"[{card}]", flush=True)
+    path_a = launches
+
+    # -- (b) cross-client batching ------------------------------------------------
+    base = mobilenet_v2.build_quantized(params=tree, int8_head=True, image_size=IMAGE,
+                                        device=DEVICE)
+    poly = TorchModel(apply=base.apply, params=base.params, name="mobilenet_v2_poly_int8_head",
+                      input_spec=TensorsSpec.of(TensorSpec(np.float32, (None, IMAGE, IMAGE, 3))),
+                      output_spec=TensorsSpec.of(TensorSpec(np.float32, (None, CLASSES))),
+                      device=DEVICE)
+    rng = np.random.default_rng(18)
+    streams = [[torch.from_numpy(rng.integers(0, 256, (1, IMAGE, IMAGE, 3), dtype=np.uint8))
+                for _ in range(QUERY_CLIENT_FRAMES)] for _ in range(QUERY_CLIENTS)]
+    groups, errors, outs, rtts = [], [], {}, []
+    K.reset_launches()
+    srv = query.QueryServer(framework="torch", model=poly, batch=QUERY_BATCH,
+                            max_batch=QUERY_BATCH, batch_window_ms=QUERY_WINDOW_MS).start()
+    dispatch = srv._dispatch_group
+
+    def recording(group):
+        dispatch(group)
+        groups.append(([g.tensors[0] for g in group],
+                       [None if g.outs is None else g.outs[0].clone() for g in group]))
+
+    srv._dispatch_group = recording
+    try:
+        warm = srv.warmup(TensorsSpec.of(TensorSpec(np.float32, (IMAGE, IMAGE, 3))))
+
+        def client(k):
+            try:
+                pc = nns.parse_launch(f"datasrc name=x ! {normalize} ! "
+                                      f"tensor_query_client name=q port={srv.port} ! "
+                                      "tensor_sink name=out collect=true")
+                pc["x"].data = streams[k]
+                pc.run(timeout=300)
+                outs[k] = [f.tensor(0) for f in pc["out"].frames]
+                rtts.extend(list(pc["q"].rtt_ns))
+            except BaseException as exc:  # noqa: BLE001 - reported below
+                errors.append((k, repr(exc)))
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(k,)) for k in range(QUERY_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        launches = {k.__name__: k.launches for k in K.KERNELS}
+        st = srv.stats()
+    finally:
+        srv.stop()
+    check(not errors, f"path (b): client failures {errors}")
+    check(launches["int8_matmul"] > 0, f"path (b): int8_matmul never launched: {launches}")
+    check(st["batched_invokes"] < st["batched_frames"],
+          f"path (b): no group coalesced: {st['batched_invokes']} invokes for "
+          f"{st['batched_frames']} frames")
+    # each coalesced group against the in-process batched filter on the same
+    # rows in the same order (padded to the same bucket)
+    check(all(o is not None for _, gouts in groups for o in gouts),
+          "path (b): a group failed on the server")
+    chunks = [bucket_pad(torch, torch.cat(ins, 0), QUERY_BATCH) for ins, _ in groups]
+    pin = nns.parse_launch("datasrc name=x ! tensor_filter framework=torch name=f ! "
+                           "tensor_sink name=out collect=true")
+    pin["f"].model = poly
+    pin["x"].data = [x.to(DEVICE) for x in chunks]
+    pin.run(timeout=300)
+    inproc = [f.tensor(0) for f in pin["out"].frames]
+    bad = group_mismatches(torch, groups, inproc)
+    check(bad == 0, f"path (b): {bad} of {len(groups)} coalesced groups differ from the "
+                    "in-process batched filter on the same rows")
+    # and each client got its own rows of its group's result
+    by_row = {}
+    for ins, gouts in groups:
+        for x, o in zip(ins, gouts):
+            by_row[x.numpy().tobytes()] = o
+    ops = _bind_chain(_parse_arith_ops(NORMALIZE), np.dtype(np.uint8))
+    mismatched = 0
+    for k in range(QUERY_CLIENTS):
+        check(len(outs[k]) == QUERY_CLIENT_FRAMES, f"path (b): client {k} got "
+                                                   f"{len(outs[k])} frames")
+        for x, o in zip(streams[k], outs[k]):
+            key = K.fused_arith(x.to(DEVICE), ops).cpu().numpy().tobytes()
+            mismatched += key not in by_row or not torch.equal(by_row[key].to(o.device), o)
+    check(mismatched == 0, f"path (b): {mismatched} replies are not their group's rows")
+    rtt = np.asarray(rtts) / 1e6
+    res["b"] = dict(clients=QUERY_CLIENTS, frames=QUERY_CLIENTS * QUERY_CLIENT_FRAMES,
+                    batched_invokes=st["batched_invokes"], batched_frames=st["batched_frames"],
+                    groups=len(groups), group_sizes=sorted({len(g[0]) for g in groups}),
+                    launches=launches, warmup=[c["label"] for c in warm["compiled"]],
+                    frames_per_s=QUERY_CLIENTS * QUERY_CLIENT_FRAMES / wall,
+                    rtt_p50_ms=pcts(np, rtt)[0], rtt_p90_ms=pcts(np, rtt)[1],
+                    server_invoke_ms=st["invoke_s"] / st["invokes"] * 1e3,
+                    reply_read_ms=st["reply_read_s"] / st["replies"] * 1e3)
+    print(f"query (b): {QUERY_CLIENTS} clients x {QUERY_CLIENT_FRAMES} frames, batched_invokes "
+          f"{st['batched_invokes']}, batched_frames {st['batched_frames']} ({len(groups)} groups "
+          f"checked bitwise against the in-process batched filter) [{card}]", flush=True)
+    path_b = launches
+
+    # -- (c) DecodeServer on config 4d's engine, and a migrated session ---------
+    cell = DECODE_CELL
+    decode_tree = keep["decode_tree"]
+    rng = np.random.default_rng(19)
+    prompts = [rng.standard_normal((PREFILL_TOKENS, cell["d_in"])).astype(np.float32)
+               for _ in range(QUERY_STREAMS)]
+    steps = [list(rng.standard_normal((QUERY_STEPS, cell["d_in"])).astype(np.float32))
+             for _ in range(QUERY_STREAMS)]
+    out_spec = TensorsSpec.of(TensorSpec(np.float32, (cell["n_out"],)))
+    eng = ContinuousBatcher(capacity=ENGINE_CAPACITY, params=decode_tree, device=DEVICE, **cell)
+    eng.warmup_prefill()
+    engb = ContinuousBatcher(capacity=ENGINE_CAPACITY, params=decode_tree, device=DEVICE, **cell)
+    engb.warmup_prefill()
+    served, errors, rtts = {}, [], []
+    with eng, engb:
+        sa = DecodeServer(eng).start()
+        sb = DecodeServer(engb).start()
+        repo = TensorRepoServer().start()
+        try:
+            def stream(k):
+                try:
+                    cli = query.TensorQueryClient(port=sa.port, stateful=True, out_spec=out_spec,
+                                                  name=f"decode{k}")
+                    cli.start()
+                    ys = [cli.process(None, Frame.of(torch.from_numpy(prompts[k]), pts=0))]
+                    for i, x in enumerate(steps[k]):
+                        ys.append(cli.process(None, Frame.of(torch.from_numpy(x), pts=i + 1)))
+                    cli.stop()
+                    served[k] = [y.tensor(0).cpu().numpy() for y in ys]
+                    rtts.extend(list(cli.rtt_ns))
+                except BaseException as exc:  # noqa: BLE001 - reported below
+                    errors.append((k, repr(exc)))
+
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=stream, args=(k,)) for k in range(QUERY_STREAMS)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            wall = time.perf_counter() - t0
+            check(not errors, f"path (c): stream failures {errors}")
+            ticks = eng.stats()
+            alone = {k: served_alone(eng, 0, steps[k], prompt=prompts[k])
+                     for k in range(QUERY_STREAMS)}
+            err = max(float(np.abs(a - b).max() / np.abs(b).max())
+                      for k in range(QUERY_STREAMS) for a, b in zip(served[k], alone[k]))
+            check(err <= DECODE_REL, f"path (c): a wire stream is {err} of the largest from the "
+                                     f"engine's (tolerance {DECODE_REL})")
+            # migrate one session: MIGRATE on A, RESUME on B, through the repo
+            ctl = query.pack_session_control(f"127.0.0.1:{repo.port}", 7, 30000)
+            ca = socket_pair_client(sa.port)
+            mig = [query_request(query, ca, (prompts[0],), 0)]
+            for i, x in enumerate(steps[0][:QUERY_MIGRATE_AT]):
+                mig.append(query_request(query, ca, (x,), i + 1))
+            ack = query_request(query, ca, ctl, query.MIGRATE_PTS)
+            ca.close()
+            cb = socket_pair_client(sb.port)
+            ack_b = query_request(query, cb, ctl, query.RESUME_PTS)
+            for i, x in enumerate(steps[0][QUERY_MIGRATE_AT:]):
+                mig.append(query_request(query, cb, (x,), QUERY_MIGRATE_AT + i + 1))
+            cb.close()
+            check(int(ack[0]) == 1 and int(ack_b[0]) == 1, "path (c): the migration was refused")
+            mig_err = max(float(np.abs(a - b).max() / np.abs(b).max())
+                          for a, b in zip(mig, alone[0]))
+            check(mig_err <= DECODE_REL, f"path (c): the migrated session is {mig_err} of the "
+                                         f"largest from an unmigrated run ({DECODE_REL})")
+            mstats = (sa.stats(), sb.stats())
+        finally:
+            sa.stop()
+            sb.stop()
+            repo.stop()
+    rtt = np.asarray(rtts) / 1e6
+    res["c"] = dict(streams=QUERY_STREAMS, prefill_tokens=PREFILL_TOKENS, steps=QUERY_STEPS,
+                    rel_err=err, migrated_rel_err=mig_err,
+                    sessions_migrated=mstats[0]["sessions_migrated"],
+                    sessions_restored=mstats[1]["sessions_restored"],
+                    requests_per_s=QUERY_STREAMS * (QUERY_STEPS + 1) / wall,
+                    rtt_p50_ms=pcts(np, rtt)[0], rtt_p90_ms=pcts(np, rtt)[1],
+                    engine_ticks=ticks["ticks"], engine_steps=ticks["steps_total"])
+    print(f"query (c): {QUERY_STREAMS} decode streams over the wire (prefill {PREFILL_TOKENS} "
+          f"tokens, then {QUERY_STEPS} steps) within {err:.3g} of the engine's; a session "
+          f"migrated A -> B after {QUERY_MIGRATE_AT} steps within {mig_err:.3g} of an "
+          f"unmigrated run [{card}]", flush=True)
+
+    # -- (d) admission under [sched] policy=drr, and faults on the wire ---------
+    # One server and one capture for the admitted, the fault-free and the
+    # faulted runs, so that "bit for bit" compares replays of one graph.
+    frames = [torch.from_numpy(np.asarray(f)) for f in videotestsrc_frames(nns, QUERY_OFFERED)]
+    # a request's admission cost is its leading dim (the JAX package's rule):
+    # IMAGE for a (IMAGE, IMAGE, 3) frame, so the bucket counts in rows
+    rate = max(1.0, round(QUERY_RATE_SHARE * res["a"]["fps"]))
+    env = {"NNSTPU_SCHED_POLICY": "drr", "NNSTPU_SCHED_RATE": str(rate * IMAGE),
+           "NNSTPU_SCHED_BURST": str(QUERY_BURST * IMAGE)}
+    os.environ.update(env)
+    try:
+        srv = query.QueryServer(framework="fragment", model=fragment).start()
+    finally:
+        for key in env:
+            del os.environ[key]
+    sch = srv.scheduler
+    res["d_faults"] = {}
+    delivered, shed, other = {}, 0, []
+    out_spec = TensorsSpec.of(TensorSpec(np.float32, (CLASSES,)))
+
+    def offer(name, xs, retries=0):
+        cli = query.TensorQueryClient(port=srv.port, retries=retries, retry_backoff_ms=1,
+                                      out_spec=out_spec, name=name)
+        cli.start()
+        got, typed, untyped = {}, [], []
+        for i, x in enumerate(xs):
+            try:
+                got[i] = cli.process(None, Frame.of(x, pts=i)).tensor(0).cpu()
+            except (query.QueryError, ConnectionError) as exc:
+                typed.append(exc)
+            except Exception as exc:  # noqa: BLE001 - reported by the checks
+                untyped.append(repr(exc))
+        cli.stop()
+        return got, typed, untyped, cli
+
+    try:
+        srv.warmup(row_u8)
+        check(sch is not None and sch.policy.name == "drr",
+              "path (d): [sched] policy=drr was not picked up")
+        t0 = time.perf_counter()
+        delivered, typed, other, _ = offer("admitted", frames)
+        admit_wall = time.perf_counter() - t0
+        shed = sum(isinstance(e, query.QueryOverloadError) for e in typed)
+        other += [repr(e) for e in typed if not isinstance(e, query.QueryOverloadError)]
+        adm = sch.stats()["admission"]
+        srv.scheduler = None  # the fault-free and the faulted runs: no admission
+        clean, typed, untyped, _ = offer("clean", frames)
+        check(len(clean) == QUERY_OFFERED and not typed and not untyped,
+              f"path (d): the fault-free run failed: {typed[:3]} {untyped[:3]}")
+        admission_check(QUERY_OFFERED, len(delivered), shed, adm["shed_rate"], other,
+                        sum(not torch.equal(v, clean[i]) for i, v in delivered.items()))
+        res["d_admission"] = dict(offered=QUERY_OFFERED, delivered=len(delivered), shed=shed,
+                                  rate=rate, burst=QUERY_BURST,
+                                  offered_per_s=QUERY_OFFERED / admit_wall,
+                                  clean_equals_path_a=all(
+                                      torch.equal(clean[i], got_lg[i].cpu())
+                                      for i in range(QUERY_OFFERED)))
+        print(f"query (d): [sched] policy=drr rate={rate}/s burst {QUERY_BURST}: offered "
+              f"{QUERY_OFFERED}, delivered {len(delivered)} (bitwise the fault-free run's), "
+              f"shed {shed}, each a typed QueryOverloadError [{card}]", flush=True)
+        for spec in QUERY_FAULTS:
+            eng_f = faults.install(spec)
+            try:
+                outs_f, typed, untyped, cli = offer("faulted", frames[:QUERY_FAULT_FRAMES],
+                                                    retries=3)
+            finally:
+                injected = sum(eng_f.injections.values())
+                faults.deactivate()
+            differ = sum(not torch.equal(v, clean[i]) for i, v in outs_f.items())
+            wire_fault_check(spec, injected, differ, untyped)
+            res["d_faults"][spec] = dict(injected=injected, retries=cli.retries_total,
+                                         delivered=len(outs_f), failed_typed=len(typed),
+                                         differ=differ)
+            print(f"query (d) {spec}: {injected} injected, {cli.retries_total} retries, "
+                  f"{len(outs_f)} delivered ({differ} unlike the fault-free run), "
+                  f"{len(typed)} failed typed [{card}]", flush=True)
+    finally:
+        faults.deactivate()
+        srv.scheduler = sch  # the conf-made scheduler closes with its server
+        srv.stop()
+    for name, r in (("a", res["a"]), ("b", res["b"]), ("c", res["c"])):
+        for key in ("fps", "frames_per_s", "requests_per_s", "p50_ms", "p90_ms", "rtt_p50_ms",
+                    "rtt_p90_ms", "server_invoke_ms", "reply_read_ms"):
+            if key in r:
+                print(f"  query ({name}) {key}: {r[key]} [{card}]", flush=True)
+    return {k: path_a[k] + path_b[k] for k in path_a}, res
+
+
+def bucket_pad(torch, x, max_batch):
+    """Rows padded to their power-of-two bucket by repeating the last one,
+    as the QueryServer dispatches a coalesced group."""
+    n, b = x.shape[0], 1
+    while b < n:
+        b <<= 1
+    b = min(b, max_batch)
+    return torch.cat([x, x[-1:].expand(b - n, *x.shape[1:])], 0) if b > n else x
+
+
+def group_mismatches(torch, groups, inproc):
+    """Path (b): coalesced groups whose rows, as the server split them to
+    the clients, differ from the in-process batched filter's rows for the
+    same chunk (or that have no in-process chunk)."""
+    bad = max(0, len(groups) - len(inproc))
+    for (ins, outs), want in zip(groups, inproc):
+        got = torch.cat([o.to(want.device) for o in outs], 0)
+        bad += not torch.equal(got, want[:got.shape[0]])
+    return bad
+
+
+def admission_check(offered, delivered, shed, server_shed, untyped, differ):
+    """Path (d) under a rate: every offered request delivered or shed with
+    a typed QueryOverloadError, some of each, the server's count of shed
+    requests the client's, and every delivered frame the fault-free one."""
+    check(not untyped, f"path (d): untyped failures under admission: {untyped[:3]}")
+    check(delivered + shed == offered and shed > 0 and delivered > 0,
+          f"path (d): delivered {delivered} + shed {shed} != offered {offered}, or none of "
+          "one kind")
+    check(server_shed == shed, f"path (d): the server counted {server_shed} shed, the client "
+                               f"{shed}")
+    check(differ == 0, f"path (d): {differ} admitted frames differ from the fault-free run")
+
+
+def wire_fault_check(spec, injected, differ, untyped):
+    """Path (d) under a wire fault: it fired, nothing failed untyped, and the
+    delivered frames are the fault-free run's bit for bit; under ``corrupt``
+    at most the injected frames differ: NNSQ carries no checksum (nor does
+    the JAX package's wire), so a flipped payload byte reaches the model as
+    data."""
+    check(not untyped and injected > 0, f"path (d) {spec}: {injected} injections, untyped "
+                                        f"failures {untyped[:3]}")
+    if "corrupt@" in spec:
+        check(differ <= injected, f"path (d) {spec}: {differ} frames differ from the "
+                                  f"fault-free run, {injected} injected")
+    else:
+        check(differ == 0, f"path (d) {spec}: {differ} delivered frames differ from the "
+                           "fault-free run")
+
+
+def socket_pair_client(port):
+    import socket
+
+    return socket.create_connection(("127.0.0.1", port), timeout=120)
+
+
+def query_request(query, sock, tensors, pts):
+    query.send_tensors(sock, tensors, pts)
+    outs, _ = query.recv_tensors(sock)
+    return outs[0]
+
+
+def videotestsrc_frames(nns, n, seed=7):
+    """The first ``n`` frames of slice 1's source, as the converter gives them."""
+    p = nns.parse_launch(f"videotestsrc num-buffers={n} width={IMAGE} height={IMAGE} "
+                         f"pattern=random seed={seed} ! tensor_converter ! "
+                         "tensor_sink name=out collect=true")
+    p.run(timeout=120)
+    return [f.tensor(0) for f in p["out"].frames]
+
+
+C16_STEPS = 4     # steps of each trainer before its pipeline stops
+C16_REPLAYS = 4   # replays of trainer A inside the window
+
+
+def c16_phase(torch, np, K, ops, card):
+    """ROADMAP C16's order at train_phase's size: trainer A's graph captured
+    in one pipeline, trainer B's in a second, both pipelines stopped, then a
+    torch.profiler window (the lane's capture lock held) that replays A.
+    It ends in a trace or in the typed error that names C16, never in a
+    dead process; then A replays outside the window and B inside one."""
+    import nnstreamer_tpu_torch as nns
+    from nnstreamer_tpu_torch.backends.torch_backend import TorchModel
+    from nnstreamer_tpu_torch.buffer import Frame
+    from nnstreamer_tpu_torch.models import mobilenet_v2
+    from nnstreamer_tpu_torch.obs import profiler
+
+    def apply(p, x):
+        return mobilenet_v2.apply(p, x, dtype=torch.bfloat16)
+
+    rng = np.random.default_rng(TRAIN_SEED)
+    xb = torch.from_numpy(rng.integers(0, 256, (TRAIN_BATCH, IMAGE, IMAGE, 3), dtype=np.uint8))
+    yb = torch.from_numpy(rng.integers(0, CLASSES, TRAIN_BATCH).astype(np.int32))
+
+    def trainer(name):
+        p = nns.parse_launch(train_desc())
+        p["tr"].model = TorchModel(apply=apply, name=name, device=DEVICE,
+                                   params=mobilenet_v2.init_params(seed=0, num_classes=CLASSES,
+                                                                   device=DEVICE))
+        p["x"].data = [xb] * C16_STEPS
+        p["y"].data = [yb] * C16_STEPS
+        p.start()
+        try:
+            check(p.wait(600), f"C16: trainer {name} did not finish")
+        finally:
+            p.stop()
+        check(p["tr"].step_count == C16_STEPS, f"C16: trainer {name} took "
+                                               f"{p['tr'].step_count} steps")
+        return p
+
+    pa = trainer("c16_a")
+    pb = trainer("c16_b")
+    tr_a, tr_b = pa["tr"], pb["tr"]
+    frame = Frame.of(K.fused_arith(xb.to(DEVICE), ops), yb)
+    res = {}
+    try:
+        tr_trace = trace(lambda: [tr_a.process(None, frame) for _ in range(C16_REPLAYS)])
+        res.update(outcome="trace", device_records=tr_trace["activities"])
+    except profiler.ProfiledReplayHazard as exc:
+        res.update(outcome="typed error", error=str(exc)[:200])
+    check(tr_a.step_count == C16_STEPS + (C16_REPLAYS if res["outcome"] == "trace" else 0),
+          f"C16: trainer A took {tr_a.step_count} steps")
+    before = tr_a.step_count
+    losses = [float(tr_a.process(None, frame).tensor(0)) for _ in range(2)]
+    check(tr_a.step_count == before + 2 and all(np.isfinite(losses)),
+          f"C16: A's replays outside the window: {losses}")
+    b_trace = trace(lambda: [tr_b.process(None, frame) for _ in range(C16_REPLAYS)])
+    check(b_trace["activities"] > 0, "C16: the window over B's replays holds no device record")
+    res.update(a_losses_after=losses, b_window_device_records=b_trace["activities"])
+    print(f"C16: trainer A and B captured on two pipelines' threads, both stopped; a profiler "
+          f"window replaying A ended in a {res['outcome']}"
+          + (f" ({res['error']})" if "error" in res else
+             f" ({res['device_records']} device records)")
+          + f"; A replays outside it, a window over B holds {b_trace['activities']} device "
+          f"records [{card}]", flush=True)
+    del pa, pb
+    return {k.__name__: 0 for k in K.KERNELS}, res
+
+
 def _conv_dicts(tree):
     """Every dict of a params tree that holds a weight ``"w"``, in order."""
     if isinstance(tree, dict):
@@ -6540,12 +7086,17 @@ def main() -> int:
                                        by_path["image_labeling"][1]["device_busy_ms_per_frame"])
     t13 = time.perf_counter()
     by_path["train"] = train_phase(torch, np, K, ops, root, card, slices)
+    t14 = time.perf_counter()
+    slices["decode_tree"] = decode_tree
+    by_path["query"] = query_phase(torch, np, K, root, card, slices)
+    t15 = time.perf_counter()
+    by_path["c16"] = c16_phase(torch, np, K, ops, card)
     print(f"phase wall s: up to the quant phase {t1 - t0:.3f}, pose {t2 - t1:.3f}, "
           f"recurrence {t3 - t2:.3f}, batch {t4 - t3:.3f}, cascade {t5 - t4:.3f}, "
           f"app {t6 - t5:.3f}, vit {t7 - t6:.3f}, config 4c {t8 - t7:.3f}, "
           f"config 4d {t9 - t8:.3f}, recovery {t10 - t9:.3f}, "
           f"device lane {t11 - t10:.3f}, lanes {t12 - t11:.3f}, profile {t13 - t12:.3f}, "
-          f"train {time.perf_counter() - t13:.3f}; "
+          f"train {t14 - t13:.3f}, query {t15 - t14:.3f}, C16 {time.perf_counter() - t15:.3f}; "
           f"the script {time.perf_counter() - t0:.3f} after the import", flush=True)
     wrapper = {"fused_arith": "fused_arith", "int8_matmul": "int8_matmul",
                "nms_keep": "pallas_nms_keep"}
@@ -6572,7 +7123,8 @@ def main() -> int:
                       "recovery": by_path["recovery"][1],
                       "device_lane": by_path["device_lane"][1],
                       "lanes": by_path["lanes"][1], "profile": by_path["profile"][1],
-                      "train": by_path["train"][1]}),
+                      "train": by_path["train"][1], "query": by_path["query"][1],
+                      "c16": by_path["c16"][1]}),
           flush=True)
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -9,7 +9,9 @@ spec, get the output spec) and :meth:`FilterBackend.invoke`
 
 Built-in frameworks register lazily (:data:`_BUILTIN_MODULES`): ``torch``
 and ``torch-cpu`` (``torch_backend.py``), ``custom``, ``custom-python`` and
-``custom-easy`` (``custom.py``), ``custom-so`` (``custom_so.py``).  A name
+``custom-easy`` (``custom.py``), ``custom-so`` (``custom_so.py``),
+``fragment`` (``partition/fragment.py``: a launch-string chain served
+behind a query server).  A name
 still unknown then loads the external plugins (``conf.py``) and is looked
 up once more.
 """
@@ -73,6 +75,7 @@ _BUILTIN_MODULES = {
     "custom-python": "nnstreamer_tpu_torch.backends.custom",
     "custom-easy": "nnstreamer_tpu_torch.backends.custom",
     "custom-so": "nnstreamer_tpu_torch.backends.custom_so",
+    "fragment": "nnstreamer_tpu_torch.partition.fragment",
 }
 
 

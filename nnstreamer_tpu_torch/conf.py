@@ -61,7 +61,21 @@ DEFAULTS: Dict[str, Dict[str, str]] = {
         "torch_device": "cuda",     # where models from files live
     },
     "fleet": {
-        "repo_addr": "",            # a remote tensor repo: not ported, refused
+        "repo_addr": "",            # host:port of a TensorRepoServer (fleet/repo.py)
+    },
+    # Serving QoS (sched/): NNSTPU_SCHED_* env vars map here.  An empty
+    # policy disables scheduling entirely (plain FIFO dispatch).
+    "sched": {
+        "policy": "",               # fifo | prio | edf | drr
+        "max_queue_per_client": "64",
+        "rate": "0",                # admitted requests/s per tenant (0 = off)
+        "burst": "0",               # token-bucket depth (0 = max(1, rate))
+        "deadline_ms": "0",         # queued-request deadline (0 = none)
+        "breaker_failures": "0",    # consecutive failures to trip (0 = off)
+        "breaker_reset_s": "30",    # open -> half-open probe delay
+        "quantum": "8",             # DRR per-round credit (cost units)
+        "priorities": "",           # "clientA=10,clientB=2" strict/slot prio
+        "max_waiting": "16",        # bounded slot-waiter room (DecodeServer)
     },
     # Observability (nnstreamer_tpu_torch/obs).  The short env spellings
     # NNSTPU_METRICS_BUCKETS / NNSTPU_FLIGHT_RECORDS take precedence over

@@ -20,8 +20,12 @@ CUDA graph writes), so a slot never holds a tensor that the next replay
 overwrites.  Every thread here issues its work on the device's default
 stream, so a frame the filter wrote is read after it in stream order.
 
-``[fleet] repo_addr`` (a repo served by another process) is not ported:
-:func:`configured_repo` refuses it rather than fall back to the local repo.
+``[fleet] repo_addr`` (``NNSTPU_FLEET_REPO_ADDR=host:port``) points every
+element made without ``repo=`` at a repo served by another process
+(``fleet/repo.py``: :class:`~nnstreamer_tpu_torch.fleet.repo.TensorRepoServer`,
+:class:`~nnstreamer_tpu_torch.fleet.repo.RemoteTensorRepo`): a cycle then
+spans processes with unchanged pipelines.  A remote repo hands back host
+tensors; ``tensor_reposrc`` moves each frame to its device.
 """
 
 from __future__ import annotations
@@ -155,20 +159,27 @@ class TensorRepo:
 GLOBAL_REPO = TensorRepo()
 
 
-def configured_repo() -> TensorRepo:
-    """The repo of elements made without ``repo=``: the process-global one.
-    A non-empty ``[fleet] repo_addr`` (``NNSTPU_FLEET_REPO_ADDR``) names a
-    repo served by another process, which the port cannot reach yet: that
-    raises, so that a cycle meant to span processes never runs on a local
-    repo by mistake."""
+_REMOTE: Dict[str, object] = {}
+_REMOTE_LOCK = threading.Lock()
+
+
+def configured_repo():
+    """The repo of elements made without ``repo=``: the process-global one,
+    or, with a non-empty ``[fleet] repo_addr`` (``NNSTPU_FLEET_REPO_ADDR``),
+    one :class:`~nnstreamer_tpu_torch.fleet.repo.RemoteTensorRepo` a
+    process for that address (it dials on first use)."""
     from ..conf import conf
 
     addr = (conf.get("fleet", "repo_addr", "") or "").strip()
-    if addr:
-        raise NotImplementedError(
-            f"[fleet] repo_addr={addr!r}: a remote tensor repo is not ported; "
-            "unset it to use the process-global repo")
-    return GLOBAL_REPO
+    if not addr:
+        return GLOBAL_REPO
+    from ..fleet.repo import RemoteTensorRepo
+
+    with _REMOTE_LOCK:
+        repo = _REMOTE.get(addr)
+        if repo is None or repo._closed:
+            repo = _REMOTE[addr] = RemoteTensorRepo.from_addr(addr)
+        return repo
 
 
 @register_element("tensor_reposink")
@@ -271,6 +282,10 @@ class TensorRepoSrc(SourceNode):
             if spec is not None and my_spec.intersect(spec) is None:
                 raise ValueError(f"{self.name}: repo slot {self.slot_index} spec {spec} "
                                  f"incompatible with caps {my_spec}")
+            if any(isinstance(t, torch.Tensor) and t.device != self.device
+                   for t in frame.tensors):
+                # a remote repo's frame arrives on the host
+                frame = frame.with_tensors(tuple(t.to(self.device) for t in frame.tensors))
             yield frame
 
     def interrupt(self) -> None:

@@ -34,10 +34,15 @@ The port's injection points:
                      policy, or fails the pipeline
 ``queue_wedge``      the ``queue`` element's worker loop — sleep ``ms``
                      without popping (depth builds)
+``nnsq_send``        every NNSQ send (``elements/query.py::send_tensors``,
+                     on the assembled frame bytes): ``socket_drop`` /
+                     ``truncate`` / ``corrupt`` (:func:`on_wire`); the
+                     sites are named ``nnsq.client``, ``nnsq.server`` and
+                     ``nnsq.repo``
 ===================  ===================================================
 
-The JAX package's ``nnsq_send``, ``fleet``, ``migrate`` and ``autoscale``
-points wait for the port of the NNSQ wire and the fleet tier.
+The JAX package's ``fleet``, ``migrate`` and ``autoscale`` points wait for
+the port of the fleet tier (ROADMAP item 14).
 """
 
 from __future__ import annotations
@@ -152,3 +157,43 @@ def maybe_queue_wedge(name: str) -> None:
     rule = eng.decide("queue_wedge", name)
     if rule is not None:
         eng.sleep(rule)
+
+
+def on_wire(sock, data: bytes, name: str) -> bytes:
+    """``nnsq_send`` point, called with the fully assembled frame bytes:
+
+    - ``socket_drop``: close the socket, send nothing, raise
+      ``ConnectionError`` (the local sender sees the drop; the peer sees
+      a clean close);
+    - ``truncate``: send a torn half-frame, close, raise (the peer's
+      ``_recv_exact`` must detect the torn frame);
+    - ``corrupt``: flip one payload byte in the final quarter of the
+      frame (header fields survive; tensor values do not).
+    """
+    eng = _engine
+    if eng is None:
+        return data
+    rule = eng.decide("nnsq_send", name)
+    if rule is None:
+        return data
+    if rule.kind == "corrupt":
+        buf = bytearray(data)
+        buf[-max(1, len(buf) // 4)] ^= 0xFF
+        return bytes(buf)
+    try:
+        if rule.kind == "truncate" and len(data) > 1:
+            sock.sendall(data[: len(data) // 2])
+    finally:
+        try:
+            import socket as _socket
+
+            sock.shutdown(_socket.SHUT_RDWR)
+        except OSError:
+            pass
+        try:
+            sock.close()
+        except OSError:
+            pass
+    raise ConnectionError(
+        f"injected {rule.kind} at {name!r} "
+        f"(opportunity {rule.opportunities})")

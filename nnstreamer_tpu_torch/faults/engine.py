@@ -5,8 +5,9 @@ grammar and the same seeded decisions: a run under a spec injects at the
 same opportunities in both packages.  A streaming system earns its
 robustness claims by surviving injected failure, not by never seeing one.
 This engine turns the failure modes the runtime must tolerate (raising or
-slow filter invokes, failing captures, wedged queues, and the wire and
-fleet faults of subsystems the port has yet to bring over) into
+slow filter invokes, failing captures, wedged queues, dropped sockets,
+torn and corrupted NNSQ frames, and the fleet faults of a tier the port
+has yet to bring over) into
 *reproducible* events: every decision comes from a per-rule
 ``random.Random`` stream seeded from ``(seed, kind, target)``, so two
 engines built from the same spec replay the identical injection sequence
@@ -32,10 +33,11 @@ Spec grammar (``NNSTPU_FAULTS`` / ini ``[faults] spec``)::
              count=N   cap total injections for this rule
              ms=D      duration for delay/stall/wedge faults (milliseconds)
 
-The port consults ``backend_invoke``, ``backend_compile`` and
-``queue_wedge``; a rule of another point parses and never fires until its
-subsystem is ported.  ``target`` is a substring matched against the
-injection site's name (the node name); empty matches everything.
+The port consults ``backend_invoke``, ``backend_compile``,
+``queue_wedge`` and ``nnsq_send``; a rule of another point parses and never
+fires until its subsystem is ported.  ``target`` is a substring matched
+against the injection site's name (the node name, ``server``/``client``
+for the NNSQ wire); empty matches everything.
 Non-matching calls do not consume an opportunity, so the rule's random
 stream, and therefore the replay, depends only on the traffic it applies
 to.

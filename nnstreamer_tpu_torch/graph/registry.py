@@ -47,6 +47,7 @@ _BUILTIN_MODULES: Dict[str, str] = {
     "appsink": "nnstreamer_tpu_torch.elements.app",
     "tensor_crop": "nnstreamer_tpu_torch.elements.crop",
     "tensor_trainer": "nnstreamer_tpu_torch.elements.trainer",
+    "tensor_query_client": "nnstreamer_tpu_torch.elements.query",
 }
 
 

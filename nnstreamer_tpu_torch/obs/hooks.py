@@ -26,8 +26,10 @@ The port emits ``pad_push``, ``dispatch_enter``/``dispatch_exit``,
 ``source_spawn``, ``state_change``, ``error``, ``copy``,
 ``device_dispatch``, ``segment``, ``compile`` (the backend's capture LRU,
 ``obs/device.py``), ``recovery`` (``obs/recovery.py``), ``fault``
-(``faults/engine.py``) and ``device_exec`` (the device tracer's reaper);
-the other points belong to elements and subsystems not ported yet.  On the port ``device_dispatch``'s ``outs``
+(``faults/engine.py``), ``warmup`` (``graph/warmup.py``, for pipelines and
+for ``QueryServer.warmup``) and ``device_exec`` (the device tracer's
+reaper); the other points belong to elements and subsystems not ported
+yet (the fleet tier, ROADMAP item 14).  On the port ``device_dispatch``'s ``outs``
 are the filter's output tensors (a CUDA graph's replay, already enqueued).
 
 Hook points and their emit signatures (positional, no kwargs — emission
@@ -96,8 +98,8 @@ must stay allocation-light):
                    per warmed executable (``label`` names the
                    geometry), plus a final ``label=""`` emission when
                    the phase completes (``dur_ns`` then carries the
-                   whole-phase wall time).  ``pipeline`` may be None
-                   for serverless warmups (QueryServer, fleet worker).
+                   whole-phase wall time).  ``pipeline`` is None
+                   for a serverless warmup (``QueryServer.warmup``).
 ``device_exec``    ``(pipeline_name, node_name, device, t0_ns, dur_ns,
                    info)`` — the device-lane reaper observed one TRUE
                    device completion (enqueue→done; one emission per

@@ -103,6 +103,17 @@ class ProfileBusyError(RuntimeError):
         super().__init__(f"profile capture busy: {detail}")
 
 
+class ProfiledReplayHazard(RuntimeError):
+    """ROADMAP C16, raised instead of a crash: a training step's CUDA graph
+    (``training.py``) was about to replay inside an open ``torch.profiler``
+    window while a training graph captured after it, on a thread other than
+    the main one, is alive.  On the H100 that replay has killed the process
+    inside ``CUDAGraph.replay`` when the window traces CUDA activity
+    (CUPTI); a window of CPU activity alone survives it.  The cause lies
+    below the port, so the step refuses the replay typed before the launch.
+    Replay outside the window, or drop the later trainer first."""
+
+
 class HbmCapacityWarning(RuntimeWarning):
     """The per-pipeline resident-set estimate of the captured graphs
     exceeds the card's memory: warmup surfaces this as a typed warning

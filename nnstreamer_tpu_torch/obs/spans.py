@@ -37,9 +37,10 @@ Activation: ``NNSTPU_TRACERS=spans`` (conf-driven, like every tracer),
 comes from ``NNSTPU_FLIGHT_RECORDS`` / ini ``[obs] flight_records``.
 Under the dispatcher lanes (:mod:`..graph.lanes`), :func:`set_tid` gives
 each record its task's logical thread name, so a lane run renders the rows
-of thread mode plus one ``lane:<n>`` track of task slices.  Not ported yet:
-the trace lookups of the query wire and tail forensics (``new_trace_id``,
-``records_for_trace``).
+of thread mode plus one ``lane:<n>`` track of task slices.  The query wire
+(``elements/query.py``) carries a frame's trace across processes: a client
+opens a trace with :func:`new_trace_id`, and :func:`records_for_trace` reads
+one trace's records back.
 """
 
 from __future__ import annotations
@@ -188,7 +189,20 @@ def recorder_stats() -> dict:
     return _recorder.stats()
 
 
+def records_for_trace(trace_id: int,
+                      records: Optional[List[tuple]] = None) -> List[tuple]:
+    """Every retained record stamped with ``trace_id`` (complete spans,
+    instants, flow marks), time-ordered."""
+    if records is None:
+        records = snapshot()
+    return [r for r in records if r[6] == trace_id]
+
+
 # -- trace context -----------------------------------------------------------
+
+def new_trace_id() -> int:
+    return next(_trace_ids)
+
 
 def new_context() -> list:
     """Fresh [trace_id, span_id, flow_id, flow_tid] context (frame root)."""

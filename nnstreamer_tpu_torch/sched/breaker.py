@@ -28,9 +28,7 @@ import time
 import weakref
 from typing import Callable
 
-# The typed error code of a refused request (the JAX package keeps it in
-# sched/admission.py, which is not ported).
-CODE_UNAVAILABLE = "UNAVAILABLE"
+from .admission import CODE_UNAVAILABLE
 
 # Every live breaker, weakly held: the watchdog's overdue-device
 # escalation trips them all (fail fast at the serving edge while the

@@ -28,11 +28,14 @@ vector), not shape.
   (captured on first use, or ahead by :meth:`ContinuousBatcher.warmup_prefill`
   through ``graph/warmup.execute``).
 
-On the CPU (``device="cpu"``) the same functions run eagerly.  Not ported:
-``devices=N`` (the slot axis sharded over a mesh, ROADMAP item 13), the
-reference's persistent compilation cache (a CUDA graph cannot be reloaded)
-and ``DecodeServer``, the TCP surface (ROADMAP item 14, with
-``elements/query.py``).
+On the CPU (``device="cpu"``) the same functions run eagerly.
+:class:`DecodeServer` serves the engine over the NNSQ wire
+(``elements/query.py``): one connection is one session, with prefill,
+probes that do not step, the scheduler's waiting room, drain, and live
+migration of a session through a remote ``tensor_repo`` (``fleet/repo.py``).
+Not ported: ``devices=N`` (the slot axis sharded over a mesh, ROADMAP item
+13) and the reference's persistent compilation cache (a CUDA graph cannot
+be reloaded).
 
 Usage::
 
@@ -47,6 +50,7 @@ Usage::
 from __future__ import annotations
 
 import queue
+import socket
 import threading
 import time
 from typing import Dict, Optional
@@ -658,3 +662,521 @@ def unpack_session_snapshot(tensors) -> dict:
             "window": bool(window), "cache": np.asarray(tensors[1], np.float32), "pos": pos,
             "steps": steps, "pending_in": pending_in,
             "pending_out": [outs[i] for i in range(n_pout)]}
+
+
+class DecodeServer:
+    """Continuous batching over TCP: **one connection = one decode
+    session** on a shared :class:`ContinuousBatcher`.
+
+    The port of the JAX package's ``DecodeServer``.  The wire protocol is
+    the ``tensor_query`` framing (:mod:`nnstreamer_tpu_torch.elements.query`:
+    raw endian-explicit bytes, no pickle), so a pipeline offloads a decode
+    stream with the stock client element::
+
+        tensor_query_client host=... port=...   # out_spec=(n_out,) f32
+
+    Each connection streams synchronously (send one ``(d_in,)`` step,
+    receive one ``(n_out,)`` output — per-stream ordering is inherent);
+    CONCURRENT connections are what the engine coalesces into batched
+    ticks, so aggregate throughput scales with the number of live streams
+    up to ``capacity`` — continuous batching as a network service.
+
+    Negotiation: the stock client probes with a zero frame stamped
+    ``PROBE_PTS`` (a dedicated wire sentinel, distinct from the ``-1`` of
+    an unstamped stream frame).  Probes are answered with the output
+    geometry WITHOUT advancing decode state — any number of them (mid-
+    stream renegotiation included) is safe; every other frame, stamped or
+    not, is one decode step.  Passing ``out_spec=`` to the client skips
+    the probe entirely.
+    """
+
+    def __init__(self, engine: ContinuousBatcher, host: str = "127.0.0.1",
+                 port: int = 0, session_timeout: float = 30.0,
+                 scheduler=None, migration: bool = True, device="cuda"):
+        """``device`` is the engine's: the card by default (without one the
+        constructor raises unless ``device="cpu"``); an engine on another
+        device raises.
+
+        ``scheduler`` (:class:`nnstreamer_tpu_torch.sched.Scheduler`) makes
+        session admission priority-aware when capacity slots are
+        contended: joiners wait in (priority, FIFO) order behind a
+        bounded waiting room, and an over-full room sheds with a typed
+        ``NNSQ`` error frame instead of parking the connection for the
+        whole ``session_timeout``.  ``scheduler=None`` consults conf
+        (``NNSTPU_SCHED_POLICY``); unset keeps the legacy first-come
+        ``open_session`` path.
+
+        ``migration=False`` disables the live-migration control ops
+        (``MIGRATE_PTS``/``RESUME_PTS`` fall through to the decode-step
+        validation, exactly what a pre-migration server answers) — the
+        knob the version-gate tests and a paranoid operator use."""
+        self.device = resolve_device(device)
+        if engine.device != self.device:
+            raise ValueError(f"DecodeServer on {self.device}, its engine on {engine.device}")
+        self.engine = engine
+        self.host, self.port = host, int(port)
+        self.session_timeout = float(session_timeout)
+        self.migration = bool(migration)
+        self.sessions_migrated = 0   # snapshots shipped off this server
+        self.sessions_restored = 0   # sessions restored onto this server
+        self._srv: Optional[socket.socket] = None
+        self._accept: Optional[threading.Thread] = None
+        self._running = False
+        self._draining = False
+        self.connections = 0  # observability
+        self._own_sched = False
+        if scheduler is None:
+            from .sched import configured_scheduler
+
+            scheduler = configured_scheduler("decode_server")
+            self._own_sched = scheduler is not None
+        self.scheduler = scheduler
+        # live client sockets: stop() must shut these down too — an idle
+        # client's _serve thread is parked in recv, and only unblocking it
+        # releases the session's capacity slot (review r5).  Each maps to
+        # a per-connection state (send lock + has-session flag) so
+        # drain() can send typed goodbyes without interleaving a reply.
+        self._conns: Dict[socket.socket, "DecodeServer._ConnState"] = {}
+        self._conns_lock = threading.Lock()
+
+    class _ConnState:
+        __slots__ = ("lock", "sess", "migrated")
+
+        def __init__(self):
+            self.lock = threading.Lock()
+            self.sess = False  # this connection holds a decode session
+            self.migrated = False  # its session was migrated away
+
+    def start(self) -> "DecodeServer":
+        from . import faults as _faults
+
+        # chaos runs cover this front door too (NNSTPU_FAULTS)
+        _faults.ensure_configured()
+        self._srv = socket.create_server((self.host, self.port))
+        self.port = self._srv.getsockname()[1]
+        self._running = True
+        self._accept = threading.Thread(
+            target=self._accept_loop, daemon=True, name="decode-server")
+        self._accept.start()
+        return self
+
+    def stop(self) -> None:
+        self._running = False
+        if self._srv is not None:
+            try:
+                # close() alone does not wake a blocked accept/recv
+                self._srv.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+            self._srv.close()
+        with self._conns_lock:
+            conns = list(self._conns)
+        for conn in conns:
+            try:
+                conn.shutdown(socket.SHUT_RDWR)  # wakes the recv → finally
+            except OSError:
+                pass
+        if self._accept is not None:
+            self._accept.join(timeout=10)
+        if self._own_sched and self.scheduler is not None:
+            # conf-activated scheduler: this server owns its collector
+            self.scheduler.close()
+
+    def drain(self, timeout: float = 10.0) -> bool:
+        """Graceful shutdown (the SIGTERM path): stop accepting, reject
+        NEW session joins with a typed ``[UNAVAILABLE]``, close idle
+        probe-only connections with the same typed goodbye, and let live
+        decode sessions keep stepping until they close — up to the
+        deadline, after which the stragglers are terminated with the
+        typed ``[SESSION]`` wire code (never a torn socket).  Returns
+        True when every session ended before the deadline; always ends
+        in :meth:`stop`."""
+        from .elements.query import send_error
+
+        self._draining = True
+        if self._srv is not None:
+            try:
+                # close() alone does not wake a blocked accept
+                self._srv.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+            self._srv.close()
+        with self._conns_lock:
+            conns = list(self._conns.items())
+        for conn, st in conns:
+            if st.sess:
+                continue  # live session: it finishes (or hits the deadline)
+            with st.lock:
+                if st.sess:
+                    continue
+                try:
+                    send_error(conn, "decode server draining",
+                               code="UNAVAILABLE")
+                except OSError:
+                    pass
+                try:
+                    conn.shutdown(socket.SHUT_RDWR)
+                except OSError:
+                    pass
+        deadline = time.monotonic() + float(timeout)
+        while time.monotonic() < deadline:
+            with self._conns_lock:
+                if not any(st.sess for st in self._conns.values()):
+                    break
+            time.sleep(0.02)
+        with self._conns_lock:
+            stragglers = [(c, st) for c, st in self._conns.items() if st.sess]
+        for conn, st in stragglers:
+            with st.lock:
+                try:
+                    send_error(
+                        conn, "decode server drained: session terminated "
+                        "(reconnect and re-prefill elsewhere)",
+                        code="SESSION")
+                except OSError:
+                    pass
+                try:
+                    conn.shutdown(socket.SHUT_RDWR)
+                except OSError:
+                    pass
+        self.stop()
+        return not stragglers
+
+    def kill(self) -> None:
+        """Crash simulation (chaos ``worker_kill``): tear every socket
+        down mid-flight, no courtesy frames — stateful clients see a
+        broken session, exactly like a SIGKILLed worker."""
+        self._running = False
+        if self._srv is not None:
+            try:
+                # close() alone does not wake a blocked accept
+                self._srv.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+            self._srv.close()
+        with self._conns_lock:
+            conns = list(self._conns)
+        for conn in conns:
+            try:
+                conn.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+            try:
+                conn.close()
+            except OSError:
+                pass
+        if self._accept is not None:
+            self._accept.join(timeout=10)
+        if self._own_sched and self.scheduler is not None:
+            self.scheduler.close()
+
+    def stats(self) -> dict:
+        """Server snapshot (engine state lives in ``engine.stats()``)."""
+        out = {"running": self._running, "connections": self.connections,
+               "migration": self.migration,
+               "sessions_migrated": self.sessions_migrated,
+               "sessions_restored": self.sessions_restored}
+        if self.scheduler is not None:
+            out["sched"] = self.scheduler.stats()
+        return out
+
+    def _admit_session(self, client: str,
+                       tenant: Optional[str] = None) -> DecodeSession:
+        """Priority-aware slot assignment: non-blocking grant attempts in
+        the gate's (priority, FIFO) order until a slot frees or the
+        session timeout / waiting-room bound sheds the join.  With span
+        tracing on, the slot wait is recorded on the joining request's
+        trace (queue-wait decomposition, same family as ``sched_wait``)."""
+        from .obs import spans as _spans
+
+        def try_grant():
+            try:
+                return self.engine.open_session(timeout=0)
+            except TimeoutError:
+                return None  # full right now: stay in the gate
+
+        t0 = _spans.now_ns() if _spans.enabled else 0
+        sess = self.scheduler.acquire_slot(
+            client, try_grant, timeout=self.session_timeout, tenant=tenant)
+        if t0:
+            _spans.record_span(
+                "slot_wait", t0, _spans.now_ns() - t0, cat="sched",
+                args={"server": "decode_server", "client": client})
+        return sess
+
+    def __enter__(self):
+        return self.start()
+
+    def __exit__(self, *exc):
+        self.stop()
+
+    def _accept_loop(self) -> None:
+        while self._running:
+            try:
+                conn, _ = self._srv.accept()
+            except OSError:
+                return  # stop() closed the listener
+            self.connections += 1
+            with self._conns_lock:
+                self._conns[conn] = self._ConnState()
+            threading.Thread(target=self._serve, args=(conn,),
+                             daemon=True).start()
+
+    def _handle_migration(self, conn, state, sess, tensors, pts, wtrace,
+                          client) -> Optional[DecodeSession]:
+        """One live-migration control op on this connection.  Returns the
+        connection's (possibly new) session.  Every failure answers the
+        typed ``[MIGRATING]`` code — and, for a snapshot that had not yet
+        crossed the point of no return, re-arms the session in place, so
+        a failed handoff never advances or loses state."""
+        from .buffer import Frame
+        from .elements.query import (
+            MIGRATE_PTS,
+            QueryMigratingError,
+            parse_session_control,
+            send_error,
+            send_tensors,
+        )
+        from .fleet.repo import RemoteTensorRepo
+        from .obs import spans as _spans
+
+        op = "snapshot" if pts == MIGRATE_PTS else "restore"
+        tok = (_spans.span_begin(wtrace[0], wtrace[1])
+               if wtrace is not None and _spans.enabled else None)
+        try:
+            addr, key, deadline_ms = parse_session_control(tensors)
+            deadline_s = max(0.1, deadline_ms / 1e3)
+            if pts == MIGRATE_PTS:
+                if sess is None:
+                    raise QueryMigratingError(
+                        "no live session on this connection to migrate")
+                snap = self.engine.snapshot_session(sess,
+                                                    timeout=deadline_s)
+                try:
+                    packed = pack_session_snapshot(snap)
+                    repo = RemoteTensorRepo.from_addr(addr)
+                    try:
+                        if not repo.set_buffer(
+                                key, Frame(tensors=packed, pts=0)):
+                            raise RuntimeError(
+                                f"repo slot {key} refused the snapshot "
+                                "(EOS)")
+                    finally:
+                        repo.close()
+                except BaseException:
+                    # the slot was only gated: re-queue the drained
+                    # items and keep serving exactly where it was
+                    self.engine.abort_snapshot(sess, snap)
+                    raise
+                sess.close()
+                with state.lock:
+                    state.sess = False
+                    state.migrated = True
+                    self.sessions_migrated += 1
+                    send_tensors(conn, (np.array([1], np.int64),), pts,
+                                 trace=wtrace)
+                return None
+            # RESUME_PTS: restore a snapshot onto a fresh connection
+            if sess is not None:
+                raise QueryMigratingError(
+                    "restore needs a fresh connection (this one already "
+                    "holds a session)")
+            if self._draining:
+                raise QueryMigratingError(
+                    "decode server draining: restore refused")
+            repo = RemoteTensorRepo.from_addr(addr)
+            try:
+                frame, _spec, eos = repo.get_buffer(key, timeout=deadline_s)
+            finally:
+                repo.close()
+            if frame is None or eos:
+                raise QueryMigratingError(
+                    f"no snapshot in repo slot {key} within {deadline_s}s")
+            snap = unpack_session_snapshot(frame.tensors)
+            # ValueError here = geometry mismatch: typed-refused below,
+            # wrong state is never restored
+            new_sess = self.engine.restore_session(
+                snap, timeout=min(deadline_s, self.session_timeout))
+            with state.lock:
+                state.sess = True
+                self.sessions_restored += 1
+                send_tensors(conn, (np.array([1], np.int64),), pts,
+                             trace=wtrace)
+            return new_sess
+        except Exception as exc:  # noqa: BLE001 — typed refusal, keep serving
+            try:
+                with state.lock:
+                    send_error(conn, f"decode server {op} failed: {exc}",
+                               code="MIGRATING")
+            except OSError:
+                pass
+            return sess
+        finally:
+            if tok is not None:
+                _spans.span_end(tok, f"migrate_{op}", "migrate",
+                                args={"client": client})
+
+    def _serve(self, conn: socket.socket) -> None:
+        from .elements.query import (
+            MIGRATE_PTS,
+            PROBE_PTS,
+            RESUME_PTS,
+            recv_tensors_ex,
+            send_error,
+            send_tensors,
+        )
+        from .sched import OverloadError
+
+        try:
+            peer = conn.getpeername()
+            client = f"{peer[0]}:{peer[1]}"
+        except (OSError, IndexError):
+            client = "unknown"
+        with self._conns_lock:
+            state = self._conns.get(conn) or self._ConnState()
+        sess: Optional[DecodeSession] = None
+        tenant = client.rsplit(":", 1)[0]
+        try:
+            while self._running:
+                try:
+                    # trace context is consumed and echoed (a traced
+                    # client keeps its flag; a plain-v1 client never
+                    # sees the bit); a declared wire tenant wins over
+                    # the peer-IP fallback for shed accounting
+                    tensors, pts, wtrace, wtenant = recv_tensors_ex(conn)
+                except (ConnectionError, OSError):
+                    return  # client left: free the slot in finally
+                if wtenant:
+                    tenant = wtenant
+                if state.migrated:
+                    # the session moved away mid-handoff race: typed
+                    # verdict that explicitly did NOT apply the frame,
+                    # so a migration-aware peer may re-send it to the
+                    # session's new home (never a duplicate step)
+                    try:
+                        with state.lock:
+                            send_error(
+                                conn, "session migrated away; the frame "
+                                "was not applied — resume on the new "
+                                "worker", code="MIGRATING")
+                    except OSError:
+                        pass
+                    return
+                if pts in (MIGRATE_PTS, RESUME_PTS) and self.migration:
+                    # version-gated wire path: with migration disabled
+                    # (or on a pre-migration server) these sentinels fall
+                    # through to the decode-step validation below and
+                    # answer a plain error — the router reads that as
+                    # "cannot migrate" and degrades to [SESSION]
+                    sess = self._handle_migration(
+                        conn, state, sess, tensors, pts, wtrace, client)
+                    continue
+                try:
+                    if len(tensors) != 1:
+                        raise ValueError(
+                            f"decode step takes 1 tensor, got {len(tensors)}")
+                    shp = tuple(tensors[0].shape)
+                    is_step = shp == (self.engine.d_in,)
+                    is_prompt = (len(shp) == 2 and shp[1] == self.engine.d_in
+                                 and 1 <= shp[0] <= self.engine.t_max)
+                    if pts == PROBE_PTS:
+                        # the stock client's negotiation probe: answer the
+                        # output geometry WITHOUT advancing decode state.
+                        # Validate the PROBE's geometry so a mismatched
+                        # client fails at configure time with a clear
+                        # message, not mid-stream (review r5).
+                        if not (is_step or is_prompt):
+                            raise ValueError(
+                                f"decode server expects ({self.engine.d_in},)"
+                                f" steps or (T, {self.engine.d_in}) prompts,"
+                                f" got {shp}")
+                        with state.lock:
+                            send_tensors(
+                                conn,
+                                (np.zeros((self.engine.n_out,), np.float32),),
+                                pts, trace=wtrace)
+                        continue
+                    if sess is None:
+                        if self._draining:
+                            # no NEW sessions on a draining server: typed
+                            # rejection so the client (or router) can
+                            # re-route the join elsewhere
+                            with state.lock:
+                                send_error(conn, "decode server draining",
+                                           code="UNAVAILABLE")
+                            return
+                        # lazy join: a probe-only connection never holds a
+                        # capacity slot
+                        if self.scheduler is not None:
+                            sess = self._admit_session(client, tenant)
+                        else:
+                            sess = self.engine.open_session(
+                                timeout=self.session_timeout)
+                        with state.lock:
+                            state.sess = True
+                    # a traced step gets a serve span on the client's
+                    # wire trace (the decode analog of nnsq_serve — the
+                    # loadgen report joins it by trace id)
+                    from .obs import spans as _spans
+
+                    tok = (_spans.span_begin(wtrace[0], wtrace[1])
+                           if wtrace is not None and _spans.enabled
+                           else None)
+                    try:
+                        if tensors[0].ndim == 2:
+                            # rank-2 frame = a whole prompt: ONE compiled
+                            # prefill pass builds the slot's KV state (an
+                            # over-length prompt gets prefill's specific
+                            # t_max error, not a generic shape complaint)
+                            sess.prefill(tensors[0])
+                        else:
+                            sess.feed(tensors[0])
+                        y = sess.get(timeout=self.session_timeout)
+                    finally:
+                        if tok is not None:
+                            _spans.span_end(
+                                tok, "nnsq_serve", "decode",
+                                args={"client": client,
+                                      "op": ("prefill"
+                                             if tensors[0].ndim == 2
+                                             else "step")})
+                    reply_trace = wtrace
+                    if tok is not None:
+                        reply_trace = (wtrace[0], tok[0])
+                    with state.lock:
+                        send_tensors(conn, (y,), pts, trace=reply_trace)
+                except OverloadError as exc:
+                    # shed join: typed wire rejection, never a parked
+                    # connection (the client raises QueryOverloadError)
+                    try:
+                        with state.lock:
+                            send_error(conn, f"decode server: {exc}",
+                                       code=exc.code)
+                    except OSError:
+                        pass
+                    return
+                except (ValueError, RuntimeError, TimeoutError) as exc:
+                    # a dead/failed engine is a typed UNAVAILABLE (the
+                    # stock client raises QueryUnavailableError and its
+                    # stateful mode fails fast instead of replaying);
+                    # geometry mistakes stay plain-text errors
+                    code = ("UNAVAILABLE"
+                            if isinstance(exc, RuntimeError)
+                            and not isinstance(exc, ValueError) else "")
+                    try:
+                        with state.lock:
+                            send_error(conn, f"decode server: {exc}",
+                                       code=code)
+                    except OSError:
+                        return
+                    if isinstance(exc, (RuntimeError, TimeoutError)):
+                        return  # engine stopped / capacity timeout: drop
+        finally:
+            if sess is not None:
+                sess.close()
+            with self._conns_lock:
+                self._conns.pop(conn, None)
+            try:
+                conn.close()
+            except OSError:
+                pass

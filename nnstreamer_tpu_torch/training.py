@@ -41,6 +41,7 @@ trainer), which waits for the port's mesh (ROADMAP item 13).
 from __future__ import annotations
 
 import itertools
+import threading
 import weakref
 from typing import Any, Callable, Dict, List, Tuple
 
@@ -264,24 +265,52 @@ def _state_tensors(state) -> List[torch.Tensor]:
     return [t for t in tree_flatten(state)[0] if isinstance(t, torch.Tensor)]
 
 
+_captures = itertools.count()
+# every live captured step, for the profiler-window check of ROADMAP C16
+_LIVE: "weakref.WeakSet" = weakref.WeakSet()
+
+
 class _Captured:
     """One geometry's captured step: the graph, its static inputs and its
-    loss output (each replay rewrites it)."""
+    loss output (each replay rewrites it), the order it was captured in and
+    whether the main thread captured it."""
 
     def __init__(self, graph, static_x, static_y, loss):
         self.graph = graph
         self.static_x = static_x
         self.static_y = static_y
         self.loss = loss
+        self.order = next(_captures)
+        self.on_main_thread = threading.current_thread() is threading.main_thread()
+        _LIVE.add(self)
 
     def run(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        self._check_profiled_replay()
         self.static_x.copy_(x, non_blocking=True)
         self.static_y.copy_(y, non_blocking=True)
         self.graph.replay()
         return self.loss.clone()
 
+    def _check_profiled_replay(self) -> None:
+        """ROADMAP C16: inside a ``torch.profiler`` window (the deep-profiling
+        lane's capture lock held), a replay of this graph while a training
+        graph captured after it on another thread than the main one lives
+        kills the process on the card.  Refuse it typed before the launch."""
+        from .obs.profiler import ProfiledReplayHazard, active_capture
 
-_captures = itertools.count()
+        window = active_capture()
+        if window is None:
+            return
+        later = [c for c in list(_LIVE)
+                 if c is not self and c.order > self.order and not c.on_main_thread]
+        if later:
+            raise ProfiledReplayHazard(
+                f"ROADMAP C16: a training graph (capture {self.order}) would replay inside "
+                f"the profiler window {window.get('capture_id')} while "
+                f"{len(later)} training graph(s) captured after it on another thread live; "
+                "replay it outside the window or drop the later trainer first")
+
+
 
 
 def _register_memory(entry: _Captured, state: List[torch.Tensor], device) -> None:
@@ -301,7 +330,7 @@ def _register_memory(entry: _Captured, state: List[torch.Tensor], device) -> Non
                                       static_out=(entry.loss,),
                                       pool_bytes=pool_bytes(entry.graph, device)),
                       sum(t.numel() * t.element_size() for t in state))
-    fp = _util.register_cost(f"train_step:{next(_captures):04d}", model="train_step",
+    fp = _util.register_cost(f"train_step:{entry.order:04d}", model="train_step",
                              bucket=int(entry.static_x.shape[0]) if entry.static_x.dim() else 0,
                              devices=1, hbm=hbm)
     weakref.finalize(entry, _util.release_hbm, fp, hbm)

@@ -23,7 +23,13 @@ counts (the ViT path), card and CPU logits (a drift past the tolerance or a
 top-1 flip past a clear lead fails; a close call may swap), config 4c's
 outputs against its eager loop (one bit apart fails) and config 4d's
 streams served among others, alone and eagerly (a bit apart, or a stream's
-outputs in another's place, fails).
+outputs in another's place, fails).  The query phase's checks get coalesced
+groups and in-process rows (a row a bit apart, two clients' rows swapped or
+a missing chunk fails), admission counts (a request neither delivered nor
+shed, nothing shed, the server's and the client's counts apart, an untyped
+failure or a changed frame fails) and wire-fault outcomes (a drop or a torn
+frame must heal bit for bit; a corrupted byte may change at most the
+injected frames).
 """
 
 import importlib.util
@@ -1105,3 +1111,84 @@ def test_watchdog_constants_leave_room_for_the_verdicts(smoke):
     assert smoke.WD_SLEEP_S > smoke.WD_DEADLINE_S + 2 * smoke.WD_INTERVAL_S
     assert smoke.WD_STALL_S >= 4 * smoke.WD_INTERVAL_S
     assert smoke.LANE_MODES == ("0", "1", "auto")
+
+
+# -- the query phase ---------------------------------------------------------------
+
+def test_query_constants_fit_the_cells(smoke):
+    """Path (c) fills config 4d's engine, a prompt and its steps fit the
+    cache, the migration happens mid-stream; path (d)'s faults name the
+    wire's send sites."""
+    assert smoke.QUERY_STREAMS == smoke.ENGINE_CAPACITY
+    assert smoke.PREFILL_TOKENS + smoke.QUERY_STEPS < smoke.DECODE_CELL["t_max"]
+    assert 0 < smoke.QUERY_MIGRATE_AT < smoke.QUERY_STEPS
+    assert smoke.QUERY_BATCH == smoke.QUERY_CLIENTS == 4
+    assert smoke.QUERY_OFFERED <= smoke.QUERY_FRAMES
+    assert smoke.QUERY_FAULT_FRAMES <= smoke.QUERY_FRAMES
+    assert {f.split(";")[1].split("@")[0] for f in smoke.QUERY_FAULTS} == {
+        "socket_drop", "truncate", "corrupt"}
+
+
+@pytest.mark.parametrize("n,want", [(1, 1), (3, 4), (4, 4)])
+def test_bucket_pad_repeats_the_last_row(smoke, n, want):
+    import torch
+
+    x = torch.arange(n * 2, dtype=torch.float32).reshape(n, 2)
+    y = smoke.bucket_pad(torch, x, 4)
+    assert y.shape == (want, 2) and torch.equal(y[:n], x)
+    assert all(torch.equal(r, x[-1]) for r in y[n:])
+
+
+@pytest.mark.parametrize("case,bad", [("equal", 0), ("bit_apart", 1), ("swapped", 1),
+                                      ("missing_chunk", 1)])
+def test_group_mismatches(smoke, case, bad):
+    """A coalesced group's replies against the in-process batched filter's
+    rows for the same chunk: a bit apart, two clients' rows swapped, or a
+    chunk the in-process run lacks counts as a mismatch."""
+    import torch
+
+    rng = np.random.default_rng(5)
+    want = [torch.from_numpy(rng.standard_normal((4, 3)).astype(np.float32)) for _ in range(2)]
+    groups = [([None] * 3, [w[i:i + 1].clone() for i in range(3)]) for w in want]
+    if case == "bit_apart":
+        groups[1][1][2].view(torch.int32)[0, 1] ^= 1
+    elif case == "swapped":
+        outs = groups[0][1]
+        outs[0], outs[1] = outs[1], outs[0]
+    elif case == "missing_chunk":
+        want = want[:1]
+    assert smoke.group_mismatches(torch, groups, want) == bad
+
+
+@pytest.mark.parametrize("case,ok", [("ok", True), ("untyped", False), ("lost", False),
+                                     ("none_shed", False), ("server_count", False),
+                                     ("differ", False)])
+def test_admission_check(smoke, case, ok):
+    kw = dict(offered=64, delivered=20, shed=44, server_shed=44, untyped=[], differ=0)
+    kw.update({"untyped": dict(untyped=["RuntimeError('x')"]), "lost": dict(delivered=19),
+               "none_shed": dict(delivered=64, shed=0, server_shed=0),
+               "server_count": dict(server_shed=43), "differ": dict(differ=1),
+               "ok": {}}[case])
+    if ok:
+        smoke.admission_check(**kw)
+    else:
+        with pytest.raises(SystemExit):
+            smoke.admission_check(**kw)
+
+
+@pytest.mark.parametrize("spec,injected,differ,untyped,ok", [
+    ("seed=3;socket_drop@server:every=5", 6, 0, [], True),
+    ("seed=3;socket_drop@server:every=5", 6, 1, [], False),
+    ("seed=3;truncate@client:every=6", 0, 0, [], False),
+    ("seed=3;truncate@client:every=6", 5, 0, ["ValueError()"], False),
+    ("seed=3;corrupt@client:every=7", 4, 3, [], True),
+    ("seed=3;corrupt@client:every=7", 4, 5, [], False),
+])
+def test_wire_fault_check(smoke, spec, injected, differ, untyped, ok):
+    """Drops and torn frames must heal bit for bit; a corrupted payload
+    byte (no checksum on NNSQ) may change at most the injected frames."""
+    if ok:
+        smoke.wire_fault_check(spec, injected, differ, untyped)
+    else:
+        with pytest.raises(SystemExit):
+            smoke.wire_fault_check(spec, injected, differ, untyped)

@@ -135,6 +135,7 @@ def test_negotiated_specs_match(jax_model, labels_file):
 
 def test_port_runs_with_jax_blocked():
     code = textwrap.dedent(f"""
+        import socket
         import sys
         for name in ("jax", "jaxlib", "ml_dtypes", "nnstreamer_tpu"):
             sys.modules[name] = None  # any import of them now raises
@@ -238,6 +239,31 @@ def test_port_runs_with_jax_blocked():
         assert len(w["out"].frames) == 3 and w._lanes is None and wd.health()[0]
         assert isinstance(wd, watchdog.PipelineWatchdog) and lanes.configured_lanes() == 2
         assert breaker.trip_all() == 0
+        from nnstreamer_tpu_torch.elements import query
+        from nnstreamer_tpu_torch.fleet import repo as fleet_repo
+        from nnstreamer_tpu_torch.partition import fragment
+        from nnstreamer_tpu_torch.sched import Scheduler, admission, policy
+        sch = Scheduler("drr", admission=admission.AdmissionController(max_queue=4))
+        with query.QueryServer(framework="fragment", scheduler=sch, device="cpu",
+                               model="tensor_transform mode=arithmetic option=mul:2.0 "
+                                     "device=cpu") as qs:
+            q = nns.parse_launch(f"datasrc name=s ! tensor_query_client port={{qs.port}} "
+                                 "device=cpu ! tensor_sink name=out collect=true")
+            q["s"].data = [torch.ones(4)] * 2
+            q.run(timeout=60)
+            assert [float(f.tensor(0)[0]) for f in q["out"].frames] == [2.0, 2.0]
+        sch.close()
+        with fleet_repo.TensorRepoServer(device="cpu") as rs, \
+                serving.ContinuousBatcher(capacity=1, t_max=4, d_in=4, n_out=2, d_model=8,
+                                          n_heads=2, n_layers=1, device="cpu") as eng, \
+                serving.DecodeServer(eng, device="cpu") as ds:
+            rr = fleet_repo.RemoteTensorRepo("127.0.0.1", rs.port)
+            rr.prepare(1)
+            rr.close()
+            c = socket.create_connection(("127.0.0.1", ds.port), timeout=30)
+            query.send_tensors(c, (torch.ones(4),), query.PROBE_PTS)
+            assert query.recv_tensors(c)[0][0].shape == (2,)
+            c.close()
         assert not any(k in ("jax", "ml_dtypes") or k.startswith(("jax.", "nnstreamer_tpu."))
                        for k, v in sys.modules.items() if v is not None)
         print("labels", [f.meta["label"] for f in chain[-1].frames])
@@ -415,6 +441,8 @@ def _framework_model(name, tmp_path):
         spec = tnns.TensorsSpec.of(tnns.TensorSpec(dtype=np.float32, shape=(4,)))
         custom.register_custom_easy("double", lambda x: x * 2, spec, spec)
         return "double"
+    if name == "fragment":  # a launch-string chain served as a model
+        return "tensor_transform mode=arithmetic option=mul:2.0 device=cpu"
     assert name == "custom-so"
     (tmp_path / "double.cc").write_text(SO_SRC)
     subprocess.run(["g++", "-O2", "-shared", "-fPIC",
@@ -424,12 +452,12 @@ def _framework_model(name, tmp_path):
 
 
 @pytest.mark.parametrize("name", ["torch", "torch-cpu", "custom", "custom-python", "custom-easy",
-                                  "custom-so"])
+                                  "custom-so", "fragment"])
 def test_every_framework_opens_a_model_on_the_cpu(name, tmp_path):
     from nnstreamer_tpu_torch.backends import base, custom
 
     assert set(base._BUILTIN_MODULES) == {"torch", "torch-cpu", "custom", "custom-python",
-                                          "custom-easy", "custom-so"}
+                                          "custom-easy", "custom-so", "fragment"}
     p = tnns.Pipeline()
     data = [torch.arange(4, dtype=torch.float32) + i for i in range(2)]
     src = p.add(tnns.make("datasrc", data=data))

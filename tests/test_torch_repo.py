@@ -151,9 +151,17 @@ class TestRepoBasics:
             trepo.TensorRepoSrc(slot_index=1, caps=CAPS4)  # the card by default
 
     def test_remote_repo_is_refused(self, monkeypatch):
+        """``[fleet] repo_addr`` is no longer refused: it names a repo
+        server, and every element made without ``repo=`` shares one
+        ``RemoteTensorRepo`` for it (it dials on first use, so none is
+        needed here); unset, the process-global repo."""
+        from nnstreamer_tpu_torch.fleet.repo import RemoteTensorRepo
+
         monkeypatch.setenv("NNSTPU_FLEET_REPO_ADDR", "localhost:7000")
-        with pytest.raises(NotImplementedError, match="repo_addr"):
-            trepo.TensorRepoSink(slot_index=1)
+        a, b = trepo.TensorRepoSink(slot_index=1), trepo.TensorRepoSrc(
+            slot_index=1, caps=CAPS4, device="cpu")
+        assert isinstance(a.repo, RemoteTensorRepo) and b.repo is a.repo
+        assert (a.repo.host, a.repo.port) == ("localhost", 7000)
         monkeypatch.delenv("NNSTPU_FLEET_REPO_ADDR")
         assert trepo.TensorRepoSink(slot_index=1).repo is trepo.GLOBAL_REPO
 

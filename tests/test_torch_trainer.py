@@ -584,3 +584,52 @@ def test_example_train_stream_on_the_cpu():
     out = train_stream.main(device="cpu")
     assert out["steps"] == 80 and out["last_loss"] < 0.3 * out["first_loss"]
     assert out["accuracy"] > 0.8
+
+
+@pytest.mark.parametrize("case", ["later_on_a_thread", "later_on_main", "no_window",
+                                  "later_freed", "replays_the_later"])
+def test_profiled_replay_hazard_is_refused_typed(case):
+    """ROADMAP C16: inside a profiler window (the capture lock held) a
+    training graph refuses to replay, typed, while a graph captured after it
+    on another thread than the main one lives; outside the window, with the
+    later graph captured on the main thread or freed, or for the later graph
+    itself, it replays."""
+    import gc
+    import threading
+
+    from nnstreamer_tpu_torch.obs import profiler
+
+    class Graph:
+        replays = 0
+
+        def replay(self):
+            Graph.replays += 1
+
+    def captured():
+        t = torch.zeros(1)
+        return training._Captured(Graph(), t.clone(), t.clone(), t.clone())
+
+    first = captured()
+    box = []
+    if case == "later_on_main":
+        box.append(captured())
+    else:
+        th = threading.Thread(target=lambda: box.append(captured()))
+        th.start()
+        th.join()
+    target = box[0] if case == "replays_the_later" else first
+    if case == "later_freed":
+        box.clear()
+        gc.collect()
+    x = torch.ones(1)
+    if case == "no_window":
+        target.run(x, x)
+        return
+    with profiler.capture_lock("c16 test"):
+        if case == "later_on_a_thread":
+            with pytest.raises(profiler.ProfiledReplayHazard, match="C16"):
+                target.run(x, x)
+            assert Graph.replays == 0
+        else:
+            target.run(x, x)
+            assert Graph.replays == 1
