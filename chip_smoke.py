@@ -351,7 +351,30 @@ In order, it
    pipelines' threads, both stopped, a profiler window replaying the
    first): it ends in a trace or in ``ProfiledReplayHazard``, never in a
    dead process;
-29. prints every path number beside the card's name and power limit, one
+29. stream phase (capture, replay and flow control on slice 1 at full
+   width, slice 1's model): (a) 68 ``videotestsrc`` frames captured through
+   a tee to ``tensor_decoder mode=protobuf ! filesink`` and to
+   ``tensor_save`` (behind ``tensor_demux``: the source's ``VideoSpec`` in
+   meta is refused, as by the JAX package), both files read back as the
+   frames; (b) ``filesrc ! tensor_converter input-format=protobuf !
+   tensor_debug checksum=true !`` the normalize ``! tensor_upload ! queue !
+   tensor_filter ! tensor_debug checksum=true ! tensor_if compared-value=max
+   ! tensor_rate framerate=20/1 ! tensor_decoder ! tensor_sink``, the
+   threshold the median of the in-process run's maxima: one capture (at the
+   first frame: the protobuf stream names no geometry), a replay a frame,
+   the logits at the filter's tap bit for bit the in-process slice's on the
+   same frames, the gate's and the rate's counters and the sink's (pts,
+   label) those of a host model of those logits and timestamps, the taps'
+   checksums the frames' byte sums, and a 16-frame trace with one
+   ``fused_arith`` and one ``int8_matmul`` record a graph launch; (c) the
+   same from ``tensor_load``, bit for bit with (b); (d) 64 seeded 512x512
+   uint8 class masks (4% non-zero) through ``tensor_sparse_enc ! queue !
+   tensor_sparse_dec`` on host tensors and behind ``tensor_upload`` on card
+   tensors, twice each (the second timed), bit for bit, with the bytes
+   ratio; (e) ``direct_video`` on card
+   frames and ``tensor_src_iio`` in continuous mode over a fake sysfs tree
+   and a FIFO, each scan against its independent decode;
+30. prints every path number beside the card's name and power limit, one
    JSON line describing every kernel, and last one JSON line
    ``{"ok": true, "device": {...}}``.
 
@@ -6952,6 +6975,379 @@ def c16_phase(torch, np, K, ops, card):
     return {k.__name__: 0 for k in K.KERNELS}, res
 
 
+STREAM_FRAMES = 68          # the capture: slice 1's frames, 30/1 timestamps
+STREAM_RATE = "20/1"        # tensor_rate's output rate: drops and duplicates on the 30/1 stamps
+SPARSE_MASKS = 64           # (d): seeded class masks, a segmentation model's output
+SPARSE_SIZE = 512
+SPARSE_CLASSES = 21
+SPARSE_DENSITY = 0.04       # about this share non-zero
+IIO_SCANS = 32              # (e): continuous-mode scans through a FIFO
+DIRECT_FRAMES = 4
+
+
+def gate_model(maxima, threshold):
+    """tensor_if compared-value=max op=> threshold=T: which frames pass."""
+    return [m > threshold for m in maxima]
+
+
+def rate_model(stamps, period):
+    """What tensor_rate sends for frames stamped ``(pts, duration)`` at a
+    ``period`` (ns): a list of (output slot, input index), and the drops and
+    duplicates.  A frame takes the slot nearest its pts; a frame whose slot
+    is taken is dropped; the slots skipped before a frame repeat the frame
+    received last (dropped or not); at the end the slots whose centers lie
+    before the last frame's end repeat it."""
+    out, drop, nxt, last, end = [], 0, 0, None, None
+    for i, (pts, dur) in enumerate(stamps):
+        end = pts + dur
+        slot = (pts + period // 2) // period
+        if slot < nxt:
+            drop += 1
+        else:
+            if last is not None:
+                out.extend((s, last) for s in range(nxt, slot))
+            out.append((slot, i))
+            nxt = slot + 1
+        last = i
+    if last is not None:
+        while nxt * period + period // 2 < end:
+            out.append((nxt, last))
+            nxt += 1
+    return out, drop, len(out) - (len(stamps) - drop)
+
+
+def stream_counts_check(got, want, what):
+    """The gate's and the rate's counters against the host model's."""
+    check(got == want, f"{what}: counters {got}, the host model of the logits and "
+                       f"timestamps gives {want}")
+
+
+def checksum_check(sums, byte_sums, what):
+    """A tap's checksums against the byte sums of the frames it should see."""
+    check(len(sums) == len(byte_sums), f"{what}: {len(sums)} checksums for "
+                                       f"{len(byte_sums)} frames")
+    bad = [i for i, (a, b) in enumerate(zip(sums, byte_sums)) if a != b]
+    check(not bad, f"{what}: checksums differ from the frames' byte sums at {bad[:8]}")
+
+
+def class_masks(np, rng, n, size, classes, density):
+    """``n`` (size, size) uint8 masks: rectangles of random classes over a
+    zero background, about ``density`` of the pixels non-zero."""
+    masks = []
+    for _ in range(n):
+        m = np.zeros((size, size), np.uint8)
+        while np.count_nonzero(m) < density * size * size:
+            h, w = rng.integers(size // 32, size // 8, 2)
+            y, x = rng.integers(0, size - h), rng.integers(0, size - w)
+            m[y:y + h, x:x + w] = rng.integers(1, classes)
+        masks.append(m)
+    return masks
+
+
+def pb_messages(data):
+    """(start, end) of each message of a length-prefixed protobuf capture."""
+    spans, off = [], 0
+    while off < len(data):
+        size = int.from_bytes(data[off:off + 8], "little")
+        spans.append((off + 8, off + 8 + size))
+        off += 8 + size
+    return spans
+
+
+def byte_sum(torch, t):
+    return int(t.detach().reshape(-1).contiguous().cpu().view(torch.uint8).to(torch.int64).sum())
+
+
+def stream_phase(torch, np, K, root, card, keep):
+    """Stream capture, replay and flow control on slice 1 at full width: (a)
+    capture to a protobuf file and an NNSTPU1 file; (b) the protobuf replay
+    through slice 1's kernels, taps, tensor_if and tensor_rate, held bit for
+    bit to the in-process slice and to a host model of its counts; (c) the
+    same from tensor_load; (d) the sparse pair on host and card masks; (e)
+    direct_video on card frames and tensor_src_iio over a FIFO."""
+    import nnstreamer_tpu_torch as nns
+    from nnstreamer_tpu_torch.interop import decode_frame
+    from nnstreamer_tpu_torch.spec import TensorSpec, TensorsSpec
+
+    work = os.path.join(root, "build", "chip_smoke", "stream")
+    os.makedirs(work, exist_ok=True)
+    pb, nns_file = os.path.join(work, "cap.pb"), os.path.join(work, "cap.nns")
+    labels = os.path.join(root, "build", "chip_smoke", "labels_1001.txt")
+    model = keep["image_labeling"][1]
+    kernels = ("fused_arith", "int8_matmul")
+    n = STREAM_FRAMES
+    res = {}
+
+    # -- (a) capture --------------------------------------------------------------
+    src = (f"videotestsrc num-buffers={n} width={IMAGE} height={IMAGE} pattern=random seed=7 ! "
+           "tensor_converter")
+    cap = nns.parse_launch(
+        src + f" ! tee name=t t. ! queue ! tensor_decoder mode=protobuf ! filesink name=pb location={pb} "
+        # a source's frames carry its VideoSpec in meta, which tensor_save
+        # refuses (as the JAX package's does): tensor_demux makes new frames
+        f"t. ! queue ! tensor_demux ! tensor_save name=save location={nns_file} "
+        "t. ! queue ! tensor_sink name=orig collect=true")
+    t0 = time.perf_counter()
+    cap.run(timeout=300)
+    res["capture_host_ms_per_frame"] = (time.perf_counter() - t0) * 1e3 / n
+    orig = [f.tensor(0) for f in cap["orig"].frames]
+    check(len(orig) == n and cap["pb"].num_frames == n and cap["save"].num_frames == n,
+          f"capture: {len(orig)} frames, {cap['pb'].num_frames} messages, "
+          f"{cap['save'].num_frames} saved of {n}")
+    stamps = [(f.pts, f.duration) for f in cap["orig"].frames]
+    with open(pb, "rb") as f:
+        data = f.read()
+    t0 = time.perf_counter()
+    spans = pb_messages(data)
+    parsed = [decode_frame(memoryview(data)[a:b]) for a, b in spans]
+    res["parse_host_ms_per_frame"] = (time.perf_counter() - t0) * 1e3 / n
+    check(len(parsed) == n and all(torch.equal(a.tensor(0), b) for a, b in zip(parsed, orig)),
+          "capture: the protobuf file does not hold the source's frames")
+    res.update(pb_bytes=os.path.getsize(pb), nns_bytes=os.path.getsize(nns_file))
+    with open(os.path.join(work, "cap16.pb"), "wb") as f:
+        f.write(data[:spans[PROFILED - 1][1]])
+    orig_sums = [byte_sum(torch, t) for t in orig]
+
+    # -- slice 1 in process: the logits the replays are held to --------------------
+    normalize = f"tensor_transform mode=arithmetic option={NORMALIZE} acceleration=pallas"
+    ref, _, _ = run_pipeline(
+        nns, src + f" ! {normalize} ! tensor_upload ! "
+        "queue max-size-buffers=16 ! tensor_filter framework=torch name=f ! tee name=lt "
+        f"lt. ! queue ! tensor_sink name=lg collect=true lt. ! tensor_decoder "
+        f"mode=image_labeling option1={labels} ! tensor_sink name=out collect=true", model, n)
+    want_lg = [f.tensor(0) for f in ref["lg"].frames]
+    want_idx = [f.meta["label_index"] for f in ref["out"].frames]
+    maxima = sorted(float(t.max()) for t in want_lg)
+    threshold = (maxima[n // 2 - 1] + maxima[n // 2]) / 2  # about half pass
+    passed = gate_model([float(t.max()) for t in want_lg], threshold)
+    kept = [i for i in range(n) if passed[i]]
+    period = int(1e9 * int(STREAM_RATE.split("/")[1]) / int(STREAM_RATE.split("/")[0]))
+    slots, drop, dup = rate_model([stamps[i] for i in kept], period)
+    want_gate = (len(kept), n - len(kept))
+    want_out = [(s * period, want_idx[kept[j]]) for s, j in slots]
+    check(drop > 0 and dup > 0, f"the rate's host model neither drops nor duplicates: {drop}, "
+                                f"{dup}: pick another rate")
+
+    def replay_desc(head):
+        return (f"{head} ! tensor_debug name=tap0 checksum=true capacity=128 ! {normalize} ! "
+                "tensor_upload name=u ! queue max-size-buffers=16 ! tensor_filter framework=torch "
+                "name=f ! tensor_debug name=tap1 checksum=true capacity=128 ! tensor_if name=gate "
+                f"compared-value=max op=> threshold={threshold!r} ! tensor_rate name=rate "
+                f"framerate={STREAM_RATE} ! tensor_decoder mode=image_labeling option1={labels} ! "
+                "tensor_sink name=out collect=true")
+
+    def recording(p, seen, times):
+        tap = p["tap1"]
+        process = tap.process
+
+        def record(pad, frame):
+            times.append(time.perf_counter())
+            seen.append(frame.tensor(0).clone())
+            return process(pad, frame)
+
+        tap.process = record
+
+    def replay(head, what):
+        seen, times = [], []
+        K.reset_launches()
+        p = nns.parse_launch(replay_desc(head))
+        p["f"].model = model
+        recording(p, seen, times)
+        p.start()
+        try:
+            check(p.wait(600), f"{what}: the replay did not finish")
+        finally:
+            p.stop()
+        launches = {k.__name__: k.launches for k in K.KERNELS}
+        stats = dict(p["f"].backend.stats)
+        check(stats["captures"] == 1 and stats["replays"] == n,
+              f"{what}: expected one capture and {n} replays: {stats}")
+        check(all(launches[k] > 0 for k in kernels), f"{what}: wrapper launches {launches}")
+        check(len(seen) == n and all(torch.equal(a, b) for a, b in zip(seen, want_lg)),
+              f"{what}: the logits at the filter's tap differ from the in-process slice's")
+        stream_counts_check((p["gate"].passed, p["gate"].dropped), want_gate, f"{what} gate")
+        rate = p["rate"]
+        stream_counts_check((rate.in_frames, rate.out_frames, rate.drop, rate.dup),
+                            (len(kept), len(slots), drop, dup), f"{what} rate")
+        out = [(f.pts, f.meta["label_index"]) for f in p["out"].frames]
+        check(out == want_out, f"{what}: the sink's (pts, label) differ from the host model's")
+        checksum_check([r["checksum"][0] for r in p["tap0"].stats()["last"]], orig_sums,
+                       f"{what} tap0")
+        checksum_check([r["checksum"][0] for r in p["tap1"].stats()["last"]],
+                       [byte_sum(torch, t) for t in want_lg], f"{what} tap1")
+        return p, launches, stats, rates(times, np), seen
+
+    def traced(head):
+        def run(k):
+            p = nns.parse_launch(replay_desc(head))
+            p["f"].model = model
+            gate = p["u"]._lock
+            gate.acquire()
+            try:
+                p.start()
+                # the capture before the window: a self-describing stream's
+                # filter would capture at its first frame
+                p["f"].warm_spec(TensorsSpec.of(TensorSpec(np.uint8, (IMAGE, IMAGE, 3))))
+            except BaseException:
+                gate.release()
+                p.stop()
+                raise
+            try:
+                tr = trace(lambda: (time.sleep(0.25), gate.release(),
+                                    check(p.wait(600), "traced replay did not finish")))
+            finally:
+                p.stop()
+            check(p["tap1"].frames == k, f"traced replay: {p['tap1'].frames} of {k} frames")
+            return tr
+        return run
+
+    # -- (b) the protobuf replay -----------------------------------------------------
+    head_b = f"filesrc location={pb} ! tensor_converter input-format=protobuf"
+    pb_run, launches_b, stats_b, rate_b, seen_b = replay(head_b, "replay (b)")
+    res["b"] = dict(frames=n, replays=stats_b["replays"], launches=launches_b, **rate_b,
+                    passed=want_gate[0], dropped=want_gate[1], rate_out=len(slots),
+                    rate_drop=drop, rate_dup=dup, threshold=threshold)
+    profile_path(traced(f"filesrc location={os.path.join(work, 'cap16.pb')} ! "
+                        "tensor_converter input-format=protobuf"), res["b"], kernels)
+    # -- (c) the same path from tensor_load --------------------------------------------
+    head_c = f"tensor_load location={nns_file}"
+    ld_run, launches_c, stats_c, rate_c, seen_c = replay(head_c, "replay (c)")
+    check(all(torch.equal(a, b) for a, b in zip(seen_c, seen_b)),
+          "replay (c): the logits differ from replay (b)'s")
+    check([(f.pts, f.meta["label_index"]) for f in ld_run["out"].frames]
+          == [(f.pts, f.meta["label_index"]) for f in pb_run["out"].frames],
+          "replay (c): the sink's frames differ from replay (b)'s")
+    res["c"] = dict(frames=n, replays=stats_c["replays"], launches=launches_c, **rate_c)
+    profile_path(traced(f"tensor_load location={nns_file} num-buffers={PROFILED}"),
+                 res["c"], kernels)
+    for key, what in (("b", "protobuf replay (b)"), ("c", "tensor_load replay (c)")):
+        r = res[key]
+        print(f"stream {what}: {n} frames, one capture, {r['replays']} replays, logits bit for "
+              f"bit the in-process slice's; gate {want_gate[0]} passed / {want_gate[1]} dropped, "
+              f"rate {STREAM_RATE} {len(slots)} out / {drop} dropped / {dup} duplicated (the "
+              f"host model's); {r['fps']:.2f} fps, p50 gap {r['p50_ms']:.3f} ms, device busy "
+              f"{r['device_busy_ms_per_frame']:.4f} ms/frame, records "
+              f"{r['kernel_records']} [{card}]", flush=True)
+    print(f"stream capture: {res['pb_bytes']} bytes of protobuf, {res['nns_bytes']} bytes of "
+          f"NNSTPU1 for {n} frames; capture {res['capture_host_ms_per_frame']:.3f} ms/frame, "
+          f"parse {res['parse_host_ms_per_frame']:.3f} ms/frame (host) [{card}]", flush=True)
+
+    # -- (d) the sparse pair ---------------------------------------------------------------
+    masks = [torch.from_numpy(m) for m in class_masks(
+        np, np.random.default_rng(19), SPARSE_MASKS, SPARSE_SIZE, SPARSE_CLASSES,
+        SPARSE_DENSITY)]
+    res["d"] = dict(masks=SPARSE_MASKS, density=float(np.mean([float((m != 0).float().mean())
+                                                               for m in masks])))
+    for where, upload in (("host", ""), ("card", "tensor_upload ! queue ! ")):
+        for _ in range(2):  # the second run is timed: the first loads the kernels it uses
+            p = nns.parse_launch(f"datasrc name=s ! {upload}tensor_sparse_enc name=enc ! "
+                                 "queue ! tensor_sparse_dec ! tensor_sink name=out collect=true")
+            p["s"].data = masks
+            t0 = time.perf_counter()
+            p.run(timeout=300)
+            wall = time.perf_counter() - t0
+            outs = [f.tensor(0) for f in p["out"].frames]
+            device = "cuda" if upload else "cpu"
+            check(len(outs) == SPARSE_MASKS and all(o.device.type == device for o in outs),
+                  f"sparse ({where}): {len(outs)} masks, devices "
+                  f"{sorted({o.device.type for o in outs})}")
+            check(all(torch.equal(o.cpu(), m) for o, m in zip(outs, masks)),
+                  f"sparse ({where}): a mask does not round-trip bit for bit")
+        enc = p["enc"]
+        res["d"][where] = dict(bytes_in=enc.bytes_in, bytes_out=enc.bytes_out,
+                               ratio=enc.bytes_out / enc.bytes_in,
+                               ms_per_mask=wall * 1e3 / SPARSE_MASKS)
+        print(f"stream sparse ({where}): {SPARSE_MASKS} {SPARSE_SIZE}x{SPARSE_SIZE} uint8 masks "
+              f"({res['d']['density']:.4f} non-zero) round-trip bit for bit; bytes out / in "
+              f"{enc.bytes_out} / {enc.bytes_in} = {enc.bytes_out / enc.bytes_in:.4f}, "
+              f"{wall * 1e3 / SPARSE_MASKS:.3f} ms/mask [{card}]", flush=True)
+
+    # -- (e) direct_video on card frames, tensor_src_iio over a FIFO ---------------------
+    p = nns.parse_launch(f"videotestsrc num-buffers={DIRECT_FRAMES} width={IMAGE} "
+                         f"height={IMAGE} pattern=random seed=7 ! tensor_converter ! "
+                         "tensor_upload ! queue ! tensor_decoder mode=direct_video ! "
+                         "tensor_sink name=out collect=true")
+    p.run(timeout=120)
+    vids = p["out"].frames
+    check(len(vids) == DIRECT_FRAMES and all(
+        f.tensor(0).device.type == "cuda" and torch.equal(f.tensor(0).cpu(), o)
+        and (f.meta["media"].format, f.meta["media"].width, f.meta["media"].height)
+        == ("RGB", IMAGE, IMAGE) for f, o in zip(vids, orig)),
+        "direct_video: the card frames or their VideoSpec are wrong")
+    res["e"] = dict(direct_video_frames=len(vids), iio=iio_run(np, torch, nns, work))
+    print(f"stream (e): direct_video on {len(vids)} card frames (RGB {IMAGE}x{IMAGE}), "
+          f"tensor_src_iio continuous over a FIFO: {res['e']['iio']} [{card}]", flush=True)
+    launches = {k: launches_b[k] + launches_c[k] for k in launches_b}
+    return launches, res
+
+
+def iio_run(np, torch, nns, work):
+    """tensor_src_iio in continuous mode over a fake sysfs tree and a FIFO
+    fed by a thread: IIO_SCANS scans of two 12-bit channels and a 64-bit
+    timestamp, each value against its independent decode."""
+    import shutil
+    import struct
+    import threading
+
+    base = os.path.join(work, "iio", "devices")
+    devs = os.path.join(work, "iio", "dev")
+    shutil.rmtree(os.path.join(work, "iio"), ignore_errors=True)
+    dev = os.path.join(base, "iio:device0")
+    os.makedirs(os.path.join(dev, "scan_elements"))
+    os.makedirs(os.path.join(dev, "buffer"))
+    os.makedirs(os.path.join(dev, "trigger"))
+    os.makedirs(os.path.join(base, "trigger0"))
+    os.makedirs(devs)
+
+    def put(path, text):
+        with open(os.path.join(base, path), "w") as f:
+            f.write(text + "\n")
+
+    put("iio:device0/name", "fake_imu")
+    put("trigger0/name", "hrtimer0")
+    for path in ("buffer/length", "buffer/enable", "sampling_frequency"):
+        put(f"iio:device0/{path}", "0")
+    put("iio:device0/trigger/current_trigger", "")
+    put("iio:device0/sampling_frequency_available", "100 200")
+    for i, (ch, typ) in enumerate((("accel_x", "le:s12/16>>4"), ("accel_y", "be:s12/16>>4"),
+                                   ("timestamp", "le:s64/64"))):
+        put(f"iio:device0/scan_elements/in_{ch}_en", "0")
+        put(f"iio:device0/scan_elements/in_{ch}_index", str(i))
+        put(f"iio:device0/scan_elements/in_{ch}_type", typ)
+    put("iio:device0/in_accel_x_scale", "0.5")
+    put("iio:device0/in_accel_y_offset", "8")
+    rng = np.random.default_rng(23)
+    raw = rng.integers(-2048, 2048, (IIO_SCANS, 2))
+    want = [[x * 0.5, float(y + 8), float(k)] for k, (x, y) in enumerate(raw)]
+    fifo = os.path.join(devs, "iio:device0")
+    os.mkfifo(fifo)
+
+    def writer():
+        with open(fifo, "wb") as f:
+            for k, (x, y) in enumerate(raw):
+                f.write(struct.pack("<h", int(x) << 4) + struct.pack(">h", int(y) << 4)
+                        + b"\0" * 4 + struct.pack("<q", k))
+                f.flush()
+
+    thread = threading.Thread(target=writer, daemon=True)
+    thread.start()
+    p = nns.parse_launch(f"tensor_src_iio mode=continuous device=fake_imu trigger=hrtimer0 "
+                         f"frequency=100 buffer-capacity=8 num-buffers={IIO_SCANS} "
+                         f"poll-timeout=10000 base-dir={base} dev-dir={devs} ! tensor_upload ! "
+                         "queue ! tensor_sink name=out collect=true")
+    p.run(timeout=120)
+    thread.join(timeout=30)
+    got = [f.tensor(0) for f in p["out"].frames]
+    check(len(got) == IIO_SCANS and all(t.device.type == "cuda" for t in got),
+          f"tensor_src_iio: {len(got)} of {IIO_SCANS} scans reached the card")
+    check(all(t.cpu().tolist() == w for t, w in zip(got, want)),
+          "tensor_src_iio: a scan's decoded values differ from the independent decode")
+    with open(os.path.join(dev, "trigger", "current_trigger")) as f:
+        trig = f.read().strip()
+    check(trig == "hrtimer0", f"tensor_src_iio: current_trigger {trig!r}")
+    return dict(scans=len(got), pts_ns=[f.pts for f in p["out"].frames][:3])
+
+
 def _conv_dicts(tree):
     """Every dict of a params tree that holds a weight ``"w"``, in order."""
     if isinstance(tree, dict):
@@ -7091,12 +7487,15 @@ def main() -> int:
     by_path["query"] = query_phase(torch, np, K, root, card, slices)
     t15 = time.perf_counter()
     by_path["c16"] = c16_phase(torch, np, K, ops, card)
+    t16 = time.perf_counter()
+    by_path["stream"] = stream_phase(torch, np, K, root, card, slices)
     print(f"phase wall s: up to the quant phase {t1 - t0:.3f}, pose {t2 - t1:.3f}, "
           f"recurrence {t3 - t2:.3f}, batch {t4 - t3:.3f}, cascade {t5 - t4:.3f}, "
           f"app {t6 - t5:.3f}, vit {t7 - t6:.3f}, config 4c {t8 - t7:.3f}, "
           f"config 4d {t9 - t8:.3f}, recovery {t10 - t9:.3f}, "
           f"device lane {t11 - t10:.3f}, lanes {t12 - t11:.3f}, profile {t13 - t12:.3f}, "
-          f"train {t14 - t13:.3f}, query {t15 - t14:.3f}, C16 {time.perf_counter() - t15:.3f}; "
+          f"train {t14 - t13:.3f}, query {t15 - t14:.3f}, C16 {t16 - t15:.3f}, "
+          f"stream {time.perf_counter() - t16:.3f}; "
           f"the script {time.perf_counter() - t0:.3f} after the import", flush=True)
     wrapper = {"fused_arith": "fused_arith", "int8_matmul": "int8_matmul",
                "nms_keep": "pallas_nms_keep"}
@@ -7124,7 +7523,7 @@ def main() -> int:
                       "device_lane": by_path["device_lane"][1],
                       "lanes": by_path["lanes"][1], "profile": by_path["profile"][1],
                       "train": by_path["train"][1], "query": by_path["query"][1],
-                      "c16": by_path["c16"][1]}),
+                      "c16": by_path["c16"][1], "stream": by_path["stream"][1]}),
           flush=True)
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

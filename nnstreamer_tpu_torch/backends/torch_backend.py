@@ -507,6 +507,17 @@ class TorchBackend(FilterBackend):
         self._select(raw_spec)
         return out_spec
 
+    def defer_fused(self, out_spec: TensorsSpec, hook: Callable) -> TensorsSpec:
+        """Negotiate a fused function whose raw input spec no one knows
+        before the first frame (a self-describing stream: ``tensor_converter
+        input-format=protobuf``): nothing is captured now, and the first
+        frame's spec goes to ``hook``, which builds the wrapper for it and
+        captures it, as for a drifted frame."""
+        self.set_wrapper(None)
+        self._drift_hook = hook
+        self._out_spec = out_spec
+        return out_spec
+
     # -- captures -----------------------------------------------------------
 
     def _capture_fn(self) -> Optional[Callable]:
@@ -674,18 +685,18 @@ class TorchBackend(FilterBackend):
 
     def _rebind(self, tensors: Tuple) -> None:
         """A frame whose shape or dtype drifted without a caps event, or
-        came before any negotiation: a bare model is reconfigured for it; a
-        wrapped function is rebuilt by its filter (the fused stages bake
-        the old geometry)."""
+        came before any negotiation: a wrapped (or deferred) function is
+        rebuilt by its filter (the fused stages bake the old geometry); a
+        bare model is reconfigured for it."""
         drifted = TensorsSpec.from_arrays(tensors)
-        if self._wrapper is None:
+        if self._drift_hook is not None:
+            self._drift_hook(drifted)
+        elif self._wrapper is None:
             self.reconfigure(drifted)
-        elif self._drift_hook is None:
+        else:
             raise ValueError(f"torch backend: input drifted to {drifted} but the fused "
                              "function cannot rebind without its filter (no drift hook "
                              "installed)")
-        else:
-            self._drift_hook(drifted)
 
     def invoke(self, tensors: Tuple) -> Tuple:
         """Run the function on a frame's tensors, which the filter's

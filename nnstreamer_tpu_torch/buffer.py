@@ -76,6 +76,13 @@ class Frame:
         return f"Frame[{shapes} pts={self.pts}]"
 
 
+def tensor_bytes(t) -> bytes:
+    """The C-order bytes of a tensor of any dtype; a card tensor is read to
+    the host once."""
+    flat = torch.as_tensor(t).detach().reshape(-1).contiguous().cpu()
+    return flat.view(torch.uint8).numpy().tobytes() if flat.numel() else b""
+
+
 class WireTensor:
     """A payload in wire layout (a flat 1-D tensor) that still presents its
     logical ``shape`` and ``dtype`` to the graph.

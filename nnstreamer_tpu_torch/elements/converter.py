@@ -1,8 +1,7 @@
 """``tensor_converter``: media streams → tensor streams.
 
-The port of the JAX element, without its protobuf input
-(``input-format=protobuf``, ``num-tensors``).  A raw frame passes through
-as a tensor: video (H, W, C), with 4-byte raster stride padding sliced off
+The port of the JAX element.  A raw frame passes through as a tensor:
+video (H, W, C), with 4-byte raster stride padding sliced off
 (``meta["stride"]``, :meth:`TensorConverter._strip_stride`), audio
 (samples, channels), text and octet buffers as they come.
 ``frames_per_tensor`` frames are stacked on a new leading axis, and a
@@ -13,6 +12,12 @@ tensors of the declared spec (:meth:`TensorConverter._reinterpret`): a
 buffer may hold several, each sent on as a frame of its own, and
 negotiation refuses an upstream frame whose size is not a whole number of
 them.
+
+``input-format=protobuf`` reads each incoming byte buffer as a stream of
+length-prefixed ``TensorFrame`` messages (``tensor_decoder mode=protobuf``'s
+output, a ``filesrc`` capture of it) and sends one frame a message;
+``num-tensors`` declares the tensor count a message carries, the one thing
+negotiation knows of them (dtypes and shapes ride in each message).
 """
 
 from __future__ import annotations
@@ -23,8 +28,10 @@ from typing import Dict, List, Optional
 import torch
 
 from ..buffer import NONE_TS, SECOND, Frame, is_valid_ts
+from ..decoders.proto import LEN_PREFIX
 from ..graph.node import NegotiationError, Node, Pad
 from ..graph.registry import register_element
+from ..interop import decode_frame
 from ..media import VideoSpec
 from ..spec import TensorSpec, TensorsSpec, torch_dtype
 
@@ -32,19 +39,33 @@ from ..spec import TensorSpec, TensorsSpec, torch_dtype
 @register_element("tensor_converter")
 class TensorConverter(Node):
     def __init__(self, name: Optional[str] = None, frames_per_tensor: int = 1,
-                 input_dim: str = "", input_type: str = ""):
+                 input_dim: str = "", input_type: str = "", input_format: str = "",
+                 num_tensors: int = 1):
         super().__init__(name)
         self.add_sink_pad("sink")
         self.add_src_pad("src")
         self.frames_per_tensor = int(frames_per_tensor)
         if self.frames_per_tensor < 1:
             raise ValueError("frames-per-tensor must be >= 1")
-        # The JAX element's protobuf input, which the port does not take yet;
-        # the segment planner reads it to tell a trivial converter
-        # (graph/segments.py::_trivial_converter).
-        self.input_format = ""
+        self.input_format = str(input_format or "").lower()
+        if self.input_format not in ("", "protobuf"):
+            raise ValueError(f"unknown input-format {input_format!r} (know: protobuf)")
+        if self.input_format and self.frames_per_tensor != 1:
+            raise ValueError("frames-per-tensor does not apply to input-format=protobuf "
+                             "(each message is one self-describing frame)")
+        if self.input_format and input_type:
+            raise ValueError("input-type does not apply to input-format=protobuf "
+                             "(dtypes ride in each message)")
+        self.num_tensors = int(num_tensors)
+        if self.num_tensors < 1:
+            raise ValueError("num-tensors must be >= 1")
+        if not self.input_format and self.num_tensors != 1:
+            raise ValueError("num-tensors only applies with input-format=protobuf")
         self.input_spec: Optional[TensorSpec] = None
         if input_dim:
+            if self.input_format:
+                raise ValueError("input-dim and input-format are mutually exclusive "
+                                 "(protobuf messages are self-describing)")
             self.input_spec = TensorSpec.from_dims_string(input_dim, input_type or "uint8")
         self._in_rate: Optional[Fraction] = None
         self._adapter: List[Frame] = []
@@ -56,6 +77,13 @@ class TensorConverter(Node):
         self._adapter = []
         self._frame_idx = 0
         rate = in_spec.rate
+        if self.input_format == "protobuf":
+            if in_spec.num_tensors != 1:
+                raise NegotiationError(
+                    f"{self.name}: protobuf input must be a single byte buffer per frame, "
+                    f"got {in_spec.num_tensors} tensors")
+            return {"src": TensorsSpec(tensors=tuple(TensorSpec() for _ in
+                                                     range(self.num_tensors)), rate=rate)}
         if rate and self.frames_per_tensor != 1:
             rate = rate / self.frames_per_tensor
         if self.input_spec is not None:
@@ -106,8 +134,41 @@ class TensorConverter(Node):
         return Frame(tensors=frame.tensors, pts=self._frame_idx * dur,
                      duration=dur, meta=frame.meta)
 
+    def _messages(self, frame: Frame) -> None:
+        """Push one frame a length-prefixed message of the buffer, each as
+        it is parsed.  The transport frame's timing wins where it is valid
+        (a live stream restamps); else the message's, the capture's, does."""
+        raw = frame.tensor(0).detach().reshape(-1).contiguous().cpu()
+        buf = memoryview(raw.view(torch.uint8).numpy()) if raw.numel() else memoryview(b"")
+        off = 0
+        while off < len(buf):
+            if off + LEN_PREFIX.size > len(buf):
+                raise ValueError(f"{self.name}: truncated length prefix at byte "
+                                 f"{off}/{len(buf)}")
+            (mlen,) = LEN_PREFIX.unpack_from(buf, off)
+            off += LEN_PREFIX.size
+            if off + mlen > len(buf):
+                raise ValueError(f"{self.name}: truncated protobuf message ({mlen}B "
+                                 f"declared, {len(buf) - off}B left)")
+            decoded = decode_frame(buf[off:off + mlen])
+            off += mlen
+            if len(decoded.tensors) != self.num_tensors:
+                # the src pad negotiated num-tensors open specs: another count
+                # would break the caps contract far from its cause
+                raise ValueError(f"{self.name}: protobuf message carries "
+                                 f"{len(decoded.tensors)} tensors, negotiated "
+                                 f"num-tensors={self.num_tensors}")
+            self.src_pads["src"].push(Frame(
+                tensors=decoded.tensors,
+                pts=frame.pts if is_valid_ts(frame.pts) else decoded.pts,
+                duration=frame.duration if is_valid_ts(frame.duration) else decoded.duration,
+                meta=dict(frame.meta)))
+
     def process(self, pad: Pad, frame: Frame):
         del pad
+        if self.input_format == "protobuf":
+            self._messages(frame)
+            return None
         arr = frame.tensor(0)
         if isinstance(frame.meta.get("media"), VideoSpec):
             arr = self._strip_stride(arr, frame)

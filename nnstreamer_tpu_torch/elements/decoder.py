@@ -21,6 +21,8 @@ _BUILTIN = {
     "image_labeling": "nnstreamer_tpu_torch.decoders.image_label",
     "bounding_boxes": "nnstreamer_tpu_torch.decoders.bounding_boxes",
     "pose_estimation": "nnstreamer_tpu_torch.decoders.pose",
+    "direct_video": "nnstreamer_tpu_torch.decoders.direct_video",
+    "protobuf": "nnstreamer_tpu_torch.decoders.proto",
 }
 
 

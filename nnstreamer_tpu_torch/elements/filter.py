@@ -56,6 +56,12 @@ from ..spec import TensorSpec, TensorsSpec, dtype_from_name
 from ..utils import profiling
 
 
+def _names_no_geometry(spec: TensorsSpec) -> bool:
+    """A spec of a self-describing stream: some tensor's rank or dtype is
+    left open until frames come."""
+    return any(t.shape is None or t.dtype is None for t in spec.tensors)
+
+
 @register_element("tensor_filter")
 class TensorFilter(Node):
     def __init__(
@@ -153,7 +159,9 @@ class TensorFilter(Node):
     def configure(self, in_specs: Dict[str, TensorsSpec]) -> Dict[str, TensorsSpec]:
         in_spec = in_specs["sink"]
         try:
-            if self._fused_pre or self._fused_post:
+            if self._fused_pre and _names_no_geometry(in_spec):
+                out_spec = self._defer_fusion(in_spec)
+            elif self._fused_pre or self._fused_post:
                 # a None batch dim (tensor_dynbatch) is 1 until frames come
                 fixed = in_spec if in_spec.tensors_fixed else in_spec.fixate()
                 out_spec = self.backend.reconfigure_fused(fixed, self._install_fusion(fixed))
@@ -178,6 +186,23 @@ class TensorFilter(Node):
         if in_spec.rate is not None and out_spec.rate is None:
             out_spec = TensorsSpec(tensors=out_spec.tensors, rate=in_spec.rate)
         return {"src": out_spec}
+
+    def _defer_fusion(self, in_spec: TensorsSpec) -> TensorsSpec:
+        """The fused chain behind a self-describing stream (``tensor_converter
+        input-format=protobuf`` negotiates a tensor count, no dtype and no
+        shape): its geometry is the first frame's.  The pad's spec is the
+        model's output for its declared input; the chain is built, held to
+        the model's spec and captured when the first frame comes (the
+        backend's drift path), or earlier by :meth:`warm_spec`."""
+        defer = getattr(self.backend, "defer_fused", None)
+        model_spec = self.backend.model_spec()
+        if (defer is None or self._fused_post or model_spec is None
+                or not model_spec.tensors_fixed):
+            raise NegotiationError(
+                f"{self.name}: the upstream spec {in_spec} names no geometry, and this fused "
+                "chain cannot wait for the first frame (that needs a backend that captures "
+                "at a frame, a model with a fixed input spec and no fused post-stage)")
+        return defer(self.backend.trace_output_spec(model_spec), self._drift_reinstall)
 
     def _drift_reinstall(self, drifted: TensorsSpec) -> None:
         """Rebind the fused chain to a drifted input spec: its stages bake
@@ -260,13 +285,14 @@ class TensorFilter(Node):
         warmup planner's work for a bucket (``graph/warmup.py``).  A fused
         filter captures the bucket with its own wrapper, built for that
         spec, and then reinstalls the negotiated spec's wrapper, as a
-        drifted frame would.  Under the dispatch lock, so that no frame
-        sees the bucket's state in between."""
+        drifted frame would; behind a self-describing stream
+        (:meth:`_defer_fusion`) the warmed geometry stays active.  Under the
+        dispatch lock, so that no frame sees the bucket's state in between."""
         with self._lock:
             if self._fused_pre or self._fused_post:
                 active = self.sink_pads["sink"].spec
                 self._drift_reinstall(spec)
-                if active is not None:
+                if active is not None and not _names_no_geometry(active):
                     self._drift_reinstall(active if active.tensors_fixed else active.fixate())
                 return
             warm = getattr(self.backend, "warm_compile", None)

@@ -48,6 +48,16 @@ _BUILTIN_MODULES: Dict[str, str] = {
     "tensor_crop": "nnstreamer_tpu_torch.elements.crop",
     "tensor_trainer": "nnstreamer_tpu_torch.elements.trainer",
     "tensor_query_client": "nnstreamer_tpu_torch.elements.query",
+    "filesrc": "nnstreamer_tpu_torch.elements.file_io",
+    "filesink": "nnstreamer_tpu_torch.elements.file_io",
+    "tensor_save": "nnstreamer_tpu_torch.elements.save_load",
+    "tensor_load": "nnstreamer_tpu_torch.elements.save_load",
+    "tensor_debug": "nnstreamer_tpu_torch.elements.debug",
+    "tensor_if": "nnstreamer_tpu_torch.elements.tensor_if",
+    "tensor_rate": "nnstreamer_tpu_torch.elements.rate",
+    "tensor_sparse_enc": "nnstreamer_tpu_torch.elements.sparse",
+    "tensor_sparse_dec": "nnstreamer_tpu_torch.elements.sparse",
+    "tensor_src_iio": "nnstreamer_tpu_torch.elements.iio_src",
 }
 
 

@@ -106,8 +106,11 @@ def _boundary(node: Node) -> Tuple[str, bool]:
     if len(node.sink_pads) > 1:
         return "n-to-1 sync", False
     from ..elements.converter import TensorConverter
+    from ..elements.tensor_if import TensorIf
     from ..elements.transform import TensorTransform
 
+    if isinstance(node, TensorIf):
+        return "control branch", False
     if isinstance(node, TensorConverter):
         return "non-trivial converter config", True
     if isinstance(node, TensorTransform):

@@ -29,7 +29,10 @@ a missing chunk fails), admission counts (a request neither delivered nor
 shed, nothing shed, the server's and the client's counts apart, an untyped
 failure or a changed frame fails) and wire-fault outcomes (a drop or a torn
 frame must heal bit for bit; a corrupted byte may change at most the
-injected frames).
+injected frames).  The stream phase's host models of ``tensor_if`` and
+``tensor_rate`` are held to the port's element and to the JAX package's
+rate cases; its counter check fails on a count apart, its checksum check on
+one byte changed or a frame missing.
 """
 
 import importlib.util
@@ -1192,3 +1195,119 @@ def test_wire_fault_check(smoke, spec, injected, differ, untyped, ok):
     else:
         with pytest.raises(SystemExit):
             smoke.wire_fault_check(spec, injected, differ, untyped)
+
+
+# -- the stream phase ------------------------------------------------------------
+
+def _rate_element(stamps, framerate):
+    """What the port's tensor_rate sends for frames stamped (pts, duration),
+    each carrying its index: [(pts, index)], drop, dup."""
+    import torch
+
+    import nnstreamer_tpu_torch as tnns
+    from nnstreamer_tpu_torch.buffer import Frame
+
+    p = tnns.Pipeline()
+    src = p.add(tnns.make("datasrc", data=[Frame(tensors=(torch.tensor([i]),), pts=pts,
+                                                 duration=d) for i, (pts, d) in enumerate(stamps)]))
+    rate = p.add(tnns.make("tensor_rate", framerate=framerate))
+    sink = p.add(tnns.make("tensor_sink", collect=True))
+    p.link_chain(src, rate, sink)
+    p.run(timeout=60)
+    return [(f.pts, int(f.tensor(0)[0])) for f in sink.frames], rate.drop, rate.dup
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_rate_model_is_the_element(smoke, seed):
+    """The host model of tensor_rate, on the stream phase's stamps (a 30/1
+    source, about half the frames through the gate), against the element."""
+    rng = np.random.default_rng(seed)
+    dur = 1_000_000_000 // 30
+    kept = [i for i in range(smoke.STREAM_FRAMES) if rng.random() < 0.5]
+    stamps = [(i * dur, dur) for i in kept]
+    num, den = (int(v) for v in smoke.STREAM_RATE.split("/"))
+    period = int(1e9 * den / num)
+    slots, drop, dup = smoke.rate_model(stamps, period)
+    got, gdrop, gdup = _rate_element(stamps, smoke.STREAM_RATE)
+    assert [(s * period, j) for s, j in slots] == got
+    assert (drop, dup) == (gdrop, gdup) and drop > 0 and dup > 0
+
+
+@pytest.mark.parametrize("stamps,framerate,want", [
+    ([(i * 33_333_333, 33_333_333) for i in range(10)], "10/1", [0, 2, 5, 8]),
+    ([(i * 100_000_000, 100_000_000) for i in range(4)], "30/1",
+     [0, 0, 0, 1, 1, 1, 2, 2, 2, 3, 3, 3]),
+    ([(0, 33_000_000), (40_000_000, 33_000_000), (210_000_000, 33_000_000)], "10/1", [0, 1, 2]),
+    ([], "10/1", []),
+])
+def test_rate_model_on_the_references_cases(smoke, stamps, framerate, want):
+    """The JAX package's tensor_rate cases (tests/test_crop_rate.py):
+    down-sample, up-sample with the end's fill, a gap repeating the frame
+    received last."""
+    num, den = (int(v) for v in framerate.split("/"))
+    slots, _, _ = smoke.rate_model(stamps, int(1e9 * den / num))
+    assert [j for _, j in slots] == want
+
+
+@pytest.mark.parametrize("threshold,want", [(0.5, [False, True, False]), (0.9, [False] * 3),
+                                            (0.1, [False, True, True])])
+def test_gate_model(smoke, threshold, want):
+    assert smoke.gate_model([0.1, 0.7, 0.5], threshold) == want
+
+
+@pytest.mark.parametrize("got,ok", [((34, 34), True), ((33, 35), False), ((34, 34, 1), False)])
+def test_stream_counts_check(smoke, got, ok):
+    if ok:
+        smoke.stream_counts_check(got, (34, 34), "gate")
+    else:
+        with pytest.raises(SystemExit):
+            smoke.stream_counts_check(got, (34, 34), "gate")
+
+
+@pytest.mark.parametrize("case,ok", [("equal", True), ("one_bit", False), ("short", False)])
+def test_checksum_check(smoke, case, ok):
+    """A tap's checksums against the byte sums of the frames it should see:
+    the port's tensor_debug on those frames passes; one byte changed or a
+    frame missing fails."""
+    import torch
+
+    from nnstreamer_tpu_torch.elements.debug import byte_sum
+
+    rng = np.random.default_rng(4)
+    frames = [torch.from_numpy(rng.integers(0, 256, (8, 8, 3), dtype=np.uint8))
+              for _ in range(4)]
+    sums = [byte_sum(f) for f in frames]
+    want = [smoke.byte_sum(torch, f) for f in frames]
+    if case == "one_bit":
+        frames[2].view(-1)[5] ^= 1
+        want = [smoke.byte_sum(torch, f) for f in frames]
+    elif case == "short":
+        sums = sums[:3]
+    if ok:
+        smoke.checksum_check(sums, want, "tap")
+    else:
+        with pytest.raises(SystemExit):
+            smoke.checksum_check(sums, want, "tap")
+
+
+def test_class_masks_are_sparse_and_seeded(smoke):
+    a = smoke.class_masks(np, np.random.default_rng(19), 4, 128, 21, 0.04)
+    b = smoke.class_masks(np, np.random.default_rng(19), 4, 128, 21, 0.04)
+    assert all(np.array_equal(x, y) for x, y in zip(a, b))
+    for m in a:
+        share = np.count_nonzero(m) / m.size
+        assert m.dtype == np.uint8 and 0.04 <= share < 0.08 and m.max() < 21
+
+
+def test_pb_messages_splits_on_the_prefixes(smoke):
+    from nnstreamer_tpu_torch.buffer import Frame
+    from nnstreamer_tpu_torch.interop import encode_frame
+
+    import torch
+
+    msgs = [encode_frame(Frame.of(torch.full((i + 1,), i, dtype=torch.uint8), pts=i))
+            for i in range(5)]
+    data = b"".join(len(m).to_bytes(8, "little") + m for m in msgs)
+    spans = smoke.pb_messages(data)
+    assert [data[a:b] for a, b in spans] == msgs
+    assert spans[-1][1] == len(data) and smoke.pb_messages(b"") == []

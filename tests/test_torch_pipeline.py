@@ -137,7 +137,7 @@ def test_port_runs_with_jax_blocked():
     code = textwrap.dedent(f"""
         import socket
         import sys
-        for name in ("jax", "jaxlib", "ml_dtypes", "nnstreamer_tpu"):
+        for name in ("jax", "jaxlib", "ml_dtypes", "nnstreamer_tpu", "google.protobuf"):
             sys.modules[name] = None  # any import of them now raises
         import nnstreamer_tpu_torch as nns
         from nnstreamer_tpu_torch.elements import aggregator, converter, sink, testsrc
@@ -264,7 +264,33 @@ def test_port_runs_with_jax_blocked():
             query.send_tensors(c, (torch.ones(4),), query.PROBE_PTS)
             assert query.recv_tensors(c)[0][0].shape == (2,)
             c.close()
-        assert not any(k in ("jax", "ml_dtypes") or k.startswith(("jax.", "nnstreamer_tpu."))
+        import tempfile
+        from nnstreamer_tpu_torch import interop
+        from nnstreamer_tpu_torch.decoders import direct_video, proto
+        from nnstreamer_tpu_torch.elements import (debug, file_io, iio_src, rate, save_load,
+                                                   sparse, tensor_if)
+        tmp = tempfile.mkdtemp()
+        cap = nns.parse_launch(
+            "videotestsrc num-buffers=4 width=8 height=8 pattern=random ! tensor_converter ! "
+            f"tee name=t t. ! queue ! tensor_decoder mode=protobuf ! filesink location={{tmp}}/c.pb "
+            f"t. ! queue ! tensor_demux ! tensor_save location={{tmp}}/c.nns")
+        cap.run(timeout=60)
+        for head, tail in (
+                (f"filesrc location={{tmp}}/c.pb ! tensor_converter input-format=protobuf", ""),
+                (f"tensor_load location={{tmp}}/c.nns", " ! tensor_decoder mode=direct_video ! "
+                 "tensor_sparse_enc ! tensor_sparse_dec")):
+            rp = nns.parse_launch(
+                head + " ! tensor_debug name=d checksum=true ! tensor_if compared-value=mean "
+                f"threshold=0 ! tensor_rate framerate=20/1{{tail}} ! tensor_sink name=out "
+                "collect=true")
+            rp.run(timeout=60)
+            assert rp["d"].frames == 4 and len(rp["out"].frames) >= 1
+        assert rp["out"].frames[0].meta["media"].format == "RGB"
+        fr = interop.decode_frame(interop.encode_frame(nns.Frame.of(torch.ones(2, 3), pts=5)))
+        assert fr.pts == 5 and fr.tensor(0).shape == (2, 3)
+        assert nns.make("tensor_src_iio", mode="continuous").mode == "continuous"
+        assert not any(k in ("jax", "ml_dtypes") or k.startswith(("jax.", "nnstreamer_tpu.",
+                                                                 "google.protobuf"))
                        for k, v in sys.modules.items() if v is not None)
         print("labels", [f.meta["label"] for f in chain[-1].frames])
     """)
@@ -280,7 +306,8 @@ INI_PATHS = re.compile(r"(\.config/nnstreamer_tpu/)?nnstreamer_tpu\.ini")
 
 
 def test_no_port_file_names_jax():
-    pattern = re.compile(r"import jax|from jax|import ml_dtypes|from ml_dtypes|nnstreamer_tpu[^_]")
+    pattern = re.compile(r"import jax|from jax|import ml_dtypes|from ml_dtypes|nnstreamer_tpu[^_]"
+                         r"|google\.protobuf|from google|import google")
     files = sorted((REPO / "nnstreamer_tpu_torch").rglob("*.py"))
     for ext in ("*.cu", "*.h", "*.hh"):
         files += sorted((REPO / "nnstreamer_tpu_torch").rglob(ext))
