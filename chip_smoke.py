@@ -374,16 +374,50 @@ In order, it
    ratio; (e) ``direct_video`` on card
    frames and ``tensor_src_iio`` in continuous mode over a fake sysfs tree
    and a FIFO, each scan against its independent decode;
-30. prints every path number beside the card's name and power limit, one
+30. mesh phase (the port's single-controller mesh, ``parallel/``, over
+   ``force_device_count(4)``: four shards on the one card; each in-model leg
+   also on the real device count, where the modes degenerate): (a) ViT-B/16
+   in bfloat16 through slice 1's string with ``attn="ring"``, then
+   ``"ulysses"``, over ``sp:4`` (49 tokens and 3 heads a shard), 64 frames
+   each: one capture, replays bitwise equal to eager calls, logits within
+   1/16 of ``attn="full"`` in the same process with top-1 equal (or decided
+   by the margin), a 16-frame trace with one ``fused_arith`` record a graph
+   launch; (b) a switch-MoE encoder at Switch-Base-8 widths (768, 12 heads,
+   3072, 8 experts, 12 layers; MoE in every block, the encoder alone) on 16
+   int16 windows of 512 x 768 through the normalize, over ``ep:4`` and
+   unsharded: one capture each, replays bitwise eager, ``ep:4`` within 1/16
+   of unsharded with 99% of tokens' argmax equal and the first layer's
+   routing exactly equal, the dropped tokens a window; (c)
+   ``build_pipelined`` at ViT-B's encoder widths over ``pp:4`` (3 blocks a
+   stage), batch 8 of 196 x 768, 4 microbatches, float32, 8 batches, within
+   1e-4 of the sequential apply; (d) config 5 at 8 streams with the int8
+   head under ``NNSTPU_MESH=dp:4``: a graph a shard in two segments (the
+   batch's one activation scale reduced between them), one ``fused_arith``
+   and one ``int8_matmul`` record a shard a round, rows bit for bit the
+   sharded eager forward and ``torch-sharded``'s, within 1/32 of the
+   unsharded filter with top-1 equal, the shards' int8 activations and
+   scale bit for bit the whole batch's though the shards' own maxima
+   differ; config 1d under the mesh (buckets 4 x {1, 2, 4, 8}, every one
+   captured before PLAYING); ``NNSTPU_MESH=auto`` on the real cards (off
+   with one); (e) the device tracer on (d)'s ``torch-sharded`` run, one
+   series a shard;
+31. prints every path number beside the card's name and power limit, one
    JSON line describing every kernel, and last one JSON line
    ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero.  Without a CUDA GPU, or without the package
-beside it, the script exits non-zero and prints no result.
+beside it, the script exits non-zero and prints no result.  Each phase
+names itself on standard error as it starts; one still running after
+``PHASE_LIMIT_S`` has hung, and the script writes every thread's stack
+there and exits non-zero.  Every CUPTI trace holds the port's graph
+launches back while its session starts and stops (``obs/launch_gate.py``,
+ROADMAP C17).
 """
 
 from __future__ import annotations
 
+import contextlib
+import faulthandler
 import itertools
 import json
 import os
@@ -498,6 +532,18 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
+# A phase still running after this long has hung: every thread's stack goes
+# to standard error and the script exits non-zero, inside the run's limit.
+PHASE_LIMIT_S = 300
+
+
+def phase(name: str) -> None:
+    """Name the phase that starts now on standard error (where a hang shows
+    which phase it was) and re-arm the hang dump for it."""
+    print(f"chip_smoke: phase {name}", file=sys.stderr, flush=True)
+    faulthandler.dump_traceback_later(PHASE_LIMIT_S, exit=True)
+
+
 def call_ms(fn, iters: int = 200, warmup: int = 20) -> float:
     """Mean time per call of ``fn`` over ``iters`` back-to-back calls, by
     CUDA events.  When the host takes longer to dispatch a call than the card
@@ -516,20 +562,37 @@ def call_ms(fn, iters: int = 200, warmup: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+@contextlib.contextmanager
+def cupti_session(label: str):
+    """A torch.profiler session with CUPTI's device activity, the
+    deep-profiling lane's lock held (one Kineto session a process) and the
+    port's graph launches held back while it starts and stops (ROADMAP
+    C17: a stop during a launch can hang)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nnstreamer_tpu_torch.obs.launch_gate import switching
+    from nnstreamer_tpu_torch.obs.profiler import capture_lock
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    with capture_lock(label):
+        with switching():
+            prof.start()
+        try:
+            yield prof
+        finally:
+            with switching():
+                prof.stop()
+
+
 def profile_cuda(fn, iters: int):
     """Run ``fn`` ``iters`` times under torch.profiler (CUPTI); return the
     card's summed kernel and copy time in ms and the number of device
     activities, or (None, 0) when the profiler saw no device time."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from nnstreamer_tpu_torch.obs.profiler import capture_lock
 
     torch.cuda.synchronize()
-    # one Kineto session a process: hold the deep-profiling lane's lock
-    with capture_lock("chip_smoke profile_cuda"), \
-            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with cupti_session("chip_smoke profile_cuda") as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
@@ -1090,14 +1153,9 @@ def trace(fn):
 
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from nnstreamer_tpu_torch.obs.profiler import capture_lock
 
     torch.cuda.synchronize()
-    # one Kineto session a process: hold the deep-profiling lane's lock
-    with capture_lock("chip_smoke trace"), \
-            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with cupti_session("chip_smoke trace") as prof:
         fn()
         torch.cuda.synchronize()
     events = prof.events()
@@ -1286,16 +1344,16 @@ def launch_check(tr, kernels):
     return lost
 
 
-def profile_path(run, res, kernels):
+def profile_path(run, res, kernels, attempts=3):
     """Device busy time, idle share and host-issued operations per frame
     from a traced run of PROFILED frames, and the per-frame launch check:
     PROFILED graph launches, each holding one record of each of the path's
     kernels and none of the other kernels.  A trace that misses the mark is
-    taken again, three times in all; the last one must then pass
+    taken again, ``attempts`` times in all; the last one must then pass
     ``launch_check``, which allows a launch to lack a record only where the
     tracer demonstrably lost that launch's records.  Returns the trace."""
     want = {k: PROFILED if k in kernels else 0 for k in KERNEL_SYMBOLS}
-    for attempt in range(3):
+    for attempt in range(attempts):
         tr = run(PROFILED)
         launches = tr["calls"].get("cudaGraphLaunch", 0) + tr["calls"].get("cuGraphLaunch", 0)
         if tr["records"] == want and launches == PROFILED:
@@ -2321,7 +2379,7 @@ def device_split(torch, fn, frames):
     """Device ms per frame of each class, from one traced eager run of
     ``fn`` (``frames`` forwards): the replay's kernels are these, launched
     from a graph, where no host range can mark them."""
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import record_function
 
     from nnstreamer_tpu_torch.models import layers
 
@@ -2346,7 +2404,7 @@ def device_split(torch, fn, frames):
     try:
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with cupti_session("chip_smoke device_split") as prof:
             fn()
             torch.cuda.synchronize()
     finally:
@@ -3368,6 +3426,19 @@ def dyn_checks(np, captures_before, captures_after, report, buckets, pts_out, n_
     return {str(b): buckets.count(b) for b in buckets_of}
 
 
+def dyn_loss_unmeasured(tr, buckets) -> bool:
+    """Whether the trace's first launch lacks a path record while its bucket
+    has no other launch in the trace: CUPTI drops the first records of a
+    trace's first launch (ROADMAP queue B), and with no fuller launch of
+    the bucket to compare, :func:`dyn_launch_check` cannot tell that loss
+    from a kernel missing from the graph.  Such a trace is taken again."""
+    if not tr["per_launch"] or len(tr["per_launch"]) != len(buckets):
+        return False
+    rec, _ = tr["per_launch"][0]
+    lacks = any(not rec.get(k) for k in ("fused_arith", "int8_matmul"))
+    return lacks and buckets.count(buckets[0]) == 1
+
+
 def dyn_launch_check(tr, buckets):
     """Config 1d's trace: a graph launch a batch, in the order the batches
     left dynbatch, each with one fused_arith and one int8_matmul record
@@ -3646,7 +3717,13 @@ def batch_phase(torch, np, K, ops, root, card, keep=None):
         res = dict(frames=DYN_FRAMES, batches=len(buckets), buckets=hist, fps=r["fps"],
                    p50_ms=r["p50_ms"], p90_ms=r["p90_ms"], captures_before_playing=before,
                    warmup_s=report["seconds"], launches=launches)
-        bhist, bbuckets, _, _, _, tr, _ = dyn_run(traced=True, bursty=True)
+        for attempt in range(3):
+            bhist, bbuckets, _, _, _, tr, _ = dyn_run(traced=True, bursty=True)
+            if not dyn_loss_unmeasured(tr, bbuckets):
+                break
+            print(f"  config 1d's coverage trace (attempt {attempt + 1}): its first launch "
+                  f"(bucket {bbuckets[0]}, the bucket's only one) holds "
+                  f"{tr['per_launch'][0]}", flush=True)
         by_m = dyn_launch_check(tr, bbuckets)
         res.update(coverage=dict(bursts=DYN_BURSTS, gap_s=DYN_BURST_GAP_S, buckets=bhist,
                                  int8_matmul_records_by_m={str(m): c
@@ -7348,6 +7425,684 @@ def iio_run(np, torch, nns, work):
     return dict(scans=len(got), pts_ns=[f.pts for f in p["out"].frames][:3])
 
 
+# -- phase 30: the mesh (in-model parallel modes, the dispatch mesh) ---------
+
+PAR_SHARDS = 4             # force_device_count(4): four shards on the one card
+PAR_FRAMES = 64            # (a): frames a mode through slice 1's string
+PAR_REF_FRAMES = 4         # frames held against attn="full" and against eager calls
+# one trace a path: CUPTI loses the first launch's records this late in the
+# script, which launch_check allows, and each retry costs a capture
+PAR_TRACES = 1
+# (a) ring and Ulysses against attn="full" in bfloat16: the ring accumulates
+# in float32 where full attention rounds its softmax in bfloat16, through 12
+# layers
+PAR_VIT_REL = 1 / 16
+# (b) Switch-Base (Fedus et al. 2021): d_model 768, 12 heads, d_ff 3072, 8
+# experts, 12 layers; the encoder alone, fed (T, d_in) windows, the MoE in
+# every block; top-1 routing at capacity factor 2.0
+SWITCH_BASE = dict(d_model=768, n_heads=12, n_layers=12, d_ff=3072, experts=8)
+MOE_WINDOW = (512, 768)    # int16 features a window
+MOE_WINDOWS = 16
+MOE_OUT = 16               # the head's outputs a token
+MOE_NORMALIZE = "typecast:float32,div:32768.0"
+MOE_REL = 1 / 16           # ep:4 against unsharded, bfloat16 (a routing flip moves a token)
+MOE_ARGMAX_SHARE = 0.99    # tokens whose argmax the two runs share, at least
+# (c) GPipe at ViT-B's encoder widths, float32 (the reference's default)
+PP_CFG = dict(d_model=768, n_heads=12, n_layers=12, seq_len=196, d_in=768, n_out=MOE_OUT)
+PP_BATCH, PP_MICRO, PP_BATCHES = 8, 4, 8
+PP_REL = 1e-4              # float32, TF32 off: microbatches of 2 against a batch of 8
+# (d) config 5 at 8 streams, the int8 head, under NNSTPU_MESH=dp:4
+MESH_STREAMS = 8
+MESH_ROUNDS = 16
+MESH_EAGER = 4             # rounds held bit for bit against the sharded eager forward
+# each stream's frames: 127 plus noise of this amplitude, so that the shards'
+# activation maxima differ and a per-shard scale would show
+MESH_CONTRAST = (128, 128, 1, 1, 2, 2, 8, 8)
+
+
+def parallel_legs():
+    """The five legs of the mesh phase, for the report."""
+    sb = SWITCH_BASE
+    return {
+        "a": f"ViT-B/16 bf16, slice 1's string, attn=ring then ulysses over sp:{PAR_SHARDS} "
+             f"(196 tokens: 49 a shard; 12 heads: 3 a shard), {PAR_FRAMES} frames a mode",
+        "b": f"switch-MoE encoder at Switch-Base-8 widths ({sb['d_model']}/{sb['n_heads']}/"
+             f"{sb['d_ff']}, {sb['experts']} experts, {sb['n_layers']} layers; MoE in every "
+             f"block, the encoder alone) over ep:{PAR_SHARDS} and unsharded, "
+             f"{MOE_WINDOWS} windows of {MOE_WINDOW[0]}x{MOE_WINDOW[1]} int16, bf16",
+        "c": f"GPipe at ViT-B encoder widths, {PP_CFG['n_layers']} layers in {PAR_SHARDS} "
+             f"stages over pp:{PAR_SHARDS}, batch {PP_BATCH} of {PP_CFG['seq_len']}x"
+             f"{PP_CFG['d_in']}, {PP_MICRO} microbatches, float32, {PP_BATCHES} batches",
+        "d": f"config 5 at {MESH_STREAMS} streams, int8 head, NNSTPU_MESH=dp:{PAR_SHARDS} "
+             f"({MESH_STREAMS // PAR_SHARDS} rows a shard), torch-sharded, config 1d's "
+             f"buckets {PAR_SHARDS} x {{1, 2, 4, 8}}",
+        "e": "one device-lane series a shard of (d)'s torch-sharded run",
+    }
+
+
+def shard_launch_check(tr, shards, segment_kernels):
+    """A sharded dispatch's trace: a round of ``shards x segments`` graph
+    launches (segment k of every shard, then segment k + 1), launch ``j`` of
+    a round replaying shard ``j % shards``'s segment ``j // shards``, which
+    holds one record of each kernel of ``segment_kernels[k]`` and none of
+    the others.  A launch with fewer device records than the fullest launch
+    of its segment lost them in the tracer and may lack as many path
+    records.  Returns (rounds, each kernel's records, records lost)."""
+    seg = len(segment_kernels)
+    per_round = shards * seg
+    n = len(tr["per_launch"])
+    check(n > 0 and n % per_round == 0,
+          f"{n} graph launches: not whole rounds of {shards} shards x {seg} segments")
+    full = {}
+    for j, (_, total) in enumerate(tr["per_launch"]):
+        k = (j % per_round) // shards
+        full[k] = max(full.get(k, 0), total)
+    counts, lost = {}, 0
+    for j, (rec, total) in enumerate(tr["per_launch"]):
+        k = (j % per_round) // shards
+        want = segment_kernels[k]
+        extra = {w: c for w, c in rec.items() if c > (1 if w in want else 0)}
+        check(not extra, f"graph launch {j} (segment {k}) holds {extra} kernel records")
+        missing = [w for w in want if not rec.get(w)]
+        check(len(missing) <= full[k] - total,
+              f"graph launch {j} (segment {k}) holds no record of {missing}")
+        lost += full[k] - total
+        for w, c in rec.items():
+            counts[w] = counts.get(w, 0) + c
+    return n // per_round, counts, lost
+
+
+def rows_check(np, got, want, rel):
+    """Rows against rows: within ``rel`` of the largest ``want`` value, the
+    argmax of every row equal.  Returns the largest relative difference."""
+    check(len(got) == len(want) > 0, f"{len(got)} rows against {len(want)}")
+    top = max(float(np.abs(w).max()) for w in want)
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        d = float(np.abs(a.astype(np.float64) - b).max()) / top
+        worst = max(worst, d)
+        check(d <= rel, f"row {i}: {d} of the largest value apart (tolerance {rel})")
+        check(int(np.argmax(a)) == int(np.argmax(b)), f"row {i}: argmax differs")
+    return worst
+
+
+def sharded_capture_check(stats, frames, launches, kernels, shards):
+    """A sharded path: one capture (one entry of a graph a shard and
+    segment), a replay a frame, each path kernel's wrapper called once a
+    shard in each warm-up call and in the capture."""
+    check(stats["captures"] == 1 and stats["replays"] == frames,
+          f"expected one capture and {frames} replays: {stats}")
+    calls = stats["warmup_calls"] + 1
+    want = {k: (calls * shards if k in kernels else 0) for k in KERNEL_SYMBOLS}
+    check(launches == want, f"wrapper launches {launches}, expected {want}")
+
+
+def vit_mesh_leg(torch, np, K, nns, ops, card, keep, mesh, real):
+    """(a): ViT-B/16 with ring, then Ulysses attention over the sp mesh."""
+    import dataclasses
+
+    from nnstreamer_tpu_torch.models import vit
+
+    desc_of, full = keep["vit"]
+    patch, dt = VIT_B16["patch"], torch.bfloat16
+    out = {}
+    for mode in ("ring", "ulysses"):
+        model = dataclasses.replace(full, name=f"vit_{mode}_sp{PAR_SHARDS}",
+                                    apply=lambda p, x, m=mode: vit.forward(p, x, patch, dt, m,
+                                                                           mesh, "sp"))
+        state = {}
+
+        def during(p, model=model):
+            be = p["f"].backend
+            state.update(stats=dict(be.stats),
+                         launches={k.__name__: k.launches for k in K.KERNELS},
+                         folded=not any(type(x).__name__ == "TensorTransform"
+                                        for x in p.nodes.values()))
+            xs = [torch.from_numpy(p["src"]._make_frame(i)) for i in range(PAR_REF_FRAMES)]
+            captured_against_eager(torch, be, xs, exact=True)
+            with torch.inference_mode():
+                state["logits"] = [be.invoke((x,))[0].float().cpu().numpy() for x in xs]
+                state["full"] = [full(K.fused_arith(x.cuda(), ops)).float().cpu().numpy()
+                                 for x in xs]
+                # the real device count: a mesh of the cards there are
+                one = vit.forward(full.params, K.fused_arith(xs[0].cuda(), ops), patch, dt,
+                                  mode, real, "sp")
+                state["real"] = one.float().cpu().numpy()
+
+        K.reset_launches()
+        _, arrivals, _ = run_pipeline(nns, desc_of(PAR_FRAMES), model, PAR_FRAMES,
+                                      during=during)
+        check(state["folded"], f"(a) {mode}: the normalize did not fold into the filter")
+        vit_checks(state["stats"], state["launches"], PAR_FRAMES)
+        worst, close = vit_cpu_check(np, state["logits"], state["full"], PAR_VIT_REL)
+        top1 = sum(int(a.argmax()) == int(b.argmax())
+                   for a, b in zip(state["logits"], state["full"]))
+        real_rel = float(np.abs(state["real"] - state["full"][0]).max()
+                         / np.abs(state["full"][0]).max())
+        check(real_rel <= PAR_VIT_REL, f"(a) {mode} on {real.size} real device(s): "
+                                       f"{real_rel} of the largest logit from full")
+        res = dict(mode=mode, frames=PAR_FRAMES, replays=state["stats"]["replays"],
+                   **rates(arrivals, np), capture_s=state["stats"]["capture_s"],
+                   rel_to_full=worst, top1_equal=top1, top1_by_margin=close,
+                   real_devices=real.size, real_rel_to_full=real_rel,
+                   launches=state["launches"])
+        profile_path(lambda n, model=model: traced_run(nns, desc_of(n), model, n), res,
+                     ("fused_arith",), attempts=PAR_TRACES)
+        print(f"(a) ViT-B/16 attn={mode} over sp:{PAR_SHARDS}: {PAR_FRAMES} frames, one "
+              f"capture; replays bitwise equal to eager on {PAR_REF_FRAMES} frames; logits "
+              f"within {worst:.3g} of attn=full (tolerance {PAR_VIT_REL}), top-1 equal on "
+              f"{top1} of {PAR_REF_FRAMES} ({close} decided by the margin); on the "
+              f"{real.size} real device(s) {real_rel:.3g} [{card}]", flush=True)
+        report_path(f"(a) ViT-B/16 {mode}", res, card)
+        out[mode] = res
+    return out
+
+
+def card_tree(torch, seed, d_model, n_heads, n_layers, d_ff, d_in, n_out, experts=0):
+    """Random encoder params in the JAX package's layout (``transformer.
+    init_tree``'s shapes and scales, ``parallel/moe.init_moe_tree``'s for an
+    MoE block), drawn on the card from ``seed``: numpy would take seconds
+    for Switch-Base-8's 0.48 G parameters."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def normal(shape, std):
+        return torch.randn(shape, generator=g, device=DEVICE) * std
+
+    def dense(cin, cout):
+        return {"w": normal((cin, cout), (1.0 / cin) ** 0.5), "b": torch.zeros(cout, device=DEVICE)}
+
+    def ln():
+        return {"scale": torch.ones(d_model, device=DEVICE),
+                "bias": torch.zeros(d_model, device=DEVICE)}
+
+    blocks = []
+    for _ in range(n_layers):
+        blk = {"ln1": ln(), "qkv": dense(d_model, 3 * d_model),
+               "proj": dense(d_model, d_model), "ln2": ln()}
+        if experts:
+            blk["moe"] = {"gate": dense(d_model, experts),
+                          "w1": normal((experts, d_model, d_ff), (2.0 / d_model) ** 0.5),
+                          "b1": torch.zeros(experts, d_ff, device=DEVICE),
+                          "w2": normal((experts, d_ff, d_model), (2.0 / d_ff) ** 0.5),
+                          "b2": torch.zeros(experts, d_model, device=DEVICE)}
+        else:
+            blk["ff1"], blk["ff2"] = dense(d_model, d_ff), dense(d_ff, d_model)
+        blocks.append(blk)
+    return {"embed": dense(d_in, d_model), "blocks": blocks, "ln_f": ln(),
+            "head": dense(d_model, n_out), "n_heads": n_heads}
+
+
+def moe_mesh_leg(torch, np, K, nns, card, mesh, real):
+    """(b): the switch-MoE encoder at Switch-Base-8 widths, experts over the
+    ep mesh and unsharded."""
+    import dataclasses
+
+    from nnstreamer_tpu_torch.elements.transform import _bind_chain, _parse_arith_ops
+    from nnstreamer_tpu_torch.models import transformer
+    from nnstreamer_tpu_torch.parallel import moe
+
+    sb = SWITCH_BASE
+    t0 = time.perf_counter()
+    tree = card_tree(torch, 11, sb["d_model"], sb["n_heads"], sb["n_layers"], sb["d_ff"],
+                     MOE_WINDOW[1], MOE_OUT, experts=sb["experts"])
+    base = transformer.build(seq_len=MOE_WINDOW[0], d_in=MOE_WINDOW[1], n_out=MOE_OUT,
+                             d_model=sb["d_model"], n_heads=sb["n_heads"],
+                             n_layers=sb["n_layers"], causal=False, dtype="bfloat16",
+                             params=tree, moe_experts=sb["experts"], device=DEVICE)
+    del tree
+    build_s = time.perf_counter() - t0
+    dt = torch.bfloat16
+
+    ep = dataclasses.replace(
+        base, name=f"switch_ep{PAR_SHARDS}", params=transformer.place_moe(base.params, mesh, "ep"),
+        apply=lambda p, x: transformer.apply(p, x, causal=False, dtype=dt, moe_mesh=mesh,
+                                             moe_axis="ep"))
+    models = {"ep": ep, "unsharded": base}
+    rng = np.random.default_rng(13)
+    windows = [torch.from_numpy(rng.integers(-32768, 32768, MOE_WINDOW, dtype=np.int16))
+               for _ in range(MOE_WINDOWS)]
+    desc = ("datasrc name=s ! tensor_transform mode=arithmetic "
+            f"option={MOE_NORMALIZE} acceleration=pallas ! tensor_upload name=u ! "
+            "queue max-size-buffers=16 ! tensor_filter framework=torch name=f ! "
+            "tensor_sink name=out")
+    ops = _bind_chain(_parse_arith_ops(MOE_NORMALIZE), np.dtype(np.int16))
+    out, outs = {"build_s": build_s}, {}
+    for name, model in models.items():
+        state = {}
+        got = []
+
+        def setup(p, ws=windows):
+            p["s"].data = list(ws)
+
+        def during(p):
+            torch.cuda.synchronize()  # nothing on the path reads the outputs back
+            state["end"] = time.perf_counter()
+            be = p["f"].backend
+            state.update(stats=dict(be.stats),
+                         launches={k.__name__: k.launches for k in K.KERNELS})
+            captured_against_eager(torch, be, [windows[0].cuda()], exact=True)
+
+        K.reset_launches()
+        _, arrivals, _ = run_pipeline(nns, desc, model, MOE_WINDOWS, during=during, got=got,
+                                      setup=setup)
+        vit_checks(state["stats"], state["launches"], MOE_WINDOWS)
+        outs[name] = [f.tensor(0).float().cpu().numpy() for f in got]
+        res = dict(frames=MOE_WINDOWS, replays=state["stats"]["replays"],
+                   **rates(arrivals, np, state["end"]), capture_s=state["stats"]["capture_s"],
+                   launches=state["launches"])
+        profile_path(lambda n, model=model: traced_run(nns, desc, model, n,
+                                                       setup=lambda p: setup(p, windows[:n])),
+                     res, ("fused_arith",), attempts=PAR_TRACES)
+        out[name] = res
+        report_path(f"(b) switch-MoE {name}", res, card)
+    # routing: the dropped tokens of each window (eager, the ep model)
+    dropped, layer0_equal = [], True
+    with torch.inference_mode():
+        for i, w in enumerate(windows):
+            x = K.fused_arith(w.cuda(), ops)
+            with moe.record_routes() as routes:
+                models["ep"](x)
+            dropped.append(sum(int((~r["keep"]).sum()) for r in routes))
+            if i == 0:
+                with moe.record_routes() as plain:
+                    models["unsharded"](x)
+                layer0_equal = all(torch.equal(routes[0][k], plain[0][k])
+                                   for k in ("expert", "pos", "keep"))
+                real_out = transformer.apply(base.params, x, causal=False, dtype=dt,
+                                             moe_mesh=real, moe_axis="ep")
+                real_rel = float((real_out.float() - torch.from_numpy(outs["unsharded"][0])
+                                  .cuda()).abs().max() / np.abs(outs["unsharded"][0]).max())
+    check(layer0_equal, "(b) the first layer's routing differs between ep and unsharded")
+    tokens = [a.reshape(-1, MOE_OUT) for a in outs["ep"]], \
+        [b.reshape(-1, MOE_OUT) for b in outs["unsharded"]]
+    top = max(float(np.abs(b).max()) for b in tokens[1])
+    rel = max(float(np.abs(a - b).max()) for a, b in zip(*tokens)) / top
+    share = float(np.mean(np.concatenate([a.argmax(-1) == b.argmax(-1)
+                                          for a, b in zip(*tokens)])))
+    check(rel <= MOE_REL and share >= MOE_ARGMAX_SHARE,
+          f"(b) ep:{PAR_SHARDS} against unsharded: {rel} of the largest output (tolerance "
+          f"{MOE_REL}), argmax equal on {share} of the tokens (at least {MOE_ARGMAX_SHARE})")
+    check(real_rel <= MOE_REL, f"(b) on {real.size} real device(s): {real_rel}")
+    out.update(rel_ep_to_unsharded=rel, argmax_share=share, layer0_routing_equal=layer0_equal,
+               dropped_tokens_per_window=dropped,
+               dropped_share=sum(dropped) / (MOE_WINDOWS * MOE_WINDOW[0] * SWITCH_BASE["n_layers"]),
+               real_devices=real.size, real_rel=real_rel)
+    print(f"(b) switch-MoE at Switch-Base-8 widths: ep:{PAR_SHARDS} within {rel:.3g} of the "
+          f"unsharded run (tolerance {MOE_REL}), argmax equal on {share:.4f} of the tokens, "
+          f"the first layer's routing equal; dropped tokens a window over its "
+          f"{SWITCH_BASE['n_layers']} MoE layers {dropped}; build {build_s:.1f} s [{card}]",
+          flush=True)
+    return out
+
+
+def gpipe_mesh_leg(torch, np, K, nns, card, mesh, real):
+    """(c): build_pipelined at ViT-B's encoder widths against the
+    sequential apply on the same tree."""
+    from nnstreamer_tpu_torch.models import transformer
+
+    c = PP_CFG
+    tree = card_tree(torch, 17, c["d_model"], c["n_heads"], c["n_layers"], 4 * c["d_model"],
+                     c["d_in"], c["n_out"])
+    kw = dict(seq_len=c["seq_len"], d_in=c["d_in"], n_out=c["n_out"], d_model=c["d_model"],
+              n_heads=c["n_heads"], n_layers=c["n_layers"], batch=PP_BATCH,
+              microbatches=PP_MICRO, causal=False, params=tree, device=DEVICE)
+    model = transformer.build_pipelined(mesh, "pp", **kw)
+    seq = transformer.prepare(tree, torch.float32, DEVICE)
+    rng = np.random.default_rng(19)
+    batches = [torch.from_numpy(rng.standard_normal((PP_BATCH, c["seq_len"], c["d_in"]))
+                                .astype(np.float32)) for _ in range(PP_BATCHES)]
+    desc = ("datasrc name=s ! tensor_upload name=u ! queue ! tensor_filter framework=torch "
+            "name=f ! tensor_sink name=out")
+    state, got = {}, []
+
+    def setup(p, bs=batches):
+        p["s"].data = list(bs)
+
+    def during(p):
+        torch.cuda.synchronize()  # nothing on the path reads the outputs back
+        state["end"] = time.perf_counter()
+        be = p["f"].backend
+        state.update(stats=dict(be.stats), launches={k.__name__: k.launches for k in K.KERNELS})
+        captured_against_eager(torch, be, [b.cuda() for b in batches[:2]], exact=True)
+
+    K.reset_launches()
+    _, arrivals, _ = run_pipeline(nns, desc, model, PP_BATCHES, during=during, got=got,
+                                  setup=setup)
+    stats = state["stats"]
+    check(stats["captures"] == 1 and stats["replays"] == PP_BATCHES, f"(c) {stats}")
+    check(all(v == 0 for v in state["launches"].values()),
+          f"(c) a kernel launched off this path: {state['launches']}")
+    with torch.inference_mode():
+        wants = [transformer.apply(seq, b.cuda(), causal=False).cpu().numpy()
+                 for b in batches[:2]]
+        one = transformer.build_pipelined(real, "pp", **kw)  # the real device count
+        real_rel = float(np.abs(one(batches[0].cuda()).cpu().numpy() - wants[0]).max()
+                         / np.abs(wants[0]).max())
+    rel = rows_check(np, [r for f in got[:2] for r in f.tensor(0).cpu().numpy()
+                          .reshape(-1, c["n_out"])],
+                     [r for w in wants for r in w.reshape(-1, c["n_out"])], PP_REL)
+    check(real_rel <= PP_REL, f"(c) on {real.size} real device(s): {real_rel}")
+    res = dict(batches=PP_BATCHES, replays=stats["replays"], **rates(arrivals, np, state["end"]),
+               capture_s=stats["capture_s"], rel_to_sequential=rel, real_devices=real.size,
+               real_rel=real_rel)
+    tr = traced_run(nns, desc, model, PROFILED,
+                    setup=lambda p: setup(p, [batches[i % PP_BATCHES] for i in range(PROFILED)]))
+    launches = tr["calls"].get("cudaGraphLaunch", 0) + tr["calls"].get("cuGraphLaunch", 0)
+    check(launches == PROFILED and not any(tr["records"].values()),
+          f"(c) {launches} graph launches for {PROFILED} batches, kernel records "
+          f"{tr['records']} (none of the three on this path)")
+    busy = tr["busy_ms"] / PROFILED
+    res.update(device_busy_ms_per_batch=busy, device_idle_share=1 - busy * res["fps"] / 1e3,
+               tokens_per_s=res["fps"] * PP_BATCH * c["seq_len"],
+               device_records_per_launch=max(t for _, t in tr["per_launch"]),
+               host_ops_per_batch=host_ops(tr["calls"]) / PROFILED)
+    print(f"(c) GPipe at ViT-B widths over pp:{PAR_SHARDS}: {PP_BATCHES} batches, one capture; "
+          f"replays bitwise equal to eager; within {rel:.3g} of the sequential apply "
+          f"(tolerance {PP_REL}), every token's argmax equal; {res['fps']} batches/s, device "
+          f"busy {busy} ms a batch, idle share {res['device_idle_share']} [{card}]", flush=True)
+    return res
+
+
+def mesh_frames(np, torch, Frame, rng, n, rounds):
+    """Config 5's frames under the mesh: stream i is 127 plus uniform noise
+    of MESH_CONTRAST[i], so that each shard's activations peak apart."""
+    return [[Frame.of(torch.from_numpy(np.clip(127 + rng.integers(
+        -MESH_CONTRAST[i], MESH_CONTRAST[i] + 1, (IMAGE, IMAGE, 3)), 0, 255).astype(np.uint8)),
+        pts=r) for r in range(rounds)] for i in range(n)]
+
+
+def dispatch_mesh_leg(torch, np, K, nns, ops, card, keep):
+    """(d) and (e): config 5 and config 1d under NNSTPU_MESH=dp:4, the
+    torch-sharded backend, the device lane's series a shard, and the clamp
+    of NNSTPU_MESH=auto on the real cards."""
+    from nnstreamer_tpu_torch.buffer import Frame
+    from nnstreamer_tpu_torch.obs.device import DeviceTracer
+    from nnstreamer_tpu_torch.obs.export import render_text
+    from nnstreamer_tpu_torch.obs.metrics import MetricsRegistry
+    from nnstreamer_tpu_torch.parallel import mesh as pmesh
+
+    ckpt = keep["batch"]["ckpt"]
+    n, shards = MESH_STREAMS, PAR_SHARDS
+    builder = "build_quantized,int8_head=1"
+    desc = batch_desc(n, ckpt, builder)
+    rng = np.random.default_rng(23)
+    frames = mesh_frames(np, torch, Frame, rng, n, MESH_ROUNDS)
+    kernels = ("fused_arith", "int8_matmul")
+    out = {}
+
+    def set_mesh(spec):
+        if spec is None:
+            os.environ.pop("NNSTPU_MESH", None)
+        else:
+            os.environ["NNSTPU_MESH"] = spec
+        pmesh.reset_dispatch_mesh()
+
+    state = {}
+
+    def during(p):
+        be = p["f"].backend
+        state.update(stats=dict(be.stats), launches={k.__name__: k.launches for k in K.KERNELS},
+                     folded=not any(type(x).__name__ == "TensorTransform"
+                                    for x in p.nodes.values()),
+                     segments=getattr(be._entry, "segments", 0),
+                     shards=len(getattr(be._entry, "devs", ())))
+        with torch.inference_mode():
+            state["eager"] = [be.eager(torch.stack([frames[i][r].tensor(0) for i in range(n)])
+                                       .cuda())[0].cpu().numpy() for r in range(MESH_EAGER)]
+
+    walls, t0 = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        walls[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    try:
+        set_mesh(f"dp:{shards}")
+        K.reset_launches()
+        _, got, arrivals, _ = run_batch(nns, torch, desc, n, frames, during=during)
+        lap("config5")
+        check(state["folded"], "(d): the normalize did not fold into the filter")
+        check(state["segments"] == 2 and state["shards"] == shards,
+              f"(d): {state['shards']} shards of {state['segments']} segments, expected "
+              f"{shards} of 2 (the int8 head's scale is a collective)")
+        sharded_capture_check(state["stats"], MESH_ROUNDS, state["launches"], kernels, shards)
+        stream_check(np, {i: f[:MESH_EAGER] for i, f in got.items()}, state["eager"], MESH_EAGER)
+        rows = [got[i][r] for r in range(MESH_ROUNDS) for i in range(n)]
+        r = rates(arrivals, np)
+        res = dict(streams=n, shards=shards, rounds=MESH_ROUNDS, fps=r["fps"],
+                   frames_per_s=r["fps"] * n, p50_ms=r["p50_ms"], p90_ms=r["p90_ms"],
+                   capture_s=state["stats"]["capture_s"], launches=state["launches"],
+                   fused_arith_folded_per_shard=True)
+        tr = run_batch(nns, torch, desc, n, mesh_frames(np, torch, Frame, rng, n, PROFILED),
+                       traced=True)[3]
+        rounds, counts, lost = shard_launch_check(tr, shards, [("fused_arith",),
+                                                               ("int8_matmul",)])
+        check(rounds == PROFILED, f"(d): {rounds} rounds of graph launches for {PROFILED}")
+        check(counts.get("fused_arith", 0) + lost >= PROFILED * shards
+              and counts.get("int8_matmul", 0) + lost >= PROFILED * shards,
+              f"(d): kernel records {counts} over {PROFILED} rounds of {shards} shards")
+        lap("config5_trace")
+        busy = tr["busy_ms"] / PROFILED
+        res.update(kernel_records=counts, records_lost_by_tracer=lost,
+                   graph_launches_per_round=len(tr["per_launch"]) / PROFILED,
+                   fused_arith_records_per_round=counts.get("fused_arith", 0) / PROFILED,
+                   int8_matmul_records_per_round=counts.get("int8_matmul", 0) / PROFILED,
+                   device_busy_ms_per_round=busy, device_idle_share=1 - busy * r["fps"] / 1e3,
+                   host_ops_per_round=host_ops(tr["calls"]) / PROFILED)
+
+        # the same frames through torch-sharded, with (e): the device lane,
+        # one series a shard
+        set_mesh(None)
+        sdesc = desc.replace("framework=torch ", "framework=torch-sharded ").replace(
+            f"custom=builder={builder}", f"custom=builder={builder},devices={shards},axis=dp")
+        reg = MetricsRegistry()
+        tracer = DeviceTracer(registry=reg)
+        _, sgot, _, _ = run_batch(
+            nns, torch, sdesc, n, frames, setup=lambda p: p.attach_tracer(tracer),
+            during=lambda p: wait_until(lambda: tracer.summary()["completed"] >= MESH_ROUNDS,
+                                        30, "(e): the reaper"))
+        check(all(np.array_equal(a.view(np.uint32), b.view(np.uint32))
+                  for i in range(n) for a, b in zip(sgot[i], got[i])),
+              "(d): torch-sharded's rows differ from the dispatch mesh's")
+        summ = tracer.summary()
+        labels = sorted(summ["by_device"])
+        series = [ln for ln in render_text(reg).splitlines()  # the histogram's count a series
+                  if ln.split("{")[0] == "nnstpu_device_exec_seconds" + "_count"]
+        check(labels == [f"cuda:{i}" for i in range(shards)] and len(series) == shards
+              and summ["completed"] == summ["dispatches"] == MESH_ROUNDS,
+              f"(e): devices {labels}, {len(series)} series, {summ['completed']} of "
+              f"{summ['dispatches']} reaped")
+        res["device_lane"] = {lb: summ["by_device"][lb] for lb in labels}
+        lap("torch_sharded_device_lane")
+        _, ugot, _, _ = run_batch(nns, torch, desc, n, frames)
+        urows = [ugot[i][r] for r in range(MESH_ROUNDS) for i in range(n)]
+        rel = rows_check(np, rows, urows, BATCH_INT8_LOGIT_REL)
+        lap("unsharded")
+        scale_check = batch_scale_check(torch, np, K, ops, ckpt, frames, n, shards)
+        lap("scale_check")
+        res.update(rel_to_unsharded=rel, **scale_check)
+        print(f"(d) config 5, {n} streams, int8 head, NNSTPU_MESH=dp:{shards}: {MESH_ROUNDS} "
+              f"rounds, one capture of {shards} shards x 2 segments (the int8 head's scale "
+              f"reduced between them); rows bit for bit the sharded eager forward and "
+              f"torch-sharded's, within {rel:.3g} of the unsharded filter (tolerance "
+              f"{BATCH_INT8_LOGIT_REL}), top-1 equal; the shards' int8 activations and scale "
+              f"bit for bit the whole batch's (shard maxima {res['shard_scales']}, a per-shard "
+              f"scale would move a row by {res['per_shard_scale_control']:.3g} of its own "
+              f"largest logit); {res['graph_launches_per_round']} graph launches, "
+              f"{res['fused_arith_records_per_round']} fused_arith and "
+              f"{res['int8_matmul_records_per_round']} int8_matmul records a round (the "
+              f"normalize folded into each shard's capture); {res['frames_per_s']} frames/s, "
+              f"busy {busy} ms a round [{card}]", flush=True)
+        print(f"(e) device lane: one series a shard, {res['device_lane']} [{card}]", flush=True)
+        out["config5"] = res
+
+        # config 1d under the mesh: buckets shards x {1, 2, 4, 8}
+        set_mesh(f"dp:{shards}")
+        os.environ["NNSTPU_COMPILE_WARMUP"] = "1"
+        try:
+            out["config1d"] = dyn_mesh_run(torch, np, K, nns, keep, card, shards)
+        finally:
+            os.environ.pop("NNSTPU_COMPILE_WARMUP", None)
+        lap("config1d")
+        out["wall_s"] = walls
+
+        # NNSTPU_MESH=auto on the real cards: off with one, as in the reference
+        pmesh.force_device_count(None)
+        set_mesh("auto")
+        real = len(pmesh.visible_devices())
+        got_ndev = pmesh.dispatch_mesh_devices()
+        check(got_ndev == (real if real > 1 else 1),
+              f"NNSTPU_MESH=auto on {real} device(s): a mesh of {got_ndev}")
+        out["auto_on_real_cards"] = got_ndev
+    finally:
+        set_mesh(None)
+    return out
+
+
+def batch_scale_check(torch, np, K, ops, ckpt, frames, n, shards):
+    """The int8 head's collective on the card: the first round's features
+    quantized as ``shards`` shards of one sharded call (``ShardRun``, the
+    phase runner of the sharded capture) give each shard the whole batch's
+    scale and int8 activations, bit for bit; the shards' own maxima differ
+    (else the frames would not exercise the reduction).  Also the control:
+    how far a per-shard scale moves a row, relative to the row's largest
+    logit."""
+    from nnstreamer_tpu_torch.backends.sharded import ShardRun
+    from nnstreamer_tpu_torch.models import mobilenet_v2
+    from nnstreamer_tpu_torch.ops.quant import quantize_activations
+    from nnstreamer_tpu_torch.utils.checkpoint import load_state
+
+    model = mobilenet_v2.build_quantized(params=load_state(ckpt), int8_head=True,
+                                         image_size=IMAGE, device=DEVICE)
+    with torch.inference_mode():
+        x = torch.stack([K.fused_arith(frames[i][0].tensor(0).cuda(), ops) for i in range(n)])
+        feats = mobilenet_v2.features(model.params, x, torch.bfloat16).float()
+        parts = feats.chunk(shards)
+        dev = feats.device
+        got = ShardRun([quantize_activations] * shards, [(f,) for f in parts],
+                       [dev] * shards).run()
+        q_all, s_all = quantize_activations(feats)
+        own = [float(quantize_activations(f)[1]) for f in parts]
+        whole = model(x).cpu().numpy()
+        per_shard = torch.cat([model(c) for c in x.chunk(shards)]).cpu().numpy()
+    check(all(torch.equal(s, s_all) for _, s in got)
+          and torch.equal(torch.cat([q for q, _ in got]), q_all),
+          "(d): a shard's int8 activations or scale differ from the whole batch's")
+    check(len(set(own)) > 1, f"(d): the shards' own scales {own} are all equal: these frames "
+                             "do not exercise the reduction")
+    control = max(float(np.abs(a - b).max()) / max(float(np.abs(a).max()),
+                                                    float(np.abs(b).max()), 1e-30)
+                  for a, b in zip(per_shard, whole))
+    return dict(batch_scale=float(s_all), shard_scales=own, per_shard_scale_control=control)
+
+
+def dyn_mesh_run(torch, np, K, nns, keep, card, shards):
+    """Config 1d under the dispatch mesh: every bucket shards x {1, 2, 4, 8}
+    captured before PLAYING (a graph a shard a bucket) and nothing after,
+    every frame out once in pts order, each batch's rows the sharded eager
+    forward of the same rows bit for bit."""
+    from nnstreamer_tpu_torch.buffer import Frame
+
+    poly, dyn_frames = keep["batch"]["poly"], keep["batch"]["dyn_frames"]
+    batches = []
+    p = nns.parse_launch(dyn_desc())
+    p["s"].data = [Frame.of(x, pts=i) for i, x in enumerate(dyn_frames)]
+    p["f"].model = poly
+    push = p["dyn"].push
+
+    def recording_push(frame, pad_name=None):
+        batches.append((list(frame.meta["dynbatch"]["pts"]), int(frame.tensors[0].shape[0])))
+        push(frame, pad_name)
+
+    p["dyn"].push = recording_push
+    got = []
+    p["out"].connect("new-data", lambda f: got.append((f.pts, f.tensor(0).numpy())))
+    K.reset_launches()
+    p.start()
+    try:
+        be = p["f"].backend
+        before = be.stats["captures"]
+        check(p.wait(600), "config 1d under the mesh did not finish")
+        after = be.stats["captures"]
+        eager = {}
+        with torch.inference_mode():
+            for pts, b in batches:
+                x = torch.stack([dyn_frames[i] for i in pts]
+                                + [dyn_frames[pts[-1]]] * (b - len(pts))).cuda()
+                eager[tuple(pts)] = be.eager(x)[0].cpu().numpy()
+        report = p.warmup_report
+    finally:
+        p.stop()
+    ladder_ = [shards * b for b in ladder(DYN_MAX_BATCH)]
+    check(before == len(ladder_) + 1 and after == before,
+          f"config 1d: {before} captures before the first frame (the ladder {ladder_} and "
+          f"the negotiated batch of 1), {after - before} while PLAYING")
+    check([c["label"] for c in report["compiled"]] == [f"bucket{b}" for b in ladder_],
+          f"config 1d's warmup report {report}")
+    buckets = [b for _, b in batches]
+    check(all(b in ladder_ for b in buckets), f"config 1d buckets {sorted(set(buckets))}")
+    pts_out = [pts for pts, _ in got]
+    check(pts_out == sorted(pts_out) == list(range(len(dyn_frames))),
+          "config 1d: frames out of order or missing")
+    by_pts = dict(got)
+    for pts, b in batches:
+        for j, f in enumerate(pts):
+            check(np.array_equal(by_pts[f].view(np.uint32), eager[tuple(pts)][j].view(np.uint32)),
+                  f"config 1d frame {f} (bucket {b}): the replay's row differs from the "
+                  "sharded eager forward")
+    launches = {k.__name__: k.launches for k in K.KERNELS}
+    res = dict(frames=len(dyn_frames), batches=len(buckets),
+               buckets={str(b): buckets.count(b) for b in ladder_},
+               captures_before_playing=before, warmup_s=report["seconds"], launches=launches)
+    print(f"config 1d under dp:{shards}: {len(dyn_frames)} frames, {before} captures before "
+          f"the first frame (buckets {ladder_} a graph a shard, and the negotiated batch of "
+          f"1), none while PLAYING; rows bit for bit the sharded eager forward; buckets "
+          f"{res['buckets']} [{card}]", flush=True)
+    return res
+
+
+def parallel_phase(torch, np, K, ops, root, card, keep):
+    """Phase 30, the mesh: (a) to (e) over a forced mesh of PAR_SHARDS
+    copies of the card, each in-model leg also on the real device count."""
+    import nnstreamer_tpu_torch as nns
+    from nnstreamer_tpu_torch.parallel import mesh as pmesh
+
+    for leg, what in parallel_legs().items():
+        print(f"mesh leg ({leg}): {what}", flush=True)
+    t0 = time.perf_counter()
+    real = pmesh.visible_devices()  # the cards there are
+    pmesh.force_device_count(PAR_SHARDS)
+    try:
+        launches, res = {}, {}
+        K.reset_launches()
+        res["vit"] = vit_mesh_leg(torch, np, K, nns, ops, card, keep,
+                                  pmesh.make_mesh((PAR_SHARDS,), ("sp",)),
+                                  pmesh.make_mesh((len(real),), ("sp",), real))
+        for mode in ("ring", "ulysses"):
+            launches[f"mesh_vit_{mode}"] = res["vit"][mode]["launches"]
+        t1 = time.perf_counter()
+        res["moe"] = moe_mesh_leg(torch, np, K, nns, card,
+                                  pmesh.make_mesh((PAR_SHARDS,), ("ep",)),
+                                  pmesh.make_mesh((len(real),), ("ep",), real))
+        for name in ("ep", "unsharded"):
+            launches[f"mesh_moe_{name}"] = res["moe"][name]["launches"]
+        t2 = time.perf_counter()
+        res["gpipe"] = gpipe_mesh_leg(torch, np, K, nns, card,
+                                      pmesh.make_mesh((PAR_SHARDS,), ("pp",)),
+                                      pmesh.make_mesh((len(real),), ("pp",), real))
+        t3 = time.perf_counter()
+        res["dispatch"] = dispatch_mesh_leg(torch, np, K, nns, ops, card, keep)
+        launches["mesh_config5"] = res["dispatch"]["config5"]["launches"]
+        launches["mesh_config1d"] = res["dispatch"]["config1d"]["launches"]
+    finally:
+        pmesh.force_device_count(None)
+    res["wall_s"] = dict(vit=t1 - t0, moe=t2 - t1, gpipe=t3 - t2,
+                         dispatch=time.perf_counter() - t3, total=time.perf_counter() - t0)
+    print(f"mesh phase wall s: {res['wall_s']} [{card}]", flush=True)
+    return launches, res
+
+
 def _conv_dicts(tree):
     """Every dict of a params tree that holds a weight ``"w"``, in order."""
     if isinstance(tree, dict):
@@ -7403,6 +8158,7 @@ def main() -> int:
     print("TF32 off for cuDNN convs and matmuls", flush=True)
 
     t0 = time.perf_counter()
+    phase("build")
     logs = build.build_all()
     build_s = time.perf_counter() - t0
     print(f"kernels built in {build_s:.3f} s ({', '.join(build.SOURCES)})", flush=True)
@@ -7423,79 +8179,114 @@ def main() -> int:
     check(ptxas["max_stack_bytes"] == 0 and ptxas["spill_bytes"] == 0,
           f"fused_arith has a stack frame or spills: {ptxas}")
 
+    phase("kernel")
     kernels = kernel_phase(torch, np, K, bind, jax_pkg)
     kernels["fused_arith"]["ptxas"] = ptxas
     ops = bind(NORMALIZE, np.dtype(np.uint8))
+    phase("batch_kernel")
     kernels["int8_matmul"]["at_m"], kernels["fused_arith"]["at_batch"] = batch_kernel_phase(
         torch, np, K, ops, jax_pkg)
     audio_ops = bind(AUDIO_NORMALIZE, np.dtype(np.int16))
+    phase("graph_kernel")
     in_graph = graph_kernel_phase(torch, np, K, ops, audio_ops, bind)
     slices = {}
+    phase("slice")
     by_path = {"image_labeling": slice_phase(torch, np, K, ops, root, card, slices)}
+    phase("detection")
     by_path["object_detection"] = detection_phase(torch, np, K, ops, root, card, slices)
+    phase("obs")
     observed = obs_phase(torch, np, slices, root, card)
+    phase("audio")
     by_path["audio"] = audio_phase(torch, np, K, audio_ops, root, card)
+    phase("upload_wait")
     upload_wait = upload_wait_phase(torch, np)
+    phase("model_file")
     by_path["model_file"] = model_file_phase(torch, np, K, ops, root, card)
+    phase("torchscript")
     torchscript = torchscript_phase(torch, np, K, ops, root)
+    phase("drift")
     drift = drift_phase(torch, np, K, ops, bind)
+    phase("custom_so")
     custom_so = custom_so_phase(torch, np, root)
+    phase("quant")
     by_path["quant"], by_path["quant_int8_head"], by_path["quant_ssd"] = quant_phase(
         torch, np, K, ops, root, card, by_path["image_labeling"][1]["device_busy_ms_per_frame"])
     t1 = time.perf_counter()
+    phase("pose")
     by_path["pose"], pose_heatmaps, pose_int8 = pose_phase(torch, np, K, ops, root, card)
     t2 = time.perf_counter()
+    phase("recurrence")
     by_path["lstm"], lstm_seq = recurrence_phase(torch, np, K, root, card)
     t3 = time.perf_counter()
+    phase("batch")
     batched = batch_phase(torch, np, K, ops, root, card, slices)
     for key in ("config5_n4", "config5_n8", "config1d"):
         by_path[key] = (batched[key]["launches"], batched[key])
     t4 = time.perf_counter()
+    phase("cascade")
     launches, config2c, config2c_more = cascade_phase(torch, np, K, ops, root, card)
     by_path["config2c"] = (launches, config2c)
     by_path["config2c_dynbatch"] = (config2c_more["launches"], config2c_more)
     by_path["crop_cascade"] = (config2c_more["element_cascade"]["launches"], {})
     t5 = time.perf_counter()
+    phase("app")
     app, app_launches = app_phase(torch, np, K, ops, root, card)
     by_path["app"] = (app["launches"], app)
     for key, counts in app_launches.items():
         by_path[key] = (counts, {})
     t6 = time.perf_counter()
+    phase("vit")
     by_path["vit"], by_path["vit_w8a8"] = vit_phase(torch, np, K, ops, root, card, slices)
     t7 = time.perf_counter()
     K.reset_launches()
+    phase("decode")
     by_path["config4c"], decode_tree = decode_phase(torch, np, K, root, card)
     t8 = time.perf_counter()
     K.reset_launches()
+    phase("serving")
     config4d = serving_phase(torch, np, card, decode_tree,
                              by_path["config4c"][1]["steps_per_s"])
     by_path["config4d"] = ({k.__name__: k.launches for k in K.KERNELS}, config4d)
     t9 = time.perf_counter()
+    phase("recovery")
     by_path["recovery"] = recovery_phase(torch, np, K, root, card, slices)
     t10 = time.perf_counter()
+    phase("device_lane")
     by_path["device_lane"] = device_lane_phase(torch, np, K, root, card, slices,
                                                by_path["vit"][1]["busy_share_of_bf16_peak"])
     t11 = time.perf_counter()
+    phase("lanes")
     by_path["lanes"] = lanes_phase(torch, np, K, root, card, slices)
     t12 = time.perf_counter()
+    phase("profile")
     by_path["profile"] = profile_phase(torch, np, K, root, card, slices,
                                        by_path["image_labeling"][1]["device_busy_ms_per_frame"])
     t13 = time.perf_counter()
+    phase("train")
     by_path["train"] = train_phase(torch, np, K, ops, root, card, slices)
     t14 = time.perf_counter()
     slices["decode_tree"] = decode_tree
+    phase("query")
     by_path["query"] = query_phase(torch, np, K, root, card, slices)
     t15 = time.perf_counter()
+    phase("c16")
     by_path["c16"] = c16_phase(torch, np, K, ops, card)
     t16 = time.perf_counter()
+    phase("stream")
     by_path["stream"] = stream_phase(torch, np, K, root, card, slices)
+    t17 = time.perf_counter()
+    phase("parallel")
+    mesh_launches, mesh = parallel_phase(torch, np, K, ops, root, card, slices)
+    for key, counts in mesh_launches.items():
+        by_path[key] = (counts, {})
+    faulthandler.cancel_dump_traceback_later()
     print(f"phase wall s: up to the quant phase {t1 - t0:.3f}, pose {t2 - t1:.3f}, "
           f"recurrence {t3 - t2:.3f}, batch {t4 - t3:.3f}, cascade {t5 - t4:.3f}, "
           f"app {t6 - t5:.3f}, vit {t7 - t6:.3f}, config 4c {t8 - t7:.3f}, "
           f"config 4d {t9 - t8:.3f}, recovery {t10 - t9:.3f}, "
           f"device lane {t11 - t10:.3f}, lanes {t12 - t11:.3f}, profile {t13 - t12:.3f}, "
           f"train {t14 - t13:.3f}, query {t15 - t14:.3f}, C16 {t16 - t15:.3f}, "
-          f"stream {time.perf_counter() - t16:.3f}; "
+          f"stream {t17 - t16:.3f}, mesh {time.perf_counter() - t17:.3f}; "
           f"the script {time.perf_counter() - t0:.3f} after the import", flush=True)
     wrapper = {"fused_arith": "fused_arith", "int8_matmul": "int8_matmul",
                "nms_keep": "pallas_nms_keep"}
@@ -7523,7 +8314,8 @@ def main() -> int:
                       "device_lane": by_path["device_lane"][1],
                       "lanes": by_path["lanes"][1], "profile": by_path["profile"][1],
                       "train": by_path["train"][1], "query": by_path["query"][1],
-                      "c16": by_path["c16"][1], "stream": by_path["stream"][1]}),
+                      "c16": by_path["c16"][1], "stream": by_path["stream"][1],
+                      "mesh": mesh}),
           flush=True)
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

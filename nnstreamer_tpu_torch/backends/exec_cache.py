@@ -3,9 +3,12 @@
 The port's counterpart of the JAX package's ``backends/exec_cache.py``.
 The torch backend captures the filter's function once per negotiated
 geometry as a ``torch.cuda.CUDAGraph`` (``backends/torch_backend.py``) and
-keeps the captures in an in-memory LRU keyed by the input spec and
-:func:`fingerprint`: the wrapper's stage descriptors, the model's
-parameter shapes and dtypes, and a hash of the ``csrc/`` kernel sources.
+keeps the captures in an in-memory LRU keyed by the input spec,
+:func:`fingerprint` (the wrapper's stage descriptors, the model's
+parameter shapes and dtypes, and a hash of the ``csrc/`` kernel sources)
+and the dispatch mesh (``parallel/mesh.mesh_cache_key``: a geometry
+captured over a mesh is another entry than the same geometry on one
+device).
 A capture whose function changed is therefore never selected again; it
 ages out of the LRU.
 

@@ -74,6 +74,18 @@ the fused post-stages (a decoder's device head among them) in one call, so
 one replay takes a frame from its raw stream tensors to the filter's last
 output.  ``segment_label`` names the folded region.
 
+With the dispatch mesh (``[mesh] spec`` / ``NNSTPU_MESH=dp:4``,
+``parallel/mesh.py``) a geometry whose every leading dim divides the mesh
+is dispatched batch-sharded (``backends/sharded.py``): each shard of the
+batch runs on its mesh device, captured as one graph a shard (with a
+segment a collective, such as the int8 head's batch-wide scale), and the
+outputs are joined on the mesh's first device; a geometry that does not
+divide takes the single-device capture, as in the reference.  Captures are
+keyed by the mesh too.  ``framework=torch-sharded`` with
+``custom="devices=N,axis=dp"`` is the per-filter spelling, the counterpart
+of ``jax-sharded``: its mesh wins over the global one and it shards every
+geometry.  On the CPU a sharded dispatch runs the shards eagerly.
+
 Models (:meth:`TorchBackend.open`): a :class:`TorchModel`, an
 ``nn.Module`` or a callable; or a path, as a launch string names it with
 ``model=``:
@@ -104,6 +116,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import copy
 import dataclasses
 import importlib
 import importlib.util
@@ -118,6 +131,7 @@ from .. import faults as _faults
 from ..conf import conf
 from ..device import resolve_device
 from ..graph.node import NegotiationError
+from ..obs.launch_gate import launching
 from ..pool import wait_ready
 from ..spec import TensorsSpec, numpy_dtype, torch_dtype
 from . import exec_cache
@@ -132,7 +146,9 @@ class TorchModel:
     """A model as the backend sees it: ``apply(params, *inputs)`` (an
     ``nn.Module`` works as ``apply`` with ``params=None``), its params, the
     declared input spec (``None`` dims are fixed at negotiation), the output
-    spec when known, and the device the params live on."""
+    spec when known, and the device the params live on.  ``capturable``
+    False: the function runs eagerly on the card, never captured (a model
+    whose mesh spans more than one card, ``parallel/mesh.on_one_device``)."""
 
     apply: Callable
     params: Any = None
@@ -140,6 +156,7 @@ class TorchModel:
     output_spec: Optional[TensorsSpec] = None
     name: str = "torch_model"
     device: Any = "cuda"
+    capturable: bool = True
 
     def __call__(self, *xs):
         if isinstance(self.apply, torch.nn.Module):
@@ -247,7 +264,8 @@ class CapturedGraph:
                 raise ValueError(f"captured for {s.dtype}{tuple(s.shape)}, "
                                  f"got {x.dtype}{tuple(x.shape)}")
             s.copy_(x, non_blocking=True)
-        self.graph.replay()
+        with launching():
+            self.graph.replay()
         return tuple(o.clone() for o in self.static_out)
 
 
@@ -339,6 +357,32 @@ def capture_graph(fn: Callable, in_spec: TensorsSpec, device: torch.device,
                          pool_bytes=pool_bytes(graph, device))
 
 
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether two devices are one (``cuda`` with no index is the current
+    card)."""
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return True
+    cur = torch.cuda.current_device()
+    return (a.index if a.index is not None else cur) == (b.index if b.index is not None else cur)
+
+
+def _to_device(obj, device: torch.device):
+    """A params tree's copy on ``device``: tensors moved, containers and
+    dataclass leaves (``QuantizedWeight``) rebuilt, anything else kept."""
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device)
+    if isinstance(obj, dict):
+        return {k: _to_device(v, device) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_device(v, device) for v in obj)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(obj, **{f.name: _to_device(getattr(obj, f.name), device)
+                                          for f in dataclasses.fields(obj)})
+    return obj
+
+
 def _nbytes(obj) -> int:
     """Bytes of every tensor in a params tree (dicts, lists, tuples,
     objects with attributes, ``nn.Module`` state)."""
@@ -358,8 +402,10 @@ def _nbytes(obj) -> int:
 @register_backend("torch")
 class TorchBackend(FilterBackend):
     # None: capture on CUDA, eager on the CPU.  A test may install a
-    # function of the same signature as capture_graph.
+    # function of the same signature as capture_graph (and, for a sharded
+    # geometry, one of the signature of sharded.capture_sharded).
     capture: Optional[Callable] = None
+    capture_sharded: Optional[Callable] = None
     # where models from files and bare callables live; None: conf's
     # [filter] torch_device
     pinned_device: Optional[str] = None
@@ -388,6 +434,13 @@ class TorchBackend(FilterBackend):
         self._cost_keys: dict = {}  # LRU key -> cost registry key
         self._hbm: dict = {}  # LRU key -> its capture's memory record on that entry
         self._cost_key: Optional[str] = None  # the active capture's
+        # the dispatch mesh of the active geometry (None: one device), its
+        # batch axis, the function's replica a mesh device, and the last
+        # dispatch's shards: [(label, [(begin, end) event pairs] or None)]
+        self._mesh = None
+        self._mesh_axis = "dp"
+        self._replicas: dict = {}
+        self.last_shards: Optional[list] = None
 
     def _file_device(self) -> str:
         return self.pinned_device or conf.get("filter", "torch_device")
@@ -438,6 +491,9 @@ class TorchBackend(FilterBackend):
         self._fn = None
         self._entry = None
         self._expected = None
+        self._mesh = None
+        self._replicas = {}
+        self.last_shards = None
         self._drop_graphs()  # the graphs and their private memory pools go
         self._cost_key = None
 
@@ -486,6 +542,7 @@ class TorchBackend(FilterBackend):
         self._expected = None
         if wrapper is None:
             self._drift_hook = None
+        self._replicas = {}
         if self.model is not None:
             self._fn = wrapper(self.model) if wrapper is not None else self.model
 
@@ -521,18 +578,107 @@ class TorchBackend(FilterBackend):
     # -- captures -----------------------------------------------------------
 
     def _capture_fn(self) -> Optional[Callable]:
+        if not getattr(self.model, "capturable", True):
+            return None
         if self.capture is not None:
             return self.capture
         return capture_graph if self.device.type == "cuda" else None
 
-    def _key(self, in_spec: TensorsSpec) -> tuple:
-        """The LRU key: the input spec, the segment label and the
-        fingerprint of the function."""
+    def _key(self, in_spec: TensorsSpec, mesh=None) -> tuple:
+        """The LRU key: the input spec, the segment label, the fingerprint
+        of the function and the mesh (``parallel/mesh.mesh_cache_key``)."""
+        from ..parallel.mesh import mesh_cache_key
+
         if self._fingerprint is None:
             self._fingerprint = exec_cache.fingerprint([self._stages, self.model.name],
                                                        self._param_tree())
         spec_key = tuple((numpy_dtype(t.dtype).str, tuple(t.shape)) for t in in_spec.tensors)
-        return spec_key, self.segment_label, self._fingerprint
+        return spec_key, self.segment_label, self._fingerprint, mesh_cache_key(mesh)
+
+    # -- sharded dispatch over the mesh ------------------------------------------
+
+    def _mesh_config(self):
+        """``(mesh, axis)`` this backend shards dispatch over, or ``(None,
+        axis)``: the process-wide dispatch mesh (``parallel/mesh.py``), when
+        it lies on the model's kind of device."""
+        from ..parallel.mesh import dispatch_mesh, dispatch_mesh_axis
+
+        mesh = dispatch_mesh()
+        if mesh is None or self.device is None \
+                or mesh.devices.flat[0].type != self.device.type:
+            return None, "dp"
+        return mesh, dispatch_mesh_axis()
+
+    def mesh_devices(self) -> int:
+        """The device count of this backend's dispatch mesh (1: unsharded);
+        the batch elements and the query server size their buckets in
+        per-shard multiples of it (``graph/residency.consumer_mesh_devices``)."""
+        mesh, _ = self._mesh_config()
+        return mesh.size if mesh is not None else 1
+
+    def _shard_this_compile(self, in_spec: TensorsSpec, mesh) -> bool:
+        """Shard a geometry only where every tensor's leading dim divides
+        the mesh: the batch elements emit such batches; any other (a
+        bucket of 1 on a 4-mesh, a scalar) takes the single-device
+        capture."""
+        for t in in_spec.tensors:
+            if t.rank < 1 or not t.shape or t.shape[0] is None:
+                return False
+            if t.shape[0] == 0 or t.shape[0] % mesh.size:
+                return False
+        return True
+
+    def _wire_shape(self, shape: Tuple[int, ...]) -> Tuple[int, ...]:
+        """The wire shape ``tensor_upload`` copies a tensor in: its own
+        shape, with or without a mesh (the JAX package flattens for the
+        TPU's transfer layout, which the card does not need)."""
+        return tuple(shape)
+
+    def wire_input_sharding(self, idx: int = 0):
+        """The placement of input ``idx`` for ``tensor_upload``: the batch
+        sharding over the active mesh, or None for one device."""
+        if self._mesh is None or self._expected is None or idx >= len(self._expected):
+            return None
+        from ..parallel.mesh import batch_sharding
+
+        return batch_sharding(self._mesh, len(self._expected[idx][0]), self._mesh_axis)
+
+    def _shard_devices(self, mesh=None) -> list:
+        return (mesh or self._mesh).axis_devices(self._mesh_axis)
+
+    def _replica(self, device: torch.device) -> Callable:
+        """The function on ``device``: the model's own there, else a copy of
+        its params on ``device`` under the same wrapper."""
+        if _same_device(device, self.device):
+            return self._fn
+        fn = self._replicas.get(str(device))
+        if fn is None:
+            apply = self.model.apply
+            if isinstance(apply, torch.nn.Module):
+                apply = copy.deepcopy(apply).to(device)
+            model = dataclasses.replace(self.model, apply=apply, device=device,
+                                        params=_to_device(self.model.params, device))
+            fn = self._wrapper(model) if self._wrapper is not None else model
+            self._replicas[str(device)] = fn
+        return fn
+
+    def _shard_spec(self, in_spec: TensorsSpec, n: int) -> TensorsSpec:
+        from ..spec import TensorSpec
+
+        return TensorsSpec(tensors=tuple(
+            TensorSpec(dtype=t.dtype, shape=(t.shape[0] // n,) + tuple(t.shape[1:]))
+            for t in in_spec.tensors), rate=in_spec.rate)
+
+    def _capture_sharded_fn(self) -> Optional[Callable]:
+        if not getattr(self.model, "capturable", True):
+            return None
+        if self.capture_sharded is not None:
+            return self.capture_sharded
+        if self.device.type != "cuda":
+            return None
+        from .sharded import capture_sharded
+
+        return capture_sharded
 
     def ensure_cache_capacity(self, n: int) -> None:
         """Grow the capture LRU to hold ``n`` entries, so that a warmed
@@ -546,20 +692,45 @@ class TorchBackend(FilterBackend):
         through ``TensorFilter.warm_spec``, which rebuilds its wrapper."""
         if not in_spec.tensors_fixed:
             in_spec = in_spec.fixate()
-        capture = self._capture_fn()
-        if capture is None:
+        mesh = self._geometry_mesh(in_spec)
+        make = self._capture_maker(in_spec, mesh)
+        if make is None:
             return  # the CPU: nothing is captured
         active = next((k for k, e in self._graphs.items() if e is self._entry), None)
-        self._lookup(in_spec, capture)
+        self._lookup(in_spec, make, mesh)
         if active is not None:
             self._graphs.move_to_end(active)
 
-    def _lookup(self, in_spec: TensorsSpec, capture: Callable):
-        """The LRU's entry for ``in_spec``, else a new capture (evicting the
-        least recently used); each event accounted in the device lane."""
+    def _geometry_mesh(self, in_spec: TensorsSpec):
+        """The mesh ``in_spec`` is dispatched over, or None."""
+        mesh, axis = self._mesh_config()
+        if mesh is not None and not self._shard_this_compile(in_spec, mesh):
+            return None
+        self._mesh_axis = axis
+        return mesh
+
+    def _capture_maker(self, in_spec: TensorsSpec, mesh) -> Optional[Callable]:
+        """A thunk that captures ``in_spec`` (over ``mesh``, a graph a
+        shard), or None where nothing is captured (the CPU)."""
+        if mesh is None:
+            capture = self._capture_fn()
+            if capture is None:
+                return None
+            return lambda: capture(self._fn, in_spec, self.device)
+        capture = self._capture_sharded_fn()
+        if capture is None:
+            return None
+        devs = self._shard_devices(mesh)
+        return lambda: capture([self._replica(d) for d in devs],
+                               self._shard_spec(in_spec, len(devs)), devs)
+
+    def _lookup(self, in_spec: TensorsSpec, make: Callable, mesh=None):
+        """The LRU's entry for ``in_spec`` over ``mesh``, else a new capture
+        (evicting the least recently used); each event accounted in the
+        device lane."""
         from ..obs.device import memory_info, record_compile
 
-        key = self._key(in_spec)
+        key = self._key(in_spec, mesh)
         entry = self._graphs.get(key)
         if entry is not None:
             self._graphs.move_to_end(key)
@@ -568,7 +739,7 @@ class TorchBackend(FilterBackend):
             return entry
         t0 = time.perf_counter_ns()
         try:
-            entry = capture(self._fn, in_spec, self.device)
+            entry = make()
         except Exception as exc:  # noqa: BLE001 - any capture failure refuses the geometry
             raise NegotiationError(
                 f"torch backend: model {self.model.name!r} cannot be captured as a CUDA "
@@ -582,7 +753,8 @@ class TorchBackend(FilterBackend):
         self._graphs[key] = entry
         info = self._cost_info(in_spec, entry)
         hbm = memory_info(entry, _nbytes(self._param_tree()))
-        self._cost_keys[key] = self._register_cost(key, in_spec, info, hbm)
+        self._cost_keys[key] = self._register_cost(key, in_spec, info, hbm,
+                                                   mesh.size if mesh is not None else 1)
         self._hbm[key] = hbm
         while len(self._graphs) > self._cache_size:
             evicted, _ = self._graphs.popitem(last=False)
@@ -629,7 +801,7 @@ class TorchBackend(FilterBackend):
             else self.model.params
 
     def _register_cost(self, key, in_spec: TensorsSpec, info: dict,
-                       hbm: Optional[dict] = None) -> str:
+                       hbm: Optional[dict] = None, devices: int = 1) -> str:
         """Register a capture's cost with the utilization lane
         (``obs/util.py``) under a per-process fingerprint, and return the
         key.  ``hbm`` is the graph's memory footprint
@@ -648,7 +820,7 @@ class TorchBackend(FilterBackend):
             name = f"{name}+{self.segment_label}"
         fp = f"{name}:{hash(key) & 0xffffffffffff:012x}"
         return _obs_util.register_cost(fp, flops=info.get("flops"), bytes=info.get("bytes"),
-                                       bucket=bucket, model=name, devices=1, hbm=hbm)
+                                       bucket=bucket, model=name, devices=devices, hbm=hbm)
 
     def cost_key(self) -> Optional[str]:
         """The active capture's cost fingerprint (the device tracer reads it
@@ -664,15 +836,30 @@ class TorchBackend(FilterBackend):
             # capture: the stream is never left capturing
             _faults.maybe_compile(f"{self.name}:{self.model.name}")
         expected = tuple((torch.Size(t.shape), torch_dtype(t.dtype)) for t in in_spec.tensors)
-        capture = self._capture_fn()
-        self._entry = self._lookup(in_spec, capture) if capture is not None else None
-        self._cost_key = self._cost_keys.get(self._key(in_spec)) \
+        mesh = self._geometry_mesh(in_spec)
+        make = self._capture_maker(in_spec, mesh)
+        self._entry = self._lookup(in_spec, make, mesh) if make is not None else None
+        self._mesh = mesh
+        self._cost_key = self._cost_keys.get(self._key(in_spec, mesh)) \
             if self._entry is not None else None
         self._expected = expected
 
+    def _eager_sharded(self, tensors, mesh=None) -> Tuple:
+        """One sharded call of the function, eagerly (``sharded.run_eager``)."""
+        from .sharded import run_eager
+
+        devs = self._shard_devices(mesh)
+        outs, _ = run_eager([self._replica(d) for d in devs], tensors, devs)
+        return outs
+
     def eager(self, *tensors) -> Tuple:
-        """The function ``invoke`` replays, called eagerly (a reference)."""
-        return _as_tuple(self._fn(*[wait_ready(t).to(self.device) for t in tensors]))
+        """The function ``invoke`` replays, called eagerly (a reference): over
+        the mesh's shards where the tensors' geometry is dispatched sharded."""
+        tensors = [wait_ready(t).to(self.device) for t in tensors]
+        mesh = self._geometry_mesh(TensorsSpec.from_arrays(tensors))
+        if mesh is not None:
+            return self._eager_sharded(tensors, mesh)
+        return _as_tuple(self._fn(*tensors))
 
     def _drifted(self, tensors: Tuple) -> bool:
         exp = self._expected
@@ -703,10 +890,33 @@ class TorchBackend(FilterBackend):
         dispatch has already waited for (``graph/node.py``)."""
         if self._expected is None or self._drifted(tensors):
             self._rebind(tensors)
+        self.last_shards = None
+        if self._mesh is not None:
+            return self._invoke_sharded(tensors)
         if self._entry is not None:
             self.stats["replays"] += 1
             return self._entry.run(tensors)
         return _as_tuple(self._fn(*[t.to(self.device) for t in tensors]))
+
+    def _invoke_sharded(self, tensors: Tuple) -> Tuple:
+        """A sharded dispatch: the shards' graphs replayed (the card) or the
+        shards run eagerly (the CPU); ``last_shards`` names each shard's
+        device and, while the device tracer times dispatches, its event
+        pairs."""
+        from ..obs.device import event_timing
+
+        labels = self._mesh.axis_labels(self._mesh_axis)
+        if self._entry is not None:
+            self.stats["replays"] += 1
+            timing = event_timing()
+            outs = self._entry.run(tensors, timing=timing)
+            events = self._entry.last_shard_events if timing else None
+            self.last_shards = [(lb, events[i] if events else None)
+                                for i, lb in enumerate(labels)]
+            return outs
+        outs = self._eager_sharded([t.to(self.device) for t in tensors])
+        self.last_shards = [(lb, None) for lb in labels]
+        return outs
 
 
 @register_backend("torch-cpu")
@@ -714,3 +924,37 @@ class TorchCpuBackend(TorchBackend):
     """``framework=torch-cpu``: the torch backend pinned to the CPU."""
 
     pinned_device = "cpu"
+
+
+@register_backend("torch-sharded")
+class TorchShardedBackend(TorchBackend):
+    """Batch-sharded on the filter's own mesh: ``custom="devices=4,axis=dp"``
+    splits the leading dim of every input over a 1-D mesh of the first
+    ``devices`` devices (default: all of them).  The counterpart of
+    ``jax-sharded``: this mesh wins over the process-wide one, and every
+    geometry is sharded (one that does not divide raises)."""
+
+    RESERVED_CUSTOM_KEYS = TorchBackend.RESERVED_CUSTOM_KEYS | {"devices", "axis"}
+
+    def __init__(self):
+        super().__init__()
+        self._custom: dict = {}
+        self._own_mesh = None
+
+    def open(self, model, custom: str = "") -> None:
+        self._custom = parse_custom(custom)
+        self._own_mesh = None
+        super().open(model, custom)
+
+    def _mesh_config(self):
+        from ..parallel.mesh import make_mesh, visible_devices
+
+        axis = self._custom.get("axis", "dp")
+        if self._own_mesh is None:
+            n = int(self._custom.get("devices", len(visible_devices())))
+            self._own_mesh = make_mesh((n,), (axis,))
+        return self._own_mesh, axis
+
+    def _shard_this_compile(self, in_spec: TensorsSpec, mesh) -> bool:
+        del in_spec, mesh
+        return True  # the filter asked for this mesh

@@ -171,6 +171,13 @@ DEFAULTS: Dict[str, Dict[str, str]] = {
         "enabled": "false",         # plan and fold segments in Pipeline.start (a
                                     # pipeline's segment_compile attr overrides it)
     },
+    # The dispatch mesh (parallel/mesh.py dispatch_mesh): batch-sharded
+    # dispatch over the devices.  The short spelling NNSTPU_MESH wins over
+    # the NNSTPU_MESH_SPEC form mapped here.
+    "mesh": {
+        "spec": "",                 # "" = off; "auto" | "dp:4" | "4": see
+                                    # parallel.mesh.parse_mesh_spec
+    },
 }
 
 # Env spellings outside NNSTPU_<SECTION>_<KEY>: an alias of a knob, or the
@@ -184,6 +191,7 @@ SHORT_ENV: Dict[str, Optional[tuple]] = {
     "NNSTPU_FLIGHT_RECORDS": ("obs", "flight_records"),
     "NNSTPU_PEAK_TFLOPS": ("obs", "peak_tflops"),
     "NNSTPU_PEAK_GBS": ("obs", "peak_gbs"),
+    "NNSTPU_MESH": ("mesh", "spec"),
     "NNSTPU_FAULTS": ("faults", "spec"),
 }
 

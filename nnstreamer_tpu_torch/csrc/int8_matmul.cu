@@ -315,9 +315,12 @@ int8_matmul_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   }
 }
 
-// Clusters of each small-M kernel that fit on the card at once, checked once.
+// Clusters of each small-M kernel that fit on a card at once, checked once a
+// card: the shared-memory size cudaFuncSetAttribute raises is the current
+// device's, so each card of a mesh sets its own.
+constexpr int kMaxDevices = 64;
 template <int MT>
-int splitk_clusters = -1;
+int splitk_clusters[kMaxDevices] = {};  // 0: not set up on that card yet
 
 template <int MT>
 int launch_splitk(const int8_t* x, const int8_t* w, const float* xs, const float* ws,
@@ -335,7 +338,10 @@ int launch_splitk(const int8_t* x, const int8_t* w, const float* xs, const float
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  if (splitk_clusters<MT> < 0) {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices)
+    return (int)cudaErrorInvalidDevice;
+  if (splitk_clusters<MT>[dev] == 0) {
     cudaError_t err = cudaFuncSetAttribute(int8_gemv_splitk_kernel<MT>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            splitk_smem_bytes<MT>());
@@ -344,7 +350,7 @@ int launch_splitk(const int8_t* x, const int8_t* w, const float* xs, const float
     err = cudaOccupancyMaxActiveClusters(&n, int8_gemv_splitk_kernel<MT>, &cfg);
     if (err != cudaSuccess) return (int)err;
     if (n < 1) return (int)cudaErrorLaunchOutOfResources;  // a cluster of 8 cannot be placed
-    splitk_clusters<MT> = n;
+    splitk_clusters<MT>[dev] = n;
   }
   const cudaError_t err = cudaLaunchKernelEx(&cfg, int8_gemv_splitk_kernel<MT>, x, w, xs, ws,
                                              b, out, M, K, N, k_per_rank);

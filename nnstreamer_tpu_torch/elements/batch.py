@@ -19,6 +19,11 @@ every stream, and split the result back for ``tensor_demux``:
 ``tensor_unbatch`` gives host consumers one device→host copy of the whole
 batch and row views of it, and device consumers row views on the card
 (``graph/residency.py::chain_device_resident``).
+
+Before a batch-sharded consumer (the dispatch mesh, ``parallel/mesh.py``)
+the ``(N, *shape)`` buffer is exactly the per-shard layout its dispatch
+cuts, one run of ``N / ndev`` rows a shard (``_mesh_dev``); an ``N`` the
+mesh does not divide takes the single-device capture.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ class TensorBatch(Node):
         self.add_src_pad("src")
         self._pool = pool  # the default shared pool unless one is given
         self._pin = False  # lease page-locked buffers: the consumer is on the card
+        self._mesh_dev = 1  # the consumer's dispatch-mesh width (configure)
 
     def _pool_or_default(self):
         if self._pool is None:
@@ -60,9 +66,10 @@ class TensorBatch(Node):
                 raise NegotiationError(
                     f"{self.name}: all tensors must share one spec to batch; got {t} vs {first}")
         out = TensorSpec(dtype=first.dtype, shape=(spec.num_tensors,) + tuple(first.shape))
-        from ..graph.residency import consumer_platform
+        from ..graph.residency import consumer_mesh_devices, consumer_platform
 
         self._pin = consumer_platform(self) == "cuda"
+        self._mesh_dev = consumer_mesh_devices(self)
         return {"src": TensorsSpec(tensors=(out,), rate=spec.rate)}
 
     def process(self, pad: Pad, frame: Frame):

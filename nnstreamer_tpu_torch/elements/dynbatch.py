@@ -28,6 +28,12 @@ that keeps up stays at batch 1:
   the producer drain inline.  A bucket captured while PLAYING captures
   inside one task slice, so no other task runs on that lane meanwhile.
 
+Before a batch-sharded consumer (the dispatch mesh, ``parallel/mesh.py``;
+``graph/residency.consumer_mesh_devices``) ``max_batch`` is the cap a
+shard: up to ``max_batch × ndev`` frames coalesce, and the buckets are
+``ndev ×`` the powers of two (:func:`mesh_bucket`), so every batch divides
+the mesh and one invoke spans every shard.
+
 The model under the filter must take a leading batch dim of any size
 (an input spec of shape ``(None, ...)``).
 """
@@ -58,6 +64,15 @@ def _bucket(n: int, max_batch: int) -> int:
     return min(b, max_batch)
 
 
+def mesh_bucket(n: int, max_batch: int, ndev: int = 1) -> int:
+    """The bucket of ``n`` frames before an ``ndev``-device mesh: the
+    power-of-two ladder a shard, ``ndev × bucket(ceil(n / ndev))``, which
+    the mesh always divides; ``ndev=1`` is the plain ladder."""
+    if ndev <= 1:
+        return _bucket(n, max_batch)
+    return ndev * _bucket(-(-n // ndev), max_batch)
+
+
 def _meta(frames: List[Frame]) -> dict:
     return {"dynbatch": {"n": len(frames), "pts": [f.pts for f in frames],
                          "duration": [f.duration for f in frames],
@@ -84,6 +99,7 @@ class DynBatch(Node):
         self.frames_in = 0
         self._pool = None  # the shared pool, resolved on first use
         self._pin = False  # the consumer is on the card
+        self._mesh_dev = 1  # the consumer's dispatch-mesh width (configure)
 
     def configure(self, in_specs: Dict[str, TensorsSpec]) -> Dict[str, TensorsSpec]:
         spec = in_specs["sink"]
@@ -92,9 +108,11 @@ class DynBatch(Node):
                                    f"got {spec}")
         out = tuple(TensorSpec(dtype=t.dtype, shape=(None,) + tuple(t.shape))
                     for t in spec.tensors)
-        from ..graph.residency import consumer_platform
+        from ..graph.residency import consumer_mesh_devices, consumer_platform
 
         self._pin = consumer_platform(self) == "cuda"
+        # a sharded consumer: buckets in per-shard multiples
+        self._mesh_dev = consumer_mesh_devices(self)
         # a None batch dim: the pads downstream skip the per-frame check,
         # and the backend takes each new bucket as a drift (its LRU)
         return {"src": TensorsSpec(tensors=out, rate=spec.rate)}
@@ -112,7 +130,8 @@ class DynBatch(Node):
         warm = getattr(filt, "warm_spec", None)
         if warm is None:
             return []
-        buckets = [1 << i for i in range(self.max_batch.bit_length())]
+        ndev = max(1, self._mesh_dev)
+        buckets = [ndev << i for i in range(self.max_batch.bit_length())]
         ensure = getattr(filt.backend, "ensure_cache_capacity", None)
         if ensure is not None:
             ensure(len(buckets) + 1)  # the ladder and the negotiated entry
@@ -178,11 +197,11 @@ class DynBatch(Node):
         return None
 
     def _coalesce(self, q, first: Frame) -> bool:
-        """``first`` and what is queued behind it, up to ``max_batch``, as
-        one batch; an event met on the way goes after the batch.  True: the
+        """``first`` and what is queued behind it, up to ``max_batch`` a
+        shard of the consumer's mesh, as one batch; an event met on the way goes after the batch.  True: the
         stream is over (EOS)."""
         pending = [first]
-        while len(pending) < self.max_batch:
+        while len(pending) < self.max_batch * max(1, self._mesh_dev):
             status, nxt = q.pop(0)
             if status != OK:
                 break
@@ -214,7 +233,7 @@ class DynBatch(Node):
         return buf
 
     def _emit_batch(self, frames: List[Frame]) -> None:
-        b = _bucket(len(frames), self.max_batch)
+        b = mesh_bucket(len(frames), self.max_batch, self._mesh_dev)
         stacked = tuple(self._stack([f.tensors[i] for f in frames], b)
                         for i in range(frames[0].num_tensors))
         if _hooks.enabled:

@@ -55,14 +55,15 @@ warmup` captures every geometry a server will see before it accepts a
 request.  With ``batch=K`` the server also coalesces same-geometry
 requests from concurrent connections into one bucketed batched invoke.
 
-Not ported: the dispatch mesh (``NNSTPU_MESH``; ROADMAP item 13), which
-raises here.
+With the dispatch mesh (``NNSTPU_MESH``, ``parallel/mesh.py``)
+``max_batch`` is the cap a shard: a group is dispatched in chunks of
+``max_batch × ndev`` rows, each padded to ``mesh_bucket`` (a multiple of
+the mesh), so one dispatch spans every shard.
 """
 
 from __future__ import annotations
 
 import collections
-import os
 import queue
 import random
 import socket
@@ -99,14 +100,10 @@ BF16_WIRE = b"<V2"
 
 
 def mesh_devices() -> int:
-    """The dispatch mesh's width: 1, the only width the port serves.  A
-    configured mesh (``NNSTPU_MESH``) raises: sharded dispatch waits for
-    ROADMAP item 13."""
-    spec = (os.environ.get("NNSTPU_MESH") or "").strip().lower()
-    if spec in ("", "off", "none", "false", "0", "1"):
-        return 1
-    raise NotImplementedError(
-        f"NNSTPU_MESH={spec!r}: a dispatch mesh is not ported (ROADMAP item 13)")
+    """The dispatch mesh's width for serving (1: unsharded dispatch)."""
+    from ..parallel.mesh import dispatch_mesh_devices
+
+    return dispatch_mesh_devices()
 
 
 class QueryError(RuntimeError):
@@ -888,15 +885,18 @@ class QueryServer:
                             f"{t.shape[0]} vs {r})")
                 rows.append(r)
             total = sum(rows)
-            from .dynbatch import _bucket
+            # max_batch is the cap a shard of the dispatch mesh: chunks of
+            # max_batch x ndev rows, buckets the mesh divides (mesh_bucket)
+            from .dynbatch import mesh_bucket
 
-            mesh_devices()
+            ndev = mesh_devices()
+            eff_max = self.max_batch * ndev
             cat = [torch.cat([g.tensors[i] for g in group], dim=0)
                    for i in range(n_tensors)]
             out_parts: Optional[list] = None
-            for start in range(0, total, self.max_batch):
-                n = min(self.max_batch, total - start)
-                b = _bucket(n, self.max_batch)
+            for start in range(0, total, eff_max):
+                n = min(eff_max, total - start)
+                b = mesh_bucket(n, self.max_batch, ndev)
                 chunk = []
                 for i in range(n_tensors):
                     part = cat[i][start:start + n]
@@ -941,7 +941,7 @@ class QueryServer:
                     out_parts = [[] for _ in outs]
                 for j, o in enumerate(outs):
                     out_parts[j].append(o[:n])
-            if total > self.max_batch:
+            if total > eff_max:
                 self.batched_splits += 1
             full = [torch.cat(ps, dim=0) if len(ps) > 1 else ps[0]
                     for ps in out_parts]
@@ -961,7 +961,8 @@ class QueryServer:
         card) of every geometry this server can dispatch for ``row_spec``,
         the spec of one request (no leading batch dim with batching on).
         With cross-client batching that is the pow-2 bucket ladder up to
-        ``max_batch``; an unbatched server warms ``row_spec`` itself.
+        ``max_batch`` (times the dispatch mesh's width); an unbatched
+        server warms ``row_spec`` itself.
         Returns ``graph/warmup.execute``'s report."""
         from ..graph.warmup import execute
 
@@ -973,13 +974,13 @@ class QueryServer:
 
         items = []
         if self.batch:
-            mesh_devices()
+            ndev = mesh_devices()
             b = 1
             while b <= self.max_batch:
                 spec = TensorsSpec(tensors=tuple(
-                    TensorSpec(dtype=t.dtype, shape=(b,) + tuple(t.shape))
+                    TensorSpec(dtype=t.dtype, shape=(b * ndev,) + tuple(t.shape))
                     for t in row_spec.tensors))
-                items.append(("query_server", f"bucket{b}",
+                items.append(("query_server", f"bucket{b * ndev}",
                               lambda s=spec: warm(s)))
                 b <<= 1
         else:
@@ -995,7 +996,7 @@ class QueryServer:
             "batched_frames": self.batched_frames,
             "batched_splits": self.batched_splits,
             "max_batch": self.max_batch,
-            "mesh_devices": 1,
+            "mesh_devices": mesh_devices(),
             "spec_backends": len(self._backends),
             "invokes": self.invokes,
             "invoke_s": self.invoke_s,

@@ -40,8 +40,8 @@ Usage::
 
 After (or during) the run, ``trainer.params`` returns the trained
 parameters (host copies) for a ``tensor_filter``.  ``devices`` > 1 (data
-parallelism over a mesh) is refused until the port's mesh exists (ROADMAP
-item 13).
+parallelism over a mesh) is refused: training over the mesh is ROADMAP
+item 13b.
 """
 
 from __future__ import annotations
@@ -120,7 +120,7 @@ class TensorTrainer(Node):
                                        f"by devices={self.devices}")
             raise NegotiationError(
                 f"{self.name}: devices={self.devices}: data-parallel training over a mesh "
-                "is not ported yet (ROADMAP item 13)")
+                "is not ported yet (ROADMAP item 13b)")
         apply_fn = getattr(self.model, "apply", None) or self.model[0]
         if self._params is None:
             params = getattr(self.model, "params", None)

@@ -37,7 +37,14 @@ allocated its slot (0 once the two slots are warm).  The port stages every
 host frame, where the JAX package stages only a strided one (a contiguous
 frame goes to ``jax.device_put`` as it is), so the ``copies`` tracer counts
 one host copy per uploaded tensor that is not a lease here and none
-there.  Not ported yet: the sharded wire rule (``_sharding_for``).
+there.
+
+A batch-sharded consumer (the dispatch mesh, ``parallel/mesh.py``) names
+its inputs' placement (``wire_input_sharding``), which :meth:`TensorUpload.
+_sharding_for` asks for lazily, at the first frame, since the consumer
+captures after this element configures.  The batch is copied whole to the
+mesh's first device, where the sharded dispatch starts; the backend moves
+each shard on from there (on a mesh of one card, nothing moves).
 """
 
 from __future__ import annotations
@@ -64,6 +71,19 @@ class TensorUpload(Node):
         self.device: Optional[torch.device] = None
         self._stream = None  # the side stream the copies run on
         self._stager: Optional[WireStager] = None
+        self._shardings: Optional[dict] = None  # per tensor index: the consumer's placement
+
+    def _sharding_for(self, idx: int):
+        """The consumer's placement of tensor ``idx`` (a batch sharding over
+        its mesh), or None for a single-device consumer."""
+        if self._shardings is None:
+            self._shardings = {}
+        if idx not in self._shardings:
+            from ..graph.residency import downstream_backend
+
+            get = getattr(downstream_backend(self), "wire_input_sharding", None)
+            self._shardings[idx] = get(idx) if callable(get) else None
+        return self._shardings[idx]
 
     def _target_device(self) -> torch.device:
         from ..graph.residency import downstream_backend
@@ -73,6 +93,7 @@ class TensorUpload(Node):
 
     def configure(self, in_specs: Dict[str, TensorsSpec]) -> Dict[str, TensorsSpec]:
         self.device = self._target_device()
+        self._shardings = None
         if self.device.type == "cuda":
             if self.device.index is None:
                 self.device = torch.device("cuda", torch.cuda.current_device())
@@ -90,7 +111,10 @@ class TensorUpload(Node):
             return frame  # the CPU: nothing to move
         out = []
         for i, t in enumerate(frame.tensors):
-            if t.device == self.device:
+            sharding = self._sharding_for(i)
+            target = self.device if sharding is None \
+                else sharding.mesh.devices.flat[0]  # where the sharded dispatch starts
+            if t.device == target:
                 out.append(t)  # already there: nothing to move
                 continue
             leased = hasattr(t, "_pool_lease") and t.is_pinned()
@@ -102,7 +126,7 @@ class TensorUpload(Node):
                     _hooks.emit("copy", self, src.numel() * src.element_size(),
                                 self._stager.last_alloc)
             with torch.cuda.stream(self._stream):
-                d = src.to(self.device, non_blocking=True)
+                d = src.to(target, non_blocking=True)
                 event = torch.cuda.Event()
                 event.record(self._stream)
             if leased:

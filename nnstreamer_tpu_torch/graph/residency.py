@@ -12,7 +12,8 @@ fan point (tee, mux, demux), which would move a transform across other
 branches' streams.  The residency walk (:func:`chain_device_resident`)
 also crosses tee, mux, demux and the batch elements, which pass tensors
 on where they are.  The batch elements ask :func:`consumer_platform`
-where their consumer computes.
+where their consumer computes, and :func:`consumer_mesh_devices` how many
+shards its dispatch mesh cuts a batch into.
 """
 
 from __future__ import annotations
@@ -85,6 +86,28 @@ def consumer_platform(node: Node, max_hops: int = 4):
     downstream of ``node``, or None when there is none (or it has no
     device)."""
     return _device_type(downstream_backend(node, max_hops))
+
+
+def consumer_mesh_devices(node: Node, max_hops: int = 4) -> int:
+    """The device count of the dispatch mesh the filter downstream of
+    ``node`` shards a batch over (1: unsharded; ``parallel/mesh.py``), so
+    that the batch elements and the query server size their buckets in
+    per-shard multiples."""
+    get = getattr(downstream_backend(node, max_hops), "mesh_devices", None)
+    if not callable(get):
+        return 1
+    try:
+        return max(1, int(get()))
+    except Exception:  # noqa: BLE001 - a sick backend must not fail negotiation
+        return 1
+
+
+def dispatch_mesh():
+    """The process-wide dispatch mesh (None: off), re-exported from
+    ``parallel/mesh.py`` for the graph layer."""
+    from ..parallel.mesh import dispatch_mesh as _dispatch_mesh
+
+    return _dispatch_mesh()
 
 
 def chain_device_resident(node: Node, direction: str, max_hops: int = 4) -> bool:

@@ -24,9 +24,18 @@ the reference's cast at each use).  A quantized ``"w"`` leaf runs W8A8
 that product to XLA, so ``torch._int_mm`` is its port); its int8 matrix is
 prepared once at build time (``"w_mat"``).
 
-Not ported (ROADMAP item 13, the mesh): ``attn="ring"``/``"ulysses"``,
-MoE blocks and ``build_pipelined``.  Weights are random: :func:`init_tree`
-seeds numpy from an int.
+The mesh modes, as in the JAX package: ``attn="ring"`` / ``"ulysses"``
+shard each block's attention over the sequence on a mesh axis
+(``parallel/ring_attention.py``, ``parallel/sequence.py``);
+``moe_experts > 0`` puts a switch MoE in every block's place of the dense
+FFN, its experts split over ``moe_mesh`` (``parallel/moe.py``); and
+:func:`build_pipelined` runs the block stack as GPipe stages over a
+``pp`` axis (``parallel/pipeline_par.py``).  The reference's refusals stay:
+no W8A8 for MoE blocks, no decode or prefill through them (switch capacity
+is a sequence-level quantity).  A model whose mesh lies on one card is
+captured as one CUDA graph a geometry, as any other; one whose mesh spans
+cards runs eagerly there (``TorchModel.capturable``).  Weights are random:
+:func:`init_tree` seeds numpy from an int.
 """
 
 from __future__ import annotations
@@ -40,21 +49,21 @@ import torch.nn.functional as F
 from ..backends.torch_backend import TorchModel
 from ..device import resolve_device
 from ..ops.quant import QuantizedWeight, int8_weight_matrix, matmul_int8, quantize_params
+from ..parallel.mesh import on_one_device, tree_map
 from ..parallel.ring_attention import full_attention, softmax
 from ..spec import TensorSpec, TensorsSpec, torch_dtype
 from .layers import Params, ensure_batched
-
-MESH_ITEM = "ROADMAP item 13 (the mesh)"
 
 
 # -- params --------------------------------------------------------------------
 
 
 def init_tree(seed: int, d_model: int = 128, n_heads: int = 8, n_layers: int = 2,
-              d_ff: int = 512, d_in: int = 64, n_out: int = 16) -> Params:
+              d_ff: int = 512, d_in: int = 64, n_out: int = 16, moe_experts: int = 0) -> Params:
     """Random params in the JAX package's layout (numpy leaves): (cin, cout)
     dense kernels with stddev ``sqrt(1/cin)``, zero biases, unit layer-norm
-    scales, and ``n_heads``."""
+    scales, and ``n_heads``.  ``moe_experts > 0``: each block's FFN is a
+    switch MoE of that many experts (``parallel/moe.py``'s layout)."""
     if d_model % n_heads:
         raise ValueError(f"d_model {d_model} not divisible by n_heads {n_heads}")
     rng = np.random.default_rng(seed)
@@ -69,9 +78,15 @@ def init_tree(seed: int, d_model: int = 128, n_heads: int = 8, n_layers: int = 2
     tree: Params = {"embed": dense(d_in, d_model), "blocks": [], "ln_f": ln(),
                     "head": dense(d_model, n_out), "n_heads": n_heads}
     for _ in range(n_layers):
-        tree["blocks"].append({"ln1": ln(), "qkv": dense(d_model, 3 * d_model),
-                               "proj": dense(d_model, d_model), "ln2": ln(),
-                               "ff1": dense(d_model, d_ff), "ff2": dense(d_ff, d_model)})
+        blk = {"ln1": ln(), "qkv": dense(d_model, 3 * d_model),
+               "proj": dense(d_model, d_model), "ln2": ln()}
+        if moe_experts > 0:
+            from ..parallel.moe import init_moe_tree
+
+            blk["moe"] = init_moe_tree(rng, d_model, d_ff, moe_experts)
+        else:
+            blk["ff1"], blk["ff2"] = dense(d_model, d_ff), dense(d_ff, d_model)
+        tree["blocks"].append(blk)
     return tree
 
 
@@ -131,10 +146,21 @@ def prepare(tree: Params, dtype=torch.float32, device="cuda", quantize: bool = F
     return cast(params)
 
 
+# The reference's words for what it refuses MoE blocks.
+_MOE_REFUSED = {
+    "decode_step": "decode_step does not support MoE blocks (capacity semantics are "
+                   "sequence-level); use the dense-FFN encoder for decode",
+    "prefill": "prefill does not support MoE blocks (capacity semantics are sequence-level "
+               "relative to the FULL batch); use the dense-FFN encoder for decode",
+    "build_quantized": "build_quantized does not cover MoE blocks: the expert weights (w1/w2, "
+                       "expert-stacked 3-D) need expert-level scale handling and only the gate "
+                       "would quantize — use the dense-FFN encoder for W8A8",
+}
+
+
 def _refuse_moe(params: Params, what: str) -> None:
     if any("moe" in blk for blk in params["blocks"]):
-        raise NotImplementedError(f"{what}: MoE blocks are not ported; they come with "
-                                  f"{MESH_ITEM}")
+        raise NotImplementedError(_MOE_REFUSED[what])
 
 
 # -- the encoder -----------------------------------------------------------------
@@ -158,40 +184,64 @@ def _layernorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return y * p["scale"].to(x.dtype) + p["bias"].to(x.dtype)
 
 
-def _ffn_residual(blk: Params, y: torch.Tensor, dtype) -> torch.Tensor:
-    """ln2, the GELU FFN (``jax.nn.gelu``'s default: the tanh form) and the
-    residual, shared by the encoder, the decode step and prefill."""
+def _ffn_residual(blk: Params, y: torch.Tensor, dtype, moe_mesh=None,
+                  moe_axis: str = "ep") -> torch.Tensor:
+    """ln2, the GELU FFN (``jax.nn.gelu``'s default: the tanh form) or the
+    switch MoE, and the residual, shared by the encoder, the decode step
+    and prefill."""
     z = _layernorm(blk["ln2"], y)
+    if "moe" in blk:
+        from ..parallel.moe import moe_ffn
+
+        return y + moe_ffn(blk["moe"], z, mesh=moe_mesh, axis=moe_axis, dtype=dtype)
     z = F.gelu(_proj(blk["ff1"], z, dtype), approximate="tanh")
     return y + _proj(blk["ff2"], z, dtype)
 
 
-def _check_attn(attn: str) -> None:
-    if attn in ("ring", "ulysses"):
-        raise NotImplementedError(f"attn={attn!r} shards the sequence over a mesh: it comes "
-                                  f"with {MESH_ITEM}")
-    if attn != "full":
+ATTN_MODES = ("full", "ring", "ulysses")
+
+
+def _check_attn(attn: str, mesh=None) -> None:
+    if attn not in ATTN_MODES:
         raise ValueError(f"unknown attention mode {attn!r}")
+    if attn != "full" and mesh is None:
+        raise ValueError(f"attn={attn!r} shards the sequence over a mesh axis: pass mesh=")
 
 
-def _block_apply(blk: Params, y: torch.Tensor, h: int, causal: bool, dtype) -> torch.Tensor:
+def _attention(q, k, v, attn: str, mesh, axis: str, causal: bool) -> torch.Tensor:
+    if attn == "ring":
+        from ..parallel.ring_attention import ring_attention
+
+        return ring_attention(q, k, v, mesh, axis=axis, causal=causal)
+    if attn == "ulysses":
+        from ..parallel.sequence import ulysses_attention
+
+        return ulysses_attention(q, k, v, mesh, axis=axis, causal=causal)
+    return full_attention(q, k, v, causal=causal)
+
+
+def _block_apply(blk: Params, y: torch.Tensor, h: int, causal: bool, dtype, attn: str = "full",
+                 mesh=None, axis: str = "sp", moe_mesh=None, moe_axis: str = "ep"
+                 ) -> torch.Tensor:
     """One pre-LN encoder block over (B, T, d)."""
     b, t, d = y.shape
     z = _layernorm(blk["ln1"], y)
     q, k, v = _proj(blk["qkv"], z, dtype).split(d, dim=-1)
     q, k, v = (a.reshape(b, t, h, d // h) for a in (q, k, v))
-    o = full_attention(q, k, v, causal=causal).reshape(b, t, d)
+    o = _attention(q, k, v, attn, mesh, axis, causal).reshape(b, t, d)
     y = y + _proj(blk["proj"], o, dtype)
-    return _ffn_residual(blk, y, dtype)
+    return _ffn_residual(blk, y, dtype, moe_mesh, moe_axis)
 
 
-def apply(params: Params, x: torch.Tensor, attn: str = "full", causal: bool = True,
-          dtype=torch.float32) -> torch.Tensor:
+def apply(params: Params, x: torch.Tensor, attn: str = "full", mesh=None, axis: str = "sp",
+          causal: bool = True, dtype=torch.float32, moe_mesh=None,
+          moe_axis: str = "ep") -> torch.Tensor:
     """(B, T, d_in) or (T, d_in) features → (B, T, n_out) / (T, n_out)
-    float32."""
+    float32.  ``attn="ring"`` / ``"ulysses"`` shard attention over ``axis``
+    of ``mesh``; MoE blocks split their experts over ``moe_axis`` of
+    ``moe_mesh`` (one device without)."""
     dtype = torch_dtype(dtype)
-    _check_attn(attn)
-    _refuse_moe(params, "apply")
+    _check_attn(attn, mesh)
     x, squeezed = ensure_batched(x, 3)
     h = params["n_heads"]
     y = _proj(params["embed"], x.to(dtype), dtype)
@@ -199,48 +249,121 @@ def apply(params: Params, x: torch.Tensor, attn: str = "full", causal: bool = Tr
     if pe is not None:  # learned positions (ViT, the text classifier)
         y = y + pe.to(dtype)
     for blk in params["blocks"]:
-        y = _block_apply(blk, y, h, causal, dtype)
+        y = _block_apply(blk, y, h, causal, dtype, attn, mesh, axis, moe_mesh, moe_axis)
     y = _layernorm(params["ln_f"], y)
     out = _proj(params["head"], y, dtype).to(torch.float32)
     return out[0] if squeezed else out
 
 
+def place_moe(params: Params, moe_mesh, moe_axis: str = "ep") -> Params:
+    """``params`` with each MoE block's experts split over ``moe_axis``
+    (``parallel/moe.place_moe_params``), once, at build time."""
+    if moe_mesh is None:
+        return params
+    from ..parallel.moe import place_moe_params
+
+    out = dict(params)
+    out["blocks"] = [dict(blk, moe=place_moe_params(blk["moe"], moe_mesh, moe_axis))
+                     if "moe" in blk else blk for blk in params["blocks"]]
+    return out
+
+
 def build(seq_len: int = 256, d_in: int = 64, n_out: int = 16, d_model: int = 128,
-          n_heads: int = 8, n_layers: int = 2, attn: str = "full", causal: bool = True,
-          batch: Optional[int] = None, dtype=torch.float32, seed: int = 0,
-          params: Optional[Params] = None, moe_experts: int = 0, quantized: bool = False,
-          device="cuda") -> TorchModel:
+          n_heads: int = 8, n_layers: int = 2, attn: str = "full", mesh=None, axis: str = "sp",
+          causal: bool = True, batch: Optional[int] = None, dtype=torch.float32, seed: int = 0,
+          params: Optional[Params] = None, moe_experts: int = 0, moe_mesh=None,
+          moe_axis: str = "ep", quantized: bool = False, device="cuda") -> TorchModel:
     """Stream-ready encoder: one frame is one (T, d_in) window (the
     aggregator's output).  ``params``: a tree in the JAX package's layout;
-    ``quantized``: W8A8 (:func:`build_quantized`)."""
-    if moe_experts:
-        raise NotImplementedError(f"moe_experts={moe_experts}: MoE blocks come with {MESH_ITEM}")
-    _check_attn(attn)
+    ``quantized``: W8A8 (:func:`build_quantized`); ``moe_experts``: a
+    switch MoE in every block, its experts over ``moe_mesh``."""
+    _check_attn(attn, mesh)
     dtype = torch_dtype(dtype)
     tree = params if params is not None else init_tree(seed, d_model, n_heads, n_layers,
-                                                       4 * d_model, d_in, n_out)
+                                                       4 * d_model, d_in, n_out, moe_experts)
+    if quantized:
+        _refuse_moe(tree, "build_quantized")
     shape: Tuple[int, ...] = (seq_len, d_in) if batch is None else (batch, seq_len, d_in)
     return TorchModel(
-        apply=lambda p, x: apply(p, x, attn=attn, causal=causal, dtype=dtype),
-        params=prepare(tree, dtype, device, quantize=quantized),
+        apply=lambda p, x: apply(p, x, attn=attn, mesh=mesh, axis=axis, causal=causal,
+                                 dtype=dtype, moe_mesh=moe_mesh, moe_axis=moe_axis),
+        params=place_moe(prepare(tree, dtype, device, quantize=quantized), moe_mesh, moe_axis),
         input_spec=TensorsSpec.of(TensorSpec(dtype=np.float32, shape=shape)),
         output_spec=TensorsSpec.of(TensorSpec(dtype=np.float32, shape=shape[:-1] + (n_out,))),
         name=f"transformer_{attn}_{d_model}x{n_layers}" + ("_q8" if quantized else ""),
-        device=device,
+        device=device, capturable=on_one_device(mesh, moe_mesh),
     )
 
 
 def build_quantized(**kwargs) -> TorchModel:
     """W8A8 encoder: every ``"w"`` (embed, qkv, proj, FFN, head) int8 per
     output channel, activations quantized per row at run time; attention
-    stays in the compute dtype.  Takes :func:`build`'s kwargs."""
+    stays in the compute dtype.  Takes :func:`build`'s kwargs; MoE blocks
+    are refused, as in the reference."""
+    if kwargs.get("moe_experts", 0):
+        raise NotImplementedError(_MOE_REFUSED["build_quantized"])
     return build(**kwargs, quantized=True)
 
 
-def build_pipelined(*args, **kwargs):
-    """GPipe over a ``pp`` mesh axis: not ported."""
-    raise NotImplementedError(f"build_pipelined runs the block stack over a pipeline mesh axis: "
-                              f"it comes with {MESH_ITEM}")
+def stage_stack(blocks: list, stages: int) -> Params:
+    """A block list as the JAX package's stage-stacked tree: leaves of
+    shape (stages, layers a stage, ...)."""
+    from ..parallel.pipeline_par import stack_stage_params
+
+    if len(blocks) % stages:
+        raise ValueError(f"n_layers {len(blocks)} not divisible by {stages} stages")
+    per = len(blocks) // stages
+    return stack_stage_params([stack_stage_params(blocks[i * per:(i + 1) * per])
+                               for i in range(stages)])
+
+
+def build_pipelined(mesh, axis: str = "pp", seq_len: int = 64, d_in: int = 64, n_out: int = 16,
+                    d_model: int = 128, n_heads: int = 8, n_layers: int = 4, batch: int = 8,
+                    microbatches: Optional[int] = None, causal: bool = True,
+                    dtype=torch.float32, seed: int = 0, params=None,
+                    device="cuda") -> TorchModel:
+    """The encoder with its block stack **pipelined over the ``pp`` axis**
+    (GPipe, ``parallel/pipeline_par.py``): ``n_layers`` in equal stages,
+    one a device of the axis; the embed and the head run where the input
+    is.  The params are the JAX package's pair ``(outer, stage_stacked)``
+    (given as ``params``, or a :func:`init_tree` tree's blocks stacked
+    here); the same function as the sequential :func:`apply`."""
+    from ..parallel.pipeline_par import gpipe_apply, stage_trees
+
+    s = mesh.shape[axis]
+    if n_layers % s:
+        raise ValueError(f"n_layers {n_layers} not divisible by {s} stages")
+    dtype = torch_dtype(dtype)
+    if params is None:
+        params = init_tree(seed, d_model, n_heads, n_layers, 4 * d_model, d_in, n_out)
+    if isinstance(params, dict):
+        outer = {k: v for k, v in params.items() if k != "blocks"}
+        params = (outer, stage_stack(params["blocks"], s))
+    outer, stacked = prepare(list(params), dtype, device)
+    per_stage = n_layers // s
+    h = outer["n_heads"]
+    stages = stage_trees(stacked, s, mesh.axis_devices(axis))  # each stage's on its device
+
+    def stage_fn(stage_params, x):
+        for j in range(per_stage):
+            x = _block_apply(tree_map(lambda a: a[j], stage_params), x, h, causal, dtype)
+        return x
+
+    def pipelined_apply(p, x):
+        outer_p, staged = p
+        y = _proj(outer_p["embed"], x.to(dtype), dtype)
+        y = gpipe_apply(stage_fn, staged, y, mesh, axis=axis, microbatches=microbatches)
+        y = _layernorm(outer_p["ln_f"], y)
+        return _proj(outer_p["head"], y, dtype).to(torch.float32)
+
+    return TorchModel(
+        apply=pipelined_apply,
+        params=[outer, stages],
+        input_spec=TensorsSpec.of(TensorSpec(dtype=np.float32, shape=(batch, seq_len, d_in))),
+        output_spec=TensorsSpec.of(TensorSpec(dtype=np.float32, shape=(batch, seq_len, n_out))),
+        name=f"transformer_pp{s}_{d_model}x{n_layers}",
+        device=device, capturable=on_one_device(mesh),
+    )
 
 
 # -- decode ------------------------------------------------------------------------

@@ -5,9 +5,10 @@ become the token stream (:func:`patchify`, a reshape and one transpose),
 the encoder (:mod:`.transformer`) runs over them non-causally with learned
 positions, and the classifier is the head applied per token, then averaged
 over the tokens (no class token; for a linear head this equals pooling
-before the head).  ViT-B/16 is ``build(d_model=768, n_heads=12,
-n_layers=12)`` at ``image_size=224, patch=16`` (Dosovitskiy et al. 2020,
-Table 1).  Weights are random, seeded with numpy; :func:`build` also takes
+before the head).  ``attn="ring"`` / ``"ulysses"`` with a ``mesh`` shard
+the patch tokens over its ``axis`` (sequence parallelism for large
+images).  ViT-B/16 is ``build(d_model=768, n_heads=12, n_layers=12)`` at
+``image_size=224, patch=16`` (Dosovitskiy et al. 2020, Table 1).  Weights are random, seeded with numpy; :func:`build` also takes
 the JAX package's tree (``params=``).
 """
 
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from ..backends.torch_backend import TorchModel
+from ..parallel.mesh import on_one_device
 from ..spec import TensorSpec, TensorsSpec, torch_dtype
 from . import transformer
 from .layers import Params
@@ -49,23 +51,26 @@ def init_tree(seed: int = 0, num_classes: int = 1000, image_size: int = 224, pat
     return tree
 
 
-def forward(params: Params, x: torch.Tensor, patch: int, dtype) -> torch.Tensor:
+def forward(params: Params, x: torch.Tensor, patch: int, dtype, attn: str = "full", mesh=None,
+            axis: str = "sp") -> torch.Tensor:
     """(H, W, 3) or (N, H, W, 3) float → (classes,) / (N, classes) float32
     logits: the per-token logits' mean."""
     toks = patchify(x.to(dtype), patch)
-    per_token = transformer.apply(params, toks, causal=False, dtype=dtype)
+    per_token = transformer.apply(params, toks, attn=attn, mesh=mesh, axis=axis, causal=False,
+                                  dtype=dtype)
     return per_token.mean(dim=-2)
 
 
 def build(num_classes: int = 1000, image_size: int = 224, patch: int = 16, d_model: int = 192,
-          n_heads: int = 3, n_layers: int = 6, attn: str = "full", batch: Optional[int] = None,
-          dtype=torch.bfloat16, seed: int = 0, params: Optional[Params] = None,
-          quantized: bool = False, device="cuda") -> TorchModel:
+          n_heads: int = 3, n_layers: int = 6, attn: str = "full", mesh=None, axis: str = "sp",
+          batch: Optional[int] = None, dtype=torch.bfloat16, seed: int = 0,
+          params: Optional[Params] = None, quantized: bool = False,
+          device="cuda") -> TorchModel:
     """Stream-ready ViT: one frame is one (H, W, 3) image, normalized
     upstream.  ``dtype`` may be a name (``custom=dtype=bfloat16``)."""
     if image_size % patch:
         raise ValueError(f"image_size {image_size} not divisible by patch {patch}")
-    transformer._check_attn(attn)
+    transformer._check_attn(attn, mesh)
     dtype = torch_dtype(dtype)
     tree = params if params is not None else init_tree(seed, num_classes, image_size, patch,
                                                        d_model, n_heads, n_layers)
@@ -74,12 +79,12 @@ def build(num_classes: int = 1000, image_size: int = 224, patch: int = 16, d_mod
     if batch is not None:
         shape, out = (batch,) + shape, (batch,) + out
     return TorchModel(
-        apply=lambda p, x: forward(p, x, patch, dtype),
+        apply=lambda p, x: forward(p, x, patch, dtype, attn, mesh, axis),
         params=transformer.prepare(tree, dtype, device, quantize=quantized),
         input_spec=TensorsSpec.of(TensorSpec(dtype=np.float32, shape=shape)),
         output_spec=TensorsSpec.of(TensorSpec(dtype=np.float32, shape=out)),
         name=f"vit_{attn}_p{patch}_{d_model}x{n_layers}" + ("_q8" if quantized else ""),
-        device=device,
+        device=device, capturable=on_one_device(mesh),
     )
 
 

@@ -52,8 +52,16 @@ lane of the obs subsystem:
 :func:`oldest_inflight` says how old the oldest dispatch still executing
 is (the watchdog's overdue-device verdict reads it).  Each completion the
 reaper observes wakes the dispatcher lanes (``graph/lanes.device_wakeup``),
-so idle lanes and backpressured producers poll again at once.  Not ported
-yet: the per-shard reaping of a mesh dispatch (the port has no mesh).
+so idle lanes and backpressured producers poll again at once.
+
+A batch-sharded dispatch (the dispatch mesh, ``backends/sharded.py``) is
+reaped shard by shard (:meth:`DeviceTracer._reap_sharded`): the backend
+names each shard's device (``last_shards``, ``<type>:<id>`` of the mesh
+position) and, on the card, an event pair around each of the shard's
+graph segments; each shard gets a ``device_exec`` span on its own
+``device:<label>`` track and its own ``nnstpu_device_exec_seconds
+{device=...}`` series, with ``flops / ndev`` of the capture's cost for its
+MFU.
 """
 
 from __future__ import annotations
@@ -574,6 +582,8 @@ class DeviceTracer(Tracer):
         ck_fn = getattr(getattr(node, "backend", None), "cost_key", None)
         if ck_fn is not None:
             cost_key = ck_fn()
+        # a sharded dispatch's shards, read on the dispatching thread too
+        shards = getattr(getattr(node, "backend", None), "last_shards", None)
         pid = next(spans._ids)
         fid = next(spans._flow_ids)
         # flow start on the dispatching (host) thread's row, inside the host
@@ -591,7 +601,7 @@ class DeviceTracer(Tracer):
             with _inflight_lock:
                 _inflight[pid] = (t0_ns, node.name)
             self._q.append((pid, node.name, head, events, t0_ns, trace_id, parent, fid,
-                            cost_key))
+                            cost_key, shards))
             self._cv.notify()
 
     def _on_compile(self, backend, key, result, dur_ns, info) -> None:
@@ -612,8 +622,12 @@ class DeviceTracer(Tracer):
                 if not self._running and not self._q:
                     return
                 (pid, name, head, events, t0, trace_id, parent, fid,
-                 cost_key) = self._q.popleft()
+                 cost_key, shards) = self._q.popleft()
             try:
+                if shards:
+                    self._reap_sharded(shards, name, t0, trace_id, parent, fid,
+                                       pipeline_name, cost_key)
+                    continue
                 dev_ns = None
                 if events is not None:
                     begin, end = events
@@ -664,10 +678,48 @@ class DeviceTracer(Tracer):
                 except Exception:  # noqa: BLE001 - observability only
                     pass
 
+    def _reap_sharded(self, shards, name, t0, trace_id, parent, fid, pipeline_name,
+                      cost_key=None) -> None:
+        """Per-shard completion of a sharded dispatch: each shard's last
+        event waited on in turn (its segments' event pairs summed for its
+        ``device_ms``), a ``device_exec`` span on the shard's own
+        ``device:<label>`` track (the host span's flow arrow lands on the
+        first), and a ``nnstpu_device_exec_seconds{device=...}``
+        observation, so that skew between shards shows side by side."""
+        nshards = max(1, len(shards))
+        total = 0
+        for k, (label, pairs) in enumerate(shards):
+            dev_ns = None
+            if pairs:
+                pairs[-1][1].synchronize()
+                dev_ns = int(sum(b.elapsed_time(e) for b, e in pairs) * 1e6)
+            dur = max(0, now_ns() - t0)
+            total = max(total, dur)
+            track = f"device:{label}"
+            if k == 0:
+                spans._recorder.append((
+                    spans.PH_FLOW_END, t0, 0, track, "device", "device",
+                    trace_id, fid, 0, None))
+            args = {"element": name, "device": label}
+            if dev_ns is not None:
+                args["device_ms"] = dev_ns / 1e6
+            args.update(self._utilization(label, track, name, t0, dur, dev_ns, trace_id,
+                                          parent, cost_key, pipeline_name, nshards=nshards))
+            spans._recorder.append((
+                spans.PH_COMPLETE, t0, dur, track, "device_exec", "device",
+                trace_id, next(spans._ids), parent, args))
+            self._hist.observe(dur / 1e9, pipeline=pipeline_name, element=name, device=label)
+        self._dispatches.inc(1, pipeline=pipeline_name, element=name)
+        with self._lock:
+            self._completed += 1
+            c = self._by_element.setdefault(name, [0, 0, 0])
+            c[0] += 1
+            c[1] += total
+
     # -- utilization attribution ---------------------------------------------
 
     def _utilization(self, label, track, name, t0, dur, dev_ns, trace_id, parent,
-                     cost_key, pipeline_name) -> dict:
+                     cost_key, pipeline_name, nshards: int = 1) -> dict:
         """Per-dispatch efficiency attribution: roofline args for the
         ``device_exec`` span (over the event pair's time where there is
         one, else over enqueue→done), the ``nnstpu_mfu`` gauge and roofline
@@ -685,6 +737,9 @@ class DeviceTracer(Tracer):
                 bucket = int(info.get("bucket") or 0)
                 flops = info.get("flops")
                 bytes_ = info.get("bytes")
+                if nshards > 1:  # the capture's cost covers every shard
+                    flops = flops / nshards if flops else flops
+                    bytes_ = bytes_ / nshards if bytes_ else bytes_
                 extra["cost_key"] = cost_key
                 if flops:
                     extra["flops"] = flops
@@ -743,7 +798,7 @@ class DeviceTracer(Tracer):
             if _hooks.enabled:
                 # one emission per observed completion, with the duration the
                 # device_exec span records
-                info = {"bucket": bucket, "mesh": 1}
+                info = {"bucket": bucket, "mesh": nshards}
                 if cost_key:
                     info["cost_key"] = cost_key
                 if flops:

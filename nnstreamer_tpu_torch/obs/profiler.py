@@ -17,6 +17,8 @@ the scrape endpoint to the kernels of one captured CUDA graph:
   through that lock: :func:`capture_profile`, :func:`profiled_window`
   (``utils.profiling.device_trace``), the whole-run trace, and
   :func:`capture_lock` for code that drives its own profiler.  The
+  session's start and stop hold the port's graph launches back
+  (``obs/launch_gate.py``: a stop during a launch can hang).  The
   watchdog triggers a capture when a dispatch's device time degrades beyond
   the noise band (:class:`DegradeDetector`, ``[obs] profile_auto``).
 - **Per-op attribution**: :func:`parse_capture_dir` reads the Kineto JSON
@@ -76,6 +78,7 @@ from collections import deque
 from typing import Dict, Iterable, List, Optional, Tuple
 
 from . import hooks as _hooks
+from .launch_gate import switching
 from .metrics import REGISTRY, MetricsRegistry
 
 TRACE_SUFFIX = ".pt.trace.json"
@@ -436,7 +439,8 @@ def _profiler_start():
     except (ImportError, TypeError):
         pass
     prof = profile(activities=activities, **kwargs)
-    prof.start()
+    with switching():  # no graph launch meanwhile (ROADMAP C17)
+        prof.start()
     return prof
 
 
@@ -449,7 +453,8 @@ def _profiler_stop(prof, path: Optional[str]) -> None:
         if torch.cuda.is_available() and torch.cuda.is_initialized():
             torch.cuda.synchronize()
     finally:
-        prof.stop()
+        with switching():  # no graph launch meanwhile (ROADMAP C17)
+            prof.stop()
     if path is not None:
         prof.export_chrome_trace(path)
 

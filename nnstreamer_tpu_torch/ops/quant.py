@@ -18,6 +18,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..parallel.mesh import reduce_over_batch
+
 
 @dataclass
 class QuantizedWeight:
@@ -134,11 +136,16 @@ def quantize_activations(x: torch.Tensor, dtype=torch.int8, axes=None):
     as XLA computes them (a bfloat16 ``amax / 127`` is the float32 product
     with the reciprocal, rounded to bfloat16); the quotient ``x / scale`` is
     a true division in float32, the scale being no constant.  ``scale``
-    stays a device tensor, so nothing synchronizes with the host.  While
+    stays a device tensor, so nothing synchronizes with the host.  Under a
+    sharded dispatch (``parallel/mesh.py``) the one scale is the whole
+    batch's: the shards' maxima are reduced first.  While
     :func:`is_calibrating`, ``amax / 127`` is a true division, as the JAX
     package's eager calibration computes it."""
     a = x.abs()
-    amax = a.amax() if axes is None else a.amax(dim=tuple(axes), keepdim=True)
+    # one scale for the tensor: over the whole batch, also where this call
+    # is one shard of a sharded dispatch (the shards' maxima reduced)
+    amax = reduce_over_batch(a.amax()) if axes is None \
+        else a.amax(dim=tuple(axes), keepdim=True)
     wide = amax.to(torch.float32)
     scale = wide / 127.0 if is_calibrating() else wide * _INV_127
     scale = scale.to(x.dtype).to(torch.float32)

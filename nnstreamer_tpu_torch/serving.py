@@ -34,7 +34,7 @@ On the CPU (``device="cpu"``) the same functions run eagerly.
 probes that do not step, the scheduler's waiting room, drain, and live
 migration of a session through a remote ``tensor_repo`` (``fleet/repo.py``).
 Not ported: ``devices=N`` (the slot axis sharded over a mesh, ROADMAP item
-13) and the reference's persistent compilation cache (a CUDA graph cannot
+13b) and the reference's persistent compilation cache (a CUDA graph cannot
 be reloaded).
 
 Usage::
@@ -61,6 +61,7 @@ import torch
 from .backends.torch_backend import capture_calls
 from .device import resolve_device
 from .models import transformer
+from .obs.launch_gate import launching
 from .spec import torch_dtype
 
 _STOPPED = object()  # sentinel: engine stopped while a get() waited
@@ -199,7 +200,7 @@ class ContinuousBatcher:
                  devices: Optional[int] = None, device="cuda"):
         if devices not in (None, 1):
             raise NotImplementedError(f"devices={devices!r} shards the slot axis over a mesh: "
-                                      f"it comes with {transformer.MESH_ITEM}")
+                                      "it is not ported yet (ROADMAP item 13b)")
         if capacity < 1:
             raise ValueError("capacity must be >= 1")
         self.device = resolve_device(device)
@@ -273,7 +274,8 @@ class ContinuousBatcher:
         self._xs.copy_(torch.from_numpy(xs))
         self._gates.copy_(torch.from_numpy(gates))
         if self._graph is not None:
-            self._graph.replay()
+            with launching():
+                self._graph.replay()
             ys = self._ys
         else:
             ys = self._batched_step()
@@ -299,7 +301,8 @@ class ContinuousBatcher:
             def fn(xp, n):
                 xp_s.copy_(torch.tensor(xp))
                 n_s.fill_(int(n))
-                graph.replay()
+                with launching():
+                    graph.replay()
                 return outs
         self._prefill_fns[tb] = fn
         return fn

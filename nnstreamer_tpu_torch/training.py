@@ -35,7 +35,7 @@ donated.  Here:
   leaf), so the optimizer state lines up leaf for leaf with optax's.
 
 Not ported: data parallelism over several cards (``devices`` > 1 of the
-trainer), which waits for the port's mesh (ROADMAP item 13).
+trainer), ROADMAP item 13b.
 """
 
 from __future__ import annotations
@@ -47,6 +47,8 @@ from typing import Any, Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
+
+from .obs.launch_gate import launching
 
 LOSSES: Dict[str, Callable] = {}
 
@@ -288,7 +290,8 @@ class _Captured:
         self._check_profiled_replay()
         self.static_x.copy_(x, non_blocking=True)
         self.static_y.copy_(y, non_blocking=True)
-        self.graph.replay()
+        with launching():
+            self.graph.replay()
         return self.loss.clone()
 
     def _check_profiled_replay(self) -> None:

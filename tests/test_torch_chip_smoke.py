@@ -597,6 +597,18 @@ def test_dyn_launch_check(smoke, case, ok):
             smoke.dyn_launch_check(_dyn_trace(per), buckets)
 
 
+@pytest.mark.parametrize("buckets,first,retake", [
+    ([1, 8, 1, 4], {"int8_matmul": 1}, False),  # bucket 1 launched again: measurable
+    ([1, 8, 4, 8], {"int8_matmul": 1}, True),   # bucket 1's only launch lost its normalize
+    ([1, 8, 4, 8], {"fused_arith": 1, "int8_matmul": 1}, False),  # nothing lacking
+    ([8, 8, 4, 1], {"int8_matmul": 1}, False)])  # bucket 8 launched again
+def test_dyn_loss_unmeasured(smoke, buckets, first, retake):
+    """Config 1d's coverage trace is taken again only when its first launch
+    lacks a path record and is its bucket's only launch."""
+    per = [(first, 599)] + [({"fused_arith": 1, "int8_matmul": 1}, 600)] * (len(buckets) - 1)
+    assert smoke.dyn_loss_unmeasured(_dyn_trace(per), buckets) is retake
+
+
 def test_batch_strings_name_the_path(smoke):
     desc = smoke.batch_desc(4, "m.npz", "build")
     assert desc.count("datasrc name=cam") == 4 and desc.count("tensor_sink") == 4
@@ -1311,3 +1323,120 @@ def test_pb_messages_splits_on_the_prefixes(smoke):
     spans = smoke.pb_messages(data)
     assert [data[a:b] for a, b in spans] == msgs
     assert spans[-1][1] == len(data) and smoke.pb_messages(b"") == []
+
+
+# -- the mesh phase ----------------------------------------------------------------
+#
+# A sharded dispatch replays, per round, segment 0 of each of 4 shards, then
+# segment 1 of each: config 5's int8 head under dp:4 puts the normalize in
+# segment 0 and the int8 head in segment 1 (the batch's scale is reduced
+# between them).
+
+SHARDS = 4
+SEGMENTS = [("fused_arith",), ("int8_matmul",)]
+SEG_GRAPH = (200, 40)   # device records of a shard's segment 0 and segment 1
+
+
+def _sharded(rounds=3):
+    per = []
+    for _ in range(rounds):
+        per += [({"fused_arith": 1}, SEG_GRAPH[0]) for _ in range(SHARDS)]
+        per += [({"int8_matmul": 1}, SEG_GRAPH[1]) for _ in range(SHARDS)]
+    return per
+
+
+def test_shard_launch_check_counts_a_record_a_shard(smoke):
+    rounds, counts, lost = smoke.shard_launch_check(_trace(_sharded()), SHARDS, SEGMENTS)
+    assert (rounds, counts, lost) == (3, {"fused_arith": 12, "int8_matmul": 12}, 0)
+
+
+def test_shard_launch_check_allows_a_lost_record(smoke):
+    per = _sharded()
+    per[9] = ({}, SEG_GRAPH[0] - 1)  # round 1, shard 1's segment 0 lost a record
+    rounds, counts, lost = smoke.shard_launch_check(_trace(per), SHARDS, SEGMENTS)
+    assert rounds == 3 and lost == 1 and counts["fused_arith"] == 11
+
+
+@pytest.mark.parametrize("case", ["kernel_in_the_wrong_segment", "missing_no_loss",
+                                  "twice_a_shard", "not_whole_rounds", "one_graph_a_round"])
+def test_shard_launch_faults_fail(smoke, case):
+    per = _sharded()
+    if case == "kernel_in_the_wrong_segment":   # the head ran before the reduction
+        per[0] = ({"fused_arith": 1, "int8_matmul": 1}, SEG_GRAPH[0] + 1)
+    elif case == "missing_no_loss":
+        per[5] = ({}, SEG_GRAPH[1])
+    elif case == "twice_a_shard":
+        per[2] = ({"fused_arith": 2}, SEG_GRAPH[0] + 1)
+    elif case == "not_whole_rounds":
+        per = per[:-1]
+    elif case == "one_graph_a_round":           # the batch in one graph: no sharding
+        per = [({"fused_arith": 1, "int8_matmul": 1}, 240) for _ in range(3)]
+    with pytest.raises(SystemExit):
+        smoke.shard_launch_check(_trace(per), SHARDS, SEGMENTS)
+
+
+@pytest.mark.parametrize("shift, ok", [(0.0, True), (0.01, True), (0.2, False)])
+def test_rows_check(smoke, shift, ok):
+    rng = np.random.default_rng(4)
+    want = [rng.standard_normal(16).astype(np.float32) for _ in range(6)]
+    got = [w + np.float32(shift) * np.abs(want[0]).max() * (i == 3) for i, w in enumerate(want)]
+    if ok:
+        assert smoke.rows_check(np, got, want, 1 / 32) <= 1 / 32
+    else:
+        with pytest.raises(SystemExit):
+            smoke.rows_check(np, got, want, 1 / 32)
+
+
+def test_rows_check_fails_an_argmax_flip(smoke):
+    want = [np.array([1.0, 0.999, 0.0], np.float32)]
+    got = [np.array([0.999, 1.0, 0.0], np.float32)]
+    with pytest.raises(SystemExit):
+        smoke.rows_check(np, got, want, 1 / 32)
+
+
+@pytest.mark.parametrize("launches, ok", [
+    ({"fused_arith": 16, "int8_matmul": 16, "pallas_nms_keep": 0}, True),
+    ({"fused_arith": 4, "int8_matmul": 4, "pallas_nms_keep": 0}, False),   # one shard only
+    ({"fused_arith": 16, "int8_matmul": 17, "pallas_nms_keep": 0}, False),  # an eager launch
+])
+def test_sharded_capture_check(smoke, launches, ok):
+    stats = dict(captures=1, replays=16, warmup_calls=3)
+    if ok:
+        smoke.sharded_capture_check(stats, 16, launches, ("fused_arith", "int8_matmul"), 4)
+    else:
+        with pytest.raises(SystemExit):
+            smoke.sharded_capture_check(stats, 16, launches, ("fused_arith", "int8_matmul"), 4)
+
+
+def test_mesh_legs_are_the_published_widths(smoke):
+    """The five legs at the widths the phase claims: ViT-B/16's 196 tokens and
+    12 heads divide over the shards, Switch-Base-8's experts too, GPipe's
+    12 layers into the stages and its batch into the microbatches, config
+    5's streams into the shards; the contrast differs between shards."""
+    legs = smoke.parallel_legs()
+    assert sorted(legs) == ["a", "b", "c", "d", "e"]
+    n = smoke.PAR_SHARDS
+    assert (224 // 16) ** 2 % n == 0 and smoke.VIT_B16["n_heads"] % n == 0
+    sb = smoke.SWITCH_BASE
+    assert (sb["d_model"], sb["n_heads"], sb["d_ff"], sb["experts"], sb["n_layers"]) == \
+        (768, 12, 3072, 8, 12) and sb["experts"] % n == 0
+    assert smoke.MOE_WINDOW == (512, 768)
+    c = smoke.PP_CFG
+    assert (c["d_model"], c["n_heads"], c["n_layers"], c["seq_len"]) == (768, 12, 12, 196)
+    assert c["n_layers"] % n == 0 and smoke.PP_BATCH % smoke.PP_MICRO == 0
+    assert smoke.MESH_STREAMS % n == 0 and len(smoke.MESH_CONTRAST) == smoke.MESH_STREAMS
+    rows = smoke.MESH_STREAMS // n  # a shard's streams: consecutive rows of the batch
+    shard_maxima = [max(smoke.MESH_CONTRAST[k * rows:(k + 1) * rows]) for k in range(n)]
+    assert len(set(shard_maxima)) > 1
+
+
+def test_mesh_frames_follow_the_contrast(smoke):
+    import torch
+
+    from nnstreamer_tpu_torch.buffer import Frame
+
+    frames = smoke.mesh_frames(np, torch, Frame, np.random.default_rng(0), 8, 2)
+    assert len(frames) == 8 and all(len(f) == 2 for f in frames)
+    for i, stream in enumerate(frames):
+        x = stream[0].tensor(0).numpy().astype(int)
+        assert x.dtype.kind == "i" and np.abs(x - 127).max() <= smoke.MESH_CONTRAST[i]

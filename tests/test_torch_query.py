@@ -503,13 +503,34 @@ class TestDevice:
             TensorQueryClient(port=1)
 
     def test_mesh_is_refused_naming_item_13(self, monkeypatch):
+        """ROADMAP item 13 is done: ``NNSTPU_MESH`` no longer raises.  On
+        the one CPU ``dp:4`` clamps to no mesh; over a forced 4-device mesh
+        ``max_batch`` is a shard's cap, as the reference's
+        ``TestQueryMeshSizing``: 12 rows at max_batch 4 dispatch once,
+        padded to ``mesh_bucket`` (16 rows), exact."""
+        from nnstreamer_tpu_torch.parallel import mesh as pmesh
+
         monkeypatch.setenv("NNSTPU_MESH", "dp:4")
-        with server(poly_model(), batch=2, batch_window_ms=1.0) as srv:
-            x = torch.ones((1, 4))
-            group = [srv._Pending(TensorsSpec.from_arrays((x,)), (x,))]
-            srv._dispatch_group(group)
-            assert isinstance(group[0].error, NotImplementedError)
-            assert "item 13" in str(group[0].error)
+        pmesh.reset_dispatch_mesh()
+        try:
+            with server(poly_model(), batch=2, batch_window_ms=1.0) as srv:
+                assert srv.stats()["mesh_devices"] == 1  # one device: clamped off
+                x = torch.ones((1, 4))
+                group = [srv._Pending(TensorsSpec.from_arrays((x,)), (x,))]
+                srv._dispatch_group(group)
+                assert group[0].error is None
+            pmesh.force_device_count(4, "cpu")
+            with server(poly_model(), batch=2, batch_window_ms=1.0, max_batch=4) as srv:
+                assert srv.stats()["mesh_devices"] == 4
+                xs = [torch.arange(r * 4, dtype=torch.float32).reshape(r, 4) for r in (6, 6)]
+                group = [srv._Pending(TensorsSpec.from_arrays((x,)), (x,)) for x in xs]
+                srv._dispatch_group(group)
+                for g, x in zip(group, xs):
+                    assert g.error is None, g.error
+                    assert torch.equal(g.outs[0], 2.0 * x)
+                assert srv.batched_invokes == 1 and srv.batched_splits == 0
+        finally:
+            pmesh.force_device_count(None)
 
     def test_server_stop_closes_its_sockets(self):
         srv = server(double_model()).start()

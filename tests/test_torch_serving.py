@@ -259,7 +259,7 @@ class TestLifecycle:
             assert eng.ticks <= eng.steps_total
 
     def test_mesh_and_device_refusals(self, monkeypatch):
-        with pytest.raises(NotImplementedError, match="item 13"):
+        with pytest.raises(NotImplementedError, match="item 13b"):
             ContinuousBatcher(capacity=4, devices=2, device="cpu", **KW)
         engine(1, devices=1).stop()
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -393,7 +393,7 @@ class TestTrainerElement:
 
     def test_devices_refused_naming_item_13(self):
         t = TensorTrainer(model=linreg_model(), devices=2)
-        with pytest.raises(NegotiationError, match="item 13"):
+        with pytest.raises(NegotiationError, match="item 13b"):
             t.configure({"sink": _spec2()})
 
     def test_model_params_not_aliased(self):

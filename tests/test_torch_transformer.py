@@ -73,17 +73,31 @@ class TestAttention:
         _close(got.numpy(), want)
 
     def test_mesh_modes_point_at_item_13(self):
+        """ROADMAP item 13's modes run (the refusals this test held are
+        lifted): ring and Ulysses attention over a 4-device CPU mesh equal
+        the full encoder within 1e-5 of the largest output, an MoE build and
+        a pipelined build run; a mesh mode without a mesh and an unknown
+        mode still raise.  Parity with the JAX package is in
+        ``tests/test_torch_sequence_parallel.py`` and
+        ``tests/test_torch_moe_pipeline.py``."""
+        from nnstreamer_tpu_torch.parallel.mesh import make_mesh
+
         p = _port(_tree())
-        x = torch.zeros(5, DIMS["d_in"])
+        x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+            (8, DIMS["d_in"])).astype(np.float32))
+        mesh = make_mesh((4,), ("sp",), [torch.device("cpu")] * 4)
+        full = tt.apply(p, x)
         for mode in ("ring", "ulysses"):
-            with pytest.raises(NotImplementedError, match="item 13"):
+            _close(tt.apply(p, x, attn=mode, mesh=mesh), full)
+            with pytest.raises(ValueError, match="mesh"):
                 tt.apply(p, x, attn=mode)
-        with pytest.raises(NotImplementedError, match="item 13"):
-            tt.build(attn="ring", device="cpu")
-        with pytest.raises(NotImplementedError, match="item 13"):
-            tt.build(moe_experts=4, device="cpu")
-        with pytest.raises(NotImplementedError, match="item 13"):
-            tt.build_pipelined(None)
+        moe = tt.build(seq_len=8, d_in=4, n_out=3, d_model=16, n_heads=2, n_layers=1,
+                       moe_experts=4, device="cpu")
+        assert moe(torch.zeros(8, 4)).shape == (8, 3)
+        pp = tt.build_pipelined(make_mesh((2,), ("pp",), [torch.device("cpu")] * 2), "pp",
+                                seq_len=4, d_in=4, n_out=3, d_model=16, n_heads=2, n_layers=2,
+                                batch=2, device="cpu")
+        assert pp(torch.zeros(2, 4, 4)).shape == (2, 4, 3)
         with pytest.raises(ValueError, match="unknown attention"):
             tt.apply(p, x, attn="sparse")
 
