@@ -401,7 +401,38 @@ In order, it
    captured before PLAYING); ``NNSTPU_MESH=auto`` on the real cards (off
    with one); (e) the device tracer on (d)'s ``torch-sharded`` run, one
    series a shard;
-31. prints every path number beside the card's name and power limit, one
+31. runs the fleet tier (``fleet_phase``): worker subprocesses
+   (``python -m nnstreamer_tpu_torch.fleet worker``, spawned together by
+   ``SubprocWorkerFactory``) on the card behind the port's router,
+   membership, supervisor and autoscaler, driven by the port's load
+   generator.  (a) two workers on the ``fragment`` backend with slice 1's
+   normalize and MobileNet-v2 (int8 head), each warming up (``warming``
+   until its capture is done); 4 tenants at an open-loop constant rate
+   (at least 400 requests) through the router while a seeded
+   ``FleetChaos`` ``worker_kill`` takes one worker down: every reply bit
+   for bit the in-process slice's on the same frame, offered = delivered
+   + shed with shed 0, the dead worker ``down`` in membership and
+   respawned into ``up``; the rate, client p50 and p99 from the scheduled
+   arrival, spawn-to-routable and respawn-to-routable seconds; (b) two
+   DecodeServer workers on ``ContinuousBatcher(capacity=8)`` at
+   ``ENGINE_WIDE`` (seed 0), a ``fleet repo`` process named by ``[fleet]
+   repo_addr``, 8 sessions through the stateful router, one worker drained
+   mid-stream: every session within ``DECODE_REL`` of the engine alone,
+   no error, as many sessions migrated out as in as the worker held; the
+   longest handoff; (c) a supervisor with ``Autoscaler(min_workers=1,
+   max_workers=2)`` over (a)'s worker arguments, the load generator's
+   spike profile scaling it 1 -> 2 -> 1 with nothing lost and the drained
+   worker exiting 0; (d) ``TraceCollector`` merging the router's and the
+   workers' ``/trace.json`` (one trace id client -> ``nnsq_route`` ->
+   ``nnsq_serve`` -> ``device_exec``, clocks aligned within the offset
+   estimate's bound), ``collector.fetch_profile`` against a worker under
+   load (ROADMAP C17 one process over; its stop's seconds printed), an
+   ``invoke_delay`` on one worker giving a ``device`` forensics verdict
+   and ``merge_alerts`` the SLO burn, each worker's ``cost_model``
+   non-empty.  The kernels launch in the workers: each worker's
+   ``stats()`` carries its process's wrapper counts, summed into the
+   ``fleet`` path;
+32. prints every path number beside the card's name and power limit, one
    JSON line describing every kernel, and last one JSON line
    ``{"ok": true, "device": {...}}``.
 
@@ -8113,6 +8144,766 @@ def _conv_dicts(tree):
     return []
 
 
+FLEET_TENANTS = 4          # (a): the load generator's tenants ...
+FLEET_RATE = 25.0          # ... each an open-loop constant rate, requests a second ...
+FLEET_SECONDS = 5.2        # ... over this long (about 520 arrivals)
+FLEET_MIN_REQUESTS = 400
+FLEET_FRAMES = 32          # distinct camera frames the requests carry
+FLEET_TICK_S = 0.25        # the chaos clock: one fleet consultation a worker a tick
+FLEET_KILL_AFTER = 8       # worker_kill fires at the ninth tick of the victim
+FLEET_JOIN_LIMIT_S = 180   # spawn (import, kernel load, capture) to routable
+FLEET_ENGINE = dict(ENGINE_WIDE)  # (b): config 4d's engine at full width
+FLEET_CAPACITY = 8
+FLEET_SESSIONS = 8
+FLEET_PROMPT = 32          # prefill tokens a session
+FLEET_STEPS = 12           # decode steps a session ...
+FLEET_DRAIN_AT = 6         # ... the drain comes after this many
+FLEET_D_RATE = 40.0        # (d): the forensics burst against (a)'s fleet
+FLEET_D_SECONDS = 3.0
+# the respawned (a) worker's fault: its first 20 requests clean (the
+# forensics baseline warms on them), then every third delayed 150 ms inside
+# its device_invoke span
+FLEET_D_FAULTS = "seed=9;invoke_delay@query_server:after=20,every=3,ms=150"
+FLEET_D_SLO = "fleet:nnstpu_e2e_latency_ms{pipeline=fleet-d}<100ms@0.99"
+FLEET_D_MIN_SAMPLES = 16
+FLEET_PROFILE_S = 1.0      # the worker's profile window under load ...
+FLEET_PROFILE_RATE = 20.0  # ... a constant load straight at that worker ...
+FLEET_PROFILE_LOAD_S = 10.0  # ... this long, the window opening 1 s in
+FLEET_C_BASE = 5.0         # (c): the spike profile's base and peak rates ...
+FLEET_C_PEAK = 50.0
+FLEET_C_WORKER_RPS = 25.0  # ... against this per-worker capacity: 1 worker, then 2
+FLEET_EXIT_LIMIT_S = 60.0  # a drained worker's SIGTERM to its exit
+FLEET_C_PRE_S = 3.0
+FLEET_C_SPIKE_S = 3.0      # far shorter than a worker's start (process up, then capture):
+                           # the load falls back while the scale-up still joins
+FLEET_C_POST_S = 10.0      # the tail at the base rate (the controller goes on after it)
+FLEET_C_HISTORY_S = 8.0    # the forecast's history: one low reading of the load (a starved
+                           # tick) cannot drain a worker mid-spike
+
+
+def fleet_log_tails(logs, lines=30):
+    """The last lines of each worker log, for a failure's standard error."""
+    for path in logs:
+        try:
+            with open(path, encoding="utf-8", errors="replace") as f:
+                tail = f.readlines()[-lines:]
+        except OSError:
+            continue
+        print(f"--- {path} (last {len(tail)} lines)", file=sys.stderr)
+        sys.stderr.writelines(tail)
+    sys.stderr.flush()
+
+
+# a stateless worker's wrapper calls at its join: its warmup capture's (3
+# warm-up calls and the capture); a decode worker launches none of them
+FLEET_CAPTURE_CALLS = {"fused_arith": 4, "int8_matmul": 4, "pallas_nms_keep": 0}
+
+
+def fleet_join_check(seen):
+    """Each worker incarnation's kernel launch counts, read from its
+    ``/stats.json`` at its join (``(worker, nonce, counts or the read's
+    error, device)``): a stateless worker's must be its warmup capture's,
+    ``FLEET_CAPTURE_CALLS`` (one that joined before its capture, or served
+    on another route than the graph, reads otherwise), a decode worker's
+    (``fleet-b``) none.  Returns the faults found."""
+    bad = []
+    for worker, nonce, counts, _ in seen:
+        if not isinstance(counts, dict):
+            bad.append(f"{worker} ({nonce}): /stats.json unread at its join: {counts}")
+            continue
+        want = (dict.fromkeys(FLEET_CAPTURE_CALLS, 0) if worker.startswith("fleet-b")
+                else FLEET_CAPTURE_CALLS)
+        if counts != want:
+            bad.append(f"{worker} ({nonce}): launches {counts} at its join, not {want}")
+    return bad
+
+
+def fleet_replay_check(worker, st, routed=None):
+    """A stateless worker's ``/stats.json`` entry against what it served:
+    its one capture (the warmup's), and one graph replay for each invoke
+    and each reply (a request served eagerly shows here); ``routed``, where
+    given, is the router's count of replies from this worker.  Returns the
+    faults found."""
+    q = st["query"]
+    g = q["graphs"]
+    bad = []
+    if g["captures"] != 1:
+        bad.append(f"{worker}: {g['captures']} captures, not 1")
+    if not g["replays"] == q["invokes"] == q["replies"]:
+        bad.append(f"{worker}: {g['replays']} graph replays for {q['invokes']} invokes and "
+                   f"{q['replies']} replies")
+    if routed is not None and q["replies"] != routed:
+        bad.append(f"{worker}: {q['replies']} replies, the router counts {routed}")
+    return bad
+
+
+def fleet_chain(index, offsets):
+    """The trace ids whose spans run client -> router -> worker -> device:
+    an ``nnsq_rtt`` and its child ``nnsq_route`` in this process, the
+    route's child ``nnsq_serve`` and that span's ``device_exec`` in a worker,
+    the worker's spans inside the route's within the clock offset's error
+    bound (half the best probe's round trip) and the device span starting
+    inside the serve span.  ``index`` is ``TraceCollector.spans_by_trace``'s,
+    ``offsets`` maps a source to its probe round trip (ns)."""
+    good = []
+    for tid, recs in index.items():
+        by = {}
+        for r in recs:
+            by.setdefault(r[4], []).append(r)
+        for rtt in by.get("nnsq_rtt", ()):
+            routes = [r for r in by.get("nnsq_route", ()) if r[8] == rtt[7]]
+            for route in routes:
+                for serve in (r for r in by.get("nnsq_serve", ()) if r[8] == route[7]):
+                    err = offsets.get(serve[10], 0) / 2 + 50_000
+                    devs = [d for d in by.get("device_exec", ())
+                            if d[8] == serve[7] and d[10] == serve[10]]
+                    if not (rtt[1] <= route[1] and route[1] + route[2] <= rtt[1] + rtt[2]):
+                        continue
+                    if not (route[1] - err <= serve[1]
+                            and serve[1] + serve[2] <= route[1] + route[2] + err):
+                        continue
+                    if any(serve[1] <= d[1] <= serve[1] + serve[2] for d in devs):
+                        good.append(tid)
+    return sorted(set(good))
+
+
+def fleet_phase(torch, np, K, root, card):
+    """Phase 31, the fleet tier: worker subprocesses on the card behind the
+    port's router, membership, supervisor and autoscaler, driven by the
+    port's load generator.  (a) two fragment workers serving slice 1 under an
+    open-loop load with a seeded worker_kill, every reply bitwise the
+    in-process slice's; (b) two DecodeServer workers at config 4d's width,
+    8 sessions, one worker drained with live migration through a repo
+    process; (c) the autoscaler over (a)'s worker arguments, 1 -> 2 -> 1 on
+    a spike shorter than a worker's start (the scale-up cancelled while it
+    joins, the floor serving throughout); (d) the merged trace, a worker
+    profile under load, a forensics verdict and the merged SLO alert.  Kernel launches are counted in the
+    workers (their /stats.json) and summed."""
+    import threading
+
+    import nnstreamer_tpu_torch as nns
+    from nnstreamer_tpu_torch import faults
+    from nnstreamer_tpu_torch.elements import query
+    from nnstreamer_tpu_torch.fleet import (Autoscaler, FleetChaos, Membership, Router,
+                                            RouterSignals, SubprocWorkerFactory, Supervisor,
+                                            Surface)
+    from nnstreamer_tpu_torch.models import mobilenet_v2
+    from nnstreamer_tpu_torch.obs import collector as col
+    from nnstreamer_tpu_torch.obs import hooks, spans
+    from nnstreamer_tpu_torch.obs.forensics import ForensicsEngine
+    from nnstreamer_tpu_torch.obs.metrics import MetricsRegistry
+    from nnstreamer_tpu_torch.obs.slo import SloEngine
+    from nnstreamer_tpu_torch.serving import ContinuousBatcher
+    from nnstreamer_tpu_torch.tools import loadgen
+    from nnstreamer_tpu_torch.utils.checkpoint import save_state
+
+    t_phase = time.perf_counter()
+    work = os.path.join(root, "build", "chip_smoke")
+    logdir = os.path.join(work, "fleet_logs")
+    os.makedirs(logdir, exist_ok=True)
+    tree = mobilenet_v2.init_tree(0, CLASSES, 1.0)  # slice 1's model (build_quantized seed 0)
+    ckpt = os.path.join(work, "fleet_mobilenet_v2.npz")
+    save_state(tree, ckpt)
+    model_props = (f"model={ckpt} custom=builder=mobilenet_v2:build_quantized,int8_head=1,"
+                   f"image_size={IMAGE},num_classes={CLASSES}")
+    normalize = (f"tensor_transform mode=arithmetic option={NORMALIZE} acceleration=pallas "
+                 f"device={DEVICE}")
+    fragment = f"{normalize} ! tensor_filter framework=torch name=f {model_props}"
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + (os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    env["NNSTPU_OBS_COSTMODEL_PATH"] = os.path.join(work, "fleet_COST_MODEL.json")
+    env.pop("NNSTPU_FAULTS", None)
+    stateless_args = ["--framework", "fragment", "--model", fragment,
+                      "--warmup-spec", f"uint8:{IMAGE}x{IMAGE}x3", "--spans",
+                      "--tracers", "device;costmodel"]
+    engine_kv = ",".join(f"{k}={v}" for k, v in
+                         dict(capacity=FLEET_CAPACITY, seed=0, **FLEET_ENGINE).items())
+    decode_args = ["--decode", engine_kv, "--spans"]
+    logs, files, handles_seen, res = [], [], [], {}
+    tally = {k.__name__: 0 for k in K.KERNELS}
+    stop_evt = threading.Event()
+
+    def factory(name, args):
+        path = os.path.join(logdir, f"{name}.log")
+        logs.append(path)
+        files.append(open(path, "w", encoding="utf-8"))
+        return SubprocWorkerFactory(args, env=dict(env), device=DEVICE,
+                                    line_timeout_s=FLEET_JOIN_LIMIT_S, stderr=files[-1])
+
+    m_a, m_b, m_c = (Membership(heartbeat_s=0.25, probe_timeout_s=5.0) for _ in range(3))
+    r_a = Router(m_a, name="fleet-a")
+    r_c = Router(m_c, name="fleet-c")
+    f_a = factory("fleet-a", stateless_args)
+    sup_a = Supervisor(f_a, [Surface(m_a, r_a)], name="fleet-a",
+                       spawn_timeout_s=FLEET_JOIN_LIMIT_S, respawn_backoff_ms=0)
+    sup_c = Supervisor(factory("fleet-c", stateless_args), [Surface(m_c, r_c)], name="fleet-c",
+                       spawn_timeout_s=FLEET_JOIN_LIMIT_S, drain_deadline_s=FLEET_EXIT_LIMIT_S)
+    repo_proc = None
+    r_b = sup_b = autoscaler = None
+    sups = [sup_a, sup_c]
+    was_spans = spans.enabled
+    spans.enable()
+
+    def on_scale(name, action, worker, detail):
+        """Each worker incarnation's kernel launch counts, read from its
+        /stats.json as it joins (on the supervision pass's thread, before the
+        controller of that pass can drain it; the counts come from its warmup
+        capture, its requests replay)."""
+        del detail
+        if action != "join":
+            return
+        sup = next(s for s in sups if s.name == name)
+        h = sup.get(worker).handle
+        try:
+            st = col.http_get_json(f"http://{h.ports['health_addr']}/stats.json",
+                                   30)[f"worker:{worker}"]
+        except Exception as exc:  # noqa: BLE001 - kept, and the hook stays connected
+            handles_seen.append((worker, h.nonce, repr(exc), None))
+            return
+        for k, v in st["kernels"].items():
+            tally[k] += v
+        handles_seen.append((worker, h.nonce, st["kernels"], st.get("device")))
+
+    def spawn_async(sup, n):
+        threads = [threading.Thread(target=sup.spawn_worker, kwargs=dict(detail="start"))
+                   for _ in range(n)]
+        for t in threads:
+            t.start()
+        return threads
+
+    def start_ticker(pairs, done):
+        """Supervise the starting workers until ``done`` is set: each
+        join (its warmup capture done) lands in the scale-event log as it
+        happens."""
+        def run():
+            while not done.is_set() and not stop_evt.is_set():
+                for sup, _ in pairs:
+                    sup.tick()
+                time.sleep(0.05)
+
+        t = threading.Thread(target=run, daemon=True, name="fleet-start")
+        t.start()
+        return t
+
+    def wait_ready(pairs, what):
+        deadline = time.monotonic() + FLEET_JOIN_LIMIT_S
+        while time.monotonic() < deadline:
+            for sup, _ in pairs:
+                check(sup.spawn_failed == 0, f"fleet {what}: a spawn failed: "
+                      f"{sup.events.snapshot()[-3:]}")
+            if all(sup.ready_count() >= n for sup, n in pairs):
+                return
+            time.sleep(0.05)
+        fail(f"fleet {what}: workers not routable within {FLEET_JOIN_LIMIT_S} s: "
+             f"{[sup.stats()['workers'] for sup, _ in pairs]}")
+
+    def worker_stats(sup, wid):
+        addr = sup.get(wid).handle.ports["health_addr"]
+        return col.http_get_json(f"http://{addr}/stats.json", 30)[f"worker:{wid}"]
+
+    def join_seconds(sup, t_start):
+        """Seconds from the spawn's start to each worker's join, by wid."""
+        out = {}
+        for e in sup.events.snapshot():
+            if e["action"] == "join":
+                out[e["worker"]] = e["t"] - t_start
+        return out
+
+    try:
+        for r in (r_a, r_c):
+            r.start()
+        for m in (m_a, m_b, m_c):
+            m.start()
+        # -- every worker starts now, in parallel: (a)'s two, (b)'s two, (c)'s floor
+        t_spawn = time.monotonic()
+        threads = spawn_async(sup_a, 2) + spawn_async(sup_c, 1)
+        repo_proc = subprocess.Popen(
+            [sys.executable, "-m", "nnstreamer_tpu_torch.fleet", "repo", "--port", "0",
+             "--device", DEVICE], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
+            text=True, env=env)
+        repo_port = json.loads(repo_proc.stdout.readline())["port"]
+        saved = os.environ.get("NNSTPU_FLEET_REPO_ADDR")
+        os.environ["NNSTPU_FLEET_REPO_ADDR"] = f"127.0.0.1:{repo_port}"
+        try:
+            r_b = Router(m_b, stateful=True, name="fleet-b").start()  # [fleet] repo_addr
+        finally:
+            if saved is None:
+                del os.environ["NNSTPU_FLEET_REPO_ADDR"]
+            else:
+                os.environ["NNSTPU_FLEET_REPO_ADDR"] = saved
+        check(r_b.repo_addr == f"127.0.0.1:{repo_port}" and r_b.migrate_enabled,
+              f"fleet (b): [fleet] repo_addr was not picked up: {r_b.stats()['migration']}")
+        sup_b = Supervisor(factory("fleet-b", decode_args),
+                           [Surface(m_b, r_b, port_key="decode_port", name="decode")],
+                           name="fleet-b", spawn_timeout_s=FLEET_JOIN_LIMIT_S)
+        sups.append(sup_b)
+        threads += spawn_async(sup_b, 2)
+        hooks.connect("scale_event", on_scale)
+        started = [(sup_a, 2), (sup_b, 2), (sup_c, 1)]
+        start_done = threading.Event()
+        ticker = start_ticker(started, start_done)
+
+        # while they start: the in-process references, slice 1 on (a)'s frames
+        # and config 4d's engine alone on (b)'s sessions
+        rng = np.random.default_rng(21)
+        frames = [rng.integers(0, 256, (IMAGE, IMAGE, 3), dtype=np.uint8)
+                  for _ in range(FLEET_FRAMES)]
+        ref_desc = (f"datasrc name=x ! {normalize} ! tensor_upload name=u ! "
+                    f"queue max-size-buffers=16 ! tensor_filter framework=torch name=f "
+                    f"{model_props} ! tensor_sink name=out collect=true")
+        ref_p, _, _ = run_pipeline(nns, ref_desc, None, FLEET_FRAMES,
+                                   setup=lambda p: setattr(
+                                       p["x"], "data", [torch.from_numpy(f) for f in frames]))
+        ref = [f.tensor(0).cpu().numpy() for f in ref_p["out"].frames]
+        d_in = FLEET_ENGINE["d_in"]
+        prompts = [rng.standard_normal((FLEET_PROMPT, d_in)).astype(np.float32)
+                   for _ in range(FLEET_SESSIONS)]
+        steps = [list(rng.standard_normal((FLEET_STEPS, d_in)).astype(np.float32))
+                 for _ in range(FLEET_SESSIONS)]
+        with ContinuousBatcher(capacity=FLEET_CAPACITY, seed=0, device=DEVICE,
+                               **FLEET_ENGINE) as eng:
+            alone = [served_alone(eng, 0, steps[k], prompt=prompts[k])
+                     for k in range(FLEET_SESSIONS)]
+        for t in threads:
+            t.join(timeout=FLEET_JOIN_LIMIT_S)
+        wait_ready(started, "start")
+        start_done.set()
+        ticker.join(timeout=30)
+        joins = {**join_seconds(sup_a, t_spawn), **join_seconds(sup_b, t_spawn),
+                 **join_seconds(sup_c, t_spawn)}
+        res["spawn_to_routable_s"] = joins
+        print(f"fleet: {len(joins)} worker subprocesses routable, spawn to routable s "
+              f"{ {w: round(s, 3) for w, s in joins.items()} } (import, kernel load, "
+              f"capture; all started together) [{card}]", flush=True)
+
+        # -- (a) stateless, full width, with a seeded worker_kill -------------------
+        wids = sorted(mw.wid for mw in sup_a.managed())
+        victim, keeper = wids[-1], wids[0]
+        f_a.env["NNSTPU_FAULTS"] = FLEET_D_FAULTS  # the victim's respawn carries (d)'s fault
+        chaos = FleetChaos({w: sup_a.get(w).handle for w in wids})
+        states = []
+        tenants = [dict(name=f"tenant-{k}", workload="slice1",
+                        profile=dict(kind="constant", rate=FLEET_RATE))
+                   for k in range(FLEET_TENANTS)]
+        workloads = {t["name"]: loadgen.Workload(
+            "slice1", payload=lambda seq, k=k: [(frames[(seq * FLEET_TENANTS + k)
+                                                        % FLEET_FRAMES],)])
+            for k, t in enumerate(tenants)}
+        lg = loadgen.LoadGen(("127.0.0.1", r_a.port), tenants, FLEET_SECONDS, seed=21,
+                             metric_pipeline="fleet-a", keep_replies=True)
+        planned = len(lg.schedule())
+        check(planned >= FLEET_MIN_REQUESTS,
+              f"fleet (a): the seeded plan holds {planned} requests (< {FLEET_MIN_REQUESTS})")
+        prof = {}
+
+        def background():
+            # the supervision pass and the chaos clock (a respawn blocks
+            # this thread while the new process starts)
+            ticks = 0
+            while not stop_evt.is_set() and not prof.get("done_a"):
+                sup_a.tick()
+                if ticks % max(1, int(FLEET_TICK_S / 0.05)) == 0:
+                    chaos.tick()
+                ticks += 1
+                time.sleep(0.05)
+
+        def sample_states():
+            while not stop_evt.is_set() and not prof.get("done_a"):
+                states.append(m_a.get(victim).state)
+                time.sleep(0.01)
+
+        faults.install(f"seed=21;worker_kill@{victim}:after={FLEET_KILL_AFTER}")
+        bg = threading.Thread(target=background, daemon=True, name="fleet-a-supervise")
+        sm = threading.Thread(target=sample_states, daemon=True, name="fleet-a-states")
+        try:
+            bg.start()
+            sm.start()
+            records = lg.run(workloads=workloads)
+        finally:
+            faults.deactivate()
+        check(chaos.applied == [(victim, "worker_kill")],
+              f"fleet (a): the seeded chaos applied {chaos.applied}")
+        st_a = r_a.stats()
+        ok = [r for r in records if r["status"] == "ok"]
+        check(len(ok) == len(records) == planned,
+              f"fleet (a): {len(records) - len(ok)} of {len(records)} requests failed: "
+              f"{[(r['status'], r['code']) for r in records if r['status'] != 'ok'][:5]}")
+        check(st_a["offered"] == st_a["delivered"] + st_a["shed_total"]
+              and st_a["shed_total"] == 0 and st_a["offered"] == planned,
+              f"fleet (a): router ledger offered {st_a['offered']}, delivered "
+              f"{st_a['delivered']}, shed {st_a['shed']} (planned {planned})")
+        bad = 0
+        for r in ok:
+            k = int(r["tenant"].rsplit("-", 1)[1])
+            want = ref[(r["seq"] * FLEET_TENANTS + k) % FLEET_FRAMES]
+            got = np.asarray(r["replies"][0][0])
+            bad += not (got.shape == want.shape and np.array_equal(got, want))
+        check(bad == 0, f"fleet (a): {bad} of {len(ok)} replies differ from the in-process "
+                        "slice's on the same frame")
+        lat = loadgen.summarize_ms([r["t_done_ns"] - r["t_sched_ns"] for r in ok])
+        # the keeper alone served (a) from its warmup's graph: a replay a
+        # request the router counts from it (the victim's first incarnation
+        # died with its counts; its respawn is not routable yet)
+        deadline = time.monotonic() + 10.0
+        while True:
+            keeper_bad = fleet_replay_check(keeper, worker_stats(sup_a, keeper),
+                                            routed=m_a.get(keeper).routed)
+            if not keeper_bad or time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
+        check(not keeper_bad, f"fleet (a): {keeper_bad}")
+
+        # while the killed worker respawns: (d)'s profile, a constant load
+        # straight at the keeper with its /profile window opening 1 s in
+        # (ROADMAP C17 one process over: the worker's replays and the
+        # session's start and stop share its launch gate), beside (b) on its
+        # own workers
+        keeper_ports = sup_a.get(keeper).handle.ports
+        lg_p = loadgen.LoadGen(("127.0.0.1", keeper_ports["port"]),
+                               [dict(name="profiled", workload="slice1",
+                                     profile=dict(kind="constant", rate=FLEET_PROFILE_RATE))],
+                               FLEET_PROFILE_LOAD_S, seed=24, metric_pipeline="fleet-p")
+
+        def profile_keeper():
+            time.sleep(1.0)
+            t0 = time.monotonic_ns()
+            try:
+                prof["summary"] = col.fetch_profile(keeper_ports["health_addr"],
+                                                    seconds=FLEET_PROFILE_S, timeout_s=120)
+            except Exception as exc:  # noqa: BLE001 - checked below
+                prof["error"] = repr(exc)
+            prof["window"] = (t0, time.monotonic_ns())
+
+        def profile_run():
+            try:
+                prof["records"] = lg_p.run(workloads={"profiled": workloads["tenant-0"]})
+            except Exception as exc:  # noqa: BLE001 - checked below
+                prof["error"] = repr(exc)
+
+        pt = threading.Thread(target=profile_keeper, daemon=True, name="fleet-d-profile")
+        pl = threading.Thread(target=profile_run, daemon=True, name="fleet-d-profile-load")
+        pt.start()
+        pl.start()
+
+        # -- (b) stateful, full width: 8 sessions, one worker drained -----------------
+        out, errors = {}, []
+        b1, b2 = threading.Barrier(FLEET_SESSIONS + 1), threading.Barrier(FLEET_SESSIONS + 1)
+
+        def session(k):
+            try:
+                sock = socket_pair_client(r_b.port)
+                ys = [query_request(query, sock, (prompts[k],), 0)]
+                for i in range(FLEET_DRAIN_AT):
+                    ys.append(query_request(query, sock, (steps[k][i],), i + 1))
+                b1.wait(timeout=300)
+                b2.wait(timeout=300)
+                for i in range(FLEET_DRAIN_AT, FLEET_STEPS):
+                    ys.append(query_request(query, sock, (steps[k][i],), i + 1))
+                sock.close()
+                out[k] = ys
+            except BaseException as exc:  # noqa: BLE001 - reported below
+                errors.append((k, repr(exc)))
+                for b in (b1, b2):
+                    b.abort()
+
+        sess = [threading.Thread(target=session, args=(k,)) for k in range(FLEET_SESSIONS)]
+        for t in sess:
+            t.start()
+        try:
+            b1.wait(timeout=300)
+        except threading.BrokenBarrierError:
+            fail(f"fleet (b): sessions failed before the drain: {errors}")
+        by_worker = r_b.stats()["sessions_by_worker"]
+        drained = max(sorted(by_worker), key=lambda w: by_worker[w])
+        n_drained = by_worker[drained]
+        t_drain = spans.now_ns()
+        broken = r_b.drain_worker(drained, deadline_s=60)
+        try:
+            b2.wait(timeout=300)
+        except threading.BrokenBarrierError:
+            fail(f"fleet (b): sessions failed at the drain: {errors}")
+        for t in sess:
+            t.join(timeout=300)
+        check(not errors, f"fleet (b): session failures {errors}")
+        err = max(float(np.abs(np.asarray(a).reshape(-1) - b.reshape(-1)).max() / np.abs(b).max())
+                  for k in range(FLEET_SESSIONS) for a, b in zip(out[k], alone[k]))
+        check(err <= DECODE_REL, f"fleet (b): a session is {err} of the largest from the "
+                                 f"undisturbed engine's (tolerance {DECODE_REL})")
+        st_b = r_b.stats()
+        other = next(w for w in sorted(mw.wid for mw in sup_b.managed()) if w != drained)
+        dec = {w: worker_stats(sup_b, w)["decode"] for w in (drained, other)}
+        out_n, in_n = dec[drained]["sessions_migrated"], dec[other]["sessions_restored"]
+        check(broken == 0 and st_b["sessions_broken"] == 0 and
+              out_n == in_n == n_drained == st_b["sessions_migrated"],
+              f"fleet (b): drained {drained} with {n_drained} sessions: broken {broken}, "
+              f"migrated out {out_n}, in {in_n}, router {st_b['sessions_migrated']}")
+        pauses = [r[2] for r in spans.snapshot()
+                  if r[4] == "session_migrate" and r[1] >= t_drain]
+        res["b"] = dict(sessions=FLEET_SESSIONS, prompt=FLEET_PROMPT, steps=FLEET_STEPS,
+                        rel_err=err, drained=drained, migrated=n_drained,
+                        longest_handoff_ms=max(pauses) / 1e6 if pauses else None)
+        print(f"fleet (b): {FLEET_SESSIONS} sessions on 2 DecodeServer workers (capacity "
+              f"{FLEET_CAPACITY}, d_model {FLEET_ENGINE['d_model']}, {FLEET_ENGINE['n_layers']} "
+              f"layers), {drained} drained after {FLEET_DRAIN_AT} steps: {n_drained} sessions "
+              f"migrated through the repo process, 0 broken, within {err:.3g} of the "
+              f"undisturbed engine's; longest handoff {res['b']['longest_handoff_ms']} ms "
+              f"[{card}]", flush=True)
+
+        pl.join(timeout=180)
+        pt.join(timeout=180)
+        rec_p = prof.get("records", [])
+        w0, w1 = prof.get("window", (0, 0))
+        # the spans' clock is time.perf_counter_ns(): map the window onto it
+        shift = spans.now_ns() - time.monotonic_ns()
+        inside = [r for r in rec_p if r["status"] == "ok"
+                  and w0 + shift <= r["t_done_ns"] <= w1 + shift]
+        check(not prof.get("error") and prof.get("summary", {}).get("capture_id"),
+              f"fleet (d): the worker's profile did not come back: {prof.get('error')}")
+        check(rec_p and all(r["status"] == "ok" for r in rec_p) and inside,
+              f"fleet (d): {keeper} stopped serving around its profile: {len(inside)} "
+              f"replies inside the fetch, failures "
+              f"{[r['code'] for r in rec_p if r['status'] != 'ok'][:5]}")
+        summ = prof["summary"]
+        res["profile"] = dict(worker=keeper, seconds=summ.get("seconds"),
+                              stop_s=summ.get("stop_s"), ops_total=summ.get("ops_total"),
+                              fetch_s=(w1 - w0) / 1e9, load=len(rec_p),
+                              delivered_during=len(inside))
+        print(f"fleet (d): {keeper}'s profile under {FLEET_PROFILE_RATE:g}/s of load: window "
+              f"{summ.get('seconds')} s, stop {summ.get('stop_s')} s, {summ.get('ops_total')} "
+              f"device ops, fetch {(w1 - w0) / 1e9:.3f} s with {len(inside)} replies "
+              f"delivered inside it [{card}]", flush=True)
+
+        # the victim: down, then respawned into up
+        deadline = time.monotonic() + FLEET_JOIN_LIMIT_S
+        while time.monotonic() < deadline and not (
+                sup_a.get(victim).state == "up" and m_a.get(victim).state == "up"):
+            time.sleep(0.05)
+        prof["done_a"] = True
+        bg.join(timeout=30)
+        sm.join(timeout=30)
+        states.append(m_a.get(victim).state)
+        check("down" in states and states[-1] == "up",
+              f"fleet (a): the killed worker's membership states {sorted(set(states))}, "
+              f"last {states[-1]}")
+        ev = [e for e in sup_a.events.snapshot() if e["worker"] == victim]
+        t_resp = [e["t"] for e in ev if e["action"] == "respawn"]
+        t_join = [e["t"] for e in ev if e["action"] == "join"]
+        t_up = [e["t"] for e in ev if e["action"] == "spawn"]
+        check(len(t_resp) == 1 and len(t_join) == 2 and len(t_up) == 2,
+              f"fleet (a): the victim's scale events {[e['action'] for e in ev]}")
+        respawn_s = t_join[-1] - t_resp[0]
+        respawn_split = dict(process_up_s=t_up[-1] - t_resp[0], capture_s=t_join[-1] - t_up[-1])
+        res["a"] = dict(rate=FLEET_RATE * FLEET_TENANTS, tenants=FLEET_TENANTS,
+                        requests=len(records), replies_exact=len(ok),
+                        p50_ms=lat["p50_ms"], p99_ms=lat["p99_ms"], rerouted=st_a["rerouted"],
+                        killed=victim, respawn_to_routable_s=respawn_s, **respawn_split,
+                        membership_states=sorted(set(states)))
+        print(f"fleet (a): {len(records)} requests at {FLEET_RATE * FLEET_TENANTS:g}/s open "
+              f"loop from {FLEET_TENANTS} tenants through the router, {victim} killed by the "
+              f"seeded chaos: every reply bitwise the in-process slice's, offered "
+              f"{st_a['offered']} = delivered {st_a['delivered']} + shed 0, rerouted "
+              f"{st_a['rerouted']}; client p50 {lat['p50_ms']:.3f} ms, p99 "
+              f"{lat['p99_ms']:.3f} ms from the scheduled arrival; respawn to routable "
+              f"{respawn_s:.3f} s (process up {respawn_split['process_up_s']:.3f} s, then "
+              f"warmup capture {respawn_split['capture_s']:.3f} s) [{card}]", flush=True)
+
+        # -- (d) the merged trace, cost models, forensics and the SLO burn ---------
+        live_a = {w: sup_a.get(w).handle.ports["health_addr"] for w in wids}
+        tc = col.TraceCollector()
+        tc.add_local("chip_smoke")
+        for w, addr in live_a.items():
+            tc.add_http(w, addr)
+        collected = tc.collect()
+        offsets = {n: e["rtt_ns"] for n, e in collected["sources"].items()}
+        chains = fleet_chain(tc.spans_by_trace(collected), offsets)
+        check(chains, "fleet (d): no trace id runs client -> nnsq_route -> nnsq_serve -> "
+                      f"device_exec with aligned clocks (errors {collected['errors']})")
+        slo = SloEngine(objectives=FLEET_D_SLO, eval_interval_s=0.0)
+        fengine = ForensicsEngine(pipeline="fleet", cost_model={"schema": 1, "stages": {}},
+                                  min_samples=FLEET_D_MIN_SAMPLES)
+        before = r_a.stats()
+        lg_d = loadgen.LoadGen(("127.0.0.1", r_a.port),
+                               [dict(name="burst", workload="slice1",
+                                     profile=dict(kind="constant", rate=FLEET_D_RATE))],
+                               FLEET_D_SECONDS, seed=22, metric_pipeline="fleet-d")
+        rec_d = lg_d.run(workloads={"burst": workloads["tenant-0"]})
+        tc_d = col.TraceCollector()
+        tc_d.add_local("chip_smoke")
+        for w, addr in live_a.items():
+            tc_d.add_http(w, addr)
+        report = loadgen.build_report(rec_d, FLEET_D_SECONDS, lg_d.t0_ns, [], 22,
+                                      scenario="fleet-d", collector=tc_d,
+                                      forensics_engine=fengine)
+        verdicts = fengine.summary()["outliers"]
+        docs = {w: col.http_get_json(f"http://{addr}/alerts", 30) for w, addr in live_a.items()}
+        docs["chip_smoke"] = slo.alerts_document(force=True)
+        merged = col.merge_alerts(docs)
+        after = r_a.stats()
+        check(all(r["status"] == "ok" for r in rec_d)
+              and after["delivered"] - before["delivered"] == len(rec_d)
+              and after["shed_total"] == before["shed_total"],
+              f"fleet (d): the burst lost requests: {[r['code'] for r in rec_d if r['status'] != 'ok'][:5]}")
+        check(verdicts.get("device", 0) > 0,
+              f"fleet (d): invoke_delay gave no device verdict: {verdicts}")
+        check("fleet" in merged["firing"],
+              f"fleet (d): merge_alerts shows no burn: {merged['objectives'].get('fleet')}")
+        cms = {}
+        for w in live_a:
+            st = worker_stats(sup_a, w)
+            check(not fleet_replay_check(w, st),
+                  f"fleet (d): {w} after the burst: {fleet_replay_check(w, st)}")
+            cms[w] = {p: sorted(s["stages"]) for p, s in st.get("cost_model", {}).items()}
+            check(any(s["stages"] for s in st.get("cost_model", {}).values()),
+                  f"fleet (d): {w}'s cost model is empty")
+        burn = {k: v["burn"] for k, v in merged["objectives"]["fleet"]["windows"].items()}
+        res["d"] = dict(trace_chains=len(chains), clock_rtt_us={n: v / 1e3 for n, v in offsets.items()},
+                        cost_model_stages=cms, burst=len(rec_d), verdicts=verdicts,
+                        joined=report["attribution"]["joined"], burn=burn)
+        print(f"fleet (d): {len(chains)} trace ids run client -> nnsq_route -> nnsq_serve -> "
+              f"device_exec across {len(collected['sources'])} processes, clocks aligned "
+              f"(probe rtt us {res['d']['clock_rtt_us']}); cost models {cms}; a burst of "
+              f"{len(rec_d)} with invoke_delay on {victim}'s respawn: verdicts {verdicts}, "
+              f"merged SLO burn {burn} firing {merged['firing']} [{card}]", flush=True)
+
+        # -- (c) elastic: the autoscaler takes the fleet 1 -> 2 -> 1 on a spike --------
+        # the spike ends long before the scale-up's worker is routable: the
+        # scale-down cancels that joining worker and the floor, the one
+        # routable worker, serves on (ROADMAP C21)
+        dur = FLEET_C_PRE_S + FLEET_C_SPIKE_S + FLEET_C_POST_S
+        n_before = len(sup_c.events.snapshot())
+        (floor_c,) = [mw.wid for mw in sup_c.managed()]
+        router_signals = RouterSignals(r_c, m_c, registry=MetricsRegistry())
+        readings = []  # (seconds into the load, offered requests/s) a tick
+        floor_states = []
+        t_load = [time.monotonic()]
+
+        def signals():
+            sig = router_signals()
+            readings.append((round(time.monotonic() - t_load[0], 3), round(sig.offered_rps, 3)))
+            return sig
+
+        def sample_floor():
+            while not stop_evt.is_set() and not prof.get("done_c"):
+                floor_states.append((m_c.get(floor_c).state, sup_c.get(floor_c).state))
+                time.sleep(0.01)
+
+        autoscaler = Autoscaler(
+            sup_c, signals, name="fleet-c",
+            min_workers=1, max_workers=2, interval_s=1.0, worker_rps=FLEET_C_WORKER_RPS,
+            forecast=True, forecast_horizon_s=1.0, history_window_s=FLEET_C_HISTORY_S,
+            up_cooldown_s=1.0, down_cooldown_s=2.0).start()
+        lg_c = loadgen.LoadGen(("127.0.0.1", r_c.port),
+                               [dict(name="spiky", workload="slice1",
+                                     profile=dict(kind="spike", rate=FLEET_C_BASE,
+                                                  peak=FLEET_C_PEAK,
+                                                  at=(FLEET_C_PRE_S + FLEET_C_SPIKE_S / 2) / dur,
+                                                  width=FLEET_C_SPIKE_S / dur))],
+                               dur, seed=23, metric_pipeline="fleet-c")
+        sf = threading.Thread(target=sample_floor, daemon=True, name="fleet-c-floor")
+        t_load[0] = time.monotonic()
+        sf.start()
+        rec_c = lg_c.run(workloads={"spiky": workloads["tenant-0"]})
+        # the drain: the router's, then SIGTERM and the process's exit
+        deadline = time.monotonic() + 2 * FLEET_EXIT_LIMIT_S
+        drained_c = t_exit = None
+        while time.monotonic() < deadline:
+            ev = sup_c.events.snapshot()[n_before:]
+            drains = [e for e in ev if e["action"] == "drain"]
+            if drains:
+                h = sup_c.get(drains[0]["worker"]).handle
+                if t_exit is None and h.proc.poll() is not None:
+                    t_exit = time.monotonic() - drains[0]["t"]
+                if sup_c.get(drains[0]["worker"]).state == "removed":
+                    drained_c = drains[0]["worker"]
+                    break
+            time.sleep(0.05)
+        autoscaler.stop()
+        prof["done_c"] = True
+        sf.join(timeout=30)
+        ev = sup_c.events.snapshot()[n_before:]
+        acts = [(e["action"], e["worker"]) for e in ev]
+        spawned = [w for a, w in acts if a == "spawn"]
+        check([a for a, _ in acts].count("spawn") == 1 and [a for a, _ in acts].count("drain") == 1
+              and drained_c is not None and spawned == [drained_c]
+              and ("join", drained_c) not in acts
+              and ev[[a for a, _ in acts].index("drain")]["detail"].endswith(
+                  "cancelled while joining"),
+              f"fleet (c): scale events {[(e['action'], e['worker'], e['detail']) for e in ev]}: "
+              "the scale-down must cancel the joining worker")
+        st_sup = sup_c.stats()
+        check(floor_states and all(m in ("up", "degraded") and s_ == "up"
+                                   for m, s_ in floor_states)
+              and st_sup["cancelled"] == 1 and st_sup["ledger_exact"],
+              f"fleet (c): the floor {floor_c} left rotation ({sorted(set(floor_states))}) or "
+              f"the spawn ledger is off ({ {k: st_sup[k] for k in ('spawns', 'joined', 'cancelled', 'ledger_exact')} })")
+        rc = sup_c.get(drained_c).handle.proc.returncode
+        st_c = r_c.stats()
+        check(rc == 0, f"fleet (c): the drained worker {drained_c} exited with {rc}")
+        check(all(r["status"] == "ok" for r in rec_c) and st_c["shed_total"] == 0
+              and st_c["offered"] == st_c["delivered"] == len(rec_c),
+              f"fleet (c): requests lost: router {st_c['offered']} offered, "
+              f"{st_c['delivered']} delivered, shed {st_c['shed']}; client "
+              f"{[r['code'] for r in rec_c if r['status'] != 'ok'][:5]}")
+        t_spawn_c = next(e["t"] for e in ev if e["action"] == "spawn")
+        t_drain_c = next(e["t"] for e in ev if e["action"] == "drain")
+        # events and the controller's load readings in seconds into the load;
+        # the spike runs from FLEET_C_PRE_S to FLEET_C_PRE_S + FLEET_C_SPIKE_S
+        res["c"] = dict(requests=len(rec_c), base=FLEET_C_BASE, peak=FLEET_C_PEAK,
+                        spike_s=FLEET_C_SPIKE_S, worker_rps=FLEET_C_WORKER_RPS,
+                        spike=(FLEET_C_PRE_S, FLEET_C_PRE_S + FLEET_C_SPIKE_S),
+                        events=[(e["action"], e["worker"], round(e["t"] - t_load[0], 3),
+                                 e["detail"]) for e in ev],
+                        readings=readings, spawn_to_cancel_s=t_drain_c - t_spawn_c,
+                        drained_rc=rc, drain_to_exit_s=t_exit,
+                        fleet=(autoscaler.fleet_size_min, autoscaler.fleet_size_max))
+        print(f"fleet (c): spike {FLEET_C_BASE:g} -> {FLEET_C_PEAK:g} -> {FLEET_C_BASE:g}/s "
+              f"({len(rec_c)} requests, none lost), the spike over {res['c']['spike']} s into "
+              f"the load: scale events {res['c']['events']}; the scale-up's worker cancelled "
+              f"while joining {t_drain_c - t_spawn_c:.3f} s after its spawn, the floor "
+              f"{floor_c} routable throughout ({len(floor_states)} samples); the drained "
+              f"worker exited 0, {t_exit:.3f} s after its drain began [{card}]", flush=True)
+        print(f"fleet (c): the controller's load readings (s, requests/s) {readings}",
+              flush=True)
+    except BaseException:
+        fleet_log_tails(logs)
+        raise
+    finally:
+        stop_evt.set()
+        hooks.disconnect("scale_event", on_scale)
+        if autoscaler is not None:
+            autoscaler.stop()
+        faults.deactivate()
+        for sup in sups:
+            for mw in sup.managed():
+                if mw.handle is not None:
+                    mw.handle.kill()
+                    try:
+                        mw.handle.proc.wait(timeout=30)
+                    except Exception:  # noqa: BLE001 - killed; reaped by the OS
+                        pass
+        if repo_proc is not None:
+            repo_proc.kill()
+            repo_proc.wait(timeout=30)
+        for r in (r_a, r_b, r_c):
+            if r is not None:
+                r.stop()
+        for m in (m_a, m_b, m_c):
+            m.stop()
+        if not was_spans:
+            spans.disable()
+        for f in files:
+            f.close()
+    check(all(tally[k] > 0 for k in ("fused_arith", "int8_matmul")),
+          f"fleet: the workers' kernel launches {tally}: fused_arith and int8_matmul must run")
+    check(not fleet_join_check(handles_seen),
+          f"fleet: launch counts at the joins: {fleet_join_check(handles_seen)}")
+    res["launches_by_worker"] = handles_seen
+    res["wall_s"] = time.perf_counter() - t_phase
+    print(f"fleet: kernel launches in the workers {tally} ({len(handles_seen)} worker "
+          f"incarnations); phase wall {res['wall_s']:.3f} s [{card}]", flush=True)
+    return tally, res
+
+
 def main() -> int:
     import torch
 
@@ -8279,6 +9070,9 @@ def main() -> int:
     mesh_launches, mesh = parallel_phase(torch, np, K, ops, root, card, slices)
     for key, counts in mesh_launches.items():
         by_path[key] = (counts, {})
+    t18 = time.perf_counter()
+    phase("fleet")
+    by_path["fleet"] = fleet_phase(torch, np, K, root, card)
     faulthandler.cancel_dump_traceback_later()
     print(f"phase wall s: up to the quant phase {t1 - t0:.3f}, pose {t2 - t1:.3f}, "
           f"recurrence {t3 - t2:.3f}, batch {t4 - t3:.3f}, cascade {t5 - t4:.3f}, "
@@ -8286,7 +9080,8 @@ def main() -> int:
           f"config 4d {t9 - t8:.3f}, recovery {t10 - t9:.3f}, "
           f"device lane {t11 - t10:.3f}, lanes {t12 - t11:.3f}, profile {t13 - t12:.3f}, "
           f"train {t14 - t13:.3f}, query {t15 - t14:.3f}, C16 {t16 - t15:.3f}, "
-          f"stream {t17 - t16:.3f}, mesh {time.perf_counter() - t17:.3f}; "
+          f"stream {t17 - t16:.3f}, mesh {t18 - t17:.3f}, "
+          f"fleet {time.perf_counter() - t18:.3f}; "
           f"the script {time.perf_counter() - t0:.3f} after the import", flush=True)
     wrapper = {"fused_arith": "fused_arith", "int8_matmul": "int8_matmul",
                "nms_keep": "pallas_nms_keep"}
@@ -8315,7 +9110,7 @@ def main() -> int:
                       "lanes": by_path["lanes"][1], "profile": by_path["profile"][1],
                       "train": by_path["train"][1], "query": by_path["query"][1],
                       "c16": by_path["c16"][1], "stream": by_path["stream"][1],
-                      "mesh": mesh}),
+                      "mesh": mesh, "fleet": by_path["fleet"][1]}),
           flush=True)
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

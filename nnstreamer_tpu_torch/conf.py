@@ -60,8 +60,79 @@ DEFAULTS: Dict[str, Dict[str, str]] = {
     "filter": {
         "torch_device": "cuda",     # where models from files live
     },
+    # The fleet tier (fleet/): the NNSQ router and worker membership.
+    # NNSTPU_FLEET_* env vars map here.
     "fleet": {
+        "heartbeat_s": "0.5",       # membership probe interval
+        "probe_timeout_s": "2.0",   # per-probe deadline
+        "suspect_misses": "2",      # missed probes before SUSPECT (no new
+                                    # dispatch; in-flight work completes)
+        "death_misses": "6",        # missed probes before DOWN (ejected)
+        "breaker_failures": "3",    # data-path failures to quarantine a
+                                    # flapping worker (per-worker breaker)
+        "breaker_reset_s": "2.0",   # quarantine -> half-open probe delay
+        "route_retries": "3",       # extra workers tried per request
+        "retry_backoff_ms": "20",   # first re-route backoff (doubles)
+        "retry_backoff_cap_ms": "500",
+        "connect_timeout_s": "5",   # router -> worker dial deadline
+        "request_timeout_s": "30",  # router -> worker reply deadline
+        "drain_deadline_s": "10",   # session-drain wait before force-break
         "repo_addr": "",            # host:port of a TensorRepoServer (fleet/repo.py)
+        "migrate": "1",             # live-migrate decode sessions on a
+                                    # planned drain (needs repo_addr);
+                                    # 0 = force-break with [SESSION]
+        "migrate_timeout_s": "10",  # per-handoff deadline (quiesce +
+                                    # snapshot + restore + re-pin)
+        "migrate_check_s": "0.25",  # stateful router's monitor period
+                                    # for self-draining workers
+    },
+    # The elastic fleet (fleet/autoscaler.py, fleet/supervisor.py): the
+    # SLO-driven control loop.  NNSTPU_AUTOSCALE_* env vars map here.
+    "autoscale": {
+        "min_workers": "1",         # fleet floor (never drained below)
+        "max_workers": "4",         # fleet ceiling (never spawned above)
+        "interval_s": "0.5",        # control-loop tick period
+        "queue_wait_hi_ms": "50",   # queue-wait p99 above this => scale up
+        "queue_wait_lo_ms": "5",    # ...below this (and idle) => scale down
+        "busy_hi": "0.85",          # device busy fraction upper band
+        "busy_lo": "0.20",          # ...lower band (scale-down eligible)
+        "shed_hi": "0.01",          # shed rate (shed/offered) => scale up
+        "up_cooldown_s": "1",       # least gap between scale-up actions
+        "down_cooldown_s": "5",     # least gap between scale-down actions
+        "flap_window_s": "30",      # direction reversals counted here...
+        "flap_limit": "3",          # ...beyond this: damped (held steady)
+        "storm_budget": "6",        # spawns per storm window before the
+                                    # typed degraded /healthz escalation
+        "storm_window_s": "30",     # the spawn-storm budget window
+        "forecast": "true",         # predictive leg over the offered-load
+                                    # history
+        "forecast_horizon_s": "5",  # how far ahead the forecast looks
+        "history_window_s": "60",   # offered-load history retained
+        "worker_rps": "0",          # per-worker capacity estimate feeding
+                                    # the forecast (0 = predictive leg off)
+        "crash_limit": "3",         # worker deaths within crash_window_s
+                                    # => crash-loop quarantine
+        "crash_window_s": "30",     # the crash-loop detection window
+        "quarantine_s": "30",       # hold-down before a quarantined
+                                    # worker may respawn
+        "respawn_backoff_ms": "200",   # first respawn backoff (doubles)
+        "respawn_backoff_cap_ms": "5000",  # respawn backoff ceiling
+        "spawn_timeout_s": "30",    # spawn + warmup deadline before the
+                                    # attempt counts as failed
+    },
+    # The SLO burn-rate engine (obs/slo.py): latency objectives evaluated
+    # at scrape time over registry histogram windows, served on /alerts
+    # and the `alert` hook.  NNSTPU_SLO_* env vars map here.
+    "slo": {
+        # "name:metric{label=value,...}<bound_ms@target", semicolon-
+        # separated; metric defaults to nnstpu_e2e_latency_ms, e.g.
+        # "e2e:<50ms@0.999;tenantA:{tenant=A}<25ms@0.99"
+        "objectives": "",
+        "fast_window_s": "60",      # fast burn window (paging signal)
+        "slow_window_s": "600",     # slow burn window (confirmation)
+        "fast_burn": "14.0",        # firing threshold on the fast window
+        "slow_burn": "6.0",         # firing threshold on the slow window
+        "eval_interval_s": "5",     # least seconds between evaluations
     },
     # Serving QoS (sched/): NNSTPU_SCHED_* env vars map here.  An empty
     # policy disables scheduling entirely (plain FIFO dispatch).
@@ -107,6 +178,23 @@ DEFAULTS: Dict[str, Dict[str, str]] = {
         # >0: the watchdog probes the host-to-device wire every this many
         # seconds and publishes the nnstpu_wire_* gauges (obs/util.py)
         "watchdog_wire_probe_s": "0",
+        # The cost observatory (obs/costmodel.py, tracer "costmodel"): the
+        # persisted per-stage cost model, its EWMA smoothing factor, and
+        # whether the tracer's stop() flushes it to disk.
+        "costmodel_path": "COST_MODEL.json",
+        "costmodel_alpha": "0.2",
+        "costmodel_autosave": "true",
+        # Tail forensics (obs/forensics.py, tracer "forensics"): traces
+        # whose leg decomposition leaves the cost-model noise band count
+        # as outliers and, with a directory set, are captured as flight
+        # dumps (slowest K kept under a byte cap).
+        "forensics_dir": "",            # "" = score and count, never capture
+        "forensics_keep": "8",          # gallery entries kept (slowest K)
+        "forensics_max_bytes": "16777216",  # gallery byte cap (16 MiB)
+        "forensics_sigmas": "3.0",      # noise-band sigmas (leg_band_us)
+        "forensics_min_rel": "0.10",    # noise-band relative floor
+        "forensics_min_abs_us": "5.0",  # noise-band absolute floor, us
+        "forensics_min_samples": "32",  # live-baseline warm-up before verdicts
         # The deep-profiling lane (obs/profiler.py): torch.profiler capture
         # windows, per-op attribution and the captured graphs' memory
         # ledger.  The gallery holds the newest profile_keep captures under

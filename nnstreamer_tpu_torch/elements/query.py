@@ -505,6 +505,10 @@ class QueryServer:
             scheduler = configured_scheduler("query_server")
             self._own_sched = scheduler is not None
         self.scheduler = scheduler
+        # a fleet worker's serving scope (fleet/worker.py ServeScope): the
+        # stages of a backend made here dispatch under it, so tracers
+        # started on the scope see them
+        self.obs_scope = None
 
     def _to_device(self, tensors) -> tuple:
         return tuple(wire_tensor(a, self.device) for a in tensors)
@@ -517,6 +521,8 @@ class QueryServer:
 
             be = get_backend(self._framework)
             be.open(self._model, custom=self._custom)
+            if self.obs_scope is not None and hasattr(be, "bind_scope"):
+                be.bind_scope(self.obs_scope)
             be.reconfigure(spec)
             if len(self._backends) >= self.MAX_SPEC_BACKENDS:
                 # true LRU: the first key is the coldest entry
@@ -1002,9 +1008,25 @@ class QueryServer:
             "invoke_s": self.invoke_s,
             "replies": self.replies,
             "reply_read_s": self.reply_read_s,
+            "graphs": self._graph_counts(),
         }
         if self.scheduler is not None:
             out["sched"] = self.scheduler.stats()
+        return out
+
+    def _graph_counts(self) -> dict:
+        """Captures and CUDA-graph replays over the per-spec backends (a
+        torch backend's own counts, or a fragment's over its filters)."""
+        out = {"captures": 0, "replays": 0}
+        for be in list(self._backends.values()):
+            if hasattr(be, "graph_counts"):
+                counts = be.graph_counts()
+            else:
+                counts = getattr(be, "stats", None)
+                if not isinstance(counts, dict):
+                    continue
+            for k in out:
+                out[k] += int(counts.get(k, 0))
         return out
 
     def drain(self, timeout: float = 10.0) -> bool:

@@ -38,11 +38,27 @@ The port's injection points:
                      on the assembled frame bytes): ``socket_drop`` /
                      ``truncate`` / ``corrupt`` (:func:`on_wire`); the
                      sites are named ``nnsq.client``, ``nnsq.server`` and
-                     ``nnsq.repo``
+                     ``nnsq.repo`` (``nnsq.router`` on the fleet router)
+``fleet``            a fleet chaos supervisor's per-(tick, worker)
+                     consultation (:func:`maybe_fleet`,
+                     ``fleet/chaos.py``) — ``worker_kill`` (abrupt
+                     teardown; SIGKILL for a subprocess worker),
+                     ``worker_hang`` (block the worker's dispatch for
+                     ``ms``), ``partition`` (health and data paths
+                     unreachable for ``ms``)
+``migrate``          the fleet router's per-handoff-phase consultation
+                     (:func:`maybe_migrate`, site
+                     ``<router>:<phase>:<worker>``) — ``migrate_abort``
+                     raises mid-handoff; the router degrades to the typed
+                     ``[SESSION]`` fallback with the source slot freed
+``autoscale``        the elastic fleet (``fleet/supervisor.py``,
+                     ``fleet/autoscaler.py``) — ``spawn_fail``
+                     (:func:`maybe_spawn_fail`, site
+                     ``<supervisor>:spawn:<worker>``) raises at a spawn
+                     attempt; ``scale_flap`` (:func:`maybe_scale_flap`,
+                     site ``<autoscaler>:plan``) perturbs the controller's
+                     raw desired count each tick it fires
 ===================  ===================================================
-
-The JAX package's ``fleet``, ``migrate`` and ``autoscale`` points wait for
-the port of the fleet tier (ROADMAP item 14).
 """
 
 from __future__ import annotations
@@ -146,6 +162,55 @@ def maybe_compile(name: str) -> None:
     rule = eng.decide("backend_compile", name)
     if rule is not None:
         raise InjectedFault(rule.kind, name, rule.opportunities)
+
+
+def maybe_fleet(name: str):
+    """``fleet`` point: one opportunity for the named worker; returns the
+    firing :class:`FaultRule` (the caller applies ``rule.kind`` —
+    ``worker_kill`` / ``worker_hang`` / ``partition`` — to the worker, with
+    ``rule.ms`` as the hang or partition duration) or None.  The
+    application lives with the caller: a fleet supervisor owns the process
+    handles the engine cannot."""
+    eng = _engine
+    if eng is None:
+        return None
+    return eng.decide("fleet", name)
+
+
+def maybe_migrate(name: str) -> None:
+    """``migrate`` point: one opportunity per handoff phase
+    (``<router>:<phase>:<worker>``); a firing ``migrate_abort`` raises
+    :class:`InjectedFault`."""
+    eng = _engine
+    if eng is None:
+        return
+    rule = eng.decide("migrate", name)
+    if rule is not None:
+        raise InjectedFault(rule.kind, name, rule.opportunities)
+
+
+def maybe_spawn_fail(name: str) -> None:
+    """``autoscale`` point, ``spawn_fail`` kind: one opportunity per worker
+    spawn attempt (``<supervisor>:spawn:<worker>``); a firing rule raises
+    :class:`InjectedFault` (the supervisor counts the failure, backs off and
+    keeps the current fleet serving)."""
+    eng = _engine
+    if eng is None:
+        return
+    rule = eng.decide("autoscale", name, kinds=("spawn_fail",))
+    if rule is not None:
+        raise InjectedFault(rule.kind, name, rule.opportunities)
+
+
+def maybe_scale_flap(name: str):
+    """``autoscale`` point, ``scale_flap`` kind: one opportunity per
+    controller tick (``<autoscaler>:plan``); returns the firing
+    :class:`FaultRule` (the controller applies it as a desired-count
+    perturbation its flap damper must absorb) or None."""
+    eng = _engine
+    if eng is None:
+        return None
+    return eng.decide("autoscale", name, kinds=("scale_flap",))
 
 
 def maybe_queue_wedge(name: str) -> None:

@@ -6,9 +6,9 @@ same opportunities in both packages.  A streaming system earns its
 robustness claims by surviving injected failure, not by never seeing one.
 This engine turns the failure modes the runtime must tolerate (raising or
 slow filter invokes, failing captures, wedged queues, dropped sockets,
-torn and corrupted NNSQ frames, and the fleet faults of a tier the port
-has yet to bring over) into
-*reproducible* events: every decision comes from a per-rule
+torn and corrupted NNSQ frames, killed, hung and partitioned fleet
+workers, aborted session handoffs, failed spawns and a flapping
+autoscaler) into *reproducible* events: every decision comes from a per-rule
 ``random.Random`` stream seeded from ``(seed, kind, target)``, so two
 engines built from the same spec replay the identical injection sequence
 over the identical opportunity stream.
@@ -33,9 +33,10 @@ Spec grammar (``NNSTPU_FAULTS`` / ini ``[faults] spec``)::
              count=N   cap total injections for this rule
              ms=D      duration for delay/stall/wedge faults (milliseconds)
 
-The port consults ``backend_invoke``, ``backend_compile``,
-``queue_wedge`` and ``nnsq_send``; a rule of another point parses and never
-fires until its subsystem is ported.  ``target`` is a substring matched
+The port consults every point: ``backend_invoke``, ``backend_compile``,
+``queue_wedge`` and ``nnsq_send`` in the graph runtime and on the wire,
+``fleet``, ``migrate`` and ``autoscale`` in the fleet tier
+(``nnstreamer_tpu_torch/fleet``).  ``target`` is a substring matched
 against the injection site's name (the node name, ``server``/``client``
 for the NNSQ wire); empty matches everything.
 Non-matching calls do not consume an opportunity, so the rule's random
@@ -71,12 +72,13 @@ POINT_OF = {
     "compile_raise": "backend_compile",
     "queue_wedge": "queue_wedge",
     # fleet scope: consulted per (tick, worker) by a fleet chaos
-    # supervisor (not ported yet)
+    # supervisor (fleet/chaos.py)
     "worker_kill": "fleet",
     "worker_hang": "fleet",
     "partition": "fleet",
-    # live decode-session migration and elastic autoscaling (not ported
-    # yet): a handoff phase, a spawn attempt, a controller tick
+    # live decode-session migration and elastic autoscaling
+    # (fleet/router.py, fleet/supervisor.py, fleet/autoscaler.py): a
+    # handoff phase, a spawn attempt, a controller tick
     "migrate_abort": "migrate",
     "spawn_fail": "autoscale",
     "scale_flap": "autoscale",

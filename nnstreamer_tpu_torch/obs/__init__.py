@@ -42,9 +42,22 @@ Activation is conf-driven — ``NNSTPU_TRACERS=latency;stats`` and
 ``[common]`` keys also work) — or programmatic via
 ``pipeline.attach_tracer("latency")``.
 
-Not ported yet: the cost model, the cluster collector, tail forensics and
-the SLO engine (``obs/{costmodel,collector,forensics,slo}.py``), and the
-partition edges of ``obs/util.py``'s wire health.
+The cluster layer:
+
+- :mod:`.costmodel` — the cost observatory (``costmodel`` tracer): the
+  per-stage compute-vs-transfer cost model from the hook bus, exported as
+  ``nnstpu_stage_cost_us`` gauges and the ``cost_model`` stats provider,
+  persisted idempotently to ``COST_MODEL.json`` in the JAX package's
+  schema;
+- :mod:`.slo` — the burn-rate SLO engine behind ``/alerts`` and the
+  ``alert`` hook;
+- :mod:`.collector` — cluster collection: ``/trace.json`` snapshots merged
+  into one clock-aligned Perfetto trace, per-worker ``/metrics`` and
+  ``/alerts`` federated, one request's spans decomposed into latency legs;
+- :mod:`.forensics` — tail forensics (``forensics`` tracer): typed
+  root-cause verdicts for latency outliers and a bounded capture gallery.
+
+Not ported yet: the partition edges of ``obs/util.py``'s wire health.
 """
 
 from __future__ import annotations
@@ -57,11 +70,14 @@ from .export import (  # noqa: F401
     MetricsServer,
     ensure_server,
     health_snapshot,
+    register_alerts,
     register_health,
     register_stats,
+    set_health_nonce,
     render_text,
     shutdown_server,
     stats_snapshot,
+    unregister_alerts,
     unregister_health,
     unregister_stats,
 )
@@ -131,6 +147,31 @@ from .profiler import (  # noqa: E402,F401
     parse_capture_dir,
     profiled_window,
 )
+
+
+# importing .costmodel / .forensics registers the "costmodel" /
+# "forensics" tracers; .slo is the burn-rate engine behind /alerts
+from . import costmodel  # noqa: E402,F401
+from .costmodel import (  # noqa: E402,F401
+    CostModelTracer,
+    cost_model_path,
+    load_cost_model,
+    merge_cost_model,
+)
+from . import collector  # noqa: E402,F401
+from .collector import (  # noqa: E402,F401
+    TraceCollector,
+    attribute_trace,
+    federate_metrics,
+    fetch_alerts,
+    merge_alerts,
+    set_process_name,
+    trace_document,
+)
+from . import forensics  # noqa: E402,F401
+from . import slo  # noqa: E402,F401
+from .forensics import ForensicsEngine, ForensicsTracer  # noqa: E402,F401
+from .slo import SloEngine, parse_objectives  # noqa: E402,F401
 
 
 def configured_tracers() -> List[str]:

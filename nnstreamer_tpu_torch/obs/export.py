@@ -16,19 +16,20 @@ carrying every provider's reason — ``degraded`` and ``warming`` stay 200,
 unhealthy; the pipeline watchdog, ``obs/watchdog.py``, registers one a
 pipeline), ``/stats.json`` — every registered stats provider (each
 pipeline, from ``Pipeline.start``) merged into one JSON document, the
-structured twin of the Prometheus exposition — and ``/alerts``, the empty
-document of a process with no objectives.
+structured twin of the Prometheus exposition — ``/alerts``, the SLO
+burn-rate engine's document (``obs/slo.py``; the server builds the engine
+of ``[slo] objectives`` when it starts, and a process with no objectives
+answers the empty document), and ``/trace.json``, the process's flight
+snapshot and clock stamp (:func:`~.collector.trace_document`), what the
+cluster collector federates (``?clock=1`` answers only the stamp).  A fleet
+worker stamps its incarnation nonce into ``/healthz``
+(:func:`set_health_nonce`).
 
 ``GET /profile?seconds=N&frames=M`` runs one deep-profiling window
 (``obs/profiler.py`` :func:`~.profiler.capture_profile`, trigger
 ``http``) on the handler's thread and answers its summary (200), 409 with
 ``{"error": "busy"}`` while another capture or a whole-run trace holds the
-profiler, and 400 on parameters that do not parse.  Not ported yet, and
-answered 404 until its module is: ``/trace.json`` (the flight snapshot a
-cluster collector federates, ``obs/collector.py``).  The
-SLO engine behind ``/alerts`` (``obs/slo.py``, which the JAX package's
-server starts with itself) and the fleet's incarnation nonce in
-``/healthz`` come with the subsystems that use them.  The serving engine's
+profiler, and 400 on parameters that do not parse.  The serving engine's
 ``stats()`` reaches the scrape as ``nnstpu_serving_*`` gauges through
 :func:`register_engine` (``ContinuousBatcher.publish_metrics``).
 """
@@ -174,10 +175,61 @@ def degraded_snapshot() -> Dict[str, str]:
     return out
 
 
+_nonce_lock = threading.Lock()
+_health_nonce: str = ""
+
+
+def set_health_nonce(value: str) -> None:
+    """Stamp this process's *incarnation nonce* into the ``/healthz``
+    document (``"nonce"`` key).  Fleet membership keys per-worker state
+    (breaker, suspect streak) by (address, nonce): a worker process
+    restarted — possibly at a different address — presents a fresh nonce
+    and must not inherit the dead incarnation's failure state.  One value
+    per process (subprocess fleet workers set it at start)."""
+    global _health_nonce
+    with _nonce_lock:
+        _health_nonce = str(value)
+
+
+def health_nonce() -> str:
+    with _nonce_lock:
+        return _health_nonce
+
+
+_alerts_lock = threading.Lock()
+_alerts_provider: Optional[Callable[[], dict]] = None
+
+
+def register_alerts(fn: Callable[[], dict]) -> Callable[[], dict]:
+    """Register the ``/alerts`` document provider (the SLO burn-rate
+    engine, :mod:`.slo`).  One provider per process — a re-register
+    replaces."""
+    global _alerts_provider
+    with _alerts_lock:
+        _alerts_provider = fn
+    return fn
+
+
+def unregister_alerts(fn: Optional[Callable] = None) -> None:
+    global _alerts_provider
+    with _alerts_lock:
+        if fn is None or _alerts_provider is fn:
+            _alerts_provider = None
+
+
 def alerts_document() -> dict:
-    """The ``/alerts`` JSON body of a process with no SLO engine: no
-    objectives, nothing firing (collectors can probe unconditionally)."""
-    return {"objectives": {}, "firing": []}
+    """The ``/alerts`` JSON body: the registered provider's document, or
+    an empty shell when no SLO engine is installed (collectors can probe
+    unconditionally).  A raising provider becomes an ``error`` field,
+    never a 500."""
+    with _alerts_lock:
+        fn = _alerts_provider
+    if fn is None:
+        return {"objectives": {}, "firing": []}
+    try:
+        return fn()
+    except Exception as exc:  # noqa: BLE001 — a bad provider != no endpoint
+        return {"objectives": {}, "firing": [], "error": repr(exc)}
 
 
 def health_snapshot() -> Tuple[bool, Dict[str, str]]:
@@ -217,6 +269,12 @@ def health_document() -> dict:
         # compile-ahead still running: membership suspends NEW dispatch
         # (not an outage — /healthz stays 200)
         doc["warming"] = warming
+    nonce = health_nonce()
+    if nonce:
+        # incarnation witness: membership resets per-worker state when
+        # this changes (a restarted process is a new worker, whatever
+        # address it came back on)
+        doc["nonce"] = nonce
     return doc
 
 
@@ -299,6 +357,14 @@ class MetricsServer:
         if self._httpd is not None:
             return self
         registry = self.registry
+        try:
+            # any process that scrapes also evaluates: conf-declared SLO
+            # objectives come alive with the endpoint that serves them
+            from .slo import ensure_engine
+
+            ensure_engine(self.registry)
+        except Exception:  # noqa: BLE001 — a bad SLO spec must not kill /metrics
+            pass
 
         class Handler(BaseHTTPRequestHandler):
             def _reply(self, body: bytes, content_type: str,
@@ -320,7 +386,9 @@ class MetricsServer:
                         registry, exemplars="exemplars=1" in query)
                     self._reply(body.encode("utf-8"), CONTENT_TYPE)
                 elif path == "/alerts":
-                    # the empty shell: no SLO engine in the port yet
+                    # the SLO burn-rate engine's live alert state (see
+                    # obs/slo.py); an empty shell when no objectives are
+                    # declared
                     body = json.dumps(alerts_document(), sort_keys=True,
                                       default=str).encode("utf-8")
                     self._reply(body, "application/json; charset=utf-8")
@@ -344,7 +412,15 @@ class MetricsServer:
                     self._reply(body, "application/json; charset=utf-8")
                 elif path == "/profile":
                     self._profile(query)
-                else:  # /trace.json included (not ported)
+                elif path == "/trace.json":
+                    # flight snapshot + clock stamp, the feed the cluster
+                    # trace collector merges and aligns; ?clock=1 answers
+                    # only the stamp (an offset probe must not pay for a
+                    # snapshot copy)
+                    from .collector import trace_document
+
+                    self._json(trace_document("clock=1" in query))
+                else:
                     self.send_error(404)
 
             def _json(self, doc, status: int = 200) -> None:

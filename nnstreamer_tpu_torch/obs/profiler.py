@@ -670,7 +670,11 @@ def capture_profile(seconds: Optional[float] = None, frames: Optional[int] = Non
                         break
                     time.sleep(_TICK_S)
             finally:
+                t_stop = time.monotonic()
                 _profiler_stop(prof, _trace_path(capture_dir, capture_id))
+                # the session's stop, the trace export included: a stop
+                # that hangs (ROADMAP C17) shows here first
+                summary["stop_s"] = round(time.monotonic() - t_stop, 3)
         finally:
             watch.disconnect()
         summary["seconds"] = round(time.monotonic() - t0, 3)

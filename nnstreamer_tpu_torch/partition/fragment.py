@@ -28,6 +28,7 @@ from ..backends.base import FilterBackend, register_backend
 from ..buffer import Frame
 from ..graph import registry as _registry
 from ..graph.parse import ParseError, linear_chain
+from ..obs import spans as _spans
 from ..spec import TensorsSpec
 
 # elements that only move frames between threads: no-ops inside a
@@ -88,6 +89,16 @@ class FragmentBackend(FilterBackend):
             node.start()
             self._nodes.append(node)
 
+    def graph_counts(self) -> dict:
+        """Captures and graph replays of the fragment's torch filters."""
+        out = {"captures": 0, "replays": 0}
+        for node in getattr(self, "_nodes", []):
+            st = getattr(getattr(node, "backend", None), "stats", None)
+            if isinstance(st, dict):
+                for k in out:
+                    out[k] += int(st.get(k, 0))
+        return out
+
     def close(self) -> None:
         for node in getattr(self, "_nodes", []):
             try:
@@ -130,8 +141,21 @@ class FragmentBackend(FilterBackend):
         self._out_spec = spec
         return spec
 
+    def bind_scope(self, scope) -> None:
+        """Dispatch the stages under ``scope`` (a fleet worker's
+        :class:`~nnstreamer_tpu_torch.fleet.worker.ServeScope`): tracers
+        started on it see them as a pipeline's."""
+        for node in self._nodes:
+            node.pipeline = scope
+
     def invoke(self, tensors: Tuple) -> Tuple:
         frame = Frame.of(*tensors)
+        if _spans.enabled:
+            # the request's span (the server's nnsq_serve) parents the
+            # stages' device dispatches, so they join its trace
+            cur = _spans.current()
+            if cur is not None:
+                frame.meta[_spans.META_KEY] = [cur[0], cur[1], 0, None]
         for node in self._nodes:
             sink_pad = node.sink_pads[next(iter(node.sink_pads))]
             result = node.process(sink_pad, frame)

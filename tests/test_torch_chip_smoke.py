@@ -32,7 +32,10 @@ frame must heal bit for bit; a corrupted byte may change at most the
 injected frames).  The stream phase's host models of ``tensor_if`` and
 ``tensor_rate`` are held to the port's element and to the JAX package's
 rate cases; its counter check fails on a count apart, its checksum check on
-one byte changed or a frame missing.
+one byte changed or a frame missing.  The fleet phase's trace check gets a
+trace's joined records: a worker span outside the router's by more than
+the clock offset's error bound, a device span after its serve span or a
+broken parent link fails.
 """
 
 import importlib.util
@@ -1440,3 +1443,64 @@ def test_mesh_frames_follow_the_contrast(smoke):
     for i, stream in enumerate(frames):
         x = stream[0].tensor(0).numpy().astype(int)
         assert x.dtype.kind == "i" and np.abs(x - 127).max() <= smoke.MESH_CONTRAST[i]
+
+
+def _chain(shift=0, serve_dur=300, dev_at=40, parent_ok=True):
+    """One trace's records as ``spans_by_trace`` gives them: the client's
+    rtt and the router's route here, the worker's serve and device span
+    (``shift`` ns off the route by a clock error)."""
+    rtt = ("X", 1000, 1000, "c", "nnsq_rtt", "query", 7, 1, 0, None, "chip_smoke")
+    route = ("X", 1100, 800, "r", "nnsq_route", "fleet", 7, 2, 1, None, "chip_smoke")
+    serve = ("X", 1200 + shift, serve_dur, "w", "nnsq_serve", "query", 7, 3,
+             2 if parent_ok else 9, None, "w0")
+    dev = ("X", 1200 + shift + dev_at, 900, "d", "device_exec", "device", 7, 4, 3, None, "w0")
+    return {7: [rtt, route, serve, dev]}
+
+
+@pytest.mark.parametrize("kw,rtt_ns,ok", [
+    (dict(), 0, True),
+    (dict(shift=-150_000), 400_000, True),     # inside half the probe's round trip
+    (dict(shift=-300_000), 400_000, False),    # past it: the clocks are not aligned
+    (dict(serve_dur=900_000), 100_000, False),  # the serve outlasts the route
+    (dict(dev_at=500), 0, False),              # the device span starts after the serve
+    (dict(parent_ok=False), 0, False),         # the serve is not the route's child
+])
+def test_fleet_chain_needs_parents_and_aligned_clocks(smoke, kw, rtt_ns, ok):
+    assert (smoke.fleet_chain(_chain(**kw), {"w0": rtt_ns}) == [7]) is ok
+
+
+_CAPTURE = {"fused_arith": 4, "int8_matmul": 4, "pallas_nms_keep": 0}
+_NONE = dict.fromkeys(_CAPTURE, 0)
+
+
+@pytest.mark.parametrize("seen,n_bad", [
+    ([("fleet-a-w1", "n1", _CAPTURE, "cuda:0"), ("fleet-b-w1", "n2", _NONE, "cuda:0")], 0),
+    # a stateless worker joined before its capture
+    ([("fleet-a-w1", "n1", _NONE, "cuda:0")], 1),
+    # or served on another route: more wrapper calls than its capture's
+    ([("fleet-c-w1", "n1", dict(_CAPTURE, fused_arith=5), "cuda:0")], 1),
+    # a decode worker that launched a path kernel
+    ([("fleet-b-w2", "n1", _CAPTURE, "cuda:0")], 1),
+    # a join whose /stats.json was not read
+    ([("fleet-a-w2", "n1", "URLError('refused')", None)], 1),
+])
+def test_fleet_join_check_holds_each_incarnation_to_its_capture(smoke, seen, n_bad):
+    assert smoke.FLEET_CAPTURE_CALLS == _CAPTURE
+    assert len(smoke.fleet_join_check(seen)) == n_bad
+
+
+def _served(captures=1, replays=9, invokes=9, replies=9):
+    return {"query": {"graphs": {"captures": captures, "replays": replays},
+                      "invokes": invokes, "replies": replies}}
+
+
+@pytest.mark.parametrize("st,routed,n_bad", [
+    (_served(), 9, 0),
+    (_served(), None, 0),
+    (_served(replays=0), 9, 1),          # served eagerly: no replay
+    (_served(captures=2), 9, 1),         # captured again after its warmup
+    (_served(), 8, 1),                   # the router counts another number
+    (_served(captures=0, replays=0, replies=8), 9, 3),
+])
+def test_fleet_replay_check_holds_replays_to_replies(smoke, st, routed, n_bad):
+    assert len(smoke.fleet_replay_check("w", st, routed=routed)) == n_bad

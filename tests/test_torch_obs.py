@@ -387,8 +387,11 @@ def test_metrics_server_endpoints():
         assert doc["health"]["status"] == "ok"
         status, _, body = _get(base + "/alerts")
         assert status == 200 and json.loads(body) == {"objectives": {}, "firing": []}
-        for path in ("/trace.json", "/nope"):  # /trace.json not ported: 404
-            assert _get(base + path)[0] == 404
+        status, _, body = _get(base + "/trace.json")  # the collector's feed
+        assert status == 200 and {"process", "pid", "clock_ns", "records"} <= set(json.loads(body))
+        status, _, body = _get(base + "/trace.json?clock=1")
+        assert status == 200 and set(json.loads(body)) == {"process", "pid", "clock_ns"}
+        assert _get(base + "/nope")[0] == 404
         export.register_health("wd", lambda: (False, "queue q wedged"))
         status, _, body = _get(base + "/healthz")
         assert status == 503 and json.loads(body)["failures"] == {"wd": "queue q wedged"}

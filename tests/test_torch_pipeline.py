@@ -289,6 +289,26 @@ def test_port_runs_with_jax_blocked():
         fr = interop.decode_frame(interop.encode_frame(nns.Frame.of(torch.ones(2, 3), pts=5)))
         assert fr.pts == 5 and fr.tensor(0).shape == (2, 3)
         assert nns.make("tensor_src_iio", mode="continuous").mode == "continuous"
+        from nnstreamer_tpu_torch import fleet
+        from nnstreamer_tpu_torch.fleet import (__main__ as fleet_main, autoscaler, chaos,
+                                                membership, router, supervisor, worker)
+        from nnstreamer_tpu_torch.obs import collector, costmodel, forensics, slo
+        from nnstreamer_tpu_torch.tools import loadgen
+        fw = fleet.FleetWorker(name="b0", model="x2", device="cpu").start()
+        fm = fleet.Membership(heartbeat_s=30.0)
+        fm.add("127.0.0.1", fw.query_port, probe=fw.probe, worker_id="b0")
+        fm.sweep()
+        with fleet.Router(fm) as fr:
+            c = socket.create_connection(("127.0.0.1", fr.port), timeout=30)
+            query.send_tensors(c, (torch.ones(3),), 0)
+            assert query.recv_tensors(c)[0][0].tolist() == [2.0, 2.0, 2.0]
+            c.close()
+        fw.stop()
+        assert len(loadgen.gen_arrivals(dict(kind="constant", rate=50.0), 1.0, 7)) > 10
+        assert slo.parse_objectives("e:<5ms@0.9")[0].bound_ms == 5.0
+        assert collector.attribute_trace([]) == {{}} and costmodel.SCHEMA_VERSION == 1
+        assert forensics.verdict_legs_us({{"device": 1e3}}) == {{"device": 1.0}}
+        assert fleet.FleetSignals(busy=0.5).busy == 0.5 and fleet_main.main
         assert not any(k in ("jax", "ml_dtypes") or k.startswith(("jax.", "nnstreamer_tpu.",
                                                                  "google.protobuf"))
                        for k, v in sys.modules.items() if v is not None)
