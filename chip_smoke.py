@@ -432,7 +432,43 @@ In order, it
    non-empty.  The kernels launch in the workers: each worker's
    ``stats()`` carries its process's wrapper counts, summed into the
    ``fleet`` path;
-32. prints every path number beside the card's name and power limit, one
+32. placement (``partition_phase``): slice 1 at full width (MobileNet-v2
+   1.0, 224x224, int8 head) from its launch string, the logits at the sink,
+   run in this process under the ``device`` and ``costmodel`` tracers into
+   a COST_MODEL.json in a temp dir (the reference labels: the
+   image_labeling decoder's argmax); ``plan_partition`` on an unprobed edge
+   (all-local: it is never chosen), then a ``PartitionDeployment`` with the
+   cut forced at the filter: a ``fragment`` ``FleetWorker`` process on the
+   card holding the int8 head (``SubprocFragmentWorker``, warming-gated:
+   no traffic before its capture), the normalize on this side;
+   ``register_edge`` probes the real NNSQ edge (``probe_edge_health``) and
+   the planner runs again on it (plan and scores printed; on one card and
+   loopback it may keep everything local, and the cut stays forced); 64
+   frames through the split give the in-process labels, logits within
+   ``PART_LOGIT_REL``, every frame delivered, ``fused_arith`` once a frame
+   in this process and ``int8_matmul`` in the worker's capture only; a
+   slow record for the edge flips its regime and ``RepartitionMonitor``
+   redeploys exactly once, all-local, through the worker's drain (it
+   exits 0); then 64 frames all-local with the same labels;
+33. the native queue (``native_queue_phase``): slice 1 from its string on
+   the C++ frame queue (``stats()["impl"] == "native"``) and on the Python
+   twin (``NNSTPU_COMMON_NATIVE_RUNTIME=off``), labels equal; each leak
+   mode behind a consumer that holds frame 0 while 11 more are pushed into
+   a queue of 4: ``downstream`` keeps the newest 4 and drops 7,
+   ``upstream`` keeps the first 4 and drops 7, ``no`` holds the producer
+   and drops none; the EOS pushed into the full queue arrives;
+34. the autotune cache (``autotune_phase``): ``autotune_int8_matmul`` at
+   (1,1280,1001) and (32,1280,1001): every geometry the kernel launches
+   (split-K clusters of 1, 2, 4 and 8 blocks, chunks of 16 rows above 16,
+   and the tiled branch) bitwise equal to the plain version, timed (CUDA
+   events, 200 launches) and the fastest recorded in a temp cache dir; a
+   fresh consult gives the winner and its call is bitwise the plain
+   version; with no cache dir the default geometry holds;
+35. the soak (``soak_phase``): ``python -m
+   nnstreamer_tpu_torch.tools.soak_campaign --lockdep`` on the card, seeds
+   from SOAK_BASE_SEED for SOAK_SECONDS: no failed seed (exact on every
+   frame) and no lock-order cycle; the lockdep report's counts printed;
+36. prints every path number beside the card's name and power limit, one
    JSON line describing every kernel, and last one JSON line
    ``{"ok": true, "device": {...}}``.
 
@@ -8904,6 +8940,515 @@ def fleet_phase(torch, np, K, root, card):
     return tally, res
 
 
+# -- placement, the native queue, the autotune cache, the soak ------------------------
+
+PART_FRAMES = 64           # (a): slice 1's frames through each placement
+PART_CUT = 5               # the filter's index in PART_DESC: the server fragment is the filter
+PART_JOIN_LIMIT_S = 180    # the fragment worker's spawn (import, model build, capture) to "ok"
+PART_LOGIT_REL = 1e-3      # the worker's graph (the model) against the in-process one (the
+                           # normalize folded in): a conv algorithm picked differently
+PART_FAST = {"put_150k_ms": 0.5, "dispatch_ms": 0.2}   # the edge records the monitor reads
+PART_SLOW = {"put_150k_ms": 50.0, "dispatch_ms": 5.0}
+LEAK_FRAMES = 12           # (b): frames pushed behind a stalled consumer ...
+LEAK_CAPACITY = 4          # ... into a queue of this many
+AUTOTUNE_SHAPES = ((1, 1280, 1001), (32, 1280, 1001))  # (c): the head and a batch of 32
+AUTOTUNE_REPS = 200
+SOAK_SECONDS = 40          # (d): the campaign's wall-time bound
+SOAK_BASE_SEED = 22
+SOAK_LIMIT_S = 150         # the subprocess's hard limit (import, CUDA start, campaign)
+
+
+def part_desc(ckpt, n=None):
+    """Slice 1's launch string with its model from a checkpoint (so that a
+    worker process can load it) and the logits at the sink: the decoder's
+    label travels in a frame's meta, which NNSQ does not carry, so the
+    labels are the decoder's rule (the argmax, lowest index on ties) on the
+    logits."""
+    n = PART_FRAMES if n is None else n
+    return (f"videotestsrc name=src num-buffers={n} width={IMAGE} height={IMAGE} "
+            "pattern=random seed=7 ! tensor_converter name=conv ! "
+            f"tensor_transform name=norm mode=arithmetic option={NORMALIZE} acceleration=pallas ! "
+            "tensor_upload name=u ! queue name=q max-size-buffers=16 ! "
+            f"tensor_filter framework=torch name=f model={ckpt} "
+            f"custom=builder=mobilenet_v2:build_quantized,int8_head=1,image_size={IMAGE},"
+            f"num_classes={CLASSES} ! tensor_sink name=out")
+
+
+def force_cut(plan, cut):
+    """``plan`` with its cut forced to ``cut`` (its score from the plan's own
+    scan), as the reference's deployment test forces a split the planner
+    would not take on this edge."""
+    import dataclasses
+
+    return dataclasses.replace(plan, cut=cut, chosen=plan.score_for(cut))
+
+
+def labels_of(np, logits):
+    """The image_labeling decoder's rule: the argmax, lowest index on ties."""
+    return [int(np.argmax(np.asarray(x).reshape(-1))) for x in logits]
+
+
+def partition_check(ref, got, offered, delivered, client, worker):
+    """A split run against the in-process run: labels, the frame ledger, and
+    each process's kernel launches (the client's normalize once a frame, the
+    worker's ``int8_matmul`` in its warmup capture only, its requests
+    replayed).  Returns the faults found."""
+    bad = []
+    if delivered != offered:
+        bad.append(f"delivered {delivered} of {offered} offered")
+    if got != ref:
+        diff = [i for i, (a, b) in enumerate(zip(got, ref)) if a != b]
+        bad.append(f"labels differ from the in-process run at frames {diff[:8]} "
+                   f"({len(got)} against {len(ref)})")
+    if client.get("fused_arith") != offered or client.get("int8_matmul") != 0:
+        bad.append(f"client launches {client}: fused_arith once a frame ({offered}), "
+                   "int8_matmul never")
+    if worker.get("int8_matmul") != FLEET_CAPTURE_CALLS["int8_matmul"] or \
+            worker.get("fused_arith") != 0:
+        bad.append(f"worker launches {worker}: int8_matmul "
+                   f"{FLEET_CAPTURE_CALLS['int8_matmul']} (its capture), fused_arith never")
+    return bad
+
+
+def leak_expect(mode, n=LEAK_FRAMES, cap=LEAK_CAPACITY):
+    """What a queue of ``cap`` delivers of frames 0..n-1 when its consumer
+    holds frame 0 while the rest are pushed: ``(pts delivered, drops)``."""
+    if mode == "downstream":   # the oldest queued frame makes room
+        return [0] + list(range(n - cap, n)), n - 1 - cap
+    if mode == "upstream":     # the incoming frame is refused
+        return list(range(cap + 1)), n - 1 - cap
+    return list(range(n)), 0   # "no": the producer waits
+
+
+def soak_verdict(rc, stdout):
+    """The soak campaign's last line (a JSON object) read against its
+    verdict: ``(result or None, faults)``; it passes only with no failed
+    seed, no lock-order cycle and lockdep installed."""
+    lines = [ln for ln in (stdout or "").strip().splitlines() if ln.strip()]
+    try:
+        res = json.loads(lines[-1])
+    except (IndexError, ValueError):
+        return None, [f"no result line (exit {rc})"]
+    bad = []
+    if rc != 0:
+        bad.append(f"exit {rc}")
+    if res.get("failures"):
+        bad.append(f"{res['failures']} failed seeds {res.get('failed_seeds')}")
+    if res.get("iterations", 0) < 1:
+        bad.append("no iteration ran")
+    lk = res.get("lockdep") or {}
+    if not lk.get("installed"):
+        bad.append("lockdep was not installed")
+    elif lk.get("cycles"):
+        bad.append(f"{lk['cycles']} lock-order cycles")
+    return res, bad
+
+
+def partition_phase(torch, np, K, root, card):
+    """Phase 32 (a): slice 1 at full width planned, split and re-partitioned
+    across a fragment worker process (``partition/``).  The in-process run
+    under the device and cost-model tracers fills a COST_MODEL.json in a temp
+    dir and gives the reference labels; the planner prices the cuts (an
+    unprobed edge is never chosen); a deployment with the cut forced at the
+    filter (normalize on this side, the int8 head in the worker) spawns the
+    worker, warming-gated, and ``register_edge`` probes the real NNSQ edge;
+    the planner runs again on the measured edge; 64 frames through the split
+    must give the in-process labels, every frame delivered, each kernel
+    launching in its process; a slow record for the edge flips its regime
+    and ``RepartitionMonitor`` redeploys once, all-local, through the
+    worker's drain (it exits 0); the stream goes on all-local with the same
+    labels."""
+    import tempfile
+
+    import nnstreamer_tpu_torch as nns
+    from nnstreamer_tpu_torch.models import mobilenet_v2
+    from nnstreamer_tpu_torch.obs import util as obs_util
+    from nnstreamer_tpu_torch.obs.costmodel import load_cost_model, stage_key
+    from nnstreamer_tpu_torch.partition import (PartitionDeployment, RepartitionMonitor,
+                                                card_peaks, plan_partition,
+                                                subproc_worker_factory)
+    from nnstreamer_tpu_torch.spec import TensorSpec, TensorsSpec
+    from nnstreamer_tpu_torch.utils.checkpoint import save_state
+
+    t_phase = time.perf_counter()
+    work = os.path.join(root, "build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="partition_", dir=work)
+    ckpt = os.path.join(tmp, "mobilenet_v2.npz")
+    save_state(mobilenet_v2.init_tree(0, CLASSES, 1.0), ckpt)
+    desc = part_desc(ckpt)
+    cm_path = os.path.join(tmp, "COST_MODEL.json")
+    saved_cm = os.environ.get("NNSTPU_OBS_COSTMODEL_PATH")
+    os.environ["NNSTPU_OBS_COSTMODEL_PATH"] = cm_path
+    name = "slice1"
+    gpu = torch.cuda.get_device_name(0)
+    peaks = card_peaks(gpu, gpu)
+    res = {"peaks": peaks}
+    log_path = os.path.join(tmp, "worker.log")
+    log = open(log_path, "w", encoding="utf-8")
+    dep = None
+
+    def run(launch, tracers=()):
+        got = []
+        p = nns.parse_launch(launch)
+        p.name = name
+        for t in tracers:
+            p.attach_tracer(t)
+        p["out"].connect("new-data", lambda f: got.append(f.tensor(0).float().cpu().numpy()))
+        t0 = time.perf_counter()
+        p.run(timeout=600)
+        return p, got, time.perf_counter() - t0
+
+    try:
+        # 1. in-process, under the cost-model tracer: the reference and the costs
+        _, ref_logits, ref_s = run(desc, tracers=("device", "costmodel"))
+        check(len(ref_logits) == PART_FRAMES,
+              f"partition: the in-process run delivered {len(ref_logits)} of {PART_FRAMES}")
+        ref = labels_of(np, ref_logits)
+        cm = load_cost_model(cm_path)
+        # the planner prices one (bucket, mesh): the filter's, which both
+        # packages key by its input's leading dim (224 for a frame)
+        f_keys = [k for k in cm["stages"] if k.split("|")[:2] == [name, "f"]]
+        check(len(f_keys) == 1, f"partition: COST_MODEL.json filter stages {f_keys}")
+        bucket = int(f_keys[0].split("|")[2][1:])
+        mesh = int(f_keys[0].split("|")[3][4:])
+        f_entry = cm["stages"][stage_key(name, "f", bucket, mesh)]
+        check("device_exec" in (f_entry.get("legs") or {}),
+              f"partition: COST_MODEL.json has no device leg for the filter: {f_entry}")
+        print(f"partition: in-process slice 1, {PART_FRAMES} frames in {ref_s:.3f} s, "
+              f"{len(set(ref))} distinct labels; COST_MODEL.json stages "
+              f"{sorted(k.split('|')[1] for k in cm['stages'])}, the filter "
+              f"{ {leg: round(v['mean_us'], 3) for leg, v in f_entry['legs'].items()} } us",
+              flush=True)
+
+        # 2. the unprobed edge, then the forced split, warming-gated
+        plan0 = plan_partition(desc, pipeline=name, addr="unprobed", edge="edge0",
+                               cost_model=cm, bucket=bucket, mesh=mesh, peaks=peaks)
+        check(plan0.cut is None, f"partition: an unprobed edge was chosen: cut {plan0.cut}")
+        env = dict(os.environ)
+        env["PYTHONPATH"] = root + (os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH")
+                                    else "")
+        env["NNSTPU_OBS_COSTMODEL_PATH"] = os.path.join(tmp, "worker_COST_MODEL.json")
+        env.pop("NNSTPU_FAULTS", None)
+        t0 = time.perf_counter()
+        dep = PartitionDeployment(
+            force_cut(plan0, PART_CUT), warm_timeout_s=PART_JOIN_LIMIT_S,
+            client_props={"request_timeout": "60"},
+            worker_factory=subproc_worker_factory(
+                device=DEVICE, warmup_spec=f"float32:{IMAGE}x{IMAGE}x3", env=env, stderr=log,
+                line_timeout_s=PART_JOIN_LIMIT_S)).start()
+        res["worker_ok_s"] = time.perf_counter() - t0
+        worker = dep.worker
+        measured = dep.register_edge(TensorsSpec.of(TensorSpec(dtype=np.float32,
+                                                               shape=(IMAGE, IMAGE, 3))))
+        res["edge"] = {k: measured[k] for k in ("put_150k_ms", "dispatch_ms", "regime")}
+        print(f"partition: fragment worker pid {worker.pid} at {dep.addr} servable "
+              f"{res['worker_ok_s']:.3f} s after its spawn (warming-gated); edge probe "
+              f"{res['edge']} [{card}]", flush=True)
+        plan1 = plan_partition(desc, pipeline=name, addr=dep.addr, edge="edge0",
+                               cost_model=cm, bucket=bucket, mesh=mesh, peaks=peaks)
+        res["plan"] = plan1.to_dict()
+        print(f"partition: plan on the measured edge: cut {plan1.cut}, regime {plan1.regime}, "
+              f"fingerprint {plan1.fingerprint}", flush=True)
+        for s in plan1.scores:
+            print(f"  cut {s.cut}: total {s.total_us} us = client {s.client_us} + server "
+                  f"{s.server_us} + transfer {s.transfer_us}", flush=True)
+        if plan1.cut != PART_CUT:
+            print(f"partition: one card on loopback, the planner keeps cut {plan1.cut}; the "
+                  f"split is forced at cut {PART_CUT} (the filter), as the reference's "
+                  f"deployment test forces it", flush=True)
+        dep.plan = force_cut(plan1, PART_CUT)
+
+        # 3. the split: 64 frames, each kernel in its own process
+        launch = dep.client_launch()
+        check("tensor_query_client" in launch and launch.count("tensor_filter") == 0,
+              f"partition: the client half holds the filter: {launch}")
+        K.reset_launches()
+        p, got_logits, split_s = run(launch)
+        client = {k.__name__: k.launches for k in K.KERNELS}
+        st = worker.stats()
+        worker_counts = dict(st["kernels"])
+        rtt = p[f"qc_{dep.plan.edge}"].rtt_ns
+        got = labels_of(np, got_logits)
+        for fault in partition_check(ref, got, PART_FRAMES, len(got_logits), client,
+                                     worker_counts):
+            fail(f"partition (split): {fault}")
+        rel = max(float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+                  for a, b in zip(got_logits, ref_logits))
+        check(rel <= PART_LOGIT_REL, f"partition: split logits {rel} (relative) from the "
+                                     f"in-process run's")
+        g = st["query"]["graphs"]
+        check(g["captures"] == 1 and g["replays"] >= PART_FRAMES,
+              f"partition: the worker's graphs {g}: one capture, a replay a frame")
+        res.update(split_fps=PART_FRAMES / split_s, split_logit_rel=rel,
+                   rtt_p50_ms=float(np.percentile(np.asarray(rtt) / 1e6, 50)) if rtt else None,
+                   client_launches=client, worker_launches=worker_counts,
+                   worker_graphs=g)
+        print(f"partition: split run, {PART_FRAMES} of {PART_FRAMES} frames, labels equal to "
+              f"the in-process run's, logits within {rel:.3g}; {res['split_fps']:.3f} fps, "
+              f"round trip p50 {res['rtt_p50_ms']} ms; launches client {client}, worker "
+              f"{worker_counts}, worker graphs {g} [{card}]", flush=True)
+
+        # 4. the regime flip: exactly one redeploy, all-local, the worker drained
+        obs_util.publish_wire_health(dict(PART_FAST), addr=dep.addr)
+        dep.plan = force_cut(plan_partition(desc, pipeline=name, addr=dep.addr, edge="edge0",
+                                            cost_model=cm, bucket=bucket, mesh=mesh,
+                                            peaks=peaks), PART_CUT)
+        mon = RepartitionMonitor(dep, peaks=peaks)
+        check(mon.evaluate_once() is None, "partition: the monitor acted on a steady edge")
+        obs_util.publish_wire_health(dict(PART_SLOW), addr=dep.addr)
+        t0 = time.perf_counter()
+        reason = mon.evaluate_once()
+        res["redeploy_s"] = time.perf_counter() - t0
+        check(reason is not None and "regime flip" in reason,
+              f"partition: no regime-flip trigger: {reason}")
+        check(dep.redeploys == 1 and dep.worker is None and dep.plan.cut is None,
+              f"partition: after the flip: {dep.redeploys} redeploys, cut {dep.plan.cut}")
+        check(worker.returncode == 0, f"partition: the drained worker exited {worker.returncode}")
+        check(mon.evaluate_once() is None and mon.triggers == 1,
+              f"partition: {mon.triggers} triggers after the flip")
+        print(f"partition: {reason}; one redeploy, all-local, the worker drained and out with "
+              f"0 in {res['redeploy_s']:.3f} s", flush=True)
+
+        # 5. the stream goes on, all-local
+        K.reset_launches()
+        _, local_logits, local_s = run(dep.client_launch())
+        local = {k.__name__: k.launches for k in K.KERNELS}
+        check(len(local_logits) == PART_FRAMES and labels_of(np, local_logits) == ref,
+              "partition: the all-local run after the redeploy differs from the in-process run")
+        res.update(local_fps=PART_FRAMES / local_s, local_launches=local)
+        print(f"partition: all-local after the redeploy, {PART_FRAMES} of {PART_FRAMES} "
+              f"frames, labels equal; launches {local}", flush=True)
+    except BaseException:
+        log.flush()
+        fleet_log_tails([log_path])
+        raise
+    finally:
+        if dep is not None:
+            dep.stop(drain=False)
+        log.close()
+        if saved_cm is None:
+            os.environ.pop("NNSTPU_OBS_COSTMODEL_PATH", None)
+        else:
+            os.environ["NNSTPU_OBS_COSTMODEL_PATH"] = saved_cm
+    res["wall_s"] = time.perf_counter() - t_phase
+    return {"partition_client": (client, res), "partition_worker": (worker_counts, {}),
+            "partition_local": (local, {})}
+
+
+def leak_run(nns, mode):
+    """Frames 0..LEAK_FRAMES-1 through ``appsrc ! queue leaky=<mode> !
+    tensor_sink`` whose consumer holds frame 0 until every frame is pushed:
+    ``(pts delivered, the queue's stats, its drops when the pushes were
+    done)``; the EOS goes into the full queue after them and must arrive."""
+    import threading
+
+    import torch
+
+    from nnstreamer_tpu_torch.buffer import Frame
+    from nnstreamer_tpu_torch.spec import TensorSpec, TensorsSpec
+
+    entered, release = threading.Event(), threading.Event()
+    got = []
+    p = nns.parse_launch(f"appsrc name=src ! queue name=q leaky={mode} "
+                         f"max-size-buffers={LEAK_CAPACITY} ! tensor_sink name=out")
+    p["src"].set_spec(TensorsSpec.of(TensorSpec(dtype=np.float32, shape=(4,))))
+
+    def on_frame(f):
+        got.append(f.pts)
+        if f.pts == 0:
+            entered.set()
+            release.wait(60)
+
+    p["out"].connect("new-data", on_frame)
+    p.start()
+    try:
+        q = p["q"]
+        impl = q.stats()["impl"]
+        p["src"].push_frame(Frame.of(torch.ones(4), pts=0))
+        check(entered.wait(30), f"leak {mode}: the consumer never took frame 0")
+        for i in range(1, LEAK_FRAMES):
+            p["src"].push_frame(Frame.of(torch.ones(4), pts=i))
+        # settled: the queue full, the leaky modes' drops done; with "no" the
+        # source's thread waits on frame cap+1, the rest still in the appsrc
+        want_drops = leak_expect(mode)[1]
+        want_backlog = LEAK_FRAMES - 2 - LEAK_CAPACITY if mode == "no" else 0
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline:
+            st = q.stats()
+            if st["depth"] == LEAK_CAPACITY and st["dropped"] == want_drops and \
+                    p["src"]._q.qsize() == want_backlog:
+                break
+            time.sleep(0.01)
+        drops = q.stats()["dropped"]
+        p["src"].end_of_stream()
+        time.sleep(0.05)
+        release.set()
+        check(p.wait(60), f"leak {mode}: the EOS never arrived")
+        return got, dict(q.stats(), impl=impl), drops
+    finally:
+        release.set()
+        p.stop()
+
+
+def native_queue_phase(torch, np, K, root, card, keep):
+    """Phase 33 (b): the C++ frame queue behind ``queue``.  Slice 1 through
+    its launch string on the native queue (``[common] native_runtime`` on,
+    the default) and again on the Python twin (``native_runtime=off``): the
+    queue element names its queue in ``stats()["impl"]``, and the labels
+    must be equal; then each leak mode under a stalled consumer: the drops
+    and the frames delivered as a queue of LEAK_CAPACITY must give them, the
+    EOS kept."""
+    import nnstreamer_tpu_torch as nns
+    from nnstreamer_tpu_torch import native
+
+    t_phase = time.perf_counter()
+    desc, model = keep["image_labeling"][:2]
+    res = {"library": str(native.lib_path().relative_to(root))}
+    runs = {}
+    saved = os.environ.get("NNSTPU_COMMON_NATIVE_RUNTIME")
+    try:
+        for setting, want in (("on", "native"), ("off", "python")):
+            os.environ["NNSTPU_COMMON_NATIVE_RUNTIME"] = setting
+            seen = {}
+
+            def during(p, seen=seen):
+                qs = [n for n in p.nodes.values() if type(n).__name__ == "Queue"]
+                seen["impl"] = [q.stats()["impl"] for q in qs]
+                seen["launches"] = {k.__name__: k.launches for k in K.KERNELS}
+
+            K.reset_launches()
+            p, arrivals, _ = run_pipeline(nns, desc(FRAMES), model, FRAMES, during=during)
+            check(seen["impl"] == [want],
+                  f"native queue ({setting}): the queue runs {seen['impl']}, not {want}")
+            runs[want] = dict(labels=[f.meta["label_index"] for f in p["out"].frames],
+                              launches=seen["launches"], **rates(arrivals, np))
+        check(runs["native"]["labels"] == runs["python"]["labels"],
+              "native queue: slice 1's labels differ between the native queue and the twin")
+        os.environ["NNSTPU_COMMON_NATIVE_RUNTIME"] = "on"
+        leaks = {}
+        for mode in ("downstream", "upstream", "no"):
+            got, st, drops = leak_run(nns, mode)
+            want_pts, want_drops = leak_expect(mode)
+            check(st["impl"] == "native", f"leak {mode}: the queue runs {st['impl']}")
+            check(got == want_pts and drops == want_drops == st["dropped"],
+                  f"leak {mode}: delivered {got}, {drops} drops; want {want_pts}, {want_drops}")
+            leaks[mode] = dict(delivered=len(got), dropped=drops)
+    finally:
+        if saved is None:
+            os.environ.pop("NNSTPU_COMMON_NATIVE_RUNTIME", None)
+        else:
+            os.environ["NNSTPU_COMMON_NATIVE_RUNTIME"] = saved
+    res.update(native_fps=runs["native"]["fps"], twin_fps=runs["python"]["fps"],
+               native_p50_gap_ms=runs["native"]["p50_ms"],
+               twin_p50_gap_ms=runs["python"]["p50_ms"], leak=leaks,
+               wall_s=time.perf_counter() - t_phase)
+    print(f"native queue: slice 1 on the C++ queue {res['native_fps']:.3f} fps (p50 gap "
+          f"{res['native_p50_gap_ms']:.3f} ms), on the Python twin {res['twin_fps']:.3f} fps "
+          f"(p50 gap {res['twin_p50_gap_ms']:.3f} ms), labels equal; leak modes behind a "
+          f"stalled consumer {leaks}, the EOS kept [{card}]", flush=True)
+    return {"native_queue": (runs["native"]["launches"], res),
+            "native_twin": (runs["python"]["launches"], {})}
+
+
+def autotune_phase(torch, np, K, root, card):
+    """Phase 34 (c): ``ops/autotune.py`` for ``int8_matmul``.  At the head's
+    shape and a batch of 32 the search launches every geometry the kernel
+    takes (split-K clusters of 1, 2, 4 and 8 blocks, the tiled branch), each
+    bitwise against the plain version, times each, and records the fastest
+    in a temp cache dir; a fresh consult gives the winner's geometry and a
+    call at it is bitwise the plain version; with no cache the default
+    geometry holds."""
+    import tempfile
+
+    from nnstreamer_tpu_torch.ops import autotune
+
+    t_phase = time.perf_counter()
+    cache = tempfile.mkdtemp(prefix="autotune_", dir=os.path.join(root, "build", "chip_smoke"))
+    saved = os.environ.get("NNSTPU_COMPILE_CACHE_DIR")
+    gpu = torch.cuda.get_device_name(0)
+    out = {}
+    try:
+        os.environ["NNSTPU_COMPILE_CACHE_DIR"] = cache
+        autotune.refresh()
+        for m, k, n in AUTOTUNE_SHAPES:
+            r = autotune.autotune_int8_matmul(m, k, n, reps=AUTOTUNE_REPS)
+            check(all(c["bitwise"] for c in r["candidates"]) and r["recorded"],
+                  f"autotune ({m},{k},{n}): {r}")
+            for c in r["candidates"]:
+                print(f"autotune ({m},{k},{n}) {c['config']} grid {c['geometry'][2]}: "
+                      f"{c['ms']:.6f} ms, bitwise [{card}]", flush=True)
+            out[f"{m}x{k}x{n}"] = dict(winner=r["winner"], ms=r["ms"],
+                                       candidates=[dict(config=c["config"], ms=c["ms"])
+                                                   for c in r["candidates"]])
+        path = os.path.join(cache, "autotune", "int8_matmul.json")
+        check(os.path.exists(path), f"autotune: no cache file at {path}")
+        autotune.refresh()
+        rng = np.random.default_rng(34)
+        for m, k, n in AUTOTUNE_SHAPES:
+            want = autotune.geometry_of(out[f"{m}x{k}x{n}"]["winner"], m, k, n)
+            geo = K.int8_matmul_geometry(m, k, n, gpu)
+            check(geo == want, f"autotune ({m},{k},{n}): the consult gives {geo}, not {want}")
+            xq = torch.from_numpy(rng.integers(-127, 128, (m, k)).astype(np.int8)).cuda()
+            wq = torch.from_numpy(rng.integers(-127, 128, (k, n)).astype(np.int8)).cuda()
+            xs = torch.tensor(np.float32(0.01), device="cuda")
+            ws = torch.from_numpy((rng.random(n) * 0.01 + 1e-4).astype(np.float32)).cuda()
+            b = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).cuda()
+            got = K.int8_matmul(xq, wq, xs, ws, b)
+            check(bitwise_equal(torch, got, K.int8_matmul_plain(xq, wq, xs, ws, b)),
+                  f"autotune ({m},{k},{n}): a call at the tuned geometry differs from plain")
+            out[f"{m}x{k}x{n}"]["consulted"] = list(geo)
+            print(f"autotune ({m},{k},{n}): a fresh consult gives {tuple(geo)} (the winner), "
+                  f"its call bitwise the plain version", flush=True)
+        os.environ.pop("NNSTPU_COMPILE_CACHE_DIR")
+        autotune.refresh()
+        for (m, k, n), want in zip(AUTOTUNE_SHAPES, (K.splitk_geometry(1, 1280, 1001),
+                                                    K.tiled_geometry(32, 1280, 1001))):
+            geo = K.int8_matmul_geometry(m, k, n, gpu)
+            check(geo == want, f"autotune: with no cache ({m},{k},{n}) gives {geo}, not {want}")
+        print(f"autotune: with no cache the default geometry holds: "
+              f"{[tuple(K.int8_matmul_geometry(*s, gpu)) for s in AUTOTUNE_SHAPES]}", flush=True)
+    finally:
+        if saved is None:
+            os.environ.pop("NNSTPU_COMPILE_CACHE_DIR", None)
+        else:
+            os.environ["NNSTPU_COMPILE_CACHE_DIR"] = saved
+        autotune.refresh()
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def soak_phase(root, card):
+    """Phase 35 (d): ``tools/soak_campaign.py --lockdep`` on the card in a
+    subprocess, seeds from SOAK_BASE_SEED for SOAK_SECONDS: every frame of
+    every template exact, and no lock-order cycle in the port's locks."""
+    t_phase = time.perf_counter()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + (os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    env.pop("NNSTPU_FAULTS", None)
+    cmd = [sys.executable, "-m", "nnstreamer_tpu_torch.tools.soak_campaign",
+           "--base-seed", str(SOAK_BASE_SEED), "--minutes", str(SOAK_SECONDS / 60),
+           "--device", DEVICE, "--lockdep"]
+    proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=SOAK_LIMIT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        stdout, stderr = proc.communicate()
+        fail(f"soak: the campaign ran past {SOAK_LIMIT_S} s: {stdout[-2000:]}{stderr[-2000:]}")
+    res, bad = soak_verdict(proc.returncode, stdout)
+    if bad:
+        print(stdout[-6000:], file=sys.stderr)
+        print(stderr[-4000:], file=sys.stderr)
+        fail(f"soak: {'; '.join(bad)}")
+    report = [ln for ln in stdout.splitlines() if ln.startswith("lockdep:")]
+    res["wall_s"] = time.perf_counter() - t_phase
+    print(f"soak: {res['iterations']} iterations in {SOAK_SECONDS} s on {res['device']}, none failed; "
+          f"{report[-1] if report else ''}; templates {res['templates']} [{card}]", flush=True)
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -9073,6 +9618,18 @@ def main() -> int:
     t18 = time.perf_counter()
     phase("fleet")
     by_path["fleet"] = fleet_phase(torch, np, K, root, card)
+    t19 = time.perf_counter()
+    phase("partition")
+    by_path.update(partition_phase(torch, np, K, root, card))
+    t20 = time.perf_counter()
+    phase("native_queue")
+    by_path.update(native_queue_phase(torch, np, K, root, card, slices))
+    t21 = time.perf_counter()
+    phase("autotune")
+    kernels["int8_matmul"]["autotune"] = autotune_phase(torch, np, K, root, card)
+    t22 = time.perf_counter()
+    phase("soak")
+    soak = soak_phase(root, card)
     faulthandler.cancel_dump_traceback_later()
     print(f"phase wall s: up to the quant phase {t1 - t0:.3f}, pose {t2 - t1:.3f}, "
           f"recurrence {t3 - t2:.3f}, batch {t4 - t3:.3f}, cascade {t5 - t4:.3f}, "
@@ -9081,7 +9638,8 @@ def main() -> int:
           f"device lane {t11 - t10:.3f}, lanes {t12 - t11:.3f}, profile {t13 - t12:.3f}, "
           f"train {t14 - t13:.3f}, query {t15 - t14:.3f}, C16 {t16 - t15:.3f}, "
           f"stream {t17 - t16:.3f}, mesh {t18 - t17:.3f}, "
-          f"fleet {time.perf_counter() - t18:.3f}; "
+          f"fleet {t19 - t18:.3f}, partition {t20 - t19:.3f}, native queue {t21 - t20:.3f}, "
+          f"autotune {t22 - t21:.3f}, soak {time.perf_counter() - t22:.3f}; "
           f"the script {time.perf_counter() - t0:.3f} after the import", flush=True)
     wrapper = {"fused_arith": "fused_arith", "int8_matmul": "int8_matmul",
                "nms_keep": "pallas_nms_keep"}
@@ -9110,7 +9668,10 @@ def main() -> int:
                       "lanes": by_path["lanes"][1], "profile": by_path["profile"][1],
                       "train": by_path["train"][1], "query": by_path["query"][1],
                       "c16": by_path["c16"][1], "stream": by_path["stream"][1],
-                      "mesh": mesh, "fleet": by_path["fleet"][1]}),
+                      "mesh": mesh, "fleet": by_path["fleet"][1],
+                      "partition": by_path["partition_client"][1],
+                      "native_queue": by_path["native_queue"][1],
+                      "autotune": kernels["int8_matmul"]["autotune"], "soak": soak}),
           flush=True)
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

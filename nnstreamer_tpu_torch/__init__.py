@@ -14,7 +14,15 @@ on the card the filter's folded segment is captured once per negotiated
 geometry as a CUDA graph and replayed per frame.
 """
 
-from .buffer import EOS, NONE_TS, SECOND, Event, Frame  # noqa: F401
+# Opt-in lock-order verification (NNSTPU_LOCKDEP=1 / ini [analysis]
+# lockdep): installed before the package's modules load, so the locks their
+# module-level and constructor code makes are tracked from birth; a cheap env
+# and conf check when off.
+from .analysis.lockdep import maybe_install as _lockdep_maybe_install
+
+_lockdep_maybe_install()
+
+from .buffer import EOS, NONE_TS, SECOND, Event, Frame  # noqa: F401,E402
 from .graph import (  # noqa: F401
     NegotiationError,
     Node,

@@ -311,6 +311,7 @@ def capture_sharded(fns: Sequence[Callable], shard_spec, devs: Sequence[torch.de
     from torch.utils.flop_counter import FlopCounterMode
 
     from ..spec import torch_dtype
+    from .torch_backend import gc_paused
 
     n = len(devs)
     static_in = [tuple(torch.zeros(t.shape, dtype=torch_dtype(t.dtype), device=d)
@@ -346,7 +347,7 @@ def capture_sharded(fns: Sequence[Callable], shard_spec, devs: Sequence[torch.de
     def end(i, k):
         graphs[i][k].capture_end()
 
-    with torch.inference_mode():
+    with gc_paused(), torch.inference_mode():
         run = ShardRun(fns, static_in, devs, contexts=lambda i: torch.cuda.stream(streams[i]),
                        begin=begin, end=end)
         outs = [_as_tuple(o) for o in run.run()]

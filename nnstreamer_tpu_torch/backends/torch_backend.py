@@ -118,9 +118,11 @@ import collections
 import contextlib
 import copy
 import dataclasses
+import gc
 import importlib
 import importlib.util
 import os
+import threading
 import time
 import traceback
 from typing import Any, Callable, Optional, Tuple
@@ -283,6 +285,35 @@ def _failing_op(exc: BaseException) -> str:
     return "unknown op"
 
 
+_gc_lock = threading.Lock()
+_gc_holds = 0
+_gc_was_enabled = False
+
+
+@contextlib.contextmanager
+def gc_paused():
+    """No automatic garbage collection while a CUDA graph captures (ROADMAP
+    C24).  A collection that runs on the capturing thread may free a dead
+    pipeline's CUDA graph in a reference cycle; destroying a graph is not
+    permitted while a stream captures, and the capture is invalidated.  The
+    collector is switched off while any thread captures and on again after
+    the last capture (if it was on); the garbage waits for the next
+    collection."""
+    global _gc_holds, _gc_was_enabled
+    with _gc_lock:
+        if _gc_holds == 0:
+            _gc_was_enabled = gc.isenabled()
+            gc.disable()
+        _gc_holds += 1
+    try:
+        yield
+    finally:
+        with _gc_lock:
+            _gc_holds -= 1
+            if _gc_holds == 0 and _gc_was_enabled:
+                gc.enable()
+
+
 def capture_calls(fn: Callable[[], Any], device: torch.device,
                   warmup_calls: int = WARMUP_CALLS, inference: bool = True):
     """``fn()`` captured on ``device`` as one CUDA graph over the tensors it
@@ -312,7 +343,7 @@ def capture_calls(fn: Callable[[], Any], device: torch.device,
     torch.cuda.synchronize(device)
     t1 = time.perf_counter()
     graph = torch.cuda.CUDAGraph()
-    with mode(), torch.cuda.graph(graph, capture_error_mode="thread_local"):
+    with gc_paused(), mode(), torch.cuda.graph(graph, capture_error_mode="thread_local"):
         out = fn()
     torch.cuda.synchronize(device)
     return graph, out, t1 - t0, time.perf_counter() - t1

@@ -52,6 +52,7 @@ DEFAULTS: Dict[str, Dict[str, str]] = {
     "common": {
         "plugin_path": "",          # colon-separated dirs of nnstpu_*.py
         "enable_profiling": "false",  # time each filter's invoke (Pipeline.stats)
+        "native_runtime": "true",   # C++ frame queue (native/); off: the Python twin
         "dump_dot_dir": "",         # write <pipeline>.<STATE>.dot here
         "tracers": "",              # GST_TRACERS analog: "latency;stats;drops"
         "metrics_port": "",         # Prometheus scrape port ("" = disabled)
@@ -240,10 +241,14 @@ DEFAULTS: Dict[str, Dict[str, str]] = {
         "max_per_class": "4",       # free buffers kept per (shape, dtype)
         "max_bytes": "67108864",    # free-list bytes in all (64 MiB)
     },
-    # The warmup phase (graph/warmup.py).
+    # The warmup phase (graph/warmup.py) and the kernel autotune cache
+    # (ops/autotune.py).  NNSTPU_COMPILE_* env vars map here.
     "compile": {
+        "cache_dir": "",            # root of the persistent autotune cache
+                                    # ("" = no cache: the kernels' static geometry)
         "warmup": "false",          # capture every planned geometry before PLAYING
         "warmup_timeout_s": "600",  # the whole phase's deadline (0: none)
+        "autotune": "true",         # consult the autotune cache for kernel geometry
     },
     # The dispatcher lanes (graph/lanes.py): run-to-completion lane tasks
     # in place of a thread an element.  NNSTPU_DISPATCH_* env vars map here
@@ -266,6 +271,30 @@ DEFAULTS: Dict[str, Dict[str, str]] = {
         "spec": "",                 # "" = off; "auto" | "dp:4" | "4": see
                                     # parallel.mesh.parse_mesh_spec
     },
+    # Among-device partitioning (partition/): the cost-model-driven
+    # planner, its deployment and the repartition monitor.
+    # NNSTPU_PARTITION_* env vars map here.
+    "partition": {
+        "edge": "edge0",            # default partition-edge label (tags
+                                    # nnsq_rtt spans -> hop:{edge} leg)
+        "monitor_interval_s": "1.0",   # repartition monitor tick period
+        "noise_multiplier": "3.0",  # stage-cost drift beyond
+                                    # leg_std_us * this triggers a replan
+        "default_cut_bytes": "150528",  # transfer bytes a frame at a cut
+                                    # whose stage has no copy_bytes_per_frame
+        "probe_n": "4",             # round trips an edge health probe
+        "warm_timeout_s": "30",     # deploy: wait for the server fragment
+                                    # worker to report "ok"
+    },
+    # The analysis instruments (analysis/): runtime lockdep.  The short
+    # spelling NNSTPU_LOCKDEP wins over NNSTPU_ANALYSIS_LOCKDEP.
+    "analysis": {
+        "lockdep": "false",         # wrap threading.Lock/RLock/Condition
+                                    # with the lock-order verifier
+        "lockdep_block_ms": "200",  # blocked-while-holding report threshold
+        "lockdep_allow": "",        # comma-separated site substrings whose
+                                    # findings are accepted (annotated)
+    },
 }
 
 # Env spellings outside NNSTPU_<SECTION>_<KEY>: an alias of a knob, or the
@@ -281,6 +310,7 @@ SHORT_ENV: Dict[str, Optional[tuple]] = {
     "NNSTPU_PEAK_GBS": ("obs", "peak_gbs"),
     "NNSTPU_MESH": ("mesh", "spec"),
     "NNSTPU_FAULTS": ("faults", "spec"),
+    "NNSTPU_LOCKDEP": ("analysis", "lockdep"),
 }
 
 

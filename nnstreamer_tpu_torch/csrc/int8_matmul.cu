@@ -52,6 +52,15 @@
 // Larger M keeps the tiled kernel (BM x BN output tiles, BK-deep K tiles
 // in shared memory).  A tensor-core branch waits for a caller with large M.
 //
+// Launch geometry is the wrapper's choice (ops/kernels.py::int8_matmul_geometry,
+// steered by an autotune winner from ops/autotune.py where one is cached):
+// nns_int8_matmul_ex takes the split count too, a cluster of 1, 2, 4 or 8
+// blocks along K, and any M on the split-K branch, in chunks of kMaxSmallM
+// rows along grid z (each chunk reads the weight again, mostly from L2).
+// nns_int8_matmul keeps its ABI: the split count 8 and M <= kMaxSmallM.
+// Every geometry sums the same int8 products in int32, which is exact in
+// any order, so every geometry gives bitwise the same output.
+//
 // The accumulator is exact for K*127*127 < 2^31.  The epilogue keeps the
 // JAX order, acc_f32 * (xs * ws[n]) + b[n], with round-to-nearest
 // intrinsics and no fused multiply-add, so it is bitwise equal to the plain
@@ -69,7 +78,7 @@ namespace {
 // -- small-M branch: split-K GEMV over a thread-block cluster ---------------
 
 constexpr int kMaxSmallM = 16;  // must match ops/kernels.py::SMALL_M
-constexpr int kSplit = 8;       // cluster size along K; ops/kernels.py::SPLIT_K
+constexpr int kSplit = 8;       // largest cluster along K; ops/kernels.py::SPLIT_K
 constexpr int kTileN = 64;      // output columns per cluster; ops/kernels.py::TILE_N
 constexpr int kPassK = 256;     // K rows staged per pass; ops/kernels.py::PASS_K
 constexpr int kGemvThreads = 256;
@@ -94,13 +103,15 @@ constexpr int splitk_smem_bytes() {
   return kPassK * kRowBytes + MT * kPassK + (kGroups + kSplit) * MT * kTileN * 4;
 }
 
-// MT is M rounded up to 1, 4 or 16: x rows from M to MT are zeros.
+// MT is M rounded up to 1, 4 or 16: x rows from M to MT are zeros.  A
+// cluster of `split` blocks (gridDim.x) shares one column tile; grid z walks
+// M in chunks of kMaxSmallM rows.
 template <int MT>
 __global__ void __launch_bounds__(kGemvThreads)
 int8_gemv_splitk_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
                         const float* __restrict__ x_scale, const float* __restrict__ w_scale,
                         const float* __restrict__ bias, float* __restrict__ out,
-                        int M, int K, int N, int k_per_rank) {
+                        int M, int K, int N, int k_per_rank, int split) {
   // Dynamic shared memory (splitk_smem_bytes<MT>): the staged weight rows,
   // the staged x, this block's partial sums per k-group, and (read on rank 0
   // only) every rank's partial sums, gathered through distributed shared
@@ -120,6 +131,11 @@ int8_gemv_splitk_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__
   const int tid = threadIdx.x;
   const int c = tid % kTileN;
   const int g = tid / kTileN;
+  // this block's chunk of rows: x and out start at its first row
+  const int m0 = blockIdx.z * kMaxSmallM;
+  x += (long long)m0 * K;
+  out += (long long)m0 * N;
+  M = min(kMaxSmallM, M - m0);
   const int n0 = blockIdx.y * kTileN;
   const int ncols = min(kTileN, N - n0);
   const int kbeg = rank * k_per_rank;
@@ -226,8 +242,7 @@ int8_gemv_splitk_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__
     const int m = e / ncols;
     const int cc = e - m * ncols;
     int s = 0;
-#pragma unroll
-    for (int r = 0; r < kSplit; ++r) s += gather[(r * MT + m) * kTileN + cc];
+    for (int r = 0; r < split; ++r) s += gather[(r * MT + m) * kTileN + cc];
     const int n = n0 + cc;
     const float b = bias != nullptr ? bias[n] : 0.0f;
     out[(long long)m * N + n] = __fadd_rn(__fmul_rn(static_cast<float>(s),
@@ -325,14 +340,14 @@ int splitk_clusters[kMaxDevices] = {};  // 0: not set up on that card yet
 template <int MT>
 int launch_splitk(const int8_t* x, const int8_t* w, const float* xs, const float* ws,
                   const float* b, float* out, int M, int K, int N, int k_per_rank,
-                  cudaStream_t stream) {
+                  int split, cudaStream_t stream) {
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kSplit;
+  attr[0].val.clusterDim.x = split;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kSplit, (N + kTileN - 1) / kTileN, 1);
+  cfg.gridDim = dim3(split, (N + kTileN - 1) / kTileN, (M + kMaxSmallM - 1) / kMaxSmallM);
   cfg.blockDim = dim3(kGemvThreads, 1, 1);
   cfg.dynamicSmemBytes = splitk_smem_bytes<MT>();
   cfg.stream = stream;
@@ -353,18 +368,20 @@ int launch_splitk(const int8_t* x, const int8_t* w, const float* xs, const float
     splitk_clusters<MT>[dev] = n;
   }
   const cudaError_t err = cudaLaunchKernelEx(&cfg, int8_gemv_splitk_kernel<MT>, x, w, xs, ws,
-                                             b, out, M, K, N, k_per_rank);
+                                             b, out, M, K, N, k_per_rank, split);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// k_per_rank > 0 takes the small-M split-K branch with that many K rows per
-// cluster rank; 0 takes the tiled branch.
-extern "C" int nns_int8_matmul(const void* x, const void* w, const void* x_scale,
-                               const void* w_scale, const void* bias, void* out,
-                               int M, int K, int N, int k_per_rank, void* stream) {
+// k_per_rank > 0 takes the split-K branch with that many K rows per cluster
+// rank over clusters of `split` blocks (1, 2, 4 or 8; k_per_rank * split >=
+// K), M in chunks of kMaxSmallM rows; 0 takes the tiled branch.
+extern "C" int nns_int8_matmul_ex(const void* x, const void* w, const void* x_scale,
+                                  const void* w_scale, const void* bias, void* out,
+                                  int M, int K, int N, int k_per_rank, int split,
+                                  void* stream) {
   if (M <= 0 || K < 0 || N <= 0) return (int)cudaErrorInvalidValue;
   const auto xq = static_cast<const int8_t*>(x);
   const auto wq = static_cast<const int8_t*>(w);
@@ -374,13 +391,25 @@ extern "C" int nns_int8_matmul(const void* x, const void* w, const void* x_scale
   const auto o = static_cast<float*>(out);
   const auto s = static_cast<cudaStream_t>(stream);
   if (k_per_rank > 0) {
-    if (M > kMaxSmallM || k_per_rank % 4 != 0 || (long long)k_per_rank * kSplit < K)
+    if ((split != 1 && split != 2 && split != 4 && split != kSplit) || k_per_rank % 4 != 0 ||
+        (long long)k_per_rank * split < K || (M + kMaxSmallM - 1) / kMaxSmallM > 65535)
       return (int)cudaErrorInvalidValue;
-    if (M == 1) return launch_splitk<1>(xq, wq, xs, ws, b, o, M, K, N, k_per_rank, s);
-    if (M <= 4) return launch_splitk<4>(xq, wq, xs, ws, b, o, M, K, N, k_per_rank, s);
-    return launch_splitk<16>(xq, wq, xs, ws, b, o, M, K, N, k_per_rank, s);
+    if (M == 1) return launch_splitk<1>(xq, wq, xs, ws, b, o, M, K, N, k_per_rank, split, s);
+    if (M <= 4) return launch_splitk<4>(xq, wq, xs, ws, b, o, M, K, N, k_per_rank, split, s);
+    return launch_splitk<16>(xq, wq, xs, ws, b, o, M, K, N, k_per_rank, split, s);
   }
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   int8_matmul_kernel<<<grid, kThreads, 0, s>>>(xq, wq, xs, ws, b, o, M, K, N);
   return (int)cudaGetLastError();
+}
+
+// The split-K branch with the split count 8 for M <= kMaxSmallM, or the
+// tiled branch (k_per_rank 0): the entry point of earlier builds, kept for
+// tools that call a parent build through it.
+extern "C" int nns_int8_matmul(const void* x, const void* w, const void* x_scale,
+                               const void* w_scale, const void* bias, void* out,
+                               int M, int K, int N, int k_per_rank, void* stream) {
+  if (k_per_rank > 0 && M > kMaxSmallM) return (int)cudaErrorInvalidValue;
+  return nns_int8_matmul_ex(x, w, x_scale, w_scale, bias, out, M, K, N, k_per_rank, kSplit,
+                            stream);
 }

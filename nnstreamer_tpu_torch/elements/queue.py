@@ -1,8 +1,9 @@
 """``queue``: the thread-decoupling element.
 
 The port of the JAX package's element.  ``_dispatch`` puts each frame or
-event into a bounded :class:`~nnstreamer_tpu_torch.native.queue.PyFrameQueue`
-and returns to the upstream thread at once (or blocks while the queue is
+event into a bounded frame queue (:func:`~nnstreamer_tpu_torch.native.queue.
+make_frame_queue`: the C++ queue, or its Python twin with ``[common]
+native_runtime=off``) and returns to the upstream thread at once (or blocks while the queue is
 full: backpressure); a worker thread of its own, spawned by
 ``Pipeline.start`` through :meth:`Queue.spawn_threads`, drains it into the
 downstream chain.  In the canonical topology
@@ -68,6 +69,12 @@ class Queue(Node):
     def _ensure_queue(self) -> None:
         if self._q is None:
             self._q = make_frame_queue(self.max_size)
+
+    @property
+    def backend_kind(self) -> str:
+        """``"native"`` or ``"python"``: which frame queue is active."""
+        self._ensure_queue()
+        return self._q.impl
 
     def _dispatch(self, pad: Pad, item) -> None:
         del pad
@@ -163,6 +170,7 @@ class Queue(Node):
         leaky accounting); safe to call while streaming."""
         q = self._q
         return {
+            "impl": q.impl if q is not None else None,
             "capacity": self.max_size,
             "depth": len(q) if q is not None else 0,
             "dropped": self.dropped,

@@ -49,10 +49,11 @@ def build_key() -> str:
 
 
 def _compile(cmd: list, out: Path) -> None:
-    """Run the compiler into a process-unique temporary file, then move it
-    into place (another process may build the same file)."""
+    """Run the compiler into a temporary file of this thread's own, then
+    move it into place (another thread or process may build the same
+    file)."""
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.tmp.{os.getpid()}")
+    tmp = out.with_name(f"{out.name}.tmp.{os.getpid()}.{threading.get_ident()}")
     proc = subprocess.run(cmd + ["-o", str(tmp)], capture_output=True)
     if proc.returncode != 0:
         raise RuntimeError(f"{' '.join(cmd)} failed:\n"
@@ -61,17 +62,24 @@ def _compile(cmd: list, out: Path) -> None:
 
 
 def build_capi(build_dir: Path = BUILD_DIR) -> str:
-    """Compile (once per key) and return the path of the library."""
+    """Compile (once per key) and return the path of the library.
+
+    The compiler runs outside the lock (ROADMAP C25): the JAX package holds
+    its lock around ``g++``, so every other thread that asks for the
+    library waits behind the compiler.  Two first callers may both compile;
+    each writes its own temporary file, renamed into place, and the stamp
+    is written under the lock."""
     so = Path(build_dir) / LIB_NAME
     stamp = so.with_name(so.name + ".stamp")
+    key = build_key()
     with _lock:
-        key = build_key()
         if so.exists() and stamp.exists() and stamp.read_text().strip() == key:
             return str(so)
-        _compile(["g++", "-O2", "-std=c++17", "-shared", "-fPIC", str(_SRC)]
-                 + python_link_flags(), so)
+    _compile(["g++", "-O2", "-std=c++17", "-shared", "-fPIC", str(_SRC)]
+             + python_link_flags(), so)
+    with _lock:
         stamp.write_text(key)
-        return str(so)
+    return str(so)
 
 
 def build_smoke(out: Path, build_dir: Path = BUILD_DIR) -> str:

@@ -32,8 +32,9 @@ compute-bound or starved for bytes.
   pinned host-to-device copies with CUDA events; :func:`publish_wire_health`
   republishes a probe as ``nnstpu_wire_put_ms`` / ``nnstpu_wire_dispatch_ms``
   / ``nnstpu_wire_regime`` gauges plus a ``wire_health`` stats provider.
-  The JAX package's per-address partition edges wait for the port's
-  partitioner.
+  Partition edges publish under their ``host:port`` (:func:`wire_health_by_addr`)
+  and register a prober (:func:`register_wire_edge`) that the watchdog runs
+  on its wire cadence beside the local probe.
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ from __future__ import annotations
 import threading
 import time
 from collections import OrderedDict, deque
-from typing import Dict, Iterable, List, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 from .metrics import REGISTRY, MetricsRegistry
 
@@ -356,13 +357,20 @@ class DeviceUsage:
             self._by_device.clear()
 
 
-# -- wire health: the local host-to-device probe, published live ------------
+# -- wire health: probes keyed by address, published live -------------------
+#
+# "local" is the host-to-device wire this process drives; partition edges
+# add remote addresses, and the planner prices each cut at its own edge's
+# put rate.
 
 LOCAL_WIRE_ADDR = "local"
 
 _wire_lock = threading.Lock()
 _wire_by_addr: Dict[str, dict] = {}
 _wire_registered = False
+# addr -> zero-argument prober (returns a probe_wire_health-shaped dict); the
+# watchdog's wire cadence runs these beside the local probe
+_wire_edges: Dict[str, Callable[[], dict]] = {}
 
 
 def wire_regime(put_ms: Optional[float]) -> str:
@@ -416,9 +424,41 @@ def last_wire_health(addr: str = LOCAL_WIRE_ADDR) -> Optional[dict]:
         return dict(record) if record is not None else None
 
 
+def wire_health_by_addr() -> Dict[str, dict]:
+    """Every published probe keyed by address (``"local"`` and any partition
+    edges): the planner's per-edge put-rate input."""
+    with _wire_lock:
+        return {addr: dict(rec) for addr, rec in _wire_by_addr.items()}
+
+
+def register_wire_edge(addr: str, prober: Callable[[], dict]) -> None:
+    """Register a remote edge's prober: the watchdog's wire cadence runs
+    every registered edge beside the local probe, so an edge's regime flip
+    is observed without the planner polling."""
+    with _wire_lock:
+        _wire_edges[addr] = prober
+
+
+def unregister_wire_edge(addr: str) -> None:
+    with _wire_lock:
+        _wire_edges.pop(addr, None)
+
+
+def wire_edges() -> Dict[str, Callable[[], dict]]:
+    """Snapshot of the registered edge probers by address."""
+    with _wire_lock:
+        return dict(_wire_edges)
+
+
 def _wire_stats() -> dict:
-    """The ``wire_health`` stats provider: the local probe's record."""
-    return last_wire_health() or {}
+    """The ``wire_health`` stats provider: the local record's flat shape,
+    plus an ``edges`` map once a remote edge has been probed."""
+    by_addr = wire_health_by_addr()
+    out = dict(by_addr.get(LOCAL_WIRE_ADDR) or {})
+    edges = {a: r for a, r in by_addr.items() if a != LOCAL_WIRE_ADDR}
+    if edges:
+        out["edges"] = edges
+    return out
 
 
 def publish_wire_health(health: dict,
@@ -428,7 +468,8 @@ def publish_wire_health(health: dict,
 
     Sets ``nnstpu_wire_put_ms`` / ``nnstpu_wire_dispatch_ms`` /
     ``nnstpu_wire_regime`` (0 fast, 1 slow), labeled by ``addr``
-    (``"local"``: the host-to-device wire), and registers a ``wire_health``
+    (``"local"``: the host-to-device wire; a partition edge publishes under
+    its ``host:port``), and registers a ``wire_health``
     provider in ``/stats.json`` on the first publish.  Returns the stamped
     record."""
     global _wire_registered
@@ -469,11 +510,13 @@ def publish_wire_health(health: dict,
 
 
 def reset_wire_health() -> None:
-    """Forget every probe and the provider registration (test isolation)."""
+    """Forget every probe, edge prober and the provider registration (test
+    isolation)."""
     global _wire_registered
     from .export import unregister_stats
 
     with _wire_lock:
         _wire_by_addr.clear()
+        _wire_edges.clear()
         _wire_registered = False
     unregister_stats("wire_health")

@@ -43,8 +43,10 @@ graph never answers ``/healthz`` with 200.
 With ``[obs] watchdog_wire_probe_s`` > 0 the monitor probes the local
 host-to-device wire on that cadence and publishes it
 (:func:`~.util.probe_wire_health`, :func:`~.util.publish_wire_health`);
-:meth:`PipelineWatchdog.summary` carries the last reading.  Not ported
-yet: the probes of remote wire edges (they come with the partitioner).
+:meth:`PipelineWatchdog.summary` carries the last reading.  On the same
+cadence it runs every registered partition edge's prober
+(:func:`~.util.register_wire_edge`) and publishes under the edge's address,
+so a flip of an edge's regime reaches the repartition monitor.
 
 With ``[obs] profile_auto`` on, a :class:`~.profiler.DegradeDetector` on
 ``device_exec`` (the ``device`` tracer's completions) watches each
@@ -268,8 +270,8 @@ class PipelineWatchdog(Tracer):
         return reasons
 
     def _probe_wire(self) -> None:
-        """The local wire's probe on its cadence (remote edges are not
-        ported); a failed probe never flags health nor ends the monitor."""
+        """The local wire's probe and every registered edge's on their
+        cadence; a failed probe never flags health nor ends the monitor."""
         if self._wire_probe_s <= 0 or \
                 time.monotonic() - self._last_wire_probe < self._wire_probe_s:
             return
@@ -280,6 +282,13 @@ class PipelineWatchdog(Tracer):
             _util.publish_wire_health(_util.probe_wire_health(n=4), self._registry)
         except Exception:  # noqa: BLE001 - a probe is best-effort
             pass
+        # partition edges re-probe on the same cadence: an edge's regime flip
+        # is what triggers repartitioning, so it is observed, not polled
+        for addr, prober in _util.wire_edges().items():
+            try:
+                _util.publish_wire_health(prober(), self._registry, addr=addr)
+            except Exception:  # noqa: BLE001 - a dead edge is the deployer's
+                pass
 
     def _run(self) -> None:
         while not self._stop_evt.wait(self._interval):

@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -1042,25 +1042,55 @@ SHARED_ROW = TILE_N + 16
 _MAX_GRID_Y = 65_535
 
 
+# The cluster sizes the split-K branch takes at launch (nns_int8_matmul_ex).
+SPLITS = (1, 2, 4, SPLIT_K)
+
+
 class Int8Geometry(NamedTuple):
     """How one ``int8_matmul`` call is launched: ``branch`` is ``"splitk"``
-    (clusters of SPLIT_K blocks along x) or ``"tiled"``; ``k_per_rank`` is
-    the K rows each cluster rank takes (0 for the tiled branch), which the
-    wrapper passes to the kernel; ``grid`` is the grid of blocks."""
+    (clusters of ``grid[0]`` blocks along x, a column tile each along y, and
+    above SMALL_M rows, chunks of SMALL_M rows along z) or ``"tiled"``;
+    ``k_per_rank`` is the K rows each cluster rank takes (0 for the tiled
+    branch), which the wrapper passes to the kernel; ``grid`` is the grid of
+    blocks."""
 
     branch: str
     k_per_rank: int
-    grid: Tuple[int, int]
+    grid: Tuple[int, ...]
 
 
-def int8_matmul_geometry(m: int, k: int, n: int) -> Int8Geometry:
-    """The branch and launch geometry of an (m, k) x (k, n) call."""
-    tiles = -(-n // TILE_N)
-    if m <= SMALL_M and tiles <= _MAX_GRID_Y:
-        per_rank = -(-k // SPLIT_K)
-        k_per_rank = max(4, -(-per_rank // 4) * 4)  # a whole number of dp4a words
-        return Int8Geometry("splitk", k_per_rank, (SPLIT_K, tiles))
+def splitk_geometry(m: int, k: int, n: int, split: int = SPLIT_K) -> Int8Geometry:
+    """The split-K branch over clusters of ``split`` blocks (one of
+    :data:`SPLITS`), any ``m``: rows in chunks of SMALL_M along grid z."""
+    if split not in SPLITS:
+        raise ValueError(f"int8_matmul: split {split} is not one of {SPLITS}")
+    per_rank = -(-k // split)
+    k_per_rank = max(4, -(-per_rank // 4) * 4)  # a whole number of dp4a words
+    grid = (split, -(-n // TILE_N))
+    chunks = -(-m // SMALL_M)
+    return Int8Geometry("splitk", k_per_rank, grid + (chunks,) if chunks > 1 else grid)
+
+
+def tiled_geometry(m: int, k: int, n: int) -> Int8Geometry:
+    del k
     return Int8Geometry("tiled", 0, (-(-n // 32), -(-m // 32)))
+
+
+def int8_matmul_geometry(m: int, k: int, n: int, card: Optional[str] = None) -> Int8Geometry:
+    """The branch and launch geometry of an (m, k) x (k, n) call: the
+    split-K branch over clusters of SPLIT_K for ``m`` <= SMALL_M, the tiled
+    branch above.  With ``card`` (a card's name) an autotune winner recorded
+    for this shape on that card takes its place (:mod:`.autotune`, its cache
+    read once a process; none recorded, or no cache dir: the default)."""
+    if card is not None:
+        from . import autotune
+
+        tuned = autotune.cached_int8_geometry(m, k, n, card)
+        if tuned is not None:
+            return tuned
+    if m <= SMALL_M and -(-n // TILE_N) <= _MAX_GRID_Y:
+        return splitk_geometry(m, k, n)
+    return tiled_geometry(m, k, n)
 
 
 def weight_reads(m: int, k: int, n: int, base: int = 0):
@@ -1142,7 +1172,9 @@ def int8_matmul(x_q, w_q, x_scale, w_scale, bias=None) -> torch.Tensor:
     activation scale, a tensor so that it never leaves the device);
     w_scale: N float32 (per output channel); bias: (N,) float32 or None.
     On a CUDA tensor it is one launch: the split-K cluster branch for
-    M <= :data:`SMALL_M`, the tiled branch above (:func:`int8_matmul_geometry`).
+    M <= :data:`SMALL_M`, the tiled branch above, or the geometry an
+    autotune winner recorded for this shape on this card
+    (:func:`int8_matmul_geometry`).
     """
     _check_int8_matmul(x_q, w_q, x_scale, w_scale, bias)
     if x_q.device.type == "cpu":
@@ -1154,16 +1186,8 @@ def int8_matmul(x_q, w_q, x_scale, w_scale, bias=None) -> torch.Tensor:
     out = torch.empty((m, n), dtype=torch.float32, device=x_q.device)
     if m == 0 or n == 0:
         return out
-    geo = int8_matmul_geometry(m, k, n)
-    lib = _int8_matmul_lib()
-    with torch.cuda.device(x_q.device):
-        stream = torch.cuda.current_stream(x_q.device).cuda_stream
-        err = lib.nns_int8_matmul(
-            x_q.data_ptr(), w_q.data_ptr(), x_scale.data_ptr(), w_scale.data_ptr(),
-            bias.data_ptr() if bias is not None else None, out.data_ptr(),
-            m, k, n, geo.k_per_rank, stream)
-    if err:
-        raise RuntimeError(f"int8_matmul launch failed: CUDA error {err}")
+    geo = int8_matmul_geometry(m, k, n, _card_name(x_q.device))
+    launch_int8_matmul(x_q, w_q, x_scale, w_scale, bias, out, geo)
     int8_matmul.launches += 1
     return out
 
@@ -1171,11 +1195,34 @@ def int8_matmul(x_q, w_q, x_scale, w_scale, bias=None) -> torch.Tensor:
 int8_matmul.launches = 0
 
 
+def launch_int8_matmul(x_q, w_q, x_scale, w_scale, bias, out, geo: Int8Geometry) -> None:
+    """One launch of the kernel at ``geo`` into ``out`` (checked CUDA
+    tensors, M and N > 0), on the current stream.  Counts nothing: the
+    autotune search launches its candidates through here."""
+    m, k = x_q.shape
+    n = w_q.shape[1]
+    lib = _int8_matmul_lib()
+    with torch.cuda.device(x_q.device):
+        stream = torch.cuda.current_stream(x_q.device).cuda_stream
+        err = lib.nns_int8_matmul_ex(
+            x_q.data_ptr(), w_q.data_ptr(), x_scale.data_ptr(), w_scale.data_ptr(),
+            bias.data_ptr() if bias is not None else None, out.data_ptr(),
+            m, k, n, geo.k_per_rank, geo.grid[0] if geo.branch == "splitk" else 0, stream)
+    if err:
+        raise RuntimeError(f"int8_matmul launch failed ({geo}): CUDA error {err}")
+
+
+@functools.lru_cache(maxsize=None)
+def _card_name(device: torch.device) -> str:
+    return torch.cuda.get_device_name(device)
+
+
 @functools.lru_cache(maxsize=None)
 def _int8_matmul_lib() -> ctypes.CDLL:
     lib = load("int8_matmul")
-    lib.nns_int8_matmul.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    lib.nns_int8_matmul.restype = ctypes.c_int
+    lib.nns_int8_matmul_ex.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                                       + [ctypes.c_void_p])
+    lib.nns_int8_matmul_ex.restype = ctypes.c_int
     return lib
 
 

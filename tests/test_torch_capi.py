@@ -294,3 +294,35 @@ class TestLibrary:
         assert os.path.getmtime(so) != 1 and open(stamp).read() == key
         monkeypatch.setattr(sysconfig, "get_platform", lambda: "foreign-arch-1.0")
         assert capi.build_key() != key
+
+
+@needs_gpp
+def test_build_holds_no_lock_c25(tmp_path):
+    """ROADMAP C25: two threads asking for the C API library build it with
+    no lock held around ``g++`` (the JAX package holds its lock there:
+    lockdep's blocking_call_under_lock), and both get a library that loads."""
+    from nnstreamer_tpu_torch.analysis import lockdep
+    from nnstreamer_tpu_torch.native import capi
+
+    fresh = lockdep.install()
+    lockdep.reset()
+    saved = capi._lock
+    try:
+        capi._lock = threading.Lock()  # a lock lockdep tracks
+        paths = []
+        ts = [threading.Thread(target=lambda: paths.append(capi.build_capi(tmp_path)))
+              for _ in range(2)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=300)
+        assert len(paths) == 2 and paths[0] == paths[1]
+        assert lockdep.findings("blocking_call_under_lock") == [], lockdep.format_report()
+        ctypes.CDLL(paths[0])
+        assert not list(tmp_path.glob("*.tmp.*"))
+    finally:
+        capi._lock = saved
+        if fresh:
+            lockdep.uninstall()
+        else:
+            lockdep.reset()

@@ -39,6 +39,7 @@ broken parent link fails.
 """
 
 import importlib.util
+import json
 import pathlib
 
 import numpy as np
@@ -1504,3 +1505,108 @@ def _served(captures=1, replays=9, invokes=9, replies=9):
 ])
 def test_fleet_replay_check_holds_replays_to_replies(smoke, st, routed, n_bad):
     assert len(smoke.fleet_replay_check("w", st, routed=routed)) == n_bad
+
+
+# -- placement, the native queue and the soak (slice 22) ----------------------
+
+_PART_REF = [3, 1, 4, 1, 5]
+_CLIENT = {"fused_arith": 5, "int8_matmul": 0, "pallas_nms_keep": 0}
+_WORKER = {"fused_arith": 0, "int8_matmul": 4, "pallas_nms_keep": 0}
+
+
+@pytest.mark.parametrize("case,n_bad", [
+    (dict(), 0),
+    (dict(got=[3, 1, 4, 1, 6]), 1),                           # a label moved
+    (dict(delivered=4), 1),                                   # a frame lost on the edge
+    (dict(client=dict(_CLIENT, fused_arith=4)), 1),           # a frame not normalized here
+    (dict(client=dict(_CLIENT, int8_matmul=1)), 1),           # the head ran on this side
+    (dict(worker=dict(_WORKER, int8_matmul=5)), 1),           # the worker ran eagerly
+    (dict(worker=dict(_WORKER, fused_arith=4)), 1),           # the normalize in the worker
+    (dict(got=[0] * 5, delivered=3, worker=_CLIENT), 3),
+])
+def test_partition_check(smoke, case, n_bad):
+    kw = dict(ref=_PART_REF, got=list(_PART_REF), offered=5, delivered=5, client=_CLIENT,
+              worker=_WORKER)
+    kw.update(case)
+    assert len(smoke.partition_check(**kw)) == n_bad
+
+
+def test_labels_of_takes_the_first_of_equal_maxima(smoke):
+    assert smoke.labels_of(np, [np.array([0.0, 2.0, 2.0]), np.array([[5.0], [1.0]])]) == [1, 0]
+
+
+def test_part_desc_cuts_at_the_filter(smoke):
+    from nnstreamer_tpu_torch.graph.parse import linear_chain, split_launch
+
+    desc = smoke.part_desc("/tmp/m.npz", n=8)
+    chain = linear_chain(desc)
+    assert chain[smoke.PART_CUT][0] == "tensor_filter"
+    assert [e for e, _ in chain[:smoke.PART_CUT]] == [
+        "videotestsrc", "tensor_converter", "tensor_transform", "tensor_upload", "queue"]
+    client, server = split_launch(desc, smoke.PART_CUT, {"port": "1"})
+    assert "tensor_transform" in client and "tensor_transform" not in server
+    assert server.startswith("tensor_filter") and "num-buffers=8" in client
+
+
+def test_force_cut_takes_the_plans_own_score(smoke):
+    from nnstreamer_tpu_torch.partition import plan_partition
+
+    desc = smoke.part_desc("/tmp/m.npz", n=8)
+    plan = plan_partition(desc, pipeline="p", addr="a", edge="e",
+                          cost_model={"schema": 1, "stages": {}},
+                          wire_health={"put_150k_ms": 0.5, "dispatch_ms": 0.2})
+    assert plan.cut is None
+    forced = smoke.force_cut(plan, smoke.PART_CUT)
+    assert forced.cut == smoke.PART_CUT and forced.split
+    assert forced.chosen == plan.score_for(smoke.PART_CUT)
+    assert forced.fingerprint == plan.fingerprint and plan.cut is None
+
+
+@pytest.mark.parametrize("mode,want", [
+    ("downstream", ([0, 8, 9, 10, 11], 7)),
+    ("upstream", ([0, 1, 2, 3, 4], 7)),
+    ("no", (list(range(12)), 0)),
+])
+def test_leak_expect(smoke, mode, want):
+    assert (smoke.LEAK_FRAMES, smoke.LEAK_CAPACITY) == (12, 4)
+    assert smoke.leak_expect(mode) == want
+
+
+def _soak_line(**kw):
+    res = dict(iterations=40, failures=0, failed_seeds=[], templates={"run_tee": 40},
+               device="cuda", lockdep=dict(installed=True, sites=71, edges=13, cycles=0,
+                                           blocked=0, blocking_calls=0, suppressed=0))
+    res.update(kw)
+    return "soak_campaign: device cuda\n[0] run_tee seed=22 OK\n" + json.dumps(res) + "\n"
+
+
+@pytest.mark.parametrize("rc,stdout,n_bad", [
+    (0, _soak_line(), 0),
+    (1, _soak_line(failures=1, failed_seeds=[23]), 2),
+    (1, _soak_line(lockdep=dict(installed=True, cycles=2)), 2),
+    (0, _soak_line(lockdep=None), 1),                     # run without lockdep
+    (0, _soak_line(iterations=0), 1),
+    (137, "soak_campaign: device cuda\n[0] run_tee seed=22 OK\n", 1),  # killed, no result
+    (0, "", 1),
+])
+def test_soak_verdict(smoke, rc, stdout, n_bad):
+    res, bad = smoke.soak_verdict(rc, stdout)
+    assert len(bad) == n_bad, bad
+    assert (res is None) == (n_bad == 1 and not stdout.rstrip().endswith("}"))
+
+
+def test_soak_verdict_reads_the_campaigns_own_line(smoke, monkeypatch):
+    """The line the campaign prints last is what the verdict reads."""
+    import io
+
+    from nnstreamer_tpu_torch.tools import soak_campaign
+
+    monkeypatch.setattr(soak_campaign, "DEVICE", "cpu")
+    out = io.StringIO()
+    res = soak_campaign.campaign(0.0, 5, "cpu", out=out)
+    res.update(device="cpu", lockdep=soak_campaign.lockdep_counts())
+    got, bad = smoke.soak_verdict(0, out.getvalue() + json.dumps(res) + "\n")
+    from nnstreamer_tpu_torch.analysis import lockdep
+
+    assert got["iterations"] == 1
+    assert bad == ([] if lockdep.installed() else ["lockdep was not installed"])

@@ -472,3 +472,89 @@ def test_cuda_profiled_invoke_covers_the_replay(cuda_device):
     assert recorded["count"] == 4
     assert replay_ms > 5.0
     assert recorded["min_ms"] >= 0.95 * replay_ms, (recorded, replay_ms)
+
+
+def test_gc_paused_counts_captures_across_threads():
+    """ROADMAP C24: no automatic collection while any capture runs; the
+    collector comes back on after the last one, and only if it was on."""
+    import gc
+    import threading
+
+    assert gc.isenabled()
+    inside, release = threading.Event(), threading.Event()
+
+    def other():
+        with tb.gc_paused():
+            inside.set()
+            release.wait(30)
+
+    t = threading.Thread(target=other)
+    t.start()
+    assert inside.wait(30)
+    with tb.gc_paused():
+        assert not gc.isenabled()
+    assert not gc.isenabled()  # the other thread still captures
+    release.set()
+    t.join(30)
+    assert gc.isenabled()
+    gc.disable()
+    try:
+        with tb.gc_paused():
+            pass
+        assert not gc.isenabled()  # off before, off after
+    finally:
+        gc.enable()
+
+
+@pytest.mark.cuda
+def test_cuda_capture_survives_collection_of_dead_graphs(cuda_device):
+    """ROADMAP C24 on the card: dead captures in reference cycles become
+    garbage during another capture (their last reference dropped inside
+    the captured call) and the call allocates enough to run the collector;
+    the capture succeeds and replays equal to eager."""
+    class Holder:
+        pass
+
+    x = torch.arange(1024, dtype=torch.float32, device=cuda_device)
+    keep = []
+    for i in range(8):
+        graph, _, _, _ = tb.capture_calls(lambda i=i: x * (i + 1), cuda_device,
+                                          warmup_calls=1)
+        h = Holder()
+        h.graph, h.self = graph, h
+        keep.append(h)
+    del h, graph
+    calls = []
+
+    def fn():
+        calls.append(1)
+        if len(calls) == 2:  # the capture, after one warm-up call
+            keep.clear()  # the cycles die: only the collector frees them
+            junk = [[] for _ in range(300_000)]
+            del junk
+        return (x * 3).cumsum(0)
+
+    graph, out, _, _ = tb.capture_calls(fn, cuda_device, warmup_calls=1)
+    x.add_(1)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, (x * 3).cumsum(0))
+
+
+@pytest.mark.cuda
+def test_cuda_autotune_search_records_a_bitwise_winner(cuda_device, tmp_path, monkeypatch):
+    """``ops/autotune.py`` on the card: every candidate bitwise the plain
+    version, the winner recorded and consulted (the CPU cases are in
+    ``tests/test_torch_autotune.py``, which imports the JAX package)."""
+    from nnstreamer_tpu_torch.ops import autotune
+
+    monkeypatch.setenv("NNSTPU_COMPILE_CACHE_DIR", str(tmp_path))
+    autotune.refresh()
+    try:
+        res = autotune.autotune_int8_matmul(1, 1280, 1001, reps=20)
+        assert all(r["bitwise"] for r in res["candidates"]) and res["recorded"]
+        autotune.refresh()
+        assert K.int8_matmul_geometry(1, 1280, 1001, res["card"]) == autotune.geometry_of(
+            res["winner"], 1, 1280, 1001)
+    finally:
+        autotune.refresh()

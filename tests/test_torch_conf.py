@@ -43,6 +43,37 @@ class TestDefaults:
         assert c.get("filter", "torch_device") == "cpu"
 
 
+# The knobs that came with placement, the native queue, the autotune cache
+# and the analysis instruments.
+SLICE_KEYS = [("common", "native_runtime"), ("compile", "cache_dir"), ("compile", "autotune")] + [
+    ("partition", k) for k in ("edge", "monitor_interval_s", "noise_multiplier",
+                               "default_cut_bytes", "probe_n", "warm_timeout_s")] + [
+    ("analysis", k) for k in ("lockdep", "lockdep_block_ms", "lockdep_allow")]
+
+
+class TestSliceKeys:
+    @pytest.mark.parametrize("section,key", SLICE_KEYS)
+    def test_key_reads_the_reference_default_and_its_env(self, section, key):
+        c = Conf(ini_path="/nonexistent.ini", environ={})
+        assert c.get(section, key) == jax_conf.DEFAULTS[section][key]
+        env = f"NNSTPU_{section.upper()}_{key.upper()}"
+        c = Conf(ini_path="/nonexistent.ini", environ={env: "7"})
+        assert c.get(section, key) == "7"
+
+    def test_lockdep_short_spelling(self, monkeypatch):
+        """``NNSTPU_LOCKDEP`` is read by lockdep's own switch, over ``[analysis]
+        lockdep``: "0" keeps it off even with the knob on."""
+        from nnstreamer_tpu_torch.analysis import lockdep
+
+        assert port_conf.SHORT_ENV["NNSTPU_LOCKDEP"] == jax_conf.SHORT_ENV["NNSTPU_LOCKDEP"] == (
+            "analysis", "lockdep")
+        if lockdep.installed():
+            pytest.skip("the whole run is under NNSTPU_LOCKDEP")
+        monkeypatch.setenv("NNSTPU_ANALYSIS_LOCKDEP", "true")
+        monkeypatch.setenv("NNSTPU_LOCKDEP", "0")
+        assert lockdep.maybe_install() is False and not lockdep.installed()
+
+
 class TestLayering:
     def test_defaults(self):
         c = Conf(ini_path="/nonexistent/nothing.ini", environ={})

@@ -75,7 +75,9 @@ def port_string(desc: str) -> str:
 @pytest.fixture(autouse=True)
 def _reset_port_obs():
     """The port's process-global obs state, reset as ``tests/conftest.py``
-    resets the JAX package's."""
+    resets the JAX package's; the flight recorder also before the test, in
+    case a test of another file left records in it on this worker."""
+    spans.reset()
     yield
     hooks.clear()
     spans.reset()

@@ -309,6 +309,23 @@ def test_port_runs_with_jax_blocked():
         assert collector.attribute_trace([]) == {{}} and costmodel.SCHEMA_VERSION == 1
         assert forensics.verdict_legs_us({{"device": 1e3}}) == {{"device": 1.0}}
         assert fleet.FleetSignals(busy=0.5).busy == 0.5 and fleet_main.main
+        from nnstreamer_tpu_torch import native
+        from nnstreamer_tpu_torch.analysis import lint, lockdep
+        from nnstreamer_tpu_torch.native import queue as nqueue
+        from nnstreamer_tpu_torch.ops import autotune
+        from nnstreamer_tpu_torch.partition import deploy, monitor, planner
+        from nnstreamer_tpu_torch.tools import (codegen_custom_filter, nnslint, perfdiff,
+                                                soak_campaign)
+        plan = planner.plan_partition(
+            "videotestsrc ! tensor_converter name=c ! tensor_sink", pipeline="p", addr="a",
+            cost_model={{"schema": 1, "stages": {{}}}}, wire_health={{"put_150k_ms": 0.5}})
+        assert plan.cut is None and len(plan.fingerprint) == 12 and monitor.RepartitionMonitor
+        nq = nqueue.make_frame_queue(2)
+        assert nq.impl == "native" and nq.push(1) == native.OK and nq.pop(0) == (native.OK, 1)
+        assert autotune.int8_candidates(1, 64, 64)[-1] == {{"branch": "tiled"}}
+        assert lint.ALL_CHECKS and not lockdep.installed() and deploy.probe_edge_health
+        assert perfdiff.diff_cost_models({{}}, {{}}) == [] and soak_campaign.TEMPLATES
+        assert "CustomFilter" in codegen_custom_filter.render("f", ["4"], ["4"]) and nnslint.main
         assert not any(k in ("jax", "ml_dtypes") or k.startswith(("jax.", "nnstreamer_tpu.",
                                                                  "google.protobuf"))
                        for k, v in sys.modules.items() if v is not None)
